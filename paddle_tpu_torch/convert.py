@@ -1,0 +1,28 @@
+"""Weights from the JAX package into the port.
+
+`load_jax_state_dict(model, arrays)` takes a JAX model's `state_dict()`
+exported as `{name: np.ndarray}` and COPIES each array into the port
+model's parameter of the same name. It never aliases the caller's
+buffers (`torch.from_numpy` would share memory with the numpy array and
+a later in-place update on either side would leak into the other).
+"""
+import numpy as np
+import torch
+
+__all__ = ["load_jax_state_dict"]
+
+
+@torch.no_grad()
+def load_jax_state_dict(model, arrays):
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    unexpected = sorted(set(arrays) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"state_dict mismatch: missing {missing}, "
+                       f"unexpected {unexpected}")
+    for name, p in params.items():
+        a = np.asarray(arrays[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
+        p.copy_(torch.tensor(a, dtype=p.dtype, device=p.device))
+    return model

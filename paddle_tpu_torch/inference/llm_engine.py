@@ -1,0 +1,633 @@
+"""Continuous-batching LLM serving engine with a paged KV cache
+(counterpart of paddle_tpu/inference/llm_engine.py, greedy k=1 path).
+
+* Paged KV cache — per layer a pool [num_pages, page_size, heads,
+  head_dim] with per-sequence page tables; pages are allocated as a
+  sequence grows and freed when it finishes. Physical page 0 is the
+  trash page: padding-token writes land there and are never attended.
+* Continuous scheduler — every step admits queued prompts into free
+  decode slots (`SLAScheduler` order: FIFO under the default class),
+  fills a flat token budget with one frontier token per running
+  sequence plus chunked prefill, samples each frontier greedily, and
+  evicts on EOS or budget. A dry pool preempts the youngest sequence
+  back to the queue; greedy replay makes the re-run deterministic.
+* One eager step per tick (`_PagedStep`) over the fixed geometry
+  (token_budget flat tokens, num_slots page tables); the attention
+  inside is the ragged paged attention kernel on the card.
+
+    server = LLMServer(model)                  # GPTForCausalLM
+    with server:
+        fut = server.submit(prompt_ids, max_new_tokens=64)
+        tokens = fut.result()   # np.int64 [prompt + generated]
+
+Greedy decode is token-for-token identical to the JAX package's engine
+(tests/test_torch_llm_engine.py); eos semantics follow its contract
+(the emitted eos is kept, nothing after it).
+"""
+import itertools
+import queue
+import time as _time
+from concurrent.futures import Future
+
+import numpy as np
+import torch
+
+from ..core.dtype import resolve_dtype
+from .fleet_serving import Priority, SLAScheduler
+from .serving import _FutureQueueServer
+
+__all__ = ["PagePool", "PoolExhausted", "LLMEngineConfig", "LLMEngine",
+           "LLMServer"]
+
+
+class PoolExhausted(RuntimeError):
+    """No free KV pages (the scheduler preempts and retries on this)."""
+
+
+class PagePool:
+    """Refcounted fixed-size KV-page allocator. Physical page 0 is the
+    reserved trash page, so pages 1..num_pages-1 are allocable. A free
+    of an already-free page raises instead of double-inserting it into
+    the free list (which would later hand one page to two sequences)."""
+
+    def __init__(self, num_pages, page_size):
+        if num_pages < 2:
+            raise ValueError("need at least 2 pages (page 0 is trash)")
+        self.num_pages = int(num_pages)
+        self.page_size = int(page_size)
+        # LIFO free stack, seeded so the first allocs hand out 1, 2, ...
+        self._free = list(range(self.num_pages - 1, 0, -1))
+        self._ref = {}  # live page id -> refcount (>= 1)
+
+    @property
+    def num_free(self):
+        return len(self._free)
+
+    @property
+    def num_live(self):
+        return len(self._ref)
+
+    def refcount(self, page):
+        return self._ref.get(int(page), 0)
+
+    def alloc(self):
+        if not self._free:
+            raise PoolExhausted(f"all {self.num_pages - 1} KV pages in use")
+        p = self._free.pop()
+        if p in self._ref:
+            raise RuntimeError(f"corrupt free list: page {p} is already live")
+        self._ref[p] = 1
+        return p
+
+    def share(self, page):
+        """Add one holder to a live page; sharing a freed page raises."""
+        p = int(page)
+        if p not in self._ref:
+            raise RuntimeError(f"share of non-live KV page {p}")
+        self._ref[p] += 1
+        return p
+
+    def free(self, pages):
+        for p in pages:
+            p = int(p)
+            if p not in self._ref:
+                raise RuntimeError(
+                    f"double free of KV page {p} (live: {len(self._ref)})")
+            self._ref[p] -= 1
+            if self._ref[p] == 0:
+                del self._ref[p]
+                self._free.append(p)
+
+    def assert_consistent(self):
+        if len(self._free) != len(set(self._free)):
+            raise RuntimeError("corrupt free list: duplicate pages")
+        both = set(self._free) & set(self._ref)
+        if both:
+            raise RuntimeError(f"pages both free and live: {sorted(both)}")
+        if 0 in self._ref or 0 in self._free:
+            raise RuntimeError("trash page 0 entered circulation")
+        total = len(self._free) + len(self._ref)
+        if total != self.num_pages - 1:
+            raise RuntimeError(
+                f"page leak: {len(self._free)} free + {len(self._ref)} "
+                f"live != {self.num_pages - 1}")
+
+
+# knobs of the JAX engine that this port does not run yet → ROADMAP row
+_UNPORTED_KNOBS = {
+    "decode_k": "A6 (fused decode)",
+    "draft_model": "A7 (speculative decoding)",
+    "spec_k": "A7 (speculative decoding)",
+    "spec_mode": "A7 (speculative decoding)",
+    "token_strs": "A9 (structured decoding)",
+    "grammar_states": "A9 (structured decoding)",
+    "prefix_cache": "A10 (serving fleet: prefix cache)",
+    "hash_block_tokens": "A10 (serving fleet: prefix cache)",
+    "kv_tier": "A10 (serving fleet: KV tier)",
+    "session_ttl_s": "A10 (serving fleet: sessions)",
+    "session_max": "A10 (serving fleet: sessions)",
+}
+
+
+class LLMEngineConfig:
+    """Engine sizing.
+
+    num_slots     max concurrently-decoding sequences
+    page_size     tokens per KV page
+    num_pages     pool size incl. the trash page; default
+                  num_slots * ceil(max_model_len / page_size) + 1
+    max_model_len per-sequence token cap; default model max_seq_len
+    token_budget  flat tokens per step (>= num_slots); the surplus over
+                  the decode tokens is the chunked-prefill bandwidth.
+                  Default num_slots + max(num_slots, 8).
+    kv_dtype      pool dtype "float32" | "bfloat16"; default the model's
+                  dtype. int8/int4 pools are ROADMAP A4.
+    seed          engine seed (sampled decode, ROADMAP A5; greedy
+                  decode ignores it)
+    sla_policy    fleet_serving.SLAPolicy for admission order
+
+    Every other knob of the JAX engine raises NotImplementedError naming
+    its ROADMAP row when set."""
+
+    def __init__(self, num_slots=4, page_size=16, num_pages=None,
+                 max_model_len=None, token_budget=None, kv_dtype=None,
+                 seed=0, sla_policy=None, **unported):
+        for name, value in unported.items():
+            if name not in _UNPORTED_KNOBS:
+                raise TypeError(
+                    f"LLMEngineConfig got an unexpected keyword {name!r}")
+            if value is not None:
+                raise NotImplementedError(
+                    f"LLMEngineConfig({name}=...) is not ported yet: "
+                    f"ROADMAP {_UNPORTED_KNOBS[name]}")
+        self.num_slots = int(num_slots)
+        self.page_size = int(page_size)
+        self.num_pages = num_pages
+        self.max_model_len = max_model_len
+        self.token_budget = token_budget
+        if kv_dtype in ("int8", "int4"):
+            raise NotImplementedError(
+                f"kv_dtype={kv_dtype!r} needs the quantized runtime and "
+                "kernel K1's dequant branches: ROADMAP A4")
+        self.kv_dtype = None if kv_dtype is None else resolve_dtype(kv_dtype)
+        self.seed = int(seed)
+        self.sla_policy = sla_policy
+        if self.num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        if self.page_size < 1:
+            raise ValueError("page_size must be >= 1")
+
+
+def _check_sampling(temperature, top_p):
+    if temperature < 0:
+        raise ValueError(f"temperature must be >= 0, got {temperature}")
+    if temperature > 0:
+        raise NotImplementedError(
+            "sampled decode (temperature > 0) needs jax's threefry keyed "
+            "sampler ported (ROADMAP A5); this slice decodes greedily")
+    if not 0.0 < top_p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+class _PagedStep:
+    """The engine's one decode step — the eager counterpart of the JAX
+    package's compiled `_CompiledPagedStep`. The pools are updated in
+    place by the step (where JAX donated them to the executable)."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def __call__(self, tok, pos, sid, widx, pt, klen, smp, kv):
+        with torch.inference_mode():
+            return self.model._paged_decode_core(tok, pos, sid, widx, pt,
+                                                 klen, smp, kv)
+
+
+class _Request:
+    _ids = itertools.count()
+
+    def __init__(self, tokens, max_new_tokens, eos_token_id, future,
+                 tenant="default", priority=None, ttft_slo_s=None,
+                 temperature=0.0, top_p=1.0):
+        _check_sampling(float(temperature), float(top_p))
+        self.rid = next(_Request._ids)
+        self.tokens = [int(t) for t in tokens]  # prompt, grows as decoded
+        self.prompt_len = len(self.tokens)
+        self.max_new = int(max_new_tokens)
+        self.eos = eos_token_id
+        self.future = future if future is not None else Future()
+        self.target = None        # total-token cap, set at add_request
+        self.pages = []           # physical page ids, logical order
+        self.n_prefilled = 0      # kv-written tokens (reset on preempt)
+        self.admit_seq = None     # admission order (preemption picks max)
+        self.preemptions = 0
+        self.tenant = str(tenant)
+        self.priority = int(Priority.STANDARD if priority is None
+                            else priority)
+        if self.priority < 0:
+            raise ValueError(
+                f"priority must be >= 0, got {self.priority} "
+                "(negative ranks are reserved for SLO escalation)")
+        self.ttft_slo_s = ttft_slo_s
+        self._arrival = None      # scheduler enqueue stamp
+        self.t_submit = _time.perf_counter()
+        self.t_first_token = None
+
+    @property
+    def num_generated(self):
+        return len(self.tokens) - self.prompt_len
+
+    def result_array(self):
+        return np.asarray(self.tokens, np.int64)
+
+
+class LLMEngine:
+    """Scheduler + paged-KV state around one decode step. Drive it
+    directly —
+
+        eng = LLMEngine(model)
+        req = eng.add_request(prompt_ids, max_new_tokens=32)
+        while eng.has_work():
+            eng.step()
+        tokens = req.future.result()
+
+    — or through `LLMServer`. The engine runs on the model's device."""
+
+    def __init__(self, model, config=None):
+        model.eval()
+        self.model = model
+        self.device = model.device
+        mcfg = model.config
+        cfg = config or LLMEngineConfig()
+        self.num_slots = cfg.num_slots
+        self.page_size = cfg.page_size
+        self.max_model_len = int(cfg.max_model_len or mcfg.max_seq_len)
+        if self.max_model_len > mcfg.max_seq_len:
+            raise ValueError(
+                f"max_model_len {self.max_model_len} exceeds the model's "
+                f"max_seq_len {mcfg.max_seq_len}")
+        self.pages_per_seq = -(-self.max_model_len // self.page_size)
+        self.token_budget = int(cfg.token_budget
+                                or self.num_slots + max(self.num_slots, 8))
+        if self.token_budget < self.num_slots:
+            raise ValueError(
+                f"token_budget {self.token_budget} < num_slots "
+                f"{self.num_slots}: every running sequence needs one "
+                "decode token per step")
+        num_pages = int(cfg.num_pages
+                        or self.num_slots * self.pages_per_seq + 1)
+        self.pool = PagePool(num_pages, self.page_size)
+        nh = mcfg.num_heads
+        self.kv_dtype = cfg.kv_dtype or model.dtype
+        self._pool_shape = (num_pages, self.page_size, nh,
+                            mcfg.hidden_size // nh)
+        self._kv = [torch.zeros(self._pool_shape, dtype=self.kv_dtype,
+                                device=self.device)
+                    for _ in range(2 * mcfg.num_layers)]
+        self._page_tables = np.zeros(
+            (self.num_slots, self.pages_per_seq), np.int32)
+        self._slots = [None] * self.num_slots
+        self._seed = cfg.seed
+        self.sched = SLAScheduler(cfg.sla_policy)
+        self._admit_counter = itertools.count()
+        self._step_fn = _PagedStep(model)
+        self.stats = {"steps": 0, "tokens_in": 0, "generated": 0,
+                      "finished": 0, "preemptions": 0}
+        # f32 frontier logits of the last tick that sampled (cross-checks)
+        self.last_logits = None
+
+    @property
+    def waiting(self):
+        """The admission queue (supports len() / bool() / iteration)."""
+        return self.sched
+
+    # ---- client side ----
+
+    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
+                    future=None, tenant="default", priority=None,
+                    ttft_slo_s=None, temperature=0.0, top_p=1.0):
+        """Enqueue one request (1-D int token ids); returns the
+        `_Request`, whose `future` resolves to np.int64 [prompt +
+        generated]."""
+        toks = np.asarray(prompt).reshape(-1)
+        if toks.size == 0:
+            raise ValueError("empty prompt")
+        if toks.size > self.max_model_len:
+            raise ValueError(
+                f"prompt length {toks.size} exceeds max_model_len "
+                f"{self.max_model_len}")
+        if -(-int(toks.size) // self.page_size) > self.pool.num_pages - 1:
+            raise ValueError(
+                f"prompt needs more KV pages than the pool holds "
+                f"({self.pool.num_pages - 1})")
+        req = _Request(toks, max_new_tokens, eos_token_id, future,
+                       tenant=tenant, priority=priority,
+                       ttft_slo_s=ttft_slo_s, temperature=temperature,
+                       top_p=top_p)
+        req.target = min(req.prompt_len + req.max_new, self.max_model_len)
+        if req.target <= req.prompt_len:
+            # zero budget: the prompt echoes back
+            if not req.future.cancelled():
+                req.future.set_result(req.result_array())
+            return req
+        self.sched.enqueue(req)
+        return req
+
+    def has_work(self):
+        return bool(self.waiting) or any(r is not None for r in self._slots)
+
+    def abort_all(self, exc):
+        """Fail every live and queued request with `exc` (device-error
+        path), release all pages, and re-zero the pools — a step that
+        died mid-write leaves them half updated."""
+        for slot, req in enumerate(self._slots):
+            if req is not None:
+                self._release(slot, req)
+                if not req.future.done():
+                    req.future.set_exception(exc)
+        for req in self.sched.drain():
+            if not req.future.done():
+                req.future.set_exception(exc)
+        with torch.inference_mode():
+            for p in self._kv:
+                p.zero_()
+
+    # ---- scheduler ----
+
+    def _release(self, slot, req):
+        self.pool.free(req.pages)
+        req.pages = []
+        req.n_prefilled = 0
+        self._page_tables[slot, :] = 0
+        self._slots[slot] = None
+
+    def _finish(self, slot, req):
+        self._release(slot, req)
+        self.stats["finished"] += 1
+        # a client may have cancel()ed while the request was in flight
+        if not req.future.cancelled():
+            req.future.set_result(req.result_array())
+
+    def _preempt(self, slot, req, reason):
+        """Evict-and-requeue one running sequence. Its generated tokens
+        are kept: greedy re-decode of prompt+generated reproduces the
+        same continuation."""
+        self._release(slot, req)
+        req.preemptions += 1
+        self.stats["preemptions"] += 1
+        self.sched.note_preemption(reason)
+        self.sched.push_front(req)
+
+    def _preempt_one(self, keep_req, worse_than=None, reason="pool",
+                     allow_equal=False):
+        """Preempt the scheduler's victim pick (lowest priority class,
+        then youngest). False when there is no legal victim."""
+        pick = self.sched.pick_victim(
+            self._slots, keep=keep_req, worse_than=worse_than,
+            now=_time.perf_counter(), allow_equal=allow_equal)
+        if pick is None:
+            return False
+        self._preempt(*pick, reason=reason)
+        return True
+
+    def _try_admit(self, req):
+        """Place one popped request into a slot (the JAX engine's branch
+        without prefix cache and without KV import): page-fit check with
+        lowest-priority preemption as the pressure valve, then page-table
+        setup. False when the request cannot be placed yet."""
+        now = _time.perf_counter()
+        victims = [r for r in self._slots
+                   if r is not None and self.sched.less_urgent(r, req, now)]
+        no_slot = None not in self._slots
+        if no_slot and not victims:
+            return False
+        # feasibility first: preempting a runner destroys its progress,
+        # so evict only when a slot and enough pages can exist
+        need = -(-len(req.tokens) // self.page_size)
+        if (self.pool.num_free < need
+                and self.pool.num_free + sum(len(r.pages) for r in victims)
+                < need):
+            return False
+        if no_slot and not self._preempt_one(None, worse_than=req,
+                                             reason="priority"):
+            return False
+        while self.pool.num_free < need:
+            if not self._preempt_one(None, worse_than=req,
+                                     reason="priority"):
+                return False
+        slot = self._slots.index(None)
+        req.admit_seq = next(self._admit_counter)
+        req.pages = []
+        req.n_prefilled = 0
+        self._page_tables[slot, :] = 0
+        self._slots[slot] = req
+        return True
+
+    def _admit(self):
+        now = _time.perf_counter()
+        while self.sched:
+            req = self.sched.pop_next(now)
+            if req is None:
+                break
+            if not self._try_admit(req):
+                self.sched.push_front(req)
+                break
+
+    def _active(self):
+        """Running sequences in admission order (deterministic plan)."""
+        return sorted(((slot, req) for slot, req in enumerate(self._slots)
+                       if req is not None), key=lambda it: it[1].admit_seq)
+
+    def _plan(self):
+        """Allot this step's flat token budget: one frontier token per
+        running sequence first, then chunked prefill in admission order.
+        Allocates the pages the planned tokens will write; a dry pool
+        preempts the youngest sequence and replans."""
+        while True:
+            active = self._active()
+            if not active:
+                return None
+            alloc = {}
+            budget = self.token_budget - len(active)
+            for slot, req in active:
+                remaining = len(req.tokens) - req.n_prefilled
+                take = 1 + min(remaining - 1, budget)
+                budget -= take - 1
+                alloc[slot] = take
+            ok = True
+            for slot, req in active:
+                last = req.n_prefilled + alloc[slot] - 1
+                try:
+                    while last // self.page_size >= len(req.pages):
+                        page = self.pool.alloc()
+                        self._page_tables[slot, len(req.pages)] = page
+                        req.pages.append(page)
+                except PoolExhausted:
+                    # the victim may be no more urgent than the growing
+                    # sequence (equal urgency: preempt-youngest)
+                    if not self._preempt_one(req, worse_than=req,
+                                             allow_equal=True):
+                        kept = -(-len(req.tokens) // self.page_size)
+                        if (kept <= self.pool.num_pages - 1
+                                and any(r is not None and r is not req
+                                        for r in self._slots)):
+                            # every other runner outranks req: req
+                            # itself yields its pages and requeues
+                            self._preempt(slot, req, reason="pool")
+                        else:
+                            # kept tokens outgrew the whole pool
+                            self._release(slot, req)
+                            if not req.future.done():
+                                req.future.set_exception(PoolExhausted(
+                                    f"request {req.rid} needs more KV "
+                                    "pages than the pool holds"))
+                    ok = False
+                    break
+            if ok:
+                return [(slot, req, alloc[slot]) for slot, req in active]
+
+    def step(self):
+        """One scheduler tick: admit → one decode step over the planned
+        flat tokens → greedy pick at each frontier → evict finished.
+        Returns the requests finished this tick."""
+        self._admit()
+        return self._step_tick()
+
+    def _step_tick(self):
+        plan = self._plan()
+        if plan is None:
+            return []
+        T, S, MP = self.token_budget, self.num_slots, self.pages_per_seq
+        ps = self.page_size
+        # every per-tick index array in ONE host buffer → one copy to the
+        # device: tok, pos, sid, widx, klen [T] | sample_idx [S] | tables
+        buf = np.zeros((5 * T + S + S * MP,), np.int32)
+        tok, pos, sid, widx, klen = buf[:5 * T].reshape(5, T)
+        sample_idx = buf[5 * T:5 * T + S]
+        buf[5 * T + S:] = self._page_tables.reshape(-1)
+        sample_slots = []
+        i = 0
+        for slot, req, take in plan:
+            for k in range(take):
+                p = req.n_prefilled + k
+                tok[i] = req.tokens[p]
+                pos[i] = p
+                sid[i] = slot
+                widx[i] = req.pages[p // ps] * ps + p % ps
+                klen[i] = p + 1
+                if p == len(req.tokens) - 1:
+                    # per-SLOT sampling frontier: the vocab head runs only
+                    # on these gathered rows
+                    sample_idx[slot] = i
+                    sample_slots.append(slot)
+                i += 1
+        # rows past i stay 0: padding tokens (kv_len 0) writing trash row 0
+        dev = torch.from_numpy(buf).to(self.device)
+        tok_d, pos_d, sid_d, widx_d, klen_d = dev[:5 * T].view(5, T)
+        smp_d = dev[5 * T:5 * T + S]
+        pt_d = dev[5 * T + S:].view(S, MP)
+        try:
+            logits = self._step_fn(tok_d, pos_d, sid_d, widx_d, pt_d,
+                                   klen_d, smp_d, self._kv)
+            nxt = []
+            if sample_slots:
+                lv = logits[0, sample_slots].float()
+                self.last_logits = lv
+                # greedy frontier pick; .tolist() is the tick's one sync
+                nxt = lv.argmax(dim=-1).tolist()
+        except Exception as e:
+            # the pools may be half written: fail the in-flight work and
+            # re-zero so a direct-drive caller's engine stays serviceable
+            self.abort_all(e)
+            raise
+
+        self.stats["steps"] += 1
+        self.stats["tokens_in"] += i
+        finished = []
+        for slot, req, take in plan:
+            req.n_prefilled += take
+            self.sched.note_tokens(req.tenant, take)
+        now = _time.perf_counter()
+        for slot, t in zip(sample_slots, nxt):
+            req = self._slots[slot]
+            req.tokens.append(int(t))
+            self.stats["generated"] += 1
+            if req.num_generated == 1:      # replays don't re-count
+                req.t_first_token = now
+                self.sched.note_first_token(req, now - req.t_submit)
+            if ((req.eos is not None and t == req.eos)
+                    or len(req.tokens) >= req.target):
+                self._finish(slot, req)
+                finished.append(req)
+        return finished
+
+
+class LLMServer(_FutureQueueServer):
+    """Continuous-batching text-generation server: one background thread
+    owns an `LLMEngine`; `submit` is thread-safe."""
+
+    _thread_name = "llm-engine"
+
+    def __init__(self, model, config=None):
+        super().__init__()
+        self._engine = LLMEngine(model, config)
+        self.stats = self._engine.stats
+        self.stats.setdefault("requests", 0)
+
+    @property
+    def engine(self):
+        return self._engine
+
+    def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
+               tenant="default", priority=None, ttft_slo_s=None,
+               temperature=0.0, top_p=1.0):
+        """Enqueue one prompt (1-D int token ids). Returns a Future
+        resolving to np.int64 [prompt + generated] (eos kept, nothing
+        after it). Sampling knobs are checked here, on the caller's
+        thread. The engine-side `_Request` is attached to the future as
+        `fut.pt_request` once the engine thread has taken it in."""
+        _check_sampling(float(temperature), float(top_p))
+        fut = Future()
+        fut.pt_request = None
+        self._enqueue(dict(
+            prompt=np.asarray(prompt).reshape(-1),
+            max_new_tokens=int(max_new_tokens), eos_token_id=eos_token_id,
+            future=fut, tenant=tenant, priority=priority,
+            ttft_slo_s=ttft_slo_s, temperature=float(temperature),
+            top_p=float(top_p)))
+        return fut
+
+    def generate(self, prompt, max_new_tokens=32, eos_token_id=None):
+        return self.submit(prompt, max_new_tokens, eos_token_id).result()
+
+    def _ingest(self, payload):
+        fut = payload.pop("future")
+        if fut.cancelled():
+            return
+        try:
+            fut.pt_request = self._engine.add_request(future=fut,
+                                                      **payload)
+            self.stats["requests"] += 1
+        except Exception as e:  # a bad request must not kill the loop
+            if not fut.done():
+                fut.set_exception(e)
+
+    def _loop(self):
+        eng = self._engine
+        while self._running or not self._q.empty() or eng.has_work():
+            try:
+                while True:
+                    self._ingest(self._q.get_nowait())
+            except queue.Empty:
+                pass
+            if not eng.has_work():
+                try:   # idle: block briefly for the next submission
+                    self._ingest(self._q.get(timeout=0.05))
+                except queue.Empty:
+                    continue
+            try:
+                eng.step()
+            except Exception as e:
+                # fail every in-flight future with the error (it re-raises
+                # at each caller's result()); the loop keeps serving
+                eng.abort_all(e)

@@ -1,0 +1,10 @@
+"""Activations (counterpart of paddle_tpu/ops/activation.py)."""
+import torch.nn.functional as tF
+
+__all__ = ["gelu"]
+
+
+def gelu(x, approximate=False):
+    """GELU; the default is the exact erf form, as in the JAX package
+    (`jax.nn.gelu(approximate=False)`)."""
+    return tF.gelu(x, approximate="tanh" if approximate else "none")

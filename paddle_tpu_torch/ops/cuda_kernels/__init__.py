@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels for Hopper (counterpart of
+paddle_tpu/ops/pallas_kernels). Each module holds a kernel's wrapper, its
+plain PyTorch version and its launch counter; the sources are in
+`paddle_tpu_torch/csrc/`."""
+from . import paged_attention  # noqa: F401
