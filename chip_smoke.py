@@ -8,13 +8,18 @@ Phases, in order; any failure exits non-zero and no phase catches and
 continues:
 
 1. card     — the card's name and power limit (nvidia-smi).
-2. build    — every CUDA kernel of the serving path, from `csrc/`, with
-              nvcc for sm_90a (one nvcc per source, started together).
-3. kernels  — each kernel against its plain PyTorch version on the card
-              at the serving path's shapes, with the tolerance stated;
-              kernel / plain times (CUDA events, median of 30 launches,
-              L2 flushed before each) beside the least time the card
-              could take (bound).
+2. build    — every CUDA kernel of the serving and training paths, from
+              `csrc/`, with nvcc for sm_90a (one nvcc per source, started
+              together).
+3. kernels  — each kernel against its plain PyTorch version on the card,
+              with the tolerance stated: ragged paged attention (K1) at
+              the serving path's shapes; flash attention forward, dq and
+              dk/dv (K3-K5) at the training path's shapes (b·h 192,
+              s 1024, d 64, bf16, causal) and at smaller f32 / bf16 cases
+              (ragged seq, non-causal, kv_lens with a 0 row, head_dim 8,
+              96, 256). Kernel / plain / library times (CUDA events,
+              median of 30 launches, L2 flushed before each) beside the
+              least time the card could take (bound).
 4. serve    — `LLMServer` over gpt_small (random weights from a seed),
               bf16 weights and bf16 KV pool, 8 greedy requests with
               prompts of 16-900 tokens. The launch counts are set to 0
@@ -23,6 +28,16 @@ continues:
 5. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
+6. train    — `jit.TrainStep` over gpt_small at b16·s1024, bf16 O1
+              `amp.auto_cast`, `AdamW(1e-4)` (bench.py's bench_gpt on the
+              port): 3 warm-up steps, then 10 timed ones with the launch
+              counts set to 0 just before; each flash kernel must have
+              launched 12 times per step, every loss be finite and the
+              last below the first. Prints ms/step, tokens/s and MFU.
+7. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
+              the card and one on the CPU from the same weights; the loss
+              and every parameter gradient agree to 1e-3 of each
+              gradient's max-abs.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
@@ -175,6 +190,221 @@ def check_paged_attention(pa, flush):
     return res
 
 
+# ---------------------------------------------------------------- K3-K5
+
+# the training path's attention call: gpt_small at b16·s1024 → b·h 192
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
+FA_MAIN = dict(bh=TRAIN_BATCH * 12, s=TRAIN_SEQ, d=64,
+               dtype=torch.bfloat16, causal=True, lens=None)
+# smaller cases: f32, ragged seq (not a multiple of the 64-row tile),
+# non-causal, kv_lens with a 0 row, seq_k != seq_q (`sk`), and the 32-
+# and 16-row tile configs (head_dim 96, 256)
+FA_CASES = [
+    FA_MAIN,
+    dict(bh=6, s=200, d=64, dtype=torch.float32, causal=True, lens=None),
+    dict(bh=6, s=200, d=64, dtype=torch.float32, causal=False,
+         lens=[200, 0, 57, 64, 1, 130]),
+    dict(bh=6, s=200, d=64, dtype=torch.bfloat16, causal=True,
+         lens=[200, 0, 57, 64, 1, 130]),
+    dict(bh=4, s=130, d=96, dtype=torch.float32, causal=True, lens=None),
+    dict(bh=4, s=70, d=256, dtype=torch.float32, causal=False,
+         lens=[70, 33, 0, 16]),
+    dict(bh=4, s=77, d=8, dtype=torch.float32, causal=True, lens=None),
+    dict(bh=4, s=50, sk=130, d=32, dtype=torch.float32, causal=False,
+         lens=[130, 0, 77, 5]),
+]
+# out / dq / dk / dv: each row's max error within FA_TOL of that row's
+# max-abs (floored at FA_ROW_FLOOR of the tensor's max-abs, so rows of
+# pure cancellation noise do not divide by ~0), and the mean error within
+# FA_MEAN_TOL of the mean value; lse (f32 in both types) absolute
+FA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FA_MEAN_TOL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+FA_LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+FA_ROW_FLOOR = 1e-2
+
+
+def _fa_inputs(case, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    bh, s, d = case["bh"], case["s"], case["d"]
+    sk = case.get("sk", s)
+    q, k, v, dout = (torch.randn(shape, generator=g).to(case["dtype"])
+                     for shape in ((bh, s, d), (bh, sk, d), (bh, sk, d),
+                                   (bh, s, d)))
+    dev = torch.device("cuda")
+    lens = case["lens"]
+    if lens is not None:
+        lens = torch.tensor(lens, dtype=torch.int32)
+    return ([x.to(dev) for x in (q, k, v, dout)],
+            None if lens is None else lens.to(dev))
+
+
+def _fa_pairs(case):
+    """(row, key) pairs that attend: the work of these inputs."""
+    s = case["s"]
+    kl = torch.full((case["bh"],), s) if case["lens"] is None else \
+        torch.tensor(case["lens"]).clamp(max=s)
+    rows = torch.arange(s)
+    per_row = torch.minimum(kl[:, None], rows[None, :] + 1) \
+        if case["causal"] else kl[:, None].expand(-1, s)
+    return int(per_row.clamp(min=0).sum())
+
+
+def _fa_bound(name, case):
+    """Least time for one call: each input read once and each output
+    written once over HBM bandwidth, and the matmul flops of the
+    attending pairs (2·d per pair per product: q·k and p·v forward; q·k,
+    g·v and ds·k for dq; q·k, g·v, pᵀ·g and dsᵀ·q for dk/dv) over the
+    peak rate of the input type; the larger of the two."""
+    bh, s, d, dt = case["bh"], case["s"], case["d"], case["dtype"]
+    item = torch.tensor([], dtype=dt).element_size()
+    tile = bh * s * d * item              # one [bh, s, d] operand
+    rows = bh * s * 4                     # one f32 [bh, s] row vector
+    lens = 0 if case["lens"] is None else bh * 4
+    nbytes, products = {
+        "flash_forward": (3 * tile + lens + tile + rows, 2),
+        "flash_bwd_dq": (4 * tile + 2 * rows + lens + tile, 3),
+        "flash_bwd_dkv": (4 * tile + 2 * rows + lens + 2 * tile, 4),
+    }[name]
+    flops = products * 2 * d * _fa_pairs(case)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dt] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _fa_run(fa, x, lens, causal, plain):
+    """K3 → delta → K4, K5 (or their plain versions)."""
+    q, k, v, dout = x
+    fwd, dq_fn, dkv_fn = (
+        (fa.flash_forward_plain, fa.flash_bwd_dq_plain,
+         fa.flash_bwd_dkv_plain) if plain else
+        (fa.flash_forward, fa.flash_bwd_dq, fa.flash_bwd_dkv))
+    out, lse = fwd(q, k, v, causal, lens)
+    delta = (dout.float() * out.float()).sum(-1)[:, None, :].contiguous()
+    dq = dq_fn(q, k, v, dout, lse, delta, causal, lens)
+    dk, dv = dkv_fn(q, k, v, dout, lse, delta, causal, lens)
+    return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv), delta
+
+
+def _fa_library_ms(x, flush):
+    """torch's own fused attention on the same inputs ([b, h, s, d]):
+    forward, and its backward (dq, dk, dv in one call)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    b, h = TRAIN_BATCH, FA_MAIN["bh"] // TRAIN_BATCH
+    q, k, v, dout = (t.reshape(b, h, *t.shape[1:]) for t in x)
+    fwd_ms = _median_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    bwd_ms = _median_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), dout, retain_graph=True), flush)
+    return fwd_ms, bwd_ms
+
+
+def _fa_gate(label, key, a, b, dt):
+    """(max abs err, worst row err / row max-abs, mean err / mean value)
+    of kernel `a` against plain `b` for output `key` (lse: the last two
+    are its max abs err); raises when a gate of the FA_* tolerances
+    fails."""
+    a, b = a.float(), b.float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"flash {label} {key}: non-finite output")
+    diff = (a - b).abs()
+    if key == "lse":     # rows of length 0 hold -1e30 on both sides
+        err = diff.max().item()
+        if not err <= FA_LSE_TOL[dt]:
+            raise AssertionError(f"flash {label} lse: max abs err "
+                                 f"{err:.3e} > {FA_LSE_TOL[dt]:.0e}")
+        return err, err, err
+    top = b.abs().max().item()
+    rows = torch.clamp(b.abs().amax(-1), min=FA_ROW_FLOOR * top + 1e-30)
+    row_rel = (diff.amax(-1) / rows).max().item()
+    mean_rel = diff.mean().item() / max(b.abs().mean().item(), 1e-30)
+    if not (row_rel <= FA_TOL[dt] and mean_rel <= FA_MEAN_TOL[dt]):
+        raise AssertionError(
+            f"flash {label} {key}: worst row err {row_rel:.3e} of its "
+            f"max-abs (tol {FA_TOL[dt]:.0e}), mean err {mean_rel:.3e} of "
+            f"the mean value (tol {FA_MEAN_TOL[dt]:.0e})")
+    return diff.max().item(), row_rel, mean_rel
+
+
+def check_flash_attention(fa, flush):
+    """K3/K4/K5 against their plain versions on the card for every case
+    of FA_CASES: out, dq, dk, dv row by row (FA_TOL of each row's
+    max-abs) and on average (FA_MEAN_TOL), lse absolute (FA_LSE_TOL);
+    rows with kv_len 0 must be exact zeros. Times the main-path case
+    (kernel, plain, library) beside the bound and returns its numbers by
+    kernel."""
+    res = {}
+    for case in FA_CASES:
+        x, lens = _fa_inputs(case)
+        got, _ = _fa_run(fa, x, lens, case["causal"], plain=False)
+        ref, _ = _fa_run(fa, x, lens, case["causal"], plain=True)
+        torch.cuda.synchronize()
+        label = (f"bh{case['bh']} s{case['s']} sk{case.get('sk', case['s'])}"
+                 f" d{case['d']} "
+                 f"{str(case['dtype'])[6:]} "
+                 f"{'causal' if case['causal'] else 'full'}"
+                 f"{' kv_lens' if lens is not None else ''}")
+        errs, gates = {}, {}
+        for key in got:
+            errs[key], *gates[key] = _fa_gate(label, key, got[key],
+                                              ref[key], case["dtype"])
+        if lens is not None:
+            zero = lens == 0
+            for key in ("out", "dq", "dk", "dv"):
+                if not torch.all(got[key][zero] == 0):
+                    raise AssertionError(f"flash {key}: kv_len 0 rows are "
+                                         "not exact zeros")
+        print(f"flash attention {label}: max abs err " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items())
+            + "; worst row / mean err relative " + ", ".join(
+                f"{k} {r:.2e} / {m:.2e}" for k, (r, m) in gates.items()
+                if k != "lse")
+            + f" (tol {FA_TOL[case['dtype']]:.0e} / "
+              f"{FA_MEAN_TOL[case['dtype']]:.0e}; lse "
+              f"{FA_LSE_TOL[case['dtype']]:.0e} abs)")
+        if case is FA_MAIN:
+            res = {"flash_forward": dict(max_abs_err=max(errs["out"],
+                                                         errs["lse"])),
+                   "flash_bwd_dq": dict(max_abs_err=errs["dq"]),
+                   "flash_bwd_dkv": dict(max_abs_err=max(errs["dk"],
+                                                         errs["dv"]))}
+            main = (x, lens)
+        del got, ref
+    x, lens = main
+    q, k, v, dout = x
+    causal = FA_MAIN["causal"]
+    _, delta = _fa_run(fa, x, lens, causal, plain=True)
+    out, lse = fa.flash_forward(q, k, v, causal, lens)
+    calls = {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, causal, lens),
+            lambda: fa.flash_forward_plain(q, k, v, causal, lens)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal, lens),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal,
+                                          lens)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, causal,
+                                     lens),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                           lens)),
+    }
+    fwd_lib, bwd_lib = _fa_library_ms(x, flush)
+    for name, (kernel, plain) in calls.items():
+        r = res[name]
+        r["ms"] = _median_ms(kernel, flush)
+        r["plain_ms"] = _median_ms(plain, flush, reps=10)
+        r["bound_ms"], r["bound_by"] = _fa_bound(name, FA_MAIN)
+        r["library_ms"] = fwd_lib if name == "flash_forward" else bwd_lib
+        print(f"{name} bf16 b·h {FA_MAIN['bh']} s {FA_MAIN['s']} d "
+              f"{FA_MAIN['d']} causal: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+              f"{'' if name == 'flash_forward' else ' (dq+dk+dv)'}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    return res
+
+
 def serve(pa):
     from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
@@ -256,33 +486,113 @@ def cross_check():
         raise AssertionError(f"card and cpu logits differ by {err:.3e}")
 
 
+def train(fa):
+    """The training main path: counts of K3/K4/K5 launches over the timed
+    steps, and the step's numbers."""
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.profile_train import (H100_PEAK_BF16,
+                                                bench_gpt_step, timed_steps)
+
+    cfg, step, ids = bench_gpt_step(TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = timed_steps(step, ids, 3)
+    fa.reset_launches()
+    losses, wall = timed_steps(step, ids, TRAIN_STEPS)
+    launches = dict(fa.launches)
+    losses = warm + losses
+    want = cfg.num_layers * TRAIN_STEPS
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"flash kernels launched {launches} times in "
+                             f"{TRAIN_STEPS} steps; expected {want} each")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"train losses not finite and falling: "
+                             f"{losses}")
+    dt = wall / TRAIN_STEPS
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = model_flops(cfg, TRAIN_BATCH, TRAIN_SEQ) / dt / H100_PEAK_BF16
+    print(f"train gpt_small b{TRAIN_BATCH}·s{TRAIN_SEQ} bf16 O1 AdamW: "
+          f"{dt * 1e3:.3f} ms/step, {tokens / dt:.1f} tok/s, MFU {mfu:.4f} "
+          f"(989 TFLOP/s bf16 peak), loss {losses[0]:.4f} → "
+          f"{losses[-1]:.4f} over {len(losses)} steps, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+          f"{launches} = {cfg.num_layers} x {TRAIN_STEPS} each")
+    return launches
+
+
+def train_cross_check():
+    """One f32 TrainStep on the card and on the CPU from the same weights:
+    the loss and every parameter gradient."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
+                                                  GPTPretrainingCriterion,
+                                                  gpt_small)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_small()
+    gpu = GPTForCausalLM(cfg, dtype="float32", seed=7)
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype="float32", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    ids = np.random.default_rng(7).integers(0, cfg.vocab_size, (2, 128))
+    crit = GPTPretrainingCriterion()
+    runs = []
+    for model in (gpu, cpu):
+        step = TrainStep(model, lambda m, x: crit(m(x), x),
+                         AdamW(1e-4, parameters=model.parameters()))
+        loss = step(torch.as_tensor(ids, device=model.device))
+        runs.append((float(loss), {n: p.grad.float().cpu()
+                                   for n, p in model.named_parameters()}))
+    (lg, gg), (lc, gc) = runs
+    worst, where = 0.0, None
+    for n, ref in gc.items():
+        err = ((gg[n] - ref).abs().max()
+               / ref.abs().max().clamp(min=1e-30)).item()
+        if err > worst:
+            worst, where = err, n
+    print(f"train cross-check gpt_small f32 b2·s128 card vs cpu: loss "
+          f"{lg:.6f} vs {lc:.6f}, worst gradient error {worst:.3e} of its "
+          f"max-abs ({where}; tol 1e-3) over {len(gc)} parameters")
+    if not (abs(lg - lc) <= 1e-3 * abs(lc) and worst <= 1e-3):
+        raise AssertionError("card and cpu train steps disagree")
+
+
+def _kernel_row(name, route, source, replaces, launches, r):
+    return {"name": name, "route": route, "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops.cuda_kernels import _build
+    from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
     from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 
     _card()
     t0 = time.perf_counter()
-    _build.build(["paged_attention"])
+    _build.build(["paged_attention", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     kres = check_paged_attention(pa, flush)
+    fres = check_flash_attention(fa, flush)
     del flush
-    launches = serve(pa)
+    pa_launches = serve(pa)
     cross_check()
-    main_path = kres[torch.bfloat16]
-    kernels = [{
-        "name": "ragged_paged_attention", "route": "cuda",
-        "source": pa.SOURCE, "replaces": pa.REPLACES,
-        "launches": launches,
-        "max_abs_err": main_path["max_abs_err"], "ms": main_path["ms"],
-        "plain_ms": main_path["plain_ms"],
-        "bound_ms": main_path["bound_ms"],
-        "bound_by": main_path["bound_by"], "library_ms": None}]
+    fa_launches = train(fa)
+    train_cross_check()
+    kernels = [_kernel_row("ragged_paged_attention", "cuda", pa.SOURCE,
+                           pa.REPLACES, pa_launches,
+                           dict(kres[torch.bfloat16], library_ms=None))]
+    for name, r in fres.items():
+        kernels.append(_kernel_row(name, "cuda", fa.SOURCE,
+                                   fa.REPLACES[name], fa_launches[name], r))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

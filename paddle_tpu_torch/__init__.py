@@ -13,8 +13,12 @@ the plain versions explicitly (`core.place`).
 
 Ported so far: continuous-batching GPT serving — `text.models.gpt`,
 `inference.llm_engine` (`LLMEngine`, `LLMServer`) and the ragged paged
-attention kernel. ROADMAP.md lists what is still to port.
+attention kernel — and the GPT training step: `jit.TrainStep`,
+`optimizer.AdamW`, bf16 `amp.auto_cast` at O1, the losses, recompute and
+the flash attention forward and backward kernels. ROADMAP.md lists what
+is still to port.
 """
 from .core.place import resolve_device  # noqa: F401
+from .core.rng import seed  # noqa: F401
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "seed"]

@@ -1,15 +1,18 @@
-"""Weights from the JAX package into the port.
+"""Weights between the JAX package and the port.
 
 `load_jax_state_dict(model, arrays)` takes a JAX model's `state_dict()`
-exported as `{name: np.ndarray}` and COPIES each array into the port
-model's parameter of the same name. It never aliases the caller's
-buffers (`torch.from_numpy` would share memory with the numpy array and
-a later in-place update on either side would leak into the other).
+exported as `{name: np.ndarray}` (tied or untied LM head alike) and
+COPIES each array into the port model's parameter of the same name. It
+never aliases the caller's buffers (`torch.from_numpy` would share memory
+with the numpy array and a later in-place update on either side would
+leak into the other). `export_state_dict(model)` goes the other way:
+`{name: np.ndarray}` copies of the port model's parameters, so the two
+packages' parameters can be compared after training.
 """
 import numpy as np
 import torch
 
-__all__ = ["load_jax_state_dict"]
+__all__ = ["load_jax_state_dict", "export_state_dict"]
 
 
 @torch.no_grad()
@@ -26,3 +29,16 @@ def load_jax_state_dict(model, arrays):
             raise ValueError(f"{name}: shape {a.shape} != {tuple(p.shape)}")
         p.copy_(torch.tensor(a, dtype=p.dtype, device=p.device))
     return model
+
+
+@torch.no_grad()
+def export_state_dict(model):
+    """{name: np.ndarray} copies of every parameter, on the host; bf16
+    parameters come out as float32 (numpy has no bfloat16)."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = p.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        out[name] = t.numpy().copy()
+    return out

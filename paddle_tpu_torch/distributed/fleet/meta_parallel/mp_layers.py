@@ -5,10 +5,13 @@ On one GPU the mp axis has size 1, so each layer is its plain
 counterpart with the JAX package's constructor surface and parameter
 layout. Real tensor parallelism over NCCL is ROADMAP A11.
 """
+from torch import nn
+
+from ....nn.functional import cross_entropy
 from ....nn.layer.common import Embedding, Linear
 
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
-           "RowParallelLinear", "split_fused_qkv"]
+           "RowParallelLinear", "ParallelCrossEntropy", "split_fused_qkv"]
 
 
 def split_fused_qkv(qkv, batch, seq, num_heads, head_dim):
@@ -39,3 +42,16 @@ class RowParallelLinear(Linear):
         super().__init__(in_features, out_features, has_bias=has_bias,
                          device=device, dtype=dtype)
         self.input_is_parallel = input_is_parallel
+
+
+class ParallelCrossEntropy(nn.Module):
+    """Vocab-parallel softmax CE; on one rank the plain per-position CE
+    (reduction "none") over the whole vocab."""
+
+    def __init__(self, mp_group=None, name=None, ignore_index=-100):
+        super().__init__()
+        self.ignore_index = ignore_index
+
+    def forward(self, input, label):
+        return cross_entropy(input, label, reduction="none",
+                             ignore_index=self.ignore_index)

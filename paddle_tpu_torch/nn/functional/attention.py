@@ -1,25 +1,34 @@
 """Attention functional (counterpart of
 paddle_tpu/nn/functional/attention.py).
 
-`paged_attention` is the serving path: on a CUDA tensor it always runs
-the hand-written ragged paged attention kernel
-(ops/cuda_kernels/paged_attention.py), on a CPU tensor its plain
-PyTorch version. `scaled_dot_product_attention` (the training path)
-raises on CUDA tensors until the flash-attention kernels are ported.
+`scaled_dot_product_attention` follows the reference's dispatch: with no
+`attn_mask`, no attention dropout and seq_q == seq_k it runs flash
+attention (ops/cuda_kernels/flash_attention.py) — on a CUDA tensor always
+the hand-written kernels K3 (forward) and K4 + K5 (backward), on a CPU
+tensor their plain versions. A mask, attention dropout or cross-length
+attention takes `dense_attention_bshd`, the reference's own non-kernel
+path. `paged_attention` is the serving path: the ragged paged attention
+kernel on a CUDA tensor, its plain version on a CPU tensor.
 """
 import math
 
 import torch
 
+from ... import amp
+from ...core import rng
+from ...ops.cuda_kernels import flash_attention as _fa
 from ...ops.cuda_kernels import paged_attention as _pa
 
 __all__ = ["scaled_dot_product_attention", "dense_attention_bshd",
            "paged_attention"]
 
 
-def dense_attention_bshd(q, k, v, is_causal=False, attn_mask=None):
+def dense_attention_bshd(q, k, v, is_causal=False, attn_mask=None,
+                         generator=None, dropout_p=0.0):
     """Plain softmax attention on [batch, seq, heads, head_dim] — the
-    port of the JAX package's jnp formulation, op for op."""
+    port of the JAX package's jnp formulation, op for op. Attention
+    dropout (`dropout_p` > 0 with a `generator`) drops softmax weights
+    with the keep mask drawn from that generator."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     scores = torch.einsum("bhqd,bhkd->bhqk", qt, kt) * scale
@@ -35,24 +44,48 @@ def dense_attention_bshd(q, k, v, is_causal=False, attn_mask=None):
             scores = scores + attn_mask
     w = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
+    if generator is not None and dropout_p > 0.0:
+        keep = torch.rand(w.shape, generator=generator,
+                          device=w.device) >= dropout_p
+        w = torch.where(keep, w / (1.0 - dropout_p), 0.0)
     out = torch.einsum("bhqk,bhkd->bhqd", w.to(vt.dtype), vt)
     return out.transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
-                                 is_causal=False):
-    """Inputs [batch, seq, heads, head_dim] (paddle convention). The
-    plain version runs on CPU tensors; on the card this is the flash
-    attention kernels' job (ROADMAP A8, kernels K3-K5), not ported yet —
-    so a CUDA tensor raises instead of quietly running plain attention
-    on the card."""
-    if query.is_cuda:
-        raise NotImplementedError(
-            "scaled_dot_product_attention on CUDA needs the flash-attention "
-            "kernels (ROADMAP A8: the training slice, kernels K3-K5), not "
-            "ported yet")
-    return dense_attention_bshd(query, key, value, is_causal=is_causal,
-                                attn_mask=attn_mask)
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, kv_lens=None, name=None):
+    """Inputs [batch, seq, heads, head_dim] (paddle convention).
+
+    kv_lens: optional [batch] int per-example valid key length (prefix
+    key-padding mask); it rides the flash kernels. Mutually exclusive
+    with attn_mask."""
+    if kv_lens is not None and attn_mask is not None:
+        raise ValueError("pass either attn_mask or kv_lens, not both")
+    if (attn_mask is None and dropout_p == 0.0
+            and query.shape[1] == key.shape[1]):
+        q, k, v = amp.cast_inputs_for("flash_attention",
+                                      (query, key, value))
+        return _fa.flash_attention_bshd(q, k, v, causal=is_causal,
+                                        kv_lens=kv_lens)
+
+    gen = None
+    if dropout_p > 0.0 and training:
+        gen = rng.current_generator() or rng.next_generator(query.device)
+    q, k, v, mask = amp.cast_inputs_for(
+        "scaled_dot_product_attention", (query, key, value, attn_mask))
+    if kv_lens is None:
+        return dense_attention_bshd(q, k, v, is_causal=is_causal,
+                                    attn_mask=mask, generator=gen,
+                                    dropout_p=dropout_p)
+    lens = torch.as_tensor(kv_lens, device=q.device).long()
+    # zero-length rows: mask against max(len, 1) (a fully masked softmax
+    # row is NaN), then zero those rows — the flash kernels' safe_l zeros
+    keep = (torch.arange(k.shape[1], device=q.device)[None, :]
+            < torch.clamp(lens, min=1)[:, None])[:, None, None, :]
+    out = dense_attention_bshd(q, k, v, is_causal=is_causal, attn_mask=keep,
+                               generator=gen, dropout_p=dropout_p)
+    return torch.where((lens > 0)[:, None, None, None], out, 0.0)
 
 
 def paged_attention(query, k_pool, v_pool, page_tables, slot_ids, kv_lens,

@@ -9,6 +9,7 @@ from an explicit `torch.Generator`.
 import torch
 from torch import nn
 
+from ...core import rng
 from .. import functional as F
 
 __all__ = ["Linear", "Embedding", "Dropout"]
@@ -48,8 +49,10 @@ class Embedding(nn.Module):
 
 class Dropout(nn.Module):
     """paddle's "upscale_in_train" dropout. Identity in eval mode (every
-    serving path); in training the keep mask is drawn from the explicit
-    `generator` the caller owns."""
+    serving path); in training the keep mask is drawn from an explicit
+    generator: the one given here, else the one installed by
+    `core.rng.generator_scope` (TrainStep installs one per step), else a
+    fresh `core.rng.next_generator`."""
 
     def __init__(self, p=0.5, generator=None):
         super().__init__()
@@ -59,6 +62,7 @@ class Dropout(nn.Module):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
+        gen = (self.generator or rng.current_generator()
+               or rng.next_generator(x.device))
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
         return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))

@@ -2,4 +2,4 @@
 paddle_tpu/ops/pallas_kernels). Each module holds a kernel's wrapper, its
 plain PyTorch version and its launch counter; the sources are in
 `paddle_tpu_torch/csrc/`."""
-from . import paged_attention  # noqa: F401
+from . import flash_attention, paged_attention  # noqa: F401

@@ -6,7 +6,7 @@ each; engine num_slots 8, page_size 16, token_budget 256) once to warm
 up and once under `torch.profiler`, then prints:
 
 * the burst's wall time, ticks and generated tokens;
-* device time (the sum of kernel and copy times on the one stream) and
+* device time (the sum of the kernel rows' times on the one stream) and
   the device's idle share of the wall time;
 * the kernels ordered by device time, with launch counts.
 
@@ -19,6 +19,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from .inference import LLMEngineConfig, LLMServer
@@ -60,7 +61,11 @@ def main(argv=None):
     print(f"burst: {wall * 1e3:.3f} ms wall, {ticks} ticks "
           f"({wall * 1e3 / ticks:.3f} ms/tick), {gen} generated tokens "
           f"({gen / wall:.1f} tok/s) under the profiler")
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    # kernel rows only: the CPU-side op rows (aten::mm, autograd
+    # Functions) carry their kernels' device time too
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in rows)
     if not device_us:
         print("profiler recorded no device time")

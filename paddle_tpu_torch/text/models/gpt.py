@@ -2,11 +2,15 @@
 paddle_tpu/text/models/gpt.py).
 
 Same configurations, parameter names and layouts as the JAX package, so
-a JAX `state_dict()` loads key for key (`paddle_tpu_torch.convert`). The
-continuous-batching serving path is `_paged_decode_core`: flat ragged
+a JAX `state_dict()` loads key for key (`paddle_tpu_torch.convert`).
+
+Training: `forward` (flash attention through
+`F.scaled_dot_product_attention`, optional per-layer recompute) with
+`GPTPretrainingCriterion`, or `fused_head_loss`, which fuses the vocab
+head with the softmax CE. Serving: `_paged_decode_core` — flat ragged
 tokens through every layer, the step's K/V written into the paged pools,
-ragged paged attention against each token's own prefix, and the tied
-vocab head on the gathered sampling-frontier rows only.
+ragged paged attention against each token's own prefix, and the vocab
+head on the gathered sampling-frontier rows only.
 """
 import torch
 from torch import nn
@@ -15,21 +19,21 @@ from ... import nn as pnn
 from ...core.dtype import resolve_dtype
 from ...core.place import resolve_device
 from ...distributed.fleet.meta_parallel.mp_layers import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
-    split_fused_qkv)
+    ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
+    VocabParallelEmbedding, split_fused_qkv)
+from ...distributed.fleet.recompute import checkpoint_policy, recompute
 from ...nn import functional as F
 
 __all__ = ["GPTConfig", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
-           "gpt_tiny", "gpt_small"]
+           "GPTPretrainingCriterion", "gpt_tiny", "gpt_small", "gpt_medium",
+           "gpt_1p3b"]
 
 
 class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_size=None, max_seq_len=1024,
-                 dropout=0.0, tie_embeddings=True):
-        if not tie_embeddings:
-            raise NotImplementedError(
-                "an untied LM head is not ported yet (ROADMAP A2)")
+                 dropout=0.0, tie_embeddings=True, recompute=False):
+        checkpoint_policy(recompute)    # named jax policies raise
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -38,6 +42,8 @@ class GPTConfig:
         self.max_seq_len = max_seq_len
         self.dropout = dropout
         self.tie_embeddings = tie_embeddings
+        # per-layer activation recompute: False | True (keep nothing)
+        self.recompute = recompute
 
 
 def gpt_tiny(**kw):
@@ -48,6 +54,16 @@ def gpt_tiny(**kw):
 def gpt_small(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
                      num_heads=12, max_seq_len=1024, **kw)
+
+
+def gpt_medium(**kw):
+    return GPTConfig(vocab_size=50304, hidden_size=1024, num_layers=24,
+                     num_heads=16, max_seq_len=1024, **kw)
+
+
+def gpt_1p3b(**kw):
+    return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
+                     num_heads=32, max_seq_len=2048, **kw)
 
 
 class GPTDecoderLayer(nn.Module):
@@ -100,7 +116,7 @@ class GPTModel(nn.Module):
         pos = torch.arange(s, device=input_ids.device)
         x = self.drop(self.wte(input_ids) + self.wpe(pos))
         for layer in self.layers:
-            x = layer(x)
+            x = recompute(layer, x) if self.config.recompute else layer(x)
         return self.ln_f(x)
 
 
@@ -134,16 +150,22 @@ def _layer_forward_paged(layer, x, cache_k, cache_v, write_idx, page_tables,
 
 
 class GPTForCausalLM(nn.Module):
-    """LM head tied to the embedding. `device` defaults to CUDA (raises
-    when no GPU is present; `device="cpu"` runs the plain versions).
-    Weights are drawn from `seed` through an explicit `torch.Generator`:
-    N(0, 0.02) for matrices, ones / zeros for LayerNorm, zero biases."""
+    """LM head tied to the embedding by default (`tie_embeddings=False`:
+    a `lm_head` [hidden, vocab] without bias). `device` defaults to CUDA
+    (raises when no GPU is present; `device="cpu"` runs the plain
+    versions). Weights are drawn from `seed` through an explicit
+    `torch.Generator`: N(0, 0.02) for matrices, ones / zeros for
+    LayerNorm, zero biases."""
 
     def __init__(self, config, device=None, dtype="float32", seed=0):
         super().__init__()
         device = resolve_device(device)
+        dtype = resolve_dtype(dtype)
         self.config = config
-        self.gpt = GPTModel(config, device=device, dtype=resolve_dtype(dtype))
+        self.gpt = GPTModel(config, device=device, dtype=dtype)
+        self.lm_head = None if config.tie_embeddings else ColumnParallelLinear(
+            config.hidden_size, config.vocab_size, has_bias=False,
+            gather_output=False, device=device, dtype=dtype)
         self.reset_parameters(seed)
 
     @property
@@ -167,11 +189,36 @@ class GPTForCausalLM(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
 
     def _logits_from_hidden(self, x):
+        if self.lm_head is not None:
+            return self.lm_head(x)
         # tied head: x @ wte.weight.T (wte.weight is [vocab, d])
-        return torch.nn.functional.linear(x, self.gpt.wte.weight)
+        return F.linear(x, self.gpt.wte.weight.t())
 
     def forward(self, input_ids):
         return self._logits_from_hidden(self.gpt(input_ids))
+
+    def fused_head_loss(self, input_ids, labels=None, block_size=4096):
+        """Shifted next-token loss with the head projection and softmax
+        CE fused (`F.fused_linear_cross_entropy`): the [b, s, vocab]
+        logits are never kept. Sum over the total count of positions
+        (ignored ones add 0), so loss and gradient scale equal
+        `GPTPretrainingCriterion`'s mean."""
+        if labels is None:
+            labels = input_ids
+        x = self.gpt(input_ids)
+        shift_x = x[:, :-1]
+        shift_labels = labels[:, 1:]
+        total = shift_labels.shape[0] * shift_labels.shape[1]
+        if self.lm_head is not None:
+            s = F.fused_linear_cross_entropy(
+                shift_x, self.lm_head.weight, shift_labels,
+                reduction="sum", block_size=block_size)
+        else:
+            s = F.fused_linear_cross_entropy(
+                shift_x, self.gpt.wte.weight, shift_labels,
+                transpose_weight=True, reduction="sum",
+                block_size=block_size)
+        return s / float(total)
 
     def _paged_decode_core(self, tok, pos_ids, slot_ids, write_idx,
                            page_tables, kv_lens, sample_idx, kv,
@@ -192,3 +239,15 @@ class GPTForCausalLM(nn.Module):
         x = model.ln_f(x)
         x = x.index_select(1, sample_idx.long())   # [1, S, d] frontiers
         return self._logits_from_hidden(x)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Shifted next-token cross entropy, mean over every position."""
+
+    def __init__(self):
+        super().__init__()
+        self.ce = ParallelCrossEntropy()
+
+    def forward(self, logits, labels):
+        loss = self.ce(logits[:, :-1], labels[:, 1:])
+        return loss.mean()
