@@ -12,29 +12,51 @@ continues:
               `csrc/`, with nvcc for sm_90a (one nvcc per source, started
               together).
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              with the tolerance stated: ragged paged attention (K1) at
-              the serving path's shapes; flash attention forward, dq and
-              dk/dv (K3-K5) at the training path's shapes (b·h 192,
-              s 1024, d 64, bf16, causal) and at smaller f32 / bf16 cases
-              (ragged seq, non-causal, kv_lens with a 0 row, head_dim 8,
-              96, 256). Kernel / plain / library times (CUDA events,
-              median of 30 launches, L2 flushed before each) beside the
-              least time the card could take (bound).
+              each output row within a tolerance of that row's max-abs
+              (f32 q 1e-4, bf16 q 2e-2): ragged paged attention K1 on f32,
+              bf16, int8 and packed-int4 pools at the serving tick's
+              shapes (mixed prefill + decode tick at frontier offset 0
+              and 3, pure decode tick); its query-blocked variant K2 on
+              the same four pool kinds at the speculative verify step
+              (8 slots x 5 rows, a dead and a narrow slot, offset 0 and
+              3); flash attention forward, dq and dk/dv (K3-K5) at the
+              training path's shapes (b·h 192, s 1024, d 64, bf16,
+              causal) and at smaller f32 / bf16 cases (ragged seq,
+              non-causal, kv_lens with a 0 row, head_dim 8, 96, 256).
+              Kernel / plain / library times (CUDA events, median of 30
+              launches, L2 flushed before each) beside the least time the
+              card could take (bound: each input byte read once — codes
+              and scales for a quantized pool — each output written
+              once).
 4. serve    — `LLMServer` over gpt_small (random weights from a seed),
               bf16 weights and bf16 KV pool, 8 greedy requests with
               prompts of 16-900 tokens. The launch counts are set to 0
-              just before and read just after: the paged attention
-              kernel must have launched once per layer per engine tick.
-5. cross    — an f32 gpt_small engine on the card and the same engine on
+              just before and read just after: K1 (float pool) must have
+              launched once per layer per engine tick, and nothing else.
+5. serve int8 + ngram — the same server and load with an int8 KV pool
+              and n-gram speculation (spec_k 4), each prompt a random
+              24-token segment repeated to its length: K2-int8 must have
+              launched once per layer per verify window and K1-int8 once
+              per layer per single tick, both more than 0, with
+              proposals made. Prints tok/s, ticks, windows, proposed /
+              accepted and TTFT.
+6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
-6. train    — `jit.TrainStep` over gpt_small at b16·s1024, bf16 O1
+7. cross quant + spec — f32 gpt_small (TF32 off), 2 repetitive prompts:
+              card vs CPU first frontier logits on int8 and int4 pools
+              within max(1e-3, the CPU's own int8 / int4 vs f32
+              difference); on the card, the n-gram engine's tokens equal
+              the k=1 engine's on f32, int8 and int4 pools; the f32 and
+              int4 n-gram runs must launch K2-float, and K1-int4 and
+              K2-int4.
+8. train    — `jit.TrainStep` over gpt_small at b16·s1024, bf16 O1
               `amp.auto_cast`, `AdamW(1e-4)` (bench.py's bench_gpt on the
               port): 3 warm-up steps, then 10 timed ones with the launch
               counts set to 0 just before; each flash kernel must have
               launched 12 times per step, every loss be finite and the
               last below the first. Prints ms/step, tokens/s and MFU.
-7. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
+9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
               gradient's max-abs.
@@ -88,15 +110,31 @@ def _median_ms(fn, flush, reps=30):
     return float(np.median(times))
 
 
-def _paged_case(dtype, offset, decode=False, seed=0):
-    """The serving path's attention call at its shapes: H=12, D=64,
-    P=16, MP=64 (max_model_len 1024), S=8 slots, T=token_budget rows.
-    Mixed tick: one frontier per slot (kv_len 0 → padding, 1, 17
-    crossing a page, the full 1024, ...), then a chunk of prefill rows
-    of one slot, then padding. Decode tick (`decode`): one frontier row
-    per slot at the serve phase's lengths, the rest padding. Page ids
-    are shuffled; every table entry holds a valid id, so entries past a
-    row's length are stale ids the kernel must not read."""
+# pool kinds of the serving paths; kernel vs plain: each output row (one
+# token, one head) within PA_TOL of that row's max-abs, by q's dtype
+# (floored at PA_ROW_FLOOR of the tensor's max-abs, so rows of pure
+# cancellation noise do not divide by ~0)
+PA_KINDS = ("float32", "bfloat16", "int8", "int4")
+PA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+PA_ROW_FLOOR = 1e-2
+# the speculative verify step at the serve config: 8 slots of spec_k + 1
+VERIFY_SLOTS, VERIFY_QB = 8, 5
+
+
+def _pools(N, P, H, D, g):
+    return (torch.randn((N, P, H, D), generator=g),
+            torch.randn((N, P, H, D), generator=g))
+
+
+def _paged_case(offset, decode=False, seed=0):
+    """The serving path's K1 call at its shapes: H=12, D=64, P=16, MP=64
+    (max_model_len 1024), S=8 slots, T=token_budget rows, f32 (`_pool`
+    casts or quantizes). Mixed tick: one frontier per slot (kv_len 0 →
+    padding, 1, 17 crossing a page, the full 1024, ...), then a chunk of
+    prefill rows of one slot, then padding. Decode tick (`decode`): one
+    frontier row per slot at the serve phase's lengths, the rest padding.
+    Page ids are shuffled; every table entry holds a valid id, so entries
+    past a row's length are stale ids the kernel must not read."""
     g = torch.Generator().manual_seed(seed)
     H, D, P, MP, S = 12, 64, 16, 64, 8
     T = SERVE_CFG["token_budget"]
@@ -113,20 +151,64 @@ def _paged_case(dtype, offset, decode=False, seed=0):
         sid = list(range(S)) + [chunk_slot] * n_chunk + [0]
     perm = torch.randperm(N - 1, generator=g) + 1
     pt = perm.reshape(S, MP).to(torch.int32)
-    kp = torch.randn((N, P, H, D), generator=g).to(dtype)
-    vp = torch.randn((N, P, H, D), generator=g).to(dtype)
-    q = torch.randn((T, H, D), generator=g).to(dtype)
-    dev = torch.device("cuda")
-    args = [q, kp, vp, pt, torch.tensor(sid, dtype=torch.int32),
+    kp, vp = _pools(N, P, H, D, g)
+    q = torch.randn((T, H, D), generator=g)
+    return [q, kp, vp, pt, torch.tensor(sid, dtype=torch.int32),
             torch.tensor(lens, dtype=torch.int32)]
-    return [a.to(dev) for a in args]
 
 
-def _bound(args, offset):
+def _verify_case(offset, seed=1):
+    """The verify step's K2 call (`q_per_slot` = spec_k + 1 = 5) at the
+    serve config: 8 slot-major blocks of 5 rows, T = 40; slot s's frontier
+    at the serve phase's prompt length + 16, width 4 (rows j = 0..4 at
+    kv_len pos0 + j + 1), except slot 2 (dead: every row 0) and slot 5
+    (narrow: width 1, rows 2..4 at 0). With `offset`, every nonzero
+    kv_len is stored `offset` lower, as a frontier offset expects."""
+    g = torch.Generator().manual_seed(seed)
+    H, D, P, MP, S, QB = 12, 64, 16, 64, VERIFY_SLOTS, VERIFY_QB
+    N = S * MP + 1
+    lens = []
+    for s, n in enumerate(SERVE_PROMPT_LENS):
+        width = -1 if s == 2 else 1 if s == 5 else QB - 1
+        pos0 = n + 16
+        lens += [max(pos0 + j + 1 - offset, 1) if j <= width else 0
+                 for j in range(QB)]
+    perm = torch.randperm(N - 1, generator=g) + 1
+    pt = perm.reshape(S, MP).to(torch.int32)
+    kp, vp = _pools(N, P, H, D, g)
+    q = torch.randn((S * QB, H, D), generator=g)
+    sid = torch.arange(S, dtype=torch.int32).repeat_interleave(QB)
+    return [q, kp, vp, pt, sid, torch.tensor(lens, dtype=torch.int32)]
+
+
+def _pool(case, kind, q_dtype):
+    """A f32 case → (args on the card, scale kwargs): q in `q_dtype`,
+    pools cast to a float kind, or quantized by the port's codec (int8,
+    or packed int4 [N, P, H, D/2]) with their [N, P, H] scale planes."""
+    from paddle_tpu_torch.quantization import runtime as qrt
+
+    dev = torch.device("cuda")
+    q, kp, vp, pt, sid, lens = (a.to(dev) for a in case)
+    kw = {}
+    if kind in ("int8", "int4"):
+        quant = (qrt.quantize_kv_rows_int4 if kind == "int4"
+                 else qrt.quantize_kv_rows)
+        N, P, H, D = kp.shape
+        (kp, ks), (vp, vs) = (quant(x.reshape(N * P, H, D)) for x in (kp, vp))
+        kp, vp = (x.reshape(N, P, H, -1).contiguous() for x in (kp, vp))
+        kw = dict(k_scales=ks.reshape(N, P, H).contiguous(),
+                  v_scales=vs.reshape(N, P, H).contiguous())
+    else:
+        kp, vp = kp.to(getattr(torch, kind)), vp.to(getattr(torch, kind))
+    return [q.to(q_dtype), kp, vp, pt, sid, lens], kw
+
+
+def _bound(args, kw, offset):
     """Least time for the work of one call: bytes (each input read once —
-    a slot's K/V rows up to its longest row's length — and the output
-    written once) over HBM bandwidth, and the q·k + p·v flops over the
-    peak rate for the input type; the larger of the two."""
+    a slot's K/V rows up to its longest row's length, as codes plus their
+    scales for a quantized pool — and the output written once) over HBM
+    bandwidth, and the q·k + p·v flops over the peak rate for q's type;
+    the larger of the two."""
     q, kp, _, pt, sid, lens = args
     T, H, D = q.shape
     eff = torch.where(lens > 0, lens + offset, 0).long().cpu()
@@ -134,59 +216,104 @@ def _bound(args, offset):
     for s, k in zip(sid.cpu().tolist(), eff.tolist()):
         per_slot[s] = max(per_slot.get(s, 0), k)
     kv_rows = sum(per_slot.values())
-    nbytes = (2 * kv_rows * H * D * kp.element_size()
+    row_bytes = kp.shape[-1] * kp.element_size() + (4 if kw else 0)
+    nbytes = (2 * kv_rows * H * row_bytes
               + 2 * q.numel() * q.element_size()
               + (pt.numel() + sid.numel() + lens.numel()) * 4)
     flops = 4 * int(eff.sum()) * H * D
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[kp.dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timed(pa, args, flush):
-    ms = _median_ms(lambda: pa.ragged_paged_attention(*args), flush)
-    plain_ms = _median_ms(lambda: pa.ragged_paged_attention_plain(*args),
-                          flush)
-    bound_ms, bound_by = _bound(args, 0)
+def _timed(pa, args, kw, flush, qb=None):
+    ms = _median_ms(lambda: pa.ragged_paged_attention(
+        *args, **kw, q_per_slot=qb), flush)
+    plain_ms = _median_ms(lambda: pa.ragged_paged_attention_plain(
+        *args, **kw, q_per_slot=qb), flush)
+    bound_ms, bound_by = _bound(args, kw, 0)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by)
 
 
+def _pa_gate(label, out, ref, q_dtype, lens):
+    """(max abs err, worst row err / row max-abs) of kernel `out` against
+    plain `ref`; raises when the row gate fails, on non-finite output or
+    when a kv_len 0 row is not exact zeros."""
+    if not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: non-finite kernel output")
+    if not torch.all(out[lens == 0] == 0):
+        raise AssertionError(f"{label}: kv_len 0 rows are not exact zeros")
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    rows = torch.clamp(b.abs().amax(-1),
+                       min=PA_ROW_FLOOR * b.abs().max().item() + 1e-30)
+    row_rel = (diff.amax(-1) / rows).max().item()
+    if not row_rel <= PA_TOL[q_dtype]:
+        raise AssertionError(f"{label}: worst row err {row_rel:.3e} of its "
+                             f"max-abs > {PA_TOL[q_dtype]:.0e}")
+    return diff.max().item(), row_rel
+
+
+def _q_dtypes(kind):
+    """q types checked against a pool kind: the pool's own for float
+    pools, both for quantized ones."""
+    if kind == "float32":
+        return (torch.float32,)
+    if kind == "bfloat16":
+        return (torch.bfloat16,)
+    return (torch.float32, torch.bfloat16)
+
+
+def _serving_q(kind):
+    return torch.float32 if kind == "float32" else torch.bfloat16
+
+
 def check_paged_attention(pa, flush):
-    """Kernel vs plain version on the card, on a mixed prefill + decode
-    tick (frontier offset 0 and 3) and a pure decode tick. Returns the
-    mixed tick's bf16 (serving dtype) numbers."""
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    """K1 on every pool kind at a mixed prefill + decode tick (frontier
+    offset 0 and 3) and a pure decode tick, and K2 on every pool kind at
+    the verify step (offset 0 and 3), each against the plain version on
+    the card. Times each at the serving q type (bf16; f32 for the f32
+    pool) — K1 at both ticks, K2 at offset 0. Returns {(kernel, kind):
+    numbers} with K1's mixed tick."""
     res = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
-        for offset, decode in ((0, False), (3, False), (0, True)):
-            args = _paged_case(dtype, offset, decode)
-            out = pa.ragged_paged_attention(*args, frontier_offset=offset)
-            ref = pa.ragged_paged_attention_plain(*args,
-                                                  frontier_offset=offset)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs().max().item()
-            pad = args[5] == 0
-            if not torch.all(out[pad] == 0):
-                raise AssertionError("kv_len 0 rows are not exact zeros")
-            if not torch.isfinite(out).all():
-                raise AssertionError("non-finite kernel output")
-            worst = max(worst, err)
-        if worst > tol[dtype]:
-            raise AssertionError(
-                f"paged attention {dtype}: max abs err {worst:.3e} > "
-                f"{tol[dtype]:.0e}")
-        for decode in (False, True):
-            r = _timed(pa, _paged_case(dtype, 0, decode), flush)
-            print(f"paged_attention {str(dtype)[6:]} "
-                  f"{'decode' if decode else 'mixed'} tick: max_abs_err "
-                  f"{worst:.3e} (tol {tol[dtype]:.0e}), kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-                  f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
-            if not decode:
-                res[dtype] = dict(max_abs_err=worst, **r)
+    for kernel, qb in (("rpa", None), ("qblock", VERIFY_QB)):
+        cases = (((0, False), (3, False), (0, True)) if qb is None
+                 else ((0, None), (3, None)))
+        for kind in PA_KINDS:
+            worst, worst_rel = 0.0, 0.0
+            for q_dtype in _q_dtypes(kind):
+                for offset, decode in cases:
+                    case = (_paged_case(offset, decode) if qb is None
+                            else _verify_case(offset))
+                    args, kw = _pool(case, kind, q_dtype)
+                    out = pa.ragged_paged_attention(
+                        *args, **kw, frontier_offset=offset, q_per_slot=qb)
+                    ref = pa.ragged_paged_attention_plain(
+                        *args, **kw, frontier_offset=offset, q_per_slot=qb)
+                    torch.cuda.synchronize()
+                    err, rel = _pa_gate(
+                        f"{kernel} {kind} pool, q {str(q_dtype)[6:]}, offset "
+                        f"{offset}", out, ref, q_dtype, args[5])
+                    worst, worst_rel = max(worst, err), max(worst_rel, rel)
+            q_t = _serving_q(kind)
+            ticks = (False, True) if qb is None else (None,)
+            for decode in ticks:
+                case = _paged_case(0, decode) if qb is None else \
+                    _verify_case(0)
+                r = _timed(pa, *_pool(case, kind, q_t), flush, qb)
+                tick = ("verify step" if qb else
+                        "decode tick" if decode else "mixed tick")
+                print(f"{kernel} {kind} pool {tick}: max_abs_err {worst:.3e}, "
+                      f"worst row {worst_rel:.2e} of its max-abs (tol "
+                      + ", ".join(f"q {str(d)[6:]} {PA_TOL[d]:.0e}"
+                                  for d in _q_dtypes(kind))
+                      + f"); q {str(q_t)[6:]}: kernel {r['ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+                if not decode:
+                    res[(kernel, kind)] = dict(max_abs_err=worst, **r)
     return res
 
 
@@ -427,28 +554,100 @@ def serve(pa):
                 for p in prompts]
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
-        launches = pa.launches
+        launches = dict(pa.launches)
         ticks = eng.stats["steps"] - ticks0
-    for p, f, o in zip(prompts, futs, outs):
-        if len(o) != len(p) + SERVE_NEW_TOKENS:
-            raise AssertionError(f"request returned {len(o)} tokens, "
-                                 f"wanted {len(p) + SERVE_NEW_TOKENS}")
-        if not (np.array_equal(o[:len(p)], p)
-                and ((o >= 0) & (o < cfg.vocab_size)).all()):
-            raise AssertionError("request output is not prompt + ids")
-    if launches != cfg.num_layers * ticks or ticks == 0:
+    _check_outputs(prompts, outs, cfg.vocab_size)
+    want = dict.fromkeys(launches, 0)
+    want["rpa"] = cfg.num_layers * ticks
+    if launches != want or ticks == 0:
         raise AssertionError(
-            f"paged attention launched {launches} times in {ticks} ticks; "
-            f"expected {cfg.num_layers} per tick")
-    # TTFT from the submission of the burst to each first token
-    ttft = sorted(f.pt_request.t_first_token - t0 for f in futs)
+            f"paged attention launched {launches} in {ticks} ticks; "
+            f"expected {cfg.num_layers} K1 (float pool) per tick")
+    ttft = _ttft(futs, t0)
     gen = SERVE_NEW_TOKENS * len(prompts)
     print(f"serve gpt_small bf16: {len(prompts)} requests, "
           f"{sum(SERVE_PROMPT_LENS)} prompt tokens, {gen} generated in "
           f"{wall:.3f} s = {gen / wall:.1f} generated tok/s, {ticks} ticks, "
           f"TTFT median {ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
-          f"paged attention launches {launches} = {cfg.num_layers} x "
+          f"paged attention launches {launches['rpa']} = {cfg.num_layers} x "
           f"{ticks}")
+    return launches["rpa"]
+
+
+def _check_outputs(prompts, outs, vocab):
+    for p, o in zip(prompts, outs):
+        if len(o) != len(p) + SERVE_NEW_TOKENS:
+            raise AssertionError(f"request returned {len(o)} tokens, "
+                                 f"wanted {len(p) + SERVE_NEW_TOKENS}")
+        if not (np.array_equal(o[:len(p)], p)
+                and ((o >= 0) & (o < vocab)).all()):
+            raise AssertionError("request output is not prompt + ids")
+
+
+def _ttft(futs, t0):
+    """TTFT from the submission of the burst to each first token."""
+    return sorted(f.pt_request.t_first_token - t0 for f in futs)
+
+
+def repetitive_prompts(vocab, lens, seed):
+    """Each prompt a random 24-token segment repeated to its length: the
+    prompt-lookup workload (templated and quoting traffic)."""
+    rng = np.random.default_rng(seed)
+    return [np.resize(rng.integers(0, vocab, (24,)), n) for n in lens]
+
+
+def serve_quant_spec(pa):
+    """`LLMServer` over gpt_small, bf16 weights, int8 KV pool, n-gram
+    speculation with spec_k 4, at the serve config: 8 greedy requests of
+    the serve phase's prompt lengths, repetitive prompts. Every window
+    must launch K2-int8 once per layer and every single tick K1-int8
+    once per layer, both at least once, with proposals made."""
+    from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small()
+    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=1234)
+    prompts = repetitive_prompts(cfg.vocab_size, SERVE_PROMPT_LENS, 4321)
+    server = LLMServer(model, LLMEngineConfig(
+        kv_dtype="int8", spec_mode="ngram", spec_k=4, **SERVE_CFG))
+    eng = server.engine
+    keys = ("steps", "ngram_windows", "ngram_proposed", "ngram_accepted")
+    with server:
+        # warm-up: a prefill tick and verify windows
+        server.generate(prompts[0][:24], max_new_tokens=8)
+        torch.cuda.synchronize()
+        before = {k: eng.stats[k] for k in keys}
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        futs = [server.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+                for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches = dict(pa.launches)
+        d = {k: eng.stats[k] - before[k] for k in keys}
+    _check_outputs(prompts, outs, cfg.vocab_size)
+    windows = d["ngram_windows"]
+    ticks = d["steps"] - windows
+    want = dict.fromkeys(launches, 0)
+    want["rpa_int8"] = cfg.num_layers * ticks
+    want["qblock_int8"] = cfg.num_layers * windows
+    if launches != want or not (ticks and windows and d["ngram_proposed"]):
+        raise AssertionError(
+            f"int8 + ngram serve: launches {launches} in {ticks} ticks and "
+            f"{windows} windows ({d['ngram_proposed']} proposed); expected "
+            f"{cfg.num_layers} K1-int8 per tick and {cfg.num_layers} "
+            "K2-int8 per window, both > 0, and proposals")
+    ttft = _ttft(futs, t0)
+    gen = SERVE_NEW_TOKENS * len(prompts)
+    print(f"serve gpt_small bf16, int8 KV, ngram spec_k 4: {len(prompts)} "
+          f"requests, {sum(SERVE_PROMPT_LENS)} prompt tokens, {gen} "
+          f"generated in {wall:.3f} s = {gen / wall:.1f} generated tok/s, "
+          f"{ticks} ticks + {windows} windows, proposed "
+          f"{d['ngram_proposed']} accepted {d['ngram_accepted']}, TTFT "
+          f"median {ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
+          f"launches K1-int8 {launches['rpa_int8']} = {cfg.num_layers} x "
+          f"{ticks}, K2-int8 {launches['qblock_int8']} = {cfg.num_layers} x "
+          f"{windows}")
     return launches
 
 
@@ -484,6 +683,77 @@ def cross_check():
           f"{same}/8")
     if not err <= 1e-3:
         raise AssertionError(f"card and cpu logits differ by {err:.3e}")
+
+
+def cross_quant_spec(pa):
+    """f32 gpt_small (TF32 off) on 2 repetitive prompts. Card vs CPU: the
+    first frontier logits on int8 and int4 pools agree with the CPU's
+    (same kv_dtype) to max(1e-3, the CPU's own int8 / int4 vs f32
+    difference). On the card: the n-gram engine (spec_k 4) gives the k=1
+    engine's tokens on f32, int8 and int4 pools. The f32 and int4 n-gram
+    runs are the main path of K2-float and K1/K2-int4: their launches are
+    counted from 0 and must be > 0."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt_small()
+    gpu = GPTForCausalLM(cfg, dtype="float32", seed=77)
+    cpu = GPTForCausalLM(cfg, device="cpu", dtype="float32", seed=0)
+    cpu.load_state_dict({k: v.cpu() for k, v in gpu.state_dict().items()})
+    prompts = repetitive_prompts(cfg.vocab_size, (40, 70), 77)
+    ecfg = dict(num_slots=2, page_size=16, max_model_len=1024,
+                token_budget=128)
+
+    def first_logits(model, kv):
+        eng = LLMEngine(model, LLMEngineConfig(kv_dtype=kv, **ecfg))
+        for p in prompts:
+            eng.add_request(p, max_new_tokens=1)
+        eng.step()      # both prompts fit the budget: 1st tick samples both
+        return eng.last_logits.float().cpu()
+
+    ref = first_logits(cpu, "float32")
+    for kv in ("int8", "int4"):
+        lc = first_logits(cpu, kv)
+        lg = first_logits(gpu, kv)
+        err = (lg - lc).abs().max().item()
+        own = (lc - ref).abs().max().item()
+        tol = max(1e-3, own)
+        print(f"cross-check gpt_small f32 {kv} KV card vs cpu: first frontier "
+              f"logits max abs diff {err:.3e} (tol {tol:.3e} = max(1e-3, the "
+              f"cpu's {kv} vs f32 diff {own:.3e}))")
+        if not err <= tol:
+            raise AssertionError(f"{kv}: card and cpu logits differ by "
+                                 f"{err:.3e}")
+    launches = {}
+    for kv in ("float32", "int8", "int4"):
+        runs = []
+        for spec in ({}, {"spec_mode": "ngram", "spec_k": 4}):
+            eng = LLMEngine(gpu, LLMEngineConfig(kv_dtype=kv, **ecfg, **spec))
+            reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS)
+                    for p in prompts]
+            pa.reset_launches()
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+            runs.append([r.future.result() for r in reqs])
+        n = dict(pa.launches)           # the n-gram run's
+        suffix = "" if kv == "float32" else f"_{kv}"
+        if not (n[f"rpa{suffix}"] > 0 and n[f"qblock{suffix}"] > 0):
+            raise AssertionError(f"{kv} + ngram run launched {n}")
+        launches[kv] = n
+        same = all(np.array_equal(a, b) for a, b in zip(*runs))
+        st = eng.stats
+        print(f"spec vs k=1 on the card, gpt_small f32 {kv} KV, ngram spec_k "
+              f"4: tokens {'identical' if same else 'DIFFER'} over "
+              f"{len(prompts)} x {SERVE_NEW_TOKENS}; {st['ngram_windows']} "
+              f"windows, proposed {st['ngram_proposed']} accepted "
+              f"{st['ngram_accepted']}; launches {n}")
+        if not same:
+            raise AssertionError(f"{kv}: n-gram engine tokens differ from "
+                                 "the k=1 engine's")
+    return launches
 
 
 def train(fa):
@@ -583,13 +853,30 @@ def main():
     kres = check_paged_attention(pa, flush)
     fres = check_flash_attention(fa, flush)
     del flush
-    pa_launches = serve(pa)
+    rpa_launches = serve(pa)
+    qs_launches = serve_quant_spec(pa)
     cross_check()
+    cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
     train_cross_check()
-    kernels = [_kernel_row("ragged_paged_attention", "cuda", pa.SOURCE,
-                           pa.REPLACES, pa_launches,
-                           dict(kres[torch.bfloat16], library_ms=None))]
+    # each kernel's launches come from the main-path run that drives it:
+    # K1-float the serve phase, the int8 kernels the int8 + ngram serve,
+    # K2-float and the int4 kernels the cross phase's n-gram runs
+    rows = [("ragged_paged_attention", "rpa", "bfloat16", rpa_launches),
+            ("ragged_paged_attention_int8", "rpa_int8", "int8",
+             qs_launches["rpa_int8"]),
+            ("ragged_paged_attention_int4", "rpa_int4", "int4",
+             cx_launches["int4"]["rpa_int4"]),
+            ("rpa_qblock", "qblock", "bfloat16",
+             cx_launches["float32"]["qblock"]),
+            ("rpa_qblock_int8", "qblock_int8", "int8",
+             qs_launches["qblock_int8"]),
+            ("rpa_qblock_int4", "qblock_int4", "int4",
+             cx_launches["int4"]["qblock_int4"])]
+    kernels = [_kernel_row(name, "cuda", pa.SOURCE, pa.REPLACES[key], n,
+                           dict(kres[(key.split("_")[0], kind)],
+                                library_ms=None))
+               for name, key, kind, n in rows]
     for name, r in fres.items():
         kernels.append(_kernel_row(name, "cuda", fa.SOURCE,
                                    fa.REPLACES[name], fa_launches[name], r))

@@ -15,7 +15,9 @@ Three composed policies, all on the host:
   deadline first.
 
 Preemption asks `pick_victim` for the lowest-priority running sequence
-(tie: youngest admission). With every request on the default tenant and
+(tie: youngest admission). With speculative windows the engine reports
+each window's wall time (`note_boundary`), and the SLO check looks that
+far ahead (`boundary_lag_s`). With every request on the default tenant and
 priority all three policies degrade to exact FIFO plus preempt-youngest.
 """
 import collections
@@ -72,8 +74,15 @@ class SLAScheduler:
         self._arrival = itertools.count()
         self._n = 0
         self._n_slo = 0   # waiting requests that can still escalate
+        # window-boundary granularity: with speculative windows the
+        # engine consults the scheduler once per window, so an escalation
+        # point crossed mid-window would be noticed one window late. The
+        # engine feeds the measured window wall time here (an EMA) and
+        # _at_risk looks that far ahead.
+        self.boundary_lag_s = 0.0
         self.stats = {"preemptions_pool": 0, "preemptions_priority": 0,
-                      "slo_met": 0, "slo_missed": 0}
+                      "slo_met": 0, "slo_missed": 0,
+                      "spec_proposed": 0, "spec_accepted": 0}
 
     @property
     def _any_slo(self):
@@ -136,7 +145,10 @@ class SLAScheduler:
         slo = self.policy.slo_for(req)
         if slo is None:
             return None
-        if now - req.t_submit >= self.policy.slo_boost_fraction * float(slo):
+        # boundary clamp: escalation checks run at window boundaries, so
+        # look one expected window ahead
+        waited = now - req.t_submit + self.boundary_lag_s
+        if waited >= self.policy.slo_boost_fraction * float(slo):
             return req.t_submit + float(slo)  # deadline
         return None
 
@@ -209,6 +221,20 @@ class SLAScheduler:
 
     def note_preemption(self, reason):
         self.stats[f"preemptions_{reason}"] += 1
+
+    def note_spec_window(self, proposed, accepted):
+        """Per-window speculative accounting (once per verify step):
+        proposals sent vs accepted."""
+        self.stats["spec_proposed"] += int(proposed)
+        self.stats["spec_accepted"] += int(accepted)
+
+    def note_boundary(self, window_s):
+        """EMA of a decode window's wall time (once per window), read by
+        `_at_risk`. Capped at 1 s: a one-off stall must not escalate
+        every SLO request a second early for good."""
+        w = min(float(window_s), 1.0)
+        self.boundary_lag_s = (w if self.boundary_lag_s == 0.0
+                               else 0.5 * self.boundary_lag_s + 0.5 * w)
 
     # ---- accounting ----
 

@@ -1,10 +1,15 @@
 """Continuous-batching LLM serving engine with a paged KV cache
-(counterpart of paddle_tpu/inference/llm_engine.py, greedy k=1 path).
+(counterpart of paddle_tpu/inference/llm_engine.py: greedy decode, single
+ticks and n-gram speculative windows).
 
 * Paged KV cache — per layer a pool [num_pages, page_size, heads,
   head_dim] with per-sequence page tables; pages are allocated as a
   sequence grows and freed when it finishes. Physical page 0 is the
   trash page: padding-token writes land there and are never attended.
+  `kv_dtype="int8"` / `"int4"` stores quantized rows (int4: two nibbles
+  per byte, the pool's last dim head_dim / 2) with an fp32 scale plane
+  [num_pages, page_size, heads] beside each pool; attention dequantizes
+  on gather.
 * Continuous scheduler — every step admits queued prompts into free
   decode slots (`SLAScheduler` order: FIFO under the default class),
   fills a flat token budget with one frontier token per running
@@ -13,7 +18,12 @@
   back to the queue; greedy replay makes the re-run deterministic.
 * One eager step per tick (`_PagedStep`) over the fixed geometry
   (token_budget flat tokens, num_slots page tables); the attention
-  inside is the ragged paged attention kernel on the card.
+  inside is the ragged paged attention kernel K1 on the card.
+* N-gram speculation (`spec_mode="ngram"`) — rows at their sampling
+  frontier take one verify window per step instead (`NgramSpeculator`
+  in inference/structured/ngram.py: prompt-lookup proposals scored in
+  one ragged step through the query-blocked kernel K2); rows still
+  prefilling take a single tick in the same step.
 
     server = LLMServer(model)                  # GPTForCausalLM
     with server:
@@ -25,6 +35,7 @@ Greedy decode is token-for-token identical to the JAX package's engine
 (the emitted eos is kept, nothing after it).
 """
 import itertools
+import os
 import queue
 import time as _time
 from concurrent.futures import Future
@@ -32,7 +43,7 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
-from ..core.dtype import resolve_dtype
+from ..quantization import runtime as _qrt
 from .fleet_serving import Priority, SLAScheduler
 from .serving import _FutureQueueServer
 
@@ -114,11 +125,10 @@ class PagePool:
 
 
 # knobs of the JAX engine that this port does not run yet → ROADMAP row
+_DRAFT_ROW = "A7 (draft-model speculation, after A6)"
 _UNPORTED_KNOBS = {
     "decode_k": "A6 (fused decode)",
-    "draft_model": "A7 (speculative decoding)",
-    "spec_k": "A7 (speculative decoding)",
-    "spec_mode": "A7 (speculative decoding)",
+    "draft_model": _DRAFT_ROW,
     "token_strs": "A9 (structured decoding)",
     "grammar_states": "A9 (structured decoding)",
     "prefix_cache": "A10 (serving fleet: prefix cache)",
@@ -140,18 +150,28 @@ class LLMEngineConfig:
     token_budget  flat tokens per step (>= num_slots); the surplus over
                   the decode tokens is the chunked-prefill bandwidth.
                   Default num_slots + max(num_slots, 8).
-    kv_dtype      pool dtype "float32" | "bfloat16"; default the model's
-                  dtype. int8/int4 pools are ROADMAP A4.
+    kv_dtype      pool dtype "float32" | "bfloat16" | "int8" | "int4"
+                  (int8 / packed int4 rows with per-row fp32 scale
+                  planes, dequantized on gather). Default: the
+                  PT_KV_DTYPE env var, else the model's dtype.
     seed          engine seed (sampled decode, ROADMAP A5; greedy
                   decode ignores it)
     sla_policy    fleet_serving.SLAPolicy for admission order
+    spec_mode     None (no speculation) or "ngram": prompt-lookup
+                  proposals from each request's own tokens, verified
+                  k+1 positions per slot in one ragged step
+                  (inference/structured/ngram.py). "draft" (a draft
+                  model) is ROADMAP A7, after A6.
+    spec_k        proposals per speculative window. Default: the
+                  PT_SPEC_K env var, else 4. Ignored without speculation.
 
     Every other knob of the JAX engine raises NotImplementedError naming
     its ROADMAP row when set."""
 
     def __init__(self, num_slots=4, page_size=16, num_pages=None,
                  max_model_len=None, token_budget=None, kv_dtype=None,
-                 seed=0, sla_policy=None, **unported):
+                 seed=0, sla_policy=None, spec_k=None, spec_mode=None,
+                 **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_KNOBS:
                 raise TypeError(
@@ -165,17 +185,65 @@ class LLMEngineConfig:
         self.num_pages = num_pages
         self.max_model_len = max_model_len
         self.token_budget = token_budget
-        if kv_dtype in ("int8", "int4"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r} needs the quantized runtime and "
-                "kernel K1's dequant branches: ROADMAP A4")
-        self.kv_dtype = None if kv_dtype is None else resolve_dtype(kv_dtype)
+        if kv_dtype is not None:   # a bad name raises here, not at serve
+            _qrt.resolve_kv_dtype(kv_dtype, torch.float32)
+        self.kv_dtype = kv_dtype
         self.seed = int(seed)
         self.sla_policy = sla_policy
+        if spec_k is None:
+            spec_k = int(os.environ.get("PT_SPEC_K", "4"))
+        self.spec_k = int(spec_k)
+        if spec_mode not in (None, "draft", "ngram"):
+            raise ValueError(
+                "spec_mode must be None, 'draft', or 'ngram', got "
+                f"{spec_mode!r}")
+        if spec_mode == "draft":
+            raise NotImplementedError(
+                f"LLMEngineConfig(spec_mode='draft') is not ported yet: "
+                f"ROADMAP {_DRAFT_ROW}")
+        self.spec_mode = spec_mode
         if self.num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
+        if self.spec_k < 1:
+            raise ValueError("spec_k must be >= 1")
+
+    @staticmethod
+    def kv_bytes_per_page(model_config, page_size, kv_dtype=None):
+        """Bytes ONE page costs across every layer's k+v pool, scale
+        planes included: int8 rows cost head_dim + 4 bytes per head,
+        packed int4 rows head_dim / 2 + 4."""
+        dt, quantized = _qrt.resolve_kv_dtype(kv_dtype, torch.float32)
+        nh = model_config.num_heads
+        hd = model_config.hidden_size // nh
+        if quantized == 4:
+            per_row = nh * (hd // 2)      # packed nibbles
+        else:
+            per_row = nh * hd * torch.empty((), dtype=dt).element_size()
+        if quantized:
+            per_row += nh * 4  # fp32 scale per (row, head)
+        return 2 * model_config.num_layers * page_size * per_row
+
+    @classmethod
+    def for_pool_budget(cls, model_config, budget_bytes, page_size=16,
+                        kv_dtype=None, **kw):
+        """Size `num_pages` to a page-pool byte budget (the equal-bytes
+        capacity comparison: int8 pools admit ~4x the pages of fp32)."""
+        per_page = cls.kv_bytes_per_page(model_config, page_size, kv_dtype)
+        num_pages = max(2, int(budget_bytes) // per_page + 1)  # + trash
+        return cls(page_size=page_size, num_pages=num_pages,
+                   kv_dtype=kv_dtype, **kw)
+
+
+SPEC_MODES = ("off", "draft", "ngram")
+
+
+def _check_spec_mode(spec_mode):
+    if spec_mode is not None and spec_mode not in SPEC_MODES:
+        raise ValueError(
+            f"spec_mode= must be one of {SPEC_MODES} or None, got "
+            f"{spec_mode!r}")
 
 
 def _check_sampling(temperature, top_p):
@@ -191,16 +259,19 @@ def _check_sampling(temperature, top_p):
 
 class _PagedStep:
     """The engine's one decode step — the eager counterpart of the JAX
-    package's compiled `_CompiledPagedStep`. The pools are updated in
-    place by the step (where JAX donated them to the executable)."""
+    package's compiled `_CompiledPagedStep`. The pools and scale planes
+    are updated in place by the step (where JAX donated them to the
+    executable). Returns the logits."""
 
     def __init__(self, model):
         self.model = model
 
-    def __call__(self, tok, pos, sid, widx, pt, klen, smp, kv):
+    def __call__(self, tok, pos, sid, widx, pt, klen, smp, kv,
+                 kv_scales=None):
         with torch.inference_mode():
-            return self.model._paged_decode_core(tok, pos, sid, widx, pt,
-                                                 klen, smp, kv)
+            logits, *_ = self.model._paged_decode_core(
+                tok, pos, sid, widx, pt, klen, smp, kv, kv_scales=kv_scales)
+        return logits
 
 
 class _Request:
@@ -210,6 +281,8 @@ class _Request:
                  tenant="default", priority=None, ttft_slo_s=None,
                  temperature=0.0, top_p=1.0):
         _check_sampling(float(temperature), float(top_p))
+        self.temperature = float(temperature)   # 0: greedy (checked above)
+        self.spec_off = False     # per-request spec_mode="off" opt-out
         self.rid = next(_Request._ids)
         self.tokens = [int(t) for t in tokens]  # prompt, grows as decoded
         self.prompt_len = len(self.tokens)
@@ -278,12 +351,31 @@ class LLMEngine:
                         or self.num_slots * self.pages_per_seq + 1)
         self.pool = PagePool(num_pages, self.page_size)
         nh = mcfg.num_heads
-        self.kv_dtype = cfg.kv_dtype or model.dtype
-        self._pool_shape = (num_pages, self.page_size, nh,
-                            mcfg.hidden_size // nh)
-        self._kv = [torch.zeros(self._pool_shape, dtype=self.kv_dtype,
+        hd = mcfg.hidden_size // nh
+        # pool in the configured kv_dtype (default: the model's dtype);
+        # kv_quantized is the code width (0 float / 8 / 4). int4 packs two
+        # nibbles per byte along head_dim, so the pool's last dim is hd/2
+        # — the shape is the codec's discriminator downstream
+        cache_dt, self.kv_quantized = _qrt.resolve_kv_dtype(cfg.kv_dtype,
+                                                            model.dtype)
+        hd_store = hd
+        if self.kv_quantized == 4:
+            if hd % 2:
+                raise ValueError(
+                    f"kv_dtype='int4' needs an even head_dim, got {hd} "
+                    "(nibble packing pairs head_dim elements)")
+            hd_store = hd // 2
+            self.kv_dtype = "int4"
+        else:
+            self.kv_dtype = str(cache_dt).replace("torch.", "")
+        self._pool_shape = (num_pages, self.page_size, nh, hd_store)
+        self._kv = [torch.zeros(self._pool_shape, dtype=cache_dt,
                                 device=self.device)
                     for _ in range(2 * mcfg.num_layers)]
+        self._kv_scales = [
+            torch.zeros(_qrt.kv_scale_shape(num_pages, self.page_size, nh),
+                        dtype=torch.float32, device=self.device)
+            for _ in range(2 * mcfg.num_layers if self.kv_quantized else 0)]
         self._page_tables = np.zeros(
             (self.num_slots, self.pages_per_seq), np.int32)
         self._slots = [None] * self.num_slots
@@ -295,6 +387,22 @@ class LLMEngine:
                       "finished": 0, "preemptions": 0}
         # f32 frontier logits of the last tick that sampled (cross-checks)
         self.last_logits = None
+        # speculative decoding: rows at their sampling frontier take one
+        # verify window per step (inference/structured/ngram.py)
+        self.spec_mode = cfg.spec_mode
+        self._spec = None
+        if cfg.spec_mode == "ngram":
+            from .structured.ngram import NgramSpeculator
+
+            self._spec = NgramSpeculator(self, cfg.spec_k)
+
+    def pool_bytes(self):
+        """Resident KV pool bytes across layers, scale planes included."""
+        total = sum(p.numel() * p.element_size()
+                    for p in self._kv + self._kv_scales)
+        if self._spec is not None:
+            total += self._spec.pool_bytes()
+        return int(total)
 
     @property
     def waiting(self):
@@ -305,10 +413,24 @@ class LLMEngine:
 
     def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
                     future=None, tenant="default", priority=None,
-                    ttft_slo_s=None, temperature=0.0, top_p=1.0):
+                    ttft_slo_s=None, temperature=0.0, top_p=1.0,
+                    spec_mode=None):
         """Enqueue one request (1-D int token ids); returns the
         `_Request`, whose `future` resolves to np.int64 [prompt +
-        generated]."""
+        generated].
+
+        spec_mode: per-request speculation override — None inherits the
+        engine's mode; "off" disables proposals for this request; the
+        engine's own mode is accepted; any other mode raises
+        (speculation is an engine resource)."""
+        _check_spec_mode(spec_mode)
+        if spec_mode not in (None, "off") and spec_mode != (
+                self.spec_mode or "off"):
+            raise ValueError(
+                f"spec_mode={spec_mode!r}: this engine runs "
+                f"spec_mode={self.spec_mode!r} — speculation is an "
+                "engine resource; per-request spec_mode can only "
+                "opt OUT ('off') or restate the engine's mode")
         toks = np.asarray(prompt).reshape(-1)
         if toks.size == 0:
             raise ValueError("empty prompt")
@@ -324,6 +446,7 @@ class LLMEngine:
                        tenant=tenant, priority=priority,
                        ttft_slo_s=ttft_slo_s, temperature=temperature,
                        top_p=top_p)
+        req.spec_off = spec_mode == "off"
         req.target = min(req.prompt_len + req.max_new, self.max_model_len)
         if req.target <= req.prompt_len:
             # zero budget: the prompt echoes back
@@ -338,8 +461,8 @@ class LLMEngine:
 
     def abort_all(self, exc):
         """Fail every live and queued request with `exc` (device-error
-        path), release all pages, and re-zero the pools — a step that
-        died mid-write leaves them half updated."""
+        path), release all pages, and re-zero the pools and scale planes
+        — a step that died mid-write leaves them half updated."""
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._release(slot, req)
@@ -349,8 +472,10 @@ class LLMEngine:
             if not req.future.done():
                 req.future.set_exception(exc)
         with torch.inference_mode():
-            for p in self._kv:
+            for p in self._kv + self._kv_scales:
                 p.zero_()
+        if self._spec is not None:
+            self._spec.reset_pools()
 
     # ---- scheduler ----
 
@@ -402,8 +527,13 @@ class LLMEngine:
         if no_slot and not victims:
             return False
         # feasibility first: preempting a runner destroys its progress,
-        # so evict only when a slot and enough pages can exist
-        need = -(-len(req.tokens) // self.page_size)
+        # so evict only when a slot and enough pages can exist. With
+        # speculation, one page of headroom per live frontier slot stays
+        # free, so a burst of admissions cannot drain the pool to where
+        # every verify window collapses to width 0
+        headroom = (self._spec.window_headroom()
+                    if self._spec is not None else 0)
+        need = -(-len(req.tokens) // self.page_size) + headroom
         if (self.pool.num_free < need
                 and self.pool.num_free + sum(len(r.pages) for r in victims)
                 < need):
@@ -438,13 +568,19 @@ class LLMEngine:
         return sorted(((slot, req) for slot, req in enumerate(self._slots)
                        if req is not None), key=lambda it: it[1].admit_seq)
 
-    def _plan(self):
+    def _plan(self, only_slots=None):
         """Allot this step's flat token budget: one frontier token per
         running sequence first, then chunked prefill in admission order.
         Allocates the pages the planned tokens will write; a dry pool
-        preempts the youngest sequence and replans."""
+        preempts the youngest sequence and replans. `only_slots`
+        restricts the plan to those slots (the straggler tick of a
+        speculative step: the frontier rows already took their window);
+        victims of a dry pool are still picked from all running
+        sequences."""
         while True:
             active = self._active()
+            if only_slots is not None:
+                active = [(s, r) for s, r in active if s in only_slots]
             if not active:
                 return None
             alloc = {}
@@ -487,14 +623,31 @@ class LLMEngine:
                 return [(slot, req, alloc[slot]) for slot, req in active]
 
     def step(self):
-        """One scheduler tick: admit → one decode step over the planned
-        flat tokens → greedy pick at each frontier → evict finished.
-        Returns the requests finished this tick."""
+        """One scheduler tick: admit → either one speculative window over
+        the rows at their sampling frontier (with `spec_mode`), or one
+        decode step over the planned flat tokens with a greedy pick at
+        each frontier → evict finished. Rows still prefilling take a
+        single tick in the same step (`only_slots`), so a straggler does
+        not force the whole engine off windows; a window that cannot
+        cover even the frontier token's page returns None and the step
+        falls back to a single tick. Returns the requests finished."""
         self._admit()
+        if self._spec is not None:
+            active = self._active()
+            frontier = [(s, r) for s, r in active
+                        if r.n_prefilled == len(r.tokens) - 1]
+            if frontier:
+                out = self._spec.try_window(frontier)
+                if out is not None:
+                    stragglers = {s for s, r in active
+                                  if r.n_prefilled != len(r.tokens) - 1}
+                    if stragglers:
+                        out = out + self._step_tick(only_slots=stragglers)
+                    return out
         return self._step_tick()
 
-    def _step_tick(self):
-        plan = self._plan()
+    def _step_tick(self, only_slots=None):
+        plan = self._plan(only_slots)
         if plan is None:
             return []
         T, S, MP = self.token_budget, self.num_slots, self.pages_per_seq
@@ -528,7 +681,8 @@ class LLMEngine:
         pt_d = dev[5 * T + S:].view(S, MP)
         try:
             logits = self._step_fn(tok_d, pos_d, sid_d, widx_d, pt_d,
-                                   klen_d, smp_d, self._kv)
+                                   klen_d, smp_d, self._kv,
+                                   self._kv_scales or None)
             nxt = []
             if sample_slots:
                 lv = logits[0, sample_slots].float()
@@ -580,13 +734,14 @@ class LLMServer(_FutureQueueServer):
 
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
                tenant="default", priority=None, ttft_slo_s=None,
-               temperature=0.0, top_p=1.0):
+               temperature=0.0, top_p=1.0, spec_mode=None):
         """Enqueue one prompt (1-D int token ids). Returns a Future
         resolving to np.int64 [prompt + generated] (eos kept, nothing
         after it). Sampling knobs are checked here, on the caller's
         thread. The engine-side `_Request` is attached to the future as
         `fut.pt_request` once the engine thread has taken it in."""
         _check_sampling(float(temperature), float(top_p))
+        _check_spec_mode(spec_mode)
         fut = Future()
         fut.pt_request = None
         self._enqueue(dict(
@@ -594,7 +749,7 @@ class LLMServer(_FutureQueueServer):
             max_new_tokens=int(max_new_tokens), eos_token_id=eos_token_id,
             future=fut, tenant=tenant, priority=priority,
             ttft_slo_s=ttft_slo_s, temperature=float(temperature),
-            top_p=float(top_p)))
+            top_p=float(top_p), spec_mode=spec_mode))
         return fut
 
     def generate(self, prompt, max_new_tokens=32, eos_token_id=None):

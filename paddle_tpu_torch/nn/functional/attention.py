@@ -8,7 +8,8 @@ the hand-written kernels K3 (forward) and K4 + K5 (backward), on a CPU
 tensor their plain versions. A mask, attention dropout or cross-length
 attention takes `dense_attention_bshd`, the reference's own non-kernel
 path. `paged_attention` is the serving path: the ragged paged attention
-kernel on a CUDA tensor, its plain version on a CPU tensor.
+kernels (K1, or K2 on the speculative verify layout) on a CUDA tensor,
+their plain version on a CPU tensor.
 """
 import math
 
@@ -89,21 +90,34 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
 
 
 def paged_attention(query, k_pool, v_pool, page_tables, slot_ids, kv_lens,
-                    k_scales=None, v_scales=None, frontier_offset=None):
+                    k_scales=None, v_scales=None, frontier_offset=None,
+                    max_tokens_per_slot=None):
     """Ragged paged attention over a paged KV-cache pool: one query per
     flat scheduled token, against its slot's pages.
 
     query         [T, heads, head_dim]
-    k_pool/v_pool [num_pages, page_size, heads, head_dim]; page 0 is
+    k_pool/v_pool [num_pages, page_size, heads, head_dim] float, or int8
+                  codes (packed int4: [..., head_dim / 2]); page 0 is
                   the engine's trash page
     page_tables   [num_slots, pages_per_seq] int32 — entries past a
                   token's kv length may hold stale ids and are not read
     slot_ids      [T] int32 owning slot per token
     kv_lens       [T] int32 valid kv length per token (position + 1);
                   0 marks a padding token → exact zero output
+    k_scales/v_scales  [num_pages, page_size, heads] fp32 per-row scales
+                  of int8 / int4 pools (dequantized on gather)
     frontier_offset  optional int added to every NONZERO kv_lens row
-    k_scales/v_scales  quantized pools — not ported yet (ROADMAP A4)."""
+    max_tokens_per_slot  optional int, the caller's guarantee that no
+                  slot owns more than this many of the T tokens. When T
+                  is a multiple of it the rows are taken as slot-major
+                  blocks of that size (the speculative verify layout) and
+                  the query-blocked kernel K2 runs."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales or neither")
+    qps = (max_tokens_per_slot
+           if max_tokens_per_slot is not None
+           and query.shape[0] % max_tokens_per_slot == 0 else None)
     return _pa.ragged_paged_attention(
         query, k_pool, v_pool, page_tables, slot_ids, kv_lens,
         k_scales=k_scales, v_scales=v_scales,
-        frontier_offset=frontier_offset)
+        frontier_offset=frontier_offset, q_per_slot=qps)

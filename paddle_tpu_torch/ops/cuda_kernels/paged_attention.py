@@ -1,58 +1,90 @@
-"""Ragged paged attention — the serving kernel and its plain version.
+"""Ragged paged attention — the serving kernels and their plain version.
 
 Counterpart of paddle_tpu/ops/pallas_kernels/paged_attention.py. The
-kernel is CUDA C++ for sm_90a (`csrc/paged_attention.cu`, whose header
-says what bounds it and how it is built), bound with ctypes.
+kernels are CUDA C++ for sm_90a (`csrc/paged_attention.cu`, whose header
+says what bounds them and how they are built), bound with ctypes:
+
+* K1, `rpa_kernel`: one query row per flat token, over float pools or
+  int8 / packed-int4 pools with per-row fp32 scale planes (dequantized
+  on gather);
+* K2, `rpa_qblock_kernel`: the same function on the speculative verify
+  layout (`q_per_slot`): the T rows are slot-major blocks of qb rows,
+  one slot per block, and each page of the slot is staged once per
+  block instead of once per row.
 
 `ragged_paged_attention` is the wrapper the model calls: for tensors on
 the CPU it runs `ragged_paged_attention_plain`; for CUDA tensors it
-launches the kernel (and raises on anything the kernel does not take).
-`launches` counts kernel launches — it moves only where the kernel
-launches, so a run can show its main path went through the kernel.
+launches K1 or K2 (and raises on anything the kernel does not take).
+`launches` counts kernel launches, one entry per kernel and pool kind —
+it moves only where a kernel launches, so a run can show its main path
+went through the kernels.
 """
 import ctypes
 import math
 
 import torch
 
+from ...quantization.runtime import unpack_int4
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "launches", "reset_launches"]
 
 NEG_INF = -1e30
+MAX_QBLOCK = 16
 SOURCE = "paddle_tpu_torch/csrc/paged_attention.cu"
-REPLACES = "paddle_tpu/ops/pallas_kernels/paged_attention.py:53"
+_REF = "paddle_tpu/ops/pallas_kernels/paged_attention.py"
+REPLACES = {"rpa": f"{_REF}:53", "rpa_int8": f"{_REF}:84",
+            "rpa_int4": f"{_REF}:87", "qblock": f"{_REF}:131",
+            "qblock_int8": f"{_REF}:168", "qblock_int4": f"{_REF}:169"}
 
-launches = 0
+launches = dict.fromkeys(REPLACES, 0)
 
 
 def reset_launches():
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
+
+
+def _pool_kind(k_pool, k_scales, head_dim):
+    """"" for float pools, "int8" or "int4" for quantized ones: a
+    quantized pool whose last dim is half of head_dim holds packed
+    nibbles (the reference's discriminator)."""
+    if k_scales is None:
+        return ""
+    return "int4" if k_pool.shape[-1] * 2 == head_dim else "int8"
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_tables, slot_ids,
                            kv_lens, k_scales=None, v_scales=None,
-                           frontier_offset=None):
-    """q [T, H, D], pools [N, P, H, D], page_tables [S, MP] int32,
-    slot_ids / kv_lens [T] int32 → out [T, H, D] in q's dtype.
-    frontier_offset: optional int added to every nonzero kv_lens row."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            "int8/int4 paged KV pools come with the quantized runtime "
-            "(ROADMAP A4, kernel K1's dequant branches)")
+                           frontier_offset=None, q_per_slot=None):
+    """q [T, H, D], pools [N, P, H, D] (float), [N, P, H, D] int8 or
+    [N, P, H, D/2] packed int4 with k_scales / v_scales [N, P, H] fp32,
+    page_tables [S, MP] int32, slot_ids / kv_lens [T] int32 → out
+    [T, H, D] in q's dtype.
+
+    frontier_offset: optional int added to every nonzero kv_lens row.
+    q_per_slot: optional int, the caller's guarantee that the T rows are
+    slot-major blocks of exactly this many rows, one slot per block (the
+    verify layout); T must be a multiple of it. On the card it selects
+    K2."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("pass both k_scales and v_scales or neither")
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, k_pool, v_pool, page_tables, slot_ids, kv_lens,
-            frontier_offset=frontier_offset)
+            k_scales=k_scales, v_scales=v_scales,
+            frontier_offset=frontier_offset, q_per_slot=q_per_slot)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k_pool, v_pool, page_tables, slot_ids, kv_lens,
-                   0 if frontier_offset is None else int(frontier_offset))
+    return _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables,
+                   slot_ids, kv_lens,
+                   0 if frontier_offset is None else int(frontier_offset),
+                   q_per_slot)
 
 
-_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
+_KV_KINDS = {"f32": 0, "bf16": 1, "int8": 8, "int4": 4}
 
 
 def _check(name, x, device, dtypes, ndim, align=4):
@@ -68,20 +100,47 @@ def _check(name, x, device, dtypes, ndim, align=4):
         raise ValueError(f"{name} must be {align}-byte aligned")
 
 
-def _launch(q, k_pool, v_pool, page_tables, slot_ids, kv_lens, offset):
+def _kernel_fn(n_ptrs):
+    fn = _build.load("paged_attention").pt_ragged_paged_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6 + [
+            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
+            kv_lens, offset, q_per_slot):
     dev = q.device
-    floats = tuple(_KINDS)
-    # the kernel moves 8 head_dim elements per 16/32-byte vector access
-    _check("q", q, dev, floats, 3, align=16)
-    _check("k_pool", k_pool, dev, floats, 4, align=16)
-    _check("v_pool", v_pool, dev, (k_pool.dtype,), 4, align=16)
+    T, H, D = q.shape
+    kind = _pool_kind(k_pool, k_scales, D)
+    # K1/K2 move 8 head_dim elements per vector access: 16 or 32 bytes
+    # of a float row, 8 bytes of an int8 row; packed int4 rows are read
+    # bytewise when D/2 is not a multiple of 8
+    _check("q", q, dev, tuple(_Q_KINDS), 3, align=16)
+    if kind:
+        _check("k_pool", k_pool, dev, (torch.int8,), 4, align=8)
+        _check("v_pool", v_pool, dev, (torch.int8,), 4, align=8)
+        for name, s in (("k_scales", k_scales), ("v_scales", v_scales)):
+            _check(name, s, dev, (torch.float32,), 3)
+            if s.shape != k_pool.shape[:3]:
+                raise ValueError(f"{name} shape {tuple(s.shape)} != pool "
+                                 f"[N, P, H] {tuple(k_pool.shape[:3])}")
+        kv_kind = _KV_KINDS[kind]
+    else:
+        _check("k_pool", k_pool, dev, tuple(_Q_KINDS), 4, align=16)
+        _check("v_pool", v_pool, dev, (k_pool.dtype,), 4, align=16)
+        kv_kind = _Q_KINDS[k_pool.dtype]
     for name, x, nd in (("page_tables", page_tables, 2),
                         ("slot_ids", slot_ids, 1), ("kv_lens", kv_lens, 1)):
         _check(name, x, dev, (torch.int32,), nd)
-    T, H, D = q.shape
     _, P, Hk, Dk = k_pool.shape
     S, MP = page_tables.shape
-    if (Hk, Dk) != (H, D) or v_pool.shape != k_pool.shape:
+    if kind == "int4" and D % 2:
+        raise ValueError(f"int4 pools need an even head_dim, got {D}")
+    d_store = D // 2 if kind == "int4" else D
+    if (Hk, Dk) != (H, d_store) or v_pool.shape != k_pool.shape:
         raise ValueError(
             f"pool shape {tuple(k_pool.shape)} / {tuple(v_pool.shape)} "
             f"does not match q [T, H={H}, D={D}]")
@@ -89,35 +148,48 @@ def _launch(q, k_pool, v_pool, page_tables, slot_ids, kv_lens, offset):
         raise ValueError(f"head_dim {D} must be a multiple of 8, <= 256")
     if slot_ids.shape[0] != T or kv_lens.shape[0] != T:
         raise ValueError("slot_ids / kv_lens must have one entry per token")
+    qb = 0
+    if q_per_slot is not None:
+        qb = int(q_per_slot)
+        if qb < 1 or qb > MAX_QBLOCK or T % qb:
+            raise ValueError(
+                f"q_per_slot {qb}: must be in 1..{MAX_QBLOCK} and divide "
+                f"T={T}")
+        if 2 * P * D * 4 > 227 * 1024:
+            raise ValueError(f"page [{P}, {D}] of K and V does not fit "
+                             "the query-blocked kernel's shared memory")
     out = torch.empty_like(q)
     if T == 0:
         return out
-    fn = _build.load("paged_attention").pt_ragged_paged_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-            ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             page_tables.data_ptr(), slot_ids.data_ptr(),
-             kv_lens.data_ptr(), out.data_ptr(), T, H, D, P, MP, offset,
-             1.0 / math.sqrt(D), _KINDS[q.dtype], _KINDS[k_pool.dtype],
-             torch.cuda.current_stream(dev).cuda_stream)
+    dummy = k_pool   # scale pointers of a float pool are never read
+    ptrs = (q, k_pool, v_pool, k_scales if kind else dummy,
+            v_scales if kind else dummy, page_tables, slot_ids, kv_lens,
+            out)
+    err = _kernel_fn(len(ptrs))(
+        *(x.data_ptr() for x in ptrs), T, H, D, P, MP, offset,
+        1.0 / math.sqrt(D), _Q_KINDS[q.dtype], kv_kind, qb,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: cudaError {err}")
-    global launches
-    launches += 1
+    key = ("qblock" if qb else "rpa") + (f"_{kind}" if kind else "")
+    launches[key] += 1
     return out
 
 
 def ragged_paged_attention_plain(q, k_pool, v_pool, page_tables, slot_ids,
-                                 kv_lens, frontier_offset=None):
+                                 kv_lens, k_scales=None, v_scales=None,
+                                 frontier_offset=None, q_per_slot=None):
     """Plain PyTorch version — the slot-grid formulation of the JAX
     package's jnp path (nn/functional/attention.py:212-282): gather each
-    SLOT's kv once ([S, L, H, D]), scatter the queries onto an [S, C]
-    slot grid, one batched softmax attention, gather back per token.
-    Scores and softmax statistics in f32 even for bf16 pools; padding
-    rows (kv_len 0) come out as exact zeros."""
+    SLOT's kv once ([S, L, H, D]; quantized pools dequantized to f32 by
+    their per-row scales after the gather, int4 unpacked first), scatter
+    the queries onto an [S, C] slot grid (C = q_per_slot when given, the
+    most tokens any slot owns), one batched softmax attention, gather
+    back per token. Scores and softmax statistics in f32; the weights are
+    cast to V's dtype before the p·v product (bf16 for a bf16 pool, f32
+    for a quantized one); padding rows (kv_len 0) come out as exact
+    zeros."""
     n_pages, page_size, h, d = k_pool.shape
     n_slots, pages_per_seq = page_tables.shape
     tokens = q.shape[0]
@@ -130,15 +202,26 @@ def ragged_paged_attention_plain(q, k_pool, v_pool, page_tables, slot_ids,
     l_idx = torch.arange(L, device=dev)
     phys = (page_tables.long()[:, l_idx // page_size] * page_size
             + (l_idx % page_size)[None, :])                  # [S, L]
-    work = torch.promote_types(q.dtype, k_pool.dtype)
-    ks = k_pool.reshape(n_pages * page_size, h, d)[phys].to(work)
+    ks = k_pool.reshape(n_pages * page_size, h, d)[phys]
     vs = v_pool.reshape(n_pages * page_size, h, d)[phys]
+    if k_scales is not None:
+        if _pool_kind(k_pool, k_scales, q.shape[-1]) == "int4":
+            ks = unpack_int4(ks, axis=-1)
+            vs = unpack_int4(vs, axis=-1)
+            d = d * 2
+        ksc = k_scales.reshape(n_pages * page_size, h)[phys]
+        vsc = v_scales.reshape(n_pages * page_size, h)[phys]
+        ks = ks.to(torch.float32) * ksc[..., None]
+        vs = vs.to(torch.float32) * vsc[..., None]
+    work = torch.promote_types(q.dtype, ks.dtype)
+    ks = ks.to(work)
     # chunk position of each token within its slot (order-stable)
     eq = sids[:, None] == sids[None, :]
     cpos = torch.tril(eq, -1).sum(dim=1)                    # [T]
-    qs = torch.zeros((n_slots, tokens, h, d), dtype=work, device=dev)
+    C = tokens if q_per_slot is None else min(tokens, int(q_per_slot))
+    qs = torch.zeros((n_slots, C, h, d), dtype=work, device=dev)
     qs[sids, cpos] = q.to(work)
-    lgrid = torch.zeros((n_slots, tokens), dtype=torch.long, device=dev)
+    lgrid = torch.zeros((n_slots, C), dtype=torch.long, device=dev)
     lgrid[sids, cpos] = ls
     sc = torch.einsum("schd,slhd->shcl", qs, ks) / math.sqrt(d)
     allowed = l_idx[None, None, None, :] < lgrid[:, None, :, None]

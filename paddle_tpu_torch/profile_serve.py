@@ -1,18 +1,36 @@
 """Where the serving time goes on the card.
 
-Runs the serve load of `chip_smoke.py` (gpt_small, bf16 weights and KV
-pool, 8 greedy requests with prompts of 16-900 tokens, 32 new tokens
-each; engine num_slots 8, page_size 16, token_budget 256) once to warm
-up and once under `torch.profiler`, then prints:
+Runs serve loads of `chip_smoke.py` over gpt_small with bf16 weights, 8
+greedy requests with prompts of 16-900 tokens, 32 new tokens each
+(engine num_slots 8, page_size 16, token_budget 256):
 
-* the burst's wall time, ticks and generated tokens;
-* device time (the sum of the kernel rows' times on the one stream) and
-  the device's idle share of the wall time;
+* `serve` (default): bf16 KV pool, random prompt ids (chip_smoke's
+  "serve" phase);
+* `int8-ngram`: int8 KV pool and n-gram speculation (spec_k 4), each
+  prompt a random 24-token segment repeated to its length (chip_smoke's
+  "serve int8 + ngram" phase);
+* `bf16-repetitive`, `int8`, `ngram`: the repetitive prompts with a bf16
+  pool and no speculation, an int8 pool alone, n-gram speculation alone
+  — with `int8-ngram`, the four corners that separate the int8 pool's
+  cost from speculation's.
+
+Each load runs one warm-up burst, one timed burst and one burst under
+`torch.profiler`, then prints:
+
+* the timed burst's wall time, generated tok/s and median TTFT, engine
+  steps (single ticks + verify windows), proposals and acceptances, and
+  the host seconds spent mining proposals;
+* the profiled burst's device time (the sum of the kernel rows' times on
+  the one stream) and the device's idle share of its wall time;
+* the paged attention kernels' shares of device time: K1 (`rpa_kernel`)
+  and K2 (`rpa_qblock_kernel`);
 * the kernels ordered by device time, with launch counts.
 
-    python -m paddle_tpu_torch.profile_serve [--trace PATH]
+    python -m paddle_tpu_torch.profile_serve [--load LOAD ...]
+        [--trace PATH]
 
-`--trace` also writes the Chrome trace. Needs a CUDA GPU.
+`--trace` also writes the Chrome trace of the last load. Needs a CUDA
+GPU.
 """
 import argparse
 import time
@@ -28,39 +46,77 @@ from .text.models.gpt import GPTForCausalLM, gpt_small
 PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 NEW_TOKENS = 32
 ENGINE = dict(num_slots=8, page_size=16, max_model_len=1024,
-              token_budget=256, kv_dtype="bfloat16")
+              token_budget=256)
+_NGRAM = dict(spec_mode="ngram", spec_k=4)
+# load -> (engine knobs, repetitive prompts)
+LOADS = {"serve": (dict(kv_dtype="bfloat16"), False),
+         "bf16-repetitive": (dict(kv_dtype="bfloat16"), True),
+         "int8": (dict(kv_dtype="int8"), True),
+         "ngram": (dict(kv_dtype="bfloat16", **_NGRAM), True),
+         "int8-ngram": (dict(kv_dtype="int8", **_NGRAM), True)}
+
+
+def _prompts(repetitive, vocab):
+    if not repetitive:
+        rng = np.random.default_rng(1234)
+        return [rng.integers(0, vocab, (n,)) for n in PROMPT_LENS]
+    rng = np.random.default_rng(4321)
+    return [np.resize(rng.integers(0, vocab, (24,)), n) for n in PROMPT_LENS]
 
 
 def _burst(server, prompts):
+    """(wall seconds, median TTFT seconds) of one burst."""
     t0 = time.perf_counter()
     futs = [server.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
     for f in futs:
         f.result(timeout=600)
     torch.cuda.synchronize()
-    return time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    ttft = sorted(f.pt_request.t_first_token - t0 for f in futs)
+    return wall, ttft[len(ttft) // 2]
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--trace", help="write the Chrome trace here")
-    args = ap.parse_args(argv)
-    cfg = gpt_small()
-    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=1234)
-    rng = np.random.default_rng(1234)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,)) for n in PROMPT_LENS]
-    server = LLMServer(model, LLMEngineConfig(**ENGINE))
+def _timed_proposals(spec):
+    """Wrap the speculator's proposal scan to add up its host seconds."""
+    spent = [0.0]
+    propose = spec._propose
+
+    def timed(req):
+        t0 = time.perf_counter()
+        try:
+            return propose(req)
+        finally:
+            spent[0] += time.perf_counter() - t0
+
+    spec._propose = timed
+    return spent
+
+
+def run_load(model, name, trace=None):
+    knobs, repetitive = LOADS[name]
+    prompts = _prompts(repetitive, model.config.vocab_size)
+    server = LLMServer(model, LLMEngineConfig(**ENGINE, **knobs))
+    eng = server.engine
+    spent = _timed_proposals(eng._spec) if eng._spec is not None else [0.0]
     with server:
         _burst(server, prompts)                    # warm-up
-        ticks0 = server.engine.stats["steps"]
+        before = dict(eng.stats)
+        spent[0] = 0.0
+        wall, ttft = _burst(server, prompts)
+        d = {k: eng.stats[k] - before.get(k, 0) for k in eng.stats}
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            wall = _burst(server, prompts)
-        ticks = server.engine.stats["steps"] - ticks0
+            pwall, _ = _burst(server, prompts)
+    steps, windows = d["steps"], d.get("ngram_windows", 0)
     gen = NEW_TOKENS * len(prompts)
-    print(f"card: {torch.cuda.get_device_name(0)}")
-    print(f"burst: {wall * 1e3:.3f} ms wall, {ticks} ticks "
-          f"({wall * 1e3 / ticks:.3f} ms/tick), {gen} generated tokens "
-          f"({gen / wall:.1f} tok/s) under the profiler")
+    print(f"load {name} ({knobs}, {'repetitive' if repetitive else 'random'}"
+          f" prompts): {wall * 1e3:.3f} ms wall, {gen / wall:.1f} generated "
+          f"tok/s, TTFT median {ttft * 1e3:.3f} ms, {steps} steps = "
+          f"{steps - windows} ticks + {windows} windows "
+          f"({wall * 1e3 / steps:.3f} ms/step)"
+          + (f", proposed {d['ngram_proposed']} accepted "
+             f"{d['ngram_accepted']}, proposal scan {spent[0] * 1e3:.3f} ms "
+             "on the host" if windows else ""))
     # kernel rows only: the CPU-side op rows (aten::mm, autograd
     # Functions) carry their kernels' device time too
     rows = [e for e in prof.key_averages()
@@ -70,17 +126,37 @@ def main(argv=None):
     if not device_us:
         print("profiler recorded no device time")
         return 1
-    print(f"device time {device_us / 1e3:.3f} ms = "
-          f"{100 * device_us / 1e6 / wall:.1f}% of wall; idle share "
-          f"{100 * (1 - device_us / 1e6 / wall):.1f}%")
+    print(f"  profiled burst: {pwall * 1e3:.3f} ms wall, device time "
+          f"{device_us / 1e3:.3f} ms = {100 * device_us / 1e6 / pwall:.1f}% "
+          f"of wall; idle share {100 * (1 - device_us / 1e6 / pwall):.1f}%")
+    for label, kname in (("K1", "rpa_kernel<"), ("K2", "rpa_qblock_kernel<")):
+        us = sum(e.self_device_time_total for e in rows if kname in e.key)
+        n = sum(e.count for e in rows if kname in e.key)
+        print(f"  {label} ({kname[:-1]}): {us / 1e3:.3f} ms = "
+              f"{100 * us / device_us:.1f}% of device time, {n} launches")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    for e in rows[:20]:
-        print(f"{e.self_device_time_total / 1e3:10.3f} ms "
+    for e in rows[:12]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
               f"{100 * e.self_device_time_total / device_us:5.1f}% "
               f"{e.count:7d}x  {e.key[:90]}")
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    if trace:
+        prof.export_chrome_trace(trace)
     return 0
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--load", choices=sorted(LOADS), nargs="+",
+                    default=["serve"])
+    ap.add_argument("--trace", help="write the Chrome trace here")
+    args = ap.parse_args(argv)
+    model = GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
+    print(f"card: {torch.cuda.get_device_name(0)}")
+    rc = 0
+    for i, name in enumerate(args.load):
+        last = i == len(args.load) - 1
+        rc |= run_load(model, name, args.trace if last else None)
+    return rc
 
 
 if __name__ == "__main__":

@@ -8,9 +8,12 @@ Training: `forward` (flash attention through
 `F.scaled_dot_product_attention`, optional per-layer recompute) with
 `GPTPretrainingCriterion`, or `fused_head_loss`, which fuses the vocab
 head with the softmax CE. Serving: `_paged_decode_core` — flat ragged
-tokens through every layer, the step's K/V written into the paged pools,
-ragged paged attention against each token's own prefix, and the vocab
-head on the gathered sampling-frontier rows only.
+tokens through every layer, the step's K/V written into the paged pools
+(float, or int8 / packed int4 with per-row scale planes), ragged paged
+attention against each token's own prefix, and the vocab head on the
+gathered sampling-frontier rows only; `_paged_verify_fused` — the
+speculative verify step over k+1 positions per slot, with exact-match
+acceptance.
 """
 import torch
 from torch import nn
@@ -23,10 +26,11 @@ from ...distributed.fleet.meta_parallel.mp_layers import (
     VocabParallelEmbedding, split_fused_qkv)
 from ...distributed.fleet.recompute import checkpoint_policy, recompute
 from ...nn import functional as F
+from ...quantization import runtime as _qrt
 
 __all__ = ["GPTConfig", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_small", "gpt_medium",
-           "gpt_1p3b"]
+           "gpt_1p3b", "sample_tokens"]
 
 
 class GPTConfig:
@@ -132,21 +136,65 @@ def _paged_cache_write(k_pool, v_pool, k_new, v_new, write_idx):
     v_pool.view(-1, *v_pool.shape[2:])[idx] = v_new.to(v_pool.dtype)
 
 
+def _paged_cache_write_quant(k_pool, v_pool, k_scales, v_scales, k_new,
+                             v_new, write_idx):
+    """Int8 / int4 variant of `_paged_cache_write`, IN PLACE: each new
+    k/v row is quantized once with its own per-(token, head) scale
+    (`quantize_kv_rows` / `quantize_kv_rows_int4`), the codes are
+    scattered into the pools and the scales into the page-shaped scale
+    planes [N, P, H] at the same flat rows, so later writes to a page
+    never touch earlier rows. The pool's last dim picks the codec: head_dim
+    → int8, head_dim / 2 → packed int4."""
+    packed4 = k_pool.shape[-1] * 2 == k_new.shape[-1]
+    quant_rows = (_qrt.quantize_kv_rows_int4 if packed4
+                  else _qrt.quantize_kv_rows)
+    idx = write_idx.long()
+    for pool, scales, new in ((k_pool, k_scales, k_new),
+                              (v_pool, v_scales, v_new)):
+        codes, scale = quant_rows(new)
+        pool.view(-1, *pool.shape[2:])[idx] = codes
+        scales.view(-1, scales.shape[2])[idx] = scale
+
+
 def _layer_forward_paged(layer, x, cache_k, cache_v, write_idx, page_tables,
-                         slot_ids, kv_lens, frontier_offset=None):
+                         slot_ids, kv_lens, k_scales=None, v_scales=None,
+                         frontier_offset=None, max_q_per_slot=None):
     """Paged-cache decoder block over the flat token layout [1, T, d]:
-    write the step's k/v into the pools (in place), then ragged paged
-    attention against each token's own prefix."""
+    write the step's k/v into the pools (in place; quantized with their
+    scale planes when `k_scales` / `v_scales` are given), then ragged
+    paged attention against each token's own prefix. `max_q_per_slot` is
+    the speculative verify's hint: at most that many tokens per slot,
+    slot-major (the query-blocked kernel K2)."""
     T = x.shape[1]
     q, k, v = split_fused_qkv(layer.qkv(layer.ln1(x)), 1, T, layer.nh,
                               layer.hd)
     q = q.reshape(T, layer.nh, layer.hd).contiguous()
-    _paged_cache_write(cache_k, cache_v, k.reshape(T, layer.nh, layer.hd),
-                       v.reshape(T, layer.nh, layer.hd), write_idx)
+    k = k.reshape(T, layer.nh, layer.hd)
+    v = v.reshape(T, layer.nh, layer.hd)
+    if k_scales is None:
+        _paged_cache_write(cache_k, cache_v, k, v, write_idx)
+    else:
+        _paged_cache_write_quant(cache_k, cache_v, k_scales, v_scales, k, v,
+                                 write_idx)
     attn = F.paged_attention(q, cache_k, cache_v, page_tables, slot_ids,
-                             kv_lens, frontier_offset=frontier_offset)
+                             kv_lens, k_scales=k_scales, v_scales=v_scales,
+                             frontier_offset=frontier_offset,
+                             max_tokens_per_slot=max_q_per_slot)
     x = x + layer.proj(attn.reshape(1, T, layer.nh * layer.hd))
     return x + layer.fc2(F.gelu(layer.fc1(layer.ln2(x))))
+
+
+def sample_tokens(logits, temps=None):
+    """The greedy half of the reference's `sample_tokens` (gpt.py:331):
+    logits [R, vocab] → the argmax of each row as int32 (the first
+    maximal index, in both frameworks). `temps` [R] may lie on any
+    device; a row with temps > 0 asks for the keyed temperature / top-p
+    draw, which is ROADMAP A5, and raises. The grammar mask is A9."""
+    if temps is not None and bool((temps > 0).any()):
+        raise NotImplementedError(
+            "sampled decode (temperature > 0) needs jax's threefry keyed "
+            "sampler ported (ROADMAP A5)")
+    return logits.argmax(dim=-1).to(torch.int32)
 
 
 class GPTForCausalLM(nn.Module):
@@ -222,23 +270,104 @@ class GPTForCausalLM(nn.Module):
 
     def _paged_decode_core(self, tok, pos_ids, slot_ids, write_idx,
                            page_tables, kv_lens, sample_idx, kv,
-                           frontier_offset=None):
+                           kv_scales=None, frontier_offset=None,
+                           max_q_per_slot=None):
         """One ragged engine step over flat tokens: tok / pos_ids /
         slot_ids / write_idx / kv_lens [T], page_tables [S, MP],
-        sample_idx [S] (the flat row holding each slot's sampling
-        frontier; stale slots point anywhere), kv = 2·num_layers pools,
-        updated IN PLACE. Returns logits [1, S, vocab]: the vocab head
-        runs only on the S gathered frontier rows, never on prefill
-        tokens."""
+        sample_idx [R] (the flat rows whose logits are wanted — each
+        slot's sampling frontier; stale slots point anywhere), kv =
+        2·num_layers pools, updated IN PLACE; kv_scales the 2·num_layers
+        scale planes of int8 / int4 pools (also in place).
+        `max_q_per_slot`: the verify step's hint (see
+        `_layer_forward_paged`). Returns (logits [1, R, vocab], *pools,
+        *scales) as the reference does, the pools being the same tensors
+        it was given: the vocab head runs only on the gathered rows,
+        never on prefill tokens."""
         model = self.gpt
         x = model.wte(tok.unsqueeze(0)) + model.wpe(pos_ids)
         for i, layer in enumerate(model.layers):
-            x = _layer_forward_paged(layer, x, kv[2 * i], kv[2 * i + 1],
-                                     write_idx, page_tables, slot_ids,
-                                     kv_lens, frontier_offset)
+            x = _layer_forward_paged(
+                layer, x, kv[2 * i], kv[2 * i + 1], write_idx, page_tables,
+                slot_ids, kv_lens,
+                k_scales=None if kv_scales is None else kv_scales[2 * i],
+                v_scales=None if kv_scales is None else kv_scales[2 * i + 1],
+                frontier_offset=frontier_offset,
+                max_q_per_slot=max_q_per_slot)
         x = model.ln_f(x)
-        x = x.index_select(1, sample_idx.long())   # [1, S, d] frontiers
-        return self._logits_from_hidden(x)
+        x = x.index_select(1, sample_idx.long())   # [1, R, d] frontiers
+        return (self._logits_from_hidden(x), *kv, *(kv_scales or ()))
+
+    def _paged_verify_fused(self, k, page_size, tok0, pos0, drafts, width,
+                            rem, fin0, eos_ids, temps, page_tables, kv,
+                            kv_scales=None):
+        """Speculative verify (the reference's gpt.py:650, eager, greedy):
+        score all k+1 positions of every slot — the frontier token and k
+        proposals — in ONE ragged step, then accept the longest prefix of
+        proposals that equals the model's own picks.
+
+        tok0 / pos0 [S] (frontier token and its write position), drafts
+        [S, k] (entries at or past `width` ignored), width [S] (proposals
+        processed: positions pos0+1..pos0+width get KV written), rem [S]
+        (at most this many tokens may be emitted), fin0 [S] bool (True =
+        dead slot), eos_ids [S] (-1 = none), page_tables [S, MP]: tensors
+        on the pools' device. temps [S] may lie on any device (the greedy
+        check reads it; a row with temps > 0 raises, ROADMAP A5). The
+        reference's keyed-draw arguments (top_ps, streams, key: A5) and
+        grammar tables (A9) are not taken. kv / kv_scales are updated IN
+        PLACE.
+
+        Flat layout slot-major [S·(k+1)]: row s·(k+1)+j holds the token
+        at position pos0[s]+j with kv_len pos0[s]+j+1, so each proposal
+        attends to the earlier ones written in this same step and never
+        to later ones; invalid rows (dead slots, j > width) write the
+        trash page at kv_len 0. Rejected rows' KV stays in the pool past
+        the accepted frontier, never attended and overwritten by position
+        later. Returns (emits [k+1, S] int32 — column s holds the
+        accepted picks, 1..k+1 tokens, then -1; the emitted eos is kept
+        and nothing after it — kv, kv_scales)."""
+        S = tok0.shape[0]
+        Q = int(k) + 1
+        T = S * Q
+        dev = tok0.device
+        i32 = torch.int32
+        live = ~fin0
+        j = torch.arange(Q, dtype=i32, device=dev)
+        pt = page_tables.to(i32)
+        drafts = drafts.to(i32)
+        tok_mat = torch.cat([tok0[:, None].to(i32), drafts], dim=1)
+        valid = live[:, None] & (j[None, :] <= width[:, None])   # [S, Q]
+        pos_mat = pos0[:, None].to(i32) + j[None, :]
+        zero = torch.zeros((), dtype=i32, device=dev)
+        sid = torch.arange(S, dtype=i32, device=dev).repeat_interleave(Q)
+        tokf = torch.where(valid, tok_mat, zero).reshape(T)
+        posf = torch.where(valid, pos_mat, zero).reshape(T)
+        validf = valid.reshape(T)
+        page = pt[sid.long(), (posf // page_size).long()]
+        widx = torch.where(validf, page * page_size + posf % page_size, zero)
+        klen = torch.where(validf, posf + 1, zero)
+        logits, *_ = self._paged_decode_core(
+            tokf, posf, sid, widx, pt, klen,
+            torch.arange(T, dtype=i32, device=dev), kv, kv_scales=kv_scales,
+            max_q_per_slot=Q)
+        lv = logits[0].float()                                   # [T, V]
+        picks = sample_tokens(
+            lv, None if temps is None else temps.repeat_interleave(Q)
+        ).reshape(S, Q)
+        # longest matching proposal prefix, clamped to the window width
+        match = (drafts == picks[:, :k]) & (
+            torch.arange(int(k), dtype=i32, device=dev)[None, :]
+            < width[:, None])
+        a = torch.cumprod(match.to(i32), dim=1).sum(dim=1)       # accepted
+        n_emit = torch.where(live, torch.minimum(a + 1, rem.to(a.dtype)),
+                             torch.zeros_like(a))
+        # in-step EOS masking: the emitted eos is kept, every later pick
+        # of the window is suppressed (exclusive cumsum)
+        is_eos = ((eos_ids[:, None] >= 0)
+                  & (picks == eos_ids[:, None])).to(i32)
+        eos_before = torch.cumsum(is_eos, dim=1) - is_eos
+        emit_mask = (j[None, :] < n_emit[:, None]) & (eos_before == 0)
+        emits = torch.where(emit_mask, picks, torch.full_like(picks, -1))
+        return emits.t(), kv, kv_scales
 
 
 class GPTPretrainingCriterion(nn.Module):

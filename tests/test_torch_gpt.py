@@ -134,11 +134,15 @@ def test_paged_decode_core_ticks_match_jax():
             paddle.to_tensor(pt), paddle.to_tensor(klen),
             paddle.to_tensor(smp), jkv)
         with torch.inference_mode():
-            tlogits = tm._paged_decode_core(
+            tlogits, *tout = tm._paged_decode_core(
                 *[torch.from_numpy(a) for a in (tok, pos, sid, widx)],
                 torch.from_numpy(pt), torch.from_numpy(klen),
                 torch.from_numpy(smp), tkv)
         assert tlogits.shape == (1, 2, 2048)
+        # (logits, *pools) as the reference returns them; the pools are
+        # the tensors passed in, updated in place
+        assert len(tout) == len(tkv) and all(
+            a is b for a, b in zip(tout, tkv))
         np.testing.assert_allclose(tlogits.numpy(), jlogits.numpy(), **TOL)
     for jp, tp in zip(jkv, tkv):   # pools updated in place, same rows
         np.testing.assert_allclose(tp.numpy(), jp.numpy(), **TOL)

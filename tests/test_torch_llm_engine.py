@@ -2,10 +2,11 @@
 package's `LLMEngine` on CPU (gpt_tiny, the same weights in both).
 
 Greedy outputs must be token-identical, with chunked prefill and with
-preemption, and the schedule itself (ticks, preemptions) must match.
-Also: `PagePool` invariants, the `LLMServer` surface, the knobs that are
-not ported yet, and the rule that the port imports neither jax nor the
-JAX package.
+preemption, on float, int8 and packed-int4 KV pools, and the schedule
+itself (ticks, preemptions) must match. Also: `PagePool` invariants, the
+`LLMServer` surface, the knobs that are not ported yet, and the rule
+that the port imports neither jax nor the JAX package. Speculative
+(n-gram) engines: tests/test_torch_speculative.py.
 """
 import ast
 import pathlib
@@ -92,6 +93,31 @@ def test_greedy_token_identical_with_preemption():
     assert te.stats["preemptions"] > 0, "pool was not tight enough"
 
 
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_greedy_token_identical_with_chunked_prefill(kv_dtype):
+    """int8 / packed-int4 pools: each new row quantized once in the pool
+    (codes and scales byte-identical to the reference's codec), attention
+    dequantizing on gather; greedy tokens and the schedule equal the
+    reference engine's with the same kv_dtype."""
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 2048, (L,)) for L in (5, 13, 8, 21, 3)]
+    te = _run_both(32, prompts, 9, num_slots=3, page_size=16,
+                   token_budget=8, max_model_len=64, kv_dtype=kv_dtype)
+    assert te.kv_dtype == kv_dtype
+    assert te.stats["tokens_in"] > te.stats["steps"]
+    assert all(float(s.abs().sum()) > 0 for s in te._kv_scales)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "int4"])
+def test_quantized_greedy_token_identical_with_preemption(kv_dtype):
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, 2048, (20,)) for _ in range(4)]
+    te = _run_both(33, prompts, 20, num_slots=3, page_size=16,
+                   num_pages=6, max_model_len=48, token_budget=8,
+                   kv_dtype=kv_dtype)
+    assert te.stats["preemptions"] > 0, "pool was not tight enough"
+
+
 def test_eos_contract_matches_jax():
     rng = np.random.default_rng(9)
     prompt = rng.integers(0, 2048, (6,))
@@ -148,9 +174,8 @@ def test_engine_rejects_unservable_requests():
 
 @pytest.mark.parametrize("knob,row", [
     ({"decode_k": 4}, "A6"), ({"draft_model": object()}, "A7"),
-    ({"spec_mode": "ngram"}, "A7"), ({"token_strs": ["a"]}, "A9"),
-    ({"prefix_cache": True}, "A10"), ({"kv_tier": True}, "A10"),
-    ({"kv_dtype": "int8"}, "A4"), ({"kv_dtype": "int4"}, "A4")])
+    ({"spec_mode": "draft"}, "A7"), ({"token_strs": ["a"]}, "A9"),
+    ({"prefix_cache": True}, "A10"), ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
     with pytest.raises(NotImplementedError, match=row):
         teng.LLMEngineConfig(**knob)
@@ -221,6 +246,28 @@ def test_step_error_fails_futures_and_resets_engine():
         req.future.result(timeout=0)
     assert not eng.has_work() and eng.pool.num_live == 0
     assert all(float(p.abs().sum()) == 0.0 for p in eng._kv)
+
+
+def test_step_error_rezeroes_scale_planes():
+    tm = GPTForCausalLM(gpt_tiny(), device="cpu", seed=2)
+    eng = teng.LLMEngine(tm, teng.LLMEngineConfig(
+        num_slots=2, max_model_len=32, kv_dtype="int8"))
+    eng.add_request(np.arange(5), max_new_tokens=4)
+    eng.step()
+    assert all(float(s.sum()) > 0 for s in eng._kv_scales)
+    eng.add_request(np.arange(3), max_new_tokens=4)
+    step_fn = eng._step_fn
+
+    def boom(*a):
+        step_fn(*a)          # the pools are half written, then the error
+        raise RuntimeError("device lost")
+
+    eng._step_fn = boom
+    with pytest.raises(RuntimeError, match="device lost"):
+        eng.step()
+    assert not eng.has_work() and eng.pool.num_live == 0
+    assert all(float(p.abs().sum()) == 0.0
+               for p in eng._kv + eng._kv_scales)
 
 
 def _imports(path):

@@ -1,9 +1,13 @@
 """Ragged paged attention: the PyTorch port's plain version against the
-JAX package's jnp path and its Pallas kernel in interpret mode.
+JAX package's jnp path and its Pallas kernels in interpret mode — K1
+(`_rpa_kernel`) on float, int8 and packed-int4 pools, and K2
+(`_rpa_qblock_kernel`, `q_per_slot`) on the speculative verify layout.
 
 Same inputs (numpy, seeded) through both packages, f32, at the
 tolerance the JAX package's own parity tests use (rtol 1e-5, atol 1e-6:
-online vs plain softmax differ only in summation order).
+online vs plain softmax differ only in summation order; 2e-5 against
+the Pallas kernels on quantized pools and the verify layout, as the
+reference's own K2 test holds it).
 """
 import numpy as np
 import pytest
@@ -16,6 +20,7 @@ from paddle_tpu.nn import functional as JF
 from paddle_tpu.ops.pallas_kernels import paged_attention as pak
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.ops.cuda_kernels import paged_attention as tpa
+from paddle_tpu_torch.quantization import runtime as trt
 
 pytestmark = pytest.mark.torch_port
 
@@ -104,22 +109,142 @@ def test_plain_matches_pallas_interpret(page_size, offset):
 def test_wrapper_runs_plain_on_cpu_and_counts_no_launch():
     rng = np.random.default_rng(7)
     args = _case(rng, 16, [20, 3], [(0, 4)])
-    before = tpa.launches
+    before = dict(tpa.launches)
     ts = [torch.from_numpy(a.copy()) for a in args]
     out = tpa.ragged_paged_attention(*ts)
     ref = tpa.ragged_paged_attention_plain(*ts)
     assert torch.equal(out, ref)
-    assert tpa.launches == before   # the CPU path launches no kernel
+    qk, qs = _quantize(args[1], 8)
+    vk, vs = _quantize(args[2], 8)
+    qargs = [torch.from_numpy(a.copy()) for a in
+             (args[0], qk, vk, *args[3:])]
+    scales = dict(k_scales=torch.from_numpy(qs), v_scales=torch.from_numpy(vs))
+    assert torch.equal(tpa.ragged_paged_attention(*qargs, **scales),
+                       tpa.ragged_paged_attention_plain(*qargs, **scales))
+    # the CPU path launches no kernel, of any kind
+    assert tpa.launches == before
+    assert set(tpa.launches) == set(tpa.REPLACES) == {
+        "rpa", "rpa_int8", "rpa_int4", "qblock", "qblock_int8",
+        "qblock_int4"}
+    tpa.reset_launches()
+    assert all(n == 0 for n in tpa.launches.values())
 
 
-def test_quantized_pools_not_ported_yet():
+def test_scales_come_in_pairs():
     rng = np.random.default_rng(8)
     q, kp, vp, pt, sid, klen = (torch.from_numpy(a.copy()) for a in
                                 _case(rng, 16, [5], []))
     sc = torch.ones(kp.shape[:3])
-    with pytest.raises(NotImplementedError, match="A4"):
-        TF.paged_attention(q, kp, vp, pt, sid, klen, k_scales=sc,
-                           v_scales=sc)
+    with pytest.raises(ValueError, match="both"):
+        TF.paged_attention(q, kp, vp, pt, sid, klen, k_scales=sc)
+    with pytest.raises(ValueError, match="both"):
+        tpa.ragged_paged_attention(q, kp, vp, pt, sid, klen, v_scales=sc)
+
+
+def _quantize(pool, bits):
+    """A float pool [N, P, H, D] → (codes, scales) by the port's codec
+    (byte-identical to the reference's, tests/test_torch_quant_runtime)."""
+    N, P, H, D = pool.shape
+    f = trt.quantize_kv_rows_int4 if bits == 4 else trt.quantize_kv_rows
+    codes, scales = f(torch.from_numpy(pool.reshape(N * P, H, D)))
+    return (codes.numpy().reshape(N, P, H, -1),
+            scales.numpy().reshape(N, P, H))
+
+
+def _quant_args(args, bits):
+    q, kp, vp, pt, sid, klen = args
+    kc, ks = _quantize(kp, bits)
+    vc, vs = _quantize(vp, bits)
+    return (q, kc, vc, pt, sid, klen), (ks, vs)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("offset", [None, 3])
+def test_quantized_plain_matches_pallas_interpret(bits, offset):
+    """K1's dequant branches: int8 and packed-int4 pools (codes + per-row
+    scale planes gathered through the same page ids), page-crossing rows,
+    stale table entries, a padding row."""
+    rng = np.random.default_rng(200 + bits + (offset or 0))
+    args, (ks, vs) = _quant_args(
+        _case(rng, 16, [40, 19, 1], [(0, 7), (1, 13)]), bits)
+    ts = [torch.from_numpy(a.copy()) for a in args]
+    out = TF.paged_attention(*ts, k_scales=torch.from_numpy(ks),
+                             v_scales=torch.from_numpy(vs),
+                             frontier_offset=offset).numpy()
+    ref = np.asarray(pak.ragged_paged_attention(
+        *[jnp.asarray(a) for a in args], k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), frontier_offset=offset, interpret=True))
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+    assert np.all(out[-1] == 0.0) and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_plain_matches_jax_jnp(bits):
+    rng = np.random.default_rng(300 + bits)
+    args, (ks, vs) = _quant_args(
+        _case(rng, 16, [37, 16, 2], [(0, 9)]), bits)
+    ts = [torch.from_numpy(a.copy()) for a in args]
+    out = TF.paged_attention(*ts, k_scales=torch.from_numpy(ks),
+                             v_scales=torch.from_numpy(vs)).numpy()
+    ref = JF.paged_attention(*[paddle.to_tensor(a) for a in args],
+                             k_scales=paddle.to_tensor(ks),
+                             v_scales=paddle.to_tensor(vs)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def _verify_case(rng, offset):
+    """The speculative verify layout (tests/test_speculative.py:491): S
+    slot-major blocks of Q = k+1 rows; slot 0 full width, slot 1 narrow
+    (width 2: rows past it have kv_len 0), slot 2 dead (every row 0).
+    Rows of one block share pages, and the narrow slot's short rows run
+    over pages a longer sibling needs (the all-masked-row edge)."""
+    S, MP, N, P, H, D = 3, 4, 13, 8, 4, 64
+    Q = 4
+    T = S * Q
+    q = rng.standard_normal((T, H, D)).astype(np.float32)
+    kp = rng.standard_normal((N, P, H, D)).astype(np.float32)
+    vp = rng.standard_normal((N, P, H, D)).astype(np.float32)
+    pt = rng.integers(1, N, (S, MP)).astype(np.int32)
+    sid = np.repeat(np.arange(S, dtype=np.int32), Q)
+    lens = np.zeros((T,), np.int32)
+    pos0, width = [5, 11, 0], [3, 2, -1]
+    for s in range(S):
+        for j in range(Q):
+            if width[s] >= 0 and j <= width[s]:
+                lens[s * Q + j] = pos0[s] + j + 1
+    if offset:
+        lens = np.where(lens > 0, np.maximum(lens - offset, 1), 0)
+    return (q, kp, vp, pt, sid, lens.astype(np.int32)), Q
+
+
+@pytest.mark.parametrize("pool", ["float32", "int8", "int4"])
+@pytest.mark.parametrize("offset", [0, 2])
+def test_qblock_plain_matches_pallas_interpret(pool, offset):
+    """K2 (`q_per_slot`): the port's plain version — the function K2
+    computes — against the reference's query-blocked Pallas kernel on
+    float, int8 and int4 pools, with a dead slot, a narrow slot and
+    frontier offset 0 and 2; and the hinted call equals the unhinted."""
+    rng = np.random.default_rng(400 + offset)
+    args, Q = _verify_case(rng, offset)
+    scales = {}
+    jscales = {}
+    if pool != "float32":
+        args, (ks, vs) = _quant_args(args, 4 if pool == "int4" else 8)
+        scales = dict(k_scales=torch.from_numpy(ks),
+                      v_scales=torch.from_numpy(vs))
+        jscales = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    ts = [torch.from_numpy(a.copy()) for a in args]
+    off = offset or None
+    out = TF.paged_attention(*ts, **scales, frontier_offset=off,
+                             max_tokens_per_slot=Q).numpy()
+    ref = np.asarray(pak.ragged_paged_attention(
+        *[jnp.asarray(a) for a in args], **jscales, frontier_offset=off,
+        q_per_slot=Q, interpret=True))
+    np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
+    unhinted = TF.paged_attention(*ts, **scales, frontier_offset=off).numpy()
+    np.testing.assert_array_equal(out, unhinted)
+    lens = args[5]
+    assert np.all(out[lens == 0] == 0.0) and np.isfinite(out).all()
 
 
 def test_bf16_pool_plain_matches_jax_jnp():
