@@ -10,7 +10,12 @@ continues:
 1. card     — the card's name and power limit (nvidia-smi).
 2. build    — every CUDA kernel of the serving and training paths, from
               `csrc/`, with nvcc for sm_90a (one nvcc per source, started
-              together).
+              together). Prints each flash kernel's registers, spill bytes
+              and static shared memory from the `-Xptxas -v` log, the
+              blocks per SM its registers allow, and the count of
+              tensor-core instructions (HMMA / HGMMA) in each flash
+              kernel's SASS (`cuobjdump -sass`); fails if a tensor-core
+              kernel has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               each output row within a tolerance of that row's max-abs
               (f32 q 1e-4, bf16 q 2e-2): ragged paged attention K1 on f32,
@@ -22,12 +27,17 @@ continues:
               3); flash attention forward, dq and dk/dv (K3-K5) at the
               training path's shapes (b·h 192, s 1024, d 64, bf16,
               causal) and at smaller f32 / bf16 cases (ragged seq,
-              non-causal, kv_lens with a 0 row, head_dim 8, 96, 256).
+              non-causal, kv_lens with a 0 row, seq_k != seq_q, head_dim
+              8, 32, 96, 128, 256); each case must take the route that
+              `tensor_core_route` names (bf16 at head_dim 64 / 128: the
+              tensor-core K3 / K5).
               Kernel / plain / library times (CUDA events, median of 30
               launches, L2 flushed before each) beside the least time the
               card could take (bound: each input byte read once — codes
               and scales for a quantized pool — each output written
-              once).
+              once). The library times of K3-K5 are torch's
+              `scaled_dot_product_attention` forward and the backward
+              node it records, called directly.
 4. serve    — `LLMServer` over gpt_small (random weights from a seed),
               bf16 weights and bf16 KV pool, 8 greedy requests with
               prompts of 16-900 tokens. The launch counts are set to 0
@@ -54,12 +64,21 @@ continues:
               `amp.auto_cast`, `AdamW(1e-4)` (bench.py's bench_gpt on the
               port): 3 warm-up steps, then 10 timed ones with the launch
               counts set to 0 just before; each flash kernel must have
-              launched 12 times per step, every loss be finite and the
-              last below the first. Prints ms/step, tokens/s and MFU.
+              launched 12 times per step, K3 and K5 every time on the
+              tensor-core route, every loss be finite and the last below
+              the first. Prints ms/step, tokens/s and MFU.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
               gradient's max-abs.
+10. train cross bf16 — gpt_small at b2·s256, bf16 O1: one TrainStep on
+              the card through the kernels (K3 / K5 on the tensor-core
+              route) and one from the same weights with the module's
+              flash_forward / flash_bwd_dq / flash_bwd_dkv swapped for
+              their plain versions; the losses agree to 1e-5 relative,
+              and each parameter gradient's max-abs difference over its
+              max-abs is within 2e-2, the median over the gradients
+              within 1e-2.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
@@ -67,6 +86,7 @@ when no CUDA device is present.
 """
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,11 +97,108 @@ import torch
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SM_REGISTERS = 65536     # 32-bit registers per SM
+# the tensor-core flash kernels and their threads per block (kTcThreads
+# in csrc/flash_attention.cu)
+TC_KERNELS = ("fa_fwd_tc_kernel", "fa_bwd_dkv_tc_kernel")
+TC_THREADS = 128
 
 SERVE_PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 SERVE_NEW_TOKENS = 32
 SERVE_CFG = dict(num_slots=8, page_size=16, max_model_len=1024,
                  token_budget=256)
+
+
+def _kernel_label(mangled):
+    """'fa_fwd_tc_kernel<64>' / 'fa_fwd_kernel<bf16, 4, 1>' from a
+    mangled flash attention kernel name; None for any other function."""
+    m = re.search(r"(fa_\w+?_kernel)I(.*?)EEv", mangled)
+    if not m:
+        return None
+    base, targs = m.groups()
+    dtype = (["bf16"] if "bfloat16" in targs
+             else ["f32"] if targs.startswith("f") else [])
+    ints = re.findall(r"Li(\d+)E", targs)
+    return f"{base}<{', '.join(dtype + ints)}>"
+
+
+def _ptxas_resources(log_path):
+    """{kernel label: registers, spill bytes, static shared memory} of
+    the flash kernels, from the nvcc `-Xptxas -v` log of their build."""
+    res, cur = {}, None
+    with open(log_path) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = _kernel_label(m.group(1))
+                if cur:
+                    res[cur] = dict(regs=None, spill_st=0, spill_ld=0, smem=0)
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                res[cur]["spill_st"], res[cur]["spill_ld"] = map(int,
+                                                                 m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                res[cur]["regs"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                res[cur]["smem"] = int(m.group(1))
+    return res
+
+
+def _tensor_core_instructions(nvcc, so_path):
+    """{kernel label: HMMA / HGMMA instructions} of the flash kernels in
+    the library's SASS (`cuobjdump -sass`)."""
+    tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = _kernel_label(m.group(1))
+            if cur:
+                counts[cur] = 0
+        elif cur and re.search(r"\bHG?MMA\b", line):
+            counts[cur] += 1
+    return counts
+
+
+def _blocks_by_registers(regs, threads):
+    """Resident blocks per SM that the register file allows: a warp's
+    registers are allocated in units of 256 (a lane's count rounded up
+    to 8)."""
+    per_warp = -(-regs * 32 // 256) * 256
+    return SM_REGISTERS // (per_warp * (threads // 32))
+
+
+def flash_build_report(fa, build):
+    """Prints each flash kernel's registers, spills and static shared
+    memory (ptxas log; for the tensor-core kernels, the blocks per SM the
+    registers allow) and its tensor-core instruction count; fails when a
+    tensor-core kernel has no tensor-core instruction."""
+    so = build.build(["flash_attention"])["flash_attention"]
+    res = _ptxas_resources(so[:-3] + ".log")
+    mma = _tensor_core_instructions(build._nvcc(), so)
+    for label in sorted(set(res) | set(mma)):
+        r = res.get(label, {})
+        extra = ""
+        if label.split("<")[0] in TC_KERNELS and r.get("regs"):
+            extra = (f", registers allow "
+                     f"{_blocks_by_registers(r['regs'], TC_THREADS)} "
+                     f"blocks/SM")
+        print(f"build {label}: {r.get('regs')} registers, spill stores "
+              f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} B, "
+              f"static smem {r.get('smem')} B{extra}; "
+              f"{mma.get(label, 0)} HMMA/HGMMA in its SASS")
+    want = [f"{k}<{d}>" for k in TC_KERNELS for d in fa.TC_HEAD_DIMS]
+    if not all(mma.get(label, 0) > 0 for label in want):
+        raise AssertionError(f"tensor-core kernels without tensor-core "
+                             f"instructions: {mma}")
 
 
 def _card():
@@ -325,7 +442,9 @@ FA_MAIN = dict(bh=TRAIN_BATCH * 12, s=TRAIN_SEQ, d=64,
                dtype=torch.bfloat16, causal=True, lens=None)
 # smaller cases: f32, ragged seq (not a multiple of the 64-row tile),
 # non-causal, kv_lens with a 0 row, seq_k != seq_q (`sk`), and the 32-
-# and 16-row tile configs (head_dim 96, 256)
+# and 16-row tile configs (head_dim 96, 256); bf16 ones on the edges of
+# the tensor-core route (head_dim 64 / 128) and one bf16 case off it
+# (head_dim 32)
 FA_CASES = [
     FA_MAIN,
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=True, lens=None),
@@ -339,6 +458,15 @@ FA_CASES = [
     dict(bh=4, s=77, d=8, dtype=torch.float32, causal=True, lens=None),
     dict(bh=4, s=50, sk=130, d=32, dtype=torch.float32, causal=False,
          lens=[130, 0, 77, 5]),
+    dict(bh=6, s=200, d=64, dtype=torch.bfloat16, causal=False, lens=None),
+    dict(bh=6, s=200, d=64, dtype=torch.bfloat16, causal=False,
+         lens=[200, 0, 57, 64, 1, 130]),
+    dict(bh=4, s=50, sk=130, d=64, dtype=torch.bfloat16, causal=False,
+         lens=[130, 0, 77, 5]),
+    dict(bh=4, s=384, d=128, dtype=torch.bfloat16, causal=True, lens=None),
+    dict(bh=4, s=200, d=128, dtype=torch.bfloat16, causal=False,
+         lens=[200, 0, 57, 130]),
+    dict(bh=4, s=77, d=32, dtype=torch.bfloat16, causal=True, lens=None),
 ]
 # out / dq / dk / dv: each row's max error within FA_TOL of that row's
 # max-abs (floored at FA_ROW_FLOOR of the tensor's max-abs, so rows of
@@ -413,16 +541,18 @@ def _fa_run(fa, x, lens, causal, plain):
 
 
 def _fa_library_ms(x, flush):
-    """torch's own fused attention on the same inputs ([b, h, s, d]):
-    forward, and its backward (dq, dk, dv in one call)."""
+    """torch's own fused attention on the same inputs ([b, h, s, d]): its
+    causal forward, and its backward (dq, dk, dv in one call) as the
+    autograd node that forward recorded, called directly — whichever
+    backend SDPA picked, and without the autograd engine's host time in
+    the timed window."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h = TRAIN_BATCH, FA_MAIN["bh"] // TRAIN_BATCH
     q, k, v, dout = (t.reshape(b, h, *t.shape[1:]) for t in x)
     fwd_ms = _median_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    out = sdpa(qg, kg, vg, is_causal=True)
-    bwd_ms = _median_ms(lambda: torch.autograd.grad(
-        out, (qg, kg, vg), dout, retain_graph=True), flush)
+    node = sdpa(qg, kg, vg, is_causal=True).grad_fn
+    bwd_ms = _median_ms(lambda: node(dout), flush)
     return fwd_ms, bwd_ms
 
 
@@ -463,7 +593,10 @@ def check_flash_attention(fa, flush):
     res = {}
     for case in FA_CASES:
         x, lens = _fa_inputs(case)
+        fa.reset_launches()
         got, _ = _fa_run(fa, x, lens, case["causal"], plain=False)
+        tc = fa.tensor_core_route(case["dtype"], case["d"])
+        route = {"flash_forward": int(tc), "flash_bwd_dkv": int(tc)}
         ref, _ = _fa_run(fa, x, lens, case["causal"], plain=True)
         torch.cuda.synchronize()
         label = (f"bh{case['bh']} s{case['s']} sk{case.get('sk', case['s'])}"
@@ -471,6 +604,10 @@ def check_flash_attention(fa, flush):
                  f"{str(case['dtype'])[6:]} "
                  f"{'causal' if case['causal'] else 'full'}"
                  f"{' kv_lens' if lens is not None else ''}")
+        if fa.tc_launches != route or set(fa.launches.values()) != {1}:
+            raise AssertionError(f"flash {label}: launches {fa.launches}, "
+                                 f"tensor-core {fa.tc_launches}; expected "
+                                 f"one each, tensor-core {route}")
         errs, gates = {}, {}
         for key in got:
             errs[key], *gates[key] = _fa_gate(label, key, got[key],
@@ -481,7 +618,8 @@ def check_flash_attention(fa, flush):
                 if not torch.all(got[key][zero] == 0):
                     raise AssertionError(f"flash {key}: kv_len 0 rows are "
                                          "not exact zeros")
-        print(f"flash attention {label}: max abs err " + ", ".join(
+        print(f"flash attention {label} "
+              f"({'tensor' if tc else 'CUDA'} cores): max abs err " + ", ".join(
             f"{k} {v:.3e}" for k, v in errs.items())
             + "; worst row / mean err relative " + ", ".join(
                 f"{k} {r:.2e} / {m:.2e}" for k, (r, m) in gates.items()
@@ -528,7 +666,8 @@ def check_flash_attention(fa, flush):
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
               f"{'' if name == 'flash_forward' else ' (dq+dk+dv)'}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+              f"{r['ms'] / r['library_ms']:.2f}x the library")
     return res
 
 
@@ -769,11 +908,16 @@ def train(fa):
     fa.reset_launches()
     losses, wall = timed_steps(step, ids, TRAIN_STEPS)
     launches = dict(fa.launches)
+    tc_launches = dict(fa.tc_launches)
     losses = warm + losses
     want = cfg.num_layers * TRAIN_STEPS
     if any(n != want for n in launches.values()):
         raise AssertionError(f"flash kernels launched {launches} times in "
                              f"{TRAIN_STEPS} steps; expected {want} each")
+    if any(n != want for n in tc_launches.values()):
+        raise AssertionError(f"K3 / K5 took the tensor-core route "
+                             f"{tc_launches} times in {TRAIN_STEPS} steps; "
+                             f"expected all {want}")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train losses not finite and falling: "
                              f"{losses}")
@@ -785,7 +929,8 @@ def train(fa):
           f"(989 TFLOP/s bf16 peak), loss {losses[0]:.4f} → "
           f"{losses[-1]:.4f} over {len(losses)} steps, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
-          f"{launches} = {cfg.num_layers} x {TRAIN_STEPS} each")
+          f"{launches} = {cfg.num_layers} x {TRAIN_STEPS} each, tensor-core "
+          f"route {tc_launches}")
     return launches
 
 
@@ -814,17 +959,95 @@ def train_cross_check():
         runs.append((float(loss), {n: p.grad.float().cpu()
                                    for n, p in model.named_parameters()}))
     (lg, gg), (lc, gc) = runs
-    worst, where = 0.0, None
-    for n, ref in gc.items():
-        err = ((gg[n] - ref).abs().max()
-               / ref.abs().max().clamp(min=1e-30)).item()
-        if err > worst:
-            worst, where = err, n
+    worst, where, _ = _grad_diff(gc, gg)
     print(f"train cross-check gpt_small f32 b2·s128 card vs cpu: loss "
           f"{lg:.6f} vs {lc:.6f}, worst gradient error {worst:.3e} of its "
           f"max-abs ({where}; tol 1e-3) over {len(gc)} parameters")
     if not (abs(lg - lc) <= 1e-3 * abs(lc) and worst <= 1e-3):
         raise AssertionError("card and cpu train steps disagree")
+
+
+def _grad_diff(ref, other):
+    """Each gradient's max-abs difference over its max-abs: (the worst,
+    its name, the median over the gradients)."""
+    errs = {n: ((other[n] - r).abs().max()
+                / r.abs().max().clamp(min=1e-30)).item()
+            for n, r in ref.items()}
+    where = max(errs, key=errs.get)
+    return errs[where], where, float(np.median(list(errs.values())))
+
+
+# bf16 O1 step, kernels vs plain versions: the loss (relative), each
+# gradient's max-abs difference over its max-abs (the worst, and the
+# median over the gradients)
+BF16_LOSS_TOL = 1e-5
+BF16_GRAD_TOL = 2e-2
+BF16_GRAD_MEDIAN_TOL = 1e-2
+
+
+def train_cross_check_bf16(fa):
+    """One bf16 O1 TrainStep of gpt_small at b2·s256 on the card, twice
+    from the same weights: through the kernels, and with the module's
+    flash_forward / flash_bwd_dq / flash_bwd_dkv swapped for their plain
+    versions (restored after). The losses and the parameter gradients
+    agree within the BF16_* tolerances; the kernel run takes the
+    tensor-core route."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
+                                                  GPTPretrainingCriterion,
+                                                  gpt_small)
+
+    cfg = gpt_small()
+    kern = GPTForCausalLM(cfg, dtype="float32", seed=8)
+    plain = GPTForCausalLM(cfg, dtype="float32", seed=0)
+    plain.load_state_dict(kern.state_dict())
+    ids = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 256)), device=kern.device)
+    crit = GPTPretrainingCriterion()
+
+    def loss_fn(m, x):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return crit(m(x), x)
+
+    names = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = {n: getattr(fa, n) for n in names}
+    runs = []
+    for model, swap in ((kern, False), (plain, True)):
+        step = TrainStep(model, loss_fn,
+                         AdamW(1e-4, parameters=model.parameters()))
+        fa.reset_launches()
+        try:
+            if swap:
+                for n in names:
+                    setattr(fa, n, getattr(fa, n + "_plain"))
+            loss = float(step(ids))
+            torch.cuda.synchronize()
+        finally:
+            for n in names:
+                setattr(fa, n, kernels[n])
+        runs.append((loss, {n: p.grad.float() for n, p in
+                            model.named_parameters()},
+                     dict(fa.launches), dict(fa.tc_launches)))
+    (lk, gk, nk, tk), (lp, gp, np_, _) = runs
+    want = cfg.num_layers
+    if not (set(nk.values()) == {want} and set(tk.values()) == {want}
+            and set(np_.values()) == {0}):
+        raise AssertionError(f"bf16 train cross-check: kernel run launched "
+                             f"{nk} (tensor-core {tk}), plain run {np_}")
+    worst, where, median = _grad_diff(gp, gk)
+    loss_rel = abs(lk - lp) / abs(lp)
+    print(f"train cross-check gpt_small bf16 O1 b2·s256 kernels vs plain "
+          f"versions on the card: loss {lk:.6f} vs {lp:.6f} ({loss_rel:.2e} "
+          f"relative; tol {BF16_LOSS_TOL:.0e}), gradient error of its "
+          f"max-abs: worst {worst:.3e} ({where}; tol {BF16_GRAD_TOL:.0e}), "
+          f"median {median:.3e} (tol {BF16_GRAD_MEDIAN_TOL:.0e}) over "
+          f"{len(gp)} parameters; kernel run launches {nk}, tensor-core {tk}")
+    if not (np.isfinite(lk) and loss_rel <= BF16_LOSS_TOL
+            and worst <= BF16_GRAD_TOL and median <= BF16_GRAD_MEDIAN_TOL):
+        raise AssertionError("bf16 train step through the kernels disagrees "
+                             "with the plain versions")
 
 
 def _kernel_row(name, route, source, replaces, launches, r):
@@ -849,6 +1072,7 @@ def main():
     _build.build(["paged_attention", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
+    flash_build_report(fa, _build)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     kres = check_paged_attention(pa, flush)
     fres = check_flash_attention(fa, flush)
@@ -859,6 +1083,7 @@ def main():
     cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
     train_cross_check()
+    train_cross_check_bf16(fa)
     # each kernel's launches come from the main-path run that drives it:
     # K1-float the serve phase, the int8 kernels the int8 + ngram serve,
     # K2-float and the int4 kernels the cross phase's n-gram runs

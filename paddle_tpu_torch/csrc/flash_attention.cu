@@ -10,17 +10,25 @@
 // diagonal: row >= col) or not, with an optional per-row valid key length
 // `lens` (key-padding mask; the wrapper clamps it to seq_k).
 //
+// Two routes, chosen by the caller from the input type and head_dim
+// (ops/cuda_kernels/flash_attention.py, `tensor_core_route`):
+//   * tensor cores — bf16 with head_dim 64 or 128, K3 and K5 only:
+//     pt_flash_fwd_tc (`fa_fwd_tc_kernel`) and pt_flash_bwd_dkv_tc
+//     (`fa_bwd_dkv_tc_kernel`), at the end of this file;
+//   * CUDA cores — everything else, and K4 always: the f32-math kernels
+//     right below, exact in f32.
+// A tensor-core entry point refuses what it does not take
+// (cudaErrorInvalidValue); nothing falls back from one route to the other.
+//
 // What bounds them. At the GPT training shapes (b·h 192, s 1024, d 64,
 // bf16, causal) each kernel does ~26-52 GFLOP on ~100-150 MB, about 250-
 // 340 flops per byte: right at the H100's bf16 ridge (~295 flops/byte), so
 // the least time is set by the tensor cores' 989 TFLOP/s and HBM's
-// 3.35 TB/s about equally. These kernels do their math in f32 on the CUDA
-// cores (67 TFLOP/s peak), so they are compute-bound well above that
-// bound: they are the simple, right first version. Tensor cores
-// (mma/wgmma on bf16 tiles), TMA staging and warp specialisation are the
-// later work (PERF.md).
+// 3.35 TB/s about equally. The CUDA-core kernels do their math in f32
+// (67 TFLOP/s peak), so they are compute-bound well above that bound;
+// the tensor-core kernels' design is described above them.
 //
-// Design. The Pallas grid walks (bh, q-block, kv-block) in order and
+// CUDA-core design. The Pallas grid walks (bh, q-block, kv-block) in order and
 // carries the online-softmax state (m, l, acc) in VMEM from one kv step
 // to the next; CUDA blocks run in parallel and in no order. So the
 // forward and dq kernels give ONE block to a (bh, q-tile) pair and loop
@@ -219,11 +227,12 @@ __device__ __forceinline__ void store_acc(T* dst, const float (&acc)[RM][4 * NG]
   }
 }
 
-// number of kv tiles a q tile [q0, q0 + BT) visits
-__device__ __forceinline__ int kv_tiles(int q0, int BT, int kl, int causal) {
+// number of kv tiles of `tile` keys a q tile [q0, q0 + rows) visits
+__device__ __forceinline__ int kv_tiles(int q0, int rows, int tile, int kl,
+                                        int causal) {
   int end = kl;
-  if (causal && q0 + BT < end) end = q0 + BT;
-  return end > 0 ? (end + BT - 1) / BT : 0;
+  if (causal && q0 + rows < end) end = q0 + rows;
+  return end > 0 ? (end + tile - 1) / tile : 0;
 }
 
 // ---- K3: forward ---------------------------------------------------------
@@ -264,7 +273,7 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 4 * NG; ++e) acc[i][e] = 0.f;
   }
 
-  const int n_kv = kv_tiles(q0, BT, kl, causal);
+  const int n_kv = kv_tiles(q0, BT, BT, kl, causal);
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * BT;
     __syncthreads();   // the last tile's readers are done with Kt/Vn/Pt
@@ -372,7 +381,7 @@ fa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int e = 0; e < 4 * NG; ++e) acc[i][e] = 0.f;
 
-  const int n_kv = kv_tiles(q0, BT, kl, causal);
+  const int n_kv = kv_tiles(q0, BT, BT, kl, causal);
   for (int t = 0; t < n_kv; ++t) {
     const int k0 = t * BT;
     const int nk = min(BT, kl - k0);   // rows past the prefix: zeros
@@ -603,6 +612,594 @@ bool bad_shape(int BH, int S, int SK, int D) {
   return BH <= 0 || S <= 0 || SK <= 0 || D <= 0 || D % 8 != 0 || D > 256;
 }
 
+// ==== tensor-core route: bf16, head_dim 64 / 128 (K3, K5) =================
+//
+// What bounds them, and what the design does about it. The products run
+// as mma.sync.m16n8k16 (bf16 x bf16 -> f32) on the tensor cores, so the
+// CUDA cores' FMA ceiling is gone; what is left is feeding them:
+// * operands are staged in shared memory as bf16, each tile once, by
+//   cp.async into a ring of 2-3 stages: the next tiles are in flight while
+//   tile t computes, and one barrier per tile suffices (the copy into a
+//   stage is issued after the barrier that ends its last reader); rows
+//   past the valid prefix or the ragged end are zero-filled by the copy
+//   itself (source size 0);
+// * rows are padded by 8 elements (16 bytes), so the 8 row addresses of
+//   an ldmatrix phase fall in 8 different bank groups;
+// * ldmatrix gives the fragments and ldmatrix.trans the transposed view of
+//   the same tile (V in P·V; dO and Q in the dv / dk products), so no tile
+//   is staged twice;
+// * scores stay in registers: the f32 accumulator layout of two adjacent
+//   n8 blocks is the A-operand layout of one k16 step, so P and dS are
+//   rounded to bf16 in registers and fed straight back to the tensor
+//   cores; they never touch shared memory;
+// * the online softmax runs in registers: a row lives in the 4 lanes of a
+//   quad, whose max reduces by two shuffles (the row sum stays per lane
+//   until the end); exp is exp2 with log2(e) folded in; masking (by
+//   select) only on the tiles that cross the diagonal, the valid prefix or
+//   the ragged end.
+// Blocks have 4 warps. At the training shape both kernels reach under a
+// fifth of their bound (PERF.md); the 230-250 registers a lane they take
+// allow 2 blocks (8 warps) per SM, which likely leaves the ldmatrix ->
+// mma -> softmax chains exposed (a hypothesis: no profiler of the SM's
+// stalls runs on the card's machine). Not done yet: wgmma (the only way to the full 989
+// TFLOP/s, and its accumulators need no ldmatrix for B), TMA + mbarrier
+// staging, warp specialisation, and in K5 more keys per warp (each warp
+// reads the whole Q / dO tile from shared memory for its 16 keys).
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;            // 4 warps
+constexpr int BK = 64;                     // keys per tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// K3's m16 row tiles per warp: 2 at head_dim 64 (a warp owns 32 q rows, a
+// block 128), so each K / V fragment read from shared memory feeds two
+// products; 1 at 128, where one tile's accumulators and Q fragments
+// already take over 200 registers a lane
+template <int D>
+constexpr int kFwdMT = D <= 64 ? 2 : 1;
+// K3's K / V ring: 3 stages (tiles t+1 and t+2 in flight while t
+// computes) at head_dim 64; 2 at 128, where 3 would leave room for one
+// block per SM
+template <int D>
+constexpr int kFwdStages = D <= 64 ? 3 : 2;
+// K5's Q / dO / lse / delta ring
+constexpr int kDkvStages = 3;
+
+// K5's q rows per tile: 64 at head_dim 64; 32 at 128, which keeps S, dP
+// and the dk / dv accumulators (2 x 64 f32 per lane) in registers
+template <int D>
+constexpr int kDkvBQ = D <= 64 ? 64 : 32;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// async copy of 16 (4) bytes global -> shared; bytes past `src_bytes`
+// (all of them when it is 0) are written as zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
+}
+
+// 2^x on the SFU (ex2.approx.ftz: results below 2^-126 flush to zero)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// c += a · b: a 16x16 bf16 (row-major fragment), b 16x8 bf16 (column-
+// major fragment), c 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two f32 rounded to bf16 (to nearest even), `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The A operand of one k16 step from two adjacent n8 accumulator blocks
+// (c0: columns 0-7, c1: columns 8-15), rounded to bf16
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
+                                         const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// Fragments from a shared [rows][LD] bf16 tile (lane-dependent addresses):
+// A operand: rows r0..r0+15 x columns c0..c0+15
+template <int LD>
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
+                                       int r0, int c0, int lane) {
+  ldsm_x4(a, smem_addr(t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8));
+}
+
+// B operands of two n8 blocks whose n index runs along the tile's rows
+// n0..n0+15 and k along columns c0..c0+15: b[0..1] for rows n0..n0+7,
+// b[2..3] for n0+8..n0+15
+template <int LD>
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* t,
+                                       int n0, int c0, int lane) {
+  ldsm_x4(b, smem_addr(t + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 +
+                       ((lane >> 3) & 1) * 8));
+}
+
+// B operands from the transposed view: k along the tile's rows
+// k0..k0+15, n along columns n0..n0+15 (b[0..1]: n0..n0+7, b[2..3]: the
+// next 8)
+template <int LD>
+__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* t,
+                                        int k0, int n0, int lane) {
+  ldsm_x4_t(b, smem_addr(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                         n0 + (lane >> 4) * 8));
+}
+
+// rows [0, n) of a [rows, D] global bf16 tile -> shared [R][D + 8] by
+// cp.async (not committed) from a block of NT threads; rows n..R-1 are
+// zero-filled
+template <int R, int D, int NT>
+__device__ __forceinline__ void stage_tile(bf16* dst, const bf16* src, int n) {
+  constexpr int CPR = D / 8;   // 16-byte chunks per row
+  static_assert(R * CPR % NT == 0, "tile chunks per thread");
+#pragma unroll
+  for (int it = 0; it < R * CPR / NT; ++it) {
+    const int i = threadIdx.x + it * NT;
+    const int r = i / CPR, c = i % CPR;
+    const bool ok = r < n;
+    cp_async16(smem_addr(dst + r * (D + 8) + 8 * c),
+               src + (ok ? (int64_t)r * D + 8 * c : 0), ok ? 16 : 0);
+  }
+}
+
+// ---- K3 on the tensor cores ------------------------------------------------
+// One block per (bh, q tile of 64·MT rows), heavy causal tiles first. Warp
+// w owns MT m16 tiles (16·MT q rows from 16·MT·w), their Q fragments in
+// registers for the whole loop, so each K / V fragment it reads feeds MT
+// products; it skips the kv tiles wholly above its rows. Scores stay in
+// q·k units: scale·log2(e) is folded into the one FMA before exp2, and
+// scale into lse at the end.
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+fa_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const int* __restrict__ lens,
+                 bf16* __restrict__ out, float* __restrict__ lse, int S,
+                 int SK, int causal, float scale) {
+  constexpr int MT = kFwdMT<D>, WR = 16 * MT, BQ = 4 * WR, LD = D + 8;
+  constexpr int NT = kTcThreads, ST = kFwdStages<D>;
+  constexpr int KS = D / 16;   // k16 steps over head_dim
+  constexpr int NS = BK / 8;   // n8 blocks of a score tile
+  constexpr int NO = D / 8;    // n8 blocks of the output
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]
+  bf16* Ks = Qs + BQ * LD;                      // [ST][BK][LD]
+  bf16* Vs = Ks + ST * BK * LD;                 // [ST][BK][LD]
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = q0 + warp * WR;   // the warp's first row
+  const int r_lane = lane >> 2;    // this lane's rows: w0 + 16·mt + r_lane (+ 8)
+  const int c_lane = 2 * (lane & 3);   // its first column in an n8 block
+  const int kl = lens ? min(lens[bh], SK) : SK;
+  const bf16* kb = k + (int64_t)bh * SK * D;
+  const bf16* vb = v + (int64_t)bh * SK * D;
+  const float sl2 = scale * kLog2e;
+
+  const int n_kv = kv_tiles(q0, BQ, BK, kl, causal);
+  // kv tile t into ring stage t % ST; rows past the valid prefix: zeros
+  auto stage_kv = [&](int t) {
+    if (t >= n_kv) return;
+    const int k0 = t * BK, st = t % ST;
+    stage_tile<BK, D, NT>(Ks + st * BK * LD, kb + (int64_t)k0 * D, kl - k0);
+    stage_tile<BK, D, NT>(Vs + st * BK * LD, vb + (int64_t)k0 * D, kl - k0);
+  };
+  // one commit group per tile: the first also holds Q
+  stage_tile<BQ, D, NT>(Qs, q + ((int64_t)bh * S + q0) * D, S - q0);
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    stage_kv(t);
+    cp_commit();
+  }
+
+  uint32_t qa[MT][KS][4];
+  float o[MT][NO][4];
+  float m[MT][2], l[MT][2];   // row max (q·k units); this lane's part of the row sum
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * BK;
+    cp_wait<ST - 2>();   // Q and tile t have landed ...
+    __syncthreads();     // ... for every thread, and tile t - 1 is done with
+    stage_kv(t + ST - 1);   // into the stage tile t - 1 used
+    cp_commit();
+    if (t == 0) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          frag_a<LD>(qa[mt][kk], Qs, warp * WR + 16 * mt, 16 * kk, lane);
+    }
+    const bf16* Kt = Ks + (t % ST) * BK * LD;
+    const bf16* Vt = Vs + (t % ST) * BK * LD;
+    if (causal && k0 > w0 + WR - 1) continue;   // every key above its rows
+
+    float s[MT][NS][4];   // S = Q · Kᵀ
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4];
+        frag_b<LD>(b, Kt, 8 * j, 16 * kk, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(s[mt][j], qa[mt][kk], b[0], b[1]);
+          mma_bf16(s[mt][j + 1], qa[mt][kk], b[2], b[3]);
+        }
+      }
+
+    // the mask by select, on tiles that cross the prefix or the diagonal;
+    // then the online softmax
+    const bool edge = k0 + BK > kl || (causal && k0 + BK - 1 > w0);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int row0 = w0 + 16 * mt + r_lane;
+      auto allowed = [&](int j, int e) {
+        const int col = k0 + 8 * j + c_lane + (e & 1);
+        return col < kl && (!causal || col <= row0 + 8 * (e >> 1));
+      };
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (edge && !allowed(j, e)) s[mt][j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+        }
+      float mb[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        alpha[i] = fast_exp2((m[mt][i] - mx[i]) * sl2);
+        m[mt][i] = mx[i];
+        mb[i] = mx[i] * sl2;
+        l[mt][i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(s[mt][j][e], sl2, -mb[e >> 1]));
+          if (edge && !allowed(j, e)) p = 0.f;
+          s[mt][j][e] = p;
+          l[mt][e >> 1] += p;
+        }
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[mt][n][e] *= alpha[e >> 1];
+    }
+
+    // O += P · V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        acc_to_a(a[mt], s[mt][2 * kk], s[mt][2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        frag_bt<LD>(b, Vt, 16 * kk, 8 * n, lane);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_bf16(o[mt][n], a[mt], b[0], b[1]);
+          mma_bf16(o[mt][n + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[mt][i];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      const int row = w0 + 16 * mt + r_lane + 8 * i;
+      if (row >= S) continue;
+      // no valid key: zeros and lse = -1e30 (the reference's safe_l)
+      const float inv = sum == 0.f ? 1.f : 1.f / sum;
+      if ((lane & 3) == 0)
+        lse[(int64_t)bh * S + row] =
+            sum == 0.f ? kNegInf : m[mt][i] * scale + logf(sum);
+      bf16* dst = out + ((int64_t)bh * S + row) * D + c_lane;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+            pack_bf16(o[mt][n][2 * i] * inv, o[mt][n][2 * i + 1] * inv);
+    }
+}
+
+// ---- K5 on the tensor cores ------------------------------------------------
+// One block per (bh, 64-key kv tile); K and V staged once; the loop walks
+// the q tiles (from the diagonal under causal) with Q, dO, lse and delta
+// in a 3-stage ring. Warp w owns keys 16w..16w+15: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ
+// (keys x q) in registers, then dV += Pᵀ·dO and dK += dSᵀ·Q with Pᵀ, dSᵀ
+// as bf16 A operands and dO, Q through ldmatrix.trans.
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+fa_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ g,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta,
+                     const int* __restrict__ lens, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, int S, int SK, int causal,
+                     float scale) {
+  constexpr int BQ = kDkvBQ<D>, NT = kTcThreads, ST = kDkvStages;
+  constexpr int LD = D + 8;
+  constexpr int KS = D / 16;   // k16 steps over head_dim
+  constexpr int NS = BQ / 8;   // n8 blocks of a (transposed) score tile
+  constexpr int NO = D / 8;    // n8 blocks of dk / dv
+  extern __shared__ float4 smem4[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem4);   // [BK][LD]
+  bf16* Vs = Ks + BK * LD;                      // [BK][LD]
+  bf16* Qs = Vs + BK * LD;                      // [ST][BQ][LD]
+  bf16* Gs = Qs + ST * BQ * LD;                 // [ST][BQ][LD]
+  float* Ls = reinterpret_cast<float*>(Gs + ST * BQ * LD);  // [ST][BQ] lse
+  float* Es = Ls + ST * BQ;                                  // [ST][BQ] delta
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int krow0 = k0 + warp * 16 + (lane >> 2);   // this lane's keys: krow0, krow0 + 8
+  const int c_lane = 2 * (lane & 3);
+  const int kl = lens ? min(lens[bh], SK) : SK;
+  const int64_t koff = ((int64_t)bh * SK + k0) * D;
+  const bf16* qb = q + (int64_t)bh * S * D;
+  const bf16* gb = g + (int64_t)bh * S * D;
+  const float* lb = lse + (int64_t)bh * S;
+  const float* eb = delta + (int64_t)bh * S;
+  const float sl2 = scale * kLog2e;
+
+  float dka[NO][4], dva[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  // q tile qt (rows past S zero-filled) into ring stage `buf`
+  auto stage_q = [&](int qt, int buf) {
+    const int q0 = qt * BQ;
+    stage_tile<BQ, D, NT>(Qs + buf * BQ * LD, qb + (int64_t)q0 * D, S - q0);
+    stage_tile<BQ, D, NT>(Gs + buf * BQ * LD, gb + (int64_t)q0 * D, S - q0);
+    for (int i = threadIdx.x; i < 2 * BQ; i += NT) {
+      const int r = i % BQ;
+      const bool ok = q0 + r < S;
+      cp_async4(smem_addr((i < BQ ? Ls : Es) + buf * BQ + r),
+                (i < BQ ? lb : eb) + (ok ? q0 + r : 0), ok ? 4 : 0);
+    }
+  };
+
+  if (k0 < kl) {   // a kv tile wholly past the valid prefix keeps zero dk / dv
+    stage_tile<BK, D, NT>(Ks, k + koff, kl - k0);   // rows past the prefix: zeros
+    stage_tile<BK, D, NT>(Vs, v + koff, kl - k0);
+    // causal: q rows >= k0 only (k0 is a multiple of BQ)
+    const int qt0 = causal ? k0 / BQ : 0;
+    const int n_qt = (S + BQ - 1) / BQ;
+    // one commit group per q tile: the first also holds K and V
+#pragma unroll
+    for (int i = 0; i < ST - 1; ++i) {
+      if (qt0 + i < n_qt) stage_q(qt0 + i, i);
+      cp_commit();
+    }
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      const int i = qt - qt0, buf = i % ST;
+      cp_wait<ST - 2>();   // K, V and q tile qt have landed ...
+      __syncthreads();     // ... for every thread, and tile qt - 1 is done with
+      if (qt + ST - 1 < n_qt) stage_q(qt + ST - 1, (i + ST - 1) % ST);
+      cp_commit();
+      const bf16* Qt = Qs + buf * BQ * LD;
+      const bf16* Gt = Gs + buf * BQ * LD;
+      const float* Lt = Ls + buf * BQ;
+      const float* Et = Es + buf * BQ;
+
+      float s[NS][4], dp[NS][4];   // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        frag_a<LD>(ka, Ks, warp * 16, 16 * kk, lane);
+        frag_a<LD>(va, Vs, warp * 16, 16 * kk, lane);
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          uint32_t b[4];
+          frag_b<LD>(b, Qt, 8 * j, 16 * kk, lane);
+          mma_bf16(s[j], ka, b[0], b[1]);
+          mma_bf16(s[j + 1], ka, b[2], b[3]);
+          frag_b<LD>(b, Gt, 8 * j, 16 * kk, lane);
+          mma_bf16(dp[j], va, b[0], b[1]);
+          mma_bf16(dp[j + 1], va, b[2], b[3]);
+        }
+      }
+
+      // Pᵀ = exp(Sᵀ·scale − lse) (as exp2, log2(e) folded in) and dSᵀ =
+      // Pᵀ∘(dPᵀ − delta); the mask by select on tiles that cross the
+      // diagonal, the prefix or the end
+      const int q0 = qt * BQ;
+      const bool edge = q0 + BQ > S || k0 + BK > kl ||
+                        (causal && k0 + warp * 16 + 15 > q0);
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int c = 8 * j + c_lane;
+        const float2 lq = *reinterpret_cast<const float2*>(Lt + c);
+        const float2 eq = *reinterpret_cast<const float2*>(Et + c);
+        const float lb2[2] = {lq.x * kLog2e, lq.y * kLog2e};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float del_e = (e & 1) ? eq.y : eq.x;
+          float p = fast_exp2(fmaf(s[j][e], sl2, -lb2[e & 1]));
+          float ds = p * (dp[j][e] - del_e);
+          if (edge) {
+            const int qr = q0 + c + (e & 1), kr = krow0 + 8 * (e >> 1);
+            const bool ok = qr < S && kr < kl && (!causal || kr <= qr);
+            p = ok ? p : 0.f;
+            ds = ok ? ds : 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = ds;
+        }
+      }
+
+      // dV += Pᵀ·dO, dK += dSᵀ·Q: Pᵀ and dSᵀ rounded to bf16 in registers
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        uint32_t pa[4], da[4];
+        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+        acc_to_a(da, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+        for (int n = 0; n < NO; n += 2) {
+          uint32_t b[4];
+          frag_bt<LD>(b, Gt, 16 * kk, 8 * n, lane);
+          mma_bf16(dva[n], pa, b[0], b[1]);
+          mma_bf16(dva[n + 1], pa, b[2], b[3]);
+          frag_bt<LD>(b, Qt, 16 * kk, 8 * n, lane);
+          mma_bf16(dka[n], da, b[0], b[1]);
+          mma_bf16(dka[n + 1], da, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kr = krow0 + 8 * i;
+    if (kr >= SK) continue;
+    bf16* pk = dk + ((int64_t)bh * SK + kr) * D + c_lane;
+    bf16* pv = dv + ((int64_t)bh * SK + kr) * D + c_lane;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      *reinterpret_cast<uint32_t*>(pk + 8 * n) =
+          pack_bf16(dka[n][2 * i] * scale, dka[n][2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(pv + 8 * n) =
+          pack_bf16(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+size_t fwd_smem() {
+  return sizeof(bf16) * (size_t)(64 * kFwdMT<D> + 2 * kFwdStages<D> * BK) *
+         (D + 8);
+}
+
+template <int D>
+size_t dkv_smem() {
+  constexpr int BQ = kDkvBQ<D>;
+  return sizeof(bf16) * (size_t)(2 * BK + 2 * kDkvStages * BQ) * (D + 8) +
+         sizeof(float) * 2 * kDkvStages * BQ;
+}
+
+template <int D>
+cudaError_t launch_fwd(const Args& a) {
+  const size_t smem = fwd_smem<D>();
+  auto kernel = fa_fwd_tc_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int BQ = 64 * kFwdMT<D>;
+  const dim3 grid(a.BH, (a.S + BQ - 1) / BQ);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.lens, static_cast<bf16*>(a.o0),
+      a.lse_out, a.S, a.SK, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a) {
+  const size_t smem = dkv_smem<D>();
+  auto kernel = fa_bwd_dkv_tc_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.BH, (a.SK + BK - 1) / BK);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g),
+      a.lse_in, a.delta, a.lens, static_cast<bf16*>(a.o0),
+      static_cast<bf16*>(a.o1), a.S, a.SK, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+// the tensor-core route takes bf16 with head_dim 64 or 128 only
+bool tc_refuses(int BH, int S, int SK, int D, int bf16) {
+  return bad_shape(BH, S, SK, D) || !bf16 || (D != 64 && D != 128);
+}
+
 }  // namespace
 
 // Plain C entry points (bound with ctypes). Pointers are device pointers
@@ -647,4 +1244,32 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
          dk, dv, nullptr, BH, S, SK, D, causal, scale,
          static_cast<cudaStream_t>(stream)};
   return (int)dispatch_dkv(a, bf16);
+}
+
+// The tensor-core route (K3, K5): the same arguments as pt_flash_fwd /
+// pt_flash_bwd_dkv; bf16 must be 1 and D 64 or 128, else
+// cudaErrorInvalidValue and nothing is launched.
+extern "C" int pt_flash_fwd_tc(const void* q, const void* k, const void* v,
+                               const void* lens, void* out, void* lse, int BH,
+                               int S, int SK, int D, int causal, float scale,
+                               int bf16, void* stream) {
+  if (tc_refuses(BH, S, SK, D, bf16)) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, nullptr, nullptr, nullptr, static_cast<const int*>(lens),
+         out, nullptr, static_cast<float*>(lse), BH, S, SK, D, causal,
+         scale, static_cast<cudaStream_t>(stream)};
+  return (int)(D == 64 ? tc::launch_fwd<64>(a) : tc::launch_fwd<128>(a));
+}
+
+extern "C" int pt_flash_bwd_dkv_tc(const void* q, const void* k,
+                                   const void* v, const void* g,
+                                   const void* lse, const void* delta,
+                                   const void* lens, void* dk, void* dv,
+                                   int BH, int S, int SK, int D, int causal,
+                                   float scale, int bf16, void* stream) {
+  if (tc_refuses(BH, S, SK, D, bf16)) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, g, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const int*>(lens),
+         dk, dv, nullptr, BH, S, SK, D, causal, scale,
+         static_cast<cudaStream_t>(stream)};
+  return (int)(D == 64 ? tc::launch_dkv<64>(a) : tc::launch_dkv<128>(a));
 }

@@ -14,6 +14,14 @@ kernel (and raises on anything the kernel does not take). `launches`
 counts kernel launches per wrapper — it moves only where a kernel
 launches, so a run can show that its main path went through the kernels.
 
+K3 and K5 have two routes, chosen by `tensor_core_route` from the input
+type and head_dim alone: bf16 with head_dim 64 or 128 goes to the
+tensor-core kernels (`fa_fwd_tc_kernel`, `fa_bwd_dkv_tc_kernel`), every
+other input to the f32-math CUDA-core kernels, which stay the exact f32
+path. A route is never a fallback: a build or launch error raises.
+`tc_launches` counts the launches that took the tensor-core route. K4
+has the CUDA-core route only.
+
 `_FlashAttentionBHD` and `_FlashAttentionLseBHD` are the autograd
 Functions that mirror the reference's two `custom_vjp`s;
 `flash_attention_bshd` is the public entry on the paddle layout
@@ -29,7 +37,8 @@ from . import _build
 __all__ = ["flash_attention_bshd", "flash_attention_lse_bhd",
            "flash_forward", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_forward_plain", "flash_bwd_dq_plain",
-           "flash_bwd_dkv_plain", "launches", "reset_launches"]
+           "flash_bwd_dkv_plain", "launches", "tc_launches",
+           "reset_launches", "tensor_core_route"]
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 512
@@ -40,12 +49,23 @@ REPLACES = {"flash_forward": f"{_REF}:42",
             "flash_bwd_dq": f"{_REF}:183",
             "flash_bwd_dkv": f"{_REF}:246"}
 
+# head dims the tensor-core kernels are built for (bf16 inputs only)
+TC_HEAD_DIMS = (64, 128)
+
 launches = dict.fromkeys(REPLACES, 0)
+tc_launches = dict.fromkeys(("flash_forward", "flash_bwd_dkv"), 0)
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, tc_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def tensor_core_route(dtype, head_dim):
+    """True when K3 / K5 on these inputs take the tensor-core kernels
+    (bf16, head_dim 64 or 128); False: the CUDA-core kernels."""
+    return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
 # ---------------------------------------------------------------- plain
@@ -186,20 +206,22 @@ def _device_check(q):
 def flash_forward(q, k, v, causal=False, lens=None):
     """K3. q [bh, s, d], k/v [bh, sk, d] (float32 or bfloat16), lens
     [bh] int32 or None (clamped to sk by the caller) → (out [bh, s, d]
-    in q's dtype, lse [bh, 1, s] float32)."""
+    in q's dtype, lse [bh, 1, s] float32). Route: `tensor_core_route`."""
     if q.device.type == "cpu":
         return flash_forward_plain(q, k, v, causal, lens)
     _device_check(q)
     bh, s, sk, d = _check_inputs(q, k, v, lens=lens)
+    tc = tensor_core_route(q.dtype, d)
     out = torch.empty_like(q)
     lse = torch.empty((bh, 1, s), dtype=torch.float32, device=q.device)
-    err = _fn("pt_flash_fwd", 6)(
+    err = _fn("pt_flash_fwd_tc" if tc else "pt_flash_fwd", 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(lens),
         out.data_ptr(), lse.data_ptr(), bh, s, sk, d, int(bool(causal)),
         1.0 / math.sqrt(d), _KINDS[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash attention forward")
     launches["flash_forward"] += 1
+    tc_launches["flash_forward"] += tc
     return out, lse
 
 
@@ -222,20 +244,23 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, lens=None):
 
 
 def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, lens=None):
-    """K5. The same operands as K4 → (dk, dv), each [bh, sk, d]."""
+    """K5. The same operands as K4 → (dk, dv), each [bh, sk, d]. Route:
+    `tensor_core_route`."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal, lens)
     _device_check(q)
     bh, s, sk, d = _check_inputs(q, k, v, g, lse, delta, lens)
+    tc = tensor_core_route(q.dtype, d)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    err = _fn("pt_flash_bwd_dkv", 9)(
+    err = _fn("pt_flash_bwd_dkv_tc" if tc else "pt_flash_bwd_dkv", 9)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(lens), dk.data_ptr(),
         dv.data_ptr(), bh, s, sk, d, int(bool(causal)), 1.0 / math.sqrt(d),
         _KINDS[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash attention dk/dv")
     launches["flash_bwd_dkv"] += 1
+    tc_launches["flash_bwd_dkv"] += tc
     return dk, dv
 
 

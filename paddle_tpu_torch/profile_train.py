@@ -11,8 +11,9 @@ steps under `torch.profiler` and prints:
   H100's bf16 dense peak);
 * device time (the sum of the kernel rows' times on the one stream) and
   the device's idle share of the profiled wall time;
-* the flash attention kernels' (K3, K4, K5) share of device time, and
-  device time by kernel category;
+* the flash attention kernels' (K3, K4, K5) share of device time, by
+  kernel symbol (K3 and K5: CUDA-core and tensor-core route), and device
+  time by kernel category;
 * the kernels ordered by device time, with launch counts.
 
     python -m paddle_tpu_torch.profile_train [--steps N] [--trace PATH]
@@ -37,12 +38,14 @@ from .text.models.gpt import (GPTForCausalLM, GPTPretrainingCriterion,
 
 H100_PEAK_BF16 = 989e12          # NVIDIA data sheet, SXM, dense
 BATCH, SEQ = 16, 1024
-# kernel names of csrc/flash_attention.cu as the profiler shows them
-FLASH_KERNELS = {"K3": "fa_fwd_kernel", "K4": "fa_bwd_dq_kernel",
-                 "K5": "fa_bwd_dkv_kernel"}
+# kernel names of csrc/flash_attention.cu as the profiler shows them: K3
+# and K5 have a CUDA-core and a tensor-core (`_tc_`) kernel each
+FLASH_KERNELS = {"K3": ("fa_fwd_kernel", "fa_fwd_tc_kernel"),
+                 "K4": ("fa_bwd_dq_kernel",),
+                 "K5": ("fa_bwd_dkv_kernel", "fa_bwd_dkv_tc_kernel")}
 # kernel-name substrings → category (first match wins)
 CATEGORIES = (
-    ("flash attention K3-K5", tuple(FLASH_KERNELS.values())),
+    ("flash attention K3-K5", sum(FLASH_KERNELS.values(), ())),
     ("matmul (cuBLAS)", ("nvjet", "gemm", "xmma", "cutlass")),
     ("layer norm", ("layer_norm", "GammaBeta")),
     ("reductions", ("reduce_kernel",)),
@@ -108,11 +111,12 @@ def main(argv=None):
     print(f"profiled 2 steps: {pwall * 1e3:.3f} ms wall, device time "
           f"{device_us / 1e3:.3f} ms; idle share "
           f"{100 * (1 - device_us / 1e6 / pwall):.1f}%")
-    for k, name in FLASH_KERNELS.items():
-        us = sum(e.self_device_time_total for e in rows if name in e.key)
-        n = sum(e.count for e in rows if name in e.key)
-        print(f"{k} {name}: {us / 1e3:.3f} ms = "
-              f"{100 * us / device_us:.1f}% of device time, {n} launches")
+    for k, names in FLASH_KERNELS.items():
+        for name in names:
+            us = sum(e.self_device_time_total for e in rows if name in e.key)
+            n = sum(e.count for e in rows if name in e.key)
+            print(f"{k} {name}: {us / 1e3:.3f} ms = "
+                  f"{100 * us / device_us:.1f}% of device time, {n} launches")
     by_cat = {}
     for e in rows:
         cat = next((c for c, keys in CATEGORIES

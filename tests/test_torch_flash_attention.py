@@ -162,6 +162,52 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
         tfa.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"))
 
 
+@pytest.mark.parametrize("dtype,d,tc", [
+    (torch.bfloat16, 64, True), (torch.bfloat16, 128, True),
+    *[(torch.float32, d, False) for d in (8, 32, 64, 96, 128, 256)],
+    *[(torch.bfloat16, d, False) for d in (8, 32, 96, 256)],
+])
+def test_tensor_core_route_by_dtype_and_head_dim(dtype, d, tc):
+    """bf16 at head_dim 64 / 128 takes the tensor-core K3 / K5; f32 at any
+    head_dim and bf16 at any other head_dim the CUDA-core kernels."""
+    assert tfa.tensor_core_route(dtype, d) is tc
+
+
+def test_tensor_core_counts_stay_zero_on_cpu():
+    """A bf16 head_dim-64 CPU tensor (the tensor-core route's inputs) runs
+    the plain versions: neither count moves."""
+    tfa.reset_launches()
+    rng = np.random.default_rng(2)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16)
+                  for a in _arrays(rng, 4, (2, 33, 64)))
+    out, lse = tfa.flash_forward(q, k, v, True)
+    delta = (g.float() * out.float()).sum(-1)[:, None, :]
+    tfa.flash_bwd_dkv(q, k, v, g, lse, delta, True)
+    tfa.flash_bwd_dq(q, k, v, g, lse, delta, True)
+    assert set(tfa.tc_launches) == {"flash_forward", "flash_bwd_dkv"}
+    assert all(n == 0 for n in tfa.tc_launches.values())
+    assert all(n == 0 for n in tfa.launches.values())
+
+
+def test_profile_train_names_every_flash_kernel():
+    """profile_train names every kernel that csrc/flash_attention.cu
+    defines (both routes' K3 / K5), and no symbol is a substring of
+    another (the profiler rows match by substring)."""
+    import os
+    import re
+
+    from paddle_tpu_torch import profile_train
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+
+    with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
+        defined = set(re.findall(r"^(fa_\w+_kernel)\(", f.read(), re.M))
+    names = sum(profile_train.FLASH_KERNELS.values(), ())
+    assert {"fa_fwd_tc_kernel", "fa_bwd_dkv_tc_kernel"} <= defined
+    assert set(names) == defined
+    assert set(names) <= set(profile_train.CATEGORIES[0][1])
+    assert not any(a != b and a in b for a in names for b in names)
+
+
 def test_bshd_contract_causal_cross_length_and_kv_lens_clamp():
     rng = np.random.default_rng(3)
     q = torch.from_numpy(_arrays(rng, 1, (2, 6, 2, 8))[0])
