@@ -10,12 +10,12 @@ continues:
 1. card     — the card's name and power limit (nvidia-smi).
 2. build    — every CUDA kernel of the serving and training paths, from
               `csrc/`, with nvcc for sm_90a (one nvcc per source, started
-              together). Prints each flash kernel's registers, spill bytes
-              and static shared memory from the `-Xptxas -v` log, the
-              blocks per SM its registers allow, and the count of
-              tensor-core instructions (HMMA / HGMMA) in each flash
-              kernel's SASS (`cuobjdump -sass`); fails if a tensor-core
-              kernel has none.
+              together). Prints the registers, spill bytes and static
+              shared memory (the `-Xptxas -v` log), the blocks per SM the
+              registers allow, and the count of tensor-core instructions
+              (HMMA / HGMMA) in the SASS (`cuobjdump -sass`) of each flash
+              kernel and of K1's tensor-core kernels; fails if a
+              tensor-core kernel has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               each output row within a tolerance of that row's max-abs
               (f32 q 1e-4, bf16 q 2e-2): ragged paged attention K1 on f32,
@@ -24,25 +24,41 @@ continues:
               and 3, pure decode tick); its query-blocked variant K2 on
               the same four pool kinds at the speculative verify step
               (8 slots x 5 rows, a dead and a narrow slot, offset 0 and
-              3); flash attention forward, dq and dk/dv (K3-K5) at the
-              training path's shapes (b·h 192, s 1024, d 64, bf16,
-              causal) and at smaller f32 / bf16 cases (ragged seq,
-              non-causal, kv_lens with a 0 row, seq_k != seq_q, head_dim
-              8, 32, 96, 128, 256); each case must take the route that
-              `tensor_core_route` names (bf16 at head_dim 64 / 128: the
-              tensor-core K3 / K5).
+              3); each call on the route `paged_route` names (K1 on the
+              bf16 pool: the tensor-core route); K1's tensor-core route
+              on layouts that break its chunks and KV splits (kv_len at
+              split boundaries, 1 and 1024; a chunk whose rows end in
+              different splits; a 64-row tile holding two slots' rows;
+              padding-only tiles; slots in any order; page size 64 and
+              head_dim 128; 1300 rows at page size 5), each at offset 0
+              and 3; flash attention
+              forward, dq and dk/dv (K3-K5) at the training path's shapes
+              (b·h 192, s 1024, d 64, bf16, causal) and at smaller f32 /
+              bf16 cases (ragged seq, non-causal, kv_lens with a 0 row,
+              seq_k != seq_q, head_dim 8, 32, 96, 128, 256); each case
+              must take the route that `tensor_core_route` names (bf16 at
+              head_dim 64 / 128: the tensor-core K3-K5).
               Kernel / plain / library times (CUDA events, median of 30
-              launches, L2 flushed before each) beside the least time the
-              card could take (bound: each input byte read once — codes
-              and scales for a quantized pool — each output written
-              once). The library times of K3-K5 are torch's
+              launches, L2 flushed before each, a spin kernel queued
+              ahead so the window holds no host gaps) beside the least
+              time the card could take (bound: each input byte read once
+              — codes and scales for a quantized pool — each output
+              written once). The library times of K3-K5 are torch's
               `scaled_dot_product_attention` forward and the backward
               node it records, called directly.
 4. serve    — `LLMServer` over gpt_small (random weights from a seed),
               bf16 weights and bf16 KV pool, 8 greedy requests with
               prompts of 16-900 tokens. The launch counts are set to 0
-              just before and read just after: K1 (float pool) must have
-              launched once per layer per engine tick, and nothing else.
+              just before and read just after: K1 (bf16 pool) must have
+              launched once per layer per engine tick, every time on its
+              tensor-core route, and nothing else.
+4b. serve cross bf16 — the same engine and prompt lengths (`LLMEngine`,
+              new weights), twice on the card: through K1's tensor-core
+              route, and with `ragged_paged_attention` swapped for its
+              plain version. Same schedule; every sampled frontier row's
+              logits within SERVE_BF16_LOGIT_TOL max-abs; greedy tokens
+              equal except at a near-tie of the plain run (top two
+              logits within that tolerance).
 5. serve int8 + ngram — the same server and load with an int8 KV pool
               and n-gram speculation (spec_k 4), each prompt a random
               24-token segment repeated to its length: K2-int8 must have
@@ -64,15 +80,15 @@ continues:
               `amp.auto_cast`, `AdamW(1e-4)` (bench.py's bench_gpt on the
               port): 3 warm-up steps, then 10 timed ones with the launch
               counts set to 0 just before; each flash kernel must have
-              launched 12 times per step, K3 and K5 every time on the
-              tensor-core route, every loss be finite and the last below
-              the first. Prints ms/step, tokens/s and MFU.
+              launched 12 times per step, every time on the tensor-core
+              route, every loss be finite and the last below the first.
+              Prints ms/step, tokens/s and MFU.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
               gradient's max-abs.
 10. train cross bf16 — gpt_small at b2·s256, bf16 O1: one TrainStep on
-              the card through the kernels (K3 / K5 on the tensor-core
+              the card through the kernels (K3-K5 on the tensor-core
               route) and one from the same weights with the module's
               flash_forward / flash_bwd_dq / flash_bwd_dkv swapped for
               their plain versions; the losses agree to 1e-5 relative,
@@ -98,9 +114,12 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SM_REGISTERS = 65536     # 32-bit registers per SM
-# the tensor-core flash kernels and their threads per block (kTcThreads
-# in csrc/flash_attention.cu)
-TC_KERNELS = ("fa_fwd_tc_kernel", "fa_bwd_dkv_tc_kernel")
+# the tensor-core kernels, by library, and their threads per block
+# (kTcThreads in csrc/flash_attention.cu, kThreads in paged_attention.cu's
+# tc namespace)
+TC_KERNELS = {"flash_attention": ("fa_fwd_tc_kernel", "fa_bwd_dq_tc_kernel",
+                                  "fa_bwd_dkv_tc_kernel"),
+              "paged_attention": ("rpa_tc_kernel",)}
 TC_THREADS = 128
 
 SERVE_PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
@@ -110,9 +129,10 @@ SERVE_CFG = dict(num_slots=8, page_size=16, max_model_len=1024,
 
 
 def _kernel_label(mangled):
-    """'fa_fwd_tc_kernel<64>' / 'fa_fwd_kernel<bf16, 4, 1>' from a
-    mangled flash attention kernel name; None for any other function."""
-    m = re.search(r"(fa_\w+?_kernel)I(.*?)EEv", mangled)
+    """'fa_fwd_tc_kernel<64>' / 'fa_fwd_kernel<bf16, 4, 1>' /
+    'rpa_tc_kernel<64>' from a mangled name of a templated flash attention
+    kernel or of K1's tensor-core route; None for any other function."""
+    m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel)I(.*?)EEv", mangled)
     if not m:
         return None
     base, targs = m.groups()
@@ -124,7 +144,8 @@ def _kernel_label(mangled):
 
 def _ptxas_resources(log_path):
     """{kernel label: registers, spill bytes, static shared memory} of
-    the flash kernels, from the nvcc `-Xptxas -v` log of their build."""
+    the kernels `_kernel_label` names, from the nvcc `-Xptxas -v` log of
+    their build."""
     res, cur = {}, None
     with open(log_path) as f:
         for line in f:
@@ -151,8 +172,8 @@ def _ptxas_resources(log_path):
 
 
 def _tensor_core_instructions(nvcc, so_path):
-    """{kernel label: HMMA / HGMMA instructions} of the flash kernels in
-    the library's SASS (`cuobjdump -sass`)."""
+    """{kernel label: HMMA / HGMMA instructions} of the kernels
+    `_kernel_label` names in the library's SASS (`cuobjdump -sass`)."""
     tool = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([tool, "-sass", so_path], capture_output=True,
                           text=True, timeout=300, check=True).stdout
@@ -176,26 +197,31 @@ def _blocks_by_registers(regs, threads):
     return SM_REGISTERS // (per_warp * (threads // 32))
 
 
-def flash_build_report(fa, build):
-    """Prints each flash kernel's registers, spills and static shared
-    memory (ptxas log; for the tensor-core kernels, the blocks per SM the
-    registers allow) and its tensor-core instruction count; fails when a
-    tensor-core kernel has no tensor-core instruction."""
-    so = build.build(["flash_attention"])["flash_attention"]
-    res = _ptxas_resources(so[:-3] + ".log")
-    mma = _tensor_core_instructions(build._nvcc(), so)
-    for label in sorted(set(res) | set(mma)):
-        r = res.get(label, {})
-        extra = ""
-        if label.split("<")[0] in TC_KERNELS and r.get("regs"):
-            extra = (f", registers allow "
-                     f"{_blocks_by_registers(r['regs'], TC_THREADS)} "
-                     f"blocks/SM")
-        print(f"build {label}: {r.get('regs')} registers, spill stores "
-              f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} B, "
-              f"static smem {r.get('smem')} B{extra}; "
-              f"{mma.get(label, 0)} HMMA/HGMMA in its SASS")
-    want = [f"{k}<{d}>" for k in TC_KERNELS for d in fa.TC_HEAD_DIMS]
+def build_report(build, head_dims):
+    """Prints the registers, spills and static shared memory (ptxas log;
+    for the tensor-core kernels, the blocks per SM the registers allow)
+    and the tensor-core instruction count of every flash kernel and of
+    K1's tensor-core kernels; fails when a tensor-core kernel (at each of
+    `head_dims`) has no tensor-core instruction."""
+    paths = build.build(list(TC_KERNELS))
+    mma = {}
+    for lib, so in paths.items():
+        res = _ptxas_resources(so[:-3] + ".log")
+        lib_mma = _tensor_core_instructions(build._nvcc(), so)
+        mma.update(lib_mma)
+        for label in sorted(set(res) | set(lib_mma)):
+            r = res.get(label, {})
+            extra = ""
+            if label.split("<")[0] in TC_KERNELS[lib] and r.get("regs"):
+                extra = (f", registers allow "
+                         f"{_blocks_by_registers(r['regs'], TC_THREADS)} "
+                         f"blocks/SM")
+            print(f"build {label}: {r.get('regs')} registers, spill stores "
+                  f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} "
+                  f"B, static smem {r.get('smem')} B{extra}; "
+                  f"{lib_mma.get(label, 0)} HMMA/HGMMA in its SASS")
+    want = [f"{k}<{d}>" for ks in TC_KERNELS.values() for k in ks
+            for d in head_dims]
     if not all(mma.get(label, 0) > 0 for label in want):
         raise AssertionError(f"tensor-core kernels without tensor-core "
                              f"instructions: {mma}")
@@ -210,7 +236,15 @@ def _card():
     return out
 
 
+# cycles of the spin kernel queued before each timed call (about 0.1 ms):
+# the host enqueues the whole call while the card spins, so the window
+# between the events holds the call's device time and no host gaps
+SPIN_CYCLES = 200_000
+
+
 def _median_ms(fn, flush, reps=30):
+    """Median over `reps` calls of the device time between CUDA events
+    around `fn`, the L2 flushed before each."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -219,6 +253,7 @@ def _median_ms(fn, flush, reps=30):
         flush.zero_()       # the serving path reads each layer's pool cold
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -386,13 +421,110 @@ def _serving_q(kind):
     return torch.float32 if kind == "float32" else torch.bfloat16
 
 
+# PA_KINDS as `paged_route` names them
+ROUTE_KIND = {"float32": "f32", "bfloat16": "bf16", "int8": "int8",
+              "int4": "int4"}
+
+
+def _pa_call(pa, args, kw, offset, qb, kind, label):
+    """One K1 / K2 call on a `kind` pool; raises unless it took the route
+    `paged_route` names (K1 on a bf16 q and pool at head_dim 64 / 128: the
+    tensor-core route, counted in `tc_launches`)."""
+    q = args[0]
+    want = int(qb is None and pa.paged_route(ROUTE_KIND[kind], q.dtype,
+                                             q.shape[-1]))
+    before = pa.tc_launches["rpa"]
+    out = pa.ragged_paged_attention(*args, **kw, frontier_offset=offset,
+                                    q_per_slot=qb)
+    if pa.tc_launches["rpa"] - before != want:
+        raise AssertionError(f"{label}: tensor-core launches "
+                             f"{pa.tc_launches['rpa'] - before}, expected "
+                             f"{want}")
+    return out
+
+
+def _tc_layouts():
+    """Row layouts that break K1's tensor-core route (64-row chunks of
+    one slot, split-KV of 128 keys at MP·P = 1024): (name, rows as (slot,
+    effective kv_len), page size, pages per sequence, head_dim). Padding
+    rows are (0, 0)."""
+    g = np.random.default_rng(5)
+    T = SERVE_CFG["token_budget"]
+
+    def pad(rows):
+        return rows + [(0, 0)] * (T - len(rows))
+
+    # a decode tick with kv_len at split boundaries (128, 256), one past
+    # and one short of one, 1 and the full 1024
+    edges = pad(list(enumerate((128, 256, 1, 1024, 129, 127, 640, 1023))))
+    # one chunk whose rows end in different splits (some of a row's
+    # splits empty) and a padding row inside a live chunk
+    ragged = pad([(3, n) for n in (1000, 5, 300, 129, 1, 0, 700, 128)]
+                 + [(0, 64), (6, 65)])
+    # the 64-row tile [0, 64) holds the tail of slot 2's chunk and the
+    # head of slot 5's; tiles past row 131 are padding only
+    straddle = pad([(2, 500 + i) for i in range(40)]
+                   + [(5, 1 + i) for i in range(61)]
+                   + [(7, 990 + i) for i in range(30)])
+    # slots in any order, a slot's rows apart, padding rows between
+    anyorder = [(int(s), int(n) if g.random() > 0.15 else 0) for s, n in
+                zip(g.integers(0, 8, 200), g.integers(1, 1025, 200))]
+    # 1300 rows: the plan kernel's second round of 1024 rows; page 5 (41
+    # pages, 205 keys: 4 splits of 64, tiles across pages); lengths up to
+    # the last key, past it at offset 3 (clamped to the table's keys)
+    long = [(s, 45 + i) for s in range(8) for i in range(160)] + [(0, 0)] * 20
+    return [("split edges", edges, 16, 64, 64),
+            ("ragged chunk", ragged, 16, 64, 64),
+            ("two slots in a tile", straddle, 16, 64, 64),
+            ("any order", anyorder, 16, 64, 64),
+            ("any order, page 64, head_dim 128", anyorder, 64, 16, 128),
+            ("1300 rows, page 5", long, 5, 41, 64)]
+
+
+def _layout_case(rows, P, MP, D, offset, seed=2):
+    """A f32 K1 call (H 12, 8 slots, shuffled page ids) on `rows`; a live
+    row's kv_len is stored `offset` lower, as a frontier offset expects."""
+    g = torch.Generator().manual_seed(seed)
+    H, S = 12, 8
+    N = S * MP + 1
+    perm = torch.randperm(N - 1, generator=g) + 1
+    kp, vp = _pools(N, P, H, D, g)
+    q = torch.randn((len(rows), H, D), generator=g)
+    lens = [max(n - offset, 1) if n else 0 for _, n in rows]
+    return [q, kp, vp, perm.reshape(S, MP).to(torch.int32),
+            torch.tensor([s for s, _ in rows], dtype=torch.int32),
+            torch.tensor(lens, dtype=torch.int32)]
+
+
+def check_paged_tc_layouts(pa):
+    """K1's tensor-core route (bf16 q and pool) on `_tc_layouts`, at
+    frontier offset 0 and 3, against the plain version on the card."""
+    for name, rows, P, MP, D in _tc_layouts():
+        worst, worst_rel = 0.0, 0.0
+        for offset in (0, 3):
+            label = f"rpa bfloat16 pool, {name}, offset {offset}"
+            args, kw = _pool(_layout_case(rows, P, MP, D, offset),
+                             "bfloat16", torch.bfloat16)
+            out = _pa_call(pa, args, kw, offset, None, "bfloat16", label)
+            ref = pa.ragged_paged_attention_plain(*args,
+                                                  frontier_offset=offset)
+            torch.cuda.synchronize()
+            err, rel = _pa_gate(label, out, ref, torch.bfloat16, args[5])
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
+        print(f"rpa bfloat16 pool (tensor cores), {name} (T {len(rows)}, "
+              f"page {P}, head_dim {D}), offset 0 and 3: max_abs_err "
+              f"{worst:.3e}, worst row {worst_rel:.2e} of its max-abs (tol "
+              f"{PA_TOL[torch.bfloat16]:.0e})")
+
+
 def check_paged_attention(pa, flush):
     """K1 on every pool kind at a mixed prefill + decode tick (frontier
     offset 0 and 3) and a pure decode tick, and K2 on every pool kind at
     the verify step (offset 0 and 3), each against the plain version on
-    the card. Times each at the serving q type (bf16; f32 for the f32
-    pool) — K1 at both ticks, K2 at offset 0. Returns {(kernel, kind):
-    numbers} with K1's mixed tick."""
+    the card and on the route `paged_route` names (K1 on the bf16 pool:
+    the tensor-core route). Times each at the serving q type (bf16; f32
+    for the f32 pool) — K1 at both ticks, K2 at offset 0. Returns
+    {(kernel, kind): numbers} with K1's mixed tick."""
     res = {}
     for kernel, qb in (("rpa", None), ("qblock", VERIFY_QB)):
         cases = (((0, False), (3, False), (0, True)) if qb is None
@@ -404,14 +536,13 @@ def check_paged_attention(pa, flush):
                     case = (_paged_case(offset, decode) if qb is None
                             else _verify_case(offset))
                     args, kw = _pool(case, kind, q_dtype)
-                    out = pa.ragged_paged_attention(
-                        *args, **kw, frontier_offset=offset, q_per_slot=qb)
+                    label = (f"{kernel} {kind} pool, q {str(q_dtype)[6:]}, "
+                             f"offset {offset}")
+                    out = _pa_call(pa, args, kw, offset, qb, kind, label)
                     ref = pa.ragged_paged_attention_plain(
                         *args, **kw, frontier_offset=offset, q_per_slot=qb)
                     torch.cuda.synchronize()
-                    err, rel = _pa_gate(
-                        f"{kernel} {kind} pool, q {str(q_dtype)[6:]}, offset "
-                        f"{offset}", out, ref, q_dtype, args[5])
+                    err, rel = _pa_gate(label, out, ref, q_dtype, args[5])
                     worst, worst_rel = max(worst, err), max(worst_rel, rel)
             q_t = _serving_q(kind)
             ticks = (False, True) if qb is None else (None,)
@@ -596,7 +727,7 @@ def check_flash_attention(fa, flush):
         fa.reset_launches()
         got, _ = _fa_run(fa, x, lens, case["causal"], plain=False)
         tc = fa.tensor_core_route(case["dtype"], case["d"])
-        route = {"flash_forward": int(tc), "flash_bwd_dkv": int(tc)}
+        route = dict.fromkeys(fa.REPLACES, int(tc))
         ref, _ = _fa_run(fa, x, lens, case["causal"], plain=True)
         torch.cuda.synchronize()
         label = (f"bh{case['bh']} s{case['s']} sk{case.get('sk', case['s'])}"
@@ -694,14 +825,17 @@ def serve(pa):
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = dict(pa.launches)
+        tc_rpa = pa.tc_launches["rpa"]
         ticks = eng.stats["steps"] - ticks0
     _check_outputs(prompts, outs, cfg.vocab_size)
     want = dict.fromkeys(launches, 0)
     want["rpa"] = cfg.num_layers * ticks
-    if launches != want or ticks == 0:
+    if launches != want or ticks == 0 or tc_rpa != want["rpa"]:
         raise AssertionError(
-            f"paged attention launched {launches} in {ticks} ticks; "
-            f"expected {cfg.num_layers} K1 (float pool) per tick")
+            f"paged attention launched {launches} ({tc_rpa} K1 on the "
+            f"tensor-core route) in {ticks} ticks; expected "
+            f"{cfg.num_layers} K1 (bf16 pool) per tick, all on the "
+            "tensor-core route")
     ttft = _ttft(futs, t0)
     gen = SERVE_NEW_TOKENS * len(prompts)
     print(f"serve gpt_small bf16: {len(prompts)} requests, "
@@ -709,8 +843,98 @@ def serve(pa):
           f"{wall:.3f} s = {gen / wall:.1f} generated tok/s, {ticks} ticks, "
           f"TTFT median {ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
           f"paged attention launches {launches['rpa']} = {cfg.num_layers} x "
-          f"{ticks}")
+          f"{ticks}, all on K1's tensor-core route")
     return launches["rpa"]
+
+
+# the bf16 serve path through K1's tensor-core route vs through its plain
+# version, both on the card: the max-abs difference of each sampled
+# frontier row's logits (bf16 logits of a random-init gpt_small, |logit|
+# below 2; both runs round attention's output to bf16, in other places)
+SERVE_BF16_LOGIT_TOL = 5e-2
+
+
+def serve_cross_bf16(pa):
+    """The bf16 serve path twice on the card from the same weights and
+    prompts (`LLMEngine` at the serve config: gpt_small, bf16 weights and
+    KV pool, the serve phase's prompt lengths, 32 greedy tokens each):
+    through K1's tensor-core route, and with the module's
+    `ragged_paged_attention` swapped for its plain version (restored
+    after). The schedules are the same; step by step, every sampled
+    frontier row's logits agree within SERVE_BF16_LOGIT_TOL while its
+    request's tokens agree. A greedy token may differ only where the
+    plain run's top two logits lie within that tolerance; that request is
+    compared no further."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
+
+    cfg = gpt_small()
+    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=4321)
+    rng = np.random.default_rng(4321)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,))
+               for n in SERVE_PROMPT_LENS]
+    kernel = pa.ragged_paged_attention
+    runs = []
+    for swap in (False, True):
+        eng = LLMEngine(model, LLMEngineConfig(kv_dtype="bfloat16",
+                                               **SERVE_CFG))
+        reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS)
+                for p in prompts]
+        pa.reset_launches()
+        steps = []
+        try:
+            if swap:
+                pa.ragged_paged_attention = pa.ragged_paged_attention_plain
+            while eng.has_work():
+                before = [len(r.tokens) for r in reqs]
+                eng.step()
+                # the sampled rows, in plan (admission) order
+                grown = sorted((i for i, r in enumerate(reqs)
+                                if len(r.tokens) > before[i]),
+                               key=lambda i: reqs[i].admit_seq)
+                if grown:
+                    steps.append((grown, eng.last_logits.float().cpu(),
+                                  [reqs[i].tokens[-1] for i in grown]))
+            torch.cuda.synchronize()
+        finally:
+            pa.ragged_paged_attention = kernel
+        runs.append((steps, eng.stats["steps"], dict(pa.launches),
+                     dict(pa.tc_launches)))
+    (ks, kticks, kn, kt), (ps, pticks, pn, _) = runs
+    want = cfg.num_layers * kticks
+    if not (kn["rpa"] == kt["rpa"] == want and set(pn.values()) == {0}
+            and kticks == pticks and len(ks) == len(ps)):
+        raise AssertionError(f"bf16 serve cross-check: kernel run {kticks} "
+                             f"ticks, launches {kn} (tensor-core {kt}); "
+                             f"plain run {pticks} ticks, launches {pn}")
+    worst, rows, ties, diverged = 0.0, 0, [], set()
+    for n, ((gk, lk, tk), (gp, lp, tp)) in enumerate(zip(ks, ps)):
+        if gk != gp:
+            raise AssertionError(f"bf16 serve cross-check: step {n} sampled "
+                                 f"requests {gk} vs {gp}")
+        for row, i in enumerate(gk):
+            if i in diverged:
+                continue
+            worst = max(worst, (lk[row] - lp[row]).abs().max().item())
+            rows += 1
+            if tk[row] != tp[row]:
+                top2 = lp[row].topk(2).values
+                gap = (top2[0] - top2[1]).item()
+                if not gap <= SERVE_BF16_LOGIT_TOL:
+                    raise AssertionError(
+                        f"bf16 serve cross-check: request {i} at step {n} "
+                        f"picked {tk[row]} vs the plain run's {tp[row]}, "
+                        f"whose top two logits differ by {gap:.3e}")
+                ties.append(f"request {i} step {n} (gap {gap:.2e})")
+                diverged.add(i)
+    print(f"serve cross-check gpt_small bf16 KV, K1 tensor-core route vs "
+          f"plain version on the card: {kticks} ticks, {rows} sampled rows "
+          f"compared, logits max abs diff {worst:.3e} (tol "
+          f"{SERVE_BF16_LOGIT_TOL:.0e}); tokens differ at "
+          f"{len(ties)} near-ties{': ' + ', '.join(ties) if ties else ''}")
+    if not worst <= SERVE_BF16_LOGIT_TOL:
+        raise AssertionError("bf16 serve path through K1's tensor-core "
+                             "route disagrees with the plain version")
 
 
 def _check_outputs(prompts, outs, vocab):
@@ -914,10 +1138,11 @@ def train(fa):
     if any(n != want for n in launches.values()):
         raise AssertionError(f"flash kernels launched {launches} times in "
                              f"{TRAIN_STEPS} steps; expected {want} each")
-    if any(n != want for n in tc_launches.values()):
-        raise AssertionError(f"K3 / K5 took the tensor-core route "
+    if set(tc_launches) != set(launches) or any(
+            n != want for n in tc_launches.values()):
+        raise AssertionError(f"K3-K5 took the tensor-core route "
                              f"{tc_launches} times in {TRAIN_STEPS} steps; "
-                             f"expected all {want}")
+                             f"expected all {want} of each")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"train losses not finite and falling: "
                              f"{losses}")
@@ -1072,12 +1297,14 @@ def main():
     _build.build(["paged_attention", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
-    flash_build_report(fa, _build)
+    build_report(_build, fa.TC_HEAD_DIMS)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     kres = check_paged_attention(pa, flush)
+    check_paged_tc_layouts(pa)
     fres = check_flash_attention(fa, flush)
     del flush
     rpa_launches = serve(pa)
+    serve_cross_bf16(pa)
     qs_launches = serve_quant_spec(pa)
     cross_check()
     cx_launches = cross_quant_spec(pa)
@@ -1085,9 +1312,12 @@ def main():
     train_cross_check()
     train_cross_check_bf16(fa)
     # each kernel's launches come from the main-path run that drives it:
-    # K1-float the serve phase, the int8 kernels the int8 + ngram serve,
+    # K1's tensor-core route (bf16 pool) the serve phase, the int8
+    # kernels the int8 + ngram serve, K1 on the f32 pool (CUDA cores),
     # K2-float and the int4 kernels the cross phase's n-gram runs
-    rows = [("ragged_paged_attention", "rpa", "bfloat16", rpa_launches),
+    rows = [("ragged_paged_attention_tc", "rpa", "bfloat16", rpa_launches),
+            ("ragged_paged_attention", "rpa", "float32",
+             cx_launches["float32"]["rpa"]),
             ("ragged_paged_attention_int8", "rpa_int8", "int8",
              qs_launches["rpa_int8"]),
             ("ragged_paged_attention_int4", "rpa_int4", "int4",

@@ -12,11 +12,12 @@
 //
 // Two routes, chosen by the caller from the input type and head_dim
 // (ops/cuda_kernels/flash_attention.py, `tensor_core_route`):
-//   * tensor cores — bf16 with head_dim 64 or 128, K3 and K5 only:
-//     pt_flash_fwd_tc (`fa_fwd_tc_kernel`) and pt_flash_bwd_dkv_tc
-//     (`fa_bwd_dkv_tc_kernel`), at the end of this file;
-//   * CUDA cores — everything else, and K4 always: the f32-math kernels
-//     right below, exact in f32.
+//   * tensor cores — bf16 with head_dim 64 or 128: pt_flash_fwd_tc
+//     (`fa_fwd_tc_kernel`), pt_flash_bwd_dq_tc (`fa_bwd_dq_tc_kernel`)
+//     and pt_flash_bwd_dkv_tc (`fa_bwd_dkv_tc_kernel`), at the end of
+//     this file, on the helpers of mma_sm90.cuh;
+//   * CUDA cores — everything else: the f32-math kernels right below,
+//     exact in f32.
 // A tensor-core entry point refuses what it does not take
 // (cudaErrorInvalidValue); nothing falls back from one route to the other.
 //
@@ -56,6 +57,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -612,7 +615,7 @@ bool bad_shape(int BH, int S, int SK, int D) {
   return BH <= 0 || S <= 0 || SK <= 0 || D <= 0 || D % 8 != 0 || D > 256;
 }
 
-// ==== tensor-core route: bf16, head_dim 64 / 128 (K3, K5) =================
+// ==== tensor-core route: bf16, head_dim 64 / 128 (K3, K4, K5) =============
 //
 // What bounds them, and what the design does about it. The products run
 // as mma.sync.m16n8k16 (bf16 x bf16 -> f32) on the tensor cores, so the
@@ -637,7 +640,7 @@ bool bad_shape(int BH, int S, int SK, int D) {
 //   until the end); exp is exp2 with log2(e) folded in; masking (by
 //   select) only on the tiles that cross the diagonal, the valid prefix or
 //   the ragged end.
-// Blocks have 4 warps. At the training shape both kernels reach under a
+// Blocks have 4 warps. At the training shape K3 and K5 reach under a
 // fifth of their bound (PERF.md); the 230-250 registers a lane they take
 // allow 2 blocks (8 warps) per SM, which likely leaves the ldmatrix ->
 // mma -> softmax chains exposed (a hypothesis: no profiler of the SM's
@@ -647,10 +650,9 @@ bool bad_shape(int BH, int S, int SK, int D) {
 // reads the whole Q / dO tile from shared memory for its 16 keys).
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using namespace pt_mma;
 constexpr int kTcThreads = 128;            // 4 warps
 constexpr int BK = 64;                     // keys per tile
-constexpr float kLog2e = 1.4426950408889634f;
 
 // K3's m16 row tiles per warp: 2 at head_dim 64 (a warp owns 32 q rows, a
 // block 128), so each K / V fragment read from shared memory feeds two
@@ -671,108 +673,13 @@ constexpr int kDkvStages = 3;
 template <int D>
 constexpr int kDkvBQ = D <= 64 ? 64 : 32;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// async copy of 16 (4) bytes global -> shared; bytes past `src_bytes`
-// (all of them when it is 0) are written as zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// 2^x on the SFU (ex2.approx.ftz: results below 2^-126 flush to zero)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// c += a · b: a 16x16 bf16 (row-major fragment), b 16x8 bf16 (column-
-// major fragment), c 16x8 f32
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two f32 rounded to bf16 (to nearest even), `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-// The A operand of one k16 step from two adjacent n8 accumulator blocks
-// (c0: columns 0-7, c1: columns 8-15), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-  a[0] = pack_bf16(c0[0], c0[1]);
-  a[1] = pack_bf16(c0[2], c0[3]);
-  a[2] = pack_bf16(c1[0], c1[1]);
-  a[3] = pack_bf16(c1[2], c1[3]);
-}
-
-// Fragments from a shared [rows][LD] bf16 tile (lane-dependent addresses):
-// A operand: rows r0..r0+15 x columns c0..c0+15
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t,
-                                       int r0, int c0, int lane) {
-  ldsm_x4(a, smem_addr(t + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8));
-}
-
-// B operands of two n8 blocks whose n index runs along the tile's rows
-// n0..n0+15 and k along columns c0..c0+15: b[0..1] for rows n0..n0+7,
-// b[2..3] for n0+8..n0+15
-template <int LD>
-__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const bf16* t,
-                                       int n0, int c0, int lane) {
-  ldsm_x4(b, smem_addr(t + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 +
-                       ((lane >> 3) & 1) * 8));
-}
-
-// B operands from the transposed view: k along the tile's rows
-// k0..k0+15, n along columns n0..n0+15 (b[0..1]: n0..n0+7, b[2..3]: the
-// next 8)
-template <int LD>
-__device__ __forceinline__ void frag_bt(uint32_t (&b)[4], const bf16* t,
-                                        int k0, int n0, int lane) {
-  ldsm_x4_t(b, smem_addr(t + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                         n0 + (lane >> 4) * 8));
-}
+// K4's q rows per block (4 warps x 16) and its K / V ring; its kv tile:
+// 64 keys at head_dim 64, 32 at 128, where S and dP (2 x BK/8 x 4 f32 a
+// lane) sit beside a 16x128 f32 dq accumulator and the Q / dO fragments
+constexpr int kDqBQ = 64;
+constexpr int kDqStages = 3;
+template <int D>
+constexpr int kDqBK = D <= 64 ? 64 : 32;
 
 // rows [0, n) of a [rows, D] global bf16 tile -> shared [R][D + 8] by
 // cp.async (not committed) from a block of NT threads; rows n..R-1 are
@@ -1150,6 +1057,187 @@ fa_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---- K4 on the tensor cores ------------------------------------------------
+// One block per (bh, q tile of 64 rows), heavy causal tiles first. Warp w
+// owns q rows 16w..16w+15: their Q and dO fragments, lse (in log2 units)
+// and delta stay in registers for the whole loop over the kv tiles, which
+// come through a 3-stage cp.async ring of K and V. Per tile: S = Q·Kᵀ and
+// dP = dO·Vᵀ on the tensor cores, then in registers P = exp2(S·scale·log2e
+// − lse·log2e) and dS = P∘(dP − delta), the mask by select on the tiles
+// that cross the diagonal or the valid prefix, and dq += dS·K with dS
+// rounded to bf16 as the A operand and K through ldmatrix.trans; dq is
+// scaled once at the end. A warp skips the tiles wholly above its rows.
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+fa_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ g,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta,
+                    const int* __restrict__ lens, bf16* __restrict__ dq,
+                    int S, int SK, int causal, float scale) {
+  constexpr int BQ = kDqBQ, BKQ = kDqBK<D>, NT = kTcThreads, ST = kDqStages;
+  constexpr int LD = D + 8;
+  constexpr int KS = D / 16;    // k16 steps over head_dim
+  constexpr int NS = BKQ / 8;   // n8 blocks of a score tile
+  constexpr int NO = D / 8;     // n8 blocks of dq
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]
+  bf16* Gs = Qs + BQ * LD;                      // [BQ][LD]
+  bf16* Ks = Gs + BQ * LD;                      // [ST][BKQ][LD]
+  bf16* Vs = Ks + ST * BKQ * LD;                // [ST][BKQ][LD]
+
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int w0 = q0 + warp * 16;       // the warp's first row
+  const int r_lane = lane >> 2;        // this lane's rows: w0 + r_lane (+ 8)
+  const int c_lane = 2 * (lane & 3);   // its first column in an n8 block
+  const int kl = lens ? min(lens[bh], SK) : SK;
+  const int64_t qoff = ((int64_t)bh * S + q0) * D;
+  const bf16* kb = k + (int64_t)bh * SK * D;
+  const bf16* vb = v + (int64_t)bh * SK * D;
+  const float sl2 = scale * kLog2e;
+
+  // a row with no valid key (kl == 0) visits no tile: exact zeros
+  const int n_kv = kv_tiles(q0, BQ, BKQ, kl, causal);
+  // kv tile t into ring stage t % ST; rows past the valid prefix: zeros
+  auto stage_kv = [&](int t) {
+    if (t >= n_kv) return;
+    const int k0 = t * BKQ, st = t % ST;
+    stage_tile<BKQ, D, NT>(Ks + st * BKQ * LD, kb + (int64_t)k0 * D, kl - k0);
+    stage_tile<BKQ, D, NT>(Vs + st * BKQ * LD, vb + (int64_t)k0 * D, kl - k0);
+  };
+  // one commit group per tile: the first also holds Q and dO
+  stage_tile<BQ, D, NT>(Qs, q + qoff, S - q0);
+  stage_tile<BQ, D, NT>(Gs, g + qoff, S - q0);
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) {
+    stage_kv(t);
+    cp_commit();
+  }
+
+  // rows past S: lse 0 and delta 0 on zero Q / dO rows give dS = 0, and
+  // they are not stored
+  float lb2[2], del[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + r_lane + 8 * i;
+    const bool ok = row < S;
+    lb2[i] = ok ? lse[(int64_t)bh * S + row] * kLog2e : 0.f;
+    del[i] = ok ? delta[(int64_t)bh * S + row] : 0.f;
+  }
+
+  uint32_t qa[KS][4], ga[KS][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * BKQ;
+    cp_wait<ST - 2>();   // Q, dO and tile t have landed ...
+    __syncthreads();     // ... for every thread, and tile t - 1 is done with
+    stage_kv(t + ST - 1);   // into the stage tile t - 1 used
+    cp_commit();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        frag_a<LD>(qa[kk], Qs, warp * 16, 16 * kk, lane);
+        frag_a<LD>(ga[kk], Gs, warp * 16, 16 * kk, lane);
+      }
+    }
+    const bf16* Kt = Ks + (t % ST) * BKQ * LD;
+    const bf16* Vt = Vs + (t % ST) * BKQ * LD;
+    if (causal && k0 > w0 + 15) continue;   // every key above its rows
+
+    float s[NS][4], dp[NS][4];   // S = Q·Kᵀ, dP = dO·Vᵀ
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int j = 0; j < NS; j += 2) {
+        uint32_t b[4];
+        frag_b<LD>(b, Kt, 8 * j, 16 * kk, lane);
+        mma_bf16(s[j], qa[kk], b[0], b[1]);
+        mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+        frag_b<LD>(b, Vt, 8 * j, 16 * kk, lane);
+        mma_bf16(dp[j], ga[kk], b[0], b[1]);
+        mma_bf16(dp[j + 1], ga[kk], b[2], b[3]);
+      }
+
+    // dS = P∘(dP − delta), P = exp(S·scale − lse) as exp2; the mask by
+    // select on tiles that cross the prefix or the diagonal
+    const bool edge = k0 + BKQ > kl || (causal && k0 + BKQ - 1 > w0);
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        const float p = fast_exp2(fmaf(s[j][e], sl2, -lb2[i]));
+        float ds = p * (dp[j][e] - del[i]);
+        if (edge) {
+          const int col = k0 + 8 * j + c_lane + (e & 1);
+          const int row = w0 + r_lane + 8 * i;
+          ds = col < kl && (!causal || col <= row) ? ds : 0.f;
+        }
+        dp[j][e] = ds;
+      }
+
+    // dq += dS · K: dS rounded to bf16 in registers is the A operand
+#pragma unroll
+    for (int kk = 0; kk < BKQ / 16; ++kk) {
+      uint32_t a[4];
+      acc_to_a(a, dp[2 * kk], dp[2 * kk + 1]);
+#pragma unroll
+      for (int n = 0; n < NO; n += 2) {
+        uint32_t b[4];
+        frag_bt<LD>(b, Kt, 16 * kk, 8 * n, lane);
+        mma_bf16(acc[n], a, b[0], b[1]);
+        mma_bf16(acc[n + 1], a, b[2], b[3]);
+      }
+    }
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = w0 + r_lane + 8 * i;
+    if (row >= S) continue;
+    bf16* dst = dq + ((int64_t)bh * S + row) * D + c_lane;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<uint32_t*>(dst + 8 * n) =
+          pack_bf16(acc[n][2 * i] * scale, acc[n][2 * i + 1] * scale);
+  }
+}
+
+template <int D>
+size_t dq_smem() {
+  return sizeof(bf16) * (size_t)(2 * kDqBQ + 2 * kDqStages * kDqBK<D>) *
+         (D + 8);
+}
+
+template <int D>
+cudaError_t launch_dq(const Args& a) {
+  const size_t smem = dq_smem<D>();
+  auto kernel = fa_bwd_dq_tc_kernel<D>;
+  cudaError_t err = prepare(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.BH, (a.S + kDqBQ - 1) / kDqBQ);
+  kernel<<<grid, kTcThreads, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g), a.lse_in,
+      a.delta, a.lens, static_cast<bf16*>(a.o0), a.S, a.SK, a.causal,
+      a.scale);
+  return cudaGetLastError();
+}
+
 template <int D>
 size_t fwd_smem() {
   return sizeof(bf16) * (size_t)(64 * kFwdMT<D> + 2 * kFwdStages<D> * BK) *
@@ -1246,9 +1334,9 @@ extern "C" int pt_flash_bwd_dkv(const void* q, const void* k, const void* v,
   return (int)dispatch_dkv(a, bf16);
 }
 
-// The tensor-core route (K3, K5): the same arguments as pt_flash_fwd /
-// pt_flash_bwd_dkv; bf16 must be 1 and D 64 or 128, else
-// cudaErrorInvalidValue and nothing is launched.
+// The tensor-core route (K3, K4, K5): the same arguments as pt_flash_fwd
+// / pt_flash_bwd_dq / pt_flash_bwd_dkv; bf16 must be 1 and D 64 or 128,
+// else cudaErrorInvalidValue and nothing is launched.
 extern "C" int pt_flash_fwd_tc(const void* q, const void* k, const void* v,
                                const void* lens, void* out, void* lse, int BH,
                                int S, int SK, int D, int causal, float scale,
@@ -1258,6 +1346,20 @@ extern "C" int pt_flash_fwd_tc(const void* q, const void* k, const void* v,
          out, nullptr, static_cast<float*>(lse), BH, S, SK, D, causal,
          scale, static_cast<cudaStream_t>(stream)};
   return (int)(D == 64 ? tc::launch_fwd<64>(a) : tc::launch_fwd<128>(a));
+}
+
+extern "C" int pt_flash_bwd_dq_tc(const void* q, const void* k,
+                                  const void* v, const void* g,
+                                  const void* lse, const void* delta,
+                                  const void* lens, void* dq, int BH, int S,
+                                  int SK, int D, int causal, float scale,
+                                  int bf16, void* stream) {
+  if (tc_refuses(BH, S, SK, D, bf16)) return (int)cudaErrorInvalidValue;
+  Args a{q, k, v, g, static_cast<const float*>(lse),
+         static_cast<const float*>(delta), static_cast<const int*>(lens),
+         dq, nullptr, nullptr, BH, S, SK, D, causal, scale,
+         static_cast<cudaStream_t>(stream)};
+  return (int)(D == 64 ? tc::launch_dq<64>(a) : tc::launch_dq<128>(a));
 }
 
 extern "C" int pt_flash_bwd_dkv_tc(const void* q, const void* k,

@@ -49,8 +49,13 @@
 // every key of it (the per-key `valid` gate), never exp(s - m) = 1 from
 // an all-masked page.
 //
-// Simple first: no cp.async/TMA staging and no tensor cores yet (later
-// work, see PERF.md).
+// K1 on the tensor cores (bf16 pool, bf16 q, head_dim 64 or 128: the
+// serving path's case; ops/cuda_kernels/paged_attention.py,
+// `paged_route`) is three launches, `rpa_tc_plan_kernel`, `rpa_tc_kernel`
+// and `rpa_tc_merge_kernel`, described above them at the end of this
+// file. Every other pool kind and head_dim, and K2, keep the kernels
+// below: per-row / per-block passes in f32 on the CUDA cores, no cp.async
+// staging.
 //
 // Semantics kept from the TPU kernels: scale 1/sqrt(D); f32 scores and
 // f32 running m / l / acc; -1e30 on masked columns; V rows past kv_len
@@ -62,6 +67,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
+
+#include "mma_sm90.cuh"
 
 namespace {
 
@@ -415,6 +424,433 @@ cudaError_t launch_q(int kv_kind, const Args& a) {
   }
 }
 
+// ==== K1 on the tensor cores: bf16 pool, bf16 q, head_dim 64 / 128 =======
+//
+// What held `rpa_kernel` back was its grid, not its arithmetic: one
+// block per flat token walks all of that token's pages, so a decode tick
+// (one row per live sequence) runs a handful of blocks on 132 SMs, and a
+// prefill chunk of n rows of one slot reads the slot's pages n times.
+// This route regroups the work, on the device and inside the launches,
+// so the host plans nothing and copies nothing:
+// * chunks: runs of consecutive rows of one slot, cut at every 64th row
+//   (rows t with t % 64 == 0 start a chunk, and so does every slot
+//   change), so a chunk is at most 64 rows and any row order is right —
+//   slots in any order, a 64-row tile holding the tail of one slot's rows
+//   and the head of another's, rows of one slot apart;
+// * split-KV: the keys 0..MP·P are cut into at most 8 splits of SL keys (a
+//   multiple of the 64-key tile); a work item is (chunk, split) for each
+//   split below the chunk's longest row. `rpa_tc_plan_kernel` (one block)
+//   lists the items: chunk starts by flag, each chunk's longest row by a
+//   forward scan of at most 64 rows, the item offsets by a block scan.
+//   Padding rows (kv_len 0) make no item;
+// * `rpa_tc_kernel<D>`: blocks (g, head) walk the items g, g + G, ...; an
+//   item stages the chunk's q rows once and its split's keys in 64-key
+//   tiles, gathered through the slot's page table by cp.async into a ring
+//   (3 stages at head_dim 64, 2 at 128) — each page is read once per
+//   chunk, not once per row. Warp w owns rows 16w..16w+15: S = Q·Kᵀ and
+//   O += P·V as mma.sync bf16 with f32 accumulators, online softmax in
+//   registers (exp2, scale·log2 e folded in), p rounded to bf16 before
+//   P·V as the Pallas kernel does for bf16 pools, the mask (a row's own
+//   kv_len) by select on the tiles some row of the warp ends in; a warp
+//   skips the tiles past all its rows. A row whose keys lie in one split
+//   is written out directly; a longer row leaves its partial (m, l, acc)
+//   in f32;
+// * `rpa_tc_merge_kernel<D>`: one warp per (row, head) merges a row's
+//   partials (acc·2^(m − M) summed, over l·2^(m − M) summed) and writes
+//   exact zeros for rows of kv_len 0.
+// What bounds it: bytes (the slot's K / V rows read once per chunk), but
+// at the serving shapes the tick is a few microseconds of work, so the
+// three launches' latency and the block scheduling are what the time
+// shows (PERF.md). Entry: pt_ragged_paged_attention_tc.
+namespace tc {
+
+using namespace pt_mma;
+constexpr int kThreads = 128;       // 4 warps
+constexpr int kPlanThreads = 1024;
+constexpr int kMergeWarps = 8;
+constexpr int BQ = 64;              // rows of a chunk: 4 warps x 16
+constexpr int BK = 64;              // keys of a kv tile
+constexpr int kMaxSplits = 8;
+// the K / V ring: 3 stages at head_dim 64; 2 at 128 (87 KB: 2 blocks/SM)
+template <int D>
+constexpr int kStages = D <= 64 ? 3 : 2;
+
+struct TcArgs {
+  const bf16* q;             // [T, H, D]
+  const bf16* k_pool;        // [N, P, H, D]
+  const bf16* v_pool;
+  const int* page_tables;    // [S, MP]
+  const int* slot_ids;       // [T]
+  const int* kv_lens;        // [T]
+  bf16* out;                 // [T, H, D]
+  int4* items;               // [T·NS]: (chunk row, rows, split, longest row)
+  int* n_items;
+  float2* part_ml;           // [NS, T, H]: (m · scale · log2 e, l)
+  float* part_o;             // [NS, T, H, D]: unnormalized acc
+  int T, H, P, MP, offset, SL, NS;
+  float scale;
+};
+
+// a row's effective kv length: base + offset for a live row (base > 0),
+// clamped to the MP·P keys its table can name; 0 for a padding row
+__device__ __forceinline__ int kv_eff(const int* kv_lens, int t, int offset,
+                                      int L) {
+  const int base = kv_lens[t];
+  return base > 0 ? max(0, min(base + offset, L)) : 0;
+}
+
+__global__ void __launch_bounds__(kPlanThreads)
+rpa_tc_plan_kernel(const TcArgs a) {
+  // rows are taken kPlanThreads at a time, a multiple of BQ, so no chunk
+  // crosses from one round to the next; a round's slot ids and lengths
+  // are staged in shared memory for the chunk starts' forward scans
+  __shared__ int sid_s[kPlanThreads], kv_s[kPlanThreads];
+  __shared__ int warp_sum[kPlanThreads / 32];
+  __shared__ int carry;
+  const int L = a.MP * a.P;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (tid == 0) carry = 0;
+  for (int base = 0; base < a.T; base += kPlanThreads) {
+    const int i = base + tid;
+    if (i < a.T) {
+      sid_s[tid] = a.slot_ids[i];
+      kv_s[tid] = kv_eff(a.kv_lens, i, a.offset, L);
+    }
+    __syncthreads();
+    int n = 0, rows = 0, kvmax = 0;
+    if (i < a.T && (i % BQ == 0 || sid_s[tid - 1] != sid_s[tid])) {
+      int j = tid;   // a chunk starts: its rows and its longest row
+      do {
+        kvmax = max(kvmax, kv_s[j]);
+        ++j;
+      } while (base + j < a.T && (base + j) % BQ != 0 &&
+               sid_s[j] == sid_s[tid]);
+      rows = j - tid;
+      n = (kvmax + a.SL - 1) / a.SL;   // its non-empty splits
+    }
+    // item offsets: an inclusive scan of n over the block
+    int x = n;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_sum[warp] = x;
+    __syncthreads();
+    if (warp == 0) {
+      int w = warp_sum[lane];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int y = __shfl_up_sync(kFull, w, o);
+        if (lane >= o) w += y;
+      }
+      warp_sum[lane] = w;
+    }
+    __syncthreads();
+    const int first = carry + (warp ? warp_sum[warp - 1] : 0) + x - n;
+    for (int s = 0; s < n; ++s)
+      a.items[first + s] = make_int4(i, rows, s, kvmax);
+    __syncthreads();   // the round's shared arrays and carry are read
+    if (tid == kPlanThreads - 1) carry = first + n;
+  }
+  __syncthreads();
+  if (tid == 0) *a.n_items = carry;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) rpa_tc_kernel(const TcArgs a) {
+  constexpr int LD = D + 8, NT = kThreads, ST = kStages<D>;
+  constexpr int KS = D / 16;   // k16 steps over head_dim
+  constexpr int NS = BK / 8;   // n8 blocks of a score tile
+  constexpr int NO = D / 8;    // n8 blocks of the output
+  constexpr int CPR = D / 8;   // 16-byte chunks of a row
+  extern __shared__ float4 smem4[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem4);   // [BQ][LD]
+  bf16* Ks = Qs + BQ * LD;                      // [ST][BK][LD]
+  bf16* Vs = Ks + ST * BK * LD;                 // [ST][BK][LD]
+
+  const int h = blockIdx.y, H = a.H, P = a.P, SL = a.SL;
+  const int L = a.MP * P;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r_lane = lane >> 2;   // this lane's rows: 16·warp + r_lane (+ 8)
+  const int c_lane = 2 * (lane & 3);   // its first column in an n8 block
+  const float sl2 = a.scale * kLog2e;
+  const int64_t plane = (int64_t)a.T * H;
+  const int n_items = *a.n_items;
+
+  for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+    const int4 it = a.items[w];
+    const int c0 = it.x, n = it.y, split = it.z;
+    const int k_begin = split * SL;
+    const int k_end = min(k_begin + SL, it.w);
+    const int n_kv = (k_end - k_begin + BK - 1) / BK;
+    const int* table = a.page_tables + (int64_t)a.slot_ids[c0] * a.MP;
+    int kvr[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = warp * 16 + r_lane + 8 * i;
+      kvr[i] = r < n ? kv_eff(a.kv_lens, c0 + r, a.offset, L) : 0;
+    }
+    const int wmax = __reduce_max_sync(kFull, max(kvr[0], kvr[1]));
+    const int wmin = __reduce_min_sync(kFull, min(kvr[0], kvr[1]));
+
+    __syncthreads();   // the last item's readers are done with Qs and the ring
+    // the chunk's q rows of head h; rows n..BQ-1 zero-filled
+#pragma unroll
+    for (int i = 0; i < BQ * CPR / NT; ++i) {
+      const int idx = threadIdx.x + i * NT;
+      const int r = idx / CPR, c = idx % CPR;
+      const bool ok = r < n;
+      cp_async16(smem_addr(Qs + r * LD + 8 * c),
+                 a.q + (ok ? ((int64_t)(c0 + r) * H + h) * D + 8 * c : 0),
+                 ok ? 16 : 0);
+    }
+    // kv tile t (keys k_begin + 64t ..) into ring stage t % ST, each key
+    // through the slot's page table; keys past k_end: zeros (their table
+    // entries, possibly stale, are never read)
+    auto stage_kv = [&](int t) {
+      if (t >= n_kv) return;
+      const int k0 = k_begin + t * BK, st = t % ST;
+#pragma unroll
+      for (int i = 0; i < BK * CPR / NT; ++i) {
+        const int idx = threadIdx.x + i * NT;
+        const int r = idx / CPR, c = idx % CPR;
+        const int key = k0 + r;
+        const bool ok = key < k_end;
+        int64_t off = 0;
+        if (ok)
+          off = (((int64_t)table[key / P] * P + key % P) * H + h) * D + 8 * c;
+        cp_async16(smem_addr(Ks + (st * BK + r) * LD + 8 * c), a.k_pool + off,
+                   ok ? 16 : 0);
+        cp_async16(smem_addr(Vs + (st * BK + r) * LD + 8 * c), a.v_pool + off,
+                   ok ? 16 : 0);
+      }
+    };
+    // one commit group per tile: the first also holds Q
+#pragma unroll
+    for (int t = 0; t < ST - 1; ++t) {
+      stage_kv(t);
+      cp_commit();
+    }
+
+    uint32_t qa[KS][4];
+    float o[NO][4];
+    float m[2] = {kNegInf, kNegInf};   // row max (q·k units)
+    float l[2] = {0.f, 0.f};           // this lane's part of the row sum
+#pragma unroll
+    for (int nn = 0; nn < NO; ++nn)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[nn][e] = 0.f;
+
+    for (int t = 0; t < n_kv; ++t) {
+      const int k0 = k_begin + t * BK;
+      cp_wait<ST - 2>();   // Q and tile t have landed ...
+      __syncthreads();     // ... for every thread, and tile t - 1 is done with
+      stage_kv(t + ST - 1);   // into the stage tile t - 1 used
+      cp_commit();
+      if (t == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          frag_a<LD>(qa[kk], Qs, warp * 16, 16 * kk, lane);
+      }
+      const bf16* Kt = Ks + (t % ST) * BK * LD;
+      const bf16* Vt = Vs + (t % ST) * BK * LD;
+      if (wmax <= k0) continue;   // every key past all of the warp's rows
+
+      float s[NS][4];   // S = Q · Kᵀ
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+        for (int j = 0; j < NS; j += 2) {
+          uint32_t b[4];
+          frag_b<LD>(b, Kt, 8 * j, 16 * kk, lane);
+          mma_bf16(s[j], qa[kk], b[0], b[1]);
+          mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+        }
+
+      // the mask by select where some row of the warp ends in the tile;
+      // then the online softmax
+      const bool edge = k0 + BK > wmin;
+      auto masked = [&](int j, int e) {
+        return edge && k0 + 8 * j + c_lane + (e & 1) >= kvr[e >> 1];
+      };
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (masked(j, e)) s[j][e] = kNegInf;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+      float mb[2], alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(kFull, mx[i], 2));
+        alpha[i] = fast_exp2((m[i] - mx[i]) * sl2);
+        m[i] = mx[i];
+        mb[i] = mx[i] * sl2;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float p = fast_exp2(fmaf(s[j][e], sl2, -mb[e >> 1]));
+          if (masked(j, e)) p = 0.f;
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+#pragma unroll
+      for (int nn = 0; nn < NO; ++nn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nn][e] *= alpha[e >> 1];
+
+      // O += P · V: P rounded to bf16 in registers is the A operand
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        uint32_t pa[4];
+        acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int nn = 0; nn < NO; nn += 2) {
+          uint32_t b[4];
+          frag_bt<LD>(b, Vt, 16 * kk, 8 * nn, lane);
+          mma_bf16(o[nn], pa, b[0], b[1]);
+          mma_bf16(o[nn + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    cp_wait<0>();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float sum = l[i];
+      sum += __shfl_xor_sync(kFull, sum, 1);
+      sum += __shfl_xor_sync(kFull, sum, 2);
+      const int r = warp * 16 + r_lane + 8 * i;
+      // a row with no key in this split (kv_len 0 included) leaves nothing
+      if (r >= n || kvr[i] <= k_begin) continue;
+      const int64_t th = (int64_t)(c0 + r) * H + h;   // the (token, head) row
+      if (kvr[i] <= SL) {   // split 0 holds the whole row: the output itself
+        const float inv = 1.f / sum;
+        bf16* dst = a.out + th * D + c_lane;
+#pragma unroll
+        for (int nn = 0; nn < NO; ++nn)
+          *reinterpret_cast<uint32_t*>(dst + 8 * nn) =
+              pack_bf16(o[nn][2 * i] * inv, o[nn][2 * i + 1] * inv);
+      } else {
+        float* dst = a.part_o + (split * plane + th) * D + c_lane;
+#pragma unroll
+        for (int nn = 0; nn < NO; ++nn)
+          *reinterpret_cast<float2*>(dst + 8 * nn) =
+              make_float2(o[nn][2 * i], o[nn][2 * i + 1]);
+        if ((lane & 3) == 0)
+          a.part_ml[split * plane + th] = make_float2(m[i] * sl2, sum);
+      }
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(32 * kMergeWarps)
+rpa_tc_merge_kernel(const TcArgs a) {
+  constexpr int E = D / 32;   // elements of the row a lane merges: 2 or 4
+  const int64_t plane = (int64_t)a.T * a.H;
+  const int64_t th = (int64_t)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  if (th >= plane) return;
+  const int lane = threadIdx.x & 31;
+  const int kv = kv_eff(a.kv_lens, (int)(th / a.H), a.offset, a.MP * a.P);
+  const int ns = (kv + a.SL - 1) / a.SL;
+  if (ns == 1) return;   // rpa_tc_kernel wrote the row
+  float acc[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  if (ns > 1) {          // else kv_len 0: exact zeros
+    float M = kNegInf;
+    for (int s = 0; s < ns; ++s) M = fmaxf(M, a.part_ml[s * plane + th].x);
+    float lsum = 0.f;
+    for (int s = 0; s < ns; ++s) {
+      const float2 ml = a.part_ml[s * plane + th];
+      const float w = exp2f(ml.x - M);
+      lsum += w * ml.y;
+      const float* src = a.part_o + (s * plane + th) * D + E * lane;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[e] += w * src[e];
+    }
+    const float inv = 1.f / lsum;
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc[e] *= inv;
+  }
+  bf16* dst = a.out + th * D + E * lane;
+#pragma unroll
+  for (int e = 0; e < E; e += 2)
+    *reinterpret_cast<uint32_t*>(dst + e) = pack_bf16(acc[e], acc[e + 1]);
+}
+
+// The split length (a multiple of the tile, at most kMaxSplits splits of
+// the MP·P keys) and the workspace: items [T·NS] int4 and n_items in the
+// int4 slot after them, then part_ml [NS, T, H] float2, then part_o
+// [NS, T, H, D] f32.
+struct Layout {
+  int NS, SL;
+  size_t ml, part, bytes;
+};
+
+Layout layout(int T, int H, int D, int P, int MP) {
+  const int L = MP * P;
+  const int tiles = (L + BK - 1) / BK;
+  const int ns = tiles < kMaxSplits ? tiles : kMaxSplits;
+  Layout w;
+  w.SL = (tiles + ns - 1) / ns * BK;
+  w.NS = (L + w.SL - 1) / w.SL;
+  const size_t rows = (size_t)w.NS * T * H;
+  w.ml = sizeof(int4) * ((size_t)T * w.NS + 1);
+  w.part = w.ml + (sizeof(float2) * rows + 15) / 16 * 16;
+  w.bytes = w.part + sizeof(float) * rows * D;
+  return w;
+}
+
+template <int D>
+cudaError_t launch(TcArgs a, cudaStream_t stream) {
+  // per device: its SM count, once this kernel's shared memory limit is
+  // raised there (0 before): the setup runs once, not on every tick
+  constexpr int kMaxDevices = 64;
+  static std::atomic<int> sm_count[kMaxDevices];
+  const size_t smem =
+      sizeof(bf16) * (size_t)(BQ + 2 * kStages<D> * BK) * (D + 8);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int sms = sm_count[dev].load();
+  if (sms == 0) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(rpa_tc_kernel<D>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem);
+    if (err != cudaSuccess) return err;
+    sm_count[dev].store(sms);
+  }
+  rpa_tc_plan_kernel<<<1, kPlanThreads, 0, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // about 4 blocks per SM in all; a block with no item exits at once
+  const int per_head = (4 * sms + a.H - 1) / a.H;
+  const int g = a.T * a.NS < per_head ? a.T * a.NS : per_head;
+  rpa_tc_kernel<D><<<dim3(g, a.H), kThreads, smem, stream>>>(a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int64_t rows = (int64_t)a.T * a.H;
+  rpa_tc_merge_kernel<D><<<(unsigned)((rows + kMergeWarps - 1) / kMergeWarps),
+                           32 * kMergeWarps, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Plain C entry point (bound with ctypes). Pointers are device pointers
@@ -459,4 +895,53 @@ extern "C" int pt_ragged_paged_attention(
   const cudaError_t err = q_bf16 ? launch_q<__nv_bfloat16>(kv_kind, a)
                                  : launch_q<float>(kv_kind, a);
   return (int)err;
+}
+
+// K1's tensor-core route (see `namespace tc` above): q / out [T, H, D]
+// bfloat16, pools [N, P, H, D] bfloat16, page_tables [S, MP], slot_ids /
+// kv_lens [T] int32, `workspace` a device buffer of at least
+// pt_ragged_paged_attention_tc_workspace(T, H, D, P, MP) bytes. Refuses
+// (cudaErrorInvalidValue, nothing launched) anything but a bf16 q
+// (q_bf16 1) on a bf16 pool (kv_kind 1) at D 64 or 128. Three launches on
+// `stream`, no synchronisation; returns the first launch error.
+extern "C" long long pt_ragged_paged_attention_tc_workspace(int T, int H,
+                                                            int D, int P,
+                                                            int MP) {
+  return (long long)tc::layout(T, H, D, P, MP).bytes;
+}
+
+extern "C" int pt_ragged_paged_attention_tc(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* page_tables, const void* slot_ids, const void* kv_lens,
+    void* out, void* workspace, long long workspace_bytes, int T, int H,
+    int D, int P, int MP, int offset, float scale, int q_bf16, int kv_kind,
+    void* stream) {
+  if (T <= 0 || H <= 0 || P <= 0 || MP <= 0 || (D != 64 && D != 128) ||
+      q_bf16 != 1 || kv_kind != kBF16)
+    return (int)cudaErrorInvalidValue;
+  const tc::Layout w = tc::layout(T, H, D, P, MP);
+  if (workspace_bytes < (long long)w.bytes) return (int)cudaErrorInvalidValue;
+  char* ws = static_cast<char*>(workspace);
+  tc::TcArgs a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k_pool = static_cast<const __nv_bfloat16*>(k_pool);
+  a.v_pool = static_cast<const __nv_bfloat16*>(v_pool);
+  a.page_tables = static_cast<const int*>(page_tables);
+  a.slot_ids = static_cast<const int*>(slot_ids);
+  a.kv_lens = static_cast<const int*>(kv_lens);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.items = reinterpret_cast<int4*>(ws);
+  a.n_items = reinterpret_cast<int*>(a.items + (size_t)T * w.NS);
+  a.part_ml = reinterpret_cast<float2*>(ws + w.ml);
+  a.part_o = reinterpret_cast<float*>(ws + w.part);
+  a.T = T;
+  a.H = H;
+  a.P = P;
+  a.MP = MP;
+  a.offset = offset;
+  a.SL = w.SL;
+  a.NS = w.NS;
+  a.scale = scale;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(D == 64 ? tc::launch<64>(a, s) : tc::launch<128>(a, s));
 }

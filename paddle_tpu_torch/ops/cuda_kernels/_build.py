@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into
 `paddle_tpu_torch/_build/<name>-<hash>.so`, keyed by a hash of the
-source and the flags, at first use, and loaded with `ctypes`. The sources
+source, the shared headers (`csrc/*.cuh`) and the flags, at first use,
+and loaded with `ctypes`. The sources
 include no PyTorch header, so a build takes seconds. `build(names)`
 starts one `nvcc` per source, all together, and waits for them.
 
@@ -45,11 +46,15 @@ def _nvcc():
 
 
 def _target(name):
+    """(source, library path): the library is keyed by the source, the
+    headers of csrc/ it may include, and the flags."""
     src = os.path.join(CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names):

@@ -14,13 +14,13 @@ kernel (and raises on anything the kernel does not take). `launches`
 counts kernel launches per wrapper — it moves only where a kernel
 launches, so a run can show that its main path went through the kernels.
 
-K3 and K5 have two routes, chosen by `tensor_core_route` from the input
-type and head_dim alone: bf16 with head_dim 64 or 128 goes to the
-tensor-core kernels (`fa_fwd_tc_kernel`, `fa_bwd_dkv_tc_kernel`), every
-other input to the f32-math CUDA-core kernels, which stay the exact f32
-path. A route is never a fallback: a build or launch error raises.
-`tc_launches` counts the launches that took the tensor-core route. K4
-has the CUDA-core route only.
+Each kernel has two routes, chosen by `tensor_core_route` from the
+input type and head_dim alone: bf16 with head_dim 64 or 128 goes to the
+tensor-core kernels (`fa_fwd_tc_kernel`, `fa_bwd_dq_tc_kernel`,
+`fa_bwd_dkv_tc_kernel`), every other input to the f32-math CUDA-core
+kernels, which stay the exact f32 path. A route is never a fallback: a
+build or launch error raises. `tc_launches` counts the launches that
+took the tensor-core route.
 
 `_FlashAttentionBHD` and `_FlashAttentionLseBHD` are the autograd
 Functions that mirror the reference's two `custom_vjp`s;
@@ -53,7 +53,7 @@ REPLACES = {"flash_forward": f"{_REF}:42",
 TC_HEAD_DIMS = (64, 128)
 
 launches = dict.fromkeys(REPLACES, 0)
-tc_launches = dict.fromkeys(("flash_forward", "flash_bwd_dkv"), 0)
+tc_launches = dict.fromkeys(REPLACES, 0)
 
 
 def reset_launches():
@@ -63,8 +63,8 @@ def reset_launches():
 
 
 def tensor_core_route(dtype, head_dim):
-    """True when K3 / K5 on these inputs take the tensor-core kernels
-    (bf16, head_dim 64 or 128); False: the CUDA-core kernels."""
+    """True when K3, K4 and K5 on these inputs take the tensor-core
+    kernels (bf16, head_dim 64 or 128); False: the CUDA-core kernels."""
     return dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS
 
 
@@ -227,19 +227,21 @@ def flash_forward(q, k, v, causal=False, lens=None):
 
 def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, lens=None):
     """K4. g [bh, s, d] in q's dtype, lse / delta [bh, 1, s] float32 →
-    dq [bh, s, d]."""
+    dq [bh, s, d]. Route: `tensor_core_route`."""
     if q.device.type == "cpu":
         return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal, lens)
     _device_check(q)
     bh, s, sk, d = _check_inputs(q, k, v, g, lse, delta, lens)
+    tc = tensor_core_route(q.dtype, d)
     dq = torch.empty_like(q)
-    err = _fn("pt_flash_bwd_dq", 8)(
+    err = _fn("pt_flash_bwd_dq_tc" if tc else "pt_flash_bwd_dq", 8)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), _ptr(lens), dq.data_ptr(), bh, s,
         sk, d, int(bool(causal)), 1.0 / math.sqrt(d), _KINDS[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash attention dq")
     launches["flash_bwd_dq"] += 1
+    tc_launches["flash_bwd_dq"] += tc
     return dq
 
 

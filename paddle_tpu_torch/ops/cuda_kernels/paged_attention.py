@@ -6,7 +6,12 @@ says what bounds them and how they are built), bound with ctypes:
 
 * K1, `rpa_kernel`: one query row per flat token, over float pools or
   int8 / packed-int4 pools with per-row fp32 scale planes (dequantized
-  on gather);
+  on gather). For a bf16 q on a bf16 pool at head_dim 64 or 128 (the
+  serving path's case; `paged_route`) K1 takes its tensor-core route
+  instead: chunks of up to 64 rows of one slot, each page staged once
+  per chunk, split-KV over up to 8 blocks per row and a merge
+  (`rpa_tc_plan_kernel`, `rpa_tc_kernel`, `rpa_tc_merge_kernel`, one
+  wrapper call), derived on the device from `slot_ids` / `kv_lens`;
 * K2, `rpa_qblock_kernel`: the same function on the speculative verify
   layout (`q_per_slot`): the T rows are slot-major blocks of qb rows,
   one slot per block, and each page of the slot is staged once per
@@ -17,7 +22,9 @@ the CPU it runs `ragged_paged_attention_plain`; for CUDA tensors it
 launches K1 or K2 (and raises on anything the kernel does not take).
 `launches` counts kernel launches, one entry per kernel and pool kind —
 it moves only where a kernel launches, so a run can show its main path
-went through the kernels.
+went through the kernels; `tc_launches["rpa"]` counts the K1 launches
+that took the tensor-core route. A route is never a fallback: a build
+or launch error raises.
 """
 import ctypes
 import math
@@ -28,7 +35,7 @@ from ...quantization.runtime import unpack_int4
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "launches", "reset_launches"]
+           "launches", "tc_launches", "reset_launches", "paged_route"]
 
 NEG_INF = -1e30
 MAX_QBLOCK = 16
@@ -38,12 +45,26 @@ REPLACES = {"rpa": f"{_REF}:53", "rpa_int8": f"{_REF}:84",
             "rpa_int4": f"{_REF}:87", "qblock": f"{_REF}:131",
             "qblock_int8": f"{_REF}:168", "qblock_int4": f"{_REF}:169"}
 
+# head dims K1's tensor-core route is built for (bf16 q and pool only)
+TC_HEAD_DIMS = (64, 128)
+
 launches = dict.fromkeys(REPLACES, 0)
+tc_launches = {"rpa": 0}
 
 
 def reset_launches():
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, tc_launches):
+        for name in counts:
+            counts[name] = 0
+
+
+def paged_route(pool_kind, q_dtype, head_dim):
+    """True when K1 on these inputs takes its tensor-core route: a
+    bfloat16 q on a "bf16" pool at head_dim 64 or 128. False for every
+    other pool kind ("f32", "int8", "int4"), q type and head_dim: the
+    CUDA-core `rpa_kernel`. K2 (`q_per_slot`) has one route."""
+    return (pool_kind == "bf16" and q_dtype == torch.bfloat16
+            and head_dim in TC_HEAD_DIMS)
 
 
 def _pool_kind(k_pool, k_scales, head_dim):
@@ -85,6 +106,7 @@ def ragged_paged_attention(q, k_pool, v_pool, page_tables, slot_ids,
 
 _Q_KINDS = {torch.float32: 0, torch.bfloat16: 1}
 _KV_KINDS = {"f32": 0, "bf16": 1, "int8": 8, "int4": 4}
+_FLOAT_KINDS = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _check(name, x, device, dtypes, ndim, align=4):
@@ -110,6 +132,32 @@ def _kernel_fn(n_ptrs):
     return fn
 
 
+def _tc_fn():
+    fn = _build.load("paged_attention").pt_ragged_paged_attention_tc
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+_tc_workspace = {}   # (T, H, D, P, MP) -> bytes
+
+
+def _tc_workspace_bytes(T, H, D, P, MP):
+    """The tensor-core route's scratch size (work items and split
+    partials), as the kernel's own layout computes it."""
+    key = (T, H, D, P, MP)
+    if key not in _tc_workspace:
+        lib = _build.load("paged_attention")
+        fn = lib.pt_ragged_paged_attention_tc_workspace
+        fn.argtypes = [ctypes.c_int] * 5
+        fn.restype = ctypes.c_longlong
+        _tc_workspace[key] = int(fn(*key))
+    return _tc_workspace[key]
+
+
 def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
             kv_lens, offset, q_per_slot):
     dev = q.device
@@ -127,11 +175,10 @@ def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
             if s.shape != k_pool.shape[:3]:
                 raise ValueError(f"{name} shape {tuple(s.shape)} != pool "
                                  f"[N, P, H] {tuple(k_pool.shape[:3])}")
-        kv_kind = _KV_KINDS[kind]
     else:
         _check("k_pool", k_pool, dev, tuple(_Q_KINDS), 4, align=16)
         _check("v_pool", v_pool, dev, (k_pool.dtype,), 4, align=16)
-        kv_kind = _Q_KINDS[k_pool.dtype]
+    pool_kind = kind or _FLOAT_KINDS[k_pool.dtype]
     for name, x, nd in (("page_tables", page_tables, 2),
                         ("slot_ids", slot_ids, 1), ("kv_lens", kv_lens, 1)):
         _check(name, x, dev, (torch.int32,), nd)
@@ -161,14 +208,29 @@ def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
     out = torch.empty_like(q)
     if T == 0:
         return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if qb == 0 and paged_route(pool_kind, q.dtype, D):
+        nbytes = _tc_workspace_bytes(T, H, D, P, MP)
+        ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+        err = _tc_fn()(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            page_tables.data_ptr(), slot_ids.data_ptr(), kv_lens.data_ptr(),
+            out.data_ptr(), ws.data_ptr(), nbytes, T, H, D, P, MP, offset,
+            1.0 / math.sqrt(D), 1, _KV_KINDS[pool_kind], stream)
+        if err:
+            raise RuntimeError("ragged paged attention (tensor cores) kernel "
+                               f"launch failed: cudaError {err}")
+        launches["rpa"] += 1
+        tc_launches["rpa"] += 1
+        return out
     dummy = k_pool   # scale pointers of a float pool are never read
     ptrs = (q, k_pool, v_pool, k_scales if kind else dummy,
             v_scales if kind else dummy, page_tables, slot_ids, kv_lens,
             out)
     err = _kernel_fn(len(ptrs))(
         *(x.data_ptr() for x in ptrs), T, H, D, P, MP, offset,
-        1.0 / math.sqrt(D), _Q_KINDS[q.dtype], kv_kind, qb,
-        torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(D), _Q_KINDS[q.dtype], _KV_KINDS[pool_kind], qb,
+        stream)
     if err:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: cudaError {err}")

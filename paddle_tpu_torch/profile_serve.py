@@ -22,8 +22,9 @@ Each load runs one warm-up burst, one timed burst and one burst under
   the host seconds spent mining proposals;
 * the profiled burst's device time (the sum of the kernel rows' times on
   the one stream) and the device's idle share of its wall time;
-* the paged attention kernels' shares of device time: K1 (`rpa_kernel`)
-  and K2 (`rpa_qblock_kernel`);
+* the paged attention kernels' shares of device time, by kernel symbol:
+  K1 (`rpa_kernel`, and its tensor-core route's three launches) and K2
+  (`rpa_qblock_kernel`);
 * the kernels ordered by device time, with launch counts.
 
     python -m paddle_tpu_torch.profile_serve [--load LOAD ...]
@@ -48,6 +49,12 @@ NEW_TOKENS = 32
 ENGINE = dict(num_slots=8, page_size=16, max_model_len=1024,
               token_budget=256)
 _NGRAM = dict(spec_mode="ngram", spec_k=4)
+# kernel names of csrc/paged_attention.cu as the profiler shows them: K1
+# on the CUDA cores and the three launches of its tensor-core route
+# (bf16 pools), and K2
+PAGED_KERNELS = {"K1": ("rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
+                        "rpa_tc_merge_kernel"),
+                 "K2": ("rpa_qblock_kernel",)}
 # load -> (engine knobs, repetitive prompts)
 LOADS = {"serve": (dict(kv_dtype="bfloat16"), False),
          "bf16-repetitive": (dict(kv_dtype="bfloat16"), True),
@@ -129,11 +136,19 @@ def run_load(model, name, trace=None):
     print(f"  profiled burst: {pwall * 1e3:.3f} ms wall, device time "
           f"{device_us / 1e3:.3f} ms = {100 * device_us / 1e6 / pwall:.1f}% "
           f"of wall; idle share {100 * (1 - device_us / 1e6 / pwall):.1f}%")
-    for label, kname in (("K1", "rpa_kernel<"), ("K2", "rpa_qblock_kernel<")):
-        us = sum(e.self_device_time_total for e in rows if kname in e.key)
-        n = sum(e.count for e in rows if kname in e.key)
-        print(f"  {label} ({kname[:-1]}): {us / 1e3:.3f} ms = "
-              f"{100 * us / device_us:.1f}% of device time, {n} launches")
+    for label, names in PAGED_KERNELS.items():
+        total = 0
+        for kname in names:
+            us = sum(e.self_device_time_total for e in rows
+                     if kname in e.key)
+            n = sum(e.count for e in rows if kname in e.key)
+            total += us
+            if n:
+                print(f"  {label} {kname}: {us / 1e3:.3f} ms = "
+                      f"{100 * us / device_us:.1f}% of device time, {n} "
+                      "launches")
+        print(f"  {label} in all: {total / 1e3:.3f} ms = "
+              f"{100 * total / device_us:.1f}% of device time")
     rows.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in rows[:12]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms "

@@ -12,7 +12,7 @@ steps under `torch.profiler` and prints:
 * device time (the sum of the kernel rows' times on the one stream) and
   the device's idle share of the profiled wall time;
 * the flash attention kernels' (K3, K4, K5) share of device time, by
-  kernel symbol (K3 and K5: CUDA-core and tensor-core route), and device
+  kernel symbol (CUDA-core and tensor-core route), and device
   time by kernel category;
 * the kernels ordered by device time, with launch counts.
 
@@ -38,10 +38,10 @@ from .text.models.gpt import (GPTForCausalLM, GPTPretrainingCriterion,
 
 H100_PEAK_BF16 = 989e12          # NVIDIA data sheet, SXM, dense
 BATCH, SEQ = 16, 1024
-# kernel names of csrc/flash_attention.cu as the profiler shows them: K3
-# and K5 have a CUDA-core and a tensor-core (`_tc_`) kernel each
+# kernel names of csrc/flash_attention.cu as the profiler shows them:
+# each of K3-K5 has a CUDA-core and a tensor-core (`_tc_`) kernel
 FLASH_KERNELS = {"K3": ("fa_fwd_kernel", "fa_fwd_tc_kernel"),
-                 "K4": ("fa_bwd_dq_kernel",),
+                 "K4": ("fa_bwd_dq_kernel", "fa_bwd_dq_tc_kernel"),
                  "K5": ("fa_bwd_dkv_kernel", "fa_bwd_dkv_tc_kernel")}
 # kernel-name substrings → category (first match wins)
 CATEGORIES = (

@@ -168,8 +168,9 @@ def test_wrappers_run_plain_on_cpu_and_count_no_launch():
     *[(torch.bfloat16, d, False) for d in (8, 32, 96, 256)],
 ])
 def test_tensor_core_route_by_dtype_and_head_dim(dtype, d, tc):
-    """bf16 at head_dim 64 / 128 takes the tensor-core K3 / K5; f32 at any
-    head_dim and bf16 at any other head_dim the CUDA-core kernels."""
+    """bf16 at head_dim 64 / 128 takes the tensor-core K3, K4 and K5; f32
+    at any head_dim and bf16 at any other head_dim the CUDA-core
+    kernels."""
     assert tfa.tensor_core_route(dtype, d) is tc
 
 
@@ -184,15 +185,16 @@ def test_tensor_core_counts_stay_zero_on_cpu():
     delta = (g.float() * out.float()).sum(-1)[:, None, :]
     tfa.flash_bwd_dkv(q, k, v, g, lse, delta, True)
     tfa.flash_bwd_dq(q, k, v, g, lse, delta, True)
-    assert set(tfa.tc_launches) == {"flash_forward", "flash_bwd_dkv"}
+    assert set(tfa.tc_launches) == {"flash_forward", "flash_bwd_dq",
+                                    "flash_bwd_dkv"}
     assert all(n == 0 for n in tfa.tc_launches.values())
     assert all(n == 0 for n in tfa.launches.values())
 
 
 def test_profile_train_names_every_flash_kernel():
     """profile_train names every kernel that csrc/flash_attention.cu
-    defines (both routes' K3 / K5), and no symbol is a substring of
-    another (the profiler rows match by substring)."""
+    defines (both routes of K3, K4 and K5), and no symbol is a substring
+    of another (the profiler rows match by substring)."""
     import os
     import re
 
@@ -202,7 +204,10 @@ def test_profile_train_names_every_flash_kernel():
     with open(os.path.join(_build.CSRC, "flash_attention.cu")) as f:
         defined = set(re.findall(r"^(fa_\w+_kernel)\(", f.read(), re.M))
     names = sum(profile_train.FLASH_KERNELS.values(), ())
-    assert {"fa_fwd_tc_kernel", "fa_bwd_dkv_tc_kernel"} <= defined
+    assert {"fa_fwd_tc_kernel", "fa_bwd_dq_tc_kernel",
+            "fa_bwd_dkv_tc_kernel"} <= defined
+    assert profile_train.FLASH_KERNELS["K4"] == ("fa_bwd_dq_kernel",
+                                                 "fa_bwd_dq_tc_kernel")
     assert set(names) == defined
     assert set(names) <= set(profile_train.CATEGORIES[0][1])
     assert not any(a != b and a in b for a in names for b in names)

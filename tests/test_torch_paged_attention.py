@@ -264,3 +264,93 @@ def test_bf16_pool_plain_matches_jax_jnp():
         paddle.to_tensor(pt), paddle.to_tensor(sid),
         paddle.to_tensor(klen))._value.astype(jnp.float32))
     np.testing.assert_allclose(port, ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("kind,q_dtype,d,tc", [
+    ("bf16", torch.bfloat16, 64, True), ("bf16", torch.bfloat16, 128, True),
+    *[("bf16", torch.bfloat16, d, False) for d in (8, 32, 96, 256)],
+    ("bf16", torch.float32, 64, False), ("f32", torch.float32, 64, False),
+    ("f32", torch.bfloat16, 128, False),
+    *[(k, q, d, False) for k in ("int8", "int4")
+      for q in (torch.float32, torch.bfloat16) for d in (64, 128)],
+])
+def test_paged_route_by_pool_kind_dtype_and_head_dim(kind, q_dtype, d, tc):
+    """K1 takes its tensor-core route for a bf16 q on a bf16 pool at
+    head_dim 64 / 128 only; f32 and quantized pools, f32 q and other
+    head dims keep the CUDA-core `rpa_kernel`."""
+    assert tpa.paged_route(kind, q_dtype, d) is tc
+
+
+def test_tensor_core_route_counts_stay_zero_on_cpu():
+    """The tensor-core route's inputs (bf16 q and pool, head_dim 64) on
+    CPU tensors run the plain version: no count moves."""
+    rng = np.random.default_rng(10)
+    args = _case(rng, 16, [40, 3], [(0, 17)], H=2, D=64)
+    ts = [torch.from_numpy(a.copy()) for a in args]
+    ts[:3] = [t.to(torch.bfloat16) for t in ts[:3]]
+    tpa.reset_launches()
+    out = tpa.ragged_paged_attention(*ts)
+    assert torch.equal(out, tpa.ragged_paged_attention_plain(*ts))
+    assert torch.equal(out, TF.paged_attention(*ts))
+    assert set(tpa.tc_launches) == {"rpa"}
+    assert all(n == 0 for n in tpa.launches.values())
+    assert all(n == 0 for n in tpa.tc_launches.values())
+
+
+def test_profile_serve_names_every_paged_kernel():
+    """profile_serve names every kernel that csrc/paged_attention.cu
+    defines (K1 on both routes, K2), and no symbol is a substring of
+    another (the profiler rows match by substring)."""
+    import os
+    import re
+
+    from paddle_tpu_torch import profile_serve
+    from paddle_tpu_torch.ops.cuda_kernels import _build
+
+    with open(os.path.join(_build.CSRC, "paged_attention.cu")) as f:
+        defined = set(re.findall(r"\b(rpa_\w*kernel)\(const ", f.read()))
+    names = sum(profile_serve.PAGED_KERNELS.values(), ())
+    assert {"rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
+            "rpa_tc_merge_kernel"} == set(profile_serve.PAGED_KERNELS["K1"])
+    assert set(names) == defined
+    assert not any(a != b and a in b for a in names for b in names)
+
+
+def _rows_case(rng, rows, page_size=8, pages_per_seq=6, S=4, H=2, D=16):
+    """K1 inputs for an explicit row layout: `rows` lists (slot, kv_len)
+    per flat token (kv_len 0: padding); every page-table entry holds a
+    live page id, so entries past a row's length are stale ids."""
+    N = S * pages_per_seq + 1
+    pool_k = rng.standard_normal((N, page_size, H, D)).astype(np.float32)
+    pool_v = rng.standard_normal((N, page_size, H, D)).astype(np.float32)
+    pt = (rng.permutation(N - 1) + 1).reshape(S, pages_per_seq)
+    q = rng.standard_normal((len(rows), H, D)).astype(np.float32)
+    sid = np.asarray([s for s, _ in rows], np.int32)
+    klen = np.asarray([n for _, n in rows], np.int32)
+    return q, pool_k, pool_v, pt.astype(np.int32), sid, klen
+
+
+@pytest.mark.parametrize("layout,offset", [
+    ("two slots in a tile", None), ("ragged chunk", 2), ("any order", 3)])
+def test_plain_matches_pallas_on_tensor_core_route_layouts(layout, offset):
+    """The row layouts K1's tensor-core route cuts into chunks and KV
+    splits (chip_smoke.py holds the route to the plain version on them):
+    the plain version equals the reference's Pallas K1 on each — a tile
+    holding the tail of one slot's rows and the head of another's, a
+    slot's rows ending at very different lengths with a padding row
+    among them, slots in any order with a slot's rows apart."""
+    rng = np.random.default_rng(500 + len(layout))
+    L = 48
+    if layout == "two slots in a tile":
+        rows = ([(2, 20 + i) for i in range(20)]
+                + [(1, 1 + i) for i in range(12)] + [(0, 0)] * 4)
+    elif layout == "ragged chunk":
+        rows = [(3, n) for n in (L - 2, 5, 30, 17, 1, 0, 40, 16)] + [(0, 9)]
+    else:
+        rows = [(int(s), int(n) if rng.random() > 0.2 else 0) for s, n in
+                zip(rng.integers(0, 4, 30), rng.integers(1, L - 2, 30))]
+    args = _rows_case(rng, rows)
+    out = _port(args, offset)
+    np.testing.assert_allclose(out, _jax_pallas(args, offset), rtol=1e-5,
+                               atol=1e-6)
+    assert np.all(out[args[5] == 0] == 0.0) and np.isfinite(out).all()
