@@ -12,26 +12,33 @@ continues:
               `csrc/`, with nvcc for sm_90a (one nvcc per source, started
               together). Prints the registers, spill bytes and static
               shared memory (the `-Xptxas -v` log), the blocks per SM the
-              registers allow, and the count of tensor-core instructions
-              (HMMA / HGMMA) in the SASS (`cuobjdump -sass`) of each flash
-              kernel and of K1's tensor-core kernels; fails if a
-              tensor-core kernel has none.
+              registers allow, the paged tensor-core kernels' shared
+              memory per block (static + dynamic, from the profiler's
+              record of one launch each), and the count of tensor-core
+              instructions (HMMA / HGMMA) in the SASS (`cuobjdump -sass`)
+              of each flash kernel and of the paged tensor-core kernels
+              (K1's and K2's, at head_dim 64 and 128, on bf16, int8 and
+              int4 pools); fails if a tensor-core kernel has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               each output row within a tolerance of that row's max-abs
-              (f32 q 1e-4, bf16 q 2e-2): ragged paged attention K1 on f32,
-              bf16, int8 and packed-int4 pools at the serving tick's
-              shapes (mixed prefill + decode tick at frontier offset 0
-              and 3, pure decode tick); its query-blocked variant K2 on
-              the same four pool kinds at the speculative verify step
-              (8 slots x 5 rows, a dead and a narrow slot, offset 0 and
-              3); each call on the route `paged_route` names (K1 on the
-              bf16 pool: the tensor-core route); K1's tensor-core route
-              on layouts that break its chunks and KV splits (kv_len at
-              split boundaries, 1 and 1024; a chunk whose rows end in
-              different splits; a 64-row tile holding two slots' rows;
-              padding-only tiles; slots in any order; page size 64 and
-              head_dim 128; 1300 rows at page size 5), each at offset 0
-              and 3; flash attention
+              (1e-4 for f32 arithmetic, 2e-2 where q or the pool is
+              bf16): ragged paged attention K1 on f32, bf16, int8 and
+              packed-int4 pools at the serving tick's shapes (mixed
+              prefill + decode tick at frontier offset 0 and 3, pure
+              decode tick); its query-blocked variant K2 on the same four
+              pool kinds at the speculative verify step (8 slots x 5 rows,
+              a dead and a narrow slot, offset 0 and 3); each with an f32
+              and a bf16 q, each call on the route `paged_route` names (a
+              bf16 q on a bf16, int8 or int4 pool: the tensor-core route,
+              counted in `tc_launches`); the tensor-core routes of K1 on
+              layouts that break its chunks and KV splits (kv_len at split
+              boundaries, 1 and 1024; a chunk whose rows end in different
+              splits; a 64-row tile holding two slots' rows; padding-only
+              tiles; slots in any order; page size 64 and head_dim 128;
+              1300 rows at page size 5) and of K2 on verify layouts (qb 1
+              and 16; a block whose rows end in different splits; dead and
+              narrow blocks; page size 64 and head_dim 128), on bf16, int8
+              and int4 pools, each at offset 0 and 3; flash attention
               forward, dq and dk/dv (K3-K5) at the training path's shapes
               (b·h 192, s 1024, d 64, bf16, causal) and at smaller f32 /
               bf16 cases (ragged seq, non-causal, kv_lens with a 0 row,
@@ -43,29 +50,39 @@ continues:
               ahead so the window holds no host gaps) beside the least
               time the card could take (bound: each input byte read once
               — codes and scales for a quantized pool — each output
-              written once). The library times of K3-K5 are torch's
+              written once); for a paged call on the tensor-core route
+              also the CUDA-core kernel's time on the same inputs and the
+              host microseconds per call of both (400 calls back to
+              back). The library times of K3-K5 are torch's
               `scaled_dot_product_attention` forward and the backward
               node it records, called directly.
-4. serve    — `LLMServer` over gpt_small (random weights from a seed),
-              bf16 weights and bf16 KV pool, 8 greedy requests with
-              prompts of 16-900 tokens. The launch counts are set to 0
-              just before and read just after: K1 (bf16 pool) must have
-              launched once per layer per engine tick, every time on its
-              tensor-core route, and nothing else.
-4b. serve cross bf16 — the same engine and prompt lengths (`LLMEngine`,
-              new weights), twice on the card: through K1's tensor-core
-              route, and with `ragged_paged_attention` swapped for its
-              plain version. Same schedule; every sampled frontier row's
-              logits within SERVE_BF16_LOGIT_TOL max-abs; greedy tokens
-              equal except at a near-tie of the plain run (top two
-              logits within that tolerance).
-5. serve int8 + ngram — the same server and load with an int8 KV pool
-              and n-gram speculation (spec_k 4), each prompt a random
-              24-token segment repeated to its length: K2-int8 must have
-              launched once per layer per verify window and K1-int8 once
-              per layer per single tick, both more than 0, with
-              proposals made. Prints tok/s, ticks, windows, proposed /
-              accepted and TTFT.
+4. serve    — `LLMServer` over gpt_small (random weights from a seed: one
+              model for every serve phase), bf16 weights and bf16 KV
+              pool, 8 greedy requests with prompts of 16-900 tokens. The
+              launch counts are set to 0 just before and read just after:
+              K1 (bf16 pool) must have launched once per layer per engine
+              tick, every time on its tensor-core route, and nothing
+              else.
+4b. serve cross — the same engine and prompt lengths (`LLMEngine`, new
+              prompts), twice on the card: through the paged kernels, and
+              with `ragged_paged_attention` swapped for its plain version;
+              on the bf16 pool and on the int8 pool. Request by request up
+              to its first differing token, the same steps, and every
+              emitted token's logits within SERVE_BF16_LOGIT_TOL max-abs;
+              a token may differ only at a near-tie of the plain run (top
+              two logits within that tolerance), and the request is
+              compared no further.
+5. serve + ngram — the same server and load with n-gram speculation
+              (spec_k 4), each prompt a random 24-token segment repeated
+              to its length, on an int8, a bf16 and an int4 KV pool: K2 on
+              the pool must have launched once per layer per verify
+              window and K1 once per layer per single tick, both more than
+              0 and all on the tensor-core route, with proposals made.
+              Prints tok/s, ticks, windows, proposed / accepted and TTFT.
+5b. serve cross + ngram — phase 4b's method on the bf16 + ngram and
+              int8 + ngram engines: the same tokens and the same windows'
+              emitted (accepted + 1) counts up to a request's first
+              near-tie.
 6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
@@ -73,9 +90,10 @@ continues:
               card vs CPU first frontier logits on int8 and int4 pools
               within max(1e-3, the CPU's own int8 / int4 vs f32
               difference); on the card, the n-gram engine's tokens equal
-              the k=1 engine's on f32, int8 and int4 pools; the f32 and
-              int4 n-gram runs must launch K2-float, and K1-int4 and
-              K2-int4.
+              the k=1 engine's on f32, int8 and int4 pools; the f32 n-gram
+              run must launch K1 and K2 on the f32 pool, the int8 and int4
+              ones K1 and K2 on theirs, all on the CUDA-core kernels (an
+              f32 q).
 8. train    — `jit.TrainStep` over gpt_small at b16·s1024, bf16 O1
               `amp.auto_cast`, `AdamW(1e-4)` (bench.py's bench_gpt on the
               port): 3 warm-up steps, then 10 timed ones with the launch
@@ -96,7 +114,9 @@ continues:
               max-abs is within 2e-2, the median over the gradients
               within 1e-2.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]}: each route of K1 and K2
+(bf16, f32, int8, int4 pools) and K3-K5, with its launches from the
+main-path run that drives it; the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
@@ -105,6 +125,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,10 +137,12 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 SM_REGISTERS = 65536     # 32-bit registers per SM
 # the tensor-core kernels, by library, and their threads per block
 # (kTcThreads in csrc/flash_attention.cu, kThreads in paged_attention.cu's
-# tc namespace)
+# tc namespace); the paged ones are templated on head_dim and pool kind
+# (1 bf16, 8 int8, 4 int4)
 TC_KERNELS = {"flash_attention": ("fa_fwd_tc_kernel", "fa_bwd_dq_tc_kernel",
                                   "fa_bwd_dkv_tc_kernel"),
-              "paged_attention": ("rpa_tc_kernel",)}
+              "paged_attention": ("rpa_tc_kernel", "rpa_tc_qblock_kernel")}
+TC_PAGED_KINDS = (1, 8, 4)
 TC_THREADS = 128
 
 SERVE_PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
@@ -130,8 +153,9 @@ SERVE_CFG = dict(num_slots=8, page_size=16, max_model_len=1024,
 
 def _kernel_label(mangled):
     """'fa_fwd_tc_kernel<64>' / 'fa_fwd_kernel<bf16, 4, 1>' /
-    'rpa_tc_kernel<64>' from a mangled name of a templated flash attention
-    kernel or of K1's tensor-core route; None for any other function."""
+    'rpa_tc_kernel<64, 8>' from a mangled name of a templated flash
+    attention kernel or of the paged tensor-core route; None for any other
+    function."""
     m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel)I(.*?)EEv", mangled)
     if not m:
         return None
@@ -197,13 +221,25 @@ def _blocks_by_registers(regs, threads):
     return SM_REGISTERS // (per_warp * (threads // 32))
 
 
+def _tc_labels(head_dims):
+    """The tensor-core kernels' labels by library: each flash kernel at
+    each head_dim, each paged one at each head_dim and pool kind."""
+    fl, pg = TC_KERNELS["flash_attention"], TC_KERNELS["paged_attention"]
+    return {"flash_attention": [f"{k}<{d}>" for k in fl for d in head_dims],
+            "paged_attention": [f"{k}<{d}, {kind}>" for k in pg
+                                for d in head_dims
+                                for kind in TC_PAGED_KINDS]}
+
+
 def build_report(build, head_dims):
     """Prints the registers, spills and static shared memory (ptxas log;
     for the tensor-core kernels, the blocks per SM the registers allow)
-    and the tensor-core instruction count of every flash kernel and of
-    K1's tensor-core kernels; fails when a tensor-core kernel (at each of
-    `head_dims`) has no tensor-core instruction."""
+    and the tensor-core instruction count of every flash kernel and of the
+    paged tensor-core kernels; fails when a tensor-core kernel (at each of
+    `head_dims`, and each pool kind for the paged ones) has no tensor-core
+    instruction."""
     paths = build.build(list(TC_KERNELS))
+    want = _tc_labels(head_dims)
     mma = {}
     for lib, so in paths.items():
         res = _ptxas_resources(so[:-3] + ".log")
@@ -220,9 +256,8 @@ def build_report(build, head_dims):
                   f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} "
                   f"B, static smem {r.get('smem')} B{extra}; "
                   f"{lib_mma.get(label, 0)} HMMA/HGMMA in its SASS")
-    want = [f"{k}<{d}>" for ks in TC_KERNELS.values() for k in ks
-            for d in head_dims]
-    if not all(mma.get(label, 0) > 0 for label in want):
+    if not all(mma.get(label, 0) > 0 for labels in want.values()
+               for label in labels):
         raise AssertionError(f"tensor-core kernels without tensor-core "
                              f"instructions: {mma}")
 
@@ -262,13 +297,23 @@ def _median_ms(fn, flush, reps=30):
     return float(np.median(times))
 
 
-# pool kinds of the serving paths; kernel vs plain: each output row (one
-# token, one head) within PA_TOL of that row's max-abs, by q's dtype
-# (floored at PA_ROW_FLOOR of the tensor's max-abs, so rows of pure
-# cancellation noise do not divide by ~0)
+# pool kinds of the serving paths, and the q types checked on each;
+# kernel vs plain: each output row (one token, one head) within PA_TOL of
+# that row's max-abs, by the call's arithmetic (`_pa_tol`; floored at
+# PA_ROW_FLOOR of the tensor's max-abs, so rows of pure cancellation
+# noise do not divide by ~0)
 PA_KINDS = ("float32", "bfloat16", "int8", "int4")
+PA_Q_DTYPES = (torch.float32, torch.bfloat16)
 PA_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 PA_ROW_FLOOR = 1e-2
+# int8 / int4 pools with a bf16 q (the tensor-core route): the route keeps
+# S to f32 rounding and the P·V weights to 2^-16 (w_hi + w_lo), and rounds
+# only its output to bf16, where the plain version (f32 throughout) rounds
+# too, so the two are the same bf16 number except where their f32 values
+# straddle a rounding boundary (≈ 2^-16 / 2^-8 of the elements). At least
+# this share of the live rows' elements must be bit-equal; weights kept to
+# bf16's 2^-9 alone would flip tens of percent, and stay within PA_TOL.
+QUANT_BF16_EQUAL = 0.95
 # the speculative verify step at the serve config: 8 slots of spec_k + 1
 VERIFY_SLOTS, VERIFY_QB = 8, 5
 
@@ -378,20 +423,62 @@ def _bound(args, kw, offset):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _timed(pa, args, kw, flush, qb=None):
-    ms = _median_ms(lambda: pa.ragged_paged_attention(
-        *args, **kw, q_per_slot=qb), flush)
+class _cuda_cores:
+    """Within the block every call takes the CUDA-core `rpa_kernel` /
+    `rpa_qblock_kernel` (`paged_route` forced off): the kernels the
+    tensor-core route replaced, timed beside it on the same inputs."""
+
+    def __init__(self, pa):
+        self.pa = pa
+
+    def __enter__(self):
+        self.route = self.pa.paged_route
+        self.pa.paged_route = lambda *args: False
+
+    def __exit__(self, *exc):
+        self.pa.paged_route = self.route
+
+
+def _host_us(fn, n=400):
+    """Host microseconds per call over `n` calls back to back (the card
+    runs behind; synchronized before and after, outside the window)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def _timed(pa, args, kw, flush, qb, kind):
+    """Kernel, plain and bound times of one call; for a call on the
+    tensor-core route also the CUDA-core kernel's time on the same inputs
+    (`old_ms`) and the host microseconds per call of both."""
+    def call():
+        return pa.ragged_paged_attention(*args, **kw, q_per_slot=qb)
+
+    ms = _median_ms(call, flush)
     plain_ms = _median_ms(lambda: pa.ragged_paged_attention_plain(
         *args, **kw, q_per_slot=qb), flush)
     bound_ms, bound_by = _bound(args, kw, 0)
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    r = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    q = args[0]
+    if pa.paged_route(ROUTE_KIND[kind], q.dtype, q.shape[-1]):
+        r["host_us"] = _host_us(call)
+        with _cuda_cores(pa):
+            r["old_ms"] = _median_ms(call, flush)
+            r["old_host_us"] = _host_us(call)
+    return r
 
 
-def _pa_gate(label, out, ref, q_dtype, lens):
-    """(max abs err, worst row err / row max-abs) of kernel `out` against
-    plain `ref`; raises when the row gate fails, on non-finite output or
-    when a kv_len 0 row is not exact zeros."""
+def _pa_gate(label, out, ref, tol, lens, equal=False):
+    """(max abs err, worst row err / row max-abs, share of the live rows'
+    elements bit-equal) of kernel `out` against plain `ref`; raises when
+    the row gate (`tol`) fails, with `equal` when under QUANT_BF16_EQUAL
+    of the elements are bit-equal, on non-finite output or when a kv_len
+    0 row is not exact zeros."""
     if not torch.isfinite(out).all():
         raise AssertionError(f"{label}: non-finite kernel output")
     if not torch.all(out[lens == 0] == 0):
@@ -401,20 +488,31 @@ def _pa_gate(label, out, ref, q_dtype, lens):
     rows = torch.clamp(b.abs().amax(-1),
                        min=PA_ROW_FLOOR * b.abs().max().item() + 1e-30)
     row_rel = (diff.amax(-1) / rows).max().item()
-    if not row_rel <= PA_TOL[q_dtype]:
+    if not row_rel <= tol:
         raise AssertionError(f"{label}: worst row err {row_rel:.3e} of its "
-                             f"max-abs > {PA_TOL[q_dtype]:.0e}")
-    return diff.max().item(), row_rel
+                             f"max-abs > {tol:.0e}")
+    live = lens > 0
+    share = (out[live] == ref[live]).float().mean().item()
+    if equal and not share >= QUANT_BF16_EQUAL:
+        raise AssertionError(f"{label}: {share:.4f} of the live elements "
+                             f"bit-equal to the plain version's < "
+                             f"{QUANT_BF16_EQUAL}")
+    return diff.max().item(), row_rel, share
 
 
-def _q_dtypes(kind):
-    """q types checked against a pool kind: the pool's own for float
-    pools, both for quantized ones."""
-    if kind == "float32":
-        return (torch.float32,)
-    if kind == "bfloat16":
-        return (torch.bfloat16,)
-    return (torch.float32, torch.bfloat16)
+def _quant_tc(kind, q_dtype):
+    """True for a bf16 q on an int8 / int4 pool: the tensor-core route's
+    quantized arithmetic, held to QUANT_BF16_EQUAL."""
+    return kind in ("int8", "int4") and q_dtype == torch.bfloat16
+
+
+def _pa_tol(kind, q_dtype):
+    """PA_TOL by the call's arithmetic: bf16's where q or the pool is bf16
+    (the output, or p before P·V, is rounded to bf16 — in other places in
+    the kernel and the plain version), f32's otherwise (a quantized pool
+    dequantizes to f32)."""
+    bf16 = torch.bfloat16 in (q_dtype, getattr(torch, kind, None))
+    return PA_TOL[torch.bfloat16 if bf16 else torch.float32]
 
 
 def _serving_q(kind):
@@ -427,19 +525,25 @@ ROUTE_KIND = {"float32": "f32", "bfloat16": "bf16", "int8": "int8",
 
 
 def _pa_call(pa, args, kw, offset, qb, kind, label):
-    """One K1 / K2 call on a `kind` pool; raises unless it took the route
-    `paged_route` names (K1 on a bf16 q and pool at head_dim 64 / 128: the
-    tensor-core route, counted in `tc_launches`)."""
+    """One K1 / K2 call on a `kind` pool; raises unless it launched once
+    and took the route `paged_route` names (a bf16 q on a bf16, int8 or
+    int4 pool at head_dim 64 / 128: the tensor-core route, counted in
+    `tc_launches` under the call's key; otherwise no tensor-core count
+    moves)."""
     q = args[0]
-    want = int(qb is None and pa.paged_route(ROUTE_KIND[kind], q.dtype,
-                                             q.shape[-1]))
-    before = pa.tc_launches["rpa"]
+    key = pa._launch_key(kind if kind in ("int8", "int4") else "", qb)
+    tc = pa.paged_route(ROUTE_KIND[kind], q.dtype, q.shape[-1])
+    before, tc_before = dict(pa.launches), dict(pa.tc_launches)
     out = pa.ragged_paged_attention(*args, **kw, frontier_offset=offset,
                                     q_per_slot=qb)
-    if pa.tc_launches["rpa"] - before != want:
-        raise AssertionError(f"{label}: tensor-core launches "
-                             f"{pa.tc_launches['rpa'] - before}, expected "
-                             f"{want}")
+    moved = {k: n - before[k] for k, n in pa.launches.items()
+             if n != before[k]}
+    tc_moved = {k: n - tc_before[k] for k, n in pa.tc_launches.items()
+                if n != tc_before[k]}
+    if moved != {key: 1} or tc_moved != ({key: 1} if tc else {}):
+        raise AssertionError(f"{label}: launches {moved}, tensor-core "
+                             f"{tc_moved}; expected {{{key!r}: 1}}, "
+                             f"tensor-core {'the same' if tc else 'none'}")
     return out
 
 
@@ -496,42 +600,135 @@ def _layout_case(rows, P, MP, D, offset, seed=2):
             torch.tensor(lens, dtype=torch.int32)]
 
 
+TC_POOLS = ("bfloat16", "int8", "int4")   # pools of the tensor-core route
+
+
+def _check_layouts(pa, layouts, qb_of):
+    """Each layout at frontier offset 0 and 3 on every pool of the
+    tensor-core route (bf16 q), against the plain version on the card."""
+    for name, rows, P, MP, D in layouts:
+        qb = qb_of(name)
+        cases = {off: _layout_case(rows, P, MP, D, off) for off in (0, 3)}
+        for kind in TC_POOLS:
+            worst, worst_rel, least = 0.0, 0.0, 1.0
+            equal = _quant_tc(kind, torch.bfloat16)
+            for offset, case in cases.items():
+                label = (f"{'qblock' if qb else 'rpa'} {kind} pool, {name}, "
+                         f"offset {offset}")
+                args, kw = _pool(case, kind, torch.bfloat16)
+                out = _pa_call(pa, args, kw, offset, qb, kind, label)
+                ref = pa.ragged_paged_attention_plain(
+                    *args, **kw, frontier_offset=offset, q_per_slot=qb)
+                torch.cuda.synchronize()
+                err, rel, share = _pa_gate(label, out, ref,
+                                           PA_TOL[torch.bfloat16], args[5],
+                                           equal)
+                worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                least = min(least, share)
+            print(f"{'K2' if qb else 'K1'} {kind} pool (tensor cores), {name} "
+                  f"(T {len(rows)}, page {P}, head_dim {D}), offset 0 and 3: "
+                  f"max_abs_err {worst:.3e}, worst row {worst_rel:.2e} of its "
+                  f"max-abs (tol {PA_TOL[torch.bfloat16]:.0e}); "
+                  f"{least:.4f} of the elements bit-equal"
+                  + (f" (gate {QUANT_BF16_EQUAL})" if equal else ""))
+
+
 def check_paged_tc_layouts(pa):
-    """K1's tensor-core route (bf16 q and pool) on `_tc_layouts`, at
-    frontier offset 0 and 3, against the plain version on the card."""
-    for name, rows, P, MP, D in _tc_layouts():
-        worst, worst_rel = 0.0, 0.0
-        for offset in (0, 3):
-            label = f"rpa bfloat16 pool, {name}, offset {offset}"
-            args, kw = _pool(_layout_case(rows, P, MP, D, offset),
-                             "bfloat16", torch.bfloat16)
-            out = _pa_call(pa, args, kw, offset, None, "bfloat16", label)
-            ref = pa.ragged_paged_attention_plain(*args,
-                                                  frontier_offset=offset)
-            torch.cuda.synchronize()
-            err, rel = _pa_gate(label, out, ref, torch.bfloat16, args[5])
-            worst, worst_rel = max(worst, err), max(worst_rel, rel)
-        print(f"rpa bfloat16 pool (tensor cores), {name} (T {len(rows)}, "
-              f"page {P}, head_dim {D}), offset 0 and 3: max_abs_err "
-              f"{worst:.3e}, worst row {worst_rel:.2e} of its max-abs (tol "
-              f"{PA_TOL[torch.bfloat16]:.0e})")
+    """K1's tensor-core route (bf16 q; bf16, int8 and int4 pools) on
+    `_tc_layouts`, at frontier offset 0 and 3, against the plain version
+    on the card."""
+    _check_layouts(pa, _tc_layouts(), lambda name: None)
+
+
+def _qblock_layouts():
+    """Verify layouts that break K2's tensor-core route (blocks of qb rows
+    of one slot, split-KV of 128 keys at MP·P = 1024): (name, rows as
+    (slot, effective kv_len) in slot-major blocks, page size, pages per
+    sequence, head_dim); the name starts with qb. Row j of a block at
+    pos0 has kv_len pos0 + j + 1 up to the block's width, 0 past it."""
+    def block(slot, pos0, qb, width):
+        return [(slot, pos0 + j + 1 if j <= width else 0) for j in range(qb)]
+
+    # one row per slot: split boundaries (128, 256), one past, 1, the
+    # full 1024, a padding row
+    qb1 = list(enumerate((128, 129, 1, 1024, 0, 256, 640, 33)))
+    # 16 rows: full blocks across split edges (121..136, 251..266), the
+    # last split (1008..1023), a dead block, a narrow block (width 2)
+    qb16 = (block(0, 100, 16, 15) + block(1, 1007, 16, 15)
+            + block(2, 0, 16, -1) + block(3, 500, 16, 2)
+            + block(4, 120, 16, 15) + block(5, 7, 16, 15)
+            + block(6, 250, 16, 15) + block(7, 60, 16, 15))
+    # 5 rows: a block whose rows end in different splits (126..130: 128
+    # and 129), another across 256, the last key (1020..1024), a dead
+    # block, a narrow block (width 1)
+    qb5 = (block(0, 125, 5, 4) + block(1, 253, 5, 4) + block(2, 0, 5, -1)
+           + block(3, 1019, 5, 4) + block(4, 40, 5, 1) + block(5, 0, 5, 4)
+           + block(6, 639, 5, 4) + block(7, 383, 5, 4))
+    return [("qb 1, split edges", qb1, 16, 64, 64),
+            ("qb 16, split edges, dead and narrow blocks", qb16, 16, 64, 64),
+            ("qb 5, rows ending in different splits, dead and narrow "
+             "blocks", qb5, 16, 64, 64),
+            ("qb 5, page 64, head_dim 128", qb5, 64, 16, 128)]
+
+
+def check_qblock_tc_layouts(pa):
+    """K2's tensor-core route (bf16 q; bf16, int8 and int4 pools) on
+    `_qblock_layouts`, at frontier offset 0 and 3, against the plain
+    version on the card."""
+    _check_layouts(pa, _qblock_layouts(),
+                   lambda name: int(name.split(",")[0].split()[1]))
+
+
+def paged_launch_smem(pa):
+    """Prints the shared memory per block (static + dynamic) of each paged
+    tensor-core kernel at head_dim 64 and 128 on every pool kind, as the
+    profiler records its launch: one K1 and one K2 (qb 5) call each on a
+    verify layout. The route sizes its dynamic shared memory at launch, so
+    the ptxas log shows none of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rows = _qblock_layouts()[2][1]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for P, MP, D in ((16, 64, 64), (64, 16, 128)):
+            case = _layout_case(rows, P, MP, D, 0)
+            for kind in TC_POOLS:
+                args, kw = _pool(case, kind, torch.bfloat16)
+                for qb in (None, 5):
+                    pa.ragged_paged_attention(*args, **kw, q_per_slot=qb)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    smem = {}
+    for e in events:
+        m = re.search(r"(rpa_tc_(?:qblock_)?kernel)<(\d+), (\d+)>",
+                      e.get("name", ""))
+        if m and e.get("cat") == "kernel":
+            smem[f"{m[1]}<{m[2]}, {m[3]}>"] = e.get("args", {}).get(
+                "shared memory", "not recorded")
+    for label in sorted(smem):
+        print(f"build {label}: {smem[label]} B shared memory per block "
+              "(static + dynamic, the profiler's record of its launch)")
 
 
 def check_paged_attention(pa, flush):
     """K1 on every pool kind at a mixed prefill + decode tick (frontier
     offset 0 and 3) and a pure decode tick, and K2 on every pool kind at
-    the verify step (offset 0 and 3), each against the plain version on
-    the card and on the route `paged_route` names (K1 on the bf16 pool:
-    the tensor-core route). Times each at the serving q type (bf16; f32
-    for the f32 pool) — K1 at both ticks, K2 at offset 0. Returns
-    {(kernel, kind): numbers} with K1's mixed tick."""
+    the verify step (offset 0 and 3), each with an f32 and a bf16 q,
+    against the plain version on the card and on the route `paged_route`
+    names. Times each at the serving q type (bf16; f32 for the f32 pool)
+    — K1 at both ticks, K2 at offset 0 — and, on the tensor-core route,
+    the CUDA-core kernel it replaced and the host time per call of both.
+    Returns {(kernel, kind): numbers} with K1's mixed tick."""
     res = {}
     for kernel, qb in (("rpa", None), ("qblock", VERIFY_QB)):
         cases = (((0, False), (3, False), (0, True)) if qb is None
                  else ((0, None), (3, None)))
         for kind in PA_KINDS:
-            worst, worst_rel = 0.0, 0.0
-            for q_dtype in _q_dtypes(kind):
+            worst, worst_rel, least = 0.0, 0.0, 1.0
+            for q_dtype in PA_Q_DTYPES:
                 for offset, decode in cases:
                     case = (_paged_case(offset, decode) if qb is None
                             else _verify_case(offset))
@@ -542,24 +739,39 @@ def check_paged_attention(pa, flush):
                     ref = pa.ragged_paged_attention_plain(
                         *args, **kw, frontier_offset=offset, q_per_slot=qb)
                     torch.cuda.synchronize()
-                    err, rel = _pa_gate(label, out, ref, q_dtype, args[5])
+                    equal = _quant_tc(kind, q_dtype)
+                    err, rel, share = _pa_gate(label, out, ref,
+                                               _pa_tol(kind, q_dtype),
+                                               args[5], equal)
                     worst, worst_rel = max(worst, err), max(worst_rel, rel)
+                    if equal:
+                        least = min(least, share)
             q_t = _serving_q(kind)
             ticks = (False, True) if qb is None else (None,)
             for decode in ticks:
                 case = _paged_case(0, decode) if qb is None else \
                     _verify_case(0)
-                r = _timed(pa, *_pool(case, kind, q_t), flush, qb)
+                r = _timed(pa, *_pool(case, kind, q_t), flush, qb, kind)
                 tick = ("verify step" if qb else
                         "decode tick" if decode else "mixed tick")
+                route = ""
+                if "old_ms" in r:
+                    route = (f"; tensor-core route, CUDA-core kernel "
+                             f"{r['old_ms']:.4f} ms on the same inputs "
+                             f"({r['old_ms'] / r['ms']:.2f}x); host "
+                             f"{r['host_us']:.1f} µs per call (CUDA-core "
+                             f"{r['old_host_us']:.1f})")
+                equal = (f"; q bfloat16 {least:.4f} of the elements "
+                         f"bit-equal (gate {QUANT_BF16_EQUAL})"
+                         if _quant_tc(kind, torch.bfloat16) else "")
                 print(f"{kernel} {kind} pool {tick}: max_abs_err {worst:.3e}, "
                       f"worst row {worst_rel:.2e} of its max-abs (tol "
-                      + ", ".join(f"q {str(d)[6:]} {PA_TOL[d]:.0e}"
-                                  for d in _q_dtypes(kind))
-                      + f"); q {str(q_t)[6:]}: kernel {r['ms']:.4f} ms, plain "
-                      f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                      f"({r['bound_by']}), "
-                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+                      + ", ".join(f"q {str(d)[6:]} {_pa_tol(kind, d):.0e}"
+                                  for d in PA_Q_DTYPES)
+                      + f"{equal}); q {str(q_t)[6:]}: kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                      f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound{route}")
                 if not decode:
                     res[(kernel, kind)] = dict(max_abs_err=worst, **r)
     return res
@@ -802,12 +1014,18 @@ def check_flash_attention(fa, flush):
     return res
 
 
-def serve(pa):
-    from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
+def serve_model():
+    """gpt_small with bf16 weights from seed 1234: the model every serve
+    phase runs."""
     from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small()
-    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=1234)
+    return GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
+
+
+def serve(pa, model):
+    from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
+
+    cfg = model.config
     rng = np.random.default_rng(1234)
     prompts = [rng.integers(0, cfg.vocab_size, (n,))
                for n in SERVE_PROMPT_LENS]
@@ -825,17 +1043,16 @@ def serve(pa):
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = dict(pa.launches)
-        tc_rpa = pa.tc_launches["rpa"]
+        tc_launches = dict(pa.tc_launches)
         ticks = eng.stats["steps"] - ticks0
     _check_outputs(prompts, outs, cfg.vocab_size)
     want = dict.fromkeys(launches, 0)
     want["rpa"] = cfg.num_layers * ticks
-    if launches != want or ticks == 0 or tc_rpa != want["rpa"]:
+    if launches != want or ticks == 0 or tc_launches != want:
         raise AssertionError(
-            f"paged attention launched {launches} ({tc_rpa} K1 on the "
-            f"tensor-core route) in {ticks} ticks; expected "
-            f"{cfg.num_layers} K1 (bf16 pool) per tick, all on the "
-            "tensor-core route")
+            f"paged attention launched {launches} (tensor-core route "
+            f"{tc_launches}) in {ticks} ticks; expected {cfg.num_layers} K1 "
+            "(bf16 pool) per tick, all on the tensor-core route")
     ttft = _ttft(futs, t0)
     gen = SERVE_NEW_TOKENS * len(prompts)
     print(f"serve gpt_small bf16: {len(prompts)} requests, "
@@ -844,97 +1061,163 @@ def serve(pa):
           f"TTFT median {ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
           f"paged attention launches {launches['rpa']} = {cfg.num_layers} x "
           f"{ticks}, all on K1's tensor-core route")
-    return launches["rpa"]
+    return launches
 
 
-# the bf16 serve path through K1's tensor-core route vs through its plain
-# version, both on the card: the max-abs difference of each sampled
-# frontier row's logits (bf16 logits of a random-init gpt_small, |logit|
-# below 2; both runs round attention's output to bf16, in other places)
+# a serve path through the paged kernels vs through their plain version,
+# both on the card: the max-abs difference of each emitted token's
+# logits row (bf16 logits of a random-init gpt_small, |logit| below 2;
+# both runs round attention's output to bf16, in other places)
 SERVE_BF16_LOGIT_TOL = 5e-2
+_KV_SUFFIX = {"bfloat16": "", "int8": "_int8", "int4": "_int4"}
 
 
-def serve_cross_bf16(pa):
-    """The bf16 serve path twice on the card from the same weights and
-    prompts (`LLMEngine` at the serve config: gpt_small, bf16 weights and
-    KV pool, the serve phase's prompt lengths, 32 greedy tokens each):
-    through K1's tensor-core route, and with the module's
-    `ragged_paged_attention` swapped for its plain version (restored
-    after). The schedules are the same; step by step, every sampled
-    frontier row's logits agree within SERVE_BF16_LOGIT_TOL while its
-    request's tokens agree. A greedy token may differ only where the
-    plain run's top two logits lie within that tolerance; that request is
-    compared no further."""
+def _drive(eng, reqs):
+    """Step `eng` until it has no work. Per request (by index): its
+    emitted tokens' logits rows (f32, CPU) and its chunks — the tokens
+    each step emitted for it, as ("tick", 1) or ("window", n). A window's
+    rows come from the verify step's logits (captured where the model
+    hands them to `sample_tokens`), a tick's from `last_logits` in plan
+    (admission) order."""
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    logits = [[] for _ in reqs]
+    chunks = [[] for _ in reqs]
+    window = []
+    sample = gpt_mod.sample_tokens
+
+    def capture(lv, temps=None):
+        window.append(lv)
+        return sample(lv, temps)
+
+    Q = eng._spec.k + 1 if eng._spec is not None else 0
+    gpt_mod.sample_tokens = capture
+    try:
+        while eng.has_work():
+            before = [len(r.tokens) for r in reqs]
+            frontier = {i: eng._slots.index(r) for i, r in enumerate(reqs)
+                        if r in eng._slots
+                        and r.n_prefilled == len(r.tokens) - 1}
+            eng.last_logits = None
+            window.clear()
+            eng.step()
+            grown = [i for i, r in enumerate(reqs)
+                     if len(r.tokens) > before[i]]
+            ticked = grown
+            if window:   # the frontier rows took a verify window
+                lv = window[0]
+                ticked = [i for i in grown if i not in frontier]
+                for i in grown:
+                    if i in frontier:
+                        n = len(reqs[i].tokens) - before[i]
+                        row = frontier[i] * Q
+                        logits[i] += list(lv[row:row + n].float().cpu())
+                        chunks[i].append(("window", n))
+            ticked = sorted(ticked, key=lambda i: reqs[i].admit_seq)
+            if ticked:
+                lt = eng.last_logits.float().cpu()
+                for row, i in enumerate(ticked):
+                    logits[i].append(lt[row])
+                    chunks[i].append(("tick", 1))
+        torch.cuda.synchronize()
+    finally:
+        gpt_mod.sample_tokens = sample
+    return logits, chunks
+
+
+def serve_cross(pa, model, kv_dtype, spec, prompts, label):
+    """The serve path twice on the card from the same model and prompts
+    (`LLMEngine` at the serve config, a `kv_dtype` pool, n-gram
+    speculation with spec_k 4 when `spec`, 32 greedy tokens a request):
+    through the kernels (every launch on the tensor-core route), and with
+    the module's `ragged_paged_attention` swapped for its plain version
+    (restored after). Request by request, up to its first differing
+    token: the chunks (tick, or a window with its emitted count) are
+    equal, and every emitted token's logits agree within
+    SERVE_BF16_LOGIT_TOL. A differing token is allowed only where the
+    plain run's top two logits lie within that tolerance (a near-tie);
+    the request is compared no further."""
     from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small()
-    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=4321)
-    rng = np.random.default_rng(4321)
-    prompts = [rng.integers(0, cfg.vocab_size, (n,))
-               for n in SERVE_PROMPT_LENS]
+    knobs = dict(spec_mode="ngram", spec_k=4) if spec else {}
     kernel = pa.ragged_paged_attention
     runs = []
     for swap in (False, True):
-        eng = LLMEngine(model, LLMEngineConfig(kv_dtype="bfloat16",
-                                               **SERVE_CFG))
+        eng = LLMEngine(model, LLMEngineConfig(kv_dtype=kv_dtype,
+                                               **SERVE_CFG, **knobs))
         reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS)
                 for p in prompts]
         pa.reset_launches()
-        steps = []
         try:
             if swap:
                 pa.ragged_paged_attention = pa.ragged_paged_attention_plain
-            while eng.has_work():
-                before = [len(r.tokens) for r in reqs]
-                eng.step()
-                # the sampled rows, in plan (admission) order
-                grown = sorted((i for i, r in enumerate(reqs)
-                                if len(r.tokens) > before[i]),
-                               key=lambda i: reqs[i].admit_seq)
-                if grown:
-                    steps.append((grown, eng.last_logits.float().cpu(),
-                                  [reqs[i].tokens[-1] for i in grown]))
-            torch.cuda.synchronize()
+            logits, chunks = _drive(eng, reqs)
         finally:
             pa.ragged_paged_attention = kernel
-        runs.append((steps, eng.stats["steps"], dict(pa.launches),
-                     dict(pa.tc_launches)))
-    (ks, kticks, kn, kt), (ps, pticks, pn, _) = runs
-    want = cfg.num_layers * kticks
-    if not (kn["rpa"] == kt["rpa"] == want and set(pn.values()) == {0}
-            and kticks == pticks and len(ks) == len(ps)):
-        raise AssertionError(f"bf16 serve cross-check: kernel run {kticks} "
-                             f"ticks, launches {kn} (tensor-core {kt}); "
-                             f"plain run {pticks} ticks, launches {pn}")
-    worst, rows, ties, diverged = 0.0, 0, [], set()
-    for n, ((gk, lk, tk), (gp, lp, tp)) in enumerate(zip(ks, ps)):
-        if gk != gp:
-            raise AssertionError(f"bf16 serve cross-check: step {n} sampled "
-                                 f"requests {gk} vs {gp}")
-        for row, i in enumerate(gk):
-            if i in diverged:
-                continue
-            worst = max(worst, (lk[row] - lp[row]).abs().max().item())
+        windows = eng.stats.get("ngram_windows", 0)
+        runs.append(dict(tokens=[r.future.result()[len(p):]
+                                 for r, p in zip(reqs, prompts)],
+                         logits=logits, chunks=chunks,
+                         ticks=eng.stats["steps"] - windows,
+                         windows=windows, launches=dict(pa.launches),
+                         tc=dict(pa.tc_launches),
+                         accepted=eng.stats.get("ngram_accepted", 0)))
+    kr, pr = runs
+    sfx = _KV_SUFFIX[kv_dtype]
+    layers = model.config.num_layers
+    want = dict.fromkeys(kr["launches"], 0)
+    want["rpa" + sfx] = layers * kr["ticks"]
+    want["qblock" + sfx] = layers * kr["windows"]
+    if not (kr["launches"] == kr["tc"] == want and kr["ticks"]
+            and (kr["windows"] or not spec)
+            and set(pr["launches"].values()) == {0}):
+        raise AssertionError(
+            f"{label}: kernel run {kr['ticks']} ticks + {kr['windows']} "
+            f"windows, launches {kr['launches']} (tensor-core {kr['tc']}); "
+            f"plain run launches {pr['launches']}")
+    worst, rows, ties = 0.0, 0, []
+    for i in range(len(prompts)):
+        tk, tp = kr["tokens"][i], pr["tokens"][i]
+        diff = np.flatnonzero(tk != tp)
+        d = int(diff[0]) if diff.size else len(tk)
+        # the chunks that end at or before the first difference agree
+        ck, n = [], 0
+        for c in kr["chunks"][i]:
+            if n + c[1] > d:
+                break
+            ck.append(c)
+            n += c[1]
+        cp = pr["chunks"][i][:len(ck)]
+        if ck != cp:
+            raise AssertionError(f"{label}: request {i}'s steps differ "
+                                 f"before token {d}: {ck} vs {cp}")
+        # logits of every token up to and including the first difference
+        # (its context is the same in both runs)
+        for j in range(min(d + 1, len(tk))):
+            worst = max(worst, (kr["logits"][i][j]
+                                - pr["logits"][i][j]).abs().max().item())
             rows += 1
-            if tk[row] != tp[row]:
-                top2 = lp[row].topk(2).values
-                gap = (top2[0] - top2[1]).item()
-                if not gap <= SERVE_BF16_LOGIT_TOL:
-                    raise AssertionError(
-                        f"bf16 serve cross-check: request {i} at step {n} "
-                        f"picked {tk[row]} vs the plain run's {tp[row]}, "
-                        f"whose top two logits differ by {gap:.3e}")
-                ties.append(f"request {i} step {n} (gap {gap:.2e})")
-                diverged.add(i)
-    print(f"serve cross-check gpt_small bf16 KV, K1 tensor-core route vs "
-          f"plain version on the card: {kticks} ticks, {rows} sampled rows "
-          f"compared, logits max abs diff {worst:.3e} (tol "
-          f"{SERVE_BF16_LOGIT_TOL:.0e}); tokens differ at "
-          f"{len(ties)} near-ties{': ' + ', '.join(ties) if ties else ''}")
+        if d < len(tk):
+            top2 = pr["logits"][i][d].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            if not gap <= SERVE_BF16_LOGIT_TOL:
+                raise AssertionError(
+                    f"{label}: request {i} token {d} is {tk[d]} vs the "
+                    f"plain run's {tp[d]}, whose top two logits differ by "
+                    f"{gap:.3e}")
+            ties.append(f"request {i} token {d} (gap {gap:.2e})")
+    print(f"serve cross-check {label}, kernels vs plain version on the "
+          f"card: {kr['ticks']} ticks + {kr['windows']} windows (plain "
+          f"{pr['ticks']} + {pr['windows']}), accepted {kr['accepted']} "
+          f"(plain {pr['accepted']}); {rows} emitted rows compared, logits "
+          f"max abs diff {worst:.3e} (tol {SERVE_BF16_LOGIT_TOL:.0e}); "
+          f"tokens differ at {len(ties)} near-ties"
+          f"{': ' + ', '.join(ties) if ties else ''}; kernel run launches "
+          f"{ {k: n for k, n in kr['launches'].items() if n} }, all on the "
+          "tensor-core route")
     if not worst <= SERVE_BF16_LOGIT_TOL:
-        raise AssertionError("bf16 serve path through K1's tensor-core "
-                             "route disagrees with the plain version")
+        raise AssertionError(f"{label}: the serve path through the kernels "
+                             "disagrees with the plain version")
 
 
 def _check_outputs(prompts, outs, vocab):
@@ -959,20 +1242,19 @@ def repetitive_prompts(vocab, lens, seed):
     return [np.resize(rng.integers(0, vocab, (24,)), n) for n in lens]
 
 
-def serve_quant_spec(pa):
-    """`LLMServer` over gpt_small, bf16 weights, int8 KV pool, n-gram
-    speculation with spec_k 4, at the serve config: 8 greedy requests of
-    the serve phase's prompt lengths, repetitive prompts. Every window
-    must launch K2-int8 once per layer and every single tick K1-int8
-    once per layer, both at least once, with proposals made."""
+def serve_spec(pa, model, kv_dtype):
+    """`LLMServer` over the serve model with a `kv_dtype` KV pool and
+    n-gram speculation (spec_k 4), at the serve config: 8 greedy requests
+    of the serve phase's prompt lengths, repetitive prompts. Every window
+    must launch K2 on that pool once per layer and every single tick K1
+    once per layer, both at least once and all on the tensor-core route,
+    with proposals made."""
     from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
-    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
 
-    cfg = gpt_small()
-    model = GPTForCausalLM(cfg, dtype="bfloat16", seed=1234)
+    cfg = model.config
     prompts = repetitive_prompts(cfg.vocab_size, SERVE_PROMPT_LENS, 4321)
     server = LLMServer(model, LLMEngineConfig(
-        kv_dtype="int8", spec_mode="ngram", spec_k=4, **SERVE_CFG))
+        kv_dtype=kv_dtype, spec_mode="ngram", spec_k=4, **SERVE_CFG))
     eng = server.engine
     keys = ("steps", "ngram_windows", "ngram_proposed", "ngram_accepted")
     with server:
@@ -987,30 +1269,34 @@ def serve_quant_spec(pa):
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         launches = dict(pa.launches)
+        tc_launches = dict(pa.tc_launches)
         d = {k: eng.stats[k] - before[k] for k in keys}
     _check_outputs(prompts, outs, cfg.vocab_size)
     windows = d["ngram_windows"]
     ticks = d["steps"] - windows
+    sfx = _KV_SUFFIX[kv_dtype]
     want = dict.fromkeys(launches, 0)
-    want["rpa_int8"] = cfg.num_layers * ticks
-    want["qblock_int8"] = cfg.num_layers * windows
-    if launches != want or not (ticks and windows and d["ngram_proposed"]):
+    want["rpa" + sfx] = cfg.num_layers * ticks
+    want["qblock" + sfx] = cfg.num_layers * windows
+    if (launches != want or tc_launches != want
+            or not (ticks and windows and d["ngram_proposed"])):
         raise AssertionError(
-            f"int8 + ngram serve: launches {launches} in {ticks} ticks and "
-            f"{windows} windows ({d['ngram_proposed']} proposed); expected "
-            f"{cfg.num_layers} K1-int8 per tick and {cfg.num_layers} "
-            "K2-int8 per window, both > 0, and proposals")
+            f"{kv_dtype} + ngram serve: launches {launches} (tensor-core "
+            f"{tc_launches}) in {ticks} ticks and {windows} windows "
+            f"({d['ngram_proposed']} proposed); expected {cfg.num_layers} "
+            f"K1 per tick and {cfg.num_layers} K2 per window, both > 0 and "
+            "on the tensor-core route, and proposals")
     ttft = _ttft(futs, t0)
     gen = SERVE_NEW_TOKENS * len(prompts)
-    print(f"serve gpt_small bf16, int8 KV, ngram spec_k 4: {len(prompts)} "
-          f"requests, {sum(SERVE_PROMPT_LENS)} prompt tokens, {gen} "
-          f"generated in {wall:.3f} s = {gen / wall:.1f} generated tok/s, "
-          f"{ticks} ticks + {windows} windows, proposed "
+    print(f"serve gpt_small bf16, {kv_dtype} KV, ngram spec_k 4: "
+          f"{len(prompts)} requests, {sum(SERVE_PROMPT_LENS)} prompt tokens, "
+          f"{gen} generated in {wall:.3f} s = {gen / wall:.1f} generated "
+          f"tok/s, {ticks} ticks + {windows} windows, proposed "
           f"{d['ngram_proposed']} accepted {d['ngram_accepted']}, TTFT "
           f"median {ttft[len(ttft) // 2]:.3f} s max {ttft[-1]:.3f} s, "
-          f"launches K1-int8 {launches['rpa_int8']} = {cfg.num_layers} x "
-          f"{ticks}, K2-int8 {launches['qblock_int8']} = {cfg.num_layers} x "
-          f"{windows}")
+          f"launches K1{sfx} {want['rpa' + sfx]} = {cfg.num_layers} x "
+          f"{ticks}, K2{sfx} {want['qblock' + sfx]} = {cfg.num_layers} x "
+          f"{windows}, all on the tensor-core route")
     return launches
 
 
@@ -1103,8 +1389,11 @@ def cross_quant_spec(pa):
             runs.append([r.future.result() for r in reqs])
         n = dict(pa.launches)           # the n-gram run's
         suffix = "" if kv == "float32" else f"_{kv}"
-        if not (n[f"rpa{suffix}"] > 0 and n[f"qblock{suffix}"] > 0):
-            raise AssertionError(f"{kv} + ngram run launched {n}")
+        if not (n[f"rpa{suffix}"] > 0 and n[f"qblock{suffix}"] > 0
+                and set(pa.tc_launches.values()) == {0}):
+            raise AssertionError(f"{kv} + ngram run launched {n} "
+                                 f"(tensor-core route {pa.tc_launches}; "
+                                 "an f32 q takes the CUDA-core kernels)")
         launches[kv] = n
         same = all(np.array_equal(a, b) for a, b in zip(*runs))
         st = eng.stats
@@ -1298,36 +1587,53 @@ def main():
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
     build_report(_build, fa.TC_HEAD_DIMS)
+    paged_launch_smem(pa)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     kres = check_paged_attention(pa, flush)
     check_paged_tc_layouts(pa)
+    check_qblock_tc_layouts(pa)
     fres = check_flash_attention(fa, flush)
     del flush
-    rpa_launches = serve(pa)
-    serve_cross_bf16(pa)
-    qs_launches = serve_quant_spec(pa)
+    model = serve_model()
+    vocab = model.config.vocab_size
+    serve_launches = serve(pa, model)
+    rng = np.random.default_rng(4321)
+    random = [rng.integers(0, vocab, (n,)) for n in SERVE_PROMPT_LENS]
+    serve_cross(pa, model, "bfloat16", False, random, "gpt_small bf16 KV")
+    serve_cross(pa, model, "int8", False, random, "gpt_small int8 KV")
+    spec = {kv: serve_spec(pa, model, kv)
+            for kv in ("int8", "bfloat16", "int4")}
+    repetitive = repetitive_prompts(vocab, SERVE_PROMPT_LENS, 4321)
+    for kv in ("bfloat16", "int8"):
+        serve_cross(pa, model, kv, True, repetitive,
+                    f"gpt_small {kv} KV + ngram spec_k 4")
+    del model
     cross_check()
     cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
     train_cross_check()
     train_cross_check_bf16(fa)
     # each kernel's launches come from the main-path run that drives it:
-    # K1's tensor-core route (bf16 pool) the serve phase, the int8
-    # kernels the int8 + ngram serve, K1 on the f32 pool (CUDA cores),
-    # K2-float and the int4 kernels the cross phase's n-gram runs
-    rows = [("ragged_paged_attention_tc", "rpa", "bfloat16", rpa_launches),
+    # K1 on the bf16 pool the serve phase, K2 on it the bf16 + ngram
+    # burst, the int8 and int4 routes their pools' + ngram bursts (bf16
+    # q: all on the tensor-core route), K1 and K2 on the f32 pool (f32
+    # q, CUDA cores) the cross phase's f32 n-gram run
+    rows = [("ragged_paged_attention_tc", "rpa", "bfloat16",
+             serve_launches["rpa"]),
             ("ragged_paged_attention", "rpa", "float32",
              cx_launches["float32"]["rpa"]),
             ("ragged_paged_attention_int8", "rpa_int8", "int8",
-             qs_launches["rpa_int8"]),
+             spec["int8"]["rpa_int8"]),
             ("ragged_paged_attention_int4", "rpa_int4", "int4",
-             cx_launches["int4"]["rpa_int4"]),
+             spec["int4"]["rpa_int4"]),
             ("rpa_qblock", "qblock", "bfloat16",
+             spec["bfloat16"]["qblock"]),
+            ("rpa_qblock_f32", "qblock", "float32",
              cx_launches["float32"]["qblock"]),
             ("rpa_qblock_int8", "qblock_int8", "int8",
-             qs_launches["qblock_int8"]),
+             spec["int8"]["qblock_int8"]),
             ("rpa_qblock_int4", "qblock_int4", "int4",
-             cx_launches["int4"]["qblock_int4"])]
+             spec["int4"]["qblock_int4"])]
     kernels = [_kernel_row(name, "cuda", pa.SOURCE, pa.REPLACES[key], n,
                            dict(kres[(key.split("_")[0], kind)],
                                 library_ms=None))

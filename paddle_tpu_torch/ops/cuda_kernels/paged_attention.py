@@ -4,27 +4,32 @@ Counterpart of paddle_tpu/ops/pallas_kernels/paged_attention.py. The
 kernels are CUDA C++ for sm_90a (`csrc/paged_attention.cu`, whose header
 says what bounds them and how they are built), bound with ctypes:
 
-* K1, `rpa_kernel`: one query row per flat token, over float pools or
-  int8 / packed-int4 pools with per-row fp32 scale planes (dequantized
-  on gather). For a bf16 q on a bf16 pool at head_dim 64 or 128 (the
-  serving path's case; `paged_route`) K1 takes its tensor-core route
-  instead: chunks of up to 64 rows of one slot, each page staged once
-  per chunk, split-KV over up to 8 blocks per row and a merge
-  (`rpa_tc_plan_kernel`, `rpa_tc_kernel`, `rpa_tc_merge_kernel`, one
-  wrapper call), derived on the device from `slot_ids` / `kv_lens`;
-* K2, `rpa_qblock_kernel`: the same function on the speculative verify
-  layout (`q_per_slot`): the T rows are slot-major blocks of qb rows,
-  one slot per block, and each page of the slot is staged once per
-  block instead of once per row.
+* K1, one query row per flat token, over float pools or int8 /
+  packed-int4 pools with per-row fp32 scale planes;
+* K2, the same function on the speculative verify layout (`q_per_slot`):
+  the T rows are slot-major blocks of qb rows, one slot per block, and
+  each page of the slot is staged once per block instead of once per
+  row.
+
+Each has two routes (`paged_route`). A bf16 q on a bf16, int8 or int4
+pool at head_dim 64 or 128 — every bf16 serving configuration — takes
+the tensor-core route: chunks of one slot's rows staged once, split-KV
+over up to 8 blocks per row and a merge, mma.sync with f32
+accumulators, quantized pools staged as codes and scales
+(`rpa_tc_plan_kernel` + `rpa_tc_kernel` + `rpa_tc_merge_kernel` for K1,
+`rpa_tc_qblock_kernel` + `rpa_tc_qblock_merge_kernel` for K2, one
+wrapper call each), derived on the device from `slot_ids` / `kv_lens`.
+An f32 q, an f32 pool and every other head_dim keep the CUDA-core
+kernels `rpa_kernel` / `rpa_qblock_kernel`: the exact f32 path.
 
 `ragged_paged_attention` is the wrapper the model calls: for tensors on
 the CPU it runs `ragged_paged_attention_plain`; for CUDA tensors it
 launches K1 or K2 (and raises on anything the kernel does not take).
 `launches` counts kernel launches, one entry per kernel and pool kind —
 it moves only where a kernel launches, so a run can show its main path
-went through the kernels; `tc_launches["rpa"]` counts the K1 launches
-that took the tensor-core route. A route is never a fallback: a build
-or launch error raises.
+went through the kernels; `tc_launches`, with the same keys, counts the
+launches that took the tensor-core route. A route is never a fallback:
+a build or launch error raises.
 """
 import ctypes
 import math
@@ -45,11 +50,12 @@ REPLACES = {"rpa": f"{_REF}:53", "rpa_int8": f"{_REF}:84",
             "rpa_int4": f"{_REF}:87", "qblock": f"{_REF}:131",
             "qblock_int8": f"{_REF}:168", "qblock_int4": f"{_REF}:169"}
 
-# head dims K1's tensor-core route is built for (bf16 q and pool only)
+# the tensor-core route: a bf16 q at these head dims on these pools
 TC_HEAD_DIMS = (64, 128)
+TC_POOL_KINDS = ("bf16", "int8", "int4")
 
 launches = dict.fromkeys(REPLACES, 0)
-tc_launches = {"rpa": 0}
+tc_launches = dict.fromkeys(REPLACES, 0)
 
 
 def reset_launches():
@@ -59,12 +65,20 @@ def reset_launches():
 
 
 def paged_route(pool_kind, q_dtype, head_dim):
-    """True when K1 on these inputs takes its tensor-core route: a
-    bfloat16 q on a "bf16" pool at head_dim 64 or 128. False for every
-    other pool kind ("f32", "int8", "int4"), q type and head_dim: the
-    CUDA-core `rpa_kernel`. K2 (`q_per_slot`) has one route."""
-    return (pool_kind == "bf16" and q_dtype == torch.bfloat16
+    """True when K1 and K2 (`q_per_slot`) on these inputs take their
+    tensor-core route: a bfloat16 q on a "bf16", "int8" or "int4" pool at
+    head_dim 64 or 128. False for an f32 q, an "f32" pool and every other
+    head_dim: the CUDA-core `rpa_kernel` / `rpa_qblock_kernel`, which
+    keep f32 math throughout (the exact f32 path)."""
+    return (pool_kind in TC_POOL_KINDS and q_dtype == torch.bfloat16
             and head_dim in TC_HEAD_DIMS)
+
+
+def _launch_key(kind, qb):
+    """The `launches` / `tc_launches` key of a call: "rpa" (K1) or
+    "qblock" (K2, `q_per_slot`), with "_int8" / "_int4" for a quantized
+    pool (`kind` as `_pool_kind` names it)."""
+    return ("qblock" if qb else "rpa") + (f"_{kind}" if kind else "")
 
 
 def _pool_kind(k_pool, k_scales, head_dim):
@@ -135,27 +149,36 @@ def _kernel_fn(n_ptrs):
 def _tc_fn():
     fn = _build.load("paged_attention").pt_ragged_paged_attention_tc
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
-            ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                 ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] + [
+            ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 3 + [
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-_tc_workspace = {}   # (T, H, D, P, MP) -> bytes
+_tc_bytes = {}       # (T, H, D, P, MP, qb) -> workspace bytes
+_tc_buffers = {}     # (device, stream) -> the workspace tensor
 
 
-def _tc_workspace_bytes(T, H, D, P, MP):
-    """The tensor-core route's scratch size (work items and split
-    partials), as the kernel's own layout computes it."""
-    key = (T, H, D, P, MP)
-    if key not in _tc_workspace:
+def _tc_workspace(dev, stream, T, H, D, P, MP, qb):
+    """(workspace, its bytes) of the tensor-core route: the split partials
+    (and K1's work items) as the kernel's own layout sizes them. The size
+    is cached per shape; the buffer is one per (device, stream), grown to
+    the largest size asked, and reused — calls on one stream run in
+    order, so no allocation is made per call."""
+    key = (T, H, D, P, MP, qb)
+    nbytes = _tc_bytes.get(key)
+    if nbytes is None:
         lib = _build.load("paged_attention")
         fn = lib.pt_ragged_paged_attention_tc_workspace
-        fn.argtypes = [ctypes.c_int] * 5
+        fn.argtypes = [ctypes.c_int] * 6
         fn.restype = ctypes.c_longlong
-        _tc_workspace[key] = int(fn(*key))
-    return _tc_workspace[key]
+        nbytes = _tc_bytes[key] = int(fn(*key))
+    ws = _tc_buffers.get((dev, stream))
+    if ws is None or ws.numel() < nbytes:
+        ws = _tc_buffers[(dev, stream)] = torch.empty(
+            (nbytes,), dtype=torch.uint8, device=dev)
+    return ws, nbytes
 
 
 def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
@@ -202,31 +225,35 @@ def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
             raise ValueError(
                 f"q_per_slot {qb}: must be in 1..{MAX_QBLOCK} and divide "
                 f"T={T}")
-        if 2 * P * D * 4 > 227 * 1024:
-            raise ValueError(f"page [{P}, {D}] of K and V does not fit "
-                             "the query-blocked kernel's shared memory")
+    tc = paged_route(pool_kind, q.dtype, D)
+    if qb and not tc and 2 * P * D * 4 > 227 * 1024:
+        raise ValueError(f"page [{P}, {D}] of K and V does not fit the "
+                         "query-blocked kernel's shared memory")
+    if tc and kind and k_pool.data_ptr() % 16 + v_pool.data_ptr() % 16:
+        raise ValueError("the tensor-core route stages 16-byte chunks of "
+                         "code rows: pools must be 16-byte aligned")
     out = torch.empty_like(q)
     if T == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if qb == 0 and paged_route(pool_kind, q.dtype, D):
-        nbytes = _tc_workspace_bytes(T, H, D, P, MP)
-        ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
+    key = _launch_key(kind, qb)
+    scales = (k_scales, v_scales) if kind else (k_pool, k_pool)
+    if tc:
+        ws, nbytes = _tc_workspace(dev, stream, T, H, D, P, MP, qb)
         err = _tc_fn()(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+            scales[0].data_ptr(), scales[1].data_ptr(),
             page_tables.data_ptr(), slot_ids.data_ptr(), kv_lens.data_ptr(),
             out.data_ptr(), ws.data_ptr(), nbytes, T, H, D, P, MP, offset,
-            1.0 / math.sqrt(D), 1, _KV_KINDS[pool_kind], stream)
+            1.0 / math.sqrt(D), 1, _KV_KINDS[pool_kind], qb, stream)
         if err:
             raise RuntimeError("ragged paged attention (tensor cores) kernel "
                                f"launch failed: cudaError {err}")
-        launches["rpa"] += 1
-        tc_launches["rpa"] += 1
+        launches[key] += 1
+        tc_launches[key] += 1
         return out
-    dummy = k_pool   # scale pointers of a float pool are never read
-    ptrs = (q, k_pool, v_pool, k_scales if kind else dummy,
-            v_scales if kind else dummy, page_tables, slot_ids, kv_lens,
-            out)
+    # the scale pointers of a float pool are never read
+    ptrs = (q, k_pool, v_pool, *scales, page_tables, slot_ids, kv_lens, out)
     err = _kernel_fn(len(ptrs))(
         *(x.data_ptr() for x in ptrs), T, H, D, P, MP, offset,
         1.0 / math.sqrt(D), _Q_KINDS[q.dtype], _KV_KINDS[pool_kind], qb,
@@ -234,7 +261,6 @@ def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,
     if err:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: cudaError {err}")
-    key = ("qblock" if qb else "rpa") + (f"_{kind}" if kind else "")
     launches[key] += 1
     return out
 

@@ -266,41 +266,66 @@ def test_bf16_pool_plain_matches_jax_jnp():
     np.testing.assert_allclose(port, ref, rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("qb", [None, 5])
 @pytest.mark.parametrize("kind,q_dtype,d,tc", [
-    ("bf16", torch.bfloat16, 64, True), ("bf16", torch.bfloat16, 128, True),
-    *[("bf16", torch.bfloat16, d, False) for d in (8, 32, 96, 256)],
-    ("bf16", torch.float32, 64, False), ("f32", torch.float32, 64, False),
+    *[(k, torch.bfloat16, d, True) for k in ("bf16", "int8", "int4")
+      for d in (64, 128)],
+    *[(k, torch.bfloat16, d, False) for k in ("bf16", "int8", "int4")
+      for d in (8, 32, 96, 256)],
+    *[(k, torch.float32, d, False) for k in ("bf16", "int8", "int4")
+      for d in (64, 128)],
+    ("f32", torch.float32, 64, False), ("f32", torch.bfloat16, 64, False),
     ("f32", torch.bfloat16, 128, False),
-    *[(k, q, d, False) for k in ("int8", "int4")
-      for q in (torch.float32, torch.bfloat16) for d in (64, 128)],
 ])
-def test_paged_route_by_pool_kind_dtype_and_head_dim(kind, q_dtype, d, tc):
-    """K1 takes its tensor-core route for a bf16 q on a bf16 pool at
-    head_dim 64 / 128 only; f32 and quantized pools, f32 q and other
-    head dims keep the CUDA-core `rpa_kernel`."""
+def test_paged_route_by_pool_kind_dtype_and_head_dim(kind, q_dtype, d, tc,
+                                                     qb):
+    """K1 and K2 (`q_per_slot`) take the tensor-core route for a bf16 q on
+    a bf16, int8 or int4 pool at head_dim 64 / 128 only; an f32 q, an f32
+    pool and other head dims keep the CUDA-core `rpa_kernel` /
+    `rpa_qblock_kernel`. Either route counts the call under the same
+    key, and `tc_launches` has every key of `launches`."""
     assert tpa.paged_route(kind, q_dtype, d) is tc
+    key = tpa._launch_key("" if kind in ("bf16", "f32") else kind, qb)
+    assert key == ("qblock" if qb else "rpa") + (
+        f"_{kind}" if kind in ("int8", "int4") else "")
+    assert key in tpa.launches and key in tpa.tc_launches
 
 
-def test_tensor_core_route_counts_stay_zero_on_cpu():
-    """The tensor-core route's inputs (bf16 q and pool, head_dim 64) on
-    CPU tensors run the plain version: no count moves."""
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("qb", [None, 4])
+def test_tensor_core_route_counts_stay_zero_on_cpu(pool, qb):
+    """The tensor-core route's inputs (a bf16 q at head_dim 64 on a bf16,
+    int8 or int4 pool; K1, and K2 on a verify layout) on CPU tensors run
+    the plain version: no count moves."""
     rng = np.random.default_rng(10)
-    args = _case(rng, 16, [40, 3], [(0, 17)], H=2, D=64)
+    if qb:
+        args, _ = _verify_case(rng, 0)
+    else:
+        args = _case(rng, 16, [40, 3], [(0, 17)], H=2, D=64)
+    scales = {}
+    if pool != "bf16":
+        args, (ks, vs) = _quant_args(args, 4 if pool == "int4" else 8)
+        scales = dict(k_scales=torch.from_numpy(ks),
+                      v_scales=torch.from_numpy(vs))
     ts = [torch.from_numpy(a.copy()) for a in args]
-    ts[:3] = [t.to(torch.bfloat16) for t in ts[:3]]
+    ts[0] = ts[0].to(torch.bfloat16)
+    if pool == "bf16":
+        ts[1:3] = [t.to(torch.bfloat16) for t in ts[1:3]]
     tpa.reset_launches()
-    out = tpa.ragged_paged_attention(*ts)
-    assert torch.equal(out, tpa.ragged_paged_attention_plain(*ts))
-    assert torch.equal(out, TF.paged_attention(*ts))
-    assert set(tpa.tc_launches) == {"rpa"}
+    out = tpa.ragged_paged_attention(*ts, **scales, q_per_slot=qb)
+    assert torch.equal(out, tpa.ragged_paged_attention_plain(
+        *ts, **scales, q_per_slot=qb))
+    assert torch.equal(out, TF.paged_attention(*ts, **scales,
+                                               max_tokens_per_slot=qb))
+    assert set(tpa.tc_launches) == set(tpa.launches) == set(tpa.REPLACES)
     assert all(n == 0 for n in tpa.launches.values())
     assert all(n == 0 for n in tpa.tc_launches.values())
 
 
 def test_profile_serve_names_every_paged_kernel():
     """profile_serve names every kernel that csrc/paged_attention.cu
-    defines (K1 on both routes, K2), and no symbol is a substring of
-    another (the profiler rows match by substring)."""
+    defines (K1 and K2, each on both routes), and no symbol is a
+    substring of another (the profiler rows match by substring)."""
     import os
     import re
 
@@ -312,6 +337,9 @@ def test_profile_serve_names_every_paged_kernel():
     names = sum(profile_serve.PAGED_KERNELS.values(), ())
     assert {"rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
             "rpa_tc_merge_kernel"} == set(profile_serve.PAGED_KERNELS["K1"])
+    assert {"rpa_qblock_kernel", "rpa_tc_qblock_kernel",
+            "rpa_tc_qblock_merge_kernel"} == set(
+                profile_serve.PAGED_KERNELS["K2"])
     assert set(names) == defined
     assert not any(a != b and a in b for a in names for b in names)
 
@@ -354,3 +382,152 @@ def test_plain_matches_pallas_on_tensor_core_route_layouts(layout, offset):
     np.testing.assert_allclose(out, _jax_pallas(args, offset), rtol=1e-5,
                                atol=1e-6)
     assert np.all(out[args[5] == 0] == 0.0) and np.isfinite(out).all()
+
+
+def _block(slot, pos0, qb, width):
+    """One slot-major verify block: row j at kv_len pos0 + j + 1 up to
+    `width`, 0 past it (width -1: a dead block)."""
+    return [(slot, pos0 + j + 1 if j <= width else 0) for j in range(qb)]
+
+
+# K2's verify layouts at a small size (S 4 slots, page 8, 16 pages per
+# sequence: 128 keys, which the tensor-core route cuts into 2 splits of
+# 64): (rows, qb) — chip_smoke.py holds the route to the plain version on
+# the same shapes at the serving size
+QBLOCK_LAYOUTS = {
+    # one row per slot: a split boundary, one past it, 1, a padding row
+    "qb 1": ([(0, 64), (1, 65), (2, 1), (3, 0)], 1),
+    # 16 rows: a block across the split edge, a dead block, a narrow
+    # block (width 2), a block up to the last key
+    "qb 16": (_block(0, 50, 16, 15) + _block(1, 0, 16, -1)
+              + _block(2, 20, 16, 2) + _block(3, 112, 16, 15), 16),
+    # 5 rows ending in different splits (62..66), the last key, a dead and
+    # a narrow block
+    "rows across splits, dead and narrow": (
+        _block(0, 61, 5, 4) + _block(1, 123, 5, 4) + _block(2, 0, 5, -1)
+        + _block(3, 9, 5, 1), 5),
+}
+
+
+def _qblock_layout_args(rng, layout, offset):
+    rows, qb = QBLOCK_LAYOUTS[layout]
+    args = list(_rows_case(rng, rows, page_size=8, pages_per_seq=16))
+    # a live row's kv_len is stored `offset` lower, as a frontier expects
+    args[5] = np.where(args[5] > 0, np.maximum(args[5] - offset, 1),
+                       0).astype(np.int32)
+    return tuple(args), qb
+
+
+@pytest.mark.parametrize("pool", ["bf16", "int8", "int4"])
+@pytest.mark.parametrize("layout,offset", [
+    ("qb 1", 0), ("qb 16", 3), ("rows across splits, dead and narrow", 2)])
+def test_qblock_verify_layouts_match_pallas_interpret(layout, offset, pool):
+    """K2 through the port's wrapper (`q_per_slot`; the plain version on
+    CPU tensors) against the reference's query-blocked Pallas kernel
+    (`_qblock_call`) in interpret mode, on the verify layouts that break
+    the tensor-core route's blocks and splits, on bf16, int8 and int4
+    pools. bf16: both sides in bf16 (p rounded to bf16 before P·V in
+    both), at bf16 resolution; quantized pools at 2e-5 as the
+    reference's own K2 test."""
+    rng = np.random.default_rng(600 + offset + len(layout))
+    args, qb = _qblock_layout_args(rng, layout, offset)
+    scales, jscales = {}, {}
+    if pool != "bf16":
+        args, (ks, vs) = _quant_args(args, 4 if pool == "int4" else 8)
+        scales = dict(k_scales=torch.from_numpy(ks),
+                      v_scales=torch.from_numpy(vs))
+        jscales = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+    ts = [torch.from_numpy(a.copy()) for a in args]
+    jargs = [jnp.asarray(a) for a in args]
+    if pool == "bf16":
+        ts[:3] = [t.to(torch.bfloat16) for t in ts[:3]]
+        jargs[:3] = [a.astype(jnp.bfloat16) for a in jargs[:3]]
+    out = tpa.ragged_paged_attention(*ts, **scales, frontier_offset=offset,
+                                     q_per_slot=qb).float().numpy()
+    ref = np.asarray(pak.ragged_paged_attention(
+        *jargs, **jscales, frontier_offset=offset, q_per_slot=qb,
+        interpret=True).astype(jnp.float32))
+    tol = 2e-2 if pool == "bf16" else 2e-5
+    np.testing.assert_allclose(out, ref, rtol=tol, atol=tol)
+    lens = args[5]
+    assert np.all(out[lens == 0] == 0.0) and np.isfinite(out).all()
+
+
+def _tc_route_emulation(q, codes_k, codes_v, ks, vs, pt, sid, lens,
+                        hi_only=False, tile=16):
+    """The tensor-core route's arithmetic on a quantized pool, in f32 on
+    the CPU (a test-local emulation, not a second plain version): per
+    (row, head), over tiles of `tile` keys (a K2 warp's slice) with the
+    online softmax, S = (q · codes) · k-scale · 1/sqrt(D), and the P·V
+    weight w = p · v-scale split into w_hi = bf16(w) and
+    w_lo = bf16(w − w_hi), both multiplied with the codes; the row sum
+    takes the unscaled p. `hi_only` drops w_lo."""
+    T, H, D = q.shape
+    P = codes_k.shape[1]
+    bf = lambda x: x.to(torch.bfloat16).float()   # noqa: E731
+    out = torch.zeros((T, H, D))
+    for t in range(T):
+        kv = int(lens[t])
+        if kv == 0:
+            continue
+        keys = torch.arange(kv)
+        pages = torch.as_tensor(pt[sid[t]])[keys // P].long()
+        ck = codes_k[pages, keys % P].float()            # [kv, H, D]
+        cv = codes_v[pages, keys % P].float()
+        sk, sv = ks[pages, keys % P], vs[pages, keys % P]   # [kv, H]
+        m = torch.full((H,), -1e30)
+        l = torch.zeros(H)
+        acc = torch.zeros((H, D))
+        for k0 in range(0, kv, tile):
+            sl = slice(k0, min(k0 + tile, kv))
+            s = torch.einsum("hd,khd->hk", q[t], ck[sl]) * sk[sl].T / D ** 0.5
+            m_new = torch.maximum(m, s.max(dim=1).values)
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[:, None])
+            l = l * alpha + p.sum(dim=1)
+            w = p * sv[sl].T
+            w_hi = bf(w)
+            pv = torch.einsum("hk,khd->hd", w_hi, cv[sl])
+            if not hi_only:
+                pv = pv + torch.einsum("hk,khd->hd", bf(w - w_hi), cv[sl])
+            acc = acc * alpha[:, None] + pv
+            m = m_new
+        out[t] = acc / l[:, None]
+    return out
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_tensor_core_quantized_arithmetic_matches_pallas(bits, kernel):
+    """The algebra of the tensor-core route on int8 / int4 pools — the
+    k-scale folded into S after the code product, the v-scale folded into
+    p and the weight carried as two bf16 halves — against the reference's
+    Pallas kernel in interpret mode (which dequantizes to f32 and keeps p
+    in f32), in f32 within 1e-5 of the output's max-abs; q holds bf16
+    values, as the route's q does. With w_lo dropped the same comparison
+    fails that bound: the low half is what carries p to f32 accuracy."""
+    rng = np.random.default_rng(700 + bits)
+    if kernel == "K1":
+        args = _case(rng, 8, [37, 60, 5], [(0, 20), (1, 9)], H=2, D=32)
+        qb = None
+    else:
+        args, qb = _qblock_layout_args(
+            rng, "rows across splits, dead and narrow", 0)
+    q = torch.from_numpy(args[0]).to(torch.bfloat16).float()
+    args = (q.numpy(),) + tuple(args[1:])
+    args, (ks, vs) = _quant_args(args, bits)
+    ref = np.asarray(pak.ragged_paged_attention(
+        *[jnp.asarray(a) for a in args], k_scales=jnp.asarray(ks),
+        v_scales=jnp.asarray(vs), q_per_slot=qb, interpret=True))
+    codes = [torch.from_numpy(c) for c in args[1:3]]
+    if bits == 4:
+        codes = [trt.unpack_int4(c, axis=-1) for c in codes]
+    emu = [_tc_route_emulation(q, *codes, torch.from_numpy(ks),
+                               torch.from_numpy(vs), args[3], args[4],
+                               args[5], hi_only=h).numpy()
+           for h in (False, True)]
+    top = np.abs(ref).max()
+    err, err_hi = (np.abs(e - ref).max() / top for e in emu)
+    assert err <= 1e-5, err
+    assert err_hi > 1e-5, err_hi
+    assert np.all(emu[0][args[5] == 0] == 0.0)
