@@ -83,6 +83,44 @@ continues:
               int8 + ngram engines: the same tokens and the same windows'
               emitted (accepted + 1) counts up to a request's first
               near-tie.
+5c. prng    — jax's threefry bits (`core.prng`) on the card equal the
+              CPU's as integers on 8 seeds x 8 streams x 8 positions of
+              folded keys at the vocab's width (50304); `sample_tokens`
+              on the card vs the CPU on the same f32 logits [8, 50304] at
+              temperatures 0, 0.5, 0.8, 1.3 x top_p 1, 0.9, 0.5: equal
+              picks on every row whose top-2 margin (Gumbel-perturbed
+              scores, or logits for greedy rows) exceeds 1e-4 of its top
+              score (the rest counted); the sampler's device ms a call,
+              replayed from a CUDA graph as a fused window runs it
+              (`profile_serve.sampler_ms`), and its eager enqueue's host
+              µs.
+              Runs before phase 4 (it shares phase 3's L2 flush buffer).
+5d. fused   — the fused decode window (decode_k) as one CUDA graph per
+              (k, greedy-or-sampled), on the serve phase's model and 8
+              prompts: (a) graph vs eager, bit-identical — one window run
+              eagerly on copies of the pools and as the graph replay:
+              emits and every pool and scale-plane byte equal, after an
+              eager K1 call has outgrown the capture stream's workspace
+              (a sentinel allocated then must stay untouched), on bf16 (k
+              8 and 4, greedy; k 8 sampled), int8 and int4 pools (k 8;
+              these two capture while the previous gate's engine, dead in
+              a reference cycle, becomes garbage and the collector runs
+              at every allocation: a graph destroyed mid-capture would
+              invalidate the capture),
+              the profiler seeing 12 x k `rpa_tc_kernel` launches and a
+              `cudaGraphLaunch` in the replay; (b) `LLMEngine` at decode_k
+              8 vs 1 (bf16 greedy and sampled, int8 greedy): every
+              emitted token's logits within SERVE_BF16_LOGIT_TOL, tokens
+              equal but at near-ties (of the Gumbel-perturbed scores for
+              sampled requests); (c) `LLMServer` bursts at decode_k 1, 4
+              and 8 on the bf16 pool (greedy, then sampled after a
+              `reseed`) and at 8 on the int8 and int4 pools, the counts
+              set to 0 just before each: K1 12 per single tick and 12 x k
+              per warm-up and graph replay, all on the tensor-core route,
+              at most two captures per server; tok/s, host and device ms
+              per window (per tick at k=1) beside the card's name and
+              power limit; (d) a sampled n-gram burst (spec_k 4): K2 12
+              per verify window, K1 12 per tick.
 6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
@@ -116,10 +154,13 @@ continues:
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools) and K3-K5, with its launches from the
-main-path run that drives it; the last line is
+main-path run that drives it (K1 on bf16, int8 and int4 pools: the
+greedy decode_k 8 burst of phase 5d, whose graph replays' share is
+"graph_launches"); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
+import gc
 import json
 import os
 import re
@@ -1075,9 +1116,11 @@ _KV_SUFFIX = {"bfloat16": "", "int8": "_int8", "int4": "_int4"}
 def _drive(eng, reqs):
     """Step `eng` until it has no work. Per request (by index): its
     emitted tokens' logits rows (f32, CPU) and its chunks — the tokens
-    each step emitted for it, as ("tick", 1) or ("window", n). A window's
-    rows come from the verify step's logits (captured where the model
-    hands them to `sample_tokens`), a tick's from `last_logits` in plan
+    each step emitted for it, as ("tick", 1) or ("window", n). A verify
+    window's rows come from the verify step's logits (captured where the
+    model hands them to `sample_tokens`), a fused window's from the
+    window's logits (`_fused_fn.logits`: one [S, vocab] per iteration,
+    rewritten by each replay), a tick's from `last_logits` in plan
     (admission) order."""
     from paddle_tpu_torch.text.models import gpt as gpt_mod
 
@@ -1086,9 +1129,9 @@ def _drive(eng, reqs):
     window = []
     sample = gpt_mod.sample_tokens
 
-    def capture(lv, temps=None):
+    def capture(lv, *args):
         window.append(lv)
-        return sample(lv, temps)
+        return sample(lv, *args)
 
     Q = eng._spec.k + 1 if eng._spec is not None else 0
     gpt_mod.sample_tokens = capture
@@ -1098,20 +1141,29 @@ def _drive(eng, reqs):
             frontier = {i: eng._slots.index(r) for i, r in enumerate(reqs)
                         if r in eng._slots
                         and r.n_prefilled == len(r.tokens) - 1}
+            kinds = (eng.stats["fused_steps"],
+                     eng.stats.get("ngram_windows", 0))
             eng.last_logits = None
             window.clear()
             eng.step()
             grown = [i for i, r in enumerate(reqs)
                      if len(r.tokens) > before[i]]
             ticked = grown
-            if window:   # the frontier rows took a verify window
-                lv = window[0]
+            fused = eng.stats["fused_steps"] > kinds[0]
+            if fused or eng.stats.get("ngram_windows", 0) > kinds[1]:
+                # the frontier rows took a window
                 ticked = [i for i in grown if i not in frontier]
                 for i in grown:
                     if i in frontier:
                         n = len(reqs[i].tokens) - before[i]
-                        row = frontier[i] * Q
-                        logits[i] += list(lv[row:row + n].float().cpu())
+                        if fused:
+                            s = frontier[i]
+                            rows = torch.stack(
+                                [lv[s] for lv in eng._fused_fn.logits[:n]])
+                        else:
+                            row = frontier[i] * Q
+                            rows = window[0][row:row + n]
+                        logits[i] += list(rows.float().cpu())
                         chunks[i].append(("window", n))
             ticked = sorted(ticked, key=lambda i: reqs[i].admit_seq)
             if ticked:
@@ -1298,6 +1350,450 @@ def serve_spec(pa, model, kv_dtype):
           f"{ticks}, K2{sfx} {want['qblock' + sfx]} = {cfg.num_layers} x "
           f"{windows}, all on the tensor-core route")
     return launches
+
+
+# ---- sampled decode and fused decode ----
+
+# the prng phase's grid of folded keys (seed, stream, position) and width
+PRNG_SEEDS = (0, 1, 7, 42, 1234, 2**31 - 1, 2**32 + 5, 2**40 + 3)
+PRNG_STREAMS = (0, 1, 2, 3, 7, 100, 65535, 2**31 - 1)
+PRNG_POSITIONS = (0, 1, 15, 16, 100, 1023, 4096, 2**31 - 1)
+PRNG_WIDTH = 50304
+SAMPLE_TEMPS = (0.0, 0.5, 0.8, 1.3)
+SAMPLE_TOP_PS = (1.0, 0.9, 0.5)
+# card vs CPU picks may differ only where a row's top two scores (the
+# Gumbel-perturbed scores of a sampled row, the logits of a greedy one)
+# lie within this share of the top score's magnitude: the card's exp,
+# sums and logs round differently from the CPU's
+SAMPLE_MARGIN = 1e-4
+SAMPLED = dict(temperature=0.8, top_p=0.9)
+FUSED_KS = (4, 8)
+
+
+def check_prng(flush):
+    """prng phase: jax's threefry bits (`core.prng.random_bits`) on the
+    card equal the CPU's as integers, over 8 seeds x 8 streams x 8
+    positions of folded keys at the vocab's width; `sample_tokens` on the
+    card against the CPU on the same f32 logits [8, 50304] for every
+    temperature x top_p of the grid; the sampler's device ms per call.
+    Returns that time."""
+    from paddle_tpu_torch.core import prng
+    from paddle_tpu_torch.profile_serve import sampler_ms
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    keys = torch.stack([prng.prng_key(s) for s in PRNG_SEEDS])
+    keys = prng.fold_in(keys[:, None], torch.tensor(PRNG_STREAMS)[None])
+    keys = prng.fold_in(keys[:, :, None],
+                        torch.tensor(PRNG_POSITIONS)[None, None])
+    keys = keys.reshape(-1, 2)
+    bad = 0
+    for chunk in keys.split(64):
+        want = prng.random_bits(chunk, PRNG_WIDTH)
+        got = prng.random_bits(chunk.cuda(), PRNG_WIDTH).cpu()
+        bad += int((got != want).sum())
+    if bad:
+        raise AssertionError(f"threefry bits: {bad} of "
+                             f"{keys.shape[0] * PRNG_WIDTH} differ between "
+                             "card and CPU")
+    g = torch.Generator().manual_seed(99)
+    logits = torch.randn((8, PRNG_WIDTH), generator=g) * 2.0
+    key = prng.prng_key(2024)
+    streams = torch.arange(8, dtype=torch.int32) * 13 + 1
+    pos = torch.tensor([1, 17, 100, 511, 512, 900, 1023, 2**31 - 2],
+                       dtype=torch.int32)
+    rows = near = 0
+    for t in SAMPLE_TEMPS:
+        for p in SAMPLE_TOP_PS:
+            args = (logits, torch.full((8,), t), torch.full((8,), p),
+                    streams, pos, key)
+            want = gpt_mod.sample_tokens(*args)
+            got = gpt_mod.sample_tokens(*(x.cuda() for x in args)).cpu()
+            scores = (gpt_mod._sampling_scores(*args) if t > 0 else logits)
+            top2 = scores.topk(2).values
+            margin = (top2[:, 0] - top2[:, 1]) / top2[:, 0].abs()
+            clear = margin > SAMPLE_MARGIN
+            if not torch.equal(got[clear], want[clear]):
+                raise AssertionError(
+                    f"sample_tokens t={t} top_p={p}: card {got.tolist()} vs "
+                    f"CPU {want.tolist()} (margins {margin.tolist()})")
+            rows += 8
+            near += int((~clear).sum())
+    dev_args = [x.cuda() for x in (logits, torch.full((8,), 0.8),
+                                   torch.full((8,), 0.9), streams, pos, key)]
+    ms = sampler_ms(8, PRNG_WIDTH)
+    host = _host_us(lambda: gpt_mod.sample_tokens(*dev_args), n=50)
+    greedy_ms = _median_ms(lambda: gpt_mod.sample_tokens(dev_args[0]), flush)
+    print(f"prng: threefry bits card == CPU on {keys.shape[0]} keys x "
+          f"{PRNG_WIDTH} (8 seeds x 8 streams x 8 positions); sample_tokens "
+          f"card == CPU on {rows - near}/{rows} rows whose top-2 margin "
+          f"exceeds {SAMPLE_MARGIN:.0e} of the top score ({near} rows "
+          f"within it, not compared); sampler {ms:.4f} ms of device a call on"
+          f" [8, {PRNG_WIDTH}] (temperature 0.8, top_p 0.9; replayed from a "
+          f"CUDA graph, as a fused window runs it; {host:.1f} µs of host to "
+          f"enqueue it eagerly; greedy argmax {greedy_ms:.4f} ms)")
+    return ms
+
+
+def _fused_cfg(kv_dtype, k, **kw):
+    from paddle_tpu_torch.inference import LLMEngineConfig
+
+    return LLMEngineConfig(kv_dtype=kv_dtype, decode_k=k, seed=77,
+                           **SERVE_CFG, **kw)
+
+
+def _bytes(t):
+    return t.view(torch.uint8)
+
+
+def _grow_workspace(pa, eng, stream):
+    """An eager K1 call at 4096 rows on the fused step's capture stream:
+    the stream's tensor-core workspace is outgrown and replaced, so a
+    graph that had not kept its own would now hold a freed address."""
+    H = eng._pool_shape[2]
+    D = eng.model.config.hidden_size // H
+    q = torch.zeros((4096, H, D), dtype=torch.bfloat16, device="cuda")
+    z = torch.zeros((4096,), dtype=torch.int32, device="cuda")
+    pt = torch.zeros((eng.num_slots, eng.pages_per_seq), dtype=torch.int32,
+                     device="cuda")
+    sc = eng._kv_scales or [None, None]
+    with torch.cuda.stream(stream):
+        pa.ragged_paged_attention(q, eng._kv[0], eng._kv[1], pt, z, z,
+                                  k_scales=sc[0], v_scales=sc[1])
+    torch.cuda.synchronize()
+
+
+def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False):
+    """Graph against eager, bit-identical (the capture-correctness gate):
+    an `LLMEngine` at decode_k k on a `kv_dtype` pool serves the prompts
+    to its first fused window (which captures the graph); then the
+    capture stream's workspace is outgrown by an eager call and a
+    sentinel allocated; the next window is run eagerly on copies of the
+    pools and scale planes from the same staged inputs, then as the graph
+    replay under the profiler. The emits and every pool byte must be
+    equal, the sentinel untouched, and the profiler must see 12 x k
+    `rpa_tc_kernel` launches and a graph launch in the replay. Returns
+    the engine (its graphs still captured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import LLMEngine
+
+    eng = LLMEngine(model, _fused_cfg(kv_dtype, k))
+    kw = SAMPLED if sampled else {}
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+    while eng.stats["fused_steps"] == 0:
+        eng.step()
+    fs = eng._fused_fn
+    graph = fs._graphs[sampled]
+    _grow_workspace(pa, eng, fs._stream)
+    outgrown = [w.data_ptr() for w in graph.workspaces] != [
+        w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
+    sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
+    run, seen = fs.run, {}
+
+    def gated(kv, kv_scales, smp):
+        fs._static.copy_(fs._host)
+        kv_c = [p.clone() for p in kv]
+        sc_c = [p.clone() for p in kv_scales or []]
+        seen["eager"] = fs.eager(kv_c, sc_c or None, smp).cpu().numpy()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            emits = run(kv, kv_scales, smp)
+            torch.cuda.synchronize()
+        seen["emits"] = emits
+        seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
+                            zip(kv + (kv_scales or []), kv_c + sc_c))
+        seen["prof"] = prof
+        return emits
+
+    fs.run = gated
+    try:
+        while not seen:
+            eng.step()
+    finally:
+        del fs.run
+    rows = seen["prof"].key_averages()
+    tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
+             and "rpa_tc_kernel" in e.key)
+    graph_launches = sum(e.count for e in rows
+                         if "cudaGraphLaunch" in e.key)
+    layers = model.config.num_layers
+    label = f"{kv_dtype} k={k}{' sampled' if sampled else ''}"
+    ok = (np.array_equal(seen["emits"], seen["eager"]) and seen["pools"]
+          and bool((sentinel == 7).all()) and tc == layers * k
+          and graph_launches >= 1)
+    print(f"fused gate {label}: graph replay vs eager run of one window: "
+          f"emits equal {np.array_equal(seen['emits'], seen['eager'])}, "
+          f"pools and scale planes byte-equal {seen['pools']}, after the "
+          f"capture stream's workspace was outgrown ({outgrown}; sentinel "
+          f"intact {bool((sentinel == 7).all())}); the profiler saw {tc} "
+          f"rpa_tc_kernel launches (want {layers} x {k}) and "
+          f"{graph_launches} cudaGraphLaunch in the replay")
+    if not (ok and outgrown):
+        raise AssertionError(f"fused gate {label} failed")
+    return eng
+
+
+class _GraphGraveyard(torch.cuda.graph):
+    """`torch.cuda.graph` with a trap, set in its place for a gate: once
+    the stream captures, the engines in `dead` (each owning captured
+    graphs, each in a reference cycle, so only the cyclic collector frees
+    them) become garbage, and the collector is set to run at every
+    allocation. A collection during the capture would destroy their
+    graphs mid-capture and invalidate it; `_FusedStep` holds the collector
+    off while it captures, and the gate must pass."""
+
+    dead = []
+
+    def __enter__(self):
+        super().__enter__()
+        self._thresholds = gc.get_threshold()
+        gc.set_threshold(1, 1, 1)
+        type(self).dead.clear()
+
+    def __exit__(self, *exc):
+        gc.set_threshold(*self._thresholds)
+        return super().__exit__(*exc)
+
+
+def fused_serve(pa, model, kv_dtype, k, prompts, bursts=("greedy",)):
+    """`LLMServer` at decode_k k on a `kv_dtype` pool: per burst
+    ("greedy", or "sampled" at temperature 0.8 / top_p 0.9, after a
+    `reseed`), a warm-up request (which captures the burst's graph), then
+    the serve phase's 8 requests with the launch counts set to 0 just
+    before and read just after. K1 must have launched 12 times per single
+    tick and 12 x k per window — each warm-up and each replay, live rows
+    or not — all on the tensor-core route (the same count in
+    `tc_launches`); at most two graphs captured. Times: for decode_k > 1
+    the host clock around `_try_step_fused` (its one sync included) and
+    CUDA events around each graph replay (device ms, its launch latency
+    included); for decode_k 1 the same around each `_step_tick` and its
+    forward — an eager tick is host-bound, so its events also hold the
+    card's idle gaps: "stream ms", not device time. Returns per burst
+    its tok/s, host / device ms per window, windows, launches and the
+    launches made by graph replays."""
+    from paddle_tpu_torch.inference import LLMServer
+    from paddle_tpu_torch.profile_serve import EventTimer, HostTimer
+
+    server = LLMServer(model, _fused_cfg(kv_dtype, k))
+    eng = server.engine
+    layers = model.config.num_layers
+    key = "rpa" + _KV_SUFFIX[kv_dtype]
+    out = {}
+    with server:
+        for burst in bursts:
+            kw = SAMPLED if burst == "sampled" else {}
+            if burst == "sampled":
+                eng.reseed(4321)
+            server.submit(prompts[0][:8], max_new_tokens=2 * k + 2,
+                          **kw).result(timeout=600)
+            torch.cuda.synchronize()
+            fs = eng._fused_fn
+            runs0 = (fs.replays, fs.warmups) if fs else (0, 0)
+            st0 = dict(eng.stats)
+            host = HostTimer(eng, "_try_step_fused" if fs else "_step_tick")
+            dev = EventTimer(fs, "replay") if fs else EventTimer(eng,
+                                                                 "_step_fn")
+            pa.reset_launches()
+            t0 = time.perf_counter()
+            futs = [server.submit(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+                    for p in prompts]
+            outs = [f.result(timeout=600) for f in futs]
+            wall = time.perf_counter() - t0
+            launches, tc = dict(pa.launches), dict(pa.tc_launches)
+            host.remove()
+            dev.remove()
+            host_ms = float(np.median(host.times)) * 1e3
+            dev_ms, n = float(np.median(dev.ms())), len(host.times)
+            windows = eng.stats["fused_steps"] - st0["fused_steps"]
+            ticks = eng.stats["steps"] - st0["steps"] - windows
+            replays = (fs.replays - runs0[0]) if fs else 0
+            warmups = (fs.warmups - runs0[1]) if fs else 0
+            _check_outputs(prompts, outs, model.config.vocab_size)
+            want = dict.fromkeys(launches, 0)
+            want[key] = layers * (ticks + k * (replays + warmups))
+            if (launches != want or tc != want or replays != windows
+                    or (k > 1 and not windows) or fs and fs.captures > 2):
+                raise AssertionError(
+                    f"fused serve {kv_dtype} k={k} {burst}: launches "
+                    f"{launches} (tensor-core {tc}) in {ticks} ticks, "
+                    f"{windows} windows, {replays} replays, {warmups} "
+                    f"warm-ups, captures {fs.captures if fs else 0}; "
+                    f"expected {want}")
+            gen = SERVE_NEW_TOKENS * len(prompts)
+            out[burst] = dict(tok_s=gen / wall, host_ms=host_ms,
+                              dev_ms=dev_ms, windows=windows, ticks=ticks,
+                              launches=want[key],
+                              graph=layers * k * replays)
+            what = ("device", "window") if k > 1 else ("stream", "tick")
+            print(f"fused serve gpt_small bf16, {kv_dtype} KV, decode_k {k}"
+                  f", {burst}: {gen} generated in {wall:.3f} s = "
+                  f"{gen / wall:.1f} tok/s, {ticks} ticks + {windows} "
+                  f"windows; host {host_ms:.3f} ms and {what[0]} "
+                  f"{dev_ms:.3f} ms per {what[1]} (median of {n}); K1{key[3:]}"
+                  f" {want[key]} = {layers} x ({ticks} + {k} x ({replays} "
+                  f"replays + {warmups} warm-ups)), {layers * k * replays} "
+                  f"of them from graph replays, all on the tensor-core "
+                  f"route; captures {fs.captures if fs else 0}")
+    return out
+
+
+def _near_tie(row, req, d, key, tol):
+    """(gap, allowed) of the k=1 run's pick at generated index d: the top-2
+    gap of the logits for a greedy request, of the Gumbel-perturbed
+    scores (`_sampling_scores` at the token's position and the request's
+    stream) for a sampled one, whose logit tolerance scales by 1 / T."""
+    from paddle_tpu_torch.text.models import gpt as gpt_mod
+
+    if req.temperature <= 0:
+        top2 = row.topk(2).values
+        return (top2[0] - top2[1]).item(), tol
+    f = torch.tensor
+    scores = gpt_mod._sampling_scores(
+        row[None], f([req.temperature]), f([req.top_p]),
+        f([req.sample_stream]), f([req.prompt_len + d]), key)[0]
+    top2 = scores.topk(2).values
+    return (top2[0] - top2[1]).item(), tol / req.temperature
+
+
+def fused_cross(model, kv_dtype, k, prompts, label, sampled=False):
+    """The serve config through `LLMEngine` twice on the card from the
+    same model, prompts and seed: at decode_k 1 and at decode_k k (its
+    windows graph replays). Request by request up to its first differing
+    token, every emitted token's logits within SERVE_BF16_LOGIT_TOL; a
+    token may differ only at a near-tie of the k=1 run (`_near_tie`), and
+    the request is compared no further."""
+    from paddle_tpu_torch.inference import LLMEngine
+
+    kw = SAMPLED if sampled else {}
+    runs = []
+    for kk in (1, k):
+        eng = LLMEngine(model, _fused_cfg(kv_dtype, kk))
+        reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+                for p in prompts]
+        logits, _ = _drive(eng, reqs)
+        runs.append((eng, reqs, logits))
+    (e1, r1, l1), (ek, rk, lk) = runs
+    if not ek.stats["fused_steps"]:
+        raise AssertionError(f"{label}: no fused window ran")
+    key = e1._key.cpu()
+    worst, rows, ties = 0.0, 0, []
+    for i, p in enumerate(prompts):
+        t1 = r1[i].future.result()[len(p):]
+        tk = rk[i].future.result()[len(p):]
+        if not ((t1 >= 0) & (t1 < model.config.vocab_size)).all():
+            raise AssertionError(f"{label}: request {i} out of vocab")
+        diff = np.flatnonzero(t1 != tk)
+        d = int(diff[0]) if diff.size else len(t1)
+        for j in range(min(d + 1, len(t1))):
+            worst = max(worst, (l1[i][j] - lk[i][j]).abs().max().item())
+            rows += 1
+        if d < len(t1):
+            gap, tol = _near_tie(l1[i][d], r1[i], d, key,
+                                 SERVE_BF16_LOGIT_TOL)
+            if not gap <= tol:
+                raise AssertionError(
+                    f"{label}: request {i} token {d} is {tk[d]} vs the k=1 "
+                    f"run's {t1[d]}, whose top two scores differ by "
+                    f"{gap:.3e} (tol {tol:.2e})")
+            ties.append(f"request {i} token {d} (gap {gap:.2e})")
+    print(f"fused cross-check {label}, decode_k {k} vs 1 on the card: "
+          f"{ek.stats['fused_steps']} windows + "
+          f"{ek.stats['steps'] - ek.stats['fused_steps']} ticks vs "
+          f"{e1.stats['steps']} ticks; {rows} emitted rows compared, logits "
+          f"max abs diff {worst:.3e} (tol {SERVE_BF16_LOGIT_TOL:.0e}); "
+          f"tokens differ at {len(ties)} near-ties"
+          f"{': ' + ', '.join(ties) if ties else ''}")
+    if not worst <= SERVE_BF16_LOGIT_TOL:
+        raise AssertionError(f"{label}: fused and k=1 logits disagree")
+
+
+def sampled_spec(pa, model):
+    """(f) `LLMServer` with n-gram speculation (spec_k 4) on a bf16 pool,
+    8 sampled requests (temperature 0.8, top_p 0.9) of the serve phase's
+    repetitive prompts: every request finishes with in-vocab tokens, K2
+    launched 12 times per verify window and K1 12 per single tick, all on
+    the tensor-core route."""
+    from paddle_tpu_torch.inference import LLMEngineConfig, LLMServer
+
+    cfg = model.config
+    prompts = repetitive_prompts(cfg.vocab_size, SERVE_PROMPT_LENS, 4321)
+    server = LLMServer(model, LLMEngineConfig(
+        kv_dtype="bfloat16", spec_mode="ngram", spec_k=4, seed=77,
+        **SERVE_CFG))
+    eng = server.engine
+    with server:
+        server.submit(prompts[0][:24], max_new_tokens=8,
+                      **SAMPLED).result(timeout=600)
+        torch.cuda.synchronize()
+        st0 = dict(eng.stats)
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        futs = [server.submit(p, max_new_tokens=SERVE_NEW_TOKENS, **SAMPLED)
+                for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches, tc = dict(pa.launches), dict(pa.tc_launches)
+    _check_outputs(prompts, outs, cfg.vocab_size)
+    d = {k: eng.stats[k] - st0[k] for k in st0}
+    windows = d["ngram_windows"]
+    ticks = d["steps"] - windows
+    want = dict.fromkeys(launches, 0)
+    want["rpa"] = cfg.num_layers * ticks
+    want["qblock"] = cfg.num_layers * windows
+    if launches != want or tc != want or not windows:
+        raise AssertionError(f"sampled ngram serve: launches {launches} "
+                             f"(tensor-core {tc}), {ticks} ticks, {windows} "
+                             "windows")
+    gen = SERVE_NEW_TOKENS * len(prompts)
+    print(f"sampled ngram serve gpt_small bf16 (temperature 0.8, top_p 0.9,"
+          f" spec_k 4): {gen} generated in {wall:.3f} s = {gen / wall:.1f} "
+          f"tok/s, {ticks} ticks + {windows} windows, proposed "
+          f"{d['ngram_proposed']} accepted {d['ngram_accepted']}; K2 "
+          f"{want['qblock']} = {cfg.num_layers} x {windows}, K1 "
+          f"{want['rpa']} = {cfg.num_layers} x {ticks}, all on the "
+          "tensor-core route")
+
+
+def fused_phase(pa, model, random, card):
+    """fused phase: the graph gates on bf16 (k 8 and 4, greedy; k 8
+    sampled), int8 and int4 pools (k 8); `LLMServer` bursts at decode_k
+    1, 4 and 8 on the bf16 pool (greedy, then sampled after a reseed) and
+    at 8 on the int8 and int4 pools; the fused vs k=1 cross-checks (bf16
+    greedy and sampled, int8 greedy); a sampled n-gram burst. Returns the
+    bursts' numbers by (kv_dtype, k)."""
+    for k in (8, 4):
+        fused_gate(pa, model, "bfloat16", k, random)
+    dead = fused_gate(pa, model, "bfloat16", 8, random, sampled=True)
+    for kv in ("int8", "int4"):
+        dead.cycle = dead           # garbage only to the cyclic collector
+        _GraphGraveyard.dead.append(dead)
+        del dead
+        real, torch.cuda.graph = torch.cuda.graph, _GraphGraveyard
+        try:
+            dead = fused_gate(pa, model, kv, 8, random)
+        finally:
+            torch.cuda.graph = real
+    del dead
+    res = {("bfloat16", k): fused_serve(pa, model, "bfloat16", k, random,
+                                        ("greedy", "sampled"))
+           for k in (1, *FUSED_KS)}
+    for kv in ("int8", "int4"):
+        res[(kv, 8)] = fused_serve(pa, model, kv, 8, random)
+    fused_cross(model, "bfloat16", 8, random, "gpt_small bf16 KV")
+    fused_cross(model, "bfloat16", 8, random, "gpt_small bf16 KV sampled",
+                sampled=True)
+    fused_cross(model, "int8", 8, random, "gpt_small int8 KV")
+    sampled_spec(pa, model)
+    for burst in ("greedy", "sampled"):
+        print(f"decode_k sweep, bf16 KV, {burst} ({card}): " + "; ".join(
+            f"k={k} {res[('bfloat16', k)][burst]['tok_s']:.1f} tok/s, host "
+            f"{res[('bfloat16', k)][burst]['host_ms']:.3f} ms / "
+            f"{'device' if k > 1 else 'stream'} "
+            f"{res[('bfloat16', k)][burst]['dev_ms']:.3f} ms per "
+            f"{'window' if k > 1 else 'tick'}" for k in (1, *FUSED_KS)))
+    return res
 
 
 def cross_check():
@@ -1581,7 +2077,7 @@ def main():
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
     from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 
-    _card()
+    card = _card()
     t0 = time.perf_counter()
     _build.build(["paged_attention", "flash_attention"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
@@ -1593,10 +2089,11 @@ def main():
     check_paged_tc_layouts(pa)
     check_qblock_tc_layouts(pa)
     fres = check_flash_attention(fa, flush)
+    sampler_ms = check_prng(flush)
     del flush
     model = serve_model()
     vocab = model.config.vocab_size
-    serve_launches = serve(pa, model)
+    serve(pa, model)
     rng = np.random.default_rng(4321)
     random = [rng.integers(0, vocab, (n,)) for n in SERVE_PROMPT_LENS]
     serve_cross(pa, model, "bfloat16", False, random, "gpt_small bf16 KV")
@@ -1607,6 +2104,8 @@ def main():
     for kv in ("bfloat16", "int8"):
         serve_cross(pa, model, kv, True, repetitive,
                     f"gpt_small {kv} KV + ngram spec_k 4")
+    fused = fused_phase(pa, model, random, card)
+    print(f"sampler: {sampler_ms:.4f} ms a call ({card})")
     del model
     cross_check()
     cx_launches = cross_quant_spec(pa)
@@ -1614,18 +2113,24 @@ def main():
     train_cross_check()
     train_cross_check_bf16(fa)
     # each kernel's launches come from the main-path run that drives it:
-    # K1 on the bf16 pool the serve phase, K2 on it the bf16 + ngram
-    # burst, the int8 and int4 routes their pools' + ngram bursts (bf16
-    # q: all on the tensor-core route), K1 and K2 on the f32 pool (f32
-    # q, CUDA cores) the cross phase's f32 n-gram run
+    # K1 on the bf16, int8 and int4 pools the fused phase's greedy
+    # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'
+    # share in "graph_launches"), K2 on the bf16 pool the bf16 + ngram
+    # burst, on int8 and int4 their pools' + ngram bursts (bf16 q: all on
+    # the tensor-core route), K1 and K2 on the f32 pool (f32 q, CUDA
+    # cores) the cross phase's f32 n-gram run
+    k1 = {kv: fused[(kv, 8)]["greedy"] for kv in ("bfloat16", "int8",
+                                                   "int4")}
+    graph = {"bfloat16": k1["bfloat16"]["graph"], "float32": 0,
+             "int8": k1["int8"]["graph"], "int4": k1["int4"]["graph"]}
     rows = [("ragged_paged_attention_tc", "rpa", "bfloat16",
-             serve_launches["rpa"]),
+             k1["bfloat16"]["launches"]),
             ("ragged_paged_attention", "rpa", "float32",
              cx_launches["float32"]["rpa"]),
             ("ragged_paged_attention_int8", "rpa_int8", "int8",
-             spec["int8"]["rpa_int8"]),
+             k1["int8"]["launches"]),
             ("ragged_paged_attention_int4", "rpa_int4", "int4",
-             spec["int4"]["rpa_int4"]),
+             k1["int4"]["launches"]),
             ("rpa_qblock", "qblock", "bfloat16",
              spec["bfloat16"]["qblock"]),
             ("rpa_qblock_f32", "qblock", "float32",
@@ -1638,6 +2143,9 @@ def main():
                            dict(kres[(key.split("_")[0], kind)],
                                 library_ms=None))
                for name, key, kind, n in rows]
+    for row, (_, key, kind, _) in zip(kernels, rows):
+        if key.startswith("rpa"):
+            row["graph_launches"] = graph[kind]
     for name, r in fres.items():
         kernels.append(_kernel_row(name, "cuda", fa.SOURCE,
                                    fa.REPLACES[name], fa_launches[name], r))

@@ -1,6 +1,7 @@
 """Continuous-batching LLM serving engine with a paged KV cache
-(counterpart of paddle_tpu/inference/llm_engine.py: greedy decode, single
-ticks and n-gram speculative windows).
+(counterpart of paddle_tpu/inference/llm_engine.py: greedy and sampled
+decode, single ticks, fused k-token windows and n-gram speculative
+windows).
 
 * Paged KV cache — per layer a pool [num_pages, page_size, heads,
   head_dim] with per-sequence page tables; pages are allocated as a
@@ -13,12 +14,22 @@ ticks and n-gram speculative windows).
 * Continuous scheduler — every step admits queued prompts into free
   decode slots (`SLAScheduler` order: FIFO under the default class),
   fills a flat token budget with one frontier token per running
-  sequence plus chunked prefill, samples each frontier greedily, and
+  sequence plus chunked prefill, picks each frontier's next token, and
   evicts on EOS or budget. A dry pool preempts the youngest sequence
-  back to the queue; greedy replay makes the re-run deterministic.
+  back to the queue; the re-run is deterministic.
+* Sampling — temperature 0 is greedy; temperature > 0 draws from the
+  temperature-scaled, top-p-truncated distribution with jax's threefry
+  bits keyed on (engine seed, request stream, token position)
+  (`sample_tokens`), so a sampled request's tokens do not depend on
+  decode_k, on batching or on preemption, and equal the JAX engine's.
 * One eager step per tick (`_PagedStep`) over the fixed geometry
   (token_budget flat tokens, num_slots page tables); the attention
   inside is the ragged paged attention kernel K1 on the card.
+* Fused decode (`decode_k` > 1) — rows at their sampling frontier take
+  k tokens in one window (`_FusedStep`: on the card one captured CUDA
+  graph per (k, greedy-or-sampled), K1 replayed inside it), with the
+  pick, EOS and budget masking on the device and one host sync per
+  window; rows still prefilling take a single tick in the same step.
 * N-gram speculation (`spec_mode="ngram"`) — rows at their sampling
   frontier take one verify window per step instead (`NgramSpeculator`
   in inference/structured/ngram.py: prompt-lookup proposals scored in
@@ -34,6 +45,7 @@ Greedy decode is token-for-token identical to the JAX package's engine
 (tests/test_torch_llm_engine.py); eos semantics follow its contract
 (the emitted eos is kept, nothing after it).
 """
+import gc
 import itertools
 import os
 import queue
@@ -43,7 +55,9 @@ from concurrent.futures import Future
 import numpy as np
 import torch
 
+from ..core import prng
 from ..quantization import runtime as _qrt
+from ..text.models.gpt import sample_tokens
 from .fleet_serving import Priority, SLAScheduler
 from .serving import _FutureQueueServer
 
@@ -127,7 +141,6 @@ class PagePool:
 # knobs of the JAX engine that this port does not run yet → ROADMAP row
 _DRAFT_ROW = "A7 (draft-model speculation, after A6)"
 _UNPORTED_KNOBS = {
-    "decode_k": "A6 (fused decode)",
     "draft_model": _DRAFT_ROW,
     "token_strs": "A9 (structured decoding)",
     "grammar_states": "A9 (structured decoding)",
@@ -154,8 +167,16 @@ class LLMEngineConfig:
                   (int8 / packed int4 rows with per-row fp32 scale
                   planes, dequantized on gather). Default: the
                   PT_KV_DTYPE env var, else the model's dtype.
-    seed          engine seed (sampled decode, ROADMAP A5; greedy
-                  decode ignores it)
+    seed          engine PRNG seed for temperature / top-p sampling (the
+                  key lives in a device buffer the fused graph reads:
+                  `reseed()` captures nothing); greedy decode ignores it
+    decode_k      fused-decode window: rows at their sampling frontier
+                  take k tokens per window, one CUDA graph replay and
+                  one host sync (a window that the pool or a budget
+                  cuts short rides `rem` through the same graph).
+                  Default: the PT_DECODE_K env var, else 1 (single
+                  ticks). Admission and preemption happen at window
+                  boundaries.
     sla_policy    fleet_serving.SLAPolicy for admission order
     spec_mode     None (no speculation) or "ngram": prompt-lookup
                   proposals from each request's own tokens, verified
@@ -171,7 +192,7 @@ class LLMEngineConfig:
     def __init__(self, num_slots=4, page_size=16, num_pages=None,
                  max_model_len=None, token_budget=None, kv_dtype=None,
                  seed=0, sla_policy=None, spec_k=None, spec_mode=None,
-                 **unported):
+                 decode_k=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_KNOBS:
                 raise TypeError(
@@ -202,12 +223,17 @@ class LLMEngineConfig:
                 f"LLMEngineConfig(spec_mode='draft') is not ported yet: "
                 f"ROADMAP {_DRAFT_ROW}")
         self.spec_mode = spec_mode
+        if decode_k is None:
+            decode_k = int(os.environ.get("PT_DECODE_K", "1"))
+        self.decode_k = int(decode_k)
         if self.num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         if self.page_size < 1:
             raise ValueError("page_size must be >= 1")
         if self.spec_k < 1:
             raise ValueError("spec_k must be >= 1")
+        if self.decode_k < 1:
+            raise ValueError("decode_k must be >= 1")
 
     @staticmethod
     def kv_bytes_per_page(model_config, page_size, kv_dtype=None):
@@ -249,10 +275,6 @@ def _check_spec_mode(spec_mode):
 def _check_sampling(temperature, top_p):
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
-    if temperature > 0:
-        raise NotImplementedError(
-            "sampled decode (temperature > 0) needs jax's threefry keyed "
-            "sampler ported (ROADMAP A5); this slice decodes greedily")
     if not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
 
@@ -274,6 +296,150 @@ class _PagedStep:
         return logits
 
 
+class _Graph:
+    """One captured window and every tensor whose address it holds."""
+
+    def __init__(self, graph, emits, logits, counts, workspaces):
+        self.graph = graph
+        self.emits = emits            # [k, S] int32, rewritten by a replay
+        self.logits = logits          # k f32 frontier logits [S, vocab]
+        self.counts = counts          # [(count dict, {name: launches})]
+        self.workspaces = workspaces  # K1's workspace on the capture stream
+
+
+class _FusedStep:
+    """The engine's fused k-token decode window — the counterpart of the
+    JAX package's `_CompiledFusedStep` (llm_engine.py:562), whose jitted
+    `lax.scan` becomes one captured `torch.cuda.CUDAGraph` of
+    `_paged_decode_fused` per greedy-or-sampled choice (at most two per
+    engine, captured at the first window that needs each), replayed for
+    every later window. A window that the pool or a budget cuts short
+    rides `rem` through the same graph.
+
+    The engine writes every per-window input into one pinned host buffer
+    (`host_views`); one copy moves it into the static device buffer the
+    graph reads, and one copy brings the emits back: the window's one
+    sync. The key is read from the engine's device buffer, so `reseed`
+    rewrites it and captures nothing.
+
+    Capture: a warm-up run of the window on the step's private stream
+    first, so one-time CUDA setup (K1's cudaFuncSetAttribute, cuBLAS's
+    workspace, the ctypes loads) happens outside the capture; then the
+    capture, under capture_error_mode="global", so a host sync inside the
+    window fails loudly. Python's cyclic garbage collector is run before
+    the capture and held off during it: a dead object that owns a CUDA
+    graph (another engine's) would otherwise be freed mid-capture, and
+    destroying a graph while a stream captures invalidates the capture.
+    Nothing else launches on the capture stream, and each
+    graph keeps a reference to every tensor whose address it holds: the
+    static buffers and the key (owned here and by the engine), its logits
+    and emits, and K1's tensor-core workspace for the stream (the wrapper
+    replaces a workspace when a call needs a larger one, and the graph
+    would keep the old address). The kernel wrappers count their launches
+    in Python, which runs only during the capture: the counts the capture
+    added are taken back, and added again at every replay.
+
+    On a CPU model a window runs eagerly (the tests' path). On CUDA a
+    failed capture or replay raises; nothing falls back to an eager loop.
+    `captures` / `warmups` / `replays` count what happened."""
+
+    def __init__(self, model, k, page_size, num_slots, pages_per_seq, key):
+        self.model = model
+        self.k = int(k)
+        self.page_size = int(page_size)
+        self.S, self.MP = int(num_slots), int(pages_per_seq)
+        self.key = key
+        dev = model.device
+        self.cuda = dev.type == "cuda"
+        n = 8 * self.S + self.S * self.MP
+        self._host = torch.zeros((n,), dtype=torch.int32,
+                                 pin_memory=self.cuda)
+        self._static = torch.zeros((n,), dtype=torch.int32, device=dev)
+        self._stream = torch.cuda.Stream(dev) if self.cuda else None
+        self._graphs = {}          # sampled -> _Graph
+        self.captures = self.warmups = self.replays = 0
+        self.logits = []           # the last window's f32 logits, per tick
+
+    def host_views(self):
+        """numpy views of the host buffer the engine fills: tok0, pos0,
+        rem, fin0 (1 = empty slot), eos, streams [S] int32, temps,
+        top_ps [S] float32, page_tables [S, MP] int32."""
+        S, buf = self.S, self._host.numpy()
+        return (*buf[:6 * S].reshape(6, S),
+                *buf[6 * S:8 * S].view(np.float32).reshape(2, S),
+                buf[8 * S:].reshape(S, self.MP))
+
+    def eager(self, kv, kv_scales, sampled, logits_out=None):
+        """The window run eagerly on the staged inputs (the warm-up, the
+        capture's body, the CPU path) → emits [k, S] int32 on the pools'
+        device."""
+        S, v = self.S, self._static
+        tok0, pos0, rem, fin0, eos, streams = v[:6 * S].view(6, S)
+        temps, top_ps = v[6 * S:8 * S].view(torch.float32).view(2, S)
+        with torch.inference_mode():
+            emits, _, _ = self.model._paged_decode_fused(
+                self.k, self.page_size, tok0, pos0, rem, fin0 != 0, eos,
+                temps, top_ps, streams, v[8 * S:].view(S, self.MP), kv,
+                kv_scales, key=self.key if sampled else None,
+                logits_out=logits_out)
+        return emits
+
+    def run(self, kv, kv_scales, sampled):
+        """Stage the host buffer and run one window (`sampled`: any row's
+        temperature > 0, the host's choice of graph) → emits numpy
+        [k, S]."""
+        self._static.copy_(self._host, non_blocking=self.cuda)
+        if not self.cuda:
+            self.logits = []
+            return self.eager(kv, kv_scales, sampled, self.logits).numpy()
+        g = self._graphs.get(sampled)
+        if g is None:
+            g = self._graphs[sampled] = self._capture(kv, kv_scales, sampled)
+        self.replay(g)
+        self.logits = g.logits
+        return g.emits.cpu().numpy()
+
+    def replay(self, g):
+        g.graph.replay()
+        for counts, added in g.counts:
+            for name, n in added.items():
+                counts[name] += n
+        self.replays += 1
+
+    def _capture(self, kv, kv_scales, sampled):
+        from ..ops.cuda_kernels import paged_attention as pa
+
+        stream = self._stream
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            self.eager(kv, kv_scales, sampled)     # warm-up, launches count
+        self.warmups += 1
+        counters = (pa.launches, pa.tc_launches)
+        before = [dict(c) for c in counters]
+        graph = torch.cuda.CUDAGraph()
+        logits = []
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode="global"):
+                emits = self.eager(kv, kv_scales, sampled, logits)
+        finally:
+            if collecting:
+                gc.enable()
+        counts = []
+        for c, b in zip(counters, before):
+            added = {name: c[name] - b[name] for name in c
+                     if c[name] != b[name]}
+            for name, n in added.items():
+                c[name] -= n                     # the capture launched none
+            counts.append((c, added))
+        self.captures += 1
+        return _Graph(graph, emits, logits, counts,
+                      pa.stream_workspaces(stream.cuda_stream))
+
+
 class _Request:
     _ids = itertools.count()
 
@@ -281,7 +447,11 @@ class _Request:
                  tenant="default", priority=None, ttft_slo_s=None,
                  temperature=0.0, top_p=1.0):
         _check_sampling(float(temperature), float(top_p))
-        self.temperature = float(temperature)   # 0: greedy (checked above)
+        # 0: greedy; > 0: sampled, keyed on (engine seed, sample_stream,
+        # position), so a preemption replay draws the same tokens
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.sample_stream = 0    # engine-assigned at add_request
         self.spec_off = False     # per-request spec_mode="off" opt-out
         self.rid = next(_Request._ids)
         self.tokens = [int(t) for t in tokens]  # prompt, grows as decoded
@@ -379,13 +549,19 @@ class LLMEngine:
         self._page_tables = np.zeros(
             (self.num_slots, self.pages_per_seq), np.int32)
         self._slots = [None] * self.num_slots
+        # sampling: the key lives in a device buffer the fused graph reads
         self._seed = cfg.seed
+        self._key = prng.prng_key(cfg.seed, device=self.device)
+        self._sample_streams = itertools.count()
+        self.decode_k = cfg.decode_k
+        self._fused_fn = None     # built at the first fused window
         self.sched = SLAScheduler(cfg.sla_policy)
         self._admit_counter = itertools.count()
         self._step_fn = _PagedStep(model)
         self.stats = {"steps": 0, "tokens_in": 0, "generated": 0,
-                      "finished": 0, "preemptions": 0}
-        # f32 frontier logits of the last tick that sampled (cross-checks)
+                      "finished": 0, "preemptions": 0, "fused_steps": 0}
+        # f32 frontier logits of the last tick that sampled (cross-checks;
+        # a fused window's are `_fused_fn.logits`)
         self.last_logits = None
         # speculative decoding: rows at their sampling frontier take one
         # verify window per step (inference/structured/ngram.py)
@@ -446,6 +622,8 @@ class LLMEngine:
                        tenant=tenant, priority=priority,
                        ttft_slo_s=ttft_slo_s, temperature=temperature,
                        top_p=top_p)
+        # one sampling stream per request, kept across preemption replays
+        req.sample_stream = next(self._sample_streams)
         req.spec_off = spec_mode == "off"
         req.target = min(req.prompt_len + req.max_new, self.max_model_len)
         if req.target <= req.prompt_len:
@@ -459,10 +637,18 @@ class LLMEngine:
     def has_work(self):
         return bool(self.waiting) or any(r is not None for r in self._slots)
 
+    def reseed(self, seed):
+        """Swap the sampling key. It lives in a device buffer that the
+        fused graphs read, so this rewrites the buffer and captures
+        nothing."""
+        self._seed = int(seed)
+        self._key.copy_(prng.prng_key(self._seed))
+
     def abort_all(self, exc):
         """Fail every live and queued request with `exc` (device-error
-        path), release all pages, and re-zero the pools and scale planes
-        — a step that died mid-write leaves them half updated."""
+        path), release all pages, re-zero the pools and scale planes — a
+        step that died mid-write leaves them half updated — in place, so
+        the fused graphs stay valid, and restore the sampling key."""
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._release(slot, req)
@@ -476,6 +662,7 @@ class LLMEngine:
                 p.zero_()
         if self._spec is not None:
             self._spec.reset_pools()
+        self.reseed(self._seed)
 
     # ---- scheduler ----
 
@@ -495,8 +682,9 @@ class LLMEngine:
 
     def _preempt(self, slot, req, reason):
         """Evict-and-requeue one running sequence. Its generated tokens
-        are kept: greedy re-decode of prompt+generated reproduces the
-        same continuation."""
+        and its sampling stream are kept: the re-decode of
+        prompt+generated reproduces the same continuation, greedy or
+        sampled."""
         self._release(slot, req)
         req.preemptions += 1
         self.stats["preemptions"] += 1
@@ -623,21 +811,25 @@ class LLMEngine:
                 return [(slot, req, alloc[slot]) for slot, req in active]
 
     def step(self):
-        """One scheduler tick: admit → either one speculative window over
-        the rows at their sampling frontier (with `spec_mode`), or one
-        decode step over the planned flat tokens with a greedy pick at
-        each frontier → evict finished. Rows still prefilling take a
-        single tick in the same step (`only_slots`), so a straggler does
-        not force the whole engine off windows; a window that cannot
-        cover even the frontier token's page returns None and the step
-        falls back to a single tick. Returns the requests finished."""
+        """One scheduler tick: admit (new and preempted sequences join
+        only here, at window boundaries) → either one multi-token window
+        over the rows at their sampling frontier — speculative with
+        `spec_mode`, else fused when decode_k > 1 — or one decode step
+        over the planned flat tokens with a pick at each frontier → evict
+        finished. Rows still prefilling take a single tick in the same
+        step (`only_slots`), so a straggler does not force the whole
+        engine off windows; a window that cannot cover even one token per
+        row returns None and the step runs a single tick, which owns
+        preemption. Returns the requests finished."""
         self._admit()
-        if self._spec is not None:
+        if self._spec is not None or self.decode_k > 1:
             active = self._active()
             frontier = [(s, r) for s, r in active
                         if r.n_prefilled == len(r.tokens) - 1]
             if frontier:
-                out = self._spec.try_window(frontier)
+                out = (self._spec.try_window(frontier)
+                       if self._spec is not None
+                       else self._try_step_fused(frontier))
                 if out is not None:
                     stragglers = {s for s, r in active
                                   if r.n_prefilled != len(r.tokens) - 1}
@@ -645,6 +837,128 @@ class LLMEngine:
                         out = out + self._step_tick(only_slots=stragglers)
                     return out
         return self._step_tick()
+
+    # ---- fused multi-token decode window ----
+
+    def _try_step_fused(self, active):
+        """One fused decode window over `active` (the frontier rows), or
+        None when the pool cannot cover even a 1-token window. The
+        window's pages are reserved up front; when the pool (or a
+        sequence's budget) cannot cover k, the window spills to the k'
+        that fits through `rem`, in the same graph."""
+        ps = self.page_size
+        k = self.decode_k
+
+        def pages_needed(w):
+            tot = 0
+            for _, req in active:
+                writes = min(w, req.target - len(req.tokens))
+                last = req.n_prefilled + writes - 1
+                tot += max(0, last // ps + 1 - len(req.pages))
+            return tot
+
+        avail = self.pool.num_free
+        w = k
+        while w > 1 and pages_needed(w) > avail:
+            w -= 1        # spill: the largest window the pool covers
+        if pages_needed(w) > avail:
+            return None   # not even 1 token a row: the single tick preempts
+        rem_arg = {}
+        for slot, req in active:
+            want = min(w, req.target - len(req.tokens))
+            last = req.n_prefilled + want - 1
+            while last // ps >= len(req.pages):
+                page = self.pool.alloc()
+                self._page_tables[slot, len(req.pages)] = page
+                req.pages.append(page)
+            rem_arg[slot] = want
+
+        if self._fused_fn is None:
+            self._fused_fn = _FusedStep(self.model, k, ps, self.num_slots,
+                                        self.pages_per_seq, self._key)
+        fused = self._fused_fn
+        tok0, pos0, rem, fin0, eos, streams, temps, tops, pt = \
+            fused.host_views()
+        for col, empty in ((tok0, 0), (pos0, 0), (rem, 0), (fin0, 1),
+                           (eos, -1), (streams, 0), (temps, 0.0),
+                           (tops, 1.0)):
+            col[:] = empty            # an empty slot: finished, greedy
+        pt[:] = self._page_tables
+        gen_before = {}
+        for slot, req in active:
+            tok0[slot] = req.tokens[-1]
+            pos0[slot] = req.n_prefilled
+            rem[slot] = rem_arg[slot]
+            fin0[slot] = 0
+            if req.eos is not None:
+                eos[slot] = int(req.eos)
+            temps[slot] = req.temperature
+            tops[slot] = req.top_p
+            streams[slot] = req.sample_stream
+            gen_before[slot] = req.num_generated
+        t0 = _time.perf_counter()
+        try:
+            emits = fused.run(self._kv, self._kv_scales or None,
+                              any(r.temperature > 0 for _, r in active))
+        except Exception as e:
+            # the pools may be half written: fail the in-flight work and
+            # re-zero, as the single tick does
+            self.abort_all(e)
+            raise
+        # window-boundary SLO accounting: how long a window runs
+        self.sched.note_boundary(_time.perf_counter() - t0)
+
+        self.stats["steps"] += 1
+        self.stats["fused_steps"] += 1
+        finished = []
+        now = _time.perf_counter()
+        total = 0
+        for slot, req in active:
+            emitted, done = 0, False
+            for j in range(int(rem_arg[slot])):
+                t = int(emits[j, slot])
+                req.tokens.append(t)
+                emitted += 1
+                if ((req.eos is not None and t == req.eos)
+                        or len(req.tokens) >= req.target):
+                    done = True   # the window masked the rest already
+                    break
+            req.n_prefilled += emitted
+            total += emitted
+            self.stats["generated"] += emitted
+            self.sched.note_tokens(req.tenant, emitted)
+            if gen_before[slot] == 0 and emitted > 0:
+                req.t_first_token = now
+                self.sched.note_first_token(req, now - req.t_submit)
+            if done:
+                self._finish(slot, req)
+                finished.append(req)
+        self.stats["tokens_in"] += total
+        return finished
+
+    # ---- single tick (prefill / mixed / k=1) ----
+
+    def _host_sample_rows(self, lv, reqs):
+        """The tick's frontier picks when a row samples: the same
+        `sample_tokens` as the fused window, keyed on the same engine key
+        at each row's position (the index its new token takes), so a
+        request draws the same tokens whichever path serves a tick. Padded
+        to num_slots rows (pad rows greedy), as the reference pads its
+        jitted sampler; the per-row inputs make one copy to the device."""
+        n, S = len(reqs), self.num_slots
+        buf = np.zeros((4, S), np.int32)     # temps, top_ps, streams, pos
+        f = buf[:2].view(np.float32)
+        f[1] = 1.0
+        for j, r in enumerate(reqs):
+            f[0, j] = r.temperature
+            f[1, j] = r.top_p
+            buf[2, j] = r.sample_stream
+            buf[3, j] = len(r.tokens)
+        dev = torch.from_numpy(buf).to(self.device)
+        temps, tops = dev[:2].view(torch.float32)
+        lv = torch.nn.functional.pad(lv, (0, 0, 0, S - n))
+        return sample_tokens(lv, temps, tops, dev[2], dev[3],
+                             self._key)[:n]
 
     def _step_tick(self, only_slots=None):
         plan = self._plan(only_slots)
@@ -687,8 +1001,12 @@ class LLMEngine:
             if sample_slots:
                 lv = logits[0, sample_slots].float()
                 self.last_logits = lv
-                # greedy frontier pick; .tolist() is the tick's one sync
-                nxt = lv.argmax(dim=-1).tolist()
+                reqs = [self._slots[s] for s in sample_slots]
+                if any(r.temperature > 0 for r in reqs):
+                    nxt = self._host_sample_rows(lv, reqs)
+                else:
+                    nxt = lv.argmax(dim=-1)
+                nxt = nxt.tolist()   # the tick's one sync
         except Exception as e:
             # the pools may be half written: fail the in-flight work and
             # re-zero so a direct-drive caller's engine stays serviceable

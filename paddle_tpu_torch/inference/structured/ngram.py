@@ -13,9 +13,10 @@ no catch-up ticks; a window is [host proposal scan] + 1 verify step.
 Slots with no match run verify-only (width 0: a plain decode row inside
 the same step).
 
-Losslessness: acceptance is exact match against the model's own greedy
-pick, so the output is token-identical to the non-speculative engine
-whatever the proposals; bad proposals cost width, never correctness.
+Losslessness: acceptance is exact match against the model's own pick
+(greedy, or the keyed draw of `sample_tokens`), so the output is
+token-identical to the non-speculative engine whatever the proposals;
+bad proposals cost width, never correctness.
 
 Duck-typed to the surface the engine drives (`try_window` /
 `window_headroom` / `release_pools` / `reset_pools` / `pool_bytes` /
@@ -128,6 +129,8 @@ class NgramSpeculator:
         fin_v = np.ones((S,), bool)
         eos = np.full((S,), -1, np.int32)
         temps = np.zeros((S,), np.float32)
+        tops = np.ones((S,), np.float32)
+        streams = np.zeros((S,), np.int32)
         gen_before = {}
         for slot, req in frontier:
             tok0[slot] = req.tokens[-1]
@@ -139,13 +142,18 @@ class NgramSpeculator:
             if req.eos is not None:
                 eos[slot] = int(req.eos)
             temps[slot] = req.temperature
+            tops[slot] = req.top_p
+            streams[slot] = req.sample_stream
             gen_before[slot] = req.num_generated
 
         t0 = _time.perf_counter()
         try:
+            sampled = any(r.temperature > 0 for _, r in frontier)
             emits = self._verify_fn(tok0, pos0, drafts, wid, rem, fin_v,
-                                    eos, temps, eng._page_tables, eng._kv,
-                                    eng._kv_scales or None)
+                                    eos, temps, tops, streams,
+                                    eng._page_tables, eng._kv,
+                                    eng._kv_scales or None,
+                                    key=eng._key if sampled else None)
         except Exception as e:
             eng.abort_all(e)
             raise

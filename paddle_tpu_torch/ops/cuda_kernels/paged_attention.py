@@ -28,8 +28,11 @@ launches K1 or K2 (and raises on anything the kernel does not take).
 `launches` counts kernel launches, one entry per kernel and pool kind —
 it moves only where a kernel launches, so a run can show its main path
 went through the kernels; `tc_launches`, with the same keys, counts the
-launches that took the tensor-core route. A route is never a fallback:
-a build or launch error raises.
+launches that took the tensor-core route. The counts move in Python, so
+a CUDA graph that captures a call counts it once, at the capture: the
+engine's fused window (`inference/llm_engine._FusedStep`) takes that
+back and adds it again at every replay. A route is never a fallback: a
+build or launch error raises.
 """
 import ctypes
 import math
@@ -40,7 +43,8 @@ from ...quantization.runtime import unpack_int4
 from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "launches", "tc_launches", "reset_launches", "paged_route"]
+           "launches", "tc_launches", "reset_launches", "paged_route",
+           "stream_workspaces"]
 
 NEG_INF = -1e30
 MAX_QBLOCK = 16
@@ -179,6 +183,14 @@ def _tc_workspace(dev, stream, T, H, D, P, MP, qb):
         ws = _tc_buffers[(dev, stream)] = torch.empty(
             (nbytes,), dtype=torch.uint8, device=dev)
     return ws, nbytes
+
+
+def stream_workspaces(stream):
+    """The tensor-core workspaces kept for `stream` (its `cuda_stream`
+    handle). A CUDA graph captured on that stream holds their addresses,
+    and `_tc_workspace` replaces a buffer that a later call outgrows: the
+    graph's owner keeps these tensors alive."""
+    return [ws for (_, st), ws in _tc_buffers.items() if st == stream]
 
 
 def _launch(q, k_pool, v_pool, k_scales, v_scales, page_tables, slot_ids,

@@ -12,14 +12,24 @@ greedy requests with prompts of 16-900 tokens, 32 new tokens each
 * `bf16-repetitive`, `int8`, `ngram`: the repetitive prompts with a bf16
   pool and no speculation, an int8 pool alone, n-gram speculation alone
   — with `int8-ngram`, the four corners that separate the int8 pool's
-  cost from speculation's.
+  cost from speculation's;
+* `fused`, `fused-int8`: the serve load at decode_k 8 (fused windows, one
+  CUDA graph replay each) on a bf16 / int8 pool;
+* `sampled`, `sampled-fused`: the serve load with every request sampled
+  (temperature 0.8, top_p 0.9) at decode_k 1 / 8.
 
 Each load runs one warm-up burst, one timed burst and one burst under
 `torch.profiler`, then prints:
 
+* the card's name and power limit (nvidia-smi);
 * the timed burst's wall time, generated tok/s and median TTFT, engine
-  steps (single ticks + verify windows), proposals and acceptances, and
-  the host seconds spent mining proposals;
+  steps (single ticks + verify or fused windows), proposals and
+  acceptances, and the host seconds spent mining proposals;
+* for the fused loads, the host ms per window (`_try_step_fused`, its one
+  sync included) and the device ms per window (CUDA events around each
+  graph replay, its launch latency included); for the sampled loads, the
+  sampler's device ms per call (`sample_tokens` on [num_slots, vocab]
+  replayed from a CUDA graph, as a window runs it: `sampler_ms`);
 * the timed burst's host time per engine `step()` call (a verify window
   and its straggler tick are one call): the median and its quartiles,
   and the host time spent inside the paged attention wrapper
@@ -43,6 +53,7 @@ Each load runs one warm-up burst, one timed burst and one burst under
 GPU.
 """
 import argparse
+import subprocess
 import time
 
 import numpy as np
@@ -50,14 +61,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from .core import prng
 from .inference import LLMEngineConfig, LLMServer
-from .text.models.gpt import GPTForCausalLM, gpt_small
+from .text.models.gpt import GPTForCausalLM, gpt_small, sample_tokens
 
 PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 NEW_TOKENS = 32
 ENGINE = dict(num_slots=8, page_size=16, max_model_len=1024,
               token_budget=256)
 _NGRAM = dict(spec_mode="ngram", spec_k=4)
+_SAMPLED = dict(temperature=0.8, top_p=0.9)
 # kernel names of csrc/paged_attention.cu as the profiler shows them: K1
 # on the CUDA cores and the three launches of its tensor-core route, K2
 # on the CUDA cores and the two of its tensor-core route (a bf16 q on
@@ -66,12 +79,17 @@ PAGED_KERNELS = {"K1": ("rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
                         "rpa_tc_merge_kernel"),
                  "K2": ("rpa_qblock_kernel", "rpa_tc_qblock_kernel",
                         "rpa_tc_qblock_merge_kernel")}
-# load -> (engine knobs, repetitive prompts)
-LOADS = {"serve": (dict(kv_dtype="bfloat16"), False),
-         "bf16-repetitive": (dict(kv_dtype="bfloat16"), True),
-         "int8": (dict(kv_dtype="int8"), True),
-         "ngram": (dict(kv_dtype="bfloat16", **_NGRAM), True),
-         "int8-ngram": (dict(kv_dtype="int8", **_NGRAM), True)}
+# load -> (engine knobs, repetitive prompts, request knobs)
+LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
+         "bf16-repetitive": (dict(kv_dtype="bfloat16"), True, {}),
+         "int8": (dict(kv_dtype="int8"), True, {}),
+         "ngram": (dict(kv_dtype="bfloat16", **_NGRAM), True, {}),
+         "int8-ngram": (dict(kv_dtype="int8", **_NGRAM), True, {}),
+         "fused": (dict(kv_dtype="bfloat16", decode_k=8), False, {}),
+         "fused-int8": (dict(kv_dtype="int8", decode_k=8), False, {}),
+         "sampled": (dict(kv_dtype="bfloat16"), False, _SAMPLED),
+         "sampled-fused": (dict(kv_dtype="bfloat16", decode_k=8), False,
+                           _SAMPLED)}
 
 
 def _prompts(repetitive, vocab):
@@ -82,10 +100,18 @@ def _prompts(repetitive, vocab):
     return [np.resize(rng.integers(0, vocab, (24,)), n) for n in PROMPT_LENS]
 
 
-def _burst(server, prompts):
+def _card():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _burst(server, prompts, request):
     """(wall seconds, median TTFT seconds) of one burst."""
     t0 = time.perf_counter()
-    futs = [server.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+    futs = [server.submit(p, max_new_tokens=NEW_TOKENS, **request)
+            for p in prompts]
     for f in futs:
         f.result(timeout=600)
     torch.cuda.synchronize()
@@ -94,12 +120,78 @@ def _burst(server, prompts):
     return wall, ttft[len(ttft) // 2]
 
 
-class _HostTimer:
+class EventTimer:
+    """Wraps `obj.name` with CUDA events around each call, until `remove`:
+    the device time of a graph replay (its launch latency included); for
+    an eager, host-bound call also the card's idle gaps."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.fn = obj, name, getattr(obj, name)
+        self.own = name in vars(obj)   # else the class's method
+        self.events = []
+
+        def timed(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            try:
+                return self.fn(*args, **kw)
+            finally:
+                b.record()
+                self.events.append((a, b))
+
+        setattr(obj, name, timed)
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return np.asarray([a.elapsed_time(b) for a, b in self.events])
+
+    def remove(self):
+        _restore(self)
+
+
+def sampler_ms(rows, vocab, reps=20):
+    """Median device ms of one `sample_tokens` call on [rows, vocab] f32
+    logits, every row sampled (temperature 0.8, top_p 0.9), as a fused
+    window pays it: the call captured in a CUDA graph, CUDA events around
+    each replay (its launch latency included). Eagerly the call's ≈ 200
+    launches take milliseconds of host, which a timed eager call would
+    count as device gaps."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    args = (torch.randn((rows, vocab), device="cuda", generator=g),
+            torch.full((rows,), 0.8, device="cuda"),
+            torch.full((rows,), 0.9, device="cuda"),
+            torch.arange(rows, dtype=torch.int32, device="cuda"),
+            torch.full((rows,), 100, dtype=torch.int32, device="cuda"),
+            prng.prng_key(1234, device="cuda"))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            sample_tokens(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        sample_tokens(*args)
+    times = []
+    for _ in range(reps + 3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[3:]))
+
+
+class HostTimer:
     """Wraps `obj.name` to record the host seconds of each call, until
     `remove`."""
 
     def __init__(self, obj, name):
         self.obj, self.name, self.fn = obj, name, getattr(obj, name)
+        self.own = name in vars(obj)   # else the class's method
         self.times = []
 
         def timed(*args, **kw):
@@ -112,46 +204,77 @@ class _HostTimer:
         setattr(obj, name, timed)
 
     def remove(self):
-        setattr(self.obj, self.name, self.fn)
+        _restore(self)
+
+
+def _restore(timer):
+    """Undo a timer's wrap: the object's own attribute back, or the class's
+    method again (a bound method left in the instance would be a
+    reference cycle, freed only by the cyclic collector)."""
+    if timer.own:
+        setattr(timer.obj, timer.name, timer.fn)
+    else:
+        delattr(timer.obj, timer.name)
 
 
 def run_load(model, name, trace=None):
     from .ops.cuda_kernels import paged_attention as pa
 
-    knobs, repetitive = LOADS[name]
+    knobs, repetitive, request = LOADS[name]
     prompts = _prompts(repetitive, model.config.vocab_size)
     server = LLMServer(model, LLMEngineConfig(**ENGINE, **knobs))
     eng = server.engine
-    timers = [_HostTimer(eng, "step"),
-              _HostTimer(pa, "ragged_paged_attention")]
+    timers = [HostTimer(eng, "step"),
+              HostTimer(pa, "ragged_paged_attention"),
+              HostTimer(eng, "_try_step_fused")]
     if eng._spec is not None:
-        timers.append(_HostTimer(eng._spec, "_propose"))
+        timers.append(HostTimer(eng._spec, "_propose"))
+    replay = None
     try:
         with server:
-            _burst(server, prompts)                    # warm-up
+            _burst(server, prompts, request)           # warm-up (captures)
+            if eng._fused_fn is not None:
+                replay = EventTimer(eng._fused_fn, "replay")
             before = dict(eng.stats)
             for t in timers:
                 t.times.clear()
-            wall, ttft = _burst(server, prompts)
-            step_s, paged_s, *scan_s = (np.asarray(t.times) for t in timers)
+            wall, ttft = _burst(server, prompts, request)
+            step_s, paged_s, window_s, *scan_s = (np.asarray(t.times)
+                                                  for t in timers)
+            replay_ms = replay.ms() if replay is not None else None
             d = {k: eng.stats[k] - before.get(k, 0) for k in eng.stats}
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                pwall, _ = _burst(server, prompts)
+                pwall, _ = _burst(server, prompts, request)
     finally:
         for t in timers:
             t.remove()
+        if replay is not None:
+            replay.remove()
     scan = scan_s[0].sum() if scan_s else 0.0
-    steps, windows = d["steps"], d.get("ngram_windows", 0)
+    steps = d["steps"]
+    windows = d.get("ngram_windows", 0) + d["fused_steps"]
     gen = NEW_TOKENS * len(prompts)
     print(f"load {name} ({knobs}, {'repetitive' if repetitive else 'random'}"
-          f" prompts): {wall * 1e3:.3f} ms wall, {gen / wall:.1f} generated "
+          f" prompts{', ' + str(request) if request else ''}; "
+          f"{_card()}): {wall * 1e3:.3f} ms wall, {gen / wall:.1f} generated "
           f"tok/s, TTFT median {ttft * 1e3:.3f} ms, {steps} steps = "
           f"{steps - windows} ticks + {windows} windows "
           f"({wall * 1e3 / steps:.3f} ms/step)"
           + (f", proposed {d['ngram_proposed']} accepted "
              f"{d['ngram_accepted']}, proposal scan {scan * 1e3:.3f} ms "
-             "on the host" if windows else ""))
+             "on the host" if d.get("ngram_windows") else ""))
+    if replay_ms is not None and len(replay_ms):
+        print(f"  fused windows (decode_k {eng.decode_k}): host "
+              f"{np.median(window_s) * 1e3:.3f} ms per window (median, its "
+              f"sync included), device {np.median(replay_ms):.3f} ms per "
+              f"window (median over {len(replay_ms)} replays; "
+              f"{np.median(replay_ms) / eng.decode_k:.3f} ms per token "
+              "iteration)")
+    if request.get("temperature", 0) > 0:
+        vocab = model.config.vocab_size
+        print(f"  sampler: {sampler_ms(eng.num_slots, vocab):.4f} ms of "
+              f"device per sample_tokens call on [{eng.num_slots}, {vocab}]")
     q1, med, q3 = np.percentile(step_s, (25, 50, 75)) * 1e3
     per_step = paged_s.sum() / len(step_s) * 1e3
     print(f"  host per step() call: median {med:.3f} ms (quartiles "
@@ -210,7 +333,7 @@ def main(argv=None):
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args(argv)
     model = GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
-    print(f"card: {torch.cuda.get_device_name(0)}")
+    print(f"card: {_card()}")
     rc = 0
     for i, name in enumerate(args.load):
         last = i == len(args.load) - 1

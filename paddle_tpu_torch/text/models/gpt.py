@@ -11,14 +11,18 @@ head with the softmax CE. Serving: `_paged_decode_core` — flat ragged
 tokens through every layer, the step's K/V written into the paged pools
 (float, or int8 / packed int4 with per-row scale planes), ragged paged
 attention against each token's own prefix, and the vocab head on the
-gathered sampling-frontier rows only; `_paged_verify_fused` — the
+gathered sampling-frontier rows only; `_paged_decode_fused` — k decode
+ticks in one call with the pick, EOS and budget masking inside (the
+engine captures it as one CUDA graph); `_paged_verify_fused` — the
 speculative verify step over k+1 positions per slot, with exact-match
-acceptance.
+acceptance. `sample_tokens` is the reference's keyed greedy /
+temperature / top-p sampler, on jax's threefry bits (`core.prng`).
 """
 import torch
 from torch import nn
 
 from ... import nn as pnn
+from ...core import prng
 from ...core.dtype import resolve_dtype
 from ...core.place import resolve_device
 from ...distributed.fleet.meta_parallel.mp_layers import (
@@ -184,17 +188,55 @@ def _layer_forward_paged(layer, x, cache_k, cache_v, write_idx, page_tables,
     return x + layer.fc2(F.gelu(layer.fc1(layer.ln2(x))))
 
 
-def sample_tokens(logits, temps=None):
-    """The greedy half of the reference's `sample_tokens` (gpt.py:331):
-    logits [R, vocab] → the argmax of each row as int32 (the first
-    maximal index, in both frameworks). `temps` [R] may lie on any
-    device; a row with temps > 0 asks for the keyed temperature / top-p
-    draw, which is ROADMAP A5, and raises. The grammar mask is A9."""
-    if temps is not None and bool((temps > 0).any()):
-        raise NotImplementedError(
-            "sampled decode (temperature > 0) needs jax's threefry keyed "
-            "sampler ported (ROADMAP A5)")
-    return logits.argmax(dim=-1).to(torch.int32)
+def _sampling_scores(logits, temps, top_ps, streams, positions, key):
+    """The scores whose argmax is a sampled row's pick (the reference's
+    `drawn` branch, gpt.py:358-374): logits [R, vocab] f32 scaled by
+    1 / max(temps, 1e-6); top-p keeps the smallest prefix of the
+    descending list whose exclusive cumulative mass is < top_p (always
+    the top-1), the rest masked to -1e30; plus the Gumbel noise of the
+    row's key fold_in(fold_in(key, stream), position) (`core.prng`).
+    temps / top_ps [R] f32, streams / positions [R] int, key [2] int64:
+    tensors on logits' device."""
+    scaled = logits / torch.clamp_min(temps, 1e-6)[:, None]
+    srt = torch.sort(scaled, dim=-1, descending=True).values
+    # jax.nn.softmax: exp(x - max) / sum
+    e = torch.exp(srt - srt[:, :1])
+    probs = e / e.sum(dim=-1, keepdim=True)
+    keep = (torch.cumsum(probs, dim=-1) - probs) < top_ps[:, None]
+    thresh = torch.where(keep, srt, float("inf")).amin(dim=-1)
+    masked = torch.where(scaled >= thresh[:, None], scaled, -1e30)
+    keys = prng.fold_in(prng.fold_in(key, streams), positions)
+    return prng.gumbel(keys, logits.shape[-1]) + masked
+
+
+def sample_tokens(logits, temps=None, top_ps=None, streams=None,
+                  positions=None, key=None):
+    """The reference's `sample_tokens` (gpt.py:331) without the grammar
+    mask (ROADMAP A9): logits [R, vocab] f32 → int32 [R]. Rows with
+    temps <= 0 take the argmax (the first maximal index, in both
+    frameworks); rows with temps > 0 draw from the temperature-scaled,
+    top-p-truncated distribution with the per-row key
+    fold_in(fold_in(key, stream), position), so a draw depends only on
+    (engine seed, request stream, token position): not on the decode
+    window, the batch or a preemption replay.
+
+    The reference picks the branch on the device (`lax.cond` on
+    any(temps > 0)); here the caller picks it on the host, because a CUDA
+    graph cannot branch on device data: `key` None runs the greedy branch
+    only, a key the draw (greedy rows still take the argmax). temps
+    without a key may only hold greedy rows; that is checked when temps
+    lies on the CPU (no device sync is made)."""
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    if key is None:
+        if (temps is not None and temps.device.type == "cpu"
+                and bool((temps > 0).any())):
+            raise ValueError(
+                "a row with temperature > 0 draws from the engine's key: "
+                "pass top_ps, streams, positions and key")
+        return greedy
+    pick = _sampling_scores(logits, temps, top_ps, streams, positions,
+                            key).argmax(dim=-1).to(torch.int32)
+    return torch.where(temps > 0, pick, greedy)
 
 
 class GPTForCausalLM(nn.Module):
@@ -297,10 +339,67 @@ class GPTForCausalLM(nn.Module):
         x = x.index_select(1, sample_idx.long())   # [1, R, d] frontiers
         return (self._logits_from_hidden(x), *kv, *(kv_scales or ()))
 
+    def _paged_decode_fused(self, k, page_size, tok0, pos0, rem, fin0,
+                            eos_ids, temps, top_ps, streams, page_tables, kv,
+                            kv_scales=None, key=None, logits_out=None):
+        """k decode ticks in one call (the reference's gpt.py:523, whose
+        `lax.scan` becomes k iterations unrolled here, so the engine can
+        capture the whole window as one CUDA graph): per iteration, write
+        the frontier token's KV, ragged paged attention over each slot's
+        own prefix (K1 on the card, `frontier_offset=i` a Python int baked
+        into the launch), the vocab head on the S frontier rows, and the
+        keyed pick (`sample_tokens` at position pos + 1), with EOS and
+        budget masking: a row that picks its eos or spends `rem` flips
+        finished, and from the next iteration on writes the trash row at
+        kv_len 0 and emits -1. No host sync anywhere in the window.
+
+        tok0 / pos0 / rem / streams [S] int32 (frontier token, its write
+        position, tokens the row may still emit, sampling stream), fin0
+        [S] bool (True = empty slot), eos_ids [S] int32 (-1 = none), temps
+        / top_ps [S] f32, page_tables [S, MP]: tensors on the pools'
+        device; the engine reserves every live iteration's pages before
+        the call. k is a Python int. key: the engine's [2] int64 key, or
+        None when every row is greedy (the host's choice, see
+        `sample_tokens`). The reference's draft propose mode (lag /
+        frontier, ROADMAP A7) and grammar tables (A9) are not taken.
+        kv / kv_scales are updated IN PLACE. logits_out: an optional list
+        that receives each iteration's f32 frontier logits [S, vocab].
+        Returns (emits [k, S] int32, kv, kv_scales)."""
+        S = tok0.shape[0]
+        dev = tok0.device
+        i32 = torch.int32
+        sl = torch.arange(S, dtype=i32, device=dev)
+        pt = page_tables.to(i32)
+        zero = torch.zeros((), dtype=i32, device=dev)
+        klen0 = pos0.to(i32) + 1
+        tok, fin = tok0.to(i32), fin0
+        emits = []
+        for i in range(int(k)):
+            live = ~fin
+            tok_in = torch.where(live, tok, zero)
+            pos_in = torch.where(live, pos0 + i, zero)
+            klen = torch.where(live, klen0, zero)   # + i rides the offset
+            page = pt[sl.long(), (pos_in // page_size).long()]
+            widx = torch.where(live, page * page_size + pos_in % page_size,
+                               zero)
+            logits, *_ = self._paged_decode_core(
+                tok_in, pos_in, sl, widx, pt, klen, sl, kv,
+                kv_scales=kv_scales, frontier_offset=i)
+            lv = logits[0].float()                           # [S, V]
+            if logits_out is not None:
+                logits_out.append(lv)
+            nxt = sample_tokens(lv, temps, top_ps, streams, pos_in + 1, key)
+            emits.append(torch.where(live, nxt, torch.full_like(nxt, -1)))
+            fin = (fin | (live & (eos_ids >= 0) & (nxt == eos_ids))
+                   | (live & (i + 1 >= rem)))
+            tok = torch.where(live, nxt, tok)
+        return torch.stack(emits), kv, kv_scales
+
     def _paged_verify_fused(self, k, page_size, tok0, pos0, drafts, width,
                             rem, fin0, eos_ids, temps, page_tables, kv,
-                            kv_scales=None):
-        """Speculative verify (the reference's gpt.py:650, eager, greedy):
+                            kv_scales=None, top_ps=None, streams=None,
+                            key=None):
+        """Speculative verify (the reference's gpt.py:650, eager):
         score all k+1 positions of every slot — the frontier token and k
         proposals — in ONE ragged step, then accept the longest prefix of
         proposals that equals the model's own picks.
@@ -310,11 +409,13 @@ class GPTForCausalLM(nn.Module):
         processed: positions pos0+1..pos0+width get KV written), rem [S]
         (at most this many tokens may be emitted), fin0 [S] bool (True =
         dead slot), eos_ids [S] (-1 = none), page_tables [S, MP]: tensors
-        on the pools' device. temps [S] may lie on any device (the greedy
-        check reads it; a row with temps > 0 raises, ROADMAP A5). The
-        reference's keyed-draw arguments (top_ps, streams, key: A5) and
-        grammar tables (A9) are not taken. kv / kv_scales are updated IN
-        PLACE.
+        on the pools' device. temps / top_ps [S] f32, streams [S] int and
+        key (the engine's [2] int64 key, or None when every row is
+        greedy) feed the keyed pick of every position, as the reference
+        does (gpt.py:767-769): each row's stream, and position posf + 1;
+        with no key, temps may lie on the CPU (see `sample_tokens`). The
+        reference's grammar tables (A9) are not taken. kv / kv_scales are
+        updated IN PLACE.
 
         Flat layout slot-major [S·(k+1)]: row s·(k+1)+j holds the token
         at position pos0[s]+j with kv_len pos0[s]+j+1, so each proposal
@@ -350,9 +451,11 @@ class GPTForCausalLM(nn.Module):
             torch.arange(T, dtype=i32, device=dev), kv, kv_scales=kv_scales,
             max_q_per_slot=Q)
         lv = logits[0].float()                                   # [T, V]
-        picks = sample_tokens(
-            lv, None if temps is None else temps.repeat_interleave(Q)
-        ).reshape(S, Q)
+        def per_row(x):
+            return None if x is None else x.repeat_interleave(Q)
+
+        picks = sample_tokens(lv, per_row(temps), per_row(top_ps),
+                              per_row(streams), posf + 1, key).reshape(S, Q)
         # longest matching proposal prefix, clamped to the window width
         match = (drafts == picks[:, :k]) & (
             torch.arange(int(k), dtype=i32, device=dev)[None, :]

@@ -4,7 +4,8 @@ package's `LLMEngine` on CPU (gpt_tiny, the same weights in both).
 Greedy outputs must be token-identical, with chunked prefill and with
 preemption, on float, int8 and packed-int4 KV pools, and the schedule
 itself (ticks, preemptions) must match. Also: `PagePool` invariants, the
-`LLMServer` surface, the knobs that are not ported yet, and the rule
+`LLMServer` surface, the sampling knobs' checks, the knobs that are not
+ported yet, and the rule
 that the port imports neither jax nor the JAX package. Speculative
 (n-gram) engines: tests/test_torch_speculative.py.
 """
@@ -173,7 +174,7 @@ def test_engine_rejects_unservable_requests():
 
 
 @pytest.mark.parametrize("knob,row", [
-    ({"decode_k": 4}, "A6"), ({"draft_model": object()}, "A7"),
+    ({"draft_model": object()}, "A7"),
     ({"spec_mode": "draft"}, "A7"), ({"token_strs": ["a"]}, "A9"),
     ({"prefix_cache": True}, "A10"), ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
@@ -181,12 +182,22 @@ def test_unported_knobs_raise_naming_roadmap_row(knob, row):
         teng.LLMEngineConfig(**knob)
 
 
-def test_sampled_decode_not_ported_yet():
+def test_sampling_knobs_validated_at_submit():
+    """temperature >= 0 and top_p in (0, 1] are checked where a request
+    enters (add_request, and `submit` on the caller's thread); a sampled
+    request is served, and an unknown knob is a TypeError."""
     tm = GPTForCausalLM(gpt_tiny(), device="cpu", seed=1)
     eng = teng.LLMEngine(tm, teng.LLMEngineConfig(num_slots=2,
                                                   max_model_len=32))
-    with pytest.raises(NotImplementedError, match="A5"):
-        eng.add_request(np.arange(3), temperature=0.7)
+    with pytest.raises(ValueError, match="temperature"):
+        eng.add_request(np.arange(3), temperature=-0.1)
+    with pytest.raises(ValueError, match="top_p"):
+        eng.add_request(np.arange(3), temperature=0.7, top_p=1.01)
+    req = eng.add_request(np.arange(3), max_new_tokens=4, temperature=0.7,
+                          top_p=0.5)
+    assert req.sample_stream == 0 and req.top_p == 0.5
+    _drain(eng, 50)
+    assert len(req.future.result(timeout=0)) == 7
     with pytest.raises(TypeError):
         teng.LLMEngineConfig(no_such_knob=1)
 

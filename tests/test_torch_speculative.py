@@ -324,10 +324,13 @@ def test_verify_step_matches_reference(kv_dtype):
 
 
 def test_sample_tokens_greedy_first_max_and_unported_draws():
+    """Greedy rows take the first maximal index; a draw needs the engine's
+    key (the host picks the branch), so a sampled row without one
+    raises."""
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, -1.0, 3.0, 3.0]])
     assert sample_tokens(logits).tolist() == [1, 0]
     assert sample_tokens(logits, torch.zeros(2)).dtype == torch.int32
-    with pytest.raises(NotImplementedError, match="A5"):
+    with pytest.raises(ValueError, match="key"):
         sample_tokens(logits, torch.tensor([0.0, 0.7]))
 
 
