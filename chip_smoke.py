@@ -9,16 +9,19 @@ continues:
 
 1. card     — the card's name and power limit (nvidia-smi).
 2. build    — every CUDA kernel of the serving and training paths, from
-              `csrc/`, with nvcc for sm_90a (one nvcc per source, started
+              `csrc/` (paged attention, flash attention, the int8 GEMM),
+              with nvcc for sm_90a (one nvcc per source, started
               together). Prints the registers, spill bytes and static
               shared memory (the `-Xptxas -v` log), the blocks per SM the
               registers allow, the paged tensor-core kernels' shared
               memory per block (static + dynamic, from the profiler's
               record of one launch each), and the count of tensor-core
-              instructions (HMMA / HGMMA) in the SASS (`cuobjdump -sass`)
-              of each flash kernel and of the paged tensor-core kernels
-              (K1's and K2's, at head_dim 64 and 128, on bf16, int8 and
-              int4 pools); fails if a tensor-core kernel has none.
+              instructions (HMMA / HGMMA; IMMA for int8) in the SASS
+              (`cuobjdump -sass`) of each flash kernel, of the paged
+              tensor-core kernels (K1's and K2's, at head_dim 64 and 128,
+              on bf16, int8 and int4 pools) and of the int8 GEMM (f32 and
+              bf16 x, int8 and packed int4 weights); fails if a
+              tensor-core kernel has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               each output row within a tolerance of that row's max-abs
               (1e-4 for f32 arithmetic, 2e-2 where q or the pool is
@@ -55,7 +58,15 @@ continues:
               host microseconds per call of both (400 calls back to
               back). The library times of K3-K5 are torch's
               `scaled_dot_product_attention` forward and the backward
-              node it records, called directly.
+              node it records, called directly. The int8 GEMM (the W8A8
+              linear of weight-only serving) against its plain version at
+              gpt_small's four linear shapes x T 8, 13 and 256, int8 and
+              packed-int4 weights, bf16 and f32 x, a bias and a zero row:
+              the activation codes, steps and int32 accumulators equal,
+              the output within 1 ulp; timed at T 8 and 256 (bf16 x)
+              beside its bound (weight bytes, or int8 operations at 1979
+              TOPS), `torch._int_mm` on the same codes (T 256) and the
+              float layer's bf16 `torch.addmm`.
 4. serve    — `LLMServer` over gpt_small (random weights from a seed: one
               model for every serve phase), bf16 weights and bf16 KV
               pool, 8 greedy requests with prompts of 16-900 tokens. The
@@ -121,6 +132,31 @@ continues:
               per window (per tick at k=1) beside the card's name and
               power limit; (d) a sampled n-gram burst (spec_k 4): K2 12
               per verify window, K1 12 per tick.
+5e. draft   — draft-model speculation (spec_k 4) on a damped gpt_small
+              and its 1-block draft (bench.py's `_spec_draft_pair` at
+              this width): (a) the propose window's graph replay vs the
+              same window run eagerly on copies of the draft pools, with
+              a lag-1 and a lag-0 row, after the capture stream's
+              workspace was outgrown: emits and every draft pool and
+              scale-plane byte equal, on bf16, int8 and int4 pools, greedy
+              and sampled, the profiler seeing 5 `rpa_tc_kernel` and a
+              graph launch in the replay; (b) `LLMEngine` with the draft
+              vs the k=1 engine (bf16 greedy and sampled): logits within
+              SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties;
+              (c) `LLMServer` bursts on bf16, int8 and int4 pools, the
+              counts set to 0 just before each: K2 12 per verify window,
+              K1 12 per target tick, 1 per draft catch-up tick and 5 per
+              propose warm-up and replay, all on the tensor-core route,
+              at most two propose captures, proposals accepted; tok/s,
+              acceptance rate, host / draft / stream ms per window.
+5f. weights — gpt_small after `quantize_model_int8` and after
+              `quantize_model_int4` (48 linears each): `LLMServer` bursts
+              at decode_k 1 and 4, the counts set to 0 just before each:
+              the int8 GEMM 48 per tick and 48 x 4 per fused warm-up and
+              replay, K1 as in 5d; the k=1 engine through the GEMM vs
+              through its plain version: logits within
+              SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties; tok/s
+              and the weight bytes saved.
 6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
@@ -153,10 +189,13 @@ continues:
               within 1e-2.
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
-(bf16, f32, int8, int4 pools) and K3-K5, with its launches from the
-main-path run that drives it (K1 on bf16, int8 and int4 pools: the
-greedy decode_k 8 burst of phase 5d, whose graph replays' share is
-"graph_launches"); the last line is
+(bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
+weights, one layer's four linears at T 8 and at T 256), with its
+launches from the main-path run that drives it (K1 on bf16, int8 and
+int4 pools: the greedy decode_k 8 burst of phase 5d, whose graph
+replays' share is "graph_launches", plus the 5e draft burst's launches
+and its propose graph replays' share; the GEMM: 5f's k=1 burst, and its
+decode_k 4 burst's); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
@@ -172,17 +211,20 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, FLOP/s, int8 OP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OPS = 1979e12
 SM_REGISTERS = 65536     # 32-bit registers per SM
 # the tensor-core kernels, by library, and their threads per block
 # (kTcThreads in csrc/flash_attention.cu, kThreads in paged_attention.cu's
-# tc namespace); the paged ones are templated on head_dim and pool kind
-# (1 bf16, 8 int8, 4 int4)
+# tc namespace and in int8_gemm.cu); the paged ones are templated on
+# head_dim and pool kind (1 bf16, 8 int8, 4 int4), the int8 GEMM on x's
+# type and the weight's width (int8, or packed int4)
 TC_KERNELS = {"flash_attention": ("fa_fwd_tc_kernel", "fa_bwd_dq_tc_kernel",
                                   "fa_bwd_dkv_tc_kernel"),
-              "paged_attention": ("rpa_tc_kernel", "rpa_tc_qblock_kernel")}
+              "paged_attention": ("rpa_tc_kernel", "rpa_tc_qblock_kernel"),
+              "int8_gemm": ("w8a8_gemm_kernel",)}
 TC_PAGED_KINDS = (1, 8, 4)
 TC_THREADS = 128
 
@@ -194,17 +236,20 @@ SERVE_CFG = dict(num_slots=8, page_size=16, max_model_len=1024,
 
 def _kernel_label(mangled):
     """'fa_fwd_tc_kernel<64>' / 'fa_fwd_kernel<bf16, 4, 1>' /
-    'rpa_tc_kernel<64, 8>' from a mangled name of a templated flash
-    attention kernel or of the paged tensor-core route; None for any other
-    function."""
-    m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel)I(.*?)EEv", mangled)
+    'rpa_tc_kernel<64, 8>' / 'w8a8_gemm_kernel<bf16, int4>' /
+    'quantize_rows_kernel<f32>' from a mangled name of a templated flash
+    attention kernel, of the paged tensor-core route or of the int8 GEMM;
+    None for any other function."""
+    m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel|w8a8_gemm_kernel|"
+                  r"quantize_rows_kernel)I(.*?)EEv", mangled)
     if not m:
         return None
     base, targs = m.groups()
     dtype = (["bf16"] if "bfloat16" in targs
              else ["f32"] if targs.startswith("f") else [])
     ints = re.findall(r"Li(\d+)E", targs)
-    return f"{base}<{', '.join(dtype + ints)}>"
+    width = [("int8", "int4")[int(b)] for b in re.findall(r"Lb(\d)E", targs)]
+    return f"{base}<{', '.join(dtype + ints + width)}>"
 
 
 def _ptxas_resources(log_path):
@@ -249,7 +294,7 @@ def _tensor_core_instructions(nvcc, so_path):
             cur = _kernel_label(m.group(1))
             if cur:
                 counts[cur] = 0
-        elif cur and re.search(r"\bHG?MMA\b", line):
+        elif cur and re.search(r"\b(?:HG?MMA|IMMA)\b", line):
             counts[cur] += 1
     return counts
 
@@ -264,21 +309,25 @@ def _blocks_by_registers(regs, threads):
 
 def _tc_labels(head_dims):
     """The tensor-core kernels' labels by library: each flash kernel at
-    each head_dim, each paged one at each head_dim and pool kind."""
+    each head_dim, each paged one at each head_dim and pool kind, the
+    int8 GEMM at each x type and weight width."""
     fl, pg = TC_KERNELS["flash_attention"], TC_KERNELS["paged_attention"]
     return {"flash_attention": [f"{k}<{d}>" for k in fl for d in head_dims],
             "paged_attention": [f"{k}<{d}, {kind}>" for k in pg
                                 for d in head_dims
-                                for kind in TC_PAGED_KINDS]}
+                                for kind in TC_PAGED_KINDS],
+            "int8_gemm": [f"{k}<{x}, {w}>" for k in TC_KERNELS["int8_gemm"]
+                          for x in ("f32", "bf16") for w in ("int8", "int4")]}
 
 
 def build_report(build, head_dims):
     """Prints the registers, spills and static shared memory (ptxas log;
     for the tensor-core kernels, the blocks per SM the registers allow)
-    and the tensor-core instruction count of every flash kernel and of the
-    paged tensor-core kernels; fails when a tensor-core kernel (at each of
-    `head_dims`, and each pool kind for the paged ones) has no tensor-core
-    instruction."""
+    and the tensor-core instruction count (HMMA / HGMMA; IMMA for int8) of
+    every flash kernel, of the paged tensor-core kernels and of the int8
+    GEMM's two kernels; fails when a tensor-core kernel (at each of
+    `head_dims`, and each pool kind for the paged ones; each x type and
+    weight width for the GEMM) has no tensor-core instruction."""
     paths = build.build(list(TC_KERNELS))
     want = _tc_labels(head_dims)
     mma = {}
@@ -296,7 +345,7 @@ def build_report(build, head_dims):
             print(f"build {label}: {r.get('regs')} registers, spill stores "
                   f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} "
                   f"B, static smem {r.get('smem')} B{extra}; "
-                  f"{lib_mma.get(label, 0)} HMMA/HGMMA in its SASS")
+                  f"{lib_mma.get(label, 0)} HMMA/HGMMA/IMMA in its SASS")
     if not all(mma.get(label, 0) > 0 for labels in want.values()
                for label in labels):
         raise AssertionError(f"tensor-core kernels without tensor-core "
@@ -818,6 +867,151 @@ def check_paged_attention(pa, flush):
     return res
 
 
+# ------------------------------------------------------- the int8 GEMM
+
+# gpt_small's four linears, (in, out): qkv, proj, fc1, fc2
+GEMM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
+# rows: the decode tick (8 slots), an odd count, the mixed tick (budget)
+GEMM_ROWS = (8, 13, 256)
+GEMM_TIMED_ROWS = (8, 256)
+GEMM_WIDTHS = {"w8a8": False, "w4a8": True}    # launch key -> int4
+
+
+def _gemm_weight(K, N, int4, seed):
+    """A per-out-channel quantized weight [K, N] from N(0, 0.02) values
+    (absmax scales; the MSE search is the codec's, tested on CPU): the
+    int8 codes (or packed int4), the f32 steps [1, N], and the bf16
+    weight of the float layer; on the card."""
+    from paddle_tpu_torch.quantization import runtime as qrt
+
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((K, N), generator=g) * 0.02
+    qmax = qrt.QMAX4 if int4 else qrt.QMAX
+    scale = w.abs().amax(0, keepdim=True).clamp(min=1e-8)
+    q = torch.clamp(torch.round(w / scale * qmax), -qmax, qmax).to(torch.int8)
+    wq = qrt.pack_int4(q, axis=0) if int4 else q
+    dev = torch.device("cuda")
+    return (wq.contiguous().to(dev), (scale / qmax).to(dev),
+            w.to(torch.bfloat16).to(dev), q.to(dev))
+
+
+def _gemm_x(T, K, dtype, seed):
+    """x [T, K] on the card; row 3 is all zeros (a zero row's step is the
+    floor 1e-8 / 127 and its codes 0)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((T, K), generator=g) * 2
+    x[3] = 0
+    return x.to(dtype).to("cuda")
+
+
+def _ulps(a, b):
+    """Max |a - b| in units of the last place of b's dtype at b."""
+    mant = 7 if b.dtype == torch.bfloat16 else 23
+    e = torch.frexp(b.float().abs().clamp(min=1e-30)).exponent
+    ulp = torch.ldexp(torch.ones_like(b, dtype=torch.float32),
+                      (e - 1 - mant).to(torch.float32))
+    return ((a.float() - b.float()).abs() / ulp).max().item()
+
+
+def _gemm_bound(T, K, N, int4, x_dtype):
+    """Least time: the weight bytes (half for packed int4) and steps, x,
+    the bias and the output once each over HBM bandwidth, or the 2·T·K·N
+    int8 operations over the dense int8 peak; the larger."""
+    xs = torch.empty((), dtype=x_dtype).element_size()
+    nbytes = (K * N // (2 if int4 else 1) + 4 * N + T * K * xs + N * xs
+              + T * N * xs)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * T * K * N / PEAK_INT8_OPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_int8_gemm(ig, flush):
+    """The int8 GEMM (`int8_gemm.w8a8_linear`) against its plain version on
+    the card at gpt_small's four linear shapes x T 8, 13 and 256, int8 and
+    packed-int4 weights, bf16 and f32 x, with a bias and a zero row: the
+    activation codes, the steps and the int32 accumulators equal, the
+    outputs within 1 ulp of x's dtype. Times at T 8 and 256 with bf16 x
+    (the serving type): kernel, plain, bound, `torch._int_mm` on the same
+    codes where its shape rules allow (T > 16), and the float layer's bf16
+    `torch.addmm`. Returns {(key, T): numbers summed over the four
+    shapes} (one decoder layer's linears), each with its per-shape
+    numbers."""
+    res = {}
+    for key, int4 in GEMM_WIDTHS.items():
+        for si, (K, N) in enumerate(GEMM_SHAPES):
+            wq, ws, wb, q = _gemm_weight(K, N, int4, seed=si)
+            worst, worst_abs = 0.0, 0.0
+            for T in GEMM_ROWS:
+                for dt in (torch.bfloat16, torch.float32):
+                    x = _gemm_x(T, K, dt, seed=T)
+                    bias = (torch.randn((N,), device="cuda") * 0.1).to(dt)
+                    before = dict(ig.launches)
+                    out, codes, steps, acc = ig.w8a8_linear(
+                        x, wq, ws, bias, int4, return_parts=True)
+                    moved = {k: n - before[k] for k, n in ig.launches.items()
+                             if n != before[k]}
+                    ref, rcodes, rsteps, racc = ig.w8a8_linear_plain(
+                        x, wq, ws, bias, int4, return_parts=True)
+                    torch.cuda.synchronize()
+                    label = f"{key} [{T}, {K}] x [{K}, {N}] {str(dt)[6:]}"
+                    ulps = _ulps(out, ref)
+                    if not (moved == {key: 1} and torch.equal(codes, rcodes)
+                            and torch.equal(steps, rsteps)
+                            and torch.equal(acc, racc) and ulps <= 1
+                            and torch.isfinite(out).all()):
+                        raise AssertionError(
+                            f"{label}: launches {moved}, codes equal "
+                            f"{torch.equal(codes, rcodes)}, steps equal "
+                            f"{torch.equal(steps, rsteps)}, accumulators "
+                            f"equal {torch.equal(acc, racc)}, output off "
+                            f"by {ulps} ulp")
+                    worst = max(worst, ulps)
+                    worst_abs = max(worst_abs, (out.float() - ref.float())
+                                    .abs().max().item())
+            for T in GEMM_TIMED_ROWS:
+                x = _gemm_x(T, K, torch.bfloat16, seed=T)
+                bias = torch.zeros((N,), dtype=torch.bfloat16, device="cuda")
+                codes = ig.quantize_rows_plain(x)[0]
+                ms = _median_ms(lambda: ig.w8a8_linear(x, wq, ws, bias,
+                                                       int4), flush)
+                plain_ms = _median_ms(lambda: ig.w8a8_linear_plain(
+                    x, wq, ws, bias, int4), flush)
+                lib_ms = (_median_ms(lambda: torch._int_mm(codes, q), flush)
+                          if T > 16 else None)
+                bf16_ms = _median_ms(lambda: torch.addmm(bias, x, wb), flush)
+                bound_ms, bound_by = _gemm_bound(T, K, N, int4, x.dtype)
+                r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bf16_ms=bf16_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, max_abs_err=worst_abs)
+                print(f"int8 GEMM {key} [{T}, {K}] x [{K}, {N}]: codes, "
+                      f"steps and int32 accumulators equal to the plain "
+                      f"version's, output within {worst:g} ulp (T 8, 13, "
+                      f"256; bf16 and f32 x); bf16 x: kernel {ms:.4f} ms, "
+                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound, "
+                      f"torch._int_mm "
+                      + (f"{lib_ms:.4f} ms" if lib_ms is not None else
+                         "n/a (needs more than 16 rows)")
+                      + f", bf16 addmm of the float layer {bf16_ms:.4f} ms")
+                agg = res.setdefault((key, T), dict(
+                    ms=0.0, plain_ms=0.0, library_ms=0.0 if T > 16 else None,
+                    bf16_ms=0.0, bound_ms=0.0, bound_by=bound_by,
+                    max_abs_err=0.0, shapes={}))
+                for f in ("ms", "plain_ms", "bf16_ms", "bound_ms"):
+                    agg[f] += r[f]
+                agg["max_abs_err"] = max(agg["max_abs_err"], worst_abs)
+                if lib_ms is not None:
+                    agg["library_ms"] += lib_ms
+                agg["shapes"][f"{K}x{N}"] = r
+    for (key, T), r in res.items():
+        print(f"int8 GEMM {key}, one layer's four linears at T {T}: kernel "
+              f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bf16 addmm {r['bf16_ms']:.4f} ms"
+              + (f", torch._int_mm {r['library_ms']:.4f} ms"
+                 if r["library_ms"] is not None else ""))
+    return res
+
+
 # ---------------------------------------------------------------- K3-K5
 
 # the training path's attention call: gpt_small at b16·s1024 → b·h 192
@@ -1121,7 +1315,9 @@ def _drive(eng, reqs):
     model hands them to `sample_tokens`), a fused window's from the
     window's logits (`_fused_fn.logits`: one [S, vocab] per iteration,
     rewritten by each replay), a tick's from `last_logits` in plan
-    (admission) order."""
+    (admission) order. A draft-model window also samples in its propose
+    step (num_slots rows a call, when it runs eagerly or is captured);
+    the verify's call is the one with num_slots · (k+1) rows."""
     from paddle_tpu_torch.text.models import gpt as gpt_mod
 
     logits = [[] for _ in reqs]
@@ -1141,8 +1337,7 @@ def _drive(eng, reqs):
             frontier = {i: eng._slots.index(r) for i, r in enumerate(reqs)
                         if r in eng._slots
                         and r.n_prefilled == len(r.tokens) - 1}
-            kinds = (eng.stats["fused_steps"],
-                     eng.stats.get("ngram_windows", 0))
+            kinds = (eng.stats["fused_steps"], _spec_windows(eng))
             eng.last_logits = None
             window.clear()
             eng.step()
@@ -1150,7 +1345,7 @@ def _drive(eng, reqs):
                      if len(r.tokens) > before[i]]
             ticked = grown
             fused = eng.stats["fused_steps"] > kinds[0]
-            if fused or eng.stats.get("ngram_windows", 0) > kinds[1]:
+            if fused or _spec_windows(eng) > kinds[1]:
                 # the frontier rows took a window
                 ticked = [i for i in grown if i not in frontier]
                 for i in grown:
@@ -1162,7 +1357,9 @@ def _drive(eng, reqs):
                                 [lv[s] for lv in eng._fused_fn.logits[:n]])
                         else:
                             row = frontier[i] * Q
-                            rows = window[0][row:row + n]
+                            verify = next(lv for lv in window if
+                                          lv.shape[0] == eng.num_slots * Q)
+                            rows = verify[row:row + n]
                         logits[i] += list(rows.float().cpu())
                         chunks[i].append(("window", n))
             ticked = sorted(ticked, key=lambda i: reqs[i].admit_seq)
@@ -1175,6 +1372,55 @@ def _drive(eng, reqs):
     finally:
         gpt_mod.sample_tokens = sample
     return logits, chunks
+
+
+def _spec_windows(eng):
+    """Verify windows an engine ran: n-gram and draft-model ones."""
+    return (eng.stats.get("ngram_windows", 0)
+            + eng.stats.get("spec_windows", 0))
+
+
+def _cross_compare(label, kr, pr):
+    """Request by request, up to its first differing token, the kernel
+    run `kr` against the plain run `pr` (dicts of per-request tokens,
+    logits rows and chunks from `_drive`): the chunks that end at or
+    before the difference are equal, every emitted token's logits agree
+    within SERVE_BF16_LOGIT_TOL (checked by the caller on the returned
+    worst), and a differing token lies at a near-tie of the plain run (its
+    top two logits within that tolerance). Returns (worst logits max-abs
+    difference, rows compared, near-ties)."""
+    worst, rows, ties = 0.0, 0, []
+    for i in range(len(kr["tokens"])):
+        tk, tp = kr["tokens"][i], pr["tokens"][i]
+        diff = np.flatnonzero(tk != tp)
+        d = int(diff[0]) if diff.size else len(tk)
+        # the chunks that end at or before the first difference agree
+        ck, n = [], 0
+        for c in kr["chunks"][i]:
+            if n + c[1] > d:
+                break
+            ck.append(c)
+            n += c[1]
+        cp = pr["chunks"][i][:len(ck)]
+        if ck != cp:
+            raise AssertionError(f"{label}: request {i}'s steps differ "
+                                 f"before token {d}: {ck} vs {cp}")
+        # logits of every token up to and including the first difference
+        # (its context is the same in both runs)
+        for j in range(min(d + 1, len(tk))):
+            worst = max(worst, (kr["logits"][i][j]
+                                - pr["logits"][i][j]).abs().max().item())
+            rows += 1
+        if d < len(tk):
+            top2 = pr["logits"][i][d].topk(2).values
+            gap = (top2[0] - top2[1]).item()
+            if not gap <= SERVE_BF16_LOGIT_TOL:
+                raise AssertionError(
+                    f"{label}: request {i} token {d} is {tk[d]} vs the "
+                    f"plain run's {tp[d]}, whose top two logits differ by "
+                    f"{gap:.3e}")
+            ties.append(f"request {i} token {d} (gap {gap:.2e})")
+    return worst, rows, ties
 
 
 def serve_cross(pa, model, kv_dtype, spec, prompts, label):
@@ -1227,37 +1473,7 @@ def serve_cross(pa, model, kv_dtype, spec, prompts, label):
             f"{label}: kernel run {kr['ticks']} ticks + {kr['windows']} "
             f"windows, launches {kr['launches']} (tensor-core {kr['tc']}); "
             f"plain run launches {pr['launches']}")
-    worst, rows, ties = 0.0, 0, []
-    for i in range(len(prompts)):
-        tk, tp = kr["tokens"][i], pr["tokens"][i]
-        diff = np.flatnonzero(tk != tp)
-        d = int(diff[0]) if diff.size else len(tk)
-        # the chunks that end at or before the first difference agree
-        ck, n = [], 0
-        for c in kr["chunks"][i]:
-            if n + c[1] > d:
-                break
-            ck.append(c)
-            n += c[1]
-        cp = pr["chunks"][i][:len(ck)]
-        if ck != cp:
-            raise AssertionError(f"{label}: request {i}'s steps differ "
-                                 f"before token {d}: {ck} vs {cp}")
-        # logits of every token up to and including the first difference
-        # (its context is the same in both runs)
-        for j in range(min(d + 1, len(tk))):
-            worst = max(worst, (kr["logits"][i][j]
-                                - pr["logits"][i][j]).abs().max().item())
-            rows += 1
-        if d < len(tk):
-            top2 = pr["logits"][i][d].topk(2).values
-            gap = (top2[0] - top2[1]).item()
-            if not gap <= SERVE_BF16_LOGIT_TOL:
-                raise AssertionError(
-                    f"{label}: request {i} token {d} is {tk[d]} vs the "
-                    f"plain run's {tp[d]}, whose top two logits differ by "
-                    f"{gap:.3e}")
-            ties.append(f"request {i} token {d} (gap {gap:.2e})")
+    worst, rows, ties = _cross_compare(label, kr, pr)
     print(f"serve cross-check {label}, kernels vs plain version on the "
           f"card: {kr['ticks']} ticks + {kr['windows']} windows (plain "
           f"{pr['ticks']} + {pr['windows']}), accepted {kr['accepted']} "
@@ -1445,19 +1661,20 @@ def _bytes(t):
     return t.view(torch.uint8)
 
 
-def _grow_workspace(pa, eng, stream):
-    """An eager K1 call at 4096 rows on the fused step's capture stream:
-    the stream's tensor-core workspace is outgrown and replaced, so a
-    graph that had not kept its own would now hold a freed address."""
-    H = eng._pool_shape[2]
-    D = eng.model.config.hidden_size // H
+def _grow_workspace(pa, model, kv, kv_scales, eng, stream):
+    """An eager K1 call at 4096 rows on a window's capture stream, against
+    `model`'s pools `kv` / `kv_scales`: the stream's tensor-core workspace
+    is outgrown and replaced, so a graph that had not kept its own would
+    now hold a freed address."""
+    H = model.config.num_heads
+    D = model.config.hidden_size // H
     q = torch.zeros((4096, H, D), dtype=torch.bfloat16, device="cuda")
     z = torch.zeros((4096,), dtype=torch.int32, device="cuda")
     pt = torch.zeros((eng.num_slots, eng.pages_per_seq), dtype=torch.int32,
                      device="cuda")
-    sc = eng._kv_scales or [None, None]
+    sc = kv_scales or [None, None]
     with torch.cuda.stream(stream):
-        pa.ragged_paged_attention(q, eng._kv[0], eng._kv[1], pt, z, z,
+        pa.ragged_paged_attention(q, kv[0], kv[1], pt, z, z,
                                   k_scales=sc[0], v_scales=sc[1])
     torch.cuda.synchronize()
 
@@ -1486,7 +1703,7 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False):
         eng.step()
     fs = eng._fused_fn
     graph = fs._graphs[sampled]
-    _grow_workspace(pa, eng, fs._stream)
+    _grow_workspace(pa, model, eng._kv, eng._kv_scales, eng, fs._stream)
     outgrown = [w.data_ptr() for w in graph.workspaces] != [
         w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
     sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
@@ -1657,26 +1874,33 @@ def _near_tie(row, req, d, key, tol):
     return (top2[0] - top2[1]).item(), tol / req.temperature
 
 
-def fused_cross(model, kv_dtype, k, prompts, label, sampled=False):
+def fused_cross(model, kv_dtype, k, prompts, label, sampled=False,
+                draft=None):
     """The serve config through `LLMEngine` twice on the card from the
     same model, prompts and seed: at decode_k 1 and at decode_k k (its
-    windows graph replays). Request by request up to its first differing
-    token, every emitted token's logits within SERVE_BF16_LOGIT_TOL; a
-    token may differ only at a near-tie of the k=1 run (`_near_tie`), and
-    the request is compared no further."""
+    windows graph replays) — or, with a `draft` model, with draft-model
+    speculation at spec_k k (its propose windows graph replays, its
+    verify on device drafts). Request by request up to its first
+    differing token, every emitted token's logits within
+    SERVE_BF16_LOGIT_TOL; a token may differ only at a near-tie of the
+    k=1 run (`_near_tie`), and the request is compared no further."""
     from paddle_tpu_torch.inference import LLMEngine
 
     kw = SAMPLED if sampled else {}
     runs = []
     for kk in (1, k):
-        eng = LLMEngine(model, _fused_cfg(kv_dtype, kk))
+        spec = (dict(draft_model=draft, spec_k=k)
+                if draft is not None and kk > 1 else {})
+        eng = LLMEngine(model, _fused_cfg(kv_dtype, 1 if spec else kk,
+                                          **spec))
         reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
                 for p in prompts]
         logits, _ = _drive(eng, reqs)
         runs.append((eng, reqs, logits))
     (e1, r1, l1), (ek, rk, lk) = runs
-    if not ek.stats["fused_steps"]:
-        raise AssertionError(f"{label}: no fused window ran")
+    windows = ek.stats["fused_steps"] + _spec_windows(ek)
+    if not windows:
+        raise AssertionError(f"{label}: no window ran")
     key = e1._key.cpu()
     worst, rows, ties = 0.0, 0, []
     for i, p in enumerate(prompts):
@@ -1698,9 +1922,9 @@ def fused_cross(model, kv_dtype, k, prompts, label, sampled=False):
                     f"run's {t1[d]}, whose top two scores differ by "
                     f"{gap:.3e} (tol {tol:.2e})")
             ties.append(f"request {i} token {d} (gap {gap:.2e})")
-    print(f"fused cross-check {label}, decode_k {k} vs 1 on the card: "
-          f"{ek.stats['fused_steps']} windows + "
-          f"{ek.stats['steps'] - ek.stats['fused_steps']} ticks vs "
+    what = f"draft spec_k {k}" if draft is not None else f"decode_k {k}"
+    print(f"fused cross-check {label}, {what} vs decode_k 1 on the card: "
+          f"{windows} windows + {ek.stats['steps'] - windows} ticks vs "
           f"{e1.stats['steps']} ticks; {rows} emitted rows compared, logits "
           f"max abs diff {worst:.3e} (tol {SERVE_BF16_LOGIT_TOL:.0e}); "
           f"tokens differ at {len(ties)} near-ties"
@@ -1793,6 +2017,369 @@ def fused_phase(pa, model, random, card):
             f"{'device' if k > 1 else 'stream'} "
             f"{res[('bfloat16', k)][burst]['dev_ms']:.3f} ms per "
             f"{'window' if k > 1 else 'tick'}" for k in (1, *FUSED_KS)))
+    return res
+
+
+# ---- draft-model speculation (5e) and weight-only serving (5f) ----
+
+SPEC_K = 4
+SPEC_POOLS = ("bfloat16", "int8", "int4")
+
+
+def spec_pair():
+    """(target, draft) at gpt_small's width, bf16 from seed 1234, built as
+    the reference bench's `_spec_draft_pair` (bench.py:831): the draft is
+    one block holding copies of the target's embeddings, first block and
+    final LN; the target's blocks 2-12 have proj / fc2 damped by 0.01."""
+    from paddle_tpu_torch.profile_serve import spec_draft_pair
+    from paddle_tpu_torch.text.models.gpt import gpt_small
+
+    return spec_draft_pair(gpt_small(), seed=1234)
+
+
+def _spec_cfg(kv_dtype, draft):
+    return _fused_cfg(kv_dtype, 1, draft_model=draft, spec_k=SPEC_K)
+
+
+def _draft_write_row(spec, slot, req):
+    """Write the draft's KV row at position n_prefilled - 1 of `req` (the
+    row a lag of 1 leaves unwritten) through the draft's single tick, so
+    the request's lag becomes 0 (the state a rejected window leaves)."""
+    eng = spec.engine
+    ps, T = eng.page_size, spec._draft_T
+    p = req.n_prefilled - 1
+    rows = torch.zeros((5, T), dtype=torch.int32)
+    rows[:, 0] = torch.tensor([req.tokens[p], p, slot,
+                               req.pages[p // ps] * ps + p % ps, p + 1])
+    rows = rows.cuda()
+    spec._prefill_fn(rows[0], rows[1], rows[2], rows[3],
+                     torch.from_numpy(eng._page_tables).cuda(), rows[4],
+                     torch.zeros((1,), dtype=torch.int32, device="cuda"),
+                     spec._kv, spec._kv_scales or None)
+    req.draft_prefilled = req.n_prefilled
+
+
+def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
+    """Propose graph against eager, bit-identical: an `LLMEngine` with
+    the draft (spec_k 4) on a `kv_dtype` pool serves the prompts to its
+    first window (which captures the propose graph); the capture stream's
+    workspace is then outgrown by an eager call and a sentinel allocated.
+    At the next window with two live frontier rows, after the real
+    catch-up, one row is set to a lag of 1 and another to a lag of 0;
+    its propose window runs eagerly on copies of the draft pools and
+    scale planes from the same staged inputs, then as the graph replay
+    under the profiler. The emits and every draft pool byte must be
+    equal, the sentinel untouched, and the profiler must see (k+1) x the
+    draft's layers `rpa_tc_kernel` launches and a graph launch in the
+    replay."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference import LLMEngine
+
+    eng = LLMEngine(target, _spec_cfg(kv_dtype, draft))
+    kw = SAMPLED if sampled else {}
+    for p in prompts:
+        eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
+    while eng.stats["spec_windows"] == 0:
+        eng.step()
+    spec = eng._spec
+    prop = spec._propose_fn
+    graph = prop._graphs[sampled]
+    _grow_workspace(pa, draft, spec._kv, spec._kv_scales, eng, prop._stream)
+    outgrown = [w.data_ptr() for w in graph.workspaces] != [
+        w.data_ptr() for w in pa.stream_workspaces(prop._stream.cuda_stream)]
+    sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
+    catch_up, launch, seen = spec._catch_up, prop.launch, {}
+
+    def mixed(rows):
+        catch_up(rows)
+        if len(rows) < 2 or seen:
+            return
+        (sa, ra), (sb, rb) = rows[:2]
+        if ra.n_prefilled == ra.draft_prefilled:
+            ra.draft_prefilled -= 1            # lag 1
+        if rb.n_prefilled - rb.draft_prefilled == 1:
+            _draft_write_row(spec, sb, rb)     # lag 0
+        seen["rows"] = (sa, sb)
+
+    def gated(kv, kv_scales, smp):
+        if "rows" not in seen or "emits" in seen:
+            return launch(kv, kv_scales, smp)
+        lag, fin = prop.host_views()[6], prop.host_views()[3]
+        seen["lags"] = sorted(int(lag[s]) for s in seen["rows"]
+                              if not fin[s])
+        prop._static.copy_(prop._host)
+        kv_c = [p.clone() for p in kv]
+        sc_c = [p.clone() for p in kv_scales or []]
+        seen["eager"] = prop.eager(kv_c, sc_c or None, smp).cpu()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            emits = launch(kv, kv_scales, smp)
+            torch.cuda.synchronize()
+        seen["emits"] = emits.cpu()
+        seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
+                            zip(kv + (kv_scales or []), kv_c + sc_c))
+        seen["prof"] = prof
+        return emits
+
+    spec._catch_up, prop.launch = mixed, gated
+    try:
+        for _ in range(200):
+            if "emits" in seen or not eng.has_work():
+                break
+            eng.step()
+    finally:
+        del spec._catch_up, prop.launch
+    if "emits" not in seen:
+        raise AssertionError("draft gate: no window with two frontier rows")
+    rows = seen["prof"].key_averages()
+    tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
+             and "rpa_tc_kernel" in e.key)
+    graph_launches = sum(e.count for e in rows
+                         if "cudaGraphLaunch" in e.key)
+    want_tc = draft.config.num_layers * (SPEC_K + 1)
+    label = f"{kv_dtype}{' sampled' if sampled else ''}"
+    same = torch.equal(seen["emits"], seen["eager"])
+    print(f"draft gate {label}: propose graph replay vs eager run of one "
+          f"window (rows at lag {seen['lags']}): emits equal {same}, draft "
+          f"pools and scale planes byte-equal {seen['pools']}, after the "
+          f"capture stream's workspace was outgrown ({outgrown}; sentinel "
+          f"intact {bool((sentinel == 7).all())}); the profiler saw {tc} "
+          f"rpa_tc_kernel launches (want {want_tc}) and {graph_launches} "
+          "cudaGraphLaunch in the replay")
+    if not (same and seen["pools"] and outgrown and seen["lags"] == [0, 1]
+            and bool((sentinel == 7).all()) and tc == want_tc
+            and graph_launches >= 1):
+        raise AssertionError(f"draft gate {label} failed")
+
+
+def draft_serve(pa, target, draft, kv_dtype, prompts, card):
+    """`LLMServer` with the draft (spec_k 4) on a `kv_dtype` pool: a warm-up
+    request (which captures the propose graph), then the serve phase's 8
+    requests with the launch counts set to 0 just before and read just
+    after. K2 must have launched 12 times per verify window; K1 12 per
+    target tick, once per draft layer per draft catch-up tick and (k+1)
+    per draft layer per propose warm-up and replay; all on the
+    tensor-core route; one replay per window, at most two propose
+    captures, proposals accepted. Prints tok/s, the acceptance rate and
+    host / draft / stream ms per window (`profile_serve.SpecTimer`).
+    Returns the burst's numbers."""
+    from paddle_tpu_torch.inference import LLMServer
+    from paddle_tpu_torch.profile_serve import SpecTimer
+
+    server = LLMServer(target, _spec_cfg(kv_dtype, draft))
+    eng = server.engine
+    spec = eng._spec
+    prop = spec._propose_fn
+    layers, dlayers = target.config.num_layers, draft.config.num_layers
+    sfx = _KV_SUFFIX[kv_dtype]
+    catch_ups = []
+    tick = spec._prefill_fn
+
+    def counted(*args, **kw):
+        catch_ups.append(1)
+        return tick(*args, **kw)
+
+    spec._prefill_fn = counted
+    with server:
+        server.submit(prompts[0][:8],
+                      max_new_tokens=2 * SPEC_K + 2).result(timeout=600)
+        torch.cuda.synchronize()
+        st0, runs0, cu0 = dict(eng.stats), (prop.replays, prop.warmups), \
+            len(catch_ups)
+        timer = SpecTimer(spec)
+        pa.reset_launches()
+        t0 = time.perf_counter()
+        futs = [server.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+                for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        launches, tc = dict(pa.launches), dict(pa.tc_launches)
+        timer.remove()
+        host_ms, draft_ms, stream_ms = timer.ms()
+    _check_outputs(prompts, outs, target.config.vocab_size)
+    d = {k: eng.stats[k] - st0[k] for k in st0}
+    windows = d["spec_windows"]
+    ticks = d["steps"] - windows
+    replays, warmups = prop.replays - runs0[0], prop.warmups - runs0[1]
+    cus = len(catch_ups) - cu0
+    want = dict.fromkeys(launches, 0)
+    want["rpa" + sfx] = (layers * ticks + dlayers * cus
+                         + dlayers * (SPEC_K + 1) * (replays + warmups))
+    want["qblock" + sfx] = layers * windows
+    if (launches != want or tc != want or replays != windows
+            or not windows or prop.captures > 2 or not d["spec_accepted"]):
+        raise AssertionError(
+            f"draft serve {kv_dtype}: launches {launches} (tensor-core {tc})"
+            f" in {ticks} ticks, {windows} windows, {cus} catch-up ticks, "
+            f"{replays} replays, {warmups} warm-ups, captures "
+            f"{prop.captures}, accepted {d['spec_accepted']}; expected "
+            f"{want}")
+    gen = SERVE_NEW_TOKENS * len(prompts)
+    rate = d["spec_accepted"] / max(d["spec_proposed"], 1)
+    print(f"draft serve gpt_small bf16 + 1-layer draft, {kv_dtype} KV, "
+          f"spec_k {SPEC_K} ({card}): {gen} generated in {wall:.3f} s = "
+          f"{gen / wall:.1f} tok/s, {ticks} ticks + {windows} windows, "
+          f"proposed {d['spec_proposed']} accepted {d['spec_accepted']} = "
+          f"{100 * rate:.1f}% acceptance; per window (medians) host "
+          f"{host_ms:.3f} ms, draft {draft_ms:.3f} ms (catch-up + propose "
+          f"replay), stream {stream_ms:.3f} ms; K2{sfx} "
+          f"{want['qblock' + sfx]} = {layers} x {windows}, K1{sfx} "
+          f"{want['rpa' + sfx]} = {layers} x {ticks} + {dlayers} x {cus} "
+          f"catch-up ticks + {dlayers} x {SPEC_K + 1} x ({replays} replays "
+          f"+ {warmups} warm-ups), all on the tensor-core route; captures "
+          f"{prop.captures}")
+    return dict(tok_s=gen / wall, rate=rate, host_ms=host_ms,
+                draft_ms=draft_ms, stream_ms=stream_ms, windows=windows,
+                launches=want["rpa" + sfx],
+                graph=dlayers * (SPEC_K + 1) * replays)
+
+
+def draft_phase(pa, random, card):
+    """5e: the propose-graph gates (bf16, int8 and int4 pools, greedy and
+    sampled), the draft engine vs the k=1 engine on the card (bf16 pool,
+    greedy and sampled) and `LLMServer` bursts on the three pools.
+    Returns the bursts' numbers by pool."""
+    target, draft = spec_pair()
+    for kv in SPEC_POOLS:
+        for sampled in (False, True):
+            draft_gate(pa, target, draft, kv, random, sampled)
+    fused_cross(target, "bfloat16", SPEC_K, random,
+                "gpt_small bf16 KV + draft", draft=draft)
+    fused_cross(target, "bfloat16", SPEC_K, random,
+                "gpt_small bf16 KV + draft, sampled", sampled=True,
+                draft=draft)
+    return {kv: draft_serve(pa, target, draft, kv, random, card)
+            for kv in SPEC_POOLS}
+
+
+WEIGHT_KS = (1, 4)     # decode_k of the weight-only bursts
+
+
+def weights_model(bits):
+    """The serve model (gpt_small bf16, seed 1234) after
+    `quantize_model_int8` (bits 8) or `quantize_model_int4` (bits 4):
+    every linear of the 12 blocks through the int8 GEMM. Returns (model,
+    report)."""
+    from paddle_tpu_torch.quantization import runtime as qrt
+
+    model = serve_model()
+    quant = qrt.quantize_model_int8 if bits == 8 else qrt.quantize_model_int4
+    return model, quant(model)
+
+
+def weights_serve(ig, pa, model, key, k, prompts):
+    """`LLMServer` on a weight-quantized model at decode_k k (bf16 KV):
+    a warm-up request, then the serve phase's 8 requests with the counts
+    set to 0 just before and read just after. The int8 GEMM must have
+    launched once per linear (48) per tick and 48 x k per fused warm-up
+    and replay, under `key` ("w8a8" / "w4a8") only; K1 12 per tick and
+    12 x k per window run. Returns tok/s and the GEMM's launches."""
+    from paddle_tpu_torch.inference import LLMServer
+
+    server = LLMServer(model, _fused_cfg("bfloat16", k))
+    eng = server.engine
+    layers = model.config.num_layers
+    linears = 4 * layers
+    with server:
+        server.submit(prompts[0][:8],
+                      max_new_tokens=2 * k + 2).result(timeout=600)
+        torch.cuda.synchronize()
+        fs = eng._fused_fn
+        runs0 = (fs.replays, fs.warmups) if fs else (0, 0)
+        st0 = dict(eng.stats)
+        pa.reset_launches()
+        ig.reset_launches()
+        t0 = time.perf_counter()
+        futs = [server.submit(p, max_new_tokens=SERVE_NEW_TOKENS)
+                for p in prompts]
+        outs = [f.result(timeout=600) for f in futs]
+        wall = time.perf_counter() - t0
+        gemm, launches = dict(ig.launches), dict(pa.launches)
+    _check_outputs(prompts, outs, model.config.vocab_size)
+    windows = eng.stats["fused_steps"] - st0["fused_steps"]
+    ticks = eng.stats["steps"] - st0["steps"] - windows
+    runs = ((fs.replays - runs0[0]) + (fs.warmups - runs0[1])) if fs else 0
+    want_g = dict.fromkeys(gemm, 0)
+    want_g[key] = linears * (ticks + k * runs)
+    want_k = dict.fromkeys(launches, 0)
+    want_k["rpa"] = layers * (ticks + k * runs)
+    if gemm != want_g or launches != want_k or (k > 1 and not windows):
+        raise AssertionError(
+            f"weights serve {key} k={k}: GEMM launches {gemm}, paged "
+            f"{launches} in {ticks} ticks + {windows} windows ({runs} "
+            f"warm-ups and replays); expected {want_g}, {want_k}")
+    gen = SERVE_NEW_TOKENS * len(prompts)
+    print(f"weights serve gpt_small {key} (bf16 KV, decode_k {k}): {gen} "
+          f"generated in {wall:.3f} s = {gen / wall:.1f} tok/s, {ticks} "
+          f"ticks + {windows} windows; int8 GEMM {want_g[key]} = {linears} "
+          f"x ({ticks} + {k} x {runs}), K1 {want_k['rpa']}")
+    return dict(tok_s=gen / wall, launches=want_g[key])
+
+
+def weights_cross(ig, model, key, prompts):
+    """The weight-quantized serve path twice on the card (`LLMEngine`,
+    bf16 KV, k=1): through the int8 GEMM, and with `w8a8_linear` swapped
+    for its plain version (restored after); `_cross_compare` on the
+    two."""
+    from paddle_tpu_torch.inference import LLMEngine
+
+    kernel = ig.w8a8_linear
+    runs = []
+    for swap in (False, True):
+        eng = LLMEngine(model, _fused_cfg("bfloat16", 1))
+        reqs = [eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS)
+                for p in prompts]
+        ig.reset_launches()
+        try:
+            if swap:
+                ig.w8a8_linear = ig.w8a8_linear_plain
+            logits, chunks = _drive(eng, reqs)
+        finally:
+            ig.w8a8_linear = kernel
+        runs.append(dict(tokens=[r.future.result()[len(p):]
+                                 for r, p in zip(reqs, prompts)],
+                         logits=logits, chunks=chunks,
+                         ticks=eng.stats["steps"], gemm=dict(ig.launches)))
+    kr, pr = runs
+    label = f"gpt_small {key} weights"
+    want = 4 * model.config.num_layers * kr["ticks"]
+    if kr["gemm"][key] != want or set(pr["gemm"].values()) != {0}:
+        raise AssertionError(f"{label}: GEMM launches {kr['gemm']} in "
+                             f"{kr['ticks']} ticks (want {want}); plain run "
+                             f"{pr['gemm']}")
+    worst, rows, ties = _cross_compare(label, kr, pr)
+    print(f"weights cross-check {label}, the int8 GEMM vs its plain version "
+          f"on the card: {kr['ticks']} ticks (plain {pr['ticks']}); {rows} "
+          f"emitted rows compared, logits max abs diff {worst:.3e} (tol "
+          f"{SERVE_BF16_LOGIT_TOL:.0e}); tokens differ at {len(ties)} "
+          f"near-ties{': ' + ', '.join(ties) if ties else ''}")
+    if not worst <= SERVE_BF16_LOGIT_TOL:
+        raise AssertionError(f"{label}: the int8 GEMM disagrees with its "
+                             "plain version")
+
+
+def weights_phase(ig, pa, random, card):
+    """5f: per weight width (int8, packed int4), the quantized serve model's
+    `LLMServer` bursts at decode_k 1 and 4 and the GEMM-vs-plain
+    cross-check. Returns {key: {k: burst}}."""
+    res = {}
+    for bits, key in ((8, "w8a8"), (4, "w4a8")):
+        t0 = time.perf_counter()
+        model, report = weights_model(bits)
+        quant_s = time.perf_counter() - t0
+        fp = report["weight_bytes_fp"]
+        q = report[f"weight_bytes_int{bits}"]
+        print(f"weights {key}: {report['layers']} linears quantized in "
+              f"{quant_s:.1f} s on the host, weight bytes {fp} -> {q} "
+              f"({fp - q} saved, {fp / q:.2f}x) ({card})")
+        if report["layers"] != 4 * model.config.num_layers:
+            raise AssertionError(f"weights {key}: report {report}")
+        res[key] = {k: weights_serve(ig, pa, model, key, k, random)
+                    for k in WEIGHT_KS}
+        weights_cross(ig, model, key, random)
+        del model
     return res
 
 
@@ -2075,11 +2662,12 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from paddle_tpu_torch.ops.cuda_kernels import _build
     from paddle_tpu_torch.ops.cuda_kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda_kernels import int8_gemm as ig
     from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 
     card = _card()
     t0 = time.perf_counter()
-    _build.build(["paged_attention", "flash_attention"])
+    _build.build(["paged_attention", "flash_attention", "int8_gemm"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
     build_report(_build, fa.TC_HEAD_DIMS)
@@ -2089,6 +2677,7 @@ def main():
     check_paged_tc_layouts(pa)
     check_qblock_tc_layouts(pa)
     fres = check_flash_attention(fa, flush)
+    gres = check_int8_gemm(ig, flush)
     sampler_ms = check_prng(flush)
     del flush
     model = serve_model()
@@ -2107,6 +2696,8 @@ def main():
     fused = fused_phase(pa, model, random, card)
     print(f"sampler: {sampler_ms:.4f} ms a call ({card})")
     del model
+    drafts = draft_phase(pa, random, card)
+    weights = weights_phase(ig, pa, random, card)
     cross_check()
     cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
@@ -2121,8 +2712,7 @@ def main():
     # cores) the cross phase's f32 n-gram run
     k1 = {kv: fused[(kv, 8)]["greedy"] for kv in ("bfloat16", "int8",
                                                    "int4")}
-    graph = {"bfloat16": k1["bfloat16"]["graph"], "float32": 0,
-             "int8": k1["int8"]["graph"], "int4": k1["int4"]["graph"]}
+    graph = {kv: k1[kv]["graph"] for kv in k1}
     rows = [("ragged_paged_attention_tc", "rpa", "bfloat16",
              k1["bfloat16"]["launches"]),
             ("ragged_paged_attention", "rpa", "float32",
@@ -2144,8 +2734,31 @@ def main():
                                 library_ms=None))
                for name, key, kind, n in rows]
     for row, (_, key, kind, _) in zip(kernels, rows):
-        if key.startswith("rpa"):
+        # only pool kinds that a fused burst or a 5e draft burst ran get
+        # these counts (the f32 pool runs neither)
+        if key.startswith("rpa") and kind in graph:
             row["graph_launches"] = graph[kind]
+        if key.startswith("rpa") and kind in drafts:
+            # the draft bursts of 5e: K1 on the draft (catch-up ticks and
+            # propose windows) and the target's ticks; the propose graph
+            # replays' share
+            row["draft_burst_launches"] = drafts[kind]["launches"]
+            row["propose_graph_launches"] = drafts[kind]["graph"]
+    # the int8 GEMM: one decoder layer's four linears at the decode tick
+    # (T 8) and the mixed tick (T 256), bf16 x; launches from 5f's k=1
+    # burst on the quantized model (48 per tick), and its decode_k 4
+    # burst's (48 per tick, 48 x 4 per fused warm-up and replay)
+    for key in GEMM_WIDTHS:
+        for T in GEMM_TIMED_ROWS:
+            r = gres[(key, T)]
+            row = _kernel_row(f"{key}_linear_t{T}", "cuda", ig.SOURCE,
+                              ig.REPLACES[key], weights[key][1]["launches"],
+                              r)
+            row["fused_burst_launches"] = weights[key][4]["launches"]
+            row["bf16_addmm_ms"] = r["bf16_ms"]
+            row["per_shape_ms"] = {shape: x["ms"]
+                                   for shape, x in r["shapes"].items()}
+            kernels.append(row)
     for name, r in fres.items():
         kernels.append(_kernel_row(name, "cuda", fa.SOURCE,
                                    fa.REPLACES[name], fa_launches[name], r))

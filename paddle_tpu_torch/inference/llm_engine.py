@@ -30,11 +30,13 @@ windows).
   graph per (k, greedy-or-sampled), K1 replayed inside it), with the
   pick, EOS and budget masking on the device and one host sync per
   window; rows still prefilling take a single tick in the same step.
-* N-gram speculation (`spec_mode="ngram"`) — rows at their sampling
-  frontier take one verify window per step instead (`NgramSpeculator`
-  in inference/structured/ngram.py: prompt-lookup proposals scored in
-  one ragged step through the query-blocked kernel K2); rows still
-  prefilling take a single tick in the same step.
+* Speculation — rows at their sampling frontier take one verify window
+  per step instead, scored in one ragged step through the query-blocked
+  kernel K2: `spec_mode="ngram"` proposes by prompt lookup
+  (`NgramSpeculator`, inference/structured/ngram.py), `draft_model=` by
+  a small draft model with its own mirrored KV pools, its propose window
+  one CUDA graph (`SpeculativeDecoder`, inference/speculative.py); rows
+  still prefilling take a single tick in the same step.
 
     server = LLMServer(model)                  # GPTForCausalLM
     with server:
@@ -139,9 +141,7 @@ class PagePool:
 
 
 # knobs of the JAX engine that this port does not run yet → ROADMAP row
-_DRAFT_ROW = "A7 (draft-model speculation, after A6)"
 _UNPORTED_KNOBS = {
-    "draft_model": _DRAFT_ROW,
     "token_strs": "A9 (structured decoding)",
     "grammar_states": "A9 (structured decoding)",
     "prefix_cache": "A10 (serving fleet: prefix cache)",
@@ -178,11 +178,20 @@ class LLMEngineConfig:
                   ticks). Admission and preemption happen at window
                   boundaries.
     sla_policy    fleet_serving.SLAPolicy for admission order
-    spec_mode     None (no speculation) or "ngram": prompt-lookup
-                  proposals from each request's own tokens, verified
-                  k+1 positions per slot in one ragged step
-                  (inference/structured/ngram.py). "draft" (a draft
-                  model) is ROADMAP A7, after A6.
+    draft_model   optional draft model (a GPTForCausalLM of the same
+                  vocabulary on the same device) enabling draft-model
+                  speculation (inference/speculative.py): it proposes
+                  spec_k tokens per live sequence through its own
+                  mirrored KV pools, the model verifies k+1 positions per
+                  slot in one ragged step; greedy and sampled outputs
+                  stay token-identical to the non-speculative engine.
+                  decode_k is then ignored.
+    spec_mode     None (speculation off unless draft_model is set, which
+                  implies "draft"), "draft" (needs draft_model) or
+                  "ngram": prompt-lookup proposals from each request's
+                  own tokens, verified the same way
+                  (inference/structured/ngram.py); "ngram" with a
+                  draft_model is an error.
     spec_k        proposals per speculative window. Default: the
                   PT_SPEC_K env var, else 4. Ignored without speculation.
 
@@ -192,7 +201,7 @@ class LLMEngineConfig:
     def __init__(self, num_slots=4, page_size=16, num_pages=None,
                  max_model_len=None, token_budget=None, kv_dtype=None,
                  seed=0, sla_policy=None, spec_k=None, spec_mode=None,
-                 decode_k=None, **unported):
+                 decode_k=None, draft_model=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_KNOBS:
                 raise TypeError(
@@ -214,14 +223,21 @@ class LLMEngineConfig:
         if spec_k is None:
             spec_k = int(os.environ.get("PT_SPEC_K", "4"))
         self.spec_k = int(spec_k)
+        self.draft_model = draft_model
+        if spec_mode is None and draft_model is not None:
+            spec_mode = "draft"
         if spec_mode not in (None, "draft", "ngram"):
             raise ValueError(
                 "spec_mode must be None, 'draft', or 'ngram', got "
                 f"{spec_mode!r}")
-        if spec_mode == "draft":
-            raise NotImplementedError(
-                f"LLMEngineConfig(spec_mode='draft') is not ported yet: "
-                f"ROADMAP {_DRAFT_ROW}")
+        if spec_mode == "draft" and draft_model is None:
+            raise ValueError(
+                "spec_mode='draft' needs draft_model= (pass "
+                "spec_mode='ngram' for draft-model-free speculation)")
+        if spec_mode == "ngram" and draft_model is not None:
+            raise ValueError(
+                "spec_mode='ngram' is draft-model-free — drop "
+                "draft_model= (or use spec_mode='draft')")
         self.spec_mode = spec_mode
         if decode_k is None:
             decode_k = int(os.environ.get("PT_DECODE_K", "1"))
@@ -314,7 +330,9 @@ class _FusedStep:
     `_paged_decode_fused` per greedy-or-sampled choice (at most two per
     engine, captured at the first window that needs each), replayed for
     every later window. A window that the pool or a budget cuts short
-    rides `rem` through the same graph.
+    rides `rem` through the same graph. With `propose` it is the draft
+    model's propose window (`inference/speculative._ProposeStep`): the
+    static buffer also carries each row's lag and frontier token.
 
     The engine writes every per-window input into one pinned host buffer
     (`host_views`); one copy moves it into the static device buffer the
@@ -335,23 +353,27 @@ class _FusedStep:
     static buffers and the key (owned here and by the engine), its logits
     and emits, and K1's tensor-core workspace for the stream (the wrapper
     replaces a workspace when a call needs a larger one, and the graph
-    would keep the old address). The kernel wrappers count their launches
-    in Python, which runs only during the capture: the counts the capture
-    added are taken back, and added again at every replay.
+    would keep the old address). The kernel wrappers (K1's and the int8
+    GEMM's) count their launches in Python, which runs only during the
+    capture: the counts the capture added are taken back, and added
+    again at every replay.
 
     On a CPU model a window runs eagerly (the tests' path). On CUDA a
     failed capture or replay raises; nothing falls back to an eager loop.
     `captures` / `warmups` / `replays` count what happened."""
 
-    def __init__(self, model, k, page_size, num_slots, pages_per_seq, key):
+    def __init__(self, model, k, page_size, num_slots, pages_per_seq, key,
+                 propose=False):
         self.model = model
         self.k = int(k)
         self.page_size = int(page_size)
         self.S, self.MP = int(num_slots), int(pages_per_seq)
         self.key = key
+        self.propose = bool(propose)
+        self._ints = 8 if self.propose else 6     # int32 rows of [S]
         dev = model.device
         self.cuda = dev.type == "cuda"
-        n = 8 * self.S + self.S * self.MP
+        n = (self._ints + 2) * self.S + self.S * self.MP
         self._host = torch.zeros((n,), dtype=torch.int32,
                                  pin_memory=self.cuda)
         self._static = torch.zeros((n,), dtype=torch.int32, device=dev)
@@ -362,42 +384,50 @@ class _FusedStep:
 
     def host_views(self):
         """numpy views of the host buffer the engine fills: tok0, pos0,
-        rem, fin0 (1 = empty slot), eos, streams [S] int32, temps,
-        top_ps [S] float32, page_tables [S, MP] int32."""
-        S, buf = self.S, self._host.numpy()
-        return (*buf[:6 * S].reshape(6, S),
-                *buf[6 * S:8 * S].view(np.float32).reshape(2, S),
-                buf[8 * S:].reshape(S, self.MP))
+        rem, fin0 (1 = empty slot), eos, streams [S] int32 (propose mode:
+        then lag, frontier [S] int32), temps, top_ps [S] float32,
+        page_tables [S, MP] int32."""
+        S, n, buf = self.S, self._ints, self._host.numpy()
+        return (*buf[:n * S].reshape(n, S),
+                *buf[n * S:(n + 2) * S].view(np.float32).reshape(2, S),
+                buf[(n + 2) * S:].reshape(S, self.MP))
 
     def eager(self, kv, kv_scales, sampled, logits_out=None):
         """The window run eagerly on the staged inputs (the warm-up, the
         capture's body, the CPU path) → emits [k, S] int32 on the pools'
         device."""
-        S, v = self.S, self._static
-        tok0, pos0, rem, fin0, eos, streams = v[:6 * S].view(6, S)
-        temps, top_ps = v[6 * S:8 * S].view(torch.float32).view(2, S)
+        S, n, v = self.S, self._ints, self._static
+        ints = v[:n * S].view(n, S)
+        tok0, pos0, rem, fin0, eos, streams = ints[:6]
+        temps, top_ps = v[n * S:(n + 2) * S].view(torch.float32).view(2, S)
+        mode = dict(lag=ints[6], frontier=ints[7]) if self.propose else {}
         with torch.inference_mode():
             emits, _, _ = self.model._paged_decode_fused(
                 self.k, self.page_size, tok0, pos0, rem, fin0 != 0, eos,
-                temps, top_ps, streams, v[8 * S:].view(S, self.MP), kv,
-                kv_scales, key=self.key if sampled else None,
-                logits_out=logits_out)
+                temps, top_ps, streams, v[(n + 2) * S:].view(S, self.MP),
+                kv, kv_scales, key=self.key if sampled else None,
+                logits_out=logits_out, **mode)
         return emits
 
-    def run(self, kv, kv_scales, sampled):
+    def launch(self, kv, kv_scales, sampled):
         """Stage the host buffer and run one window (`sampled`: any row's
-        temperature > 0, the host's choice of graph) → emits numpy
-        [k, S]."""
+        temperature > 0, the host's choice of graph) → emits [k, S] int32
+        on the device, with no host sync: on the card the graph's own
+        output, rewritten by the next replay."""
         self._static.copy_(self._host, non_blocking=self.cuda)
         if not self.cuda:
             self.logits = []
-            return self.eager(kv, kv_scales, sampled, self.logits).numpy()
+            return self.eager(kv, kv_scales, sampled, self.logits)
         g = self._graphs.get(sampled)
         if g is None:
             g = self._graphs[sampled] = self._capture(kv, kv_scales, sampled)
         self.replay(g)
         self.logits = g.logits
-        return g.emits.cpu().numpy()
+        return g.emits
+
+    def run(self, kv, kv_scales, sampled):
+        """`launch`, then the window's one sync → emits numpy [k, S]."""
+        return self.launch(kv, kv_scales, sampled).cpu().numpy()
 
     def replay(self, g):
         g.graph.replay()
@@ -407,6 +437,7 @@ class _FusedStep:
         self.replays += 1
 
     def _capture(self, kv, kv_scales, sampled):
+        from ..ops.cuda_kernels import int8_gemm as ig
         from ..ops.cuda_kernels import paged_attention as pa
 
         stream = self._stream
@@ -414,7 +445,7 @@ class _FusedStep:
         with torch.cuda.stream(stream):
             self.eager(kv, kv_scales, sampled)     # warm-up, launches count
         self.warmups += 1
-        counters = (pa.launches, pa.tc_launches)
+        counters = (pa.launches, pa.tc_launches, ig.launches)
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
         logits = []
@@ -462,6 +493,7 @@ class _Request:
         self.target = None        # total-token cap, set at add_request
         self.pages = []           # physical page ids, logical order
         self.n_prefilled = 0      # kv-written tokens (reset on preempt)
+        self.draft_prefilled = 0  # draft-pool valid prefix (speculation)
         self.admit_seq = None     # admission order (preemption picks max)
         self.preemptions = 0
         self.tenant = str(tenant)
@@ -564,10 +596,16 @@ class LLMEngine:
         # a fused window's are `_fused_fn.logits`)
         self.last_logits = None
         # speculative decoding: rows at their sampling frontier take one
-        # verify window per step (inference/structured/ngram.py)
+        # verify window per step (inference/speculative.py with a draft
+        # model, inference/structured/ngram.py with prompt lookup)
         self.spec_mode = cfg.spec_mode
         self._spec = None
-        if cfg.spec_mode == "ngram":
+        if cfg.draft_model is not None:
+            from .speculative import SpeculativeDecoder
+
+            self._spec = SpeculativeDecoder(self, cfg.draft_model,
+                                            cfg.spec_k)
+        elif cfg.spec_mode == "ngram":
             from .structured.ngram import NgramSpeculator
 
             self._spec = NgramSpeculator(self, cfg.spec_k)
@@ -646,9 +684,10 @@ class LLMEngine:
 
     def abort_all(self, exc):
         """Fail every live and queued request with `exc` (device-error
-        path), release all pages, re-zero the pools and scale planes — a
-        step that died mid-write leaves them half updated — in place, so
-        the fused graphs stay valid, and restore the sampling key."""
+        path), release all pages, re-zero the pools and scale planes (the
+        draft's too) — a step that died mid-write leaves them half
+        updated — in place, so the fused and propose graphs stay valid,
+        and restore the sampling key."""
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._release(slot, req)
@@ -670,6 +709,7 @@ class LLMEngine:
         self.pool.free(req.pages)
         req.pages = []
         req.n_prefilled = 0
+        req.draft_prefilled = 0   # a replay re-prefills both pools
         self._page_tables[slot, :] = 0
         self._slots[slot] = None
 
@@ -737,6 +777,7 @@ class LLMEngine:
         req.admit_seq = next(self._admit_counter)
         req.pages = []
         req.n_prefilled = 0
+        req.draft_prefilled = 0
         self._page_tables[slot, :] = 0
         self._slots[slot] = req
         return True

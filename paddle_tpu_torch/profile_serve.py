@@ -16,7 +16,14 @@ greedy requests with prompts of 16-900 tokens, 32 new tokens each
 * `fused`, `fused-int8`: the serve load at decode_k 8 (fused windows, one
   CUDA graph replay each) on a bf16 / int8 pool;
 * `sampled`, `sampled-fused`: the serve load with every request sampled
-  (temperature 0.8, top_p 0.9) at decode_k 1 / 8.
+  (temperature 0.8, top_p 0.9) at decode_k 1 / 8;
+* `draft`, `draft-int8`: draft-model speculation (spec_k 4) on a bf16 /
+  int8 pool, the random prompts, the target and its 1-layer draft from
+  `spec_draft_pair` (the reference bench's `_spec_draft_pair`,
+  bench.py:831: the draft holds the target's embeddings, first block and
+  final LN; the target's later blocks have proj / fc2 damped by 0.01);
+* `int8-weights`: the serve load on the model after
+  `quantize_model_int8` (every linear through the int8 GEMM).
 
 Each load runs one warm-up burst, one timed burst and one burst under
 `torch.profiler`, then prints:
@@ -27,7 +34,12 @@ Each load runs one warm-up burst, one timed burst and one burst under
   acceptances, and the host seconds spent mining proposals;
 * for the fused loads, the host ms per window (`_try_step_fused`, its one
   sync included) and the device ms per window (CUDA events around each
-  graph replay, its launch latency included); for the sampled loads, the
+  graph replay, its launch latency included); for the draft loads, the
+  acceptance rate and, per window, the host ms (`try_window`, its one
+  sync included), the draft ms (CUDA events from the draft's catch-up to
+  the proposals' gather after the propose replay) and the stream ms
+  (events from the catch-up to the verify's end: device time and the
+  eager steps' idle gaps); for the sampled loads, the
   sampler's device ms per call (`sample_tokens` on [num_slots, vocab]
   replayed from a CUDA graph, as a window runs it: `sampler_ms`);
 * the timed burst's host time per engine `step()` call (a verify window
@@ -55,6 +67,7 @@ GPU.
 import argparse
 import subprocess
 import time
+import types
 
 import numpy as np
 import torch
@@ -63,13 +76,16 @@ from torch.profiler import ProfilerActivity, profile
 
 from .core import prng
 from .inference import LLMEngineConfig, LLMServer
-from .text.models.gpt import GPTForCausalLM, gpt_small, sample_tokens
+from .quantization.runtime import quantize_model_int8
+from .text.models.gpt import (GPTConfig, GPTForCausalLM, gpt_small,
+                              sample_tokens)
 
 PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 NEW_TOKENS = 32
 ENGINE = dict(num_slots=8, page_size=16, max_model_len=1024,
               token_budget=256)
 _NGRAM = dict(spec_mode="ngram", spec_k=4)
+_DRAFT = dict(spec_k=4)           # the draft model is added by `run_load`
 _SAMPLED = dict(temperature=0.8, top_p=0.9)
 # kernel names of csrc/paged_attention.cu as the profiler shows them: K1
 # on the CUDA cores and the three launches of its tensor-core route, K2
@@ -79,7 +95,11 @@ PAGED_KERNELS = {"K1": ("rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
                         "rpa_tc_merge_kernel"),
                  "K2": ("rpa_qblock_kernel", "rpa_tc_qblock_kernel",
                         "rpa_tc_qblock_merge_kernel")}
-# load -> (engine knobs, repetitive prompts, request knobs)
+# csrc/int8_gemm.cu: the activation quantize and the W8A8 GEMM
+GEMM_KERNELS = {"int8 GEMM": ("quantize_rows_kernel", "w8a8_gemm_kernel")}
+# load -> (engine knobs, repetitive prompts, request knobs[, model]):
+# model "draft" serves `spec_draft_pair`'s target with its draft,
+# "int8-weights" the serve model after `quantize_model_int8`
 LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "bf16-repetitive": (dict(kv_dtype="bfloat16"), True, {}),
          "int8": (dict(kv_dtype="int8"), True, {}),
@@ -89,7 +109,36 @@ LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "fused-int8": (dict(kv_dtype="int8", decode_k=8), False, {}),
          "sampled": (dict(kv_dtype="bfloat16"), False, _SAMPLED),
          "sampled-fused": (dict(kv_dtype="bfloat16", decode_k=8), False,
-                           _SAMPLED)}
+                           _SAMPLED),
+         "draft": (dict(kv_dtype="bfloat16", **_DRAFT), False, {}, "draft"),
+         "draft-int8": (dict(kv_dtype="int8", **_DRAFT), False, {},
+                        "draft"),
+         "int8-weights": (dict(kv_dtype="bfloat16"), False, {},
+                          "int8-weights")}
+
+
+def spec_draft_pair(config, draft_layers=1, damp=0.01, dtype="bfloat16",
+                    seed=1234, device=None):
+    """(target, draft) as the reference bench's `_spec_draft_pair`
+    (bench.py:831) builds them, from a seed: the target `config` with the
+    proj and fc2 weights (and biases) of every block past the first
+    `draft_layers` damped by `damp`; the draft the same configuration at
+    `draft_layers` blocks, holding copies of the target's embeddings,
+    first blocks and final LN (copies: a later quantization of one does
+    not alter the other). The draft's logits track the target's, so
+    proposals are accepted at a measured rate."""
+    target = GPTForCausalLM(config, device=device, dtype=dtype, seed=seed)
+    with torch.no_grad():
+        for layer in target.gpt.layers[draft_layers:]:
+            for lin in (layer.proj, layer.fc2):
+                lin.weight.mul_(damp)
+                if lin.bias is not None:
+                    lin.bias.mul_(damp)
+    dcfg = GPTConfig(**dict(vars(config), num_layers=draft_layers))
+    draft = GPTForCausalLM(dcfg, device=target.device, dtype=dtype, seed=seed)
+    big = target.state_dict()
+    draft.load_state_dict({k: big[k].clone() for k in draft.state_dict()})
+    return target, draft
 
 
 def _prompts(repetitive, vocab):
@@ -207,6 +256,57 @@ class HostTimer:
         _restore(self)
 
 
+class SpecTimer:
+    """Times each draft-model window of `spec` (an engine's
+    `SpeculativeDecoder`), until `remove`: the host seconds of
+    `try_window` (its one sync included), and CUDA events at the start of
+    the draft's catch-up, after the proposals' gather (the propose replay
+    and the device gather) and after the verify. Draft ms: catch-up +
+    propose; window ms: the whole window on the stream, the eager steps'
+    idle gaps included."""
+
+    def __init__(self, spec):
+        self.host = HostTimer(spec, "try_window")
+        self.marks = []          # per window: [start, drafted, verified]
+        self.wraps = [self._wrap(spec, "_catch_up", start=True),
+                      self._wrap(spec._propose_fn, "drafts"),
+                      self._wrap(spec, "_verify_fn")]
+
+    def _wrap(self, obj, name, start=False):
+        fn = getattr(obj, name)
+
+        def wrapped(*args, **kw):
+            if start:
+                self.marks.append([])
+                self._event()
+            out = fn(*args, **kw)
+            if not start:
+                self._event()
+            return out
+
+        wrap = types.SimpleNamespace(obj=obj, name=name, fn=fn,
+                                     own=name in vars(obj))
+        setattr(obj, name, wrapped)
+        return wrap
+
+    def _event(self):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        self.marks[-1].append(e)
+
+    def ms(self):
+        """(host, draft, window) ms per window: medians."""
+        torch.cuda.synchronize()
+        done = [m for m in self.marks if len(m) == 3]
+        return (float(np.median(self.host.times)) * 1e3,
+                float(np.median([a.elapsed_time(b) for a, b, _ in done])),
+                float(np.median([a.elapsed_time(c) for a, _, c in done])))
+
+    def remove(self):
+        for timer in (self.host, *self.wraps):
+            _restore(timer)
+
+
 def _restore(timer):
     """Undo a timer's wrap: the object's own attribute back, or the class's
     method again (a bound method left in the instance would be a
@@ -217,24 +317,29 @@ def _restore(timer):
         delattr(timer.obj, timer.name)
 
 
-def run_load(model, name, trace=None):
+def run_load(model, name, trace=None, draft=None):
+    """Runs `name` of LOADS on `model` (with `draft` as the draft model of
+    the draft loads) and prints its numbers."""
     from .ops.cuda_kernels import paged_attention as pa
 
-    knobs, repetitive, request = LOADS[name]
+    knobs, repetitive, request = LOADS[name][:3]
     prompts = _prompts(repetitive, model.config.vocab_size)
-    server = LLMServer(model, LLMEngineConfig(**ENGINE, **knobs))
+    server = LLMServer(model, LLMEngineConfig(**ENGINE, **knobs,
+                                              draft_model=draft))
     eng = server.engine
     timers = [HostTimer(eng, "step"),
               HostTimer(pa, "ragged_paged_attention"),
               HostTimer(eng, "_try_step_fused")]
-    if eng._spec is not None:
+    if eng.spec_mode == "ngram":
         timers.append(HostTimer(eng._spec, "_propose"))
-    replay = None
+    replay = spec_timer = None
     try:
         with server:
             _burst(server, prompts, request)           # warm-up (captures)
             if eng._fused_fn is not None:
                 replay = EventTimer(eng._fused_fn, "replay")
+            if eng.spec_mode == "draft":
+                spec_timer = SpecTimer(eng._spec)
             before = dict(eng.stats)
             for t in timers:
                 t.times.clear()
@@ -242,6 +347,7 @@ def run_load(model, name, trace=None):
             step_s, paged_s, window_s, *scan_s = (np.asarray(t.times)
                                                   for t in timers)
             replay_ms = replay.ms() if replay is not None else None
+            spec_ms = spec_timer.ms() if spec_timer is not None else None
             d = {k: eng.stats[k] - before.get(k, 0) for k in eng.stats}
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -251,9 +357,12 @@ def run_load(model, name, trace=None):
             t.remove()
         if replay is not None:
             replay.remove()
+        if spec_timer is not None:
+            spec_timer.remove()
     scan = scan_s[0].sum() if scan_s else 0.0
     steps = d["steps"]
-    windows = d.get("ngram_windows", 0) + d["fused_steps"]
+    windows = (d.get("ngram_windows", 0) + d.get("spec_windows", 0)
+               + d["fused_steps"])
     gen = NEW_TOKENS * len(prompts)
     print(f"load {name} ({knobs}, {'repetitive' if repetitive else 'random'}"
           f" prompts{', ' + str(request) if request else ''}; "
@@ -271,6 +380,14 @@ def run_load(model, name, trace=None):
               f"window (median over {len(replay_ms)} replays; "
               f"{np.median(replay_ms) / eng.decode_k:.3f} ms per token "
               "iteration)")
+    if spec_ms is not None:
+        prop, acc = d["spec_proposed"], d["spec_accepted"]
+        print(f"  draft windows (spec_k {eng._spec.k}): {d['spec_windows']}"
+              f" windows, proposed {prop} accepted {acc} = "
+              f"{100 * acc / max(prop, 1):.1f}% acceptance; per window "
+              f"(medians): host {spec_ms[0]:.3f} ms (its sync included), "
+              f"draft {spec_ms[1]:.3f} ms (catch-up + propose replay), "
+              f"stream {spec_ms[2]:.3f} ms (catch-up to verify end)")
     if request.get("temperature", 0) > 0:
         vocab = model.config.vocab_size
         print(f"  sampler: {sampler_ms(eng.num_slots, vocab):.4f} ms of "
@@ -295,7 +412,7 @@ def run_load(model, name, trace=None):
     print(f"  profiled burst: {pwall * 1e3:.3f} ms wall, device time "
           f"{device_us / 1e3:.3f} ms = {100 * device_us / 1e6 / pwall:.1f}% "
           f"of wall; idle share {100 * (1 - device_us / 1e6 / pwall):.1f}%")
-    for label, names in PAGED_KERNELS.items():
+    for label, names in {**PAGED_KERNELS, **GEMM_KERNELS}.items():
         total = 0
         for kname in names:
             us = sum(e.self_device_time_total for e in rows
@@ -332,12 +449,25 @@ def main(argv=None):
                     default=["serve"])
     ap.add_argument("--trace", help="write the Chrome trace here")
     args = ap.parse_args(argv)
-    model = GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
+    models = {}
+
+    def model_for(kind):       # built once each, at first use
+        if kind not in models:
+            if kind == "draft":
+                models[kind] = spec_draft_pair(gpt_small())
+            else:
+                m = GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
+                if kind == "int8-weights":
+                    quantize_model_int8(m)
+                models[kind] = (m, None)
+        return models[kind]
+
     print(f"card: {_card()}")
     rc = 0
     for i, name in enumerate(args.load):
         last = i == len(args.load) - 1
-        rc |= run_load(model, name, args.trace if last else None)
+        model, draft = model_for((LOADS[name][3:] or (None,))[0])
+        rc |= run_load(model, name, args.trace if last else None, draft)
     return rc
 
 

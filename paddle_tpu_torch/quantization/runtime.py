@@ -1,6 +1,17 @@
-"""Quantized runtime, KV half (counterpart of
-paddle_tpu/quantization/runtime.py: the int8 / packed-int4 paged KV
-codecs and the kv dtype resolution).
+"""Quantized runtime (counterpart of paddle_tpu/quantization/runtime.py):
+weight-only int8 / int4 serving, the int8 / packed-int4 paged KV codecs
+and the kv dtype resolution.
+
+Weight-only serving: `quantize_model_int8` / `quantize_model_int4` swap
+every Linear of a loaded model, in place, for `Int8WeightOnlyLinear` /
+`Int4WeightOnlyLinear`: per-out-channel int8 (or packed int4) weights
+held as buffers `weight_q` [in, out] (packed: [in/2, out]) and `w_step`
+[1, out] f32, so `state_dict()` carries them and they load key for key
+from the reference's quantized model (`convert`); activations are
+quantized per row inside the op and the product is the exact int32 W8A8
+GEMM (`ops/cuda_kernels/int8_gemm.py`: a CUDA kernel on the card, its
+plain version on the CPU), dequantized in the epilogue. Embeddings and
+the tied vocab head stay float.
 
 Each K/V row written into a paged pool is quantized once, per
 (token, head), against its own absmax, so later writes to the same page
@@ -20,11 +31,15 @@ bfloat16 | int8 | int4; unset = the model's dtype).
 """
 import os
 
+import numpy as np
 import torch
+from torch import nn
 
-__all__ = ["QMAX", "QMAX4", "pack_int4", "unpack_int4", "resolve_kv_dtype",
-           "kv_scale_shape", "quantize_kv_rows", "dequantize_kv",
-           "quantize_kv_rows_int4", "dequantize_kv_int4"]
+__all__ = ["QMAX", "QMAX4", "Int8WeightOnlyLinear", "Int4WeightOnlyLinear",
+           "quantize_model_int8", "quantize_model_int4", "pack_int4",
+           "unpack_int4", "resolve_kv_dtype", "kv_scale_shape",
+           "quantize_kv_rows", "dequantize_kv", "quantize_kv_rows_int4",
+           "dequantize_kv_int4"]
 
 QMAX = 127.0
 QMAX4 = 7.0
@@ -49,6 +64,150 @@ def unpack_int4(packed, axis=0):
     hi = ((((p >> 4) & 0xF) ^ 8) - 8).to(torch.int8)
     return torch.cat([lo, hi], dim=axis)
 
+
+# ---------------------------------------------------------------- weights
+
+class _WeightOnlyLinear(nn.Module):
+    """A Linear over per-out-channel quantized weights: the buffers
+    `weight_q` and `w_step` (the step = scale / qmax), the float bias kept
+    as the replaced layer's parameter. Forward: the W8A8 linear
+    (`int8_gemm.w8a8_linear`). Inference only."""
+
+    int4 = False
+
+    def __init__(self, linear, q, scale, qmax):
+        super().__init__()
+        w = linear.weight                      # [in, out] (paddle layout)
+        self.in_features = int(w.shape[0])
+        self.out_features = int(w.shape[1])
+        q = torch.from_numpy(q)
+        if self.int4:
+            q = pack_int4(q, axis=0)
+        self.register_buffer("weight_q", q.to(w.device))
+        self.register_buffer("w_step", torch.from_numpy(
+            np.asarray(scale, np.float32) / qmax).to(w.device))
+        self.bias = getattr(linear, "bias", None)
+
+    def forward(self, x):
+        from ..ops.cuda_kernels import int8_gemm
+
+        return int8_gemm.w8a8_linear(x, self.weight_q, self.w_step,
+                                     self.bias, int4=self.int4)
+
+
+class Int8WeightOnlyLinear(_WeightOnlyLinear):
+    """Serving-time Linear over per-channel int8 weights (the reference's
+    runtime.py:91): absmax per out channel, codes in [-127, 127],
+    `w_step` = scale / 127."""
+
+    def __init__(self, linear):
+        from . import quantize_weight_int8
+
+        q, scale = quantize_weight_int8(linear.weight, axis=1)
+        super().__init__(linear, q, scale, QMAX)
+
+    def extra_repr(self):
+        return (f"in={self.in_features}, out={self.out_features}, "
+                "weight=int8 per-channel")
+
+
+class Int4WeightOnlyLinear(_WeightOnlyLinear):
+    """Serving-time Linear over per-channel packed int4 weights (the
+    reference's runtime.py:155): the MSE clip search always on, codes in
+    [-7, 7], `w_step` = scale / 7, two codes a byte along the in-dim in
+    the split-halves layout (`weight_q` [in/2, out]). An odd in_features
+    cannot pair nibbles and raises (`quantize_model_int4` skips such
+    layers)."""
+
+    int4 = True
+
+    def __init__(self, linear):
+        from . import quantize_weight_int8
+
+        if int(linear.weight.shape[0]) % 2:
+            raise ValueError(
+                f"Int4WeightOnlyLinear: in_features "
+                f"{int(linear.weight.shape[0])} is odd — nibble packing "
+                "pairs in-dim rows (quantize_model_int4 skips such layers)")
+        q, scale = quantize_weight_int8(linear.weight, axis=1, bits=4,
+                                        search_mse=True)
+        super().__init__(linear, q, scale, QMAX4)
+
+    def extra_repr(self):
+        return (f"in={self.in_features}, out={self.out_features}, "
+                "weight=int4 packed per-channel (MSE clip)")
+
+
+def _linear_classes():
+    from ..distributed.fleet.meta_parallel.mp_layers import (
+        ColumnParallelLinear, RowParallelLinear)
+    from ..nn.layer.common import Linear
+
+    return Linear, ColumnParallelLinear, RowParallelLinear
+
+
+def _swap_linears(model, skip, make, report, key, odd=False):
+    """Swap every Linear-family sublayer not matched by `skip` (attribute
+    path substrings) for `make(sub)`, in place, filling `report`'s layer
+    count and weight bytes (`key`: the quantized bytes' entry); with
+    `odd`, layers of odd in_features stay float and are counted in
+    `skipped_odd`."""
+    linear_types = _linear_classes()
+
+    def swap(layer, prefix=""):
+        for name, sub in list(layer.named_children()):
+            path = f"{prefix}.{name}" if prefix else name
+            if isinstance(sub, _WeightOnlyLinear):
+                continue                   # already quantized
+            if isinstance(sub, linear_types) and not any(
+                    s in path for s in skip):
+                w = sub.weight
+                if odd and int(w.shape[0]) % 2:
+                    report["skipped_odd"] += 1
+                    continue
+                wrapped = make(sub)
+                report["layers"] += 1
+                report["weight_bytes_fp"] += w.numel() * w.element_size()
+                report[key] += sum(
+                    b.numel() * b.element_size()
+                    for b in (wrapped.weight_q, wrapped.w_step))
+                setattr(layer, name, wrapped)
+            else:
+                swap(sub, path)
+
+    swap(model)
+    model.eval()
+    return report
+
+
+def quantize_model_int8(model, skip=(), tp_shard=True):
+    """Swap every Linear-family sublayer (`Linear`, `ColumnParallelLinear`,
+    `RowParallelLinear`) for `Int8WeightOnlyLinear`, in place. Embeddings
+    and the tied vocab head (which reads the embedding) stay float.
+    skip: attribute-path substrings to leave float (e.g. ("lm_head",)).
+    tp_shard: the reference shards the buffers over a tensor-parallel
+    mesh; on one rank there is nothing to shard (ROADMAP A11).
+
+    Returns {layers, weight_bytes_fp, weight_bytes_int8} (weights only,
+    the steps included in the int8 bytes)."""
+    report = {"layers": 0, "weight_bytes_fp": 0, "weight_bytes_int8": 0}
+    return _swap_linears(model, skip, Int8WeightOnlyLinear, report,
+                         "weight_bytes_int8")
+
+
+def quantize_model_int4(model, skip=()):
+    """`quantize_model_int8`'s packed-int4 sibling: `Int4WeightOnlyLinear`
+    (MSE clip search per out channel). Layers with an odd in_features
+    cannot pair nibbles and stay float, counted in `skipped_odd`.
+
+    Returns {layers, skipped_odd, weight_bytes_fp, weight_bytes_int4}."""
+    report = {"layers": 0, "skipped_odd": 0, "weight_bytes_fp": 0,
+              "weight_bytes_int4": 0}
+    return _swap_linears(model, skip, Int4WeightOnlyLinear, report,
+                         "weight_bytes_int4", odd=True)
+
+
+# ---------------------------------------------------------------- kv cache
 
 _KV_DTYPES = {
     "float32": torch.float32, "fp32": torch.float32,

@@ -341,7 +341,8 @@ class GPTForCausalLM(nn.Module):
 
     def _paged_decode_fused(self, k, page_size, tok0, pos0, rem, fin0,
                             eos_ids, temps, top_ps, streams, page_tables, kv,
-                            kv_scales=None, key=None, logits_out=None):
+                            kv_scales=None, key=None, logits_out=None,
+                            lag=None, frontier=None):
         """k decode ticks in one call (the reference's gpt.py:523, whose
         `lax.scan` becomes k iterations unrolled here, so the engine can
         capture the whole window as one CUDA graph): per iteration, write
@@ -360,10 +361,19 @@ class GPTForCausalLM(nn.Module):
         device; the engine reserves every live iteration's pages before
         the call. k is a Python int. key: the engine's [2] int64 key, or
         None when every row is greedy (the host's choice, see
-        `sample_tokens`). The reference's draft propose mode (lag /
-        frontier, ROADMAP A7) and grammar tables (A9) are not taken.
-        kv / kv_scales are updated IN PLACE. logits_out: an optional list
-        that receives each iteration's f32 frontier logits [S, vocab].
+        `sample_tokens`). The reference's grammar tables (A9) are not
+        taken. kv / kv_scales are updated IN PLACE. logits_out: an
+        optional list that receives each iteration's f32 frontier logits
+        [S, vocab].
+
+        lag / frontier (the draft's propose mode, the reference's gpt.py:587
+        and :628-632; both [S] int32 device tensors, or both None): a row
+        with lag 1 starts one position early, at pos0 - 1 with `tok0` the
+        token there, so the draft KV row the previous window left
+        unwritten is written inside this window; its iteration-0 pick is
+        forced to `frontier` (the token at pos0, already known), so the
+        later proposals condition on the true sequence. Being tensors,
+        one captured window serves any mix of lag rows.
         Returns (emits [k, S] int32, kv, kv_scales)."""
         S = tok0.shape[0]
         dev = tok0.device
@@ -371,13 +381,14 @@ class GPTForCausalLM(nn.Module):
         sl = torch.arange(S, dtype=i32, device=dev)
         pt = page_tables.to(i32)
         zero = torch.zeros((), dtype=i32, device=dev)
-        klen0 = pos0.to(i32) + 1
+        start = pos0.to(i32) if lag is None else pos0.to(i32) - lag
+        klen0 = start + 1
         tok, fin = tok0.to(i32), fin0
         emits = []
         for i in range(int(k)):
             live = ~fin
             tok_in = torch.where(live, tok, zero)
-            pos_in = torch.where(live, pos0 + i, zero)
+            pos_in = torch.where(live, start + i, zero)
             klen = torch.where(live, klen0, zero)   # + i rides the offset
             page = pt[sl.long(), (pos_in // page_size).long()]
             widx = torch.where(live, page * page_size + pos_in % page_size,
@@ -389,6 +400,9 @@ class GPTForCausalLM(nn.Module):
             if logits_out is not None:
                 logits_out.append(lv)
             nxt = sample_tokens(lv, temps, top_ps, streams, pos_in + 1, key)
+            if lag is not None and i == 0:
+                # a lag row's iteration-0 output is the known frontier
+                nxt = torch.where(lag > 0, frontier.to(i32), nxt)
             emits.append(torch.where(live, nxt, torch.full_like(nxt, -1)))
             fin = (fin | (live & (eos_ids >= 0) & (nxt == eos_ids))
                    | (live & (i + 1 >= rem)))

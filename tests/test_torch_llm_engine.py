@@ -174,8 +174,8 @@ def test_engine_rejects_unservable_requests():
 
 
 @pytest.mark.parametrize("knob,row", [
-    ({"draft_model": object()}, "A7"),
-    ({"spec_mode": "draft"}, "A7"), ({"token_strs": ["a"]}, "A9"),
+    ({"grammar_states": 64}, "A9"),
+    ({"session_ttl_s": 30.0}, "A10"), ({"token_strs": ["a"]}, "A9"),
     ({"prefix_cache": True}, "A10"), ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
     with pytest.raises(NotImplementedError, match=row):
