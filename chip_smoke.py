@@ -157,6 +157,33 @@ continues:
               through its plain version: logits within
               SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties; tok/s
               and the weight bytes saved.
+5g. structured — grammar-constrained decoding on the 5e target (and its
+              draft) with a synthetic 50304-string vocabulary made from a
+              seed (token 0 "" is the eos, the 95 printable characters,
+              all 9025 pairs, random distinct triples;
+              `profile_serve.structured_token_strs`), 256 grammar states,
+              8 requests of 16-200 prompt tokens and up to 120 new ones:
+              a list template, a small object and a JSON schema greedy,
+              the template sampled, and four unconstrained (two greedy,
+              two sampled). Compile seconds, arena load / refresh ms and
+              the mask's device µs at S 8 and T 40 (graph replays); the
+              fused gate of 5d on structured windows (k 4, greedy and
+              sampled: the graph that masks, replay vs eager byte-equal);
+              a grammar loaded mid-run and a compaction forced: replay
+              vs eager still equal, the tables at their addresses, one
+              capture per graph key; `LLMEngine` runs at k=1, fused k=4,
+              n-gram spec_k 4 and with the draft: every constrained
+              output valid (its DFA replay meets no disallowed token,
+              one that ended at eos fullmatches its pattern), the other
+              three against k=1 (logits within SERVE_BF16_LOGIT_TOL,
+              tokens equal but at near-ties of the masked scores), the
+              fused run's unconstrained rows against an all-unconstrained
+              run; `LLMServer` bursts on each path, mixed then
+              all-unconstrained, the counts set to 0 just before each: K1
+              12 per tick and 12 x k per fused warm-up and replay, K2 12
+              per verify window, the draft's as in 5e, all on the
+              tensor-core route; tok/s of both bursts, host µs per
+              `_grammar_args` and per host-tick mask.
 6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
@@ -194,11 +221,14 @@ weights, one layer's four linears at T 8 and at T 256), with its
 launches from the main-path run that drives it (K1 on bf16, int8 and
 int4 pools: the greedy decode_k 8 burst of phase 5d, whose graph
 replays' share is "graph_launches", plus the 5e draft burst's launches
-and its propose graph replays' share; the GEMM: 5f's k=1 burst, and its
-decode_k 4 burst's); the last line is
+and its propose graph replays' share, and on the bf16 pool 5g's mixed
+fused burst's (K1) and n-gram burst's (K2) as
+"structured_burst_launches"; the GEMM: 5f's k=1 burst, and its decode_k
+4 burst's); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
+import contextlib
 import gc
 import json
 import os
@@ -1325,9 +1355,9 @@ def _drive(eng, reqs):
     window = []
     sample = gpt_mod.sample_tokens
 
-    def capture(lv, *args):
+    def capture(lv, *args, **kw):
         window.append(lv)
-        return sample(lv, *args)
+        return sample(lv, *args, **kw)
 
     Q = eng._spec.k + 1 if eng._spec is not None else 0
     gpt_mod.sample_tokens = capture
@@ -1679,44 +1709,29 @@ def _grow_workspace(pa, model, kv, kv_scales, eng, stream):
     torch.cuda.synchronize()
 
 
-def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False):
-    """Graph against eager, bit-identical (the capture-correctness gate):
-    an `LLMEngine` at decode_k k on a `kv_dtype` pool serves the prompts
-    to its first fused window (which captures the graph); then the
-    capture stream's workspace is outgrown by an eager call and a
-    sentinel allocated; the next window is run eagerly on copies of the
-    pools and scale planes from the same staged inputs, then as the graph
-    replay under the profiler. The emits and every pool byte must be
-    equal, the sentinel untouched, and the profiler must see 12 x k
-    `rpa_tc_kernel` launches and a graph launch in the replay. Returns
-    the engine (its graphs still captured)."""
-    from torch.autograd import DeviceType
+def _window_vs_eager(eng, fs, structured=False, profiled=False):
+    """Step `eng` until its next fused window (with `structured`, its next
+    window whose rows include a constrained one): the window runs eagerly
+    on copies of the pools and scale planes from the same staged inputs,
+    then as the graph replay (under the profiler with `profiled`). Returns
+    the eager and replayed emits, whether every pool byte is equal, and
+    the profile."""
     from torch.profiler import ProfilerActivity, profile
 
-    from paddle_tpu_torch.inference import LLMEngine
-
-    eng = LLMEngine(model, _fused_cfg(kv_dtype, k))
-    kw = SAMPLED if sampled else {}
-    for p in prompts:
-        eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **kw)
-    while eng.stats["fused_steps"] == 0:
-        eng.step()
-    fs = eng._fused_fn
-    graph = fs._graphs[sampled]
-    _grow_workspace(pa, model, eng._kv, eng._kv_scales, eng, fs._stream)
-    outgrown = [w.data_ptr() for w in graph.workspaces] != [
-        w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
-    sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
     run, seen = fs.run, {}
 
-    def gated(kv, kv_scales, smp):
+    def gated(kv, kv_scales, smp, tables=None):
+        if seen or structured and tables is None:
+            return run(kv, kv_scales, smp, tables)
         fs._static.copy_(fs._host)
         kv_c = [p.clone() for p in kv]
         sc_c = [p.clone() for p in kv_scales or []]
-        seen["eager"] = fs.eager(kv_c, sc_c or None, smp).cpu().numpy()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            emits = run(kv, kv_scales, smp)
+        seen["eager"] = fs.eager(kv_c, sc_c or None, smp,
+                                 tables).cpu().numpy()
+        with (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) if profiled
+              else contextlib.nullcontext()) as prof:
+            emits = run(kv, kv_scales, smp, tables)
             torch.cuda.synchronize()
         seen["emits"] = emits
         seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
@@ -1726,17 +1741,60 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False):
 
     fs.run = gated
     try:
-        while not seen:
+        while not seen and eng.has_work():
             eng.step()
     finally:
         del fs.run
+    if not seen:
+        raise AssertionError("the engine ran out of work before a window")
+    return seen
+
+
+def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
+               token_strs=None):
+    """Graph against eager, bit-identical (the capture-correctness gate):
+    an `LLMEngine` at decode_k k on a `kv_dtype` pool serves the prompts
+    to its first fused window (which captures the graph); then the
+    capture stream's workspace is outgrown by an eager call and a
+    sentinel allocated; the next window is run eagerly on copies of the
+    pools and scale planes from the same staged inputs, then as the graph
+    replay under the profiler. The emits and every pool byte must be
+    equal, the sentinel untouched, and the profiler must see 12 x k
+    `rpa_tc_kernel` launches and a graph launch in the replay. With
+    `token_strs`, the engine serves phase 5g's mixed requests (half
+    constrained) and both windows are structured ones: the graph masks
+    its picks. Returns the engine (its graphs still captured)."""
+    from torch.autograd import DeviceType
+
+    from paddle_tpu_torch.inference import LLMEngine
+
+    structured = token_strs is not None
+    knobs = (dict(token_strs=token_strs, grammar_states=STRUCT_STATES)
+             if structured else {})
+    eng = LLMEngine(model, _fused_cfg(kv_dtype, k, **knobs))
+    kw = SAMPLED if sampled else {}
+    requests = (struct_requests(sampled) if structured
+                else [kw] * len(prompts))
+    for p, r in zip(prompts, requests):
+        eng.add_request(p, max_new_tokens=SERVE_NEW_TOKENS, **r)
+    while (sampled, structured) not in (eng._fused_fn._graphs
+                                        if eng._fused_fn else {}):
+        eng.step()
+    fs = eng._fused_fn
+    graph = fs._graphs[(sampled, structured)]
+    _grow_workspace(pa, model, eng._kv, eng._kv_scales, eng, fs._stream)
+    outgrown = [w.data_ptr() for w in graph.workspaces] != [
+        w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
+    sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
+    seen = _window_vs_eager(eng, fs, structured, profiled=True)
     rows = seen["prof"].key_averages()
     tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
              and "rpa_tc_kernel" in e.key)
     graph_launches = sum(e.count for e in rows
                          if "cudaGraphLaunch" in e.key)
     layers = model.config.num_layers
-    label = f"{kv_dtype} k={k}{' sampled' if sampled else ''}"
+    label = (f"{kv_dtype} k={k}{' sampled' if sampled else ''}"
+             f"{' structured' if structured else ''}")
     ok = (np.array_equal(seen["emits"], seen["eager"]) and seen["pools"]
           and bool((sentinel == 7).all()) and tc == layers * k
           and graph_launches >= 1)
@@ -2085,7 +2143,7 @@ def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
         eng.step()
     spec = eng._spec
     prop = spec._propose_fn
-    graph = prop._graphs[sampled]
+    graph = prop._graphs[(sampled, False)]
     _grow_workspace(pa, draft, spec._kv, spec._kv_scales, eng, prop._stream)
     outgrown = [w.data_ptr() for w in graph.workspaces] != [
         w.data_ptr() for w in pa.stream_workspaces(prop._stream.cuda_stream)]
@@ -2381,6 +2439,404 @@ def weights_phase(ig, pa, random, card):
         weights_cross(ig, model, key, random)
         del model
     return res
+
+
+# ---- structured decoding (5g) ----
+
+STRUCT_STATES = 256          # grammar arena rows of the 5g engines
+STRUCT_PROMPT_LENS = (16, 40, 64, 100, 128, 150, 180, 200)
+STRUCT_NEW_TOKENS = 120
+STRUCT_K = 4
+STRUCT_PATHS = ("k=1", "fused k=4", "ngram", "draft")
+
+
+def struct_requests(sampled=None):
+    """The 8 requests of 5g, by prompt, eos token 0: four constrained (the
+    list template greedy, the small object greedy, the JSON schema greedy,
+    the template sampled) and four unconstrained (two greedy, two
+    sampled). `sampled` True / False: every request sampled / greedy (the
+    replay gates)."""
+    from paddle_tpu_torch.profile_serve import OBJECT_A, SCHEMA, TEMPLATE
+
+    mix = ((dict(grammar=TEMPLATE), False), (dict(grammar=OBJECT_A), False),
+           (dict(json_schema=SCHEMA), False), (dict(grammar=TEMPLATE), True),
+           ({}, False), ({}, False), ({}, True), ({}, True))
+    return [dict(c, eos_token_id=0,
+                 **(SAMPLED if (smp if sampled is None else sampled)
+                    else {}))
+            for c, smp in mix]
+
+
+def plain_requests():
+    """`struct_requests()` with the constraints taken off: the same knobs
+    and, by submission order, the same sampling streams."""
+    return [{k: v for k, v in r.items() if k not in ("grammar",
+                                                     "json_schema")}
+            for r in struct_requests()]
+
+
+def _struct_cfg(path, token_strs, draft=None):
+    from paddle_tpu_torch.inference import LLMEngineConfig
+
+    knobs = {"k=1": {}, "fused k=4": dict(decode_k=STRUCT_K),
+             "ngram": dict(spec_mode="ngram", spec_k=STRUCT_K),
+             "draft": dict(draft_model=draft, spec_k=STRUCT_K)}[path]
+    return LLMEngineConfig(kv_dtype="bfloat16", seed=77,
+                           token_strs=token_strs,
+                           grammar_states=STRUCT_STATES, **SERVE_CFG,
+                           **knobs)
+
+
+def _struct_valid(label, req, token_strs):
+    """The validity gate of one constrained request: its DFA replay meets
+    no disallowed token, and an output that ended at eos fullmatches the
+    pattern. Returns whether it ended at eos."""
+    g = req.grammar
+    gen = [int(t) for t in req.future.result()[req.prompt_len:]]
+    state = 0
+    for j, t in enumerate(gen):
+        if not g.allowed_np(state)[t]:
+            raise AssertionError(
+                f"{label}: generated token {j} ({t}) of a request under "
+                f"{g.pattern!r} is not allowed in state {state}")
+        if t == g.eos_id:
+            break
+        state = g.advance(state, t)
+    ended = bool(gen) and gen[-1] == g.eos_id
+    if ended:
+        text = "".join(token_strs[t] for t in gen[:-1])
+        if not re.fullmatch(g.pattern, text):
+            raise AssertionError(f"{label}: {text!r} does not match "
+                                 f"{g.pattern!r}")
+    return ended
+
+
+def struct_drive(model, cfg, prompts, requests, token_strs, label):
+    """An `LLMEngine` on `cfg` serves the requests to the end through
+    `_drive` (every emitted token's logits kept); every constrained
+    output must be valid. Returns (engine, requests, logits)."""
+    from paddle_tpu_torch.inference import LLMEngine
+
+    eng = LLMEngine(model, cfg)
+    reqs = [eng.add_request(p, max_new_tokens=STRUCT_NEW_TOKENS, **r)
+            for p, r in zip(prompts, requests)]
+    logits, _ = _drive(eng, reqs)
+    for r in reqs:
+        if r.grammar is not None:
+            _struct_valid(label, r, token_strs)
+    return eng, reqs, logits
+
+
+def struct_cross(label, ref, run, rows_of):
+    """Requests `rows_of` of `run` against the same requests of `ref` (both
+    `struct_drive` results), each up to its first differing token: every
+    emitted token's logits within SERVE_BF16_LOGIT_TOL; a token may differ
+    only at a near-tie of `ref`'s scores there (`_near_tie`, on the logits
+    masked by the request's grammar at that token), and the request is
+    compared no further."""
+    (e1, r1, l1), (_, rk, lk) = ref, run
+    key = e1._key.cpu()
+    worst, rows, ties = 0.0, 0, []
+    for i, j in rows_of:
+        a, b = r1[i], rk[j]
+        t1 = a.future.result()[a.prompt_len:]
+        tk = b.future.result()[b.prompt_len:]
+        n = min(len(t1), len(tk))
+        diff = np.flatnonzero(t1[:n] != tk[:n])
+        d = int(diff[0]) if diff.size else n
+        if d == n and len(t1) != len(tk):
+            raise AssertionError(f"{label}: request {i} ends at {len(tk)} "
+                                 f"tokens, the reference's at {len(t1)}")
+        for m in range(min(d + 1, n)):
+            worst = max(worst, (l1[i][m] - lk[j][m]).abs().max().item())
+            rows += 1
+        if d < n:
+            row = l1[i][d]
+            if a.grammar is not None:
+                ok = a.grammar.allowed_np(a.grammar.replay(t1[:d]))
+                row = torch.where(torch.from_numpy(ok.copy()), row, -1e30)
+            gap, tol = _near_tie(row, a, d, key, SERVE_BF16_LOGIT_TOL)
+            if not gap <= tol:
+                raise AssertionError(
+                    f"{label}: request {i} token {d} is {tk[d]} vs the "
+                    f"reference's {t1[d]}, whose top two scores differ by "
+                    f"{gap:.3e} (tol {tol:.2e})")
+            ties.append(f"request {i} token {d} (gap {gap:.2e})")
+    print(f"structured cross-check {label}: {rows} emitted rows compared, "
+          f"logits max abs diff {worst:.3e} (tol "
+          f"{SERVE_BF16_LOGIT_TOL:.0e}); tokens differ at {len(ties)} "
+          f"near-ties{': ' + ', '.join(ties) if ties else ''}")
+    if not worst <= SERVE_BF16_LOGIT_TOL:
+        raise AssertionError(f"{label}: logits disagree")
+
+
+def struct_serve(pa, model, path, token_strs, prompts, card, draft=None):
+    """`LLMServer` on the 5g config of `path`: four warm-up requests, one
+    per (greedy-or-sampled, constrained-or-not) choice (which capture
+    every graph a burst can replay), then the mixed burst
+    ("constrained": half the requests constrained) and the
+    all-unconstrained one, the launch counts set to 0 just before each and
+    read just after. Every constrained output valid; K1 12 per tick, 12 x
+    k per fused warm-up and replay, 1 per draft catch-up tick and 5 per
+    propose warm-up and replay, K2 12 per verify window, all on the
+    tensor-core route; one replay per window, captures at most one per
+    graph key. Host seconds per `_grammar_args` and per host-tick mask
+    (`_mask_rows`) over the mixed burst. Returns per burst its tok/s and
+    launches, and the host times."""
+    from paddle_tpu_torch.inference import LLMServer
+    from paddle_tpu_torch.profile_serve import HostTimer
+
+    server = LLMServer(model, _struct_cfg(path, token_strs, draft))
+    eng = server.engine
+    spec = eng._spec
+    layers = model.config.num_layers
+    catch_ups = []
+    if draft is not None:
+        tick = spec._prefill_fn
+
+        def counted(*args, **kw):
+            catch_ups.append(1)
+            return tick(*args, **kw)
+
+        spec._prefill_fn = counted
+    gargs = HostTimer(eng, "_grammar_args")
+    hmask = HostTimer(eng, "_mask_rows")
+
+    def burst(requests):
+        futs = [server.submit(p, max_new_tokens=STRUCT_NEW_TOKENS, **r)
+                for p, r in zip(prompts, requests)]
+        return futs, [f.result(timeout=600) for f in futs]
+
+    out = {}
+    with server:
+        # warm-ups, one request each: greedy / sampled, unconstrained /
+        # constrained — every graph key a burst can replay is captured
+        for r in (*plain_requests()[2:4], *struct_requests()[::3][:2]):
+            server.submit(prompts[0][:8], max_new_tokens=2 * STRUCT_K + 2,
+                          **r).result(timeout=600)
+        torch.cuda.synchronize()
+        for name, requests in (("constrained", struct_requests()),
+                               ("unconstrained", plain_requests())):
+            graphs = (eng._fused_fn if eng._fused_fn is not None
+                      else spec._propose_fn if draft is not None else None)
+            runs0 = (graphs.replays, graphs.warmups) if graphs else (0, 0)
+            st0, cu0 = dict(eng.stats), len(catch_ups)
+            gargs.times.clear()
+            hmask.times.clear()
+            pa.reset_launches()
+            t0 = time.perf_counter()
+            futs, outs = burst(requests)
+            wall = time.perf_counter() - t0
+            launches, tc = dict(pa.launches), dict(pa.tc_launches)
+            times = (list(gargs.times), list(hmask.times))
+            d = {k: eng.stats[k] - st0.get(k, 0) for k in eng.stats}
+            windows = (d["fused_steps"] + d.get("ngram_windows", 0)
+                       + d.get("spec_windows", 0))
+            ticks = d["steps"] - windows
+            replays = (graphs.replays - runs0[0]) if graphs else 0
+            warmups = (graphs.warmups - runs0[1]) if graphs else 0
+            cus = len(catch_ups) - cu0
+            want = dict.fromkeys(launches, 0)
+            if path == "fused k=4":
+                want["rpa"] = layers * (ticks + STRUCT_K * (replays
+                                                            + warmups))
+            elif path == "draft":
+                dl = draft.config.num_layers
+                want["rpa"] = (layers * ticks + dl * cus + dl * (STRUCT_K + 1)
+                               * (replays + warmups))
+            else:
+                want["rpa"] = layers * ticks
+            if path in ("ngram", "draft"):
+                want["qblock"] = layers * windows
+            captures_ok = graphs is None or (
+                graphs.captures == len(graphs._graphs) <= 4)
+            if (launches != want or tc != want or (path != "k=1"
+                                                   and not windows)
+                    or (graphs is not None and replays != windows)
+                    or not captures_ok):
+                raise AssertionError(
+                    f"structured serve {path} {name}: launches {launches} "
+                    f"(tensor-core {tc}) in {ticks} ticks, {windows} "
+                    f"windows, {replays} replays, {warmups} warm-ups, "
+                    f"{cus} catch-up ticks; expected {want}")
+            ended = [_struct_valid(f"structured serve {path}", f.pt_request,
+                                   token_strs)
+                     for f in futs if f.pt_request.grammar is not None]
+            gen = sum(len(o) - len(p) for o, p in zip(outs, prompts))
+            prop = d.get("ngram_proposed", 0) + d.get("spec_proposed", 0)
+            acc = d.get("ngram_accepted", 0) + d.get("spec_accepted", 0)
+            rate = f", accepted {acc} of {prop} proposals" if prop else ""
+            out[name] = dict(tok_s=gen / wall, launches=want,
+                             windows=windows, ticks=ticks)
+            print(f"structured serve gpt_small bf16, {path}, {name} "
+                  f"({card}): {gen} generated in {wall:.3f} s = "
+                  f"{gen / wall:.1f} tok/s, {ticks} ticks + {windows} "
+                  f"windows{rate}; constrained outputs valid, {sum(ended)} of "
+                  f"{len(ended)} complete; launches "
+                  f"{ {k: n for k, n in want.items() if n} } (ticks, "
+                  f"{replays} replays + {warmups} warm-ups, {cus} catch-up "
+                  "ticks), all on the tensor-core route; captures "
+                  f"{graphs.captures if graphs else 0}")
+            if name == "constrained":
+                out["host_s"] = times
+    gargs.remove()
+    hmask.remove()
+    return out
+
+
+def grammar_churn_gate(model, token_strs, prompts):
+    """No recapture on an arena refresh or a compaction: an `LLMEngine` at
+    decode_k 4 (the 5g config) serves a template request beside two
+    unconstrained ones; a second grammar is loaded mid-run (its rows copied
+    into the arena's device tables in place) and the next structured
+    window checked replay vs eager; after the run drains, a grammar larger
+    than the arena's free rows forces a compaction (every row rewritten)
+    and the next structured window is checked again. The tables keep
+    their addresses and every graph key used is captured once."""
+    from paddle_tpu_torch.inference import LLMEngine
+
+    eng = LLMEngine(model, _struct_cfg("fused k=4", token_strs))
+    arena = eng.grammar_arena
+    compactions = []
+    compact = arena._compact
+
+    def counted(keep):
+        compactions.append(len(keep))
+        return compact(keep)
+
+    arena._compact = counted
+    reqs = struct_requests(False)
+    for p, r in zip(prompts[:3], (reqs[0], reqs[4], reqs[5])):
+        eng.add_request(p, max_new_tokens=48, **r)
+    while (False, True) not in (eng._fused_fn._graphs if eng._fused_fn
+                                else {}):
+        eng.step()
+    fs = eng._fused_fn
+    ptrs = [t.data_ptr() for t in arena.device_tables()]
+    refreshes = arena.refreshes
+    eng.add_request(prompts[3], max_new_tokens=32, eos_token_id=0,
+                    grammar=r"[a-z]{3,8}!")
+    first = _window_vs_eager(eng, fs, structured=True)
+    refreshed = arena.refreshes - refreshes
+    while eng.has_work():
+        eng.step()
+    used = arena.states_used
+    eng.add_request(prompts[4], max_new_tokens=16, eos_token_id=0,
+                    grammar=r"[0-9a-f]{200}")
+    second = _window_vs_eager(eng, fs, structured=True)
+    while eng.has_work():
+        eng.step()
+    same = [np.array_equal(s["emits"], s["eager"]) and s["pools"]
+            for s in (first, second)]
+    kept = [t.data_ptr() for t in arena.device_tables()] == ptrs and all(
+        g.tables is None or [t.data_ptr() for t in g.tables] == ptrs
+        for g in fs._graphs.values())
+    print(f"grammar churn gate: a grammar loaded mid-run ({refreshed} "
+          f"refresh of the device tables) and a compaction ({used} -> "
+          f"{arena.states_used} states, compactions {compactions}): replay "
+          f"vs eager equal after each {same}; tables kept their addresses "
+          f"{kept}; captures {fs.captures} for graph keys "
+          f"{sorted(fs._graphs)}")
+    if not (all(same) and kept and refreshed >= 1 and compactions == [0]
+            and fs.captures == len(fs._graphs)):
+        raise AssertionError("grammar churn gate failed")
+
+
+def struct_timings(model, token_strs, card):
+    """Grammar compile seconds and arena costs at the full vocabulary, and
+    the device µs of one mask (`profile_serve.mask_ms`: the expansion and
+    the `where`, replayed from a CUDA graph) at S 8 (a fused window's
+    rows) and T 40 (the verify's 8 x 5)."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.profile_serve import (OBJECT_A, SCHEMA, TEMPLATE,
+                                                mask_ms)
+
+    eng = LLMEngine(model, _struct_cfg("fused k=4", token_strs))
+    arena = eng.grammar_arena
+    t0 = time.perf_counter()
+    arena.device_tables()
+    torch.cuda.synchronize()
+    alloc_ms = (time.perf_counter() - t0) * 1e3
+    compiled = []
+    for label, kw in (("template", dict(grammar=TEMPLATE)),
+                      ("object", dict(grammar=OBJECT_A)),
+                      ("schema", dict(json_schema=SCHEMA))):
+        t0 = time.perf_counter()
+        g = eng.compile_constraint(eos_token_id=0, **kw)
+        compile_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        arena.load(g)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        arena.device_tables()
+        torch.cuda.synchronize()
+        compiled.append(f"{label} {g.n_states} states: compile "
+                        f"{compile_s:.3f} s, arena load {load_ms:.2f} ms "
+                        "(host), refresh "
+                        f"{(time.perf_counter() - t0) * 1e3:.2f} ms")
+    arena._compact(set(arena._loaded))          # every row rewritten
+    t0 = time.perf_counter()
+    arena.device_tables()
+    torch.cuda.synchronize()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    s8, t40 = mask_ms(arena, 8) * 1e3, mask_ms(arena, 40) * 1e3
+    mb = sum(t.numel() * t.element_size() for t in arena.device_tables())
+    print(f"structured timings at vocab {arena.vocab} ({card}): "
+          + "; ".join(compiled) + f"; device tables {mb / 1e6:.1f} MB "
+          f"({arena.n_states} states): first copy {alloc_ms:.2f} ms, full "
+          f"refresh {full_ms:.2f} ms; mask device {s8:.1f} µs at S 8, "
+          f"{t40:.1f} µs at T 40 (graph replay, events)")
+    return dict(mask_us_s8=s8, mask_us_t40=t40, refresh_ms=full_ms)
+
+
+def structured_phase(pa, card):
+    """5g: structured decoding on the 5e target (and its draft) with the
+    synthetic 50304-string vocabulary: the compile and mask timings, the
+    constrained replay gates (greedy, sampled), the grammar churn gate,
+    the four paths through `LLMEngine` (validity; fused, n-gram and draft
+    against k=1; the fused run's unconstrained rows against an
+    all-unconstrained run) and through `LLMServer` (launch gates, tok/s
+    constrained vs unconstrained). Returns the bursts' numbers by path."""
+    from paddle_tpu_torch.profile_serve import structured_token_strs
+
+    target, draft = spec_pair()
+    vocab = target.config.vocab_size
+    token_strs = structured_token_strs(vocab)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, vocab, (n,)) for n in STRUCT_PROMPT_LENS]
+    timings = struct_timings(target, token_strs, card)
+    for sampled in (False, True):
+        fused_gate(pa, target, "bfloat16", STRUCT_K, prompts, sampled,
+                   token_strs)
+    grammar_churn_gate(target, token_strs, prompts)
+    runs = {path: struct_drive(target, _struct_cfg(path, token_strs, draft),
+                               prompts, struct_requests(), token_strs,
+                               f"structured {path}")
+            for path in STRUCT_PATHS}
+    every = [(i, i) for i in range(len(prompts))]
+    for path in STRUCT_PATHS[1:]:
+        struct_cross(f"{path} vs k=1", runs["k=1"], runs[path], every)
+    plain = struct_drive(target, _struct_cfg("fused k=4", token_strs),
+                         prompts, plain_requests(), token_strs, "plain")
+    struct_cross("co-residency, fused k=4 mixed vs all unconstrained",
+                 plain, runs["fused k=4"], [(i, i) for i in range(4, 8)])
+    del runs, plain
+    serve = {path: struct_serve(pa, target, path, token_strs, prompts, card,
+                                draft if path == "draft" else None)
+             for path in STRUCT_PATHS}
+    gargs = serve["fused k=4"]["host_s"][0]
+    hmask = serve["k=1"]["host_s"][1]
+    print(f"structured tok/s, constrained vs unconstrained ({card}): "
+          + "; ".join(f"{p} {serve[p]['constrained']['tok_s']:.1f} vs "
+                      f"{serve[p]['unconstrained']['tok_s']:.1f}"
+                      for p in STRUCT_PATHS)
+          + f"; host {np.median(gargs) * 1e6:.1f} µs per _grammar_args "
+          f"(fused k=4, median of {len(gargs)}), "
+          f"{np.median(hmask) * 1e6:.1f} µs per host-tick mask (k=1, "
+          f"median of {len(hmask)}); mask device "
+          f"{timings['mask_us_s8']:.1f} µs at S 8, "
+          f"{timings['mask_us_t40']:.1f} µs at T 40")
+    return serve
 
 
 def cross_check():
@@ -2698,6 +3154,7 @@ def main():
     del model
     drafts = draft_phase(pa, random, card)
     weights = weights_phase(ig, pa, random, card)
+    structured = structured_phase(pa, card)
     cross_check()
     cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
@@ -2744,6 +3201,12 @@ def main():
             # replays' share
             row["draft_burst_launches"] = drafts[kind]["launches"]
             row["propose_graph_launches"] = drafts[kind]["graph"]
+    # 5g's mixed (half constrained) bursts on the bf16 pool: K1 in the
+    # fused k=4 burst, K2 in the n-gram burst
+    kernels[0]["structured_burst_launches"] = structured["fused k=4"][
+        "constrained"]["launches"]["rpa"]
+    kernels[4]["structured_burst_launches"] = structured["ngram"][
+        "constrained"]["launches"]["qblock"]
     # the int8 GEMM: one decoder layer's four linears at the decode tick
     # (T 8) and the mixed tick (T 256), bf16 x; launches from 5f's k=1
     # burst on the quantized model (48 per tick), and its decode_k 4

@@ -100,6 +100,12 @@ class SLAScheduler:
     def __bool__(self):
         return self._n > 0
 
+    def __iter__(self):
+        """Waiting requests in plain queue order (snapshots of the queues,
+        so an insert cannot break the iteration)."""
+        for dq in list(self._q.values()):
+            yield from tuple(dq)
+
     # ---- enqueue side ----
 
     def enqueue(self, req):

@@ -1,7 +1,7 @@
 """Continuous-batching LLM serving engine with a paged KV cache
 (counterpart of paddle_tpu/inference/llm_engine.py: greedy and sampled
-decode, single ticks, fused k-token windows and n-gram speculative
-windows).
+decode, single ticks, fused k-token windows, speculative windows and
+grammar-constrained decoding).
 
 * Paged KV cache — per layer a pool [num_pages, page_size, heads,
   head_dim] with per-sequence page tables; pages are allocated as a
@@ -37,6 +37,14 @@ windows).
   a small draft model with its own mirrored KV pools, its propose window
   one CUDA graph (`SpeculativeDecoder`, inference/speculative.py); rows
   still prefilling take a single tick in the same step.
+* Structured decoding — with `LLMEngineConfig(token_strs=...)` a request
+  may carry `grammar=` (a regex or a `CompiledGrammar`) or `json_schema=`
+  (inference/structured): compiled at submit to a token-level DFA loaded
+  into the engine's `GrammarArena`, whose device tables mask every pick
+  of a constrained row — on the host at a single tick, inside the fused
+  window's graph and inside the verify. The host keeps each request's
+  DFA state (`_Request.gstate`) as a replay of its emitted tokens. A
+  window with no constrained row runs the graph without any mask op.
 
     server = LLMServer(model)                  # GPTForCausalLM
     with server:
@@ -62,6 +70,10 @@ from ..quantization import runtime as _qrt
 from ..text.models.gpt import sample_tokens
 from .fleet_serving import Priority, SLAScheduler
 from .serving import _FutureQueueServer
+from .structured import (CompiledGrammar, GrammarArena, GrammarError,
+                         compile_regex, schema_to_regex,
+                         validate_constraints)
+from .structured.arena import GrammarCache
 
 __all__ = ["PagePool", "PoolExhausted", "LLMEngineConfig", "LLMEngine",
            "LLMServer"]
@@ -142,8 +154,6 @@ class PagePool:
 
 # knobs of the JAX engine that this port does not run yet → ROADMAP row
 _UNPORTED_KNOBS = {
-    "token_strs": "A9 (structured decoding)",
-    "grammar_states": "A9 (structured decoding)",
     "prefix_cache": "A10 (serving fleet: prefix cache)",
     "hash_block_tokens": "A10 (serving fleet: prefix cache)",
     "kv_tier": "A10 (serving fleet: KV tier)",
@@ -194,6 +204,16 @@ class LLMEngineConfig:
                   draft_model is an error.
     spec_k        proposals per speculative window. Default: the
                   PT_SPEC_K env var, else 4. Ignored without speculation.
+    token_strs    one surface string per token id (len == the model's
+                  vocab): enables structured decoding (requests with
+                  grammar= / json_schema=); "" marks a token no grammar
+                  allows (specials, padding; the eos is allowed in
+                  accepting states)
+    grammar_states
+                  rows of the grammar arena (>= 2; row 0 is the mask
+                  identity), the most DFA states resident at once and so
+                  the state budget of one grammar (grammar_states - 1).
+                  Default 128. Without token_strs the arena is one row.
 
     Every other knob of the JAX engine raises NotImplementedError naming
     its ROADMAP row when set."""
@@ -201,7 +221,8 @@ class LLMEngineConfig:
     def __init__(self, num_slots=4, page_size=16, num_pages=None,
                  max_model_len=None, token_budget=None, kv_dtype=None,
                  seed=0, sla_policy=None, spec_k=None, spec_mode=None,
-                 decode_k=None, draft_model=None, **unported):
+                 decode_k=None, draft_model=None, token_strs=None,
+                 grammar_states=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_KNOBS:
                 raise TypeError(
@@ -239,6 +260,14 @@ class LLMEngineConfig:
                 "spec_mode='ngram' is draft-model-free — drop "
                 "draft_model= (or use spec_mode='draft')")
         self.spec_mode = spec_mode
+        self.token_strs = (None if token_strs is None
+                           else list(token_strs))
+        self.grammar_states = int(128 if grammar_states is None
+                                  else grammar_states)
+        if self.grammar_states < 2:
+            raise ValueError(
+                "grammar_states must be >= 2 (row 0 is the reserved "
+                f"mask-identity row), got {self.grammar_states}")
         if decode_k is None:
             decode_k = int(os.environ.get("PT_DECODE_K", "1"))
         self.decode_k = int(decode_k)
@@ -278,16 +307,6 @@ class LLMEngineConfig:
                    kv_dtype=kv_dtype, **kw)
 
 
-SPEC_MODES = ("off", "draft", "ngram")
-
-
-def _check_spec_mode(spec_mode):
-    if spec_mode is not None and spec_mode not in SPEC_MODES:
-        raise ValueError(
-            f"spec_mode= must be one of {SPEC_MODES} or None, got "
-            f"{spec_mode!r}")
-
-
 def _check_sampling(temperature, top_p):
     if temperature < 0:
         raise ValueError(f"temperature must be >= 0, got {temperature}")
@@ -315,24 +334,30 @@ class _PagedStep:
 class _Graph:
     """One captured window and every tensor whose address it holds."""
 
-    def __init__(self, graph, emits, logits, counts, workspaces):
+    def __init__(self, graph, emits, logits, counts, workspaces, tables):
         self.graph = graph
         self.emits = emits            # [k, S] int32, rewritten by a replay
         self.logits = logits          # k f32 frontier logits [S, vocab]
         self.counts = counts          # [(count dict, {name: launches})]
         self.workspaces = workspaces  # K1's workspace on the capture stream
+        self.tables = tables          # the grammar arena's pair, or None
 
 
 class _FusedStep:
     """The engine's fused k-token decode window — the counterpart of the
     JAX package's `_CompiledFusedStep` (llm_engine.py:562), whose jitted
     `lax.scan` becomes one captured `torch.cuda.CUDAGraph` of
-    `_paged_decode_fused` per greedy-or-sampled choice (at most two per
-    engine, captured at the first window that needs each), replayed for
-    every later window. A window that the pool or a budget cuts short
-    rides `rem` through the same graph. With `propose` it is the draft
-    model's propose window (`inference/speculative._ProposeStep`): the
-    static buffer also carries each row's lag and frontier token.
+    `_paged_decode_fused` per (greedy-or-sampled, structured-or-not)
+    choice (at most four per engine, each captured at the first window
+    that needs it), replayed for every later window. A window that the
+    pool or a budget cuts short rides `rem` through the same graph. A
+    structured graph masks each pick through the grammar arena's device
+    tables, which keep their addresses for the engine's lifetime (the
+    arena refreshes them in place); the other graphs hold no mask op.
+    With `propose` it is the draft model's propose window
+    (`inference/speculative._ProposeStep`, never masked, as in the
+    reference): the static buffer carries each row's lag and frontier
+    token where the fused window's carries its grammar state.
 
     The engine writes every per-window input into one pinned host buffer
     (`host_views`); one copy moves it into the static device buffer the
@@ -348,12 +373,12 @@ class _FusedStep:
     the capture and held off during it: a dead object that owns a CUDA
     graph (another engine's) would otherwise be freed mid-capture, and
     destroying a graph while a stream captures invalidates the capture.
-    Nothing else launches on the capture stream, and each
-    graph keeps a reference to every tensor whose address it holds: the
-    static buffers and the key (owned here and by the engine), its logits
-    and emits, and K1's tensor-core workspace for the stream (the wrapper
-    replaces a workspace when a call needs a larger one, and the graph
-    would keep the old address). The kernel wrappers (K1's and the int8
+    Nothing else launches on the capture stream, and each graph keeps a
+    reference to every tensor whose address it holds: the static buffers
+    and the key (owned here and by the engine), the grammar tables, its
+    logits and emits, and K1's tensor-core workspace for the stream (the
+    wrapper replaces a workspace when a call needs a larger one, and the
+    graph would keep the old address). The kernel wrappers (K1's and the int8
     GEMM's) count their launches in Python, which runs only during the
     capture: the counts the capture added are taken back, and added
     again at every replay.
@@ -370,7 +395,7 @@ class _FusedStep:
         self.S, self.MP = int(num_slots), int(pages_per_seq)
         self.key = key
         self.propose = bool(propose)
-        self._ints = 8 if self.propose else 6     # int32 rows of [S]
+        self._ints = 8 if self.propose else 7     # int32 rows of [S]
         dev = model.device
         self.cuda = dev.type == "cuda"
         n = (self._ints + 2) * self.S + self.S * self.MP
@@ -378,29 +403,36 @@ class _FusedStep:
                                  pin_memory=self.cuda)
         self._static = torch.zeros((n,), dtype=torch.int32, device=dev)
         self._stream = torch.cuda.Stream(dev) if self.cuda else None
-        self._graphs = {}          # sampled -> _Graph
+        self._graphs = {}          # (sampled, structured) -> _Graph
         self.captures = self.warmups = self.replays = 0
         self.logits = []           # the last window's f32 logits, per tick
 
     def host_views(self):
         """numpy views of the host buffer the engine fills: tok0, pos0,
-        rem, fin0 (1 = empty slot), eos, streams [S] int32 (propose mode:
-        then lag, frontier [S] int32), temps, top_ps [S] float32,
+        rem, fin0 (1 = empty slot), eos, streams [S] int32, then gstate0
+        [S] int32 (arena-absolute grammar state, 0 = unconstrained) or, in
+        propose mode, lag, frontier [S] int32; temps, top_ps [S] float32,
         page_tables [S, MP] int32."""
         S, n, buf = self.S, self._ints, self._host.numpy()
         return (*buf[:n * S].reshape(n, S),
                 *buf[n * S:(n + 2) * S].view(np.float32).reshape(2, S),
                 buf[(n + 2) * S:].reshape(S, self.MP))
 
-    def eager(self, kv, kv_scales, sampled, logits_out=None):
+    def eager(self, kv, kv_scales, sampled, tables=None, logits_out=None):
         """The window run eagerly on the staged inputs (the warm-up, the
         capture's body, the CPU path) → emits [k, S] int32 on the pools'
-        device."""
+        device. `tables`: the grammar arena's device (trans, mask), or
+        None for a window without the mask."""
         S, n, v = self.S, self._ints, self._static
         ints = v[:n * S].view(n, S)
         tok0, pos0, rem, fin0, eos, streams = ints[:6]
         temps, top_ps = v[n * S:(n + 2) * S].view(torch.float32).view(2, S)
-        mode = dict(lag=ints[6], frontier=ints[7]) if self.propose else {}
+        if self.propose:
+            mode = dict(lag=ints[6], frontier=ints[7])
+        elif tables is not None:
+            mode = dict(gstate0=ints[6], gtrans=tables[0], gmask=tables[1])
+        else:
+            mode = {}
         with torch.inference_mode():
             emits, _, _ = self.model._paged_decode_fused(
                 self.k, self.page_size, tok0, pos0, rem, fin0 != 0, eos,
@@ -409,25 +441,28 @@ class _FusedStep:
                 logits_out=logits_out, **mode)
         return emits
 
-    def launch(self, kv, kv_scales, sampled):
-        """Stage the host buffer and run one window (`sampled`: any row's
-        temperature > 0, the host's choice of graph) → emits [k, S] int32
+    def launch(self, kv, kv_scales, sampled, tables=None):
+        """Stage the host buffer and run one window → emits [k, S] int32
         on the device, with no host sync: on the card the graph's own
-        output, rewritten by the next replay."""
+        output, rewritten by the next replay. The host's choice of graph:
+        `sampled` (any row's temperature > 0) and `tables` (the grammar
+        arena's device pair when any row has a grammar, else None)."""
         self._static.copy_(self._host, non_blocking=self.cuda)
         if not self.cuda:
             self.logits = []
-            return self.eager(kv, kv_scales, sampled, self.logits)
-        g = self._graphs.get(sampled)
+            return self.eager(kv, kv_scales, sampled, tables, self.logits)
+        key = (sampled, tables is not None)
+        g = self._graphs.get(key)
         if g is None:
-            g = self._graphs[sampled] = self._capture(kv, kv_scales, sampled)
+            g = self._graphs[key] = self._capture(kv, kv_scales, sampled,
+                                                  tables)
         self.replay(g)
         self.logits = g.logits
         return g.emits
 
-    def run(self, kv, kv_scales, sampled):
+    def run(self, kv, kv_scales, sampled, tables=None):
         """`launch`, then the window's one sync → emits numpy [k, S]."""
-        return self.launch(kv, kv_scales, sampled).cpu().numpy()
+        return self.launch(kv, kv_scales, sampled, tables).cpu().numpy()
 
     def replay(self, g):
         g.graph.replay()
@@ -436,14 +471,14 @@ class _FusedStep:
                 counts[name] += n
         self.replays += 1
 
-    def _capture(self, kv, kv_scales, sampled):
+    def _capture(self, kv, kv_scales, sampled, tables=None):
         from ..ops.cuda_kernels import int8_gemm as ig
         from ..ops.cuda_kernels import paged_attention as pa
 
         stream = self._stream
         stream.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(stream):
-            self.eager(kv, kv_scales, sampled)     # warm-up, launches count
+            self.eager(kv, kv_scales, sampled, tables)  # warm-up, counted
         self.warmups += 1
         counters = (pa.launches, pa.tc_launches, ig.launches)
         before = [dict(c) for c in counters]
@@ -455,7 +490,7 @@ class _FusedStep:
         try:
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode="global"):
-                emits = self.eager(kv, kv_scales, sampled, logits)
+                emits = self.eager(kv, kv_scales, sampled, tables, logits)
         finally:
             if collecting:
                 gc.enable()
@@ -468,7 +503,7 @@ class _FusedStep:
             counts.append((c, added))
         self.captures += 1
         return _Graph(graph, emits, logits, counts,
-                      pa.stream_workspaces(stream.cuda_stream))
+                      pa.stream_workspaces(stream.cuda_stream), tables)
 
 
 class _Request:
@@ -484,6 +519,12 @@ class _Request:
         self.top_p = float(top_p)
         self.sample_stream = 0    # engine-assigned at add_request
         self.spec_off = False     # per-request spec_mode="off" opt-out
+        # structured decoding: the compiled DFA and the request's
+        # grammar-LOCAL state, a pure function of the generated tokens
+        # (each emitted token is replayed through `grammar.advance`), so a
+        # preempted request resumes at the right state: `tokens` is kept
+        self.grammar = None
+        self.gstate = 0
         self.rid = next(_Request._ids)
         self.tokens = [int(t) for t in tokens]  # prompt, grows as decoded
         self.prompt_len = len(self.tokens)
@@ -595,6 +636,25 @@ class LLMEngine:
         # f32 frontier logits of the last tick that sampled (cross-checks;
         # a fused window's are `_fused_fn.logits`)
         self.last_logits = None
+        # structured decoding (inference/structured): the grammar arena's
+        # device tables are read by the fused and verify windows at a
+        # fixed shape, [grammar_states, vocab] with token_strs, the lone
+        # mask-identity row without. The compile cache is lock-guarded:
+        # `LLMServer.submit` compiles on the caller's thread
+        self.token_strs = (list(cfg.token_strs)
+                           if cfg.token_strs is not None else None)
+        if (self.token_strs is not None
+                and len(self.token_strs) != mcfg.vocab_size):
+            raise ValueError(
+                f"token_strs has {len(self.token_strs)} entries but "
+                f"the model vocab is {mcfg.vocab_size} — one surface "
+                "string per token id")
+        self.grammar_arena = GrammarArena(
+            mcfg.vocab_size,
+            cfg.grammar_states if self.token_strs is not None else 1,
+            device=self.device)
+        self._grammar_cache = GrammarCache()
+        self.stats["structured_requests"] = 0
         # speculative decoding: rows at their sampling frontier take one
         # verify window per step (inference/speculative.py with a draft
         # model, inference/structured/ngram.py with prompt lookup)
@@ -623,21 +683,57 @@ class LLMEngine:
         """The admission queue (supports len() / bool() / iteration)."""
         return self.sched
 
-    # ---- client side ----
+    # ---- structured decoding: the constraint surface ----
 
-    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
-                    future=None, tenant="default", priority=None,
-                    ttft_slo_s=None, temperature=0.0, top_p=1.0,
-                    spec_mode=None):
-        """Enqueue one request (1-D int token ids); returns the
-        `_Request`, whose `future` resolves to np.int64 [prompt +
-        generated].
+    def compile_constraint(self, grammar=None, json_schema=None,
+                           eos_token_id=None):
+        """Compile one per-request constraint to a `CompiledGrammar`
+        through the engine's hash-keyed cache (a hot schema compiles once
+        per engine). Thread-safe: `LLMServer.submit` calls it on the
+        caller's thread, so a bad grammar raises at submit(). Raises
+        GrammarError (a ValueError) for unsupported syntax or a DFA over
+        the arena's state budget."""
+        what = "json_schema=" if json_schema is not None else "grammar="
+        if self.token_strs is None:
+            raise GrammarError(
+                f"{what}: this engine has no token_strs — pass "
+                "LLMEngineConfig(token_strs=[...]) to enable structured "
+                "decoding")
+        if isinstance(grammar, CompiledGrammar):
+            if grammar.vocab != len(self.token_strs):
+                raise GrammarError(
+                    f"grammar=: CompiledGrammar vocab {grammar.vocab} "
+                    f"!= engine vocab {len(self.token_strs)}")
+            return grammar
+        if eos_token_id is None:
+            raise GrammarError(
+                f"{what}: constrained decoding needs eos_token_id= (the "
+                "grammar decides WHEN the output is complete by "
+                "unmasking eos in accepting states)")
+        pattern = (grammar if grammar is not None
+                   else schema_to_regex(json_schema))
+        ck = (pattern, int(eos_token_id))
+        hit = self._grammar_cache.lookup(ck)
+        if hit is not None:
+            return hit
+        # compiled outside the cache's lock (host work, possibly slow); a
+        # racing duplicate compile is wasted work, not corruption
+        try:
+            cg = compile_regex(pattern, self.token_strs,
+                               eos_id=int(eos_token_id),
+                               max_states=self.grammar_arena.capacity)
+        except GrammarError:
+            self._grammar_cache.reject()
+            raise
+        return self._grammar_cache.insert(ck, cg)
 
-        spec_mode: per-request speculation override — None inherits the
-        engine's mode; "off" disables proposals for this request; the
-        engine's own mode is accepted; any other mode raises
-        (speculation is an engine resource)."""
-        _check_spec_mode(spec_mode)
+    def _resolve_constraint(self, grammar, json_schema, eos_token_id,
+                            spec_mode):
+        """The submit gate of `add_request` and `LLMServer.submit`:
+        structural validation, the engine-context checks and the grammar
+        compile. Returns the CompiledGrammar or None."""
+        validate_constraints(grammar=grammar, json_schema=json_schema,
+                             spec_mode=spec_mode)
         if spec_mode not in (None, "off") and spec_mode != (
                 self.spec_mode or "off"):
             raise ValueError(
@@ -645,6 +741,77 @@ class LLMEngine:
                 f"spec_mode={self.spec_mode!r} — speculation is an "
                 "engine resource; per-request spec_mode can only "
                 "opt OUT ('off') or restate the engine's mode")
+        if grammar is None and json_schema is None:
+            return None
+        return self.compile_constraint(grammar=grammar,
+                                       json_schema=json_schema,
+                                       eos_token_id=eos_token_id)
+
+    def _live_grammar_hashes(self):
+        """Hashes of grammars still referenced by queued or running
+        requests — what arena compaction must keep."""
+        live = {r.grammar.hash for r in self._slots
+                if r is not None and r.grammar is not None}
+        live.update(r.grammar.hash for r in self.sched
+                    if r.grammar is not None)
+        return live
+
+    def _grammar_args(self, rows):
+        """Per-window grammar inputs of the fused and verify steps: the
+        arena-absolute DFA state of each slot, int32 [num_slots] (0 = the
+        mask-identity row: empty and unconstrained slots), and the arena's
+        device (trans, mask) when a row of `rows` has a grammar, else None
+        — the reference's lax.cond on any(gstate > 0), decided on the
+        host: the window then runs without a mask op. Reading the tables
+        copies the rows the arena changed into them, in place."""
+        gst = np.zeros((self.num_slots,), np.int32)
+        for slot, req in rows:
+            if req.grammar is not None:
+                gst[slot] = (self.grammar_arena.base_of(req.grammar)
+                             + req.gstate)
+        tables = self.grammar_arena.device_tables() if gst.any() else None
+        return gst, tables
+
+    def _structured_metrics(self):
+        """The structured-decoding block of the reference's `metrics()`
+        (ROADMAP A10 ports `metrics()` itself): None unless the engine has
+        token_strs. Engine-local counts."""
+        if self.token_strs is None:
+            return None
+        gc_ = self._grammar_cache.snapshot()
+        return {
+            "grammars_resident": len(self.grammar_arena._loaded),
+            "states_used": self.grammar_arena.states_used,
+            "state_budget": self.grammar_arena.n_states,
+            "requests": self.stats.get("structured_requests", 0),
+            "compiles": gc_["compiles"],
+            "cache_hits": gc_["cache_hits"],
+            "rejects": gc_["rejects"],
+        }
+
+    # ---- client side ----
+
+    def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
+                    future=None, tenant="default", priority=None,
+                    ttft_slo_s=None, temperature=0.0, top_p=1.0,
+                    spec_mode=None, grammar=None, json_schema=None):
+        """Enqueue one request (1-D int token ids); returns the
+        `_Request`, whose `future` resolves to np.int64 [prompt +
+        generated].
+
+        spec_mode: per-request speculation override — None inherits the
+        engine's mode; "off" disables proposals for this request; the
+        engine's own mode is accepted; any other mode raises
+        (speculation is an engine resource).
+
+        grammar: a regex string (or a structured.CompiledGrammar)
+        constraining the generated tokens; json_schema: a JSON-schema
+        dict lowered to one (canonical no-whitespace JSON). At most one of
+        the two; both need LLMEngineConfig(token_strs=...) and an
+        eos_token_id. The grammar compiles and loads into the arena here,
+        so a bad or oversized one raises here."""
+        grammar_obj = self._resolve_constraint(grammar, json_schema,
+                                               eos_token_id, spec_mode)
         toks = np.asarray(prompt).reshape(-1)
         if toks.size == 0:
             raise ValueError("empty prompt")
@@ -664,6 +831,17 @@ class LLMEngine:
         req.sample_stream = next(self._sample_streams)
         req.spec_off = spec_mode == "off"
         req.target = min(req.prompt_len + req.max_new, self.max_model_len)
+        if grammar_obj is not None:
+            # loaded now (GrammarError at submit, not mid-serve); the
+            # device tables take the rows at the next constrained window
+            req.grammar = grammar_obj
+            try:
+                self.grammar_arena.load(
+                    grammar_obj, live=self._live_grammar_hashes())
+            except Exception:
+                self._grammar_cache.reject()
+                raise
+            self.stats["structured_requests"] += 1
         if req.target <= req.prompt_len:
             # zero budget: the prompt echoes back
             if not req.future.cancelled():
@@ -918,13 +1096,14 @@ class LLMEngine:
             self._fused_fn = _FusedStep(self.model, k, ps, self.num_slots,
                                         self.pages_per_seq, self._key)
         fused = self._fused_fn
-        tok0, pos0, rem, fin0, eos, streams, temps, tops, pt = \
+        tok0, pos0, rem, fin0, eos, streams, gstate, temps, tops, pt = \
             fused.host_views()
         for col, empty in ((tok0, 0), (pos0, 0), (rem, 0), (fin0, 1),
                            (eos, -1), (streams, 0), (temps, 0.0),
                            (tops, 1.0)):
             col[:] = empty            # an empty slot: finished, greedy
         pt[:] = self._page_tables
+        gstate[:], tables = self._grammar_args(active)
         gen_before = {}
         for slot, req in active:
             tok0[slot] = req.tokens[-1]
@@ -940,7 +1119,8 @@ class LLMEngine:
         t0 = _time.perf_counter()
         try:
             emits = fused.run(self._kv, self._kv_scales or None,
-                              any(r.temperature > 0 for _, r in active))
+                              any(r.temperature > 0 for _, r in active),
+                              tables)
         except Exception as e:
             # the pools may be half written: fail the in-flight work and
             # re-zero, as the single tick does
@@ -959,6 +1139,9 @@ class LLMEngine:
             for j in range(int(rem_arg[slot])):
                 t = int(emits[j, slot])
                 req.tokens.append(t)
+                if req.grammar is not None:
+                    # the window's DFA advance, replayed on the host
+                    req.gstate = req.grammar.advance(req.gstate, t)
                 emitted += 1
                 if ((req.eos is not None and t == req.eos)
                         or len(req.tokens) >= req.target):
@@ -1000,6 +1183,19 @@ class LLMEngine:
         lv = torch.nn.functional.pad(lv, (0, 0, 0, S - n))
         return sample_tokens(lv, temps, tops, dev[2], dev[3],
                              self._key)[:n]
+
+    def _mask_rows(self, lv, reqs):
+        """The tick's grammar mask (the reference's llm_engine.py:2664):
+        each constrained row's allowed tokens at its DFA state
+        (`CompiledGrammar.allowed_np`, all True for the other rows), built
+        on the host, one copy to the device, and applied to the logits as
+        `sample_tokens(allowed=)` applies the windows' mask."""
+        allow = np.ones(tuple(lv.shape), bool)
+        for j, r in enumerate(reqs):
+            if r.grammar is not None:
+                allow[j] = r.grammar.allowed_np(r.gstate)
+        return torch.where(torch.from_numpy(allow).to(self.device), lv,
+                           -1e30)
 
     def _step_tick(self, only_slots=None):
         plan = self._plan(only_slots)
@@ -1043,6 +1239,8 @@ class LLMEngine:
                 lv = logits[0, sample_slots].float()
                 self.last_logits = lv
                 reqs = [self._slots[s] for s in sample_slots]
+                if any(r.grammar is not None for r in reqs):
+                    lv = self._mask_rows(lv, reqs)
                 if any(r.temperature > 0 for r in reqs):
                     nxt = self._host_sample_rows(lv, reqs)
                 else:
@@ -1064,6 +1262,8 @@ class LLMEngine:
         for slot, t in zip(sample_slots, nxt):
             req = self._slots[slot]
             req.tokens.append(int(t))
+            if req.grammar is not None:
+                req.gstate = req.grammar.advance(req.gstate, int(t))
             self.stats["generated"] += 1
             if req.num_generated == 1:      # replays don't re-count
                 req.t_first_token = now
@@ -1093,14 +1293,20 @@ class LLMServer(_FutureQueueServer):
 
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
                tenant="default", priority=None, ttft_slo_s=None,
-               temperature=0.0, top_p=1.0, spec_mode=None):
+               temperature=0.0, top_p=1.0, spec_mode=None, grammar=None,
+               json_schema=None):
         """Enqueue one prompt (1-D int token ids). Returns a Future
         resolving to np.int64 [prompt + generated] (eos kept, nothing
-        after it). Sampling knobs are checked here, on the caller's
-        thread. The engine-side `_Request` is attached to the future as
-        `fut.pt_request` once the engine thread has taken it in."""
+        after it). The sampling knobs and the constraint kwargs
+        (`grammar=`, `json_schema=`, `spec_mode=`; see
+        `LLMEngine.add_request`) are checked, and the grammar compiled,
+        here on the caller's thread, so a bad one raises at submit() and
+        never inside the serve loop. The engine-side `_Request` is
+        attached to the future as `fut.pt_request` once the engine thread
+        has taken it in."""
         _check_sampling(float(temperature), float(top_p))
-        _check_spec_mode(spec_mode)
+        grammar = self._engine._resolve_constraint(
+            grammar, json_schema, eos_token_id, spec_mode)
         fut = Future()
         fut.pt_request = None
         self._enqueue(dict(
@@ -1108,7 +1314,7 @@ class LLMServer(_FutureQueueServer):
             max_new_tokens=int(max_new_tokens), eos_token_id=eos_token_id,
             future=fut, tenant=tenant, priority=priority,
             ttft_slo_s=ttft_slo_s, temperature=float(temperature),
-            top_p=float(top_p), spec_mode=spec_mode))
+            top_p=float(top_p), spec_mode=spec_mode, grammar=grammar))
         return fut
 
     def generate(self, prompt, max_new_tokens=32, eos_token_id=None):

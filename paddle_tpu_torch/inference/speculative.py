@@ -26,6 +26,13 @@ host with the verify's emits, the window's one sync. The draft's picks
 use the engine's key, so a sampled draft draws the target's Gumbel noise
 and agrees with it more often than an argmax would.
 
+Structured decoding: the verify masks each of its k+1 picks per slot by
+the grammar state its drafts lead to (`_paged_verify_fused`'s gstate0 /
+gtrans / gmask, from `LLMEngine._grammar_args`); the draft's propose
+window stays unmasked, as in the reference — a grammar-illegal proposal
+fails the exact match and ends the accepted prefix. The host advances
+each constrained request's DFA state over the emitted tokens.
+
 Rollback is positional: rejected rows' KV, in both pools, stays past the
 accepted frontier, masked by kv_len and overwritten by position when the
 real tokens arrive. A request's valid draft prefix is
@@ -60,42 +67,50 @@ class _VerifyStep:
         self.page_size = int(page_size)
 
     def __call__(self, rows, drafts, page_tables, kv, kv_scales=None,
-                 key=None):
+                 key=None, grammar=None):
         """rows: the host numpy inputs (tok0, pos0, width, rem, fin0, eos,
         temps, top_ps, streams), [S] each (`_Speculator._verify_rows`);
         page_tables [S, MP] int; key, the engine's device key (None when
-        every row is greedy). drafts [S, k]: a host int array, or an int32
+        every row is greedy); grammar, `LLMEngine._grammar_args`' (gstate0
+        [S] int32, the arena's device tables or None): with tables the
+        picks are masked. drafts [S, k]: a host int array, or an int32
         tensor on the model's device (a draft model's proposals), which
         then comes back with the emits in the same copy. Returns emits
         [k+1, S] as a numpy int32 array (-1 = nothing emitted), and with
         device drafts (emits, drafts [S, k] numpy)."""
         tok0, pos0, width, rem, fin0, eos, temps, top_ps, streams = rows
+        gst, tables = grammar if grammar is not None else (None, None)
         S, k = tok0.shape[0], self.k
         MP = page_tables.shape[1]
         on_device = isinstance(drafts, torch.Tensor)
-        buf = np.zeros((9 * S + S * k + S * MP,), np.int32)
-        vec = buf[:9 * S].reshape(9, S)
+        buf = np.zeros((10 * S + S * k + S * MP,), np.int32)
+        vec = buf[:10 * S].reshape(10, S)
         for row, x in enumerate((tok0, pos0, width, rem, fin0, eos,
                                  streams)):
             vec[row] = x
         f = vec[7:9].view(np.float32)
         f[0] = temps
         f[1] = top_ps
+        if gst is not None:
+            vec[9] = gst
         if not on_device:
-            buf[9 * S:9 * S + S * k] = np.asarray(drafts).reshape(-1)
-        buf[9 * S + S * k:] = np.asarray(page_tables).reshape(-1)
+            buf[10 * S:10 * S + S * k] = np.asarray(drafts).reshape(-1)
+        buf[10 * S + S * k:] = np.asarray(page_tables).reshape(-1)
         dev = torch.from_numpy(buf).to(self.model.device)
         (tok0_d, pos0_d, width_d, rem_d, fin_d, eos_d,
          streams_d) = dev[:7 * S].view(7, S)
         temps_d, tops_d = dev[7 * S:9 * S].view(torch.float32).view(2, S)
         drafts_d = (drafts if on_device
-                    else dev[9 * S:9 * S + S * k].view(S, k))
-        pt_d = dev[9 * S + S * k:].view(S, MP)
+                    else dev[10 * S:10 * S + S * k].view(S, k))
+        pt_d = dev[10 * S + S * k:].view(S, MP)
+        mask = ({} if tables is None else
+                dict(gstate0=dev[9 * S:10 * S], gtrans=tables[0],
+                     gmask=tables[1]))
         with torch.inference_mode():
             emits, _, _ = self.model._paged_verify_fused(
                 k, self.page_size, tok0_d, pos0_d, drafts_d, width_d,
                 rem_d, fin_d != 0, eos_d, temps_d, pt_d, kv, kv_scales,
-                top_ps=tops_d, streams=streams_d, key=key)
+                top_ps=tops_d, streams=streams_d, key=key, **mask)
             if not on_device:
                 return emits.cpu().numpy()
             both = torch.cat([emits, drafts_d.t().to(emits.dtype)])
@@ -200,6 +215,9 @@ class _Speculator:
                 if t < 0:
                     break
                 req.tokens.append(t)
+                if req.grammar is not None:
+                    # the verify's DFA advance, replayed on the host
+                    req.gstate = req.grammar.advance(req.gstate, t)
                 if j < k and t == int(drafts[slot, j]):
                     accepted += 1
                 emitted += 1
@@ -421,6 +439,7 @@ class SpeculativeDecoder(_Speculator):
                 fin_p[slot] = 0
 
         sampled = any(r.temperature > 0 for _, r in frontier)
+        grammar = eng._grammar_args(frontier)
         t0 = _time.perf_counter()
         try:
             # the proposals stay on the device into the verify; the
@@ -429,7 +448,8 @@ class SpeculativeDecoder(_Speculator):
                                              or None, sampled))
             emits, drafts_h = self._verify_fn(
                 rows, drafts, eng._page_tables, eng._kv,
-                eng._kv_scales or None, key=eng._key if sampled else None)
+                eng._kv_scales or None, key=eng._key if sampled else None,
+                grammar=grammar)
         except Exception as e:
             eng.abort_all(e)
             raise

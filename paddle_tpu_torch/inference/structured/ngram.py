@@ -14,9 +14,10 @@ Slots with no match run verify-only (width 0: a plain decode row inside
 the same step).
 
 Losslessness: acceptance is exact match against the model's own pick
-(greedy, or the keyed draw of `sample_tokens`), so the output is
-token-identical to the non-speculative engine whatever the proposals;
-bad proposals cost width, never correctness.
+(greedy, or the keyed draw of `sample_tokens`, masked by the request's
+grammar when it has one), so the output is token-identical to the
+non-speculative engine whatever the proposals; bad proposals cost width,
+never correctness.
 
 The engine drives it through the surface it shares with the draft-model
 `SpeculativeDecoder` (`inference/speculative._Speculator`: `try_window`,
@@ -93,13 +94,15 @@ class NgramSpeculator(_Speculator):
         drafts = np.zeros((eng.num_slots, self.k), np.int32)
         for slot, props in proposals.items():
             drafts[slot, :width[slot]] = props[:width[slot]]
+        grammar = eng._grammar_args(frontier)
         t0 = _time.perf_counter()
         try:
             sampled = any(r.temperature > 0 for _, r in frontier)
             emits = self._verify_fn(self._verify_rows(frontier, width),
                                     drafts, eng._page_tables, eng._kv,
                                     eng._kv_scales or None,
-                                    key=eng._key if sampled else None)
+                                    key=eng._key if sampled else None,
+                                    grammar=grammar)
         except Exception as e:
             eng.abort_all(e)
             raise

@@ -23,7 +23,12 @@ greedy requests with prompts of 16-900 tokens, 32 new tokens each
   bench.py:831: the draft holds the target's embeddings, first block and
   final LN; the target's later blocks have proj / fc2 damped by 0.01);
 * `int8-weights`: the serve load on the model after
-  `quantize_model_int8` (every linear through the int8 GEMM).
+  `quantize_model_int8` (every linear through the int8 GEMM);
+* `structured`: the serve load at decode_k 4 with every other request
+  constrained (`STRUCTURED`: chip_smoke phase 5g's grammars and JSON
+  schema, eos token 0; one sampled), the engine given the synthetic
+  50304-string vocabulary of `structured_token_strs` and 256 grammar
+  states.
 
 Each load runs one warm-up burst, one timed burst and one burst under
 `torch.profiler`, then prints:
@@ -41,7 +46,12 @@ Each load runs one warm-up burst, one timed burst and one burst under
   (events from the catch-up to the verify's end: device time and the
   eager steps' idle gaps); for the sampled loads, the
   sampler's device ms per call (`sample_tokens` on [num_slots, vocab]
-  replayed from a CUDA graph, as a window runs it: `sampler_ms`);
+  replayed from a CUDA graph, as a window runs it: `sampler_ms`); for
+  the structured load, the host µs per `_grammar_args` call (the window's
+  grammar states and tables) and per host-tick mask (`_mask_rows`), the
+  device ms of one mask expansion and `where` on [num_slots, vocab]
+  (`mask_ms`) and its share of a window's device time (decode_k of them
+  per window);
 * the timed burst's host time per engine `step()` call (a verify window
   and its straggler tick are one call): the median and its quartiles,
   and the host time spent inside the paged attention wrapper
@@ -78,7 +88,7 @@ from .core import prng
 from .inference import LLMEngineConfig, LLMServer
 from .quantization.runtime import quantize_model_int8
 from .text.models.gpt import (GPTConfig, GPTForCausalLM, gpt_small,
-                              sample_tokens)
+                              grammar_allowed, sample_tokens)
 
 PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 NEW_TOKENS = 32
@@ -97,9 +107,21 @@ PAGED_KERNELS = {"K1": ("rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
                         "rpa_tc_qblock_merge_kernel")}
 # csrc/int8_gemm.cu: the activation quantize and the W8A8 GEMM
 GEMM_KERNELS = {"int8 GEMM": ("quantize_rows_kernel", "w8a8_gemm_kernel")}
-# load -> (engine knobs, repetitive prompts, request knobs[, model]):
-# model "draft" serves `spec_draft_pair`'s target with its draft,
-# "int8-weights" the serve model after `quantize_model_int8`
+# the structured load's grammars (chip_smoke phase 5g): a JSON-ish list
+# template whose DFA has 99 states at the synthetic vocabulary, a small
+# object, and a schema with a string and an integer property
+TEMPLATE = r'\[(\{"k":[0-9]\},){8,12}\]'
+OBJECT_A = r'\{"a":[0-9]{1,3}\}'
+SCHEMA = {"type": "object", "properties": {"name": {"type": "string"},
+                                           "count": {"type": "integer"}}}
+_EOS = dict(eos_token_id=0)
+STRUCTURED = [dict(grammar=TEMPLATE, **_EOS), _EOS,
+              dict(grammar=OBJECT_A, **_EOS), _EOS,
+              dict(json_schema=SCHEMA, **_EOS), _EOS,
+              dict(grammar=TEMPLATE, **_EOS, **_SAMPLED), _EOS]
+# load -> (engine knobs, repetitive prompts, request knobs — or one per
+# prompt[, model]): model "draft" serves `spec_draft_pair`'s target with
+# its draft, "int8-weights" the serve model after `quantize_model_int8`
 LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "bf16-repetitive": (dict(kv_dtype="bfloat16"), True, {}),
          "int8": (dict(kv_dtype="int8"), True, {}),
@@ -114,7 +136,28 @@ LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "draft-int8": (dict(kv_dtype="int8", **_DRAFT), False, {},
                         "draft"),
          "int8-weights": (dict(kv_dtype="bfloat16"), False, {},
-                          "int8-weights")}
+                          "int8-weights"),
+         "structured": (dict(kv_dtype="bfloat16", decode_k=4,
+                             grammar_states=256), False, STRUCTURED)}
+
+
+def structured_token_strs(vocab, seed=1234):
+    """A synthetic tokenizer vocabulary of `vocab` surface strings, from a
+    seed: token 0 is "" (the eos), then the 95 printable ASCII characters,
+    all 9025 two-character strings of them, then distinct random
+    three-character strings — so a grammar's scaffolding is crossed by
+    multi-character tokens, as a real BPE vocabulary's is."""
+    chars = [chr(c) for c in range(32, 127)]
+    strs = [""] + chars + [a + b for a in chars for b in chars]
+    n = vocab - len(strs)
+    if n < 0:
+        raise ValueError(f"vocab {vocab} < {len(strs)}")
+    rng = np.random.default_rng(seed)
+    idx = rng.choice(len(chars) ** 3, size=n, replace=False)
+    c = len(chars)
+    strs += [chars[i // (c * c)] + chars[i // c % c] + chars[i % c]
+             for i in idx.tolist()]
+    return strs
 
 
 def spec_draft_pair(config, draft_layers=1, damp=0.01, dtype="bfloat16",
@@ -157,10 +200,13 @@ def _card():
 
 
 def _burst(server, prompts, request):
-    """(wall seconds, median TTFT seconds) of one burst."""
+    """(wall seconds, median TTFT seconds) of one burst; `request` holds
+    the knobs of every request, or is a list of one dict per prompt."""
+    if not isinstance(request, list):
+        request = [request] * len(prompts)
     t0 = time.perf_counter()
-    futs = [server.submit(p, max_new_tokens=NEW_TOKENS, **request)
-            for p in prompts]
+    futs = [server.submit(p, max_new_tokens=NEW_TOKENS, **kw)
+            for p, kw in zip(prompts, request)]
     for f in futs:
         f.result(timeout=600)
     torch.cuda.synchronize()
@@ -199,29 +245,21 @@ class EventTimer:
         _restore(self)
 
 
-def sampler_ms(rows, vocab, reps=20):
-    """Median device ms of one `sample_tokens` call on [rows, vocab] f32
-    logits, every row sampled (temperature 0.8, top_p 0.9), as a fused
-    window pays it: the call captured in a CUDA graph, CUDA events around
-    each replay (its launch latency included). Eagerly the call's ≈ 200
-    launches take milliseconds of host, which a timed eager call would
-    count as device gaps."""
-    g = torch.Generator(device="cuda").manual_seed(0)
-    args = (torch.randn((rows, vocab), device="cuda", generator=g),
-            torch.full((rows,), 0.8, device="cuda"),
-            torch.full((rows,), 0.9, device="cuda"),
-            torch.arange(rows, dtype=torch.int32, device="cuda"),
-            torch.full((rows,), 100, dtype=torch.int32, device="cuda"),
-            prng.prng_key(1234, device="cuda"))
+def _graph_ms(fn, reps=20):
+    """Median device ms of `fn()` as a fused window pays it: captured in a
+    CUDA graph (after three warm-up calls on a side stream), CUDA events
+    around each replay (its launch latency included). Eagerly a call's
+    many small launches take more host time than device time, which a
+    timed eager call would count as device gaps."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
-            sample_tokens(*args)
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        sample_tokens(*args)
+        fn()
     times = []
     for _ in range(reps + 3):
         a = torch.cuda.Event(enable_timing=True)
@@ -232,6 +270,34 @@ def sampler_ms(rows, vocab, reps=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times[3:]))
+
+
+def sampler_ms(rows, vocab, reps=20):
+    """Median device ms of one `sample_tokens` call on [rows, vocab] f32
+    logits, every row sampled (temperature 0.8, top_p 0.9), replayed from
+    a CUDA graph (`_graph_ms`)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    args = (torch.randn((rows, vocab), device="cuda", generator=g),
+            torch.full((rows,), 0.8, device="cuda"),
+            torch.full((rows,), 0.9, device="cuda"),
+            torch.arange(rows, dtype=torch.int32, device="cuda"),
+            torch.full((rows,), 100, dtype=torch.int32, device="cuda"),
+            prng.prng_key(1234, device="cuda"))
+    return _graph_ms(lambda: sample_tokens(*args), reps)
+
+
+def mask_ms(arena, rows, reps=20):
+    """Median device ms of one grammar mask on [rows, vocab] f32 logits —
+    `grammar_allowed` over the arena's device words at `rows` random
+    resident states, then the `where` that `sample_tokens(allowed=)`
+    applies — replayed from a CUDA graph (`_graph_ms`)."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    _, words = arena.device_tables()
+    states = torch.randint(0, arena.states_used, (rows,), device="cuda",
+                           generator=g, dtype=torch.int32)
+    logits = torch.randn((rows, arena.vocab), device="cuda", generator=g)
+    return _graph_ms(lambda: torch.where(
+        grammar_allowed(words, states, arena.vocab), logits, -1e30), reps)
 
 
 class HostTimer:
@@ -323,13 +389,18 @@ def run_load(model, name, trace=None, draft=None):
     from .ops.cuda_kernels import paged_attention as pa
 
     knobs, repetitive, request = LOADS[name][:3]
-    prompts = _prompts(repetitive, model.config.vocab_size)
+    vocab = model.config.vocab_size
+    prompts = _prompts(repetitive, vocab)
+    structured = request is STRUCTURED
+    if structured:
+        knobs = dict(knobs, token_strs=structured_token_strs(vocab))
     server = LLMServer(model, LLMEngineConfig(**ENGINE, **knobs,
                                               draft_model=draft))
     eng = server.engine
     timers = [HostTimer(eng, "step"),
               HostTimer(pa, "ragged_paged_attention"),
-              HostTimer(eng, "_try_step_fused")]
+              HostTimer(eng, "_try_step_fused"),
+              HostTimer(eng, "_grammar_args"), HostTimer(eng, "_mask_rows")]
     if eng.spec_mode == "ngram":
         timers.append(HostTimer(eng._spec, "_propose"))
     replay = spec_timer = None
@@ -344,8 +415,8 @@ def run_load(model, name, trace=None, draft=None):
             for t in timers:
                 t.times.clear()
             wall, ttft = _burst(server, prompts, request)
-            step_s, paged_s, window_s, *scan_s = (np.asarray(t.times)
-                                                  for t in timers)
+            step_s, paged_s, window_s, gargs_s, gmask_s, *scan_s = (
+                np.asarray(t.times) for t in timers)
             replay_ms = replay.ms() if replay is not None else None
             spec_ms = spec_timer.ms() if spec_timer is not None else None
             d = {k: eng.stats[k] - before.get(k, 0) for k in eng.stats}
@@ -363,9 +434,15 @@ def run_load(model, name, trace=None, draft=None):
     steps = d["steps"]
     windows = (d.get("ngram_windows", 0) + d.get("spec_windows", 0)
                + d["fused_steps"])
-    gen = NEW_TOKENS * len(prompts)
-    print(f"load {name} ({knobs}, {'repetitive' if repetitive else 'random'}"
-          f" prompts{', ' + str(request) if request else ''}; "
+    gen = d["generated"]        # a constrained request may end at eos
+    shown = {k: v for k, v in knobs.items() if k != "token_strs"}
+    if structured:
+        n = sum("grammar" in r or "json_schema" in r for r in request)
+        request_s = f"{n} of {len(request)} requests constrained"
+    else:
+        request_s = str(request) if request else ""
+    print(f"load {name} ({shown}, {'repetitive' if repetitive else 'random'}"
+          f" prompts{', ' + request_s if request_s else ''}; "
           f"{_card()}): {wall * 1e3:.3f} ms wall, {gen / wall:.1f} generated "
           f"tok/s, TTFT median {ttft * 1e3:.3f} ms, {steps} steps = "
           f"{steps - windows} ticks + {windows} windows "
@@ -388,10 +465,23 @@ def run_load(model, name, trace=None, draft=None):
               f"(medians): host {spec_ms[0]:.3f} ms (its sync included), "
               f"draft {spec_ms[1]:.3f} ms (catch-up + propose replay), "
               f"stream {spec_ms[2]:.3f} ms (catch-up to verify end)")
-    if request.get("temperature", 0) > 0:
-        vocab = model.config.vocab_size
+    if not structured and request.get("temperature", 0) > 0:
         print(f"  sampler: {sampler_ms(eng.num_slots, vocab):.4f} ms of "
               f"device per sample_tokens call on [{eng.num_slots}, {vocab}]")
+    if structured:
+        mms = mask_ms(eng.grammar_arena, eng.num_slots)
+        share = (f"{100 * eng.decode_k * mms / np.median(replay_ms):.2f}% "
+                 "of a window's device time" if replay_ms is not None
+                 and len(replay_ms) else "no window timed")
+        print(f"  grammar: host {np.median(gargs_s) * 1e6:.1f} µs per "
+              f"_grammar_args (median of {len(gargs_s)}), "
+              + (f"{np.median(gmask_s) * 1e6:.1f} µs per host-tick mask "
+                 f"(median of {len(gmask_s)}); " if len(gmask_s) else
+                 "no host-tick mask; ")
+              + f"device {mms * 1e3:.1f} µs per mask on [{eng.num_slots}, "
+              f"{vocab}] (graph replay), {eng.decode_k} a window = {share};"
+              f" {eng.stats['structured_requests']} constrained requests, "
+              f"{eng.grammar_arena.states_used} arena states")
     q1, med, q3 = np.percentile(step_s, (25, 50, 75)) * 1e3
     per_step = paged_s.sum() / len(step_s) * 1e3
     print(f"  host per step() call: median {med:.3f} ms (quartiles "

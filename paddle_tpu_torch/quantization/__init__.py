@@ -4,10 +4,13 @@ codec `quantize_weight_int8` with its MSE clip search, and the runtime
 
 The weight codec is numpy on the host, as in the reference
 (paddle_tpu/quantization/__init__.py:45-125), and gives the reference's
-codes and scales byte for byte on the same float32 weights. A torch
-tensor is taken through its float32 value: a bf16 weight is quantized
-from its exact float32 value, where the reference, handed a bf16 array,
-rounds each intermediate to bf16."""
+codes and scales byte for byte on float32 and bf16 weights. A torch
+tensor is taken through its exact float32 value. The one place where the
+reference's bf16 arithmetic differs from float32 is the per-tensor scale
+without the MSE search: handed a bf16 array, the reference divides it by
+its bf16 absmax in bf16 (numpy's bfloat16 type rounds the float32
+quotient to bf16) before the float32 multiply by qmax; `_bf16_round`
+reproduces that rounding, so no bfloat16 numpy type is needed."""
 import numpy as np
 import torch
 
@@ -61,6 +64,13 @@ def _host_array(w):
     return np.asarray(w)
 
 
+def _bf16_round(x):
+    """float32 array → the nearest bf16 values (ties to even), as float32."""
+    b = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    b = (b + 0x7FFF + ((b >> 16) & 1)) & 0xFFFF0000
+    return b.astype(np.uint32).view(np.float32)
+
+
 def quantize_weight_int8(w, axis=None, search_mse=False, bits=8):
     """→ (int8 codes in [-qmax, qmax], float32 scale): per channel along
     `axis` with the keepdims shape (a [1, out] scale for axis=1 of an
@@ -74,8 +84,12 @@ def quantize_weight_int8(w, axis=None, search_mse=False, bits=8):
         scale = np.abs(wv).max() or 1e-8
         if search_mse:
             scale = _search_scale_mse(wv, scale, bits=bits)
-        q = np.clip(np.round(wv / scale * qmax), -qmax, qmax).astype(
-            np.int8)
+        t = wv / scale
+        if (isinstance(w, torch.Tensor) and w.dtype == torch.bfloat16
+                and not search_mse):
+            # the reference's bf16 / bf16-scalar quotient (module docstring)
+            t = _bf16_round(t)
+        q = np.clip(np.round(t * qmax), -qmax, qmax).astype(np.int8)
         return q, np.float32(scale)
     red = tuple(d for d in range(wv.ndim) if d != axis)
     scale = np.maximum(np.abs(wv).max(axis=red, keepdims=True), 1e-8)

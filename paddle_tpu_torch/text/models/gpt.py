@@ -16,7 +16,9 @@ ticks in one call with the pick, EOS and budget masking inside (the
 engine captures it as one CUDA graph); `_paged_verify_fused` — the
 speculative verify step over k+1 positions per slot, with exact-match
 acceptance. `sample_tokens` is the reference's keyed greedy /
-temperature / top-p sampler, on jax's threefry bits (`core.prng`).
+temperature / top-p sampler, on jax's threefry bits (`core.prng`), with
+the structured-decoding grammar mask (`grammar_allowed`) applied before
+the pick in both windows when the engine passes its arena tables.
 """
 import torch
 from torch import nn
@@ -34,7 +36,7 @@ from ...quantization import runtime as _qrt
 
 __all__ = ["GPTConfig", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
            "GPTPretrainingCriterion", "gpt_tiny", "gpt_small", "gpt_medium",
-           "gpt_1p3b", "sample_tokens"]
+           "gpt_1p3b", "grammar_allowed", "sample_tokens"]
 
 
 class GPTConfig:
@@ -210,15 +212,20 @@ def _sampling_scores(logits, temps, top_ps, streams, positions, key):
 
 
 def sample_tokens(logits, temps=None, top_ps=None, streams=None,
-                  positions=None, key=None):
-    """The reference's `sample_tokens` (gpt.py:331) without the grammar
-    mask (ROADMAP A9): logits [R, vocab] f32 → int32 [R]. Rows with
-    temps <= 0 take the argmax (the first maximal index, in both
-    frameworks); rows with temps > 0 draw from the temperature-scaled,
-    top-p-truncated distribution with the per-row key
+                  positions=None, key=None, allowed=None):
+    """The reference's `sample_tokens` (gpt.py:331): logits [R, vocab] f32
+    → int32 [R]. Rows with temps <= 0 take the argmax (the first maximal
+    index, in both frameworks); rows with temps > 0 draw from the
+    temperature-scaled, top-p-truncated distribution with the per-row key
     fold_in(fold_in(key, stream), position), so a draw depends only on
     (engine seed, request stream, token position): not on the decode
     window, the batch or a preemption replay.
+
+    allowed (optional) [R, vocab] bool — the structured-decoding grammar
+    mask (`grammar_allowed`): False entries become -1e30 BEFORE both the
+    greedy argmax and the top-p truncation, so a constrained row's pick is
+    always grammar-legal. An all-True row is a value-level no-op: it picks
+    bit-identically to `allowed=None`.
 
     The reference picks the branch on the device (`lax.cond` on
     any(temps > 0)); here the caller picks it on the host, because a CUDA
@@ -226,6 +233,8 @@ def sample_tokens(logits, temps=None, top_ps=None, streams=None,
     only, a key the draw (greedy rows still take the argmax). temps
     without a key may only hold greedy rows; that is checked when temps
     lies on the CPU (no device sync is made)."""
+    if allowed is not None:
+        logits = torch.where(allowed, logits, -1e30)
     greedy = logits.argmax(dim=-1).to(torch.int32)
     if key is None:
         if (temps is not None and temps.device.type == "cpu"
@@ -237,6 +246,18 @@ def sample_tokens(logits, temps=None, top_ps=None, streams=None,
     pick = _sampling_scores(logits, temps, top_ps, streams, positions,
                             key).argmax(dim=-1).to(torch.int32)
     return torch.where(temps > 0, pick, greedy)
+
+
+def grammar_allowed(gmask, gstate, vocab):
+    """Expand grammar-arena bitsets to a boolean logits mask (the
+    reference's gpt.py:393): gmask [G, ceil(vocab/32)] int32 (the arena's
+    uint32 words, same bits), gstate [R] int (arena-absolute DFA state per
+    row) → [R, vocab] bool for `sample_tokens(allowed=)`. The shift is
+    int32 and arithmetic: a set bit 31 fills the upper bits with ones,
+    never bit 0, so `& 1` reads each bit exactly."""
+    words = gmask[gstate.long()]                           # [R, W]
+    v = torch.arange(int(vocab), dtype=torch.int32, device=gmask.device)
+    return ((words[:, (v // 32).long()] >> (v % 32)) & 1).bool()
 
 
 class GPTForCausalLM(nn.Module):
@@ -342,7 +363,8 @@ class GPTForCausalLM(nn.Module):
     def _paged_decode_fused(self, k, page_size, tok0, pos0, rem, fin0,
                             eos_ids, temps, top_ps, streams, page_tables, kv,
                             kv_scales=None, key=None, logits_out=None,
-                            lag=None, frontier=None):
+                            lag=None, frontier=None, gstate0=None,
+                            gtrans=None, gmask=None):
         """k decode ticks in one call (the reference's gpt.py:523, whose
         `lax.scan` becomes k iterations unrolled here, so the engine can
         capture the whole window as one CUDA graph): per iteration, write
@@ -361,10 +383,9 @@ class GPTForCausalLM(nn.Module):
         device; the engine reserves every live iteration's pages before
         the call. k is a Python int. key: the engine's [2] int64 key, or
         None when every row is greedy (the host's choice, see
-        `sample_tokens`). The reference's grammar tables (A9) are not
-        taken. kv / kv_scales are updated IN PLACE. logits_out: an
-        optional list that receives each iteration's f32 frontier logits
-        [S, vocab].
+        `sample_tokens`). kv / kv_scales are updated IN PLACE. logits_out:
+        an optional list that receives each iteration's f32 frontier
+        logits [S, vocab], before any grammar mask.
 
         lag / frontier (the draft's propose mode, the reference's gpt.py:587
         and :628-632; both [S] int32 device tensors, or both None): a row
@@ -374,6 +395,18 @@ class GPTForCausalLM(nn.Module):
         forced to `frontier` (the token at pos0, already known), so the
         later proposals condition on the true sequence. Being tensors,
         one captured window serves any mix of lag rows.
+
+        gstate0 / gtrans / gmask (structured decoding, all three or none):
+        gstate0 [S] int32 arena-absolute grammar DFA states, gtrans [G,
+        vocab] int32 and gmask [G, ceil(vocab/32)] int32 the engine's
+        arena tables (`inference/structured/arena`). The state rides the
+        window like the token does: each iteration masks the logits
+        through `grammar_allowed` before the pick, then advances
+        `gs = gtrans[gs, nxt]` on live rows. Arena row 0 is the identity,
+        so unconstrained rows pick bit-identically. The reference's
+        `lax.cond(any(gstate0 > 0))` is the host's choice here: it passes
+        the tables only when a row has a grammar, and the window without
+        them holds no mask op.
         Returns (emits [k, S] int32, kv, kv_scales)."""
         S = tok0.shape[0]
         dev = tok0.device
@@ -384,6 +417,7 @@ class GPTForCausalLM(nn.Module):
         start = pos0.to(i32) if lag is None else pos0.to(i32) - lag
         klen0 = start + 1
         tok, fin = tok0.to(i32), fin0
+        gs = None if gtrans is None else gstate0.to(i32)
         emits = []
         for i in range(int(k)):
             live = ~fin
@@ -399,7 +433,10 @@ class GPTForCausalLM(nn.Module):
             lv = logits[0].float()                           # [S, V]
             if logits_out is not None:
                 logits_out.append(lv)
-            nxt = sample_tokens(lv, temps, top_ps, streams, pos_in + 1, key)
+            allowed = (None if gs is None
+                       else grammar_allowed(gmask, gs, lv.shape[1]))
+            nxt = sample_tokens(lv, temps, top_ps, streams, pos_in + 1, key,
+                                allowed=allowed)
             if lag is not None and i == 0:
                 # a lag row's iteration-0 output is the known frontier
                 nxt = torch.where(lag > 0, frontier.to(i32), nxt)
@@ -407,12 +444,14 @@ class GPTForCausalLM(nn.Module):
             fin = (fin | (live & (eos_ids >= 0) & (nxt == eos_ids))
                    | (live & (i + 1 >= rem)))
             tok = torch.where(live, nxt, tok)
+            if gs is not None:
+                gs = torch.where(live, gtrans[gs.long(), nxt.long()], gs)
         return torch.stack(emits), kv, kv_scales
 
     def _paged_verify_fused(self, k, page_size, tok0, pos0, drafts, width,
                             rem, fin0, eos_ids, temps, page_tables, kv,
                             kv_scales=None, top_ps=None, streams=None,
-                            key=None):
+                            key=None, gstate0=None, gtrans=None, gmask=None):
         """Speculative verify (the reference's gpt.py:650, eager):
         score all k+1 positions of every slot — the frontier token and k
         proposals — in ONE ragged step, then accept the longest prefix of
@@ -427,9 +466,18 @@ class GPTForCausalLM(nn.Module):
         key (the engine's [2] int64 key, or None when every row is
         greedy) feed the keyed pick of every position, as the reference
         does (gpt.py:767-769): each row's stream, and position posf + 1;
-        with no key, temps may lie on the CPU (see `sample_tokens`). The
-        reference's grammar tables (A9) are not taken. kv / kv_scales are
-        updated IN PLACE.
+        with no key, temps may lie on the CPU (see `sample_tokens`). kv /
+        kv_scales are updated IN PLACE.
+
+        gstate0 / gtrans / gmask (structured decoding, all three or none;
+        see `_paged_decode_fused`): the k+1 DFA states of each slot are
+        chained through its drafts (st_{j+1} = gtrans[st_j, drafts[:, j]],
+        the reference's gpt.py:755-766) and each flat row's logits masked
+        before its pick. Up to the first rejected draft these are the true
+        states; later ones are garbage whose picks are never emitted. The
+        drafts are valid token ids: a draft model's proposals after its
+        eos come as token 0 (`speculative._ProposeStep.drafts`), so the
+        chain's gather stays in range.
 
         Flat layout slot-major [S·(k+1)]: row s·(k+1)+j holds the token
         at position pos0[s]+j with kv_len pos0[s]+j+1, so each proposal
@@ -468,8 +516,16 @@ class GPTForCausalLM(nn.Module):
         def per_row(x):
             return None if x is None else x.repeat_interleave(Q)
 
+        allowed = None
+        if gtrans is not None:
+            sts = [gstate0.to(i32)]
+            for jj in range(int(k)):
+                sts.append(gtrans[sts[-1].long(), drafts[:, jj].long()])
+            allowed = grammar_allowed(gmask, torch.stack(sts, dim=1)
+                                      .reshape(T), lv.shape[1])
         picks = sample_tokens(lv, per_row(temps), per_row(top_ps),
-                              per_row(streams), posf + 1, key).reshape(S, Q)
+                              per_row(streams), posf + 1, key,
+                              allowed=allowed).reshape(S, Q)
         # longest matching proposal prefix, clamped to the window width
         match = (drafts == picks[:, :k]) & (
             torch.arange(int(k), dtype=i32, device=dev)[None, :]

@@ -174,9 +174,8 @@ def test_engine_rejects_unservable_requests():
 
 
 @pytest.mark.parametrize("knob,row", [
-    ({"grammar_states": 64}, "A9"),
-    ({"session_ttl_s": 30.0}, "A10"), ({"token_strs": ["a"]}, "A9"),
-    ({"prefix_cache": True}, "A10"), ({"kv_tier": True}, "A10")])
+    ({"session_ttl_s": 30.0}, "A10"), ({"prefix_cache": True}, "A10"),
+    ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
     with pytest.raises(NotImplementedError, match=row):
         teng.LLMEngineConfig(**knob)

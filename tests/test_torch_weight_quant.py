@@ -79,6 +79,33 @@ def test_quantize_weight_matches_reference(axis, bits, search_mse):
         assert want_s.shape == (1, w.shape[1])
 
 
+@pytest.mark.parametrize("search_mse", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("axis", [None, 1])
+def test_quantize_weight_bf16_matches_reference(axis, bits, search_mse):
+    """A bf16 weight: the reference is handed the bf16 array and computes
+    in numpy's bfloat16 type, the port takes the torch bf16 tensor. Codes
+    and scales byte-equal over seeded [256, 64] weights; per tensor
+    without the search the reference rounds its quotient to bf16 (the
+    smallest input where that decides a code: [0.390625, 3.0] at 8 bits,
+    code 16, not 17)."""
+    ws = [np.random.default_rng(seed).standard_normal((256, 64)) * 0.02
+          for seed in range(6)]
+    ws.append(np.array([[0.390625, 3.0]]))
+    for w in ws:
+        wj = jnp.asarray(w, jnp.bfloat16)
+        want_q, want_s = jq.quantize_weight_int8(
+            wj, axis=axis, search_mse=search_mse, bits=bits)
+        got_q, got_s = tq.quantize_weight_int8(
+            torch.from_numpy(np.array(wj.astype(jnp.float32))).bfloat16(),
+            axis=axis, search_mse=search_mse, bits=bits)
+        np.testing.assert_array_equal(got_q, np.asarray(want_q))
+        want_s = np.asarray(want_s)
+        assert np.asarray(got_s).dtype == np.float32
+        assert np.asarray(got_s).shape == want_s.shape
+        np.testing.assert_array_equal(np.asarray(got_s), want_s)
+
+
 def test_mse_search_never_worse_and_matches_reference():
     vals = np.concatenate([np.random.default_rng(2).standard_normal(500),
                            [25.0]]).astype(np.float32)
