@@ -1692,21 +1692,30 @@ def _bytes(t):
 
 
 def _grow_workspace(pa, model, kv, kv_scales, eng, stream):
-    """An eager K1 call at 4096 rows on a window's capture stream, against
-    `model`'s pools `kv` / `kv_scales`: the stream's tensor-core workspace
-    is outgrown and replaced, so a graph that had not kept its own would
-    now hold a freed address."""
+    """Eager K1 calls on a window's capture stream, against `model`'s
+    pools `kv` / `kv_scales`, at 4096 rows and doubling until the
+    stream's tensor-core workspace is outgrown and replaced (a stream
+    may come with a workspace an earlier, dead owner grew): a graph that
+    had not kept its own would now hold a freed address."""
     H = model.config.num_heads
     D = model.config.hidden_size // H
-    q = torch.zeros((4096, H, D), dtype=torch.bfloat16, device="cuda")
-    z = torch.zeros((4096,), dtype=torch.int32, device="cuda")
-    pt = torch.zeros((eng.num_slots, eng.pages_per_seq), dtype=torch.int32,
-                     device="cuda")
     sc = kv_scales or [None, None]
-    with torch.cuda.stream(stream):
-        pa.ragged_paged_attention(q, kv[0], kv[1], pt, z, z,
-                                  k_scales=sc[0], v_scales=sc[1])
-    torch.cuda.synchronize()
+    before = [w.data_ptr() for w in pa.stream_workspaces(stream.cuda_stream)]
+    T = 4096
+    while True:
+        q = torch.zeros((T, H, D), dtype=torch.bfloat16, device="cuda")
+        z = torch.zeros((T,), dtype=torch.int32, device="cuda")
+        pt = torch.zeros((eng.num_slots, eng.pages_per_seq),
+                         dtype=torch.int32, device="cuda")
+        with torch.cuda.stream(stream):
+            pa.ragged_paged_attention(q, kv[0], kv[1], pt, z, z,
+                                      k_scales=sc[0], v_scales=sc[1])
+        torch.cuda.synchronize()
+        after = [w.data_ptr()
+                 for w in pa.stream_workspaces(stream.cuda_stream)]
+        if after != before or T >= 1 << 16:
+            return
+        T *= 2
 
 
 def _window_vs_eager(eng, fs, structured=False, profiled=False):
@@ -2078,6 +2087,511 @@ def fused_phase(pa, model, random, card):
     return res
 
 
+# ---- the serving fleet (5h) ----
+
+FLEET_K = 8                  # decode_k of every fleet engine (bench.py's)
+
+
+def _fleet_cfg(kv_dtype="bfloat16", decode_k=FLEET_K, **kw):
+    from paddle_tpu_torch.inference import LLMEngineConfig
+
+    return LLMEngineConfig(kv_dtype=kv_dtype, page_size=16,
+                           decode_k=decode_k, **kw)
+
+
+def _pctl(xs, p):
+    return float(np.percentile(np.asarray(xs), p))
+
+
+def _paced(submit, prompts, arrive):
+    """Submit prompt j at `arrive[j]` seconds after the start (Poisson
+    gaps, paced as bench.py's `drive` paces them) through
+    `submit(j, prompt) -> Future`. Returns the outputs, each request's
+    client TTFT (its submission to the serving engine's first token) and
+    the makespan."""
+    futs, stamps = [], []
+    t0 = time.perf_counter()
+    for j, p in enumerate(prompts):
+        wait = arrive[j] - (time.perf_counter() - t0)
+        if wait > 0:
+            time.sleep(wait)
+        stamps.append(time.perf_counter())
+        futs.append(submit(j, p))
+    outs = [f.result(timeout=600) for f in futs]
+    wall = time.perf_counter() - t0
+    ttft = [f.pt_request.t_first_token - s for f, s in zip(futs, stamps)]
+    return outs, ttft, wall
+
+
+def _tie_check(model, label, prompts, ref, outs):
+    """Request by request, `outs` against `ref` (prompt + generated
+    tokens): equal, or first different at a near-tie of `ref`'s pick —
+    `_near_tie` on the logits of a plain forward over the common prefix,
+    top two within SERVE_BF16_LOGIT_TOL — and compared no further. The
+    fleet paths batch a request with other rows than the reference did,
+    so cuBLAS may take another algorithm. Returns the near-ties."""
+    from types import SimpleNamespace
+
+    greedy = SimpleNamespace(temperature=0.0)
+    ties = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, outs)):
+        a, b = np.asarray(a), np.asarray(b)
+        if len(a) != len(b) or not np.array_equal(b[:len(p)], p):
+            raise AssertionError(f"{label}: request {i} returned {len(b)} "
+                                 f"tokens, the reference {len(a)}")
+        diff = np.flatnonzero(a != b)
+        if not diff.size:
+            continue
+        d = int(diff[0])
+        with torch.inference_mode():
+            ids = torch.as_tensor(a[:d], device=model.device)[None]
+            row = model(ids)[0, -1].float()
+        gap, tol = _near_tie(row, greedy, d - len(p), None,
+                             SERVE_BF16_LOGIT_TOL)
+        if not gap <= tol:
+            raise AssertionError(
+                f"{label}: request {i} token {d - len(p)} is {b[d]} vs "
+                f"the reference's {a[d]}, whose top two logits differ by "
+                f"{gap:.3e}")
+        ties.append(f"request {i} token {d - len(p)} (gap {gap:.2e})")
+    return ties
+
+
+def _drain(eng):
+    while eng.has_work():
+        eng.step()
+        eng.pool.assert_consistent()
+
+
+def _prefill_tokens(eng, st0):
+    return ((eng.stats["tokens_in"] - st0["tokens_in"])
+            - (eng.stats["generated"] - st0["generated"]))
+
+
+def _count_model(vocab):
+    """A 1-layer 64-wide GPT of the serve vocabulary on the CPU: a
+    schedule (and so its prefill-token count) depends on the prompts and
+    the config, not on the model's width."""
+    from paddle_tpu_torch.text.models.gpt import GPTConfig, GPTForCausalLM
+
+    return GPTForCausalLM(GPTConfig(vocab_size=vocab, hidden_size=64,
+                                    num_layers=1, num_heads=2,
+                                    max_seq_len=1024), device="cpu")
+
+
+def fleet_prefix(model, card):
+    """(1) bench.py's `bench_llm_fleet` traffic (bench.py:1205-1222): 24
+    requests, one 192-token system prompt, suffixes of 8-48 tokens, 8-32
+    new tokens, Poisson gaps of mean 20 ms, 3 tenants (one INTERACTIVE)
+    on the cached side, num_slots 8, token_budget 48, decode_k 8, bf16 KV
+    — through `LLMServer` with the prefix cache off, then on. Tokens equal
+    between the runs (near-tie rule); the pool consistent after each.
+    The prefill-token count of a run with every request queued at once
+    (a schedule that timing cannot change) equals, with the cache on, the
+    CPU engine's on the same prompts."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMServer, Priority
+    from paddle_tpu_torch.profile_serve import HostTimer
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(0)
+    sys_len, max_suffix, n_req = 192, 48, 24
+    sys_prompt = rng.integers(0, V, (sys_len,))
+    prompts = [np.concatenate([sys_prompt, rng.integers(0, V, (int(L),))])
+               for L in rng.integers(8, max_suffix + 1, n_req)]
+    gens = rng.integers(8, 33, n_req)
+    arrive = np.cumsum(rng.exponential(0.02, n_req))
+    cfg = dict(num_slots=8, token_budget=48,
+               max_model_len=sys_len + max_suffix + 40)
+    res = {}
+    for cache in (False, True):
+        server = LLMServer(model, _fleet_cfg(prefix_cache=cache, **cfg))
+        eng = server.engine
+        with server:
+            server.submit(np.zeros((8,), np.int64),
+                          max_new_tokens=FLEET_K + 1).result(timeout=600)
+            torch.cuda.synchronize()
+            st0 = dict(eng.stats)
+            host = HostTimer(eng, "step")
+
+            def submit(j, p):
+                kw = (dict(tenant=f"tenant{j % 3}",
+                           priority=Priority.INTERACTIVE if j % 3 == 0
+                           else Priority.STANDARD) if cache else {})
+                return server.submit(p, max_new_tokens=int(gens[j]), **kw)
+
+            outs, ttft, wall = _paced(submit, prompts, arrive)
+            host.remove()
+            snap = (eng.prefix_cache.snapshot() if cache else None)
+        eng.pool.assert_consistent()
+        gen = int(sum(gens))
+        res[cache] = dict(outs=outs, prefill=_prefill_tokens(eng, st0),
+                          ttft_p50=_pctl(ttft, 50), ttft_p99=_pctl(ttft, 99),
+                          tok_s=gen / wall, step_ms=1e3 * float(
+                              np.median(host.times)), snap=snap)
+    ties = _tie_check(model, "prefix cache on vs off", prompts,
+                      res[False]["outs"], res[True]["outs"])
+    # the count gate: the same prompts queued at once, card vs CPU
+    counts = {}
+    for where, m in (("card", model), ("cpu", _count_model(V))):
+        eng = LLMEngine(m, _fleet_cfg(prefix_cache=True, **cfg))
+        st0 = dict(eng.stats)
+        for p, g in zip(prompts, gens):
+            eng.add_request(p, max_new_tokens=int(g))
+        _drain(eng)
+        counts[where] = (_prefill_tokens(eng, st0),
+                         eng.prefix_cache.snapshot()["tokens_saved"])
+        eng.close()
+    if counts["card"] != counts["cpu"]:
+        raise AssertionError(f"prefix cache: prefill tokens / tokens saved "
+                             f"{counts['card']} on the card, "
+                             f"{counts['cpu']} on the CPU")
+    off, on = res[False], res[True]
+    print(f"fleet prefix cache ({card}): bench_llm_fleet traffic, "
+          f"{n_req} requests, {int(sum(gens))} generated; prefill tokens "
+          f"{off['prefill']} off -> {on['prefill']} on "
+          f"(-{1 - on['prefill'] / off['prefill']:.1%}; hits "
+          f"{on['snap']['hits']}, tokens saved {on['snap']['tokens_saved']}"
+          f"); TTFT p50 {off['ttft_p50'] * 1e3:.1f} -> "
+          f"{on['ttft_p50'] * 1e3:.1f} ms, p99 {off['ttft_p99'] * 1e3:.1f} "
+          f"-> {on['ttft_p99'] * 1e3:.1f} ms; {off['tok_s']:.1f} -> "
+          f"{on['tok_s']:.1f} tok/s; host ms per step() {off['step_ms']:.3f}"
+          f" off, {on['step_ms']:.3f} with the trie; all queued at once: "
+          f"prefill {counts['card'][0]} tokens, {counts['card'][1]} saved, "
+          f"= the CPU engine's; tokens equal but at {len(ties)} near-ties"
+          f"{': ' + ', '.join(ties) if ties else ''}")
+    return {k: {x: v for x, v in r.items() if x != "outs"}
+            for k, r in (("off", off), ("on", on))}
+
+
+WIRE_ROUNDS = 5
+
+
+def fleet_wire(model, card):
+    """(2) The KV wire on bf16, int8 and int4 pools: a 500-token prompt
+    (frontier 499: a mid-page frontier) runs prefill_only on engine P;
+    its payload goes pack -> bytes -> unpack and is imported on engine
+    D. D's pages, gathered back, are byte-equal to P's export, scale
+    planes included; D's tokens equal P's own decode of the prompt
+    (near-tie rule). Export ms (the gather and its one copy to the host,
+    on D's live request with nothing in flight), import ms (page
+    allocation, the copy to the card and the in-place writes, to a
+    synchronize) and the frame's MB per request: medians of WIRE_ROUNDS
+    rounds after one that warms the allocator and the host buffers."""
+    from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.inference.fleet_serving import (
+        pack_kv_payload, unpack_kv_payload)
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, V, (500,))
+    cfg = dict(num_slots=4, token_budget=48, max_model_len=600)
+    out = {}
+    for kv in ("bfloat16", "int8", "int4"):
+        P = LLMEngine(model, _fleet_cfg(kv, **cfg))
+        D = LLMEngine(model, _fleet_cfg(kv, **cfg))
+        times = []
+        for trial in range(1 + WIRE_ROUNDS):
+            r = P.add_request(prompt, prefill_only=True)
+            _drain(P)
+            payload = r.future.result(timeout=0)
+            raw = pack_kv_payload(payload)
+            back = unpack_kv_payload(raw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            req = D.import_kv_pages(back, max_new_tokens=SERVE_NEW_TOKENS)
+            D._admit()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if req.slot is None:
+                raise AssertionError(f"KV wire {kv}: import not admitted")
+            # the export path on D's live request: the same gather and
+            # copy P's `_finish_prefill` ran, with no tick in flight
+            again = D.export_kv_pages(req)
+            if trial:                   # round 0 warms the allocator
+                times.append(((time.perf_counter() - t1) * 1e3,
+                              (t1 - t0) * 1e3))
+            for a, b in zip(payload.kv + payload.scales,
+                            again.kv + again.scales):
+                if a.shape != b.shape or a.tobytes() != b.tobytes():
+                    raise AssertionError(
+                        f"KV wire {kv}: the imported pages differ from the "
+                        "export")
+            _drain(D)
+        own = P.add_request(prompt, max_new_tokens=SERVE_NEW_TOKENS)
+        _drain(P)
+        ties = _tie_check(model, f"KV wire {kv}", [prompt],
+                          [own.future.result(timeout=0)],
+                          [req.future.result(timeout=0)])
+        exp_ms, imp_ms = np.median(np.asarray(times), axis=0)
+        out[kv] = dict(export_ms=exp_ms, import_ms=imp_ms,
+                       mb=len(raw) / 1e6, pages=payload.num_pages)
+        print(f"fleet KV wire {kv} ({card}): 500-token prompt, "
+              f"n_prefilled {payload.n_prefilled}, {payload.num_pages} "
+              f"pages, frame {len(raw) / 1e6:.3f} MB; export "
+              f"{exp_ms:.3f} ms, import {imp_ms:.3f} ms (medians of "
+              f"{WIRE_ROUNDS} rounds); pages imported "
+              f"byte-equal to the export, scale planes included; tokens "
+              f"equal P's own decode but at {len(ties)} near-ties")
+    return out
+
+
+def _router_traffic(V):
+    """bench.py's `bench_llm_fleet_multi` traffic (bench.py:1348-1364):
+    96 requests over 4 system prompts of 96 tokens, suffixes of 4-32,
+    24-48 new tokens, Poisson gaps of mean 2 ms."""
+    rng = np.random.default_rng(0)
+    sys_prompts = [rng.integers(0, V, (96,)) for _ in range(4)]
+    prompts = [np.concatenate([sys_prompts[j % 4],
+                               rng.integers(0, V, (int(L),))])
+               for j, L in enumerate(rng.integers(4, 33, 96))]
+    gens = rng.integers(24, 49, 96)
+    arrive = np.cumsum(rng.exponential(0.002, 96))
+    return rng, prompts, gens, arrive
+
+
+# bench_llm_fleet_multi's engine: num_slots 4, budget 48, the cache on
+FLEET_MULTI = dict(num_slots=4, token_budget=48, max_model_len=96 + 32 + 40,
+                   prefix_cache=True)
+
+
+def _replica(model, name, role="serve", **kw):
+    from paddle_tpu_torch.inference.fleet_serving import (LocalReplica,
+                                                          fork_model)
+
+    cfg = dict(FLEET_MULTI, **kw)
+    return LocalReplica(fork_model(model), name=name, role=role,
+                        config=_fleet_cfg(**cfg))
+
+
+def fleet_router(pa, model, card):
+    """(3)-(5): bench_llm_fleet_multi's traffic through one `LLMServer`
+    and through a 2-replica `FleetRouter` (each replica its own
+    `fork_model` copy): affinity hit rate > 0.5, tokens equal (near-tie
+    rule); K1's launch count set to 0 just before the router burst and
+    read just after (> 0, every replica ticked). Then the same traffic
+    with a seeded chaos plan killing one replica at its 12th busy tick:
+    every future resolves, requeues > 0, tokens equal the unkilled run's.
+    Then bench.py's prefill storm (bench.py:1533-1577): 12 short 8-token
+    prompts (16 new) among 8 long 156-token ones (8 new), gaps of mean
+    4 ms, through one `LLMServer` and through a router with one prefill
+    and one decode replica (prefill_min_tokens 48): the hand-offs equal
+    the long prompts, tokens equal the single engine's."""
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.inference import LLMServer
+    from paddle_tpu_torch.inference.fleet_serving import (AutoscalePolicy,
+                                                          FleetRouter,
+                                                          fork_model)
+
+    V = model.config.vocab_size
+    rng, prompts, gens, arrive = _router_traffic(V)
+    policy = dict(min_replicas=1, max_replicas=2, heartbeat_timeout_s=5.0,
+                  poll_s=0.01)
+
+    def single(plist, glist, alist):
+        server = LLMServer(fork_model(model), _fleet_cfg(**FLEET_MULTI))
+        with server:
+            server.submit(np.zeros((2,), np.int64),
+                          max_new_tokens=FLEET_K + 1).result(timeout=600)
+            outs, ttft, wall = _paced(
+                lambda j, p: server.submit(p, max_new_tokens=int(glist[j])),
+                plist, alist)
+            occ = server.engine.mean_occupancy
+        return outs, ttft, wall, occ
+
+    def fleet(router, plist, glist, alist, count=False):
+        with router:
+            reps = list(router._replicas.values())
+            steps0 = {r.name: r.engine.stats["steps"] for r in reps}
+            torch.cuda.synchronize()
+            if count:
+                pa.reset_launches()
+            outs, ttft, wall = _paced(
+                lambda j, p: router.submit(p, max_new_tokens=int(glist[j])),
+                plist, alist)
+            launches = dict(pa.launches)
+            steps = {r.name: r.engine.stats["steps"] - steps0[r.name]
+                     for r in reps}
+            m = router.metrics()
+        return outs, ttft, wall, m, launches, steps
+
+    gen = int(sum(gens))
+    s_out, s_ttft, s_wall, s_occ = single(prompts, gens, arrive)
+    router = FleetRouter(replicas=[_replica(model, "m0"),
+                                   _replica(model, "m1")],
+                         hash_block_tokens=16,
+                         policy=AutoscalePolicy(**policy))
+    f_out, f_ttft, f_wall, m, launches, steps = fleet(router, prompts, gens,
+                                                      arrive, count=True)
+    if not m["affinity_hit_rate"] > 0.5:
+        raise AssertionError(f"router: affinity hit rate "
+                             f"{m['affinity_hit_rate']} <= 0.5")
+    if not launches["rpa"] or not all(steps.values()):
+        raise AssertionError(f"router burst: K1 launched {launches}, "
+                             f"replica ticks {steps}")
+    ties = _tie_check(model, "router vs single", prompts, s_out, f_out)
+    occ = {n: v["mean_slot_occupancy"] for n, v in m["replicas"].items()}
+    # each request's phase segments (reqtrace), from the router's merged
+    # timelines: "routed" is the router's ingress, "prefill_start" the
+    # replica's queue and admission (submit -> admission)
+    segs = {}
+    for tl in m["recent_requests"]:
+        for seg in tl["phases"][1:]:
+            segs.setdefault(seg["phase"], []).append(seg["dt_s"])
+    phases = {ph: (_pctl(v, 50), _pctl(v, 99), len(v))
+              for ph, v in segs.items()}
+    print(f"fleet router ({card}): bench_llm_fleet_multi traffic, 96 "
+          f"requests, {gen} generated; one LLMServer {gen / s_wall:.1f} "
+          f"tok/s, client TTFT p50 {_pctl(s_ttft, 50) * 1e3:.1f} ms p99 "
+          f"{_pctl(s_ttft, 99) * 1e3:.1f} ms, occupancy {s_occ:.3f}; "
+          f"2-replica FleetRouter {gen / f_wall:.1f} tok/s "
+          f"({s_wall / f_wall:.3f}x), client TTFT p50 "
+          f"{_pctl(f_ttft, 50) * 1e3:.1f} ms p99 "
+          f"{_pctl(f_ttft, 99) * 1e3:.1f} ms, occupancy "
+          + ", ".join(f"{n} {v:.3f}" for n, v in occ.items())
+          + f"; affinity hit rate {m['affinity_hit_rate']:.3f}; K1 "
+          f"launches in the burst {launches['rpa']} (replica ticks "
+          f"{steps}); tokens equal but at {len(ties)} near-ties"
+          f"{': ' + ', '.join(ties) if ties else ''}")
+    print(f"fleet router phases ({card}), ms p50 / p99 over the last "
+          f"{len(m['recent_requests'])} requests: " + "; ".join(
+              f"{ph} {a * 1e3:.3f} / {b * 1e3:.3f} (n {n})"
+              for ph, (a, b, n) in phases.items()))
+    out = dict(phases=phases, single_tok_s=gen / s_wall, fleet_tok_s=gen / f_wall,
+               single_ttft_p50=_pctl(s_ttft, 50),
+               single_ttft_p99=_pctl(s_ttft, 99),
+               fleet_ttft_p50=_pctl(f_ttft, 50),
+               fleet_ttft_p99=_pctl(f_ttft, 99), occupancy=occ,
+               single_occupancy=s_occ,
+               affinity=m["affinity_hit_rate"],
+               burst_launches=launches["rpa"])
+    # (4) a seeded kill mid-stream
+    chaos.install({"seed": 13, "injectors": [
+        {"scope": "replica.kill.k0", "kind": "error", "at": [12]}]})
+    try:
+        router = FleetRouter(replicas=[_replica(model, "k0"),
+                                       _replica(model, "k1")],
+                             hash_block_tokens=16,
+                             policy=AutoscalePolicy(**policy))
+        k_out, _, k_wall, km, _, _ = fleet(router, prompts, gens, arrive)
+        fired = chaos.get_plan().injected.get("replica.kill.k0", 0)
+    finally:
+        chaos.clear()
+    if fired != 1 or km["replicas_lost"] != 1 or not km["requeues"] > 0:
+        raise AssertionError(f"kill: fired {fired}, replicas lost "
+                             f"{km['replicas_lost']}, requeues "
+                             f"{km['requeues']}")
+    kties = _tie_check(model, "killed fleet vs single", prompts, s_out,
+                       k_out)
+    print(f"fleet kill ({card}): replica k0 killed at its 12th busy tick; "
+          f"{km['requeues']} requests requeued, all 96 futures resolved in "
+          f"{k_wall:.3f} s ({gen / k_wall:.1f} tok/s); tokens equal the "
+          f"unkilled single engine's but at {len(kties)} near-ties")
+    out.update(kill_requeues=km["requeues"], kill_tok_s=gen / k_wall)
+    # (5) the prefill storm
+    long_len = FLEET_MULTI["max_model_len"] - 12
+    shorts = [rng.integers(0, V, (8,)) for _ in range(12)]
+    longs = [rng.integers(0, V, (long_len,)) for _ in range(8)]
+    storm, kinds = [], []
+    for i in range(12):
+        if i < 8:
+            storm.append(longs[i])
+            kinds.append("long")
+        storm.append(shorts[i])
+        kinds.append("short")
+    s_arrive = np.cumsum(rng.exponential(0.004, len(storm)))
+    s_gens = [16 if k == "short" else 8 for k in kinds]
+    sp_out, sp_ttft, _, _ = single(storm, s_gens, s_arrive)
+    router = FleetRouter(
+        replicas=[_replica(model, "storm_d")],
+        prefill_replicas=[_replica(model, "storm_p", role="prefill")],
+        prefill_min_tokens=48,
+        policy=AutoscalePolicy(min_replicas=1, max_replicas=1,
+                               heartbeat_timeout_s=5.0, poll_s=0.01))
+    dp_out, dp_ttft, _, dm, _, _ = fleet(router, storm, s_gens, s_arrive)
+    if dm["disagg_handoffs"] != 8:
+        raise AssertionError(f"storm: {dm['disagg_handoffs']} hand-offs, "
+                             "wanted 8")
+    sties = _tie_check(model, "storm disaggregated vs single", storm,
+                       sp_out, dp_out)
+    short = [i for i, k in enumerate(kinds) if k == "short"]
+    p99 = (_pctl([sp_ttft[i] for i in short], 99),
+           _pctl([dp_ttft[i] for i in short], 99))
+    print(f"fleet prefill storm ({card}): 12 short + 8 long ({long_len}) "
+          f"prompts; short TTFT p99 {p99[0] * 1e3:.1f} ms on one LLMServer"
+          f", {p99[1] * 1e3:.1f} ms with a prefill replica; 8 hand-offs; "
+          f"tokens equal but at {len(sties)} near-ties")
+    out.update(storm_short_p99_single=p99[0], storm_short_p99_disagg=p99[1])
+    return out
+
+
+BUSY_NEW = 500               # the busy replica's tokens per request
+
+
+def fleet_capture(model, card):
+    """(6) A window captured while another replica's thread steps: a
+    `LocalReplica` at decode_k 1 serves a burst (eager ticks on its own
+    thread and stream) while, on this thread, an `LLMEngine` at decode_k
+    8 reaches its first window and captures the graph (the device gate
+    holds the replica at a step boundary for the capture); its next
+    window is run eagerly on copies of the pools and as the graph replay
+    (`_window_vs_eager`): emits and every pool byte equal. The replica
+    ticked before the capture and after it, and its outputs are whole."""
+    from paddle_tpu_torch.inference import LLMEngine
+
+    V = model.config.vocab_size
+    rng = np.random.default_rng(8)
+    busy = _replica(model, "busy", decode_k=1, prefix_cache=False,
+                    max_model_len=600)
+    try:
+        bp = [rng.integers(0, V, (64,)) for _ in range(4)]
+        futs = [busy.submit(p, max_new_tokens=BUSY_NEW) for p in bp]
+        deadline = time.monotonic() + 60
+        while busy.engine.stats["steps"] < 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        eng = LLMEngine(model, _fleet_cfg(num_slots=8, token_budget=48,
+                                          max_model_len=600))
+        for n in (24, 40, 64, 100):
+            eng.add_request(rng.integers(0, V, (n,)), max_new_tokens=40)
+        before = busy.engine.stats["steps"]
+        while not eng.stats["fused_steps"]:   # the first window captures
+            eng.step()
+        during = busy.engine.stats["steps"]
+        if eng._fused_fn.cuda and eng._fused_fn.captures != 1:
+            raise AssertionError("capture: the first window captured "
+                                 f"{eng._fused_fn.captures} graphs")
+        seen = _window_vs_eager(eng, eng._fused_fn)
+        after = busy.engine.stats["steps"]
+        if any(f.done() for f in futs):
+            raise AssertionError("capture: the busy replica finished "
+                                 "before the gate ran")
+        _drain(eng)
+        outs = [f.result(timeout=600) for f in futs]
+    finally:
+        busy.stop()
+    if not (np.array_equal(seen["eager"], seen["emits"]) and seen["pools"]):
+        raise AssertionError("capture beside a stepping replica: the graph "
+                             "replay differs from the eager window")
+    if not (during > before and after > during):
+        raise AssertionError(f"capture: the busy replica ticked {before} -> "
+                             f"{during} -> {after}")
+    for p, o in zip(bp, outs):
+        if len(o) != len(p) + BUSY_NEW or not np.array_equal(o[:len(p)], p):
+            raise AssertionError("capture: the busy replica's output is "
+                                 f"not prompt + {BUSY_NEW} tokens")
+    print(f"fleet concurrent capture ({card}): decode_k 8 window captured "
+          f"while replica 'busy' stepped (ticks {before} -> {during} -> "
+          f"{after}); graph replay == eager window, emits and every pool "
+          "byte")
+
+
+def fleet_phase(pa, model, card):
+    """5h: the serving fleet on gpt_small bf16 (module docstring)."""
+    return dict(prefix=fleet_prefix(model, card),
+                wire=fleet_wire(model, card),
+                router=fleet_router(pa, model, card),
+                capture=fleet_capture(model, card))
+
+
 # ---- draft-model speculation (5e) and weight-only serving (5f) ----
 
 SPEC_K = 4
@@ -2209,7 +2723,10 @@ def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
     if not (same and seen["pools"] and outgrown and seen["lags"] == [0, 1]
             and bool((sentinel == 7).all()) and tc == want_tc
             and graph_launches >= 1):
-        raise AssertionError(f"draft gate {label} failed")
+        paged = {e.key[:80]: e.count for e in rows
+                 if e.device_type == DeviceType.CUDA and "rpa" in e.key}
+        raise AssertionError(f"draft gate {label} failed; the profile's "
+                             f"paged kernels: {paged}")
 
 
 def draft_serve(pa, target, draft, kv_dtype, prompts, card):
@@ -3151,6 +3668,9 @@ def main():
                     f"gpt_small {kv} KV + ngram spec_k 4")
     fused = fused_phase(pa, model, random, card)
     print(f"sampler: {sampler_ms:.4f} ms a call ({card})")
+    t_fleet = time.perf_counter()
+    fleet = fleet_phase(pa, model, card)
+    print(f"fleet phase: {time.perf_counter() - t_fleet:.1f} s")
     del model
     drafts = draft_phase(pa, random, card)
     weights = weights_phase(ig, pa, random, card)
@@ -3207,6 +3727,8 @@ def main():
         "constrained"]["launches"]["rpa"]
     kernels[4]["structured_burst_launches"] = structured["ngram"][
         "constrained"]["launches"]["qblock"]
+    # 5h: K1 (bf16 pool) across the 2-replica router burst
+    kernels[0]["fleet_burst_launches"] = fleet["router"]["burst_launches"]
     # the int8 GEMM: one decoder layer's four linears at the decode tick
     # (T 8) and the mixed tick (T 256), bf16 x; launches from 5f's k=1
     # burst on the quantized model (48 per tick), and its decode_k 4

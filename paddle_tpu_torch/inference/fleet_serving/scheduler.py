@@ -1,6 +1,6 @@
 """SLA-aware multi-tenant scheduler — admission policy for `LLMEngine`
 (counterpart of paddle_tpu/inference/fleet_serving/scheduler.py, host
-Python copied without the metrics registry).
+Python copied; its `pt_sched_*` metrics live in the port's registry).
 
 Three composed policies, all on the host:
 
@@ -23,7 +23,21 @@ priority all three policies degrade to exact FIFO plus preempt-youngest.
 import collections
 import itertools
 
+from ...observability import metrics as _obs
+
 __all__ = ["Priority", "SLAPolicy", "SLAScheduler"]
+
+_PREEMPTIONS = _obs.counter(
+    "pt_sched_preemptions",
+    "scheduler preemptions: evict-and-requeue of a running sequence",
+    labelnames=("reason",))
+_SLO_FIRST_TOKENS = _obs.counter(
+    "pt_sched_slo_first_tokens",
+    "first tokens of SLO-carrying requests, by TTFT outcome",
+    labelnames=("outcome",))
+_SLO_ATTAINMENT = _obs.gauge(
+    "pt_sched_ttft_slo_attainment",
+    "TTFT SLO attainment: met / (met + missed), process-cumulative")
 
 
 class Priority:
@@ -131,6 +145,25 @@ class SLAScheduler:
             dq = self._q[key] = collections.deque()
         return dq
 
+    def remove(self, req):
+        """Remove one specific waiting request (single-request abort /
+        deadline expiry). False when it is not queued here — already
+        admitted to a slot, or already finished."""
+        key = (int(req.priority), req.tenant)
+        dq = self._q.get(key)
+        if dq is None:
+            return False
+        try:
+            dq.remove(req)
+        except ValueError:
+            return False
+        self._n -= 1
+        if not dq:
+            del self._q[key]        # same key hygiene as pop_next
+        if self._counts_slo(req):
+            self._n_slo -= 1
+        return True
+
     def drain(self):
         """Pop every waiting request (abort path)."""
         out = []
@@ -227,6 +260,7 @@ class SLAScheduler:
 
     def note_preemption(self, reason):
         self.stats[f"preemptions_{reason}"] += 1
+        _PREEMPTIONS.labels(reason=reason).inc()
 
     def note_spec_window(self, proposed, accepted):
         """Per-window speculative accounting (once per verify step):
@@ -256,4 +290,37 @@ class SLAScheduler:
         slo = self.policy.slo_for(req)
         if slo is None:
             return
-        self.stats["slo_met" if ttft_s <= float(slo) else "slo_missed"] += 1
+        met = ttft_s <= float(slo)
+        self.stats["slo_met" if met else "slo_missed"] += 1
+        _SLO_FIRST_TOKENS.labels(outcome="met" if met else "missed").inc()
+        # process-cumulative: derived from the registry's counters, so
+        # several engines in one process do not overwrite each other
+        n_met = _SLO_FIRST_TOKENS.labels(outcome="met").value
+        n_missed = _SLO_FIRST_TOKENS.labels(outcome="missed").value
+        if n_met + n_missed:
+            _SLO_ATTAINMENT.set(n_met / (n_met + n_missed))
+
+    def snapshot(self):
+        """Metrics view for `LLMEngine.metrics()`."""
+        depths = {f"{prio}:{tenant}": len(dq)
+                  for (prio, tenant), dq in list(self._q.items()) if dq}
+        met, missed = self.stats["slo_met"], self.stats["slo_missed"]
+        top = sorted(list(self._used.items()), key=lambda kv: kv[1],
+                     reverse=True)[:32]
+        return {
+            "waiting": self._n,
+            "boundary_lag_s": round(self.boundary_lag_s, 6),
+            "queue_depths": depths,
+            "tenant_meters": len(self._used),
+            "tenant_used_tokens": {t: round(u, 1) for t, u in top},
+            "preemptions_pool": self.stats["preemptions_pool"],
+            "preemptions_priority": self.stats["preemptions_priority"],
+            "spec_proposed": self.stats["spec_proposed"],
+            "spec_accepted": self.stats["spec_accepted"],
+            "spec_acceptance": (
+                self.stats["spec_accepted"] / self.stats["spec_proposed"]
+                if self.stats["spec_proposed"] else None),
+            "slo_met": met, "slo_missed": missed,
+            "slo_attainment": (met / (met + missed)
+                               if met + missed else None),
+        }

@@ -45,6 +45,28 @@ grammar-constrained decoding).
   window's graph and inside the verify. The host keeps each request's
   DFA state (`_Request.gstate`) as a replay of its emitted tokens. A
   window with no constrained row runs the graph without any mask op.
+* Shared-prefix radix KV cache (`LLMEngineConfig(prefix_cache=True)` /
+  PT_PREFIX_CACHE) — fleet_serving.RadixPrefixCache indexes full prompt
+  pages by token content; a request whose prompt prefix is resident
+  maps the shared pages copy-on-write into its page table and skips
+  their prefill. Pages are shared by page-table aliasing and refcounts
+  only: no kernel changes, the graphs keep their inputs.
+* The KV wire — `add_request(prefill_only=True)` prefills up to the
+  sampling frontier and resolves to a `fleet_serving.KVPagePayload`
+  (`export_kv_pages`: one gather of exactly the request's pages, one
+  copy to the host); `add_request(kv_import=payload)` /
+  `import_kv_pages` writes a payload's pages into freshly allocated
+  pages IN PLACE (`index_copy_` into the existing pools: the captured
+  graphs hold the pools' addresses) and decodes from its frontier.
+* Overload surface — `abort(rid)`, hard deadlines (`deadline_s`),
+  brownout caps (`apply_brownout`), the process-wide `pt_*` metrics of
+  the port's registry (observability/metrics.py) and `metrics()`.
+
+On the card each engine runs its steps on a stream of its own, so the
+replicas of one process (fleet_serving.replica) never share K1's
+per-stream workspace, and every step holds a share of the process-wide
+device gate (`_GATE`), which a graph capture takes exclusively: no other
+thread launches or syncs while a window is captured.
 
     server = LLMServer(model)                  # GPTForCausalLM
     with server:
@@ -55,32 +77,204 @@ Greedy decode is token-for-token identical to the JAX package's engine
 (tests/test_torch_llm_engine.py); eos semantics follow its contract
 (the emitted eos is kept, nothing after it).
 """
+import collections
+import contextlib
 import gc
 import itertools
 import os
 import queue
+import threading
 import time as _time
+import weakref
 from concurrent.futures import Future
 
 import numpy as np
 import torch
 
 from ..core import prng
+from ..observability import flight_recorder as _fr
+from ..observability import metrics as _obs
+from ..observability import reqtrace as _reqtrace
+from ..observability.tracing import trace_span as _trace_span
 from ..quantization import runtime as _qrt
 from ..text.models.gpt import sample_tokens
-from .fleet_serving import Priority, SLAScheduler
+from .fleet_serving.overload import (RequestCancelled, RequestShed,
+                                     note_cancelled, note_shed)
+from .fleet_serving.prefix_cache import RadixPrefixCache
+from .fleet_serving.scheduler import Priority, SLAScheduler
 from .serving import _FutureQueueServer
 from .structured import (CompiledGrammar, GrammarArena, GrammarError,
                          compile_regex, schema_to_regex,
                          validate_constraints)
 from .structured.arena import GrammarCache
+from .structured.compiler import _STRUCT_CACHE_HITS, _STRUCT_REQS
 
 __all__ = ["PagePool", "PoolExhausted", "LLMEngineConfig", "LLMEngine",
-           "LLMServer"]
+           "LLMServer", "SUBMIT_KWARGS"]
+
+# the reference's serving metrics, by name, in the port's registry
+_REQS_TOTAL = _obs.counter("pt_llm_requests_total", "requests accepted")
+_FINISHED_TOTAL = _obs.counter("pt_llm_finished_total",
+                               "requests finished (eos or budget)")
+_PREEMPTIONS_TOTAL = _obs.counter(
+    "pt_llm_preemptions_total", "sequences preempted on a dry page pool")
+_STEPS_TOTAL = _obs.counter("pt_llm_steps_total", "scheduler ticks")
+_ABORTS_TOTAL = _obs.counter("pt_llm_aborts_total",
+                             "abort_all events (device-error path)")
+_TOKENS_TOTAL = _obs.counter(
+    "pt_llm_tokens_total",
+    "flat tokens through the decode step: one decode token per "
+    "sampling frontier, the rest chunked prefill",
+    labelnames=("phase",))
+_QUEUE_DEPTH = _obs.gauge("pt_llm_queue_depth", "requests waiting")
+_LIVE_SLOTS = _obs.gauge("pt_llm_live_slots", "sequences decoding")
+_SLOT_OCC = _obs.gauge("pt_llm_slot_occupancy",
+                       "live slots / num_slots, last tick")
+_PAGE_OCC = _obs.gauge("pt_llm_kv_page_occupancy",
+                       "live KV pages / allocable pages")
+_PAGE_FRAG = _obs.gauge(
+    "pt_llm_kv_fragmentation",
+    "internal fragmentation: 1 - written tokens / live page capacity")
+_ADMIT_SECONDS = _obs.histogram("pt_llm_admission_seconds",
+                                "submit -> first decode-slot admission")
+_TTFT_SECONDS = _obs.histogram("pt_llm_ttft_seconds",
+                               "submit -> first generated token")
+_REQ_TOK_RATE = _obs.histogram(
+    "pt_llm_request_tokens_per_sec",
+    "per-request generated tok/s (admission -> finish)",
+    buckets=(1, 2, 5, 10, 20, 50, 100, 200, 500, 1000, 2000, 5000,
+             10000))
+_KV_POOL_BYTES = _obs.gauge(
+    "pt_kv_pool_bytes",
+    "resident KV page-pool bytes (pools + scale planes), by the pool "
+    "dtype", labelnames=("dtype",))
+_FUSED_STEPS = _obs.counter(
+    "pt_decode_fused_steps",
+    "fused k-step decode windows dispatched (one host sync per window)")
+_DISPATCHES = _obs.counter(
+    "pt_decode_dispatches_total",
+    "decode-step dispatches (host round trips), single tick or fused "
+    "window")
+_TOK_PER_DISPATCH = _obs.gauge(
+    "pt_decode_tokens_per_dispatch",
+    "generated tokens the last decode-step dispatch produced")
 
 
 class PoolExhausted(RuntimeError):
     """No free KV pages (the scheduler preempts and retries on this)."""
+
+
+def _payload_trace(payload):
+    """The TraceContext a KVPagePayload carries (restored once and
+    cached on the payload), or None: the disaggregated hand-off keeps the
+    prefill side's trace, at `LLMServer.submit` and `add_request` alike."""
+    ctx = getattr(payload, "trace_ctx", None)
+    if ctx is None and getattr(payload, "trace", None):
+        ctx = _reqtrace.TraceContext.from_dict(payload.trace)
+        payload.trace_ctx = ctx
+    return ctx
+
+
+# the numpy dtype a pool's bytes travel as on the KV wire (numpy has no
+# bfloat16: a bf16 pool travels as its 2-byte words)
+_NP_CARRIER = {torch.float32: np.float32, torch.bfloat16: np.uint16,
+               torch.float16: np.float16, torch.int8: np.int8}
+
+
+def _np_carrier(t):
+    return _NP_CARRIER[t.dtype]
+
+
+class _DeviceGate:
+    """The process-wide gate between engine steps and graph captures on
+    the card. Every step holds a share (`shared`, re-entrant per thread);
+    `_FusedStep._capture` takes it exclusively (`exclusive`), giving up
+    the calling thread's own share for the time of the capture and taking
+    it back after. So while a window is captured no other replica's
+    thread is inside a step: none launches into the capture's window
+    (the capture's launch counts stay its own), none makes a host sync
+    (under capture_error_mode="global" that would fail the capture) and
+    none captures at the same time (the collector hold-off is one
+    process-wide switch). A waiting capture holds new shares back, so a
+    busy fleet cannot starve it; other threads pause at a step boundary
+    for the time of one capture."""
+
+    def __init__(self):
+        self._cv = threading.Condition()
+        self._shared = 0
+        self._exclusive = False
+        self._waiting = 0          # captures waiting for the gate
+        self._tls = threading.local()
+
+    @contextlib.contextmanager
+    def shared(self):
+        depth = getattr(self._tls, "depth", 0)
+        if depth == 0:
+            with self._cv:
+                while self._exclusive or self._waiting:
+                    self._cv.wait()
+                self._shared += 1
+        self._tls.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._tls.depth = depth
+            if depth == 0:
+                with self._cv:
+                    self._shared -= 1
+                    self._cv.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        held = getattr(self._tls, "depth", 0) > 0
+        with self._cv:
+            if held:
+                self._shared -= 1
+                self._cv.notify_all()
+            self._waiting += 1
+            while self._exclusive or self._shared:
+                self._cv.wait()
+            self._waiting -= 1
+            self._exclusive = True
+        try:
+            yield
+        finally:
+            with self._cv:
+                self._exclusive = False
+                if held:
+                    self._shared += 1
+                self._cv.notify_all()
+
+
+_GATE = _DeviceGate()
+
+# cuda_stream handle -> weakref to the live engine or window that owns it
+_STREAM_OWNERS = {}
+_STREAM_LOCK = threading.Lock()
+
+
+def _private_stream(owner, device):
+    """A CUDA stream no other live engine or window owns. torch hands
+    streams out of a small per-device pool, round robin, so two objects
+    can be given the same stream; K1's tensor-core workspace is one per
+    stream, and a captured window keeps its capture stream's workspace.
+    Two live owners of one stream would share a workspace between
+    replicas stepping on different threads. Raises when the pool holds no
+    free stream."""
+    for attempt in range(2):
+        if attempt:
+            gc.collect()       # owners dead in reference cycles let go
+        with _STREAM_LOCK:
+            # the pool's round robin visits every stream of both
+            # priorities within this many draws
+            for i in range(128):
+                stream = torch.cuda.Stream(device, priority=-(i % 2))
+                held = _STREAM_OWNERS.get(stream.cuda_stream)
+                if held is None or held() is None:
+                    _STREAM_OWNERS[stream.cuda_stream] = weakref.ref(owner)
+                    return stream
+    raise RuntimeError(
+        "no CUDA stream of the pool is free: too many live engines")
 
 
 class PagePool:
@@ -105,6 +299,11 @@ class PagePool:
     @property
     def num_live(self):
         return len(self._ref)
+
+    @property
+    def num_shared(self):
+        # list() copy: a metrics scrape reads this from another thread
+        return sum(1 for c in list(self._ref.values()) if c > 1)
 
     def refcount(self, page):
         return self._ref.get(int(page), 0)
@@ -154,11 +353,9 @@ class PagePool:
 
 # knobs of the JAX engine that this port does not run yet → ROADMAP row
 _UNPORTED_KNOBS = {
-    "prefix_cache": "A10 (serving fleet: prefix cache)",
-    "hash_block_tokens": "A10 (serving fleet: prefix cache)",
-    "kv_tier": "A10 (serving fleet: KV tier)",
-    "session_ttl_s": "A10 (serving fleet: sessions)",
-    "session_max": "A10 (serving fleet: sessions)",
+    "kv_tier": "A10b (serving fleet: KV tier)",
+    "session_ttl_s": "A10b (serving fleet: sessions)",
+    "session_max": "A10b (serving fleet: sessions)",
 }
 
 
@@ -214,6 +411,15 @@ class LLMEngineConfig:
                   identity), the most DFA states resident at once and so
                   the state budget of one grammar (grammar_states - 1).
                   Default 128. Without token_strs the arena is one row.
+    prefix_cache  shared-prefix radix KV cache over the page pool
+                  (fleet_serving.RadixPrefixCache): full prompt blocks
+                  are indexed by token content and mapped copy-on-write
+                  into later requests' page tables, skipping their
+                  prefill. Default: the PT_PREFIX_CACHE env var
+                  (1 / true / yes / on), else off.
+    hash_block_tokens
+                  trie block size in tokens; must be a multiple of
+                  page_size when the cache is on. Default page_size.
 
     Every other knob of the JAX engine raises NotImplementedError naming
     its ROADMAP row when set."""
@@ -222,7 +428,8 @@ class LLMEngineConfig:
                  max_model_len=None, token_budget=None, kv_dtype=None,
                  seed=0, sla_policy=None, spec_k=None, spec_mode=None,
                  decode_k=None, draft_model=None, token_strs=None,
-                 grammar_states=None, **unported):
+                 grammar_states=None, prefix_cache=None,
+                 hash_block_tokens=None, **unported):
         for name, value in unported.items():
             if name not in _UNPORTED_KNOBS:
                 raise TypeError(
@@ -236,6 +443,14 @@ class LLMEngineConfig:
         self.num_pages = num_pages
         self.max_model_len = max_model_len
         self.token_budget = token_budget
+        if prefix_cache is None:
+            prefix_cache = os.environ.get(
+                "PT_PREFIX_CACHE", "0").strip().lower() in (
+                    "1", "true", "yes", "on")
+        self.prefix_cache = bool(prefix_cache)
+        self.hash_block_tokens = int(
+            self.page_size if hash_block_tokens is None
+            else hash_block_tokens)
         if kv_dtype is not None:   # a bad name raises here, not at serve
             _qrt.resolve_kv_dtype(kv_dtype, torch.float32)
         self.kv_dtype = kv_dtype
@@ -279,6 +494,18 @@ class LLMEngineConfig:
             raise ValueError("spec_k must be >= 1")
         if self.decode_k < 1:
             raise ValueError("decode_k must be >= 1")
+        if self.hash_block_tokens < 1:
+            raise ValueError("hash_block_tokens must be >= 1")
+        if self.prefix_cache and (
+                self.hash_block_tokens % self.page_size != 0):
+            # a misaligned block would map pages whose tail rows hold
+            # another request's tokens: reject at config time
+            raise ValueError(
+                f"prefix_cache requires page_size ({self.page_size}) "
+                f"to divide hash_block_tokens "
+                f"({self.hash_block_tokens}): a trie block must cover "
+                "an exact number of KV pages, otherwise a shared "
+                "mapping would alias a partially-matching page")
 
     @staticmethod
     def kv_bytes_per_page(model_config, page_size, kv_dtype=None):
@@ -381,7 +608,12 @@ class _FusedStep:
     graph would keep the old address). The kernel wrappers (K1's and the int8
     GEMM's) count their launches in Python, which runs only during the
     capture: the counts the capture added are taken back, and added
-    again at every replay.
+    again at every replay. The warm-up and the capture run under the
+    device gate taken exclusively (`_GATE`): with several engines in one
+    process (a fleet's replicas, each stepping on its own thread) no
+    other thread launches, syncs or captures meanwhile, so the counts,
+    the global capture mode and the collector hold-off stay this
+    capture's own.
 
     On a CPU model a window runs eagerly (the tests' path). On CUDA a
     failed capture or replay raises; nothing falls back to an eager loop.
@@ -402,7 +634,7 @@ class _FusedStep:
         self._host = torch.zeros((n,), dtype=torch.int32,
                                  pin_memory=self.cuda)
         self._static = torch.zeros((n,), dtype=torch.int32, device=dev)
-        self._stream = torch.cuda.Stream(dev) if self.cuda else None
+        self._stream = _private_stream(self, dev) if self.cuda else None
         self._graphs = {}          # (sampled, structured) -> _Graph
         self.captures = self.warmups = self.replays = 0
         self.logits = []           # the last window's f32 logits, per tick
@@ -472,6 +704,10 @@ class _FusedStep:
         self.replays += 1
 
     def _capture(self, kv, kv_scales, sampled, tables=None):
+        with _GATE.exclusive():
+            return self._capture_locked(kv, kv_scales, sampled, tables)
+
+    def _capture_locked(self, kv, kv_scales, sampled, tables):
         from ..ops.cuda_kernels import int8_gemm as ig
         from ..ops.cuda_kernels import paged_attention as pa
 
@@ -532,6 +768,7 @@ class _Request:
         self.eos = eos_token_id
         self.future = future if future is not None else Future()
         self.target = None        # total-token cap, set at add_request
+        self.slot = None
         self.pages = []           # physical page ids, logical order
         self.n_prefilled = 0      # kv-written tokens (reset on preempt)
         self.draft_prefilled = 0  # draft-pool valid prefix (speculation)
@@ -546,8 +783,26 @@ class _Request:
                 "(negative ranks are reserved for SLO escalation)")
         self.ttft_slo_s = ttft_slo_s
         self._arrival = None      # scheduler enqueue stamp
+        # disaggregated serving (fleet_serving.kv_transfer): a
+        # prefill-only request stops at its sampling frontier and
+        # resolves to its exported KVPagePayload; a request carrying
+        # _kv_import admits with its prompt KV written from another
+        # replica's payload (consumed at admission: a preemption replay
+        # prefills the ordinary way)
+        self.prefill_only = False
+        self._kv_import = None
+        self.cached_prefix = 0    # tokens served from the prefix cache
+        self._cow_pending = 0     # COW splits taken by the last match
+        self.published_blocks = 0  # trie blocks this mapping covers
         self.t_submit = _time.perf_counter()
+        self.t_first_admit = None
         self.t_first_token = None
+        self.deadline_t = None    # absolute perf_counter hard deadline
+        self.trace = None         # reqtrace.TraceContext (add_request)
+
+    @property
+    def do_sample(self):
+        return self.temperature > 0.0
 
     @property
     def num_generated(self):
@@ -629,10 +884,26 @@ class LLMEngine:
         self.decode_k = cfg.decode_k
         self._fused_fn = None     # built at the first fused window
         self.sched = SLAScheduler(cfg.sla_policy)
+        # shared-prefix radix cache over the pool (fleet_serving)
+        self.hash_block_tokens = int(cfg.hash_block_tokens)
+        self.prefix_cache = (
+            RadixPrefixCache(self.pool, self.page_size,
+                             self.hash_block_tokens)
+            if cfg.prefix_cache else None)
         self._admit_counter = itertools.count()
         self._step_fn = _PagedStep(model)
         self.stats = {"steps": 0, "tokens_in": 0, "generated": 0,
-                      "finished": 0, "preemptions": 0, "fused_steps": 0}
+                      "finished": 0, "preemptions": 0, "fused_steps": 0,
+                      "occupancy_sum": 0.0}
+        # recent per-request phase timelines (reqtrace), appended at
+        # first token / prefill export: the `metrics()` drill-down
+        self._timelines = collections.deque(maxlen=64)
+        # overload plane (fleet_serving.overload): the brownout caps
+        # dict is replaced whole by apply_brownout (from the router's
+        # monitor thread) and read at host decision points only
+        self._brownout = {}
+        self._spec_stash = None    # speculator parked by brownout L2
+        self._deadlines_armed = False  # any deadline request ever seen
         # f32 frontier logits of the last tick that sampled (cross-checks;
         # a fused window's are `_fused_fn.logits`)
         self.last_logits = None
@@ -669,6 +940,28 @@ class LLMEngine:
             from .structured.ngram import NgramSpeculator
 
             self._spec = NgramSpeculator(self, cfg.spec_k)
+        _KV_POOL_BYTES.labels(dtype=self.kv_dtype).set(self.pool_bytes())
+        # on the card: the engine's own stream (module docstring), after
+        # the pools' and the model's initialization on the current one
+        self._stream = None
+        if self.device.type == "cuda":
+            self._stream = _private_stream(self, self.device)
+            self._stream.wait_stream(torch.cuda.current_stream(self.device))
+
+    @contextlib.contextmanager
+    def _on_device(self):
+        """The engine's device context: on the card a share of the
+        process-wide device gate and the engine's stream; the caller's
+        stream waits for the engine's work on the way out, so a direct
+        reader of the pools after a step sees its writes. A no-op on the
+        CPU."""
+        if self._stream is None:
+            yield
+            return
+        with _GATE.shared():
+            with torch.cuda.stream(self._stream):
+                yield
+            torch.cuda.current_stream(self.device).wait_stream(self._stream)
 
     def pool_bytes(self):
         """Resident KV pool bytes across layers, scale planes included."""
@@ -715,6 +1008,7 @@ class LLMEngine:
         ck = (pattern, int(eos_token_id))
         hit = self._grammar_cache.lookup(ck)
         if hit is not None:
+            _STRUCT_CACHE_HITS.inc()
             return hit
         # compiled outside the cache's lock (host work, possibly slow); a
         # racing duplicate compile is wasted work, not corruption
@@ -773,9 +1067,10 @@ class LLMEngine:
         return gst, tables
 
     def _structured_metrics(self):
-        """The structured-decoding block of the reference's `metrics()`
-        (ROADMAP A10 ports `metrics()` itself): None unless the engine has
-        token_strs. Engine-local counts."""
+        """The structured-decoding block of `metrics()`: None unless the
+        engine has token_strs. Engine-local counts — the `pt_structured_*`
+        counters of the registry are process-cumulative across every
+        engine in the process."""
         if self.token_strs is None:
             return None
         gc_ = self._grammar_cache.snapshot()
@@ -789,15 +1084,151 @@ class LLMEngine:
             "rejects": gc_["rejects"],
         }
 
+    # ---- telemetry ----
+
+    @property
+    def mean_occupancy(self):
+        s = self.stats["steps"]
+        return self.stats["occupancy_sum"] / s if s else 0.0
+
+    def kv_fragmentation(self):
+        """Internal fragmentation of the live KV pages: unwritten slots /
+        (live pages x page_size), counted as per-request tail waste
+        (shared and trie pages are full by construction, so a shared
+        prefix is never counted once per sharer)."""
+        cap = self.pool.num_live * self.page_size
+        if not cap:
+            return 0.0
+        waste = sum(len(r.pages) * self.page_size - r.n_prefilled
+                    for r in self._slots if r is not None)
+        return max(0.0, waste / cap)
+
+    def metrics(self):
+        """Live engine view + the process-wide serving counters of the
+        port's registry — the reference's `metrics()`, key for key (its
+        `executables` is the number of captured window graphs here; the
+        KV tier and sessions blocks stay None / zero until ROADMAP A10b).
+        Reads only: safe from another thread."""
+        live = sum(r is not None for r in self._slots)
+        fused = self._fused_fn
+        return {
+            "queue_depth": len(self.waiting),
+            "live_slots": live,
+            "num_slots": self.num_slots,
+            "kv_dtype": self.kv_dtype,
+            "kv_pool_bytes": self.pool_bytes(),
+            "slot_occupancy": live / self.num_slots,
+            "mean_slot_occupancy": self.mean_occupancy,
+            "kv_page_occupancy":
+                self.pool.num_live / (self.pool.num_pages - 1),
+            "kv_fragmentation": self.kv_fragmentation(),
+            "kv_pages_shared": self.pool.num_shared,
+            "prefix_cache": (self.prefix_cache.snapshot()
+                             if self.prefix_cache is not None else None),
+            "sched": self.sched.snapshot(),
+            "requests": int(_REQS_TOTAL.value),
+            "finished": int(_FINISHED_TOTAL.value),
+            "preemptions": int(_PREEMPTIONS_TOTAL.value),
+            "steps": int(_STEPS_TOTAL.value),
+            "aborts": int(_ABORTS_TOTAL.value),
+            "prefill_tokens":
+                int(_TOKENS_TOTAL.labels(phase="prefill").value),
+            "decode_tokens":
+                int(_TOKENS_TOTAL.labels(phase="decode").value),
+            "decode_k": self.decode_k,
+            "spec": self._spec_metrics(),
+            "ngram": self._ngram_metrics(),
+            "structured": self._structured_metrics(),
+            "fused_steps": int(_FUSED_STEPS.value),
+            "dispatches": int(_DISPATCHES.value),
+            "tokens_per_dispatch": _TOK_PER_DISPATCH.value,
+            "admission_p50_s": _ADMIT_SECONDS.quantile(0.5),
+            "admission_p99_s": _ADMIT_SECONDS.quantile(0.99),
+            "ttft_p50_s": _TTFT_SECONDS.quantile(0.5),
+            "ttft_p95_s": _TTFT_SECONDS.quantile(0.95),
+            "ttft_p99_s": _TTFT_SECONDS.quantile(0.99),
+            "request_tok_per_s_p50": _REQ_TOK_RATE.quantile(0.5),
+            "request_phase_seconds": _reqtrace.phase_summary(),
+            "recent_requests": list(self._timelines),
+            "executables": 0 if fused is None else len(fused._graphs),
+            "kv_tier": None,
+            "sessions": {"active": 0, "resumed": 0, "shed": 0},
+        }
+
+    def _spec_metrics(self):
+        """Draft-model speculation block of `metrics()`: None without a
+        draft model (the n-gram proposer reports under `ngram`). The
+        counters are process-cumulative; the per-engine window count
+        rides `stats`."""
+        if self._spec is None or getattr(self._spec, "mode",
+                                         "draft") != "draft":
+            return None
+        from .speculative import (_SPEC_ACCEPTED, _SPEC_DRAFT_SECONDS,
+                                  _SPEC_PROPOSED)
+
+        proposed = _SPEC_PROPOSED.value
+        return {
+            "spec_k": self._spec.k,
+            "windows": self.stats.get("spec_windows", 0),
+            "proposed": int(proposed),
+            "accepted": int(_SPEC_ACCEPTED.value),
+            "acceptance_rate": (
+                _SPEC_ACCEPTED.value / proposed if proposed else None),
+            "draft_seconds": round(float(_SPEC_DRAFT_SECONDS.value), 4),
+            "draft_pool_bytes": self._spec.pool_bytes(),
+        }
+
+    def _ngram_metrics(self):
+        """n-gram speculation block of `metrics()`: None unless this
+        engine runs spec_mode="ngram"."""
+        if getattr(self._spec, "mode", None) != "ngram":
+            return None
+        proposed = self.stats.get("ngram_proposed", 0)
+        accepted = self.stats.get("ngram_accepted", 0)
+        return {
+            "spec_k": self._spec.k,
+            "windows": self.stats.get("ngram_windows", 0),
+            "proposed": int(proposed),
+            "accepted": int(accepted),
+            "acceptance_rate": (accepted / proposed if proposed
+                                else None),
+        }
+
+    def _note_timeline(self, req):
+        """Record the request's phase timeline (reqtrace) for the
+        `metrics()["recent_requests"]` drill-down; quiet traces (warm-up
+        requests) stay out."""
+        if req.trace.quiet:
+            return
+        self._timelines.append({
+            "rid": req.rid, "trace_id": req.trace.trace_id,
+            "phases": req.trace.timeline(),
+            "total_s": req.trace.total_s()})
+
     # ---- client side ----
 
     def add_request(self, prompt, max_new_tokens=32, eos_token_id=None,
                     future=None, tenant="default", priority=None,
                     ttft_slo_s=None, temperature=0.0, top_p=1.0,
-                    spec_mode=None, grammar=None, json_schema=None):
+                    prefill_only=False, kv_import=None, trace=None,
+                    deadline_s=None, session_id=None, grammar=None,
+                    json_schema=None, spec_mode=None):
         """Enqueue one request (1-D int token ids); returns the
         `_Request`, whose `future` resolves to np.int64 [prompt +
         generated].
+
+        prefill_only: prefill up to the sampling frontier (prompt_len - 1
+        tokens written) and resolve the future to the exported
+        `fleet_serving.KVPagePayload`; no token is sampled and
+        max_new_tokens is ignored. kv_import: a KVPagePayload from another
+        engine's `export_kv_pages`: the request admits with its prompt KV
+        written from the payload and decodes from its frontier; the
+        payload's geometry must match this engine's pool exactly, checked
+        here. trace: the request's reqtrace.TraceContext (default: the
+        payload's, else a fresh one). deadline_s: a hard deadline in
+        seconds from now — an expired request is cancelled (its future
+        raises RequestCancelled), a non-positive one is shed here
+        (RequestShed).
 
         spec_mode: per-request speculation override — None inherits the
         engine's mode; "off" disables proposals for this request; the
@@ -809,7 +1240,14 @@ class LLMEngine:
         dict lowered to one (canonical no-whitespace JSON). At most one of
         the two; both need LLMEngineConfig(token_strs=...) and an
         eos_token_id. The grammar compiles and loads into the arena here,
-        so a bad or oversized one raises here."""
+        so a bad or oversized one raises here.
+
+        session_id (persistent chat sessions) is not ported yet: ROADMAP
+        A10b."""
+        if session_id is not None:
+            raise NotImplementedError(
+                "add_request(session_id=...) is not ported yet: ROADMAP "
+                "A10b (serving fleet: sessions)")
         grammar_obj = self._resolve_constraint(grammar, json_schema,
                                                eos_token_id, spec_mode)
         toks = np.asarray(prompt).reshape(-1)
@@ -841,13 +1279,52 @@ class LLMEngine:
             except Exception:
                 self._grammar_cache.reject()
                 raise
+            _STRUCT_REQS.inc()
             self.stats["structured_requests"] += 1
-        if req.target <= req.prompt_len:
+        _REQS_TOTAL.inc()
+        # trace identity: the caller's (the router / server stamped
+        # `queued` at its ingress), else the payload's, else fresh
+        if trace is None and kv_import is not None:
+            trace = _payload_trace(kv_import)
+        req.trace = trace if trace is not None else _reqtrace.new_trace()
+        req.trace.stamp("queued")   # no-op when the ingress stamped it
+        # overload plane: brownout ingress caps and the hard deadline. A
+        # shed resolves the future typed; it never raises from here
+        caps = self._brownout
+        sp = caps.get("shed_priority")
+        if sp is not None and req.priority >= int(sp):
+            return self._shed_at_admit(req, "brownout")
+        if not prefill_only:
+            cap = caps.get("max_new_cap")
+            if cap is not None:
+                req.target = min(req.target,
+                                 req.prompt_len + max(1, int(cap)))
+        if deadline_s is not None:
+            ds = float(deadline_s)
+            if ds <= 0.0:   # expired before admission: reject at submit
+                return self._shed_at_admit(req, "deadline")
+            req.deadline_t = req.t_submit + ds
+            self._deadlines_armed = True
+        if kv_import is not None:
+            self._check_import(req, kv_import)
+            req._kv_import = kv_import
+        if prefill_only:
+            req.prefill_only = True
+            req.target = req.prompt_len
+            if req.prompt_len == 1:
+                # nothing before the frontier: an empty export (the
+                # decode side prefills the single prompt token itself)
+                if not req.future.cancelled():
+                    req.future.set_result(
+                        self._empty_payload(toks, req.trace))
+                return req
+        elif req.target <= req.prompt_len:
             # zero budget: the prompt echoes back
             if not req.future.cancelled():
                 req.future.set_result(req.result_array())
             return req
         self.sched.enqueue(req)
+        _QUEUE_DEPTH.set(len(self.sched))
         return req
 
     def has_work(self):
@@ -858,14 +1335,22 @@ class LLMEngine:
         fused graphs read, so this rewrites the buffer and captures
         nothing."""
         self._seed = int(seed)
-        self._key.copy_(prng.prng_key(self._seed))
+        with self._on_device():      # ordered with the engine's steps
+            self._key.copy_(prng.prng_key(self._seed))
 
     def abort_all(self, exc):
         """Fail every live and queued request with `exc` (device-error
-        path), release all pages, re-zero the pools and scale planes (the
-        draft's too) — a step that died mid-write leaves them half
-        updated — in place, so the fused and propose graphs stay valid,
-        and restore the sampling key."""
+        path), release all pages, drop the prefix trie (the re-zeroed
+        pools invalidate every cached page), re-zero the pools and scale
+        planes (the draft's too) — a step that died mid-write leaves them
+        half updated — in place, so the fused and propose graphs stay
+        valid, and restore the sampling key."""
+        try:
+            _fr.dump("engine_abort", error=repr(exc), inflight=[
+                {"rid": r.rid, "trace_id": r.trace.trace_id}
+                for r in self._slots if r is not None])
+        except Exception:
+            pass   # the postmortem must never mask the abort itself
         for slot, req in enumerate(self._slots):
             if req is not None:
                 self._release(slot, req)
@@ -874,26 +1359,347 @@ class LLMEngine:
         for req in self.sched.drain():
             if not req.future.done():
                 req.future.set_exception(exc)
-        with torch.inference_mode():
-            for p in self._kv + self._kv_scales:
-                p.zero_()
-        if self._spec is not None:
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        with self._on_device():
+            with torch.inference_mode():
+                for p in self._kv + self._kv_scales:
+                    p.zero_()
+            if self._spec is not None:
+                self._spec.reset_pools()
+            self.reseed(self._seed)
+        _ABORTS_TOTAL.inc()
+        _QUEUE_DEPTH.set(0)
+        _LIVE_SLOTS.set(0)
+        _SLOT_OCC.set(0.0)
+
+    def abort(self, request_id, reason="client", exc=None,
+              counted=False):
+        """Evict one request (client cancel / deadline expiry) wherever
+        it lives: a slot occupant releases its pages (shared trie pages
+        keep the trie's own reference) and its page-table row; a queued
+        request leaves the scheduler. The future resolves with `exc`
+        (default RequestCancelled) unless already done. False when the id
+        is unknown — already finished. Co-resident requests are
+        untouched: no pool re-zero, no reseed, no recapture (contrast
+        `abort_all`). `counted=True`: the caller (the router's `cancel`)
+        already counted this cancellation."""
+        rid = int(request_id)
+        for slot, req in enumerate(self._slots):
+            if req is not None and req.rid == rid:
+                self._release(slot, req)
+                self._resolve_cancel(req, reason, exc, counted=counted)
+                live = sum(r is not None for r in self._slots)
+                _LIVE_SLOTS.set(live)
+                _SLOT_OCC.set(live / self.num_slots)
+                return True
+        for req in list(self.sched):
+            if req.rid == rid:
+                if not self.sched.remove(req):
+                    return False
+                self._resolve_cancel(req, reason, exc, counted=counted)
+                _QUEUE_DEPTH.set(len(self.sched))
+                return True
+        return False
+
+    def _resolve_cancel(self, req, reason, exc=None, counted=False):
+        """Shared tail of every cancellation path: count, stamp the
+        timeline, flight-record, resolve the future typed."""
+        if not counted:
+            note_cancelled(reason)
+        req.trace.stamp("cancelled")
+        self._note_timeline(req)
+        _fr.record_event("request_cancelled", rid=req.rid,
+                         trace_id=req.trace.trace_id, reason=reason)
+        if not req.future.done():
+            req.future.set_exception(
+                exc if exc is not None
+                else RequestCancelled(reason=reason,
+                                      trace_id=req.trace.trace_id))
+
+    def _shed_at_admit(self, req, reason):
+        """Typed admission refusal (add_request): the future resolves
+        with RequestShed; nothing was consumed, nothing to release."""
+        note_shed(reason)
+        _fr.record_event("request_shed", rid=req.rid,
+                         trace_id=req.trace.trace_id, reason=reason)
+        if not req.future.done():
+            req.future.set_exception(
+                RequestShed(reason, trace_id=req.trace.trace_id))
+        return req
+
+    def _expire_deadlines(self):
+        """Cancel every live or queued request whose hard deadline has
+        passed (top of step(), armed once a deadline request exists)."""
+        now = _time.perf_counter()
+        hit = False
+        for slot, req in enumerate(self._slots):
+            if (req is not None and req.deadline_t is not None
+                    and now > req.deadline_t):
+                self._release(slot, req)
+                self._resolve_cancel(req, "deadline")
+                hit = True
+        stale = [r for r in self.sched
+                 if r.deadline_t is not None and now > r.deadline_t]
+        for req in stale:
+            if self.sched.remove(req):
+                self._resolve_cancel(req, "deadline")
+                hit = True
+        if hit:
+            live = sum(r is not None for r in self._slots)
+            _LIVE_SLOTS.set(live)
+            _SLOT_OCC.set(live / self.num_slots)
+            _QUEUE_DEPTH.set(len(self.sched))
+
+    # ---- brownout (fleet_serving.overload) ----
+
+    def apply_brownout(self, caps):
+        """Install the fleet's brownout caps ({} = full service). Called
+        from the router's monitor thread: the dict is replaced whole and
+        read at host decision points only (admission caps, window
+        widths); parking or restoring the speculator runs on the engine
+        thread at the top of step() (`_sync_brownout`)."""
+        self._brownout = dict(caps)
+
+    def _sync_brownout(self):
+        """Engine-thread half of the ladder's L2: park the speculator and
+        release its draft pools (the memory returns now), or restore it —
+        `reset_pools` reallocates zeroed pools and each slot's
+        draft_prefilled reset makes the next window's catch-up replay the
+        draft KV. (L4's session pinning arrives with sessions, A10b.)"""
+        enabled = self._brownout.get("spec_enabled", True)
+        if self._spec is not None and enabled is False:
+            self._spec_stash, self._spec = self._spec, None
+            self._spec_stash.release_pools()
+            _KV_POOL_BYTES.labels(dtype=self.kv_dtype).set(
+                self.pool_bytes())
+        elif (self._spec is None and self._spec_stash is not None
+                and enabled):
+            self._spec, self._spec_stash = self._spec_stash, None
             self._spec.reset_pools()
-        self.reseed(self._seed)
+            for r in self._slots:
+                if r is not None:
+                    r.draft_prefilled = 0   # draft pool is cold: replay
+            _KV_POOL_BYTES.labels(dtype=self.kv_dtype).set(
+                self.pool_bytes())
+
+    def close(self):
+        """Retire the engine: drop the prefix trie (its clear() publishes
+        the negative resident-pages delta, so a process that cycles
+        engines does not leave pt_prefix_cache_resident_pages inflated).
+        Idempotent; the engine stays usable with a cold trie."""
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+
+    # ---- disaggregated serving: the KV wire ----
+    # Both directions run on the thread that owns the engine (inside
+    # step(), or on the server's thread for export_prefix), on the
+    # engine's stream: the export gather right after the tick that
+    # reached the frontier, the import ahead of the next tick.
+
+    def export_kv_pages(self, req):
+        """Cut the request's KV pages (every layer pool and scale plane,
+        byte for byte, the partially filled frontier page included) into
+        a `fleet_serving.KVPagePayload`. The request keeps its pages:
+        export is a read."""
+        from .fleet_serving.kv_transfer import KVPagePayload
+
+        kv, scales = self._gather_pages(req.pages)
+        self.stats["kv_pages_exported"] = (
+            self.stats.get("kv_pages_exported", 0) + len(req.pages))
+        req.trace.stamp("kv_export")
+        return KVPagePayload(np.asarray(req.tokens, np.int32),
+                             req.n_prefilled, self.page_size,
+                             self.kv_dtype, kv, scales,
+                             trace=req.trace.to_dict())
+
+    def _gather_pages(self, page_ids):
+        """One gather of exactly `page_ids` rows from every pool and
+        scale plane, packed into one byte buffer on the device and
+        brought to the host in ONE copy (the reference pads to a fixed
+        width to keep one executable; eager torch needs no padding).
+        Returns (kv, scales): owned numpy arrays, a bf16 pool's as uint16
+        words."""
+        arrays = self._kv + self._kv_scales
+        n = len(page_ids)
+        with self._on_device():
+            ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                                  device=self.device)
+            flat = torch.cat([a.index_select(0, ids).reshape(-1)
+                              .view(torch.uint8) for a in arrays])
+            host = flat.cpu().numpy()
+        out, off = [], 0
+        for a in arrays:
+            shape = (n,) + tuple(a.shape[1:])
+            nb = int(np.prod(shape)) * a.element_size()
+            out.append(host[off:off + nb].view(_np_carrier(a))
+                       .reshape(shape).copy())
+            off += nb
+        return out[:len(self._kv)], out[len(self._kv):]
+
+    def import_kv_pages(self, payload, **kw):
+        """Admit one request whose prompt KV arrives pre-computed (another
+        engine's `export_kv_pages`): the payload's tokens are the prompt
+        and decoding starts at its frontier. Takes `add_request`'s
+        keywords."""
+        return self.add_request(payload.tokens, kv_import=payload, **kw)
+
+    def _empty_payload(self, toks, trace=None):
+        from .fleet_serving.kv_transfer import KVPagePayload
+
+        if trace is not None:
+            trace.stamp("kv_export")
+        return KVPagePayload(
+            toks, 0, self.page_size, self.kv_dtype,
+            [np.zeros((0,) + tuple(p.shape[1:]), _np_carrier(p))
+             for p in self._kv],
+            [np.zeros((0,) + tuple(s.shape[1:]), np.float32)
+             for s in self._kv_scales],
+            trace=trace.to_dict() if trace is not None else None)
+
+    def _check_import(self, req, payload):
+        """Geometry validation at submit time (an import that
+        reinterprets pages under another page_size / kv_dtype / head
+        layout would serve garbage logits, not an error). The reference's
+        checks and messages; every mismatching array in one error."""
+        if payload.page_size != self.page_size:
+            raise ValueError(
+                f"kv_import page_size {payload.page_size} != engine "
+                f"page_size {self.page_size}")
+        if payload.kv_dtype != self.kv_dtype:
+            raise ValueError(
+                f"kv_import kv_dtype {payload.kv_dtype!r} != engine "
+                f"kv_dtype {self.kv_dtype!r} (pools must match "
+                "byte-for-byte; re-prefill instead)")
+        if len(payload.kv) != len(self._kv):
+            raise ValueError(
+                f"kv_import carries {len(payload.kv)} pools, engine "
+                f"has {len(self._kv)} (different num_layers?)")
+        if len(payload.scales) != len(self._kv_scales):
+            raise ValueError(
+                "kv_import scale planes do not match the engine pool "
+                f"({len(payload.scales)} vs {len(self._kv_scales)})")
+        n_pages = payload.num_pages
+        bad = []
+        for i, a in enumerate(payload.kv):
+            want = (n_pages,) + tuple(self._kv[i].shape[1:])
+            if tuple(a.shape) != want:
+                bad.append(f"pool {i} shape {tuple(a.shape)} != {want}")
+        for i, a in enumerate(payload.scales):
+            want = (n_pages,) + tuple(self._kv_scales[i].shape[1:])
+            if tuple(a.shape) != want:
+                bad.append(f"scale plane {i} shape {tuple(a.shape)} "
+                           f"!= {want}")
+        if bad:
+            raise ValueError(
+                f"kv_import geometry mismatch (engine page geometry "
+                f"x {n_pages} pages), {len(bad)} failing arrays: "
+                + "; ".join(bad))
+        if not 0 <= payload.n_prefilled <= req.prompt_len - 1:
+            raise ValueError(
+                f"kv_import n_prefilled {payload.n_prefilled} outside "
+                f"[0, prompt_len-1] ({req.prompt_len - 1}): the decode "
+                "side owns the frontier token")
+        need = -(-payload.n_prefilled // self.page_size)
+        if payload.num_pages != need:
+            raise ValueError(
+                f"kv_import ships {payload.num_pages} pages but "
+                f"n_prefilled {payload.n_prefilled} needs {need}")
+
+    def _write_imported_pages(self, page_ids, payload):
+        """Write the payload's page rows into this engine's pools at
+        freshly allocated page ids, byte for byte (no dequant / requant).
+        The pools are written IN PLACE (`index_copy_`), never rebound:
+        the captured fused / propose graphs hold their addresses. One
+        host-to-device copy of every row, on the engine's stream."""
+        if not page_ids:
+            return
+        from .fleet_serving.kv_transfer import _KV_PAGES_STREAMED
+
+        arrays = self._kv + self._kv_scales
+        rows = list(payload.kv) + list(payload.scales)
+        host = np.concatenate([np.ascontiguousarray(r).reshape(-1)
+                               .view(np.uint8) for r in rows])
+        with self._on_device(), torch.inference_mode():
+            dev = torch.from_numpy(host).to(self.device)
+            ids = torch.as_tensor(list(page_ids), dtype=torch.long,
+                                  device=self.device)
+            off = 0
+            for a, r in zip(arrays, rows):
+                nb = r.nbytes
+                src = dev[off:off + nb].view(a.dtype).view(
+                    (len(page_ids),) + tuple(a.shape[1:]))
+                a.index_copy_(0, ids, src)
+                off += nb
+        self.stats["kv_pages_imported"] = (
+            self.stats.get("kv_pages_imported", 0) + len(page_ids))
+        _KV_PAGES_STREAMED.inc(len(page_ids))
+
+    def export_prefix(self, tokens):
+        """Cut the trie's longest cached prefix of `tokens` into a
+        `KVPagePayload` (the router's hot-prefix migration source). The
+        payload satisfies the kv_import frontier contract for a request
+        with these exact tokens (n_prefilled <= len-1, exact page count),
+        so the pulling engine admits it through the ordinary import and
+        publishes it into its own trie. None when nothing is cached.
+        Engine thread only (the LLMServer's control queue)."""
+        if self.prefix_cache is None:
+            return None
+        from .fleet_serving.kv_transfer import KVPagePayload
+
+        toks = np.asarray(tokens).reshape(-1)
+        cached, pages = self.prefix_cache.match(toks)
+        bt = self.prefix_cache.block_tokens
+        # the import contract leaves the frontier token to the decode
+        # side: a fully covered prompt exports one block less
+        while pages and cached >= toks.size:
+            cached -= self.prefix_cache.cow_split(pages)
+        if not pages:
+            return None
+        kv, scales = self._gather_pages(pages)
+        self.pool.free(pages)   # match()'s share refs, returned
+        self.stats["kv_pages_migrated_out"] = (
+            self.stats.get("kv_pages_migrated_out", 0) + cached // bt
+            * self.prefix_cache.pages_per_block)
+        return KVPagePayload(toks, cached, self.page_size,
+                             self.kv_dtype, kv, scales)
+
+    def _finish_prefill(self, slot, req):
+        """Retire a prefill-only request at its frontier: export the
+        payload, release the slot and pages, resolve the future to the
+        payload."""
+        req.trace.stamp("prefill_end")
+        payload = self.export_kv_pages(req)
+        self._note_timeline(req)
+        self._release(slot, req)
+        self.stats["finished"] += 1
+        self.stats["prefill_exports"] = (
+            self.stats.get("prefill_exports", 0) + 1)
+        _FINISHED_TOTAL.inc()
+        if not req.future.cancelled():
+            req.future.set_result(payload)
 
     # ---- scheduler ----
 
     def _release(self, slot, req):
-        self.pool.free(req.pages)
-        req.pages = []
+        self.pool.free(req.pages)  # shared pages decref; the trie keeps
+        req.pages = []             # its own reference
         req.n_prefilled = 0
         req.draft_prefilled = 0   # a replay re-prefills both pools
+        req.cached_prefix = 0
+        req.published_blocks = 0
+        req.slot = None
         self._page_tables[slot, :] = 0
         self._slots[slot] = None
 
     def _finish(self, slot, req):
         self._release(slot, req)
         self.stats["finished"] += 1
+        _FINISHED_TOTAL.inc()
+        if req.t_first_admit is not None and req.num_generated:
+            dt = _time.perf_counter() - req.t_first_admit
+            if dt > 0:
+                _REQ_TOK_RATE.observe(req.num_generated / dt)
         # a client may have cancel()ed while the request was in flight
         if not req.future.cancelled():
             req.future.set_result(req.result_array())
@@ -902,10 +1708,12 @@ class LLMEngine:
         """Evict-and-requeue one running sequence. Its generated tokens
         and its sampling stream are kept: the re-decode of
         prompt+generated reproduces the same continuation, greedy or
-        sampled."""
+        sampled, and with the prefix cache on its replayed prefill
+        re-hits the trie."""
         self._release(slot, req)
         req.preemptions += 1
         self.stats["preemptions"] += 1
+        _PREEMPTIONS_TOTAL.inc()
         self.sched.note_preemption(reason)
         self.sched.push_front(req)
 
@@ -921,43 +1729,166 @@ class LLMEngine:
         self._preempt(*pick, reason=reason)
         return True
 
+    def _alloc_page(self):
+        """Pool alloc with prefix-cache pressure relief: a dry pool first
+        reclaims LRU trie-only pages before the caller has to preempt."""
+        try:
+            return self.pool.alloc()
+        except PoolExhausted:
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.evict(1) > 0):
+                return self.pool.alloc()
+            raise
+
+    def _map_prefix(self, req):
+        """Match the request's tokens against the radix trie and map the
+        shared pages (the request holds one pool reference per page).
+        `req.cached_prefix` tokens of prefill are skipped. Copy-on-write
+        cap: at least one token runs through the model (the frontier
+        logit), and its KV write may not land in a shared page, so a
+        fully cached prompt splits its tail block back to private
+        recompute."""
+        cached, pages = self.prefix_cache.match(req.tokens)
+        splits = 0
+        while pages and cached >= len(req.tokens):
+            cached -= self.prefix_cache.cow_split(pages)
+            splits += 1
+        req.cached_prefix = cached
+        req._cow_pending = splits
+        return pages
+
+    def _publish_prefix(self, req):
+        """Register the request's newly completed full PROMPT blocks in
+        the trie (its own mapped blocks are already there; insert is
+        idempotent). Generated-token pages stay private."""
+        bt = self.hash_block_tokens
+        covered = min(req.n_prefilled, req.prompt_len)
+        nblocks = covered // bt
+        if nblocks > req.published_blocks:
+            ppb = self.prefix_cache.pages_per_block
+            self.prefix_cache.insert(req.tokens[:nblocks * bt],
+                                     req.pages[:nblocks * ppb])
+            req.published_blocks = nblocks
+
     def _try_admit(self, req):
-        """Place one popped request into a slot (the JAX engine's branch
-        without prefix cache and without KV import): page-fit check with
-        lowest-priority preemption as the pressure valve, then page-table
-        setup. False when the request cannot be placed yet."""
-        now = _time.perf_counter()
-        victims = [r for r in self._slots
-                   if r is not None and self.sched.less_urgent(r, req, now)]
-        no_slot = None not in self._slots
-        if no_slot and not victims:
-            return False
-        # feasibility first: preempting a runner destroys its progress,
-        # so evict only when a slot and enough pages can exist. With
-        # speculation, one page of headroom per live frontier slot stays
-        # free, so a burst of admissions cannot drain the pool to where
-        # every verify window collapses to width 0
+        """Place one popped request into a slot: prefix-cache mapping,
+        page-fit check (with trie eviction and lowest-priority preemption
+        as pressure valves), page-table setup, the KV import. False —
+        with every transient reference released — when the request
+        cannot be placed yet."""
+        # cheap bails first: a blocked head-of-queue request must not
+        # pay a prefix match and a feasibility walk on every tick.
+        # (a) no free slot and no legal victim
+        if None not in self._slots:
+            now = _time.perf_counter()
+            if not any(r is not None
+                       and self.sched.less_urgent(r, req, now)
+                       for r in self._slots):
+                return False
+        # with speculation, one page of headroom per live frontier slot
+        # stays free, so a burst of admissions cannot drain the pool to
+        # where every verify window collapses to width 0
         headroom = (self._spec.window_headroom()
                     if self._spec is not None else 0)
-        need = -(-len(req.tokens) // self.page_size) + headroom
-        if (self.pool.num_free < need
-                and self.pool.num_free + sum(len(r.pages) for r in victims)
-                < need):
+        # (b) the pool is short even in the best case: the trie can map
+        # at most resident_pages into the prompt and reclaim at most
+        # resident_pages more
+        need_all = -(-len(req.tokens) // self.page_size)
+        if self.pool.num_free - headroom < need_all:
+            now = _time.perf_counter()
+            avail = self.pool.num_free - headroom + sum(
+                len(r.pages) for r in self._slots if r is not None
+                and self.sched.less_urgent(r, req, now))
+            resident = (self.prefix_cache.resident_pages
+                        if self.prefix_cache is not None else 0)
+            if avail + 2 * resident < need_all:
+                return False
+        # an imported request's prompt KV arrives in its payload: a trie
+        # mapping on top would alias pages the import must write
+        pages = (self._map_prefix(req)
+                 if self.prefix_cache is not None
+                 and req._kv_import is None else [])
+
+        def give_up():
+            if pages:
+                self.pool.free(pages)
+            req.cached_prefix = 0
             return False
-        if no_slot and not self._preempt_one(None, worse_than=req,
-                                             reason="priority"):
-            return False
-        while self.pool.num_free < need:
+
+        # feasibility first: preempting a runner destroys its progress,
+        # so evict only once a slot and enough reclaimable pages can
+        # exist (`reclaimable` is an upper bound; the loops below still
+        # give up cleanly when eviction falls short)
+        need = (-(-len(req.tokens) // self.page_size) - len(pages)
+                + headroom)
+        if None not in self._slots or self.pool.num_free < need:
+            now = _time.perf_counter()
+            victims = [r for r in self._slots if r is not None
+                       and self.sched.less_urgent(r, req, now)]
+            if None not in self._slots and not victims:
+                return give_up()
+            reclaimable = self.pool.num_free + sum(
+                len(r.pages) for r in victims)
+            if self.prefix_cache is not None:
+                reclaimable += self.prefix_cache.reclaimable_pages()
+            if reclaimable < need:
+                return give_up()
+        if None not in self._slots:
             if not self._preempt_one(None, worse_than=req,
                                      reason="priority"):
-                return False
+                return give_up()
+        # the prompt's remaining pages must fit (head-of-class blocking:
+        # a short prompt never jumps its own class's queue)
+        while self.pool.num_free < need:
+            short = need - self.pool.num_free
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.evict(short) > 0):
+                continue
+            if not self._preempt_one(None, worse_than=req,
+                                     reason="priority"):
+                return give_up()
         slot = self._slots.index(None)
+        req.slot = slot
         req.admit_seq = next(self._admit_counter)
-        req.pages = []
-        req.n_prefilled = 0
-        req.draft_prefilled = 0
+        req.pages = list(pages)
+        req.n_prefilled = req.cached_prefix
+        if req._kv_import is not None:
+            # disaggregated hand-off: write the payload's pages and join
+            # at the frontier. The payload is consumed: a later
+            # preemption replay prefills the prompt the ordinary way
+            imp, req._kv_import = req._kv_import, None
+            req.pages = [self._alloc_page()
+                         for _ in range(imp.num_pages)]
+            self._write_imported_pages(req.pages, imp)
+            req.n_prefilled = imp.n_prefilled
+            req.trace.stamp("kv_import")
+        # mirrored draft pool: a shared page's draft rows were written by
+        # the publishing request's own catch-up (same page ids, tokens
+        # and draft model), so the mapped prefix is draft-valid too; a
+        # publisher that never ran a window leaves rows whose proposals
+        # the lossless verify rejects (acceptance rate, not correctness)
+        req.draft_prefilled = (req.cached_prefix
+                               if self._spec is not None else 0)
+        req.published_blocks = req.cached_prefix // self.hash_block_tokens
         self._page_tables[slot, :] = 0
+        self._page_tables[slot, :len(req.pages)] = req.pages
         self._slots[slot] = req
+        if self.prefix_cache is not None:
+            self.prefix_cache.note_mapped(
+                req.cached_prefix, pages, cow_splits=req._cow_pending)
+        if req.t_first_admit is None:
+            req.t_first_admit = _time.perf_counter()
+            _ADMIT_SECONDS.observe(req.t_first_admit - req.t_submit)
+        if req.n_prefilled < len(req.tokens) - 1:
+            req.trace.stamp("prefill_start")
+        else:
+            # a full import / full trie hit: no prefill runs here
+            req.trace.stamp("prefill_end")
+        if (req.prefill_only
+                and req.n_prefilled >= req.prompt_len - 1):
+            # the import (or a full trie hit) already covers the
+            # frontier: nothing left for this engine to compute
+            self._finish_prefill(slot, req)
         return True
 
     def _admit(self):
@@ -994,6 +1925,11 @@ class LLMEngine:
             budget = self.token_budget - len(active)
             for slot, req in active:
                 remaining = len(req.tokens) - req.n_prefilled
+                if req.prefill_only:
+                    # the frontier token belongs to the decode side of
+                    # the hand-off: stop one short, so no logit is
+                    # computed (and no token sampled) here
+                    remaining -= 1
                 take = 1 + min(remaining - 1, budget)
                 budget -= take - 1
                 alloc[slot] = take
@@ -1002,7 +1938,7 @@ class LLMEngine:
                 last = req.n_prefilled + alloc[slot] - 1
                 try:
                     while last // self.page_size >= len(req.pages):
-                        page = self.pool.alloc()
+                        page = self._alloc_page()
                         self._page_tables[slot, len(req.pages)] = page
                         req.pages.append(page)
                 except PoolExhausted:
@@ -1039,13 +1975,26 @@ class LLMEngine:
         step (`only_slots`), so a straggler does not force the whole
         engine off windows; a window that cannot cover even one token per
         row returns None and the step runs a single tick, which owns
-        preemption. Returns the requests finished."""
+        preemption. Returns the requests finished.
+
+        On the card the step holds a share of the device gate and runs on
+        the engine's stream (`_on_device`)."""
+        with self._on_device():
+            return self._step()
+
+    def _step(self):
+        self._sync_brownout()
+        if self._deadlines_armed:
+            self._expire_deadlines()
         self._admit()
         if self._spec is not None or self.decode_k > 1:
             active = self._active()
             frontier = [(s, r) for s, r in active
                         if r.n_prefilled == len(r.tokens) - 1]
             if frontier:
+                for _s, r in frontier:
+                    if r.num_generated == 0:
+                        r.trace.stamp("first_decode_dispatch")
                 out = (self._spec.try_window(frontier)
                        if self._spec is not None
                        else self._try_step_fused(frontier))
@@ -1077,20 +2026,34 @@ class LLMEngine:
             return tot
 
         avail = self.pool.num_free
-        w = k
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.reclaimable_pages()
+        # brownout window cap (overload ladder L3): a smaller window rides
+        # `rem` through the same graph
+        cap = self._brownout.get("decode_k_cap")
+        w = k if cap is None else max(1, min(k, int(cap)))
         while w > 1 and pages_needed(w) > avail:
             w -= 1        # spill: the largest window the pool covers
         if pages_needed(w) > avail:
             return None   # not even 1 token a row: the single tick preempts
+        # reserve the window's pages up front (_alloc_page evicts LRU
+        # trie pages under pressure; reclaimable was an upper bound, so a
+        # short row spills further instead of failing the window)
         rem_arg = {}
         for slot, req in active:
             want = min(w, req.target - len(req.tokens))
             last = req.n_prefilled + want - 1
-            while last // ps >= len(req.pages):
-                page = self.pool.alloc()
-                self._page_tables[slot, len(req.pages)] = page
-                req.pages.append(page)
-            rem_arg[slot] = want
+            try:
+                while last // ps >= len(req.pages):
+                    page = self._alloc_page()
+                    self._page_tables[slot, len(req.pages)] = page
+                    req.pages.append(page)
+                writes = want
+            except PoolExhausted:
+                writes = min(want, len(req.pages) * ps - req.n_prefilled)
+                if writes < 1:
+                    return None
+            rem_arg[slot] = writes
 
         if self._fused_fn is None:
             self._fused_fn = _FusedStep(self.model, k, ps, self.num_slots,
@@ -1118,9 +2081,11 @@ class LLMEngine:
             gen_before[slot] = req.num_generated
         t0 = _time.perf_counter()
         try:
-            emits = fused.run(self._kv, self._kv_scales or None,
-                              any(r.temperature > 0 for _, r in active),
-                              tables)
+            with _trace_span("llm_engine.fused_step", k=k,
+                             live=len(active)):
+                emits = fused.run(self._kv, self._kv_scales or None,
+                                  any(r.temperature > 0 for _, r in active),
+                                  tables)
         except Exception as e:
             # the pools may be half written: fail the in-flight work and
             # re-zero, as the single tick does
@@ -1131,6 +2096,10 @@ class LLMEngine:
 
         self.stats["steps"] += 1
         self.stats["fused_steps"] += 1
+        self.stats["occupancy_sum"] += len(active) / self.num_slots
+        _STEPS_TOTAL.inc()
+        _FUSED_STEPS.inc()
+        _DISPATCHES.inc()
         finished = []
         now = _time.perf_counter()
         total = 0
@@ -1152,13 +2121,35 @@ class LLMEngine:
             self.stats["generated"] += emitted
             self.sched.note_tokens(req.tenant, emitted)
             if gen_before[slot] == 0 and emitted > 0:
-                req.t_first_token = now
-                self.sched.note_first_token(req, now - req.t_submit)
+                self._note_first_token(req, now)
             if done:
                 self._finish(slot, req)
                 finished.append(req)
         self.stats["tokens_in"] += total
+        _TOKENS_TOTAL.labels(phase="decode").inc(total)
+        _TOK_PER_DISPATCH.set(total)
+        self._note_load()
         return finished
+
+    def _note_first_token(self, req, now):
+        """TTFT bookkeeping of a request's first generated token, on
+        every path (tick, fused window, verify window)."""
+        ttft = now - req.t_submit
+        req.t_first_token = now
+        req.trace.stamp("first_token")
+        self._note_timeline(req)
+        _TTFT_SECONDS.observe(ttft)
+        self.sched.note_first_token(req, ttft)
+
+    def _note_load(self, live=None):
+        """The whole-engine load gauges after a dispatch."""
+        if live is None:
+            live = sum(r is not None for r in self._slots)
+        _QUEUE_DEPTH.set(len(self.waiting))
+        _LIVE_SLOTS.set(live)
+        _SLOT_OCC.set(live / self.num_slots)
+        _PAGE_OCC.set(self.pool.num_live / (self.pool.num_pages - 1))
+        _PAGE_FRAG.set(self.kv_fragmentation())
 
     # ---- single tick (prefill / mixed / k=1) ----
 
@@ -1224,6 +2215,10 @@ class LLMEngine:
                     # on these gathered rows
                     sample_idx[slot] = i
                     sample_slots.append(slot)
+                    if req.num_generated == 0:
+                        # prefill ends and decode begins in this tick
+                        req.trace.stamp("prefill_end")
+                        req.trace.stamp("first_decode_dispatch")
                 i += 1
         # rows past i stay 0: padding tokens (kv_len 0) writing trash row 0
         dev = torch.from_numpy(buf).to(self.device)
@@ -1231,9 +2226,10 @@ class LLMEngine:
         smp_d = dev[5 * T:5 * T + S]
         pt_d = dev[5 * T + S:].view(S, MP)
         try:
-            logits = self._step_fn(tok_d, pos_d, sid_d, widx_d, pt_d,
-                                   klen_d, smp_d, self._kv,
-                                   self._kv_scales or None)
+            with _trace_span("llm_engine.step", tokens=i, live=len(plan)):
+                logits = self._step_fn(tok_d, pos_d, sid_d, widx_d, pt_d,
+                                       klen_d, smp_d, self._kv,
+                                       self._kv_scales or None)
             nxt = []
             if sample_slots:
                 lv = logits[0, sample_slots].float()
@@ -1254,10 +2250,30 @@ class LLMEngine:
 
         self.stats["steps"] += 1
         self.stats["tokens_in"] += i
+        self.stats["occupancy_sum"] += len(plan) / self.num_slots
+        _STEPS_TOTAL.inc()
+        _DISPATCHES.inc()
+        # a straggler tick covers only the prefill rows: it must not
+        # overwrite the window's whole-engine gauges with its own subset
+        if only_slots is None or sample_slots:
+            _TOK_PER_DISPATCH.set(len(sample_slots))
+        _TOKENS_TOTAL.labels(phase="decode").inc(len(sample_slots))
+        _TOKENS_TOTAL.labels(phase="prefill").inc(i - len(sample_slots))
         finished = []
         for slot, req, take in plan:
             req.n_prefilled += take
+            if req.n_prefilled >= len(req.tokens) - 1:
+                req.trace.stamp("prefill_end")
             self.sched.note_tokens(req.tenant, take)
+            if self.prefix_cache is not None:
+                self._publish_prefix(req)
+            if (req.prefill_only
+                    and req.n_prefilled >= len(req.tokens) - 1):
+                # the hand-off: the frontier is reached — export the
+                # pages and retire (the publish above already put the
+                # full prompt blocks in the trie)
+                self._finish_prefill(slot, req)
+                finished.append(req)
         now = _time.perf_counter()
         for slot, t in zip(sample_slots, nxt):
             req = self._slots[slot]
@@ -1266,13 +2282,23 @@ class LLMEngine:
                 req.gstate = req.grammar.advance(req.gstate, int(t))
             self.stats["generated"] += 1
             if req.num_generated == 1:      # replays don't re-count
-                req.t_first_token = now
-                self.sched.note_first_token(req, now - req.t_submit)
+                self._note_first_token(req, now)
             if ((req.eos is not None and t == req.eos)
                     or len(req.tokens) >= req.target):
                 self._finish(slot, req)
                 finished.append(req)
+        self._note_load(len(plan) if only_slots is None else None)
         return finished
+
+
+# the full `LLMServer.submit` keyword surface (the reference's):
+# FleetRouter.submit screens unknown keywords against it, so a typo
+# raises at submit() with its name instead of inside a replica's loop
+SUBMIT_KWARGS = frozenset((
+    "max_new_tokens", "eos_token_id", "tenant", "priority",
+    "ttft_slo_s", "temperature", "top_p", "prefill_only", "kv_import",
+    "trace", "deadline_s", "session_id", "grammar", "json_schema",
+    "spec_mode"))
 
 
 class LLMServer(_FutureQueueServer):
@@ -1291,36 +2317,99 @@ class LLMServer(_FutureQueueServer):
     def engine(self):
         return self._engine
 
+    def metrics(self):
+        """The engine's `metrics()` snapshot. Reads only."""
+        return self._engine.metrics()
+
+    def start_metrics_http(self, port=0, host="127.0.0.1"):
+        raise NotImplementedError(
+            "the /metrics HTTP endpoint is not ported yet: ROADMAP A10b "
+            "(HTTP endpoint and telemetry export)")
+
+    def stop(self):
+        super().stop()
+        self._engine.close()
+
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
                tenant="default", priority=None, ttft_slo_s=None,
-               temperature=0.0, top_p=1.0, spec_mode=None, grammar=None,
-               json_schema=None):
+               temperature=0.0, top_p=1.0, prefill_only=False,
+               kv_import=None, trace=None, deadline_s=None,
+               session_id=None, grammar=None, json_schema=None,
+               spec_mode=None):
         """Enqueue one prompt (1-D int token ids). Returns a Future
         resolving to np.int64 [prompt + generated] (eos kept, nothing
-        after it). The sampling knobs and the constraint kwargs
-        (`grammar=`, `json_schema=`, `spec_mode=`; see
-        `LLMEngine.add_request`) are checked, and the grammar compiled,
-        here on the caller's thread, so a bad one raises at submit() and
-        never inside the serve loop. The engine-side `_Request` is
-        attached to the future as `fut.pt_request` once the engine thread
-        has taken it in."""
+        after it) — or, with `prefill_only=True`, to the exported
+        `fleet_serving.KVPagePayload` (`kv_import` is the receiving side;
+        see `LLMEngine.add_request`). The sampling knobs and the
+        constraint kwargs (`grammar=`, `json_schema=`, `spec_mode=`) are
+        checked, and the grammar compiled, here on the caller's thread,
+        so a bad one raises at submit() and never inside the serve loop.
+        The trace is minted here (or taken from the payload), so its
+        `queued` stamp covers the server's queue. The engine-side
+        `_Request` is attached to the future as `fut.pt_request` once the
+        engine thread has taken it in. `session_id` raises: sessions are
+        ROADMAP A10b."""
+        if session_id is not None:
+            raise NotImplementedError(
+                "submit(session_id=...) is not ported yet: ROADMAP A10b "
+                "(serving fleet: sessions)")
         _check_sampling(float(temperature), float(top_p))
         grammar = self._engine._resolve_constraint(
             grammar, json_schema, eos_token_id, spec_mode)
         fut = Future()
         fut.pt_request = None
+        if trace is None and kv_import is not None:
+            trace = _payload_trace(kv_import)
+        if trace is None:
+            trace = _reqtrace.new_trace()
+        trace.stamp("queued")
         self._enqueue(dict(
             prompt=np.asarray(prompt).reshape(-1),
             max_new_tokens=int(max_new_tokens), eos_token_id=eos_token_id,
             future=fut, tenant=tenant, priority=priority,
             ttft_slo_s=ttft_slo_s, temperature=float(temperature),
-            top_p=float(top_p), spec_mode=spec_mode, grammar=grammar))
+            top_p=float(top_p), prefill_only=bool(prefill_only),
+            kv_import=kv_import, trace=trace, deadline_s=deadline_s,
+            spec_mode=spec_mode, grammar=grammar))
+        return fut
+
+    def export_prefix(self, tokens):
+        """Future -> the engine trie's longest cached prefix of `tokens`
+        as a `KVPagePayload` (or None): the router's hot-prefix migration
+        source. The cut runs on the engine thread, a control message on
+        the submission queue."""
+        fut = Future()
+        self._enqueue({"_export_prefix": np.asarray(tokens).reshape(-1),
+                       "_export_future": fut})
         return fut
 
     def generate(self, prompt, max_new_tokens=32, eos_token_id=None):
         return self.submit(prompt, max_new_tokens, eos_token_id).result()
 
+    def abort(self, request_id, reason="client", counted=False):
+        """Cancel one in-flight request by its engine rid. The abort
+        rides the submission queue, so the engine thread applies it
+        between steps; an unknown or finished rid is a no-op."""
+        self._enqueue({"_abort": int(request_id),
+                       "_abort_reason": str(reason),
+                       "_abort_counted": bool(counted)})
+
     def _ingest(self, payload):
+        if "_abort" in payload:   # control message, not a submission
+            self._engine.abort(payload["_abort"],
+                               reason=payload["_abort_reason"],
+                               counted=payload["_abort_counted"])
+            return
+        if "_export_prefix" in payload:
+            fut = payload["_export_future"]
+            try:
+                res = self._engine.export_prefix(payload["_export_prefix"])
+                if not fut.cancelled():
+                    fut.set_result(res)
+            except Exception as e:
+                if not fut.done():
+                    fut.set_exception(e)
+            return
         fut = payload.pop("future")
         if fut.cancelled():
             return
@@ -1332,9 +2421,18 @@ class LLMServer(_FutureQueueServer):
             if not fut.done():
                 fut.set_exception(e)
 
+    def _tick_hook(self):
+        """Per-iteration hook of the serve loop (the fleet replica's
+        heartbeat and chaos kill: fleet_serving.replica overrides it).
+        True ends the loop dead: no drain, no future resolved — the
+        process-death shape the router's failover requeues."""
+        return False
+
     def _loop(self):
         eng = self._engine
         while self._running or not self._q.empty() or eng.has_work():
+            if self._tick_hook():
+                return
             try:
                 while True:
                     self._ingest(self._q.get_nowait())

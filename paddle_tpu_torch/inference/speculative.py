@@ -38,18 +38,42 @@ accepted frontier, masked by kv_len and overwritten by position when the
 real tokens arrive. A request's valid draft prefix is
 `_Request.draft_prefilled`; the propose window replays a lag of one row
 itself (its iteration 0), so only admission and preemption cost catch-up
-ticks. The reference's brownout cap (`spec_k_cap`), `release_pools` and
-metrics registry belong to the overload plane (ROADMAP A10).
+ticks.
+
+Overload plane (fleet_serving.overload): the brownout cap `spec_k_cap`
+narrows every row's width (a per-window input, no recapture), and ladder
+L2 parks the speculator: `release_pools` drops the draft pools (and the
+propose graphs holding their addresses) until `reset_pools` reallocates
+them. The process-wide `pt_spec_*` counters live in the port's registry.
 """
 import time as _time
 
 import numpy as np
 import torch
 
+from ..observability import metrics as _obs
 from ..quantization import runtime as _qrt
+from . import llm_engine as _eng
 from .llm_engine import PoolExhausted, _FusedStep, _PagedStep
 
 __all__ = ["SpeculativeDecoder"]
+
+_SPEC_PROPOSED = _obs.counter(
+    "pt_spec_proposed_total",
+    "draft tokens proposed to the verify step (window widths summed)")
+_SPEC_ACCEPTED = _obs.counter(
+    "pt_spec_accepted_total",
+    "accepted draft tokens that entered the output (each window also "
+    "emits one non-draft token: the target's own pick)")
+_SPEC_ACC_RATE = _obs.gauge(
+    "pt_spec_acceptance_rate",
+    "accepted / proposed, process-cumulative (the multiplier that "
+    "decides whether speculation pays)")
+_SPEC_DRAFT_SECONDS = _obs.counter(
+    "pt_spec_draft_seconds",
+    "host seconds spent in the draft model's catch-up and propose "
+    "launch (the propose window's device time is waited for in the "
+    "verify's one sync)")
 
 
 class _VerifyStep:
@@ -125,6 +149,9 @@ class _Speculator:
     proposer's counters (`<key>_windows`, `_proposed`, `_accepted`)."""
 
     stats_key = None
+    # (windows, proposed, accepted, acceptance-rate) registry metrics of
+    # the proposer; windows None = counted in `stats` only
+    counters = (None, None, None, None)
 
     def __init__(self, engine, spec_k):
         self.engine = engine
@@ -144,6 +171,16 @@ class _Speculator:
             1 for r in self.engine._slots
             if r is not None and r.n_prefilled == len(r.tokens) - 1)
 
+    def _k_eff(self):
+        """Proposals per row this window: spec_k under the brownout cap
+        (`spec_k_cap`, overload ladder L1)."""
+        cap = self.engine._brownout.get("spec_k_cap")
+        return self.k if cap is None else max(0, min(self.k, int(cap)))
+
+    def release_pools(self):
+        """Brownout L2: nothing resident to release (the draft model's
+        decoder overrides this)."""
+
     def _reserve(self, frontier, want):
         """Reserve the pages of positions pos0..pos0+width of each frontier
         row, width = min(want[slot], the row's budget); pool pressure
@@ -159,7 +196,7 @@ class _Speculator:
             last = req.n_prefilled + w
             try:
                 while last // ps >= len(req.pages):
-                    page = eng.pool.alloc()
+                    page = eng._alloc_page()
                     eng._page_tables[slot, len(req.pages)] = page
                     req.pages.append(page)
             except PoolExhausted:
@@ -204,6 +241,13 @@ class _Speculator:
         eng.sched.note_boundary(_time.perf_counter() - t0)
         self._stats["steps"] += 1
         self._stats[f"{self.stats_key}_windows"] += 1
+        self._stats["occupancy_sum"] += len(frontier) / eng.num_slots
+        _eng._STEPS_TOTAL.inc()
+        _eng._FUSED_STEPS.inc()
+        _eng._DISPATCHES.inc()
+        c_windows, c_proposed, c_accepted, c_rate = self.counters
+        if c_windows is not None:
+            c_windows.inc()
         finished = []
         now = _time.perf_counter()
         total = proposed = accepted = 0
@@ -230,8 +274,7 @@ class _Speculator:
             self._stats["generated"] += emitted
             eng.sched.note_tokens(req.tenant, emitted)
             if first and emitted > 0:
-                req.t_first_token = now
-                eng.sched.note_first_token(req, now - req.t_submit)
+                eng._note_first_token(req, now)
             if done:
                 eng._finish(slot, req)
                 finished.append(req)
@@ -239,6 +282,13 @@ class _Speculator:
         self._stats[f"{self.stats_key}_proposed"] += proposed
         self._stats[f"{self.stats_key}_accepted"] += accepted
         eng.sched.note_spec_window(proposed, accepted)
+        c_proposed.inc(proposed)
+        c_accepted.inc(accepted)
+        if c_proposed.value:
+            c_rate.set(c_accepted.value / c_proposed.value)
+        _eng._TOKENS_TOTAL.labels(phase="decode").inc(total)
+        _eng._TOK_PER_DISPATCH.set(total)
+        eng._note_load()
         return finished
 
 
@@ -286,6 +336,7 @@ class SpeculativeDecoder(_Speculator):
 
     mode = "draft"
     stats_key = "spec"
+    counters = (None, _SPEC_PROPOSED, _SPEC_ACCEPTED, _SPEC_ACC_RATE)
 
     def __init__(self, engine, draft_model, spec_k):
         draft_model.eval()
@@ -308,27 +359,16 @@ class SpeculativeDecoder(_Speculator):
         super().__init__(engine, spec_k)
         self.draft = draft_model
         ps = engine.page_size
-        num_pages = engine.pool.num_pages
-        nh = dcfg.num_heads
-        hd = dcfg.hidden_size // nh
+        hd = dcfg.hidden_size // dcfg.num_heads
         # the draft pools mirror the engine pool's geometry (same page
         # ids and tables), their own buffers in the engine's kv dtype
-        draft_dt, self._quantized = _qrt.resolve_kv_dtype(engine.kv_dtype,
-                                                          draft_model.dtype)
+        self._draft_dt, self._quantized = _qrt.resolve_kv_dtype(
+            engine.kv_dtype, draft_model.dtype)
         if self._quantized == 4 and hd % 2:
             raise ValueError(
                 f"kv_dtype='int4': draft head_dim {hd} is odd — nibble "
                 "packing pairs head_dim elements")
-        hd_store = hd // 2 if self._quantized == 4 else hd
-        dev = engine.device
-        layers = 2 * dcfg.num_layers
-        self._kv = [torch.zeros((num_pages, ps, nh, hd_store),
-                                dtype=draft_dt, device=dev)
-                    for _ in range(layers)]
-        self._kv_scales = [
-            torch.zeros(_qrt.kv_scale_shape(num_pages, ps, nh),
-                        dtype=torch.float32, device=dev)
-            for _ in range(layers if self._quantized else 0)]
+        self._alloc_pools()
         # three steps: the draft's catch-up tick (its own flat budget,
         # wide enough that a post-admission replay clears in few ticks),
         # the draft's propose window, the target's verify
@@ -346,14 +386,43 @@ class SpeculativeDecoder(_Speculator):
         return int(sum(p.numel() * p.element_size()
                        for p in self._kv + self._kv_scales))
 
+    def _alloc_pools(self):
+        eng, dcfg = self.engine, self.draft.config
+        nh = dcfg.num_heads
+        hd = dcfg.hidden_size // nh
+        hd_store = hd // 2 if self._quantized == 4 else hd
+        shape = (eng.pool.num_pages, eng.page_size, nh, hd_store)
+        layers = 2 * dcfg.num_layers
+        self._kv = [torch.zeros(shape, dtype=self._draft_dt,
+                                device=eng.device) for _ in range(layers)]
+        self._kv_scales = [
+            torch.zeros(_qrt.kv_scale_shape(eng.pool.num_pages,
+                                            eng.page_size, nh),
+                        dtype=torch.float32, device=eng.device)
+            for _ in range(layers if self._quantized else 0)]
+
     def reset_pools(self):
         """abort_all path: zero the draft pools and scale planes IN PLACE
         — the propose graph holds their addresses, so a fresh allocation
         would leave it writing into freed memory (the engine's own pools
-        follow the same rule)."""
+        follow the same rule). After `release_pools` the pools are
+        allocated anew (zeroed), and the propose graphs, dropped with the
+        old pools, are captured again at the next window."""
+        if not self._kv:
+            self._alloc_pools()
+            return
         with torch.inference_mode():
             for p in self._kv + self._kv_scales:
                 p.zero_()
+
+    def release_pools(self):
+        """Brownout L2: drop the draft pools — the device memory returns
+        to the process now. The propose graphs hold the pools' addresses,
+        so they go first. `pool_bytes()` reads 0 until `reset_pools`; the
+        engine parks this decoder meanwhile, so no window touches the
+        empty lists."""
+        self._propose_fn._graphs.clear()
+        self._kv, self._kv_scales = [], []
 
     # ---- draft catch-up ----
 
@@ -409,10 +478,12 @@ class SpeculativeDecoder(_Speculator):
         reserved up front, for both pools at once (they share page ids).
         Returns the requests finished."""
         eng = self.engine
+        k_eff = self._k_eff()
         width = self._reserve(frontier, {
-            slot: 0 if req.spec_off else self.k for slot, req in frontier})
+            slot: 0 if req.spec_off else k_eff for slot, req in frontier})
         if width is None:
             return None
+        t_draft = _time.perf_counter()
         try:
             self._catch_up(frontier)
         except Exception as e:
@@ -446,6 +517,7 @@ class SpeculativeDecoder(_Speculator):
             # verify's emits (and the drafts with them) are the one sync
             drafts = prop.drafts(prop.launch(self._kv, self._kv_scales
                                              or None, sampled))
+            _SPEC_DRAFT_SECONDS.inc(_time.perf_counter() - t_draft)
             emits, drafts_h = self._verify_fn(
                 rows, drafts, eng._page_tables, eng._kv,
                 eng._kv_scales or None, key=eng._key if sampled else None,

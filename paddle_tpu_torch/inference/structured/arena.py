@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from ...core.place import resolve_device
-from .compiler import GrammarError
+from .compiler import GrammarError, _STRUCT_REJECTS, _STRUCT_STATES
 
 __all__ = ["GrammarArena", "GrammarCache"]
 
@@ -127,6 +127,7 @@ class GrammarArena:
         if self._next + need > self.n_states:
             self._compact(set(live or ()))
         if self._next + need > self.n_states:
+            _STRUCT_REJECTS.inc()
             raise GrammarError(
                 f"grammar=: arena full ({self._next}/{self.n_states} "
                 f"states used, grammar needs {need}); raise "
@@ -137,6 +138,7 @@ class GrammarArena:
         self._loaded[grammar.hash] = (base, grammar)
         self._next = base + need
         self._mark(base, self._next)
+        _STRUCT_STATES.set(float(self._next))
         return base
 
     def _mark(self, lo, hi):
@@ -177,6 +179,7 @@ class GrammarArena:
             self._loaded[g.hash] = (base, g)
             self._next = base + g.n_states
         self._mark(1, self.n_states)
+        _STRUCT_STATES.set(float(self._next))
 
     def device_tables(self):
         """The (trans, mask) device pair the windows read: int32 [G, vocab]

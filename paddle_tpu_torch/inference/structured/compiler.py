@@ -21,15 +21,39 @@ the token-level transition is the char path's end state. Multi-character
 tokens constrain exactly like their character expansion.
 
 A grammar whose DFA exceeds ``max_states`` raises ``GrammarError`` during
-the subset walk, never after. The reference's process-wide counters
-(compiles, rejects, resident states) belong to its metrics registry
-(ROADMAP A10); the engine keeps its own counts (`arena.GrammarCache`).
+the subset walk, never after. The process-wide `pt_structured_*`
+counters (requests, compiles, cache hits, rejects, resident states) live
+in the port's metrics registry, as the reference's do in its; the engine
+keeps its own counts too (`arena.GrammarCache`).
 """
 import hashlib
 
 import numpy as np
 
+from ...observability import metrics as _obs
+
 __all__ = ["CompiledGrammar", "GrammarError", "compile_regex"]
+
+# the reference's process-wide structured-decoding counters
+_STRUCT_REQS = _obs.counter(
+    "pt_structured_requests_total",
+    "requests admitted with a grammar/json_schema constraint attached")
+_STRUCT_COMPILES = _obs.counter(
+    "pt_structured_compiles_total",
+    "grammar compilations (regex -> token DFA) actually performed — "
+    "cache hits don't count")
+_STRUCT_CACHE_HITS = _obs.counter(
+    "pt_structured_cache_hits",
+    "compiled-grammar cache hits (a hot schema compiles once per "
+    "replica; every later request reuses the table)")
+_STRUCT_REJECTS = _obs.counter(
+    "pt_structured_rejects_total",
+    "grammars rejected loudly (DFA over the state budget, grammar "
+    "arena full, unsatisfiable pattern)")
+_STRUCT_STATES = _obs.gauge(
+    "pt_structured_states",
+    "grammar-arena DFA states currently resident (row 0 is the "
+    "mask-identity row unconstrained requests ride)")
 
 
 class GrammarError(ValueError):
@@ -315,6 +339,7 @@ def _char_dfa(pattern, alphabet, max_states):
             ni = index.get(closed)
             if ni is None:
                 if len(index) >= max_states:
+                    _STRUCT_REJECTS.inc()
                     raise GrammarError(
                         f"grammar=: DFA for {pattern!r} exceeds the "
                         f"state budget ({max_states}); raise "
@@ -418,11 +443,13 @@ def compile_regex(pattern, token_strs, eos_id=None, max_states=128):
             if accept[q]:
                 trans[q, int(eos_id)] = q
     if not (trans[0] >= 0).any():
+        _STRUCT_REJECTS.inc()
         raise GrammarError(
             f"grammar=: {pattern!r} is unsatisfiable over this "
             "vocabulary (no token is allowed in the start state)")
     vocab_fp = hashlib.sha1(
         "\x00".join(token_strs).encode("utf-8")).digest()
+    _STRUCT_COMPILES.inc()
     return CompiledGrammar(pattern, trans, accept,
                            None if eos_id is None else int(eos_id),
                            vocab_fp)

@@ -21,22 +21,40 @@ never correctness.
 
 The engine drives it through the surface it shares with the draft-model
 `SpeculativeDecoder` (`inference/speculative._Speculator`: `try_window`,
-`window_headroom`, `reset_pools`, `pool_bytes`, `.k`), reporting 0 pool
-bytes. The reference's brownout cap (`spec_k_cap`) and metrics registry
-are not ported: no cap applies.
+`window_headroom`, `reset_pools`, `release_pools`, `pool_bytes`, `.k`),
+reporting 0 pool bytes. The brownout cap (`spec_k_cap`) narrows the
+proposals, and the `pt_ngram_spec_*` counters live in the port's
+registry.
 """
 import time as _time
 
 import numpy as np
 
+from ...observability import metrics as _obs
 from ..speculative import _Speculator
 
 __all__ = ["NgramSpeculator"]
+
+_NGRAM_WINDOWS = _obs.counter(
+    "pt_ngram_spec_windows_total",
+    "n-gram speculative windows dispatched (one verify step each)")
+_NGRAM_PROPOSED = _obs.counter(
+    "pt_ngram_spec_proposed_total",
+    "prompt-lookup tokens proposed to the verify step (window widths "
+    "summed; match-less slots propose 0 and run verify-only)")
+_NGRAM_ACCEPTED = _obs.counter(
+    "pt_ngram_spec_accepted_total",
+    "accepted prompt-lookup tokens that entered the output")
+_NGRAM_ACC_RATE = _obs.gauge(
+    "pt_ngram_spec_acceptance_rate",
+    "accepted / proposed for the n-gram proposer, process-cumulative")
 
 
 class NgramSpeculator(_Speculator):
     mode = "ngram"
     stats_key = "ngram"
+    counters = (_NGRAM_WINDOWS, _NGRAM_PROPOSED, _NGRAM_ACCEPTED,
+                _NGRAM_ACC_RATE)
 
     def __init__(self, engine, spec_k, max_match=3, scan_window=512):
         super().__init__(engine, spec_k)
@@ -50,9 +68,6 @@ class NgramSpeculator(_Speculator):
 
     def reset_pools(self):
         pass                      # no draft pool to re-zero
-
-    def release_pools(self):
-        pass                      # nothing resident
 
     # ---- proposal mining ----
 
@@ -85,7 +100,9 @@ class NgramSpeculator(_Speculator):
         step; a dry pool narrows the row's width to what its pages
         cover. Returns the requests finished."""
         eng = self.engine
-        proposals = {slot: [] if req.spec_off else self._propose(req)
+        k_eff = self._k_eff()
+        proposals = {slot: [] if req.spec_off or not k_eff
+                     else self._propose(req)[:k_eff]
                      for slot, req in frontier}
         width = self._reserve(frontier, {slot: len(p)
                                          for slot, p in proposals.items()})

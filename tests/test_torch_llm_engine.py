@@ -27,6 +27,18 @@ from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_tiny
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -174,10 +186,12 @@ def test_engine_rejects_unservable_requests():
 
 
 @pytest.mark.parametrize("knob,row", [
-    ({"session_ttl_s": 30.0}, "A10"), ({"prefix_cache": True}, "A10"),
+    ({"session_ttl_s": 30.0}, "A10"), ({"session_max": 8}, "A10"),
     ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
-    with pytest.raises(NotImplementedError, match=row):
+    # the prefix cache is ported (tests/test_torch_prefix_cache.py); the
+    # KV tier and sessions wait for ROADMAP A10b
+    with pytest.raises(NotImplementedError, match=row + "b"):
         teng.LLMEngineConfig(**knob)
 
 
@@ -290,15 +304,17 @@ def _imports(path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    # an AST scan: the test process itself has jax loaded, so a
-    # sys.modules check could not tell
+    # an AST scan over every module of the port (and chip_smoke.py): the
+    # test process itself has jax loaded, so a sys.modules check could
+    # not tell. ml_dtypes is banned too: the card's machine lacks it
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     bad = []
     for f in files:
         for mod in _imports(f):
-            if mod.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"):
+            if mod.split(".")[0] in ("jax", "jaxlib", "paddle_tpu",
+                                     "ml_dtypes"):
                 bad.append(f"{f.relative_to(ROOT)}: {mod}")
     assert not bad, bad
 

@@ -30,6 +30,18 @@ from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM, gpt_tiny,
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ENGINE = dict(num_slots=3, page_size=16, token_budget=8, max_model_len=96)
 STATS = ("steps", "tokens_in", "generated", "finished", "preemptions",
          "ngram_windows", "ngram_proposed", "ngram_accepted")

@@ -43,6 +43,18 @@ from paddle_tpu_torch.text.models.gpt import GPTConfig
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # token i>0 = chr(31+i); token 0 = the eos token (empty string)
 TOKS = [""] + [chr(c) for c in range(32, 127)]
 PAT = r'\{"a":[0-9]{1,3}\}'
