@@ -2,7 +2,11 @@
 """End-to-end check of the PyTorch/CUDA port (`paddle_tpu_torch`) on one
 NVIDIA GPU. Run from the repository root with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
+
+`--parent DIR` (the root of an earlier checkout, e.g. a `git archive` of
+the parent commit unpacked in a gitignored directory) also times that
+tree's int8 GEMM in phase 3, in turns with this one's on the same inputs.
 
 Phases, in order; any failure exits non-zero and no phase catches and
 continues:
@@ -20,8 +24,8 @@ continues:
               (`cuobjdump -sass`) of each flash kernel, of the paged
               tensor-core kernels (K1's and K2's, at head_dim 64 and 128,
               on bf16, int8 and int4 pools) and of the int8 GEMM (f32 and
-              bf16 x, int8 and packed int4 weights); fails if a
-              tensor-core kernel has none.
+              bf16 x, int8 and packed int4 weights, its decode and wide
+              kernels); fails if a tensor-core kernel has none.
 3. kernels  — each kernel against its plain PyTorch version on the card,
               each output row within a tolerance of that row's max-abs
               (1e-4 for f32 arithmetic, 2e-2 where q or the pool is
@@ -60,13 +64,21 @@ continues:
               `scaled_dot_product_attention` forward and the backward
               node it records, called directly. The int8 GEMM (the W8A8
               linear of weight-only serving) against its plain version at
-              gpt_small's four linear shapes x T 8, 13 and 256, int8 and
-              packed-int4 weights, bf16 and f32 x, a bias and a zero row:
-              the activation codes, steps and int32 accumulators equal,
-              the output within 1 ulp; timed at T 8 and 256 (bf16 x)
+              gpt_small's four linear shapes x T 1, 8, 13, 16, 17, 48, 256
+              and 300 (every tiling of its planner), int8 and packed-int4
+              weights, bf16 and f32 x, a bias and a zero row: the
+              activation codes, steps and int32 accumulators equal, the
+              output within 1 ulp; at T <= 16 the plan must fill the
+              card (>= 132 blocks); the wrapper's count, one a linear on
+              the plan's route, and the device launches of a linear (the
+              kernels the profiler sees: the decode kernel alone at T <=
+              16, the row quantize and the wide kernel above; its
+              dropped records printed as a shortfall); timed at T 8, 48
+              and 256 (bf16 x)
               beside its bound (weight bytes, or int8 operations at 1979
-              TOPS), `torch._int_mm` on the same codes (T 256) and the
-              float layer's bf16 `torch.addmm`.
+              TOPS), `torch._int_mm` on the same codes (T > 16) and the
+              float layer's bf16 `torch.addmm`, with the host µs per call
+              with and without a prepared weight.
 4. serve    — `LLMServer` over gpt_small (random weights from a seed: one
               model for every serve phase), bf16 weights and bf16 KV
               pool, 8 greedy requests with prompts of 16-900 tokens. The
@@ -152,11 +164,17 @@ continues:
 5f. weights — gpt_small after `quantize_model_int8` and after
               `quantize_model_int4` (48 linears each): `LLMServer` bursts
               at decode_k 1 and 4, the counts set to 0 just before each:
-              the int8 GEMM 48 per tick and 48 x 4 per fused warm-up and
-              replay, K1 as in 5d; the k=1 engine through the GEMM vs
+              the int8 GEMM 48 per tick (wide route) and 48 x 4 per
+              fused warm-up and replay (decode route), K1 as in 5d; a
+              decode_k 4 window's graph replay vs its eager run,
+              byte-equal, the wrapper counting 48 x 4 decode-route
+              linears in the replay and the profiler seeing the decode
+              kernel and no other GEMM kernel; the k=1 engine through the
+              GEMM vs
               through its plain version: logits within
-              SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties; tok/s
-              and the weight bytes saved.
+              SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties; tok/s,
+              device ms per fused iteration at decode_k 4 beside the bf16
+              model's, and the weight bytes saved.
 5g. structured — grammar-constrained decoding on the 5e target (and its
               draft) with a synthetic 50304-string vocabulary made from a
               seed (token 0 "" is the eos, the 95 printable characters,
@@ -217,14 +235,16 @@ continues:
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
-weights, one layer's four linears at T 8 and at T 256), with its
+weights, a row per route: the decode kernel at T 8, the wide route at
+T 256 with its T 48 times beside; one layer's four linears), with its
 launches from the main-path run that drives it (K1 on bf16, int8 and
 int4 pools: the greedy decode_k 8 burst of phase 5d, whose graph
 replays' share is "graph_launches", plus the 5e draft burst's launches
 and its propose graph replays' share, and on the bf16 pool 5g's mixed
 fused burst's (K1) and n-gram burst's (K2) as
-"structured_burst_launches"; the GEMM: 5f's k=1 burst, and its decode_k
-4 burst's); the last line is
+"structured_burst_launches"; the GEMM's decode route: 5f's decode_k 4
+burst, its wide route: 5f's k=1 burst, each route's count in both
+bursts as "burst_launches"); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
@@ -249,14 +269,16 @@ SM_REGISTERS = 65536     # 32-bit registers per SM
 # the tensor-core kernels, by library, and their threads per block
 # (kTcThreads in csrc/flash_attention.cu, kThreads in paged_attention.cu's
 # tc namespace and in int8_gemm.cu); the paged ones are templated on
-# head_dim and pool kind (1 bf16, 8 int8, 4 int4), the int8 GEMM on x's
-# type and the weight's width (int8, or packed int4)
+# head_dim and pool kind (1 bf16, 8 int8, 4 int4), the int8 GEMM's two
+# (decode, T <= 16, and wide: 256 threads each) on x's type and the
+# weight's width (int8, or packed int4)
 TC_KERNELS = {"flash_attention": ("fa_fwd_tc_kernel", "fa_bwd_dq_tc_kernel",
                                   "fa_bwd_dkv_tc_kernel"),
               "paged_attention": ("rpa_tc_kernel", "rpa_tc_qblock_kernel"),
-              "int8_gemm": ("w8a8_gemm_kernel",)}
+              "int8_gemm": ("w8a8_gemm_kernel", "w8a8_gemm_wide_kernel")}
 TC_PAGED_KINDS = (1, 8, 4)
 TC_THREADS = 128
+TC_THREADS_OF = {"w8a8_gemm_kernel": 256, "w8a8_gemm_wide_kernel": 256}
 
 SERVE_PROMPT_LENS = (16, 40, 100, 200, 350, 500, 700, 900)
 SERVE_NEW_TOKENS = 32
@@ -270,7 +292,7 @@ def _kernel_label(mangled):
     'quantize_rows_kernel<f32>' from a mangled name of a templated flash
     attention kernel, of the paged tensor-core route or of the int8 GEMM;
     None for any other function."""
-    m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel|w8a8_gemm_kernel|"
+    m = re.search(r"((?:fa_|rpa_tc_)\w*?kernel|w8a8_gemm\w*?kernel|"
                   r"quantize_rows_kernel)I(.*?)EEv", mangled)
     if not m:
         return None
@@ -340,7 +362,7 @@ def _blocks_by_registers(regs, threads):
 def _tc_labels(head_dims):
     """The tensor-core kernels' labels by library: each flash kernel at
     each head_dim, each paged one at each head_dim and pool kind, the
-    int8 GEMM at each x type and weight width."""
+    int8 GEMM's two at each x type and weight width."""
     fl, pg = TC_KERNELS["flash_attention"], TC_KERNELS["paged_attention"]
     return {"flash_attention": [f"{k}<{d}>" for k in fl for d in head_dims],
             "paged_attention": [f"{k}<{d}, {kind}>" for k in pg
@@ -355,9 +377,9 @@ def build_report(build, head_dims):
     for the tensor-core kernels, the blocks per SM the registers allow)
     and the tensor-core instruction count (HMMA / HGMMA; IMMA for int8) of
     every flash kernel, of the paged tensor-core kernels and of the int8
-    GEMM's two kernels; fails when a tensor-core kernel (at each of
+    GEMM's kernels; fails when a tensor-core kernel (at each of
     `head_dims`, and each pool kind for the paged ones; each x type and
-    weight width for the GEMM) has no tensor-core instruction."""
+    weight width for the GEMM's two) has no tensor-core instruction."""
     paths = build.build(list(TC_KERNELS))
     want = _tc_labels(head_dims)
     mma = {}
@@ -368,9 +390,11 @@ def build_report(build, head_dims):
         for label in sorted(set(res) | set(lib_mma)):
             r = res.get(label, {})
             extra = ""
-            if label.split("<")[0] in TC_KERNELS[lib] and r.get("regs"):
+            base = label.split("<")[0]
+            if base in TC_KERNELS[lib] and r.get("regs"):
+                threads = TC_THREADS_OF.get(base, TC_THREADS)
                 extra = (f", registers allow "
-                         f"{_blocks_by_registers(r['regs'], TC_THREADS)} "
+                         f"{_blocks_by_registers(r['regs'], threads)} "
                          f"blocks/SM")
             print(f"build {label}: {r.get('regs')} registers, spill stores "
                   f"{r.get('spill_st')} B, spill loads {r.get('spill_ld')} "
@@ -901,10 +925,18 @@ def check_paged_attention(pa, flush):
 
 # gpt_small's four linears, (in, out): qkv, proj, fc1, fc2
 GEMM_SHAPES = ((768, 2304), (768, 768), (768, 3072), (3072, 768))
-# rows: the decode tick (8 slots), an odd count, the mixed tick (budget)
-GEMM_ROWS = (8, 13, 256)
-GEMM_TIMED_ROWS = (8, 256)
+# rows: 1-16 take the decode tiling (2 token tiles a block), 17 and more
+# the wide one; 8 is the decode tick, 48 the fleet's token budget, 256
+# the mixed tick, 300 crosses a 64-token tile's edge, 13 / 17 are odd
+GEMM_ROWS = (1, 8, 13, 16, 17, 48, 256, 300)
+GEMM_TIMED_ROWS = (8, 48, 256)
 GEMM_WIDTHS = {"w8a8": False, "w4a8": True}    # launch key -> int4
+GEMM_LAUNCH_REPS = 3
+SMS = 132
+# the kernels each route of the int8 GEMM launches, once a linear
+GEMM_ROUTE_KERNELS = {"decode": ("w8a8_gemm_kernel",),
+                      "wide": ("quantize_rows_kernel",
+                               "w8a8_gemm_wide_kernel")}
 
 
 def _gemm_weight(K, N, int4, seed):
@@ -926,11 +958,12 @@ def _gemm_weight(K, N, int4, seed):
 
 
 def _gemm_x(T, K, dtype, seed):
-    """x [T, K] on the card; row 3 is all zeros (a zero row's step is the
-    floor 1e-8 / 127 and its codes 0)."""
+    """x [T, K] on the card; row 3 (where there is one) is all zeros (a
+    zero row's step is the floor 1e-8 / 127 and its codes 0)."""
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((T, K), generator=g) * 2
-    x[3] = 0
+    if T > 3:
+        x[3] = 0
     return x.to(dtype).to("cuda")
 
 
@@ -955,90 +988,255 @@ def _gemm_bound(T, K, N, int4, x_dtype):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_int8_gemm(ig, flush):
+def _plan_str(p):
+    return (f"{'decode' if p.decode else 'wide'} route, {p.splits} k-ranges "
+            f"of {p.per} steps, {p.blocks} blocks, {p.smem} B shared "
+            f"memory, {p.launches} launch{'es' if p.launches > 1 else ''}")
+
+
+def _gemm_kernel_of(key):
+    """The GEMM kernel a profiler record names, or None (no name is a
+    part of another: "w8a8_gemm_kernel" is none of
+    "w8a8_gemm_wide_kernel")."""
+    names = [n for ns in GEMM_ROUTE_KERNELS.values() for n in ns
+             if n in key]
+    return names[0] if names else None
+
+
+def _gemm_records(rows, route, linears, label, only_gemm=False):
+    """Which GEMM kernels the profiler saw, by one rule for every gate:
+    the exact count of linears comes from the wrapper's counter
+    (`linears`, counted on `route`); the profiler's CUDA records (`rows`,
+    `key_averages()`) must show each of the route's kernels, no kernel of
+    the other route and (with `only_gemm`) no kernel that is not the
+    GEMM's, and no kernel more than once a linear. The profiler drops a
+    record now and then, so fewer is printed as its shortfall, not
+    failed. Returns {kernel: records} of the route."""
+    from torch.autograd import DeviceType
+
+    seen, foreign = {}, {}
+    for e in rows:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = _gemm_kernel_of(e.key)
+        if name is None:
+            foreign[e.key] = foreign.get(e.key, 0) + e.count
+        else:
+            seen[name] = seen.get(name, 0) + e.count
+    want = GEMM_ROUTE_KERNELS[route]
+    short = {n: linears - seen.get(n, 0) for n in want
+             if seen.get(n, 0) < linears}
+    print(f"{label}: {linears} linears on the {route} route (the wrapper's "
+          f"count); the profiler saw " + ", ".join(
+              f"{n} {c}" for n, c in sorted(seen.items()))
+          + (f" (shortfall {short})" if short else " (none short)")
+          + (f", other kernels {sum(foreign.values())}" if foreign else ""))
+    if (set(seen) != set(want) or any(c > linears for c in seen.values())
+            or (only_gemm and foreign)):
+        raise AssertionError(f"{label}: the GEMM kernels seen {seen}, "
+                             f"others {foreign}; want {want}, at most "
+                             f"{linears} each")
+    return seen
+
+
+def _mean_of(r, field):
+    return float(np.mean([x[field] for x in r["shapes"].values()]))
+
+
+def load_parent(root):
+    """The int8 GEMM module of the checkout at `root` (e.g. a `git
+    archive` of an earlier commit unpacked in a gitignored directory),
+    imported as package `parent_pt`: its own kernels, built into its own
+    tree at first use."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "paddle_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "parent_pt", os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["parent_pt"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("parent_pt.ops.cuda_kernels.int8_gemm")
+
+
+def check_int8_gemm(ig, flush, parent=None):
     """The int8 GEMM (`int8_gemm.w8a8_linear`) against its plain version on
-    the card at gpt_small's four linear shapes x T 8, 13 and 256, int8 and
-    packed-int4 weights, bf16 and f32 x, with a bias and a zero row: the
-    activation codes, the steps and the int32 accumulators equal, the
-    outputs within 1 ulp of x's dtype. Times at T 8 and 256 with bf16 x
-    (the serving type): kernel, plain, bound, `torch._int_mm` on the same
-    codes where its shape rules allow (T > 16), and the float layer's bf16
-    `torch.addmm`. Returns {(key, T): numbers summed over the four
-    shapes} (one decoder layer's linears), each with its per-shape
-    numbers."""
-    res = {}
+    the card at gpt_small's four linear shapes x GEMM_ROWS (every tiling
+    of `int8_gemm.plan`), int8 and packed-int4 weights, bf16 and f32 x,
+    with a bias and a zero row: the activation codes, the steps and the
+    int32 accumulators equal, the outputs within 1 ulp of x's dtype; at
+    T <= 16 the plan has at least 132 blocks. The device launches a
+    linear: the wrapper counts each call once on the plan's route, and
+    the profiler (`_gemm_records`) must see that route's kernels and no
+    other over the timed calls: 1 at T <= 16, 2 above. Times at
+    GEMM_TIMED_ROWS with bf16 x (the serving type): kernel, plain,
+    bound, `torch._int_mm` on the same codes where its shape rules
+    allow (T > 16), the float layer's bf16 `torch.addmm`, and host µs
+    per call with the weight prepared (the module's path) and checked
+    at each call. With `parent` (`load_parent`'s module, an earlier
+    tree's GEMM) that kernel runs on the same inputs, its output equal,
+    timed in turns (parent, this, this, parent) in the same process.
+    Returns {(key, T): numbers summed over the four shapes} (one decoder
+    layer's linears), each with its per-shape numbers."""
+    res, timed = {}, []
     for key, int4 in GEMM_WIDTHS.items():
         for si, (K, N) in enumerate(GEMM_SHAPES):
             wq, ws, wb, q = _gemm_weight(K, N, int4, seed=si)
+            prep = ig.prepare(wq, ws, int4)
             worst, worst_abs = 0.0, 0.0
             for T in GEMM_ROWS:
+                p = ig.plan(T, K, N, int4)
+                if T <= 16 and p.blocks < SMS:
+                    raise AssertionError(f"{key} [{T}, {K}] x [{K}, {N}]: "
+                                         f"{_plan_str(p)}, under {SMS}")
                 for dt in (torch.bfloat16, torch.float32):
                     x = _gemm_x(T, K, dt, seed=T)
                     bias = (torch.randn((N,), device="cuda") * 0.1).to(dt)
-                    before = dict(ig.launches)
+                    ig.reset_launches()
                     out, codes, steps, acc = ig.w8a8_linear(
                         x, wq, ws, bias, int4, return_parts=True)
-                    moved = {k: n - before[k] for k, n in ig.launches.items()
-                             if n != before[k]}
+                    moved = {k: n for k, n in ig.launches.items() if n}
+                    routes = {k: n for k, n in ig.route_launches.items()
+                              if n}
+                    route = "decode" if p.decode else "wide"
                     ref, rcodes, rsteps, racc = ig.w8a8_linear_plain(
                         x, wq, ws, bias, int4, return_parts=True)
                     torch.cuda.synchronize()
                     label = f"{key} [{T}, {K}] x [{K}, {N}] {str(dt)[6:]}"
                     ulps = _ulps(out, ref)
-                    if not (moved == {key: 1} and torch.equal(codes, rcodes)
+                    if not (moved == {key: 1}
+                            and routes == {f"{key}_{route}": 1}
+                            and torch.equal(codes, rcodes)
                             and torch.equal(steps, rsteps)
                             and torch.equal(acc, racc) and ulps <= 1
                             and torch.isfinite(out).all()):
                         raise AssertionError(
-                            f"{label}: launches {moved}, codes equal "
-                            f"{torch.equal(codes, rcodes)}, steps equal "
-                            f"{torch.equal(steps, rsteps)}, accumulators "
-                            f"equal {torch.equal(acc, racc)}, output off "
-                            f"by {ulps} ulp")
+                            f"{label} ({_plan_str(p)}): launches {moved}, "
+                            f"by route {routes}, "
+                            f"codes equal {torch.equal(codes, rcodes)}, steps"
+                            f" equal {torch.equal(steps, rsteps)}, "
+                            f"accumulators equal {torch.equal(acc, racc)}, "
+                            f"output off by {ulps} ulp")
                     worst = max(worst, ulps)
                     worst_abs = max(worst_abs, (out.float() - ref.float())
                                     .abs().max().item())
+            print(f"int8 GEMM {key} [T, {K}] x [{K}, {N}]: codes, steps and "
+                  f"int32 accumulators equal to the plain version's, output "
+                  f"within {worst:g} ulp at T {', '.join(map(str, GEMM_ROWS))}"
+                  f" (bf16 and f32 x); plans: " + "; ".join(
+                      f"T {T}: {_plan_str(ig.plan(T, K, N, int4))}"
+                      for T in (8, 17, 48, 256)))
             for T in GEMM_TIMED_ROWS:
                 x = _gemm_x(T, K, torch.bfloat16, seed=T)
                 bias = torch.zeros((N,), dtype=torch.bfloat16, device="cuda")
                 codes = ig.quantize_rows_plain(x)[0]
-                ms = _median_ms(lambda: ig.w8a8_linear(x, wq, ws, bias,
-                                                       int4), flush)
+
+                def kernel(x=x, wq=wq, ws=ws, bias=bias, int4=int4,
+                           prep=prep):
+                    return ig.w8a8_linear(x, wq, ws, bias, int4,
+                                          prepared=prep)
+
+                par = {}
+                if parent is not None:
+                    def old(x=x, wq=wq, ws=ws, bias=bias, int4=int4):
+                        return parent.w8a8_linear(x, wq, ws, bias, int4)
+
+                    if not torch.equal(old(), kernel()):
+                        raise AssertionError(
+                            f"{key} [{T}, {K}] x [{K}, {N}]: the parent "
+                            "tree's GEMM and this one's outputs differ")
+                    turns = [_median_ms(f, flush)
+                             for f in (old, kernel, kernel, old)]
+                    ms = (turns[1] + turns[2]) / 2
+                    par = dict(parent_ms=(turns[0] + turns[3]) / 2,
+                               turns=turns, parent_host_us=_host_us(old))
+                else:
+                    ms = _median_ms(kernel, flush)
                 plain_ms = _median_ms(lambda: ig.w8a8_linear_plain(
                     x, wq, ws, bias, int4), flush)
                 lib_ms = (_median_ms(lambda: torch._int_mm(codes, q), flush)
                           if T > 16 else None)
                 bf16_ms = _median_ms(lambda: torch.addmm(bias, x, wb), flush)
                 bound_ms, bound_by = _gemm_bound(T, K, N, int4, x.dtype)
+                host_us = _host_us(kernel)
+                host_checked_us = _host_us(lambda: ig.w8a8_linear(
+                    x, wq, ws, bias, int4))
+                timed.append((T, kernel))
                 r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bf16_ms=bf16_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=worst_abs)
-                print(f"int8 GEMM {key} [{T}, {K}] x [{K}, {N}]: codes, "
-                      f"steps and int32 accumulators equal to the plain "
-                      f"version's, output within {worst:g} ulp (T 8, 13, "
-                      f"256; bf16 and f32 x); bf16 x: kernel {ms:.4f} ms, "
-                      f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-                      f"({bound_by}), {100 * bound_ms / ms:.1f}% of bound, "
-                      f"torch._int_mm "
+                         bound_by=bound_by, max_abs_err=worst_abs,
+                         host_us=host_us, host_checked_us=host_checked_us,
+                         blocks=ig.plan(T, K, N, int4).blocks, **par)
+                print(f"int8 GEMM {key} [{T}, {K}] x [{K}, {N}], bf16 x: "
+                      f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                      f"{bound_ms:.4f} ms ({bound_by}), "
+                      f"{100 * bound_ms / ms:.1f}% of bound, torch._int_mm "
                       + (f"{lib_ms:.4f} ms" if lib_ms is not None else
                          "n/a (needs more than 16 rows)")
-                      + f", bf16 addmm of the float layer {bf16_ms:.4f} ms")
+                      + f", bf16 addmm of the float layer {bf16_ms:.4f} ms; "
+                      f"host {host_us:.1f} µs a call (weight prepared), "
+                      f"{host_checked_us:.1f} µs (checked each call)"
+                      + (f"; the parent tree's kernel {par['parent_ms']:.4f}"
+                         f" ms (turns parent, this, this, parent: "
+                         f"{', '.join(f'{t:.4f}' for t in par['turns'])}), "
+                         f"host {par['parent_host_us']:.1f} µs a call"
+                         if par else ""))
                 agg = res.setdefault((key, T), dict(
                     ms=0.0, plain_ms=0.0, library_ms=0.0 if T > 16 else None,
                     bf16_ms=0.0, bound_ms=0.0, bound_by=bound_by,
                     max_abs_err=0.0, shapes={}))
-                for f in ("ms", "plain_ms", "bf16_ms", "bound_ms"):
-                    agg[f] += r[f]
+                for f in ("ms", "plain_ms", "bf16_ms", "bound_ms",
+                          "parent_ms"):
+                    if f in r:
+                        agg[f] = agg.get(f, 0.0) + r[f]
                 agg["max_abs_err"] = max(agg["max_abs_err"], worst_abs)
                 if lib_ms is not None:
                     agg["library_ms"] += lib_ms
                 agg["shapes"][f"{K}x{N}"] = r
+    # device launches a linear by row count: one profiler session over
+    # GEMM_LAUNCH_REPS rounds of the timed calls at that T, the wrapper's
+    # counts set to 0 just before: every call on the plan's route, and
+    # only that route's kernels on the card (`_gemm_records`)
+    from torch.profiler import ProfilerActivity, profile
+
+    per_linear = {}
+    for T in GEMM_TIMED_ROWS:
+        calls = [fn for t, fn in timed if t == T] * GEMM_LAUNCH_REPS
+        route = "decode" if T <= ig.DECODE_ROWS else "wide"
+        torch.cuda.synchronize()
+        ig.reset_launches()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in calls:
+                fn()
+            torch.cuda.synchronize()
+        counted = {k: n for k, n in ig.route_launches.items() if n}
+        if sum(counted.values()) != len(calls) or any(
+                not k.endswith(route) for k in counted):
+            raise AssertionError(f"T {T}: the wrapper counted {counted} "
+                                 f"for {len(calls)} linears on the {route} "
+                                 "route")
+        seen = _gemm_records(prof.key_averages(), route, len(calls),
+                             f"int8 GEMM at T {T}", only_gemm=True)
+        per_linear[T] = len(seen)
+        print(f"int8 GEMM at T {T}: {per_linear[T]} device launch"
+              f"{'es' if per_linear[T] > 1 else ''} a linear "
+              f"({', '.join(sorted(seen))})")
     for (key, T), r in res.items():
+        r["device_launches_per_linear"] = per_linear[T]
         print(f"int8 GEMM {key}, one layer's four linears at T {T}: kernel "
               f"{r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, bf16 addmm {r['bf16_ms']:.4f} ms"
               + (f", torch._int_mm {r['library_ms']:.4f} ms"
-                 if r["library_ms"] is not None else ""))
+                 if r["library_ms"] is not None else "")
+              + (f", the parent tree's kernel {r['parent_ms']:.4f} ms "
+                 f"({r['parent_ms'] / r['ms']:.2f}x)" if "parent_ms" in r
+                 else "")
+              + f"; host {_mean_of(r, 'host_us'):.1f} µs a call (checked "
+              f"each call {_mean_of(r, 'host_checked_us'):.1f}"
+              + (f"; parent {_mean_of(r, 'parent_host_us'):.1f}"
+                 if "parent_ms" in r else "") + ")")
     return res
 
 
@@ -1718,13 +1916,15 @@ def _grow_workspace(pa, model, kv, kv_scales, eng, stream):
         T *= 2
 
 
-def _window_vs_eager(eng, fs, structured=False, profiled=False):
+def _window_vs_eager(eng, fs, structured=False, profiled=False,
+                     counts=None):
     """Step `eng` until its next fused window (with `structured`, its next
     window whose rows include a constrained one): the window runs eagerly
     on copies of the pools and scale planes from the same staged inputs,
     then as the graph replay (under the profiler with `profiled`). Returns
-    the eager and replayed emits, whether every pool byte is equal, and
-    the profile."""
+    the eager and replayed emits, whether every pool byte is equal, the
+    profile, and what the replay added to the launch counts `counts` (a
+    wrapper's dict, set to 0 just before the replay)."""
     from torch.profiler import ProfilerActivity, profile
 
     run, seen = fs.run, {}
@@ -1737,11 +1937,14 @@ def _window_vs_eager(eng, fs, structured=False, profiled=False):
         sc_c = [p.clone() for p in kv_scales or []]
         seen["eager"] = fs.eager(kv_c, sc_c or None, smp,
                                  tables).cpu().numpy()
+        for name in counts or ():
+            counts[name] = 0
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof:
             emits = run(kv, kv_scales, smp, tables)
             torch.cuda.synchronize()
+        seen["counted"] = {k: n for k, n in (counts or {}).items() if n}
         seen["emits"] = emits
         seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
                             zip(kv + (kv_scales or []), kv_c + sc_c))
@@ -1760,7 +1963,7 @@ def _window_vs_eager(eng, fs, structured=False, profiled=False):
 
 
 def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
-               token_strs=None):
+               token_strs=None, gemm=False):
     """Graph against eager, bit-identical (the capture-correctness gate):
     an `LLMEngine` at decode_k k on a `kv_dtype` pool serves the prompts
     to its first fused window (which captures the graph); then the
@@ -1772,10 +1975,15 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
     `rpa_tc_kernel` launches and a graph launch in the replay. With
     `token_strs`, the engine serves phase 5g's mixed requests (half
     constrained) and both windows are structured ones: the graph masks
-    its picks. Returns the engine (its graphs still captured)."""
+    its picks. With `gemm` (a weight-quantized model) the int8 GEMM's
+    wrapper must count 4 x 12 x k linears on its decode route in the
+    replay, and the profiler see that route's kernel and no other GEMM
+    kernel (`_gemm_records`); without, no GEMM kernel. Returns the
+    engine (its graphs still captured)."""
     from torch.autograd import DeviceType
 
     from paddle_tpu_torch.inference import LLMEngine
+    from paddle_tpu_torch.ops.cuda_kernels import int8_gemm as ig
 
     structured = token_strs is not None
     knobs = (dict(token_strs=token_strs, grammar_states=STRUCT_STATES)
@@ -1795,7 +2003,8 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
     outgrown = [w.data_ptr() for w in graph.workspaces] != [
         w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
     sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
-    seen = _window_vs_eager(eng, fs, structured, profiled=True)
+    seen = _window_vs_eager(eng, fs, structured, profiled=True,
+                            counts=ig.route_launches)
     rows = seen["prof"].key_averages()
     tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
              and "rpa_tc_kernel" in e.key)
@@ -1804,16 +2013,31 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
     layers = model.config.num_layers
     label = (f"{kv_dtype} k={k}{' sampled' if sampled else ''}"
              f"{' structured' if structured else ''}")
+    linears = 4 * layers * k
+    if gemm:
+        label += " int8-GEMM weights"
+        counted = list(seen["counted"].items())
+        gemm_ok = (len(counted) == 1 and counted[0][0].endswith("_decode")
+                   and counted[0][1] == linears)
+        _gemm_records(rows, "decode", linears,
+                      f"fused gate {label}, the replay")
+    else:
+        gemm_ok = not seen["counted"] and not any(
+            _gemm_kernel_of(e.key) for e in rows
+            if e.device_type == DeviceType.CUDA)
     ok = (np.array_equal(seen["emits"], seen["eager"]) and seen["pools"]
           and bool((sentinel == 7).all()) and tc == layers * k
-          and graph_launches >= 1)
+          and graph_launches >= 1 and gemm_ok)
     print(f"fused gate {label}: graph replay vs eager run of one window: "
           f"emits equal {np.array_equal(seen['emits'], seen['eager'])}, "
           f"pools and scale planes byte-equal {seen['pools']}, after the "
           f"capture stream's workspace was outgrown ({outgrown}; sentinel "
           f"intact {bool((sentinel == 7).all())}); the profiler saw {tc} "
           f"rpa_tc_kernel launches (want {layers} x {k}) and "
-          f"{graph_launches} cudaGraphLaunch in the replay")
+          f"{graph_launches} cudaGraphLaunch in the replay; the int8 "
+          f"GEMM's wrapper counted {seen['counted'] or 'none'} in it"
+          + (f" (want {linears} = 4 x {layers} x {k} on the decode route)"
+             if gemm else ""))
     if not (ok and outgrown):
         raise AssertionError(f"fused gate {label} failed")
     return eng
@@ -2849,9 +3073,14 @@ def weights_serve(ig, pa, model, key, k, prompts):
     a warm-up request, then the serve phase's 8 requests with the counts
     set to 0 just before and read just after. The int8 GEMM must have
     launched once per linear (48) per tick and 48 x k per fused warm-up
-    and replay, under `key` ("w8a8" / "w4a8") only; K1 12 per tick and
-    12 x k per window run. Returns tok/s and the GEMM's launches."""
+    and replay, under `key` ("w8a8" / "w4a8") only, and by route: a
+    tick runs the engine's token budget (the wide route above 16 rows),
+    a window its slots (the decode route up to 16); K1 12 per tick and
+    12 x k per window run. Returns tok/s, the GEMM's launches, its
+    launches by route and, for k > 1, the device ms per window (CUDA
+    events around each graph replay, its launch latency included)."""
     from paddle_tpu_torch.inference import LLMServer
+    from paddle_tpu_torch.profile_serve import EventTimer
 
     server = LLMServer(model, _fused_cfg("bfloat16", k))
     eng = server.engine
@@ -2864,6 +3093,7 @@ def weights_serve(ig, pa, model, key, k, prompts):
         fs = eng._fused_fn
         runs0 = (fs.replays, fs.warmups) if fs else (0, 0)
         st0 = dict(eng.stats)
+        dev = EventTimer(fs, "replay") if fs else None
         pa.reset_launches()
         ig.reset_launches()
         t0 = time.perf_counter()
@@ -2872,25 +3102,40 @@ def weights_serve(ig, pa, model, key, k, prompts):
         outs = [f.result(timeout=600) for f in futs]
         wall = time.perf_counter() - t0
         gemm, launches = dict(ig.launches), dict(pa.launches)
-    _check_outputs(prompts, outs, model.config.vocab_size)
+        routes = dict(ig.route_launches)
+        if dev is not None:
+            dev.remove()
+    dev_ms = float(np.median(dev.ms())) if dev is not None else None
     windows = eng.stats["fused_steps"] - st0["fused_steps"]
     ticks = eng.stats["steps"] - st0["steps"] - windows
     runs = ((fs.replays - runs0[0]) + (fs.warmups - runs0[1])) if fs else 0
     want_g = dict.fromkeys(gemm, 0)
     want_g[key] = linears * (ticks + k * runs)
+    want_r = dict.fromkeys(routes, 0)
+    for rows, n in ((eng.token_budget, ticks), (eng.num_slots, k * runs)):
+        want_r[f"{key}_{'decode' if rows <= ig.DECODE_ROWS else 'wide'}"] \
+            += linears * n
     want_k = dict.fromkeys(launches, 0)
     want_k["rpa"] = layers * (ticks + k * runs)
-    if gemm != want_g or launches != want_k or (k > 1 and not windows):
+    if (gemm != want_g or routes != want_r or launches != want_k
+            or (k > 1 and not windows)):
         raise AssertionError(
-            f"weights serve {key} k={k}: GEMM launches {gemm}, paged "
-            f"{launches} in {ticks} ticks + {windows} windows ({runs} "
-            f"warm-ups and replays); expected {want_g}, {want_k}")
+            f"weights serve {key} k={k}: GEMM launches {gemm} (by route "
+            f"{routes}), paged {launches} in {ticks} ticks + {windows} "
+            f"windows ({runs} warm-ups and replays); expected {want_g} "
+            f"({want_r}), {want_k}")
+    _check_outputs(prompts, outs, model.config.vocab_size)
     gen = SERVE_NEW_TOKENS * len(prompts)
     print(f"weights serve gpt_small {key} (bf16 KV, decode_k {k}): {gen} "
           f"generated in {wall:.3f} s = {gen / wall:.1f} tok/s, {ticks} "
           f"ticks + {windows} windows; int8 GEMM {want_g[key]} = {linears} "
-          f"x ({ticks} + {k} x {runs}), K1 {want_k['rpa']}")
-    return dict(tok_s=gen / wall, launches=want_g[key])
+          f"x ({ticks} + {k} x {runs}) (decode route "
+          f"{routes[key + '_decode']}, wide {routes[key + '_wide']}), K1 "
+          f"{want_k['rpa']}"
+          + (f"; device {dev_ms:.3f} ms per window (median of "
+             f"{len(dev.events)} replays)" if dev_ms is not None else ""))
+    return dict(tok_s=gen / wall, launches=want_g[key], dev_ms=dev_ms,
+                routes={r: routes[f"{key}_{r}"] for r in ig.ROUTES})
 
 
 def weights_cross(ig, model, key, prompts):
@@ -2935,10 +3180,13 @@ def weights_cross(ig, model, key, prompts):
                              "plain version")
 
 
-def weights_phase(ig, pa, random, card):
+def weights_phase(ig, pa, random, card, bf16_window_ms=None):
     """5f: per weight width (int8, packed int4), the quantized serve model's
+    decode_k 4 graph gate (`fused_gate`, the GEMM inside the replay),
     `LLMServer` bursts at decode_k 1 and 4 and the GEMM-vs-plain
-    cross-check. Returns {key: {k: burst}}."""
+    cross-check; the device ms per fused iteration at decode_k 4 beside
+    `bf16_window_ms` / 4 (the bf16 model's decode_k 4 window, phase 5d).
+    Returns {key: {k: burst}}."""
     res = {}
     for bits, key in ((8, "w8a8"), (4, "w4a8")):
         t0 = time.perf_counter()
@@ -2951,10 +3199,17 @@ def weights_phase(ig, pa, random, card):
               f"({fp - q} saved, {fp / q:.2f}x) ({card})")
         if report["layers"] != 4 * model.config.num_layers:
             raise AssertionError(f"weights {key}: report {report}")
+        fused_gate(pa, model, "bfloat16", 4, random, gemm=True)
         res[key] = {k: weights_serve(ig, pa, model, key, k, random)
                     for k in WEIGHT_KS}
         weights_cross(ig, model, key, random)
         del model
+        it = res[key][4]["dev_ms"] / 4
+        print(f"weights {key}: device {it:.4f} ms per fused iteration at "
+              f"decode_k 4 (graph replay / 4)"
+              + (f", the bf16 model's {bf16_window_ms / 4:.4f} ms "
+                 f"({it / (bf16_window_ms / 4):.3f}x)"
+                 if bf16_window_ms else "") + f" ({card})")
     return res
 
 
@@ -3628,7 +3883,13 @@ def _kernel_row(name, route, source, replaces, launches, r):
             "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
 
 
-def main():
+def main(argv=None):
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="root of an earlier checkout whose "
+                    "int8 GEMM phase 3 times beside this one's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3650,7 +3911,8 @@ def main():
     check_paged_tc_layouts(pa)
     check_qblock_tc_layouts(pa)
     fres = check_flash_attention(fa, flush)
-    gres = check_int8_gemm(ig, flush)
+    gres = check_int8_gemm(
+        ig, flush, load_parent(args.parent) if args.parent else None)
     sampler_ms = check_prng(flush)
     del flush
     model = serve_model()
@@ -3673,7 +3935,8 @@ def main():
     print(f"fleet phase: {time.perf_counter() - t_fleet:.1f} s")
     del model
     drafts = draft_phase(pa, random, card)
-    weights = weights_phase(ig, pa, random, card)
+    weights = weights_phase(ig, pa, random, card,
+                            fused[("bfloat16", 4)]["greedy"]["dev_ms"])
     structured = structured_phase(pa, card)
     cross_check()
     cx_launches = cross_quant_spec(pa)
@@ -3729,20 +3992,45 @@ def main():
         "constrained"]["launches"]["qblock"]
     # 5h: K1 (bf16 pool) across the 2-replica router burst
     kernels[0]["fleet_burst_launches"] = fleet["router"]["burst_launches"]
-    # the int8 GEMM: one decoder layer's four linears at the decode tick
-    # (T 8) and the mixed tick (T 256), bf16 x; launches from 5f's k=1
-    # burst on the quantized model (48 per tick), and its decode_k 4
-    # burst's (48 per tick, 48 x 4 per fused warm-up and replay)
+    # the int8 GEMM, a row per kernel route: the decode kernel timed at
+    # the decode tick (T 8), the wide route (row quantize + wide kernel)
+    # at the mixed tick (T 256), with its times at the fleet's budget (T
+    # 48) beside; one decoder layer's four linears, bf16 x. `launches`:
+    # the route's linears counted in the 5f burst that drives it (the
+    # decode route: the decode_k 4 burst's windows; the wide route: the
+    # k=1 burst's ticks); `burst_launches`: the route's count in each 5f
+    # burst
     for key in GEMM_WIDTHS:
-        for T in GEMM_TIMED_ROWS:
+        for T, route, burst in ((8, "decode", 4), (256, "wide", 1)):
             r = gres[(key, T)]
+            counts = {f"decode_k {k}": weights[key][k]["routes"][route]
+                      for k in WEIGHT_KS}
+            if not counts[f"decode_k {burst}"]:
+                raise AssertionError(f"the int8 GEMM's {route} route ran "
+                                     f"no time in 5f's {key} bursts")
             row = _kernel_row(f"{key}_linear_t{T}", "cuda", ig.SOURCE,
-                              ig.REPLACES[key], weights[key][1]["launches"],
+                              ig.REPLACES[key], counts[f"decode_k {burst}"],
                               r)
-            row["fused_burst_launches"] = weights[key][4]["launches"]
+            row["kernel_route"] = route
+            row["burst_launches"] = counts
+            row["device_launches_per_linear"] = r[
+                "device_launches_per_linear"]
             row["bf16_addmm_ms"] = r["bf16_ms"]
             row["per_shape_ms"] = {shape: x["ms"]
                                    for shape, x in r["shapes"].items()}
+            row["host_us"] = _mean_of(r, "host_us")
+            if "parent_ms" in r:
+                row["parent_ms"] = r["parent_ms"]
+            if route == "wide":
+                w = gres[(key, 48)]
+                row["t48"] = dict(
+                    ms=w["ms"], plain_ms=w["plain_ms"],
+                    bound_ms=w["bound_ms"], bound_by=w["bound_by"],
+                    library_ms=w["library_ms"], bf16_addmm_ms=w["bf16_ms"],
+                    per_shape_ms={shape: x["ms"]
+                                  for shape, x in w["shapes"].items()},
+                    **({"parent_ms": w["parent_ms"]} if "parent_ms" in w
+                       else {}))
             kernels.append(row)
     for name, r in fres.items():
         kernels.append(_kernel_row(name, "cuda", fa.SOURCE,

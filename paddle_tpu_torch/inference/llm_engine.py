@@ -716,7 +716,8 @@ class _FusedStep:
         with torch.cuda.stream(stream):
             self.eager(kv, kv_scales, sampled, tables)  # warm-up, counted
         self.warmups += 1
-        counters = (pa.launches, pa.tc_launches, ig.launches)
+        counters = (pa.launches, pa.tc_launches, ig.launches,
+                    ig.route_launches)
         before = [dict(c) for c in counters]
         graph = torch.cuda.CUDAGraph()
         logits = []

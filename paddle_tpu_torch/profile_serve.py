@@ -105,8 +105,10 @@ PAGED_KERNELS = {"K1": ("rpa_kernel", "rpa_tc_plan_kernel", "rpa_tc_kernel",
                         "rpa_tc_merge_kernel"),
                  "K2": ("rpa_qblock_kernel", "rpa_tc_qblock_kernel",
                         "rpa_tc_qblock_merge_kernel")}
-# csrc/int8_gemm.cu: the activation quantize and the W8A8 GEMM
-GEMM_KERNELS = {"int8 GEMM": ("quantize_rows_kernel", "w8a8_gemm_kernel")}
+# csrc/int8_gemm.cu: the W8A8 GEMM at up to 16 rows (its activation
+# quantize inside), and the row quantize and wide GEMM above
+GEMM_KERNELS = {"int8 GEMM": ("w8a8_gemm_kernel", "quantize_rows_kernel",
+                              "w8a8_gemm_wide_kernel")}
 # the structured load's grammars (chip_smoke phase 5g): a JSON-ish list
 # template whose DFA has 99 states at the synthetic vocabulary, a small
 # object, and a schema with a string and an integer property

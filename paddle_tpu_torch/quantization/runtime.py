@@ -71,7 +71,9 @@ class _WeightOnlyLinear(nn.Module):
     """A Linear over per-out-channel quantized weights: the buffers
     `weight_q` and `w_step` (the step = scale / qmax), the float bias kept
     as the replaced layer's parameter. Forward: the W8A8 linear
-    (`int8_gemm.w8a8_linear`). Inference only."""
+    (`int8_gemm.w8a8_linear`); on the card the weight is checked once
+    (`int8_gemm.prepare`) and the record kept until a buffer is replaced
+    or the module moves. Inference only."""
 
     int4 = False
 
@@ -87,12 +89,26 @@ class _WeightOnlyLinear(nn.Module):
         self.register_buffer("w_step", torch.from_numpy(
             np.asarray(scale, np.float32) / qmax).to(w.device))
         self.bias = getattr(linear, "bias", None)
+        self._gemm_weight = None
+
+    def _apply(self, *args, **kw):
+        self._gemm_weight = None          # the buffers are about to move
+        return super()._apply(*args, **kw)
 
     def forward(self, x):
         from ..ops.cuda_kernels import int8_gemm
 
+        prepared = None
+        if x.device.type == "cuda":
+            prepared = self._gemm_weight
+            if (prepared is None or prepared.weight_q is not self.weight_q
+                    or prepared.w_step is not self.w_step
+                    or prepared.bias is not self.bias):
+                prepared = self._gemm_weight = int8_gemm.prepare(
+                    self.weight_q, self.w_step, self.int4, self.bias)
         return int8_gemm.w8a8_linear(x, self.weight_q, self.w_step,
-                                     self.bias, int4=self.int4)
+                                     self.bias, int4=self.int4,
+                                     prepared=prepared)
 
 
 class Int8WeightOnlyLinear(_WeightOnlyLinear):
