@@ -130,8 +130,12 @@ continues:
               a reference cycle, becomes garbage and the collector runs
               at every allocation: a graph destroyed mid-capture would
               invalidate the capture),
-              the profiler seeing 12 x k `rpa_tc_kernel` launches and a
-              `cudaGraphLaunch` in the replay; (b) `LLMEngine` at decode_k
+              K1's wrapper counting 12 x k launches in the replay, all on
+              the tensor-core route, the profiler seeing `rpa_tc_kernel`,
+              no other paged kernel and a `cudaGraphLaunch`
+              (`_paged_records`: the profiler drops a record now and
+              then, so its shortfall is printed, not failed); (b)
+              `LLMEngine` at decode_k
               8 vs 1 (bf16 greedy and sampled, int8 greedy): every
               emitted token's logits within SERVE_BF16_LOGIT_TOL, tokens
               equal but at near-ties (of the Gumbel-perturbed scores for
@@ -151,8 +155,10 @@ continues:
               a lag-1 and a lag-0 row, after the capture stream's
               workspace was outgrown: emits and every draft pool and
               scale-plane byte equal, on bf16, int8 and int4 pools, greedy
-              and sampled, the profiler seeing 5 `rpa_tc_kernel` and a
-              graph launch in the replay; (b) `LLMEngine` with the draft
+              and sampled, K1's wrapper counting 5 launches in the
+              replay on the tensor-core route and the profiler seeing
+              `rpa_tc_kernel` and a graph launch (`_paged_records`); (b)
+              `LLMEngine` with the draft
               vs the k=1 engine (bf16 greedy and sampled): logits within
               SERVE_BF16_LOGIT_TOL, tokens equal but at near-ties;
               (c) `LLMServer` bursts on bf16, int8 and int4 pools, the
@@ -202,6 +208,61 @@ continues:
               per verify window, the draft's as in 5e, all on the
               tensor-core route; tok/s of both bursts, host µs per
               `_grammar_args` and per host-tick mask.
+5h. fleet   — the serving fleet on the serve phase's model, bf16 KV,
+              decode_k 8, on bench.py's own fleet traffic (`fleet_phase`):
+              `fleet_prefix` (bench_llm_fleet: 24 paced requests under one
+              192-token system prompt through `LLMServer` with the prefix
+              cache off, then on: tokens equal but at near-ties, prefill
+              tokens and client TTFT p50 / p99 of both, the prefill count
+              of an all-queued run equal to the CPU engine's);
+              `fleet_wire` (prefill_only -> pack -> unpack -> import of a
+              500-token prompt on bf16, int8 and int4 pools: the imported
+              pages byte-equal to the export, scale planes included,
+              tokens equal but at near-ties; export and import ms and MB a
+              request); `fleet_router` (bench_llm_fleet_multi's traffic
+              through one server and a 2-replica `FleetRouter`: affinity
+              > 0.5, tokens equal, K1 counted on both replicas; a seeded
+              replica kill: every request resolved, requeues > 0, tokens
+              equal the unkilled run's; the prefill storm through a
+              prefill + decode router); `fleet_capture` (a window captured
+              while another replica's thread steps: replay vs eager
+              byte-equal).
+5i. tier    — the KV tier and chat sessions on bench.py:2237's
+              `bench_kv_tier_ab` traffic (`profile_serve.kv_tier_side`: 8
+              sessions x 4 turns, each prompt the previous turn's output
+              plus 24 seeded tokens, 16 new tokens a turn; num_slots 2,
+              page_size 16, token_budget 64, max_model_len 256, 40 pages,
+              the prefix cache on), once without the tier and once with
+              it (256 MiB RAM, a disk tier in a temporary directory) and
+              session ids, bf16 KV, the counts set to 0 just before each:
+              greedy tokens equal across the two, pages prefetched, K1 12
+              per tick all on the tensor-core route; prints the prefill
+              tokens off / on and their reduction, the RAM / disk hits,
+              host ms per spilled and per prefetched page, the TTFT
+              medians of first and of returning turns off / on. A spill
+              -> prefetch round trip of one prompt's
+              blocks on bf16, int8 and int4 pools: the re-exported prefix
+              byte-equal (every pool and scale-plane byte). A decode_k 4
+              session burst: after turn 2's admission prefetched its
+              history into the pools in place, the next window's graph
+              replay vs its eager run byte-equal, K1 12 x 4 in the
+              replay, no new capture.
+5j. generate — `GPTForCausalLM.generate` on bench.py:498's
+              `bench_generate` arm (gpt_small, batch 8, 128-token
+              prompts, 128 new tokens, greedy) in f32 and in bf16: tok/s
+              and ms per token-step; one step's CUDA graph replay vs its
+              eager run from the same static cache and inputs, byte-equal
+              (logits and every cache byte), the device ms of both beside
+              the bound (weights and the whole cache read once); the f32
+              tokens (TF32 off) against `LLMEngine`'s k=1 tokens on the
+              same prompts, equal but at near-ties (top two within
+              1e-3); a ragged left-padded batch against each row alone.
+5k. server  — `InferenceServer` on bench.py:532's `bench_serving` arm:
+              the MLP 256 -> 1024 -> 1024 -> 64 with ReLUs (seeded
+              weights), max_batch_size 64, max_delay_ms 2.0, 8 client
+              threads x 64 requests: every row within 1e-5 of its max-abs
+              of the module's own forward (TF32 off); req/s and the mean
+              batch size.
 6. cross    — an f32 gpt_small engine on the card and the same engine on
               the CPU (plain versions) on 2 prompts: the first frontier
               logits agree to 1e-3 max-abs; token agreement printed.
@@ -242,7 +303,9 @@ int4 pools: the greedy decode_k 8 burst of phase 5d, whose graph
 replays' share is "graph_launches", plus the 5e draft burst's launches
 and its propose graph replays' share, and on the bf16 pool 5g's mixed
 fused burst's (K1) and n-gram burst's (K2) as
-"structured_burst_launches"; the GEMM's decode route: 5f's decode_k 4
+"structured_burst_launches", and 5i's tier-on session burst (bf16)
+and spill -> prefetch round trips (int8, int4) as
+"tier_burst_launches"; the GEMM's decode route: 5f's decode_k 4
 burst, its wide route: 5f's k=1 burst, each route's count in both
 bursts as "burst_launches"); the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
@@ -663,6 +726,13 @@ def _serving_q(kind):
     return torch.float32 if kind == "float32" else torch.bfloat16
 
 
+def _pool_key(pa, kv_dtype, qb=0):
+    """The paged wrapper's counter key of K1 (K2 with `qb`) on a
+    `kv_dtype` pool."""
+    return pa._launch_key(kv_dtype if kv_dtype in ("int8", "int4") else "",
+                          qb)
+
+
 # PA_KINDS as `paged_route` names them
 ROUTE_KIND = {"float32": "f32", "bfloat16": "bf16", "int8": "int8",
               "int4": "int4"}
@@ -1037,6 +1107,51 @@ def _gemm_records(rows, route, linears, label, only_gemm=False):
                              f"others {foreign}; want {want}, at most "
                              f"{linears} each")
     return seen
+
+
+# csrc/paged_attention.cu's kernels: K1's tensor-core route launches the
+# plan, the split-KV attention and the merge kernel
+PAGED_TC_K1 = ("rpa_tc_plan_kernel", "rpa_tc_kernel", "rpa_tc_merge_kernel")
+_PAGED_NAME = re.compile(r"\b(rpa_\w*kernel)\b")
+
+
+def _paged_records(rows, counted, key, want, label):
+    """The paged gates' rule, the GEMM's (`_gemm_records`): the exact
+    count of K1 launches comes from the paged wrapper's counters across
+    the replay (`counted`: {"launches": {key: n}, "tc_launches": {...}},
+    the non-zero deltas; a replay adds back what its capture counted),
+    which must be `want` on `key`, all on the tensor-core route, and
+    nothing else. The profiler's CUDA records (`rows`, `key_averages()`)
+    say only which kernels ran: `rpa_tc_kernel`, no paged kernel outside
+    K1's tensor-core route, and a `cudaGraphLaunch`. It drops a record
+    now and then, so fewer `rpa_tc_kernel` records than launches are
+    printed as its shortfall, not failed. Returns (ok, the printed
+    text)."""
+    from torch.autograd import DeviceType
+
+    seen, graphs = {}, 0
+    for e in rows:
+        if "cudaGraphLaunch" in e.key:
+            graphs += e.count
+        if e.device_type != DeviceType.CUDA:
+            continue
+        m = _PAGED_NAME.search(e.key)
+        if m:
+            seen[m.group(1)] = seen.get(m.group(1), 0) + e.count
+    tc = seen.get("rpa_tc_kernel", 0)
+    foreign = {n: c for n, c in seen.items() if n not in PAGED_TC_K1}
+    exact = ({key: want} == counted["launches"] == counted["tc_launches"])
+    ok = (exact and tc >= 1 and tc <= want and not foreign
+          and graphs >= 1)
+    text = (f"{label}: the wrapper counted {counted['tc_launches'] or 'none'}"
+            f" on the tensor-core route, {counted['launches'] or 'none'} in "
+            f"all (want {{{key!r}: {want}}}); the profiler saw "
+            + (", ".join(f"{n} {c}" for n, c in sorted(seen.items()))
+               or "no paged kernel")
+            + (f" (shortfall {want - tc})" if tc < want else
+               " (none short)")
+            + f", {graphs} cudaGraphLaunch")
+    return ok, text
 
 
 def _mean_of(r, field):
@@ -1917,14 +2032,15 @@ def _grow_workspace(pa, model, kv, kv_scales, eng, stream):
 
 
 def _window_vs_eager(eng, fs, structured=False, profiled=False,
-                     counts=None):
+                     counts=()):
     """Step `eng` until its next fused window (with `structured`, its next
     window whose rows include a constrained one): the window runs eagerly
     on copies of the pools and scale planes from the same staged inputs,
     then as the graph replay (under the profiler with `profiled`). Returns
     the eager and replayed emits, whether every pool byte is equal, the
-    profile, and what the replay added to the launch counts `counts` (a
-    wrapper's dict, set to 0 just before the replay)."""
+    profile, and what the replay added to each of the launch counts
+    `counts` (wrappers' dicts, set to 0 just before the replay): a list
+    of their non-zero entries, in order."""
     from torch.profiler import ProfilerActivity, profile
 
     run, seen = fs.run, {}
@@ -1937,14 +2053,16 @@ def _window_vs_eager(eng, fs, structured=False, profiled=False,
         sc_c = [p.clone() for p in kv_scales or []]
         seen["eager"] = fs.eager(kv_c, sc_c or None, smp,
                                  tables).cpu().numpy()
-        for name in counts or ():
-            counts[name] = 0
+        for c in counts:
+            for name in c:
+                c[name] = 0
         with (profile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) if profiled
               else contextlib.nullcontext()) as prof:
             emits = run(kv, kv_scales, smp, tables)
             torch.cuda.synchronize()
-        seen["counted"] = {k: n for k, n in (counts or {}).items() if n}
+        seen["counted"] = [{k: n for k, n in c.items() if n}
+                           for c in counts]
         seen["emits"] = emits
         seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
                             zip(kv + (kv_scales or []), kv_c + sc_c))
@@ -1978,8 +2096,10 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
     its picks. With `gemm` (a weight-quantized model) the int8 GEMM's
     wrapper must count 4 x 12 x k linears on its decode route in the
     replay, and the profiler see that route's kernel and no other GEMM
-    kernel (`_gemm_records`); without, no GEMM kernel. Returns the
-    engine (its graphs still captured)."""
+    kernel (`_gemm_records`); without, no GEMM kernel. K1's 12 x k
+    launches are counted by its wrapper, the profiler asked only which
+    kernels ran (`_paged_records`). Returns the engine (its graphs still
+    captured)."""
     from torch.autograd import DeviceType
 
     from paddle_tpu_torch.inference import LLMEngine
@@ -2003,39 +2123,37 @@ def fused_gate(pa, model, kv_dtype, k, prompts, sampled=False,
     outgrown = [w.data_ptr() for w in graph.workspaces] != [
         w.data_ptr() for w in pa.stream_workspaces(fs._stream.cuda_stream)]
     sentinel = torch.full((16 << 20,), 7, dtype=torch.int32, device="cuda")
-    seen = _window_vs_eager(eng, fs, structured, profiled=True,
-                            counts=ig.route_launches)
+    seen = _window_vs_eager(
+        eng, fs, structured, profiled=True,
+        counts=(ig.route_launches, pa.launches, pa.tc_launches))
+    gemm_counted, paged_n, paged_tc = seen["counted"]
     rows = seen["prof"].key_averages()
-    tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
-             and "rpa_tc_kernel" in e.key)
-    graph_launches = sum(e.count for e in rows
-                         if "cudaGraphLaunch" in e.key)
     layers = model.config.num_layers
     label = (f"{kv_dtype} k={k}{' sampled' if sampled else ''}"
              f"{' structured' if structured else ''}")
     linears = 4 * layers * k
     if gemm:
         label += " int8-GEMM weights"
-        counted = list(seen["counted"].items())
+        counted = list(gemm_counted.items())
         gemm_ok = (len(counted) == 1 and counted[0][0].endswith("_decode")
                    and counted[0][1] == linears)
         _gemm_records(rows, "decode", linears,
                       f"fused gate {label}, the replay")
     else:
-        gemm_ok = not seen["counted"] and not any(
+        gemm_ok = not gemm_counted and not any(
             _gemm_kernel_of(e.key) for e in rows
             if e.device_type == DeviceType.CUDA)
+    paged_ok, paged_text = _paged_records(
+        rows, {"launches": paged_n, "tc_launches": paged_tc},
+        _pool_key(pa, kv_dtype), layers * k, "K1 in the replay")
     ok = (np.array_equal(seen["emits"], seen["eager"]) and seen["pools"]
-          and bool((sentinel == 7).all()) and tc == layers * k
-          and graph_launches >= 1 and gemm_ok)
+          and bool((sentinel == 7).all()) and paged_ok and gemm_ok)
     print(f"fused gate {label}: graph replay vs eager run of one window: "
           f"emits equal {np.array_equal(seen['emits'], seen['eager'])}, "
           f"pools and scale planes byte-equal {seen['pools']}, after the "
           f"capture stream's workspace was outgrown ({outgrown}; sentinel "
-          f"intact {bool((sentinel == 7).all())}); the profiler saw {tc} "
-          f"rpa_tc_kernel launches (want {layers} x {k}) and "
-          f"{graph_launches} cudaGraphLaunch in the replay; the int8 "
-          f"GEMM's wrapper counted {seen['counted'] or 'none'} in it"
+          f"intact {bool((sentinel == 7).all())}); {paged_text}; the int8 "
+          f"GEMM's wrapper counted {gemm_counted or 'none'} in it"
           + (f" (want {linears} = 4 x {layers} x {k} on the decode route)"
              if gemm else ""))
     if not (ok and outgrown):
@@ -2347,11 +2465,12 @@ def _paced(submit, prompts, arrive):
     return outs, ttft, wall
 
 
-def _tie_check(model, label, prompts, ref, outs):
+def _tie_check(model, label, prompts, ref, outs,
+               tol=SERVE_BF16_LOGIT_TOL):
     """Request by request, `outs` against `ref` (prompt + generated
     tokens): equal, or first different at a near-tie of `ref`'s pick —
     `_near_tie` on the logits of a plain forward over the common prefix,
-    top two within SERVE_BF16_LOGIT_TOL — and compared no further. The
+    top two within `tol` — and compared no further. The
     fleet paths batch a request with other rows than the reference did,
     so cuBLAS may take another algorithm. Returns the near-ties."""
     from types import SimpleNamespace
@@ -2370,8 +2489,7 @@ def _tie_check(model, label, prompts, ref, outs):
         with torch.inference_mode():
             ids = torch.as_tensor(a[:d], device=model.device)[None]
             row = model(ids)[0, -1].float()
-        gap, tol = _near_tie(row, greedy, d - len(p), None,
-                             SERVE_BF16_LOGIT_TOL)
+        gap, tol = _near_tie(row, greedy, d - len(p), None, tol)
         if not gap <= tol:
             raise AssertionError(
                 f"{label}: request {i} token {d - len(p)} is {b[d]} vs "
@@ -2816,6 +2934,352 @@ def fleet_phase(pa, model, card):
                 capture=fleet_capture(model, card))
 
 
+# ---- the KV tier and chat sessions (5i) ----
+
+TIER_ROUND_TRIP_LEN = 48      # 3 trie blocks of 16
+
+
+def _k1_counted(pa, kv_dtype, want, label):
+    """The paged wrapper's counts since they were set to 0: `want` K1
+    launches on a `kv_dtype` pool, every one on the tensor-core route,
+    and no other paged call. Returns the count."""
+    key = _pool_key(pa, kv_dtype)
+    got = {k: n for k, n in pa.launches.items() if n}
+    tc = {k: n for k, n in pa.tc_launches.items() if n}
+    print(f"{label}: K1 {got or 'none'} ({tc or 'none'} on the "
+          f"tensor-core route), want {{{key!r}: {want}}}")
+    if not (got == tc == {key: want} and want > 0):
+        raise AssertionError(f"{label}: K1 launches {got}, tensor-core "
+                             f"{tc}; want {{{key!r}: {want}}}")
+    return want
+
+
+def tier_round_trip(pa, model, kv_dtype):
+    """One prompt's trie blocks spilled (RAM tier) and prefetched back on
+    a `kv_dtype` pool: the prefix re-exported after the prefetch must be
+    byte-equal to the one exported before the spill, every pool and
+    scale-plane byte, and the tokens equal. Returns the K1 launches of
+    the two requests."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
+
+    eng = LLMEngine(model, LLMEngineConfig(
+        **dict(SERVE_CFG, num_slots=2), kv_dtype=kv_dtype, decode_k=1,
+        prefix_cache=True, kv_tier=dict(ram_bytes=64 << 20)))
+    prompt = np.random.default_rng(91).integers(
+        0, model.config.vocab_size, (TIER_ROUND_TRIP_LEN,))
+    pa.reset_launches()
+    outs = []
+    for spill in (True, False):
+        req = eng.add_request(prompt, max_new_tokens=8)
+        _drain(eng)
+        outs.append(req.future.result(timeout=0))
+        if spill:
+            before = eng.export_prefix(prompt)
+            spilled = eng.prefix_cache.evict(10_000)
+            eng.kv_tier.flush()
+    n = _k1_counted(pa, kv_dtype,
+                    model.config.num_layers * eng.stats["steps"],
+                    f"tier round trip {kv_dtype}")
+    after = eng.export_prefix(prompt)
+    torch.cuda.synchronize()
+    same = (after is not None and after.n_prefilled == before.n_prefilled
+            and all(np.array_equal(a.view(np.uint8), b.view(np.uint8))
+                    for a, b in zip(before.kv + before.scales,
+                                    after.kv + after.scales)))
+    pre = eng.stats.get("kv_pages_prefetched", 0)
+    print(f"tier round trip {kv_dtype}: {spilled} pages spilled, {pre} "
+          f"prefetched; re-exported prefix byte-equal {same} "
+          f"({len(before.kv)} pools, {len(before.scales)} scale planes, "
+          f"{before.nbytes()} bytes); tokens equal "
+          f"{np.array_equal(*outs)}")
+    eng.close()
+    if not (same and pre == spilled > 0 and np.array_equal(*outs)):
+        raise AssertionError(f"tier round trip {kv_dtype} failed")
+    return n
+
+
+def tier_window_gate(pa, model):
+    """A decode_k 4 session burst on a tiered engine: turn 1 of every
+    session (the first window captures the graph), the trie then spilled
+    whole to the tier, then session 0's turn 2, whose admission
+    prefetches its history into the pools in place; the next window runs
+    eagerly on copies of the pools and as the graph replay: emits and
+    every pool byte equal, K1 counted 12 x 4 in the replay
+    (`_paged_records`), no new capture."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.profile_serve import KV_TIER, KV_TIER_ENGINE
+
+    eng = LLMEngine(model, LLMEngineConfig(
+        **KV_TIER_ENGINE, decode_k=4, kv_tier=dict(ram_bytes=256 << 20)))
+    rng = np.random.default_rng(31)
+    V = model.config.vocab_size
+    users = [rng.integers(0, V, (KV_TIER["user_tokens"],))
+             for _ in range(KV_TIER["sessions"])]
+    first = []
+    for s, u in enumerate(users):
+        req = eng.add_request(u, max_new_tokens=KV_TIER["new_tokens"],
+                              session_id=f"chat-{s}")
+        _drain(eng)
+        first.append(req.future.result(timeout=0))
+    # these turns fit the pool; spill the histories so the next turn's
+    # admission prefetches
+    eng.prefix_cache.evict(10_000)
+    eng.kv_tier.flush()
+    fs = eng._fused_fn
+    captures = fs.captures
+    pre0 = eng.stats.get("kv_pages_prefetched", 0)
+    prompt = np.concatenate([first[0], rng.integers(0, V, (24,))])
+    eng.add_request(prompt, max_new_tokens=KV_TIER["new_tokens"],
+                    session_id="chat-0")
+    seen = _window_vs_eager(eng, fs, profiled=True,
+                            counts=(pa.launches, pa.tc_launches))
+    _drain(eng)
+    pre = eng.stats.get("kv_pages_prefetched", 0) - pre0
+    paged_ok, text = _paged_records(
+        seen["prof"].key_averages(),
+        {"launches": seen["counted"][0], "tc_launches": seen["counted"][1]},
+        _pool_key(pa, "bfloat16"), model.config.num_layers * 4,
+        "K1 in the replay")
+    same = np.array_equal(seen["emits"], seen["eager"])
+    print(f"tier window gate (decode_k 4, bf16 KV): session 0's turn 2 "
+          f"prefetched {pre} pages in place; the next window's graph "
+          f"replay vs its eager run: emits equal {same}, pools byte-equal "
+          f"{seen['pools']}; {text}; captures {captures} -> {fs.captures}")
+    eng.close()
+    if not (same and seen["pools"] and paged_ok and pre > 0
+            and fs.captures == captures):
+        raise AssertionError("tier window gate failed")
+
+
+def tier_phase(pa, model, card):
+    """5i: the KV tier and sessions on bench_kv_tier_ab's traffic
+    (module docstring). Returns the K1 launches of each pool's run."""
+    from paddle_tpu_torch.profile_serve import (KV_TIER, KV_TIER_ENGINE,
+                                                _ms_per_page, kv_tier_side)
+
+    sides, counts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="ptkv_") as d:
+        for name, tier_dir in (("off", None), ("on", d)):
+            pa.reset_launches()
+            side = kv_tier_side(model, tier_dir,
+                                engine_knobs=dict(decode_k=1))
+            counts[name] = _k1_counted(
+                pa, "bfloat16", model.config.num_layers * side["steps"],
+                f"tier A/B, tier {name}")
+            sides[name] = side
+    off, on = sides["off"], sides["on"]
+    same = len(off["outs"]) == len(on["outs"]) and all(
+        np.array_equal(a, b) for a, b in zip(off["outs"], on["outs"]))
+    cut = 1.0 - on["prefill_tokens"] / off["prefill_tokens"]
+    cold, warm = ([float(np.median([x["ttft_s"][i] for i in x[k]])) * 1e3
+                   for x in (off, on)] for k in ("cold", "warm"))
+    tier = on["tier"]
+    pre = on["stats"].get("kv_pages_prefetched", 0)
+    print(f"tier A/B ({KV_TIER['sessions']} sessions x {KV_TIER['turns']} "
+          f"turns, {KV_TIER_ENGINE}; bf16 KV; {card}): prefill tokens off "
+          f"{off['prefill_tokens']} / on {on['prefill_tokens']} of "
+          f"{on['prompt_tokens']} = {100 * cut:.1f}% fewer (the reference "
+          f"aims at >= 30%); greedy tokens equal {same}; RAM hits "
+          f"{tier['ram_hits']}, disk hits {tier['disk_hits']}, misses "
+          f"{tier['misses']}, spills {tier['spills']} "
+          f"({tier['spill_pages']} pages), {pre} pages prefetched; host "
+          f"{_ms_per_page(on['spill_s']):.4f} ms per spilled page, "
+          f"{_ms_per_page(on['prefetch_s']):.4f} ms per prefetched page; "
+          f"TTFT medians off / on: cold turns {cold[0]:.3f} / "
+          f"{cold[1]:.3f} ms, returning turns {warm[0]:.3f} / "
+          f"{warm[1]:.3f} ms; "
+          f"wall off {off['wall_s']:.3f} / on {on['wall_s']:.3f} s; "
+          f"sessions resumed {on['stats'].get('sessions_resumed', 0)}")
+    if not (same and pre > 0):
+        raise AssertionError("tier A/B: tokens differ or nothing was "
+                             "prefetched")
+    rt = {kv: tier_round_trip(pa, model, kv)
+          for kv in ("bfloat16", "int8", "int4")}
+    tier_window_gate(pa, model)
+    return {"bfloat16": counts["on"], "int8": rt["int8"],
+            "int4": rt["int4"], "round_trip_bf16": rt["bfloat16"]}
+
+
+# ---- dense generation (5j) ----
+
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 128, 128    # bench.py:498's arm
+GEN_F32_TIE_TOL = 1e-3
+
+
+def _gen_bound_ms(model, step):
+    """The one-token step's least time: the weights and the whole static
+    cache read once at the card's memory rate."""
+    wbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cbytes = sum(c.numel() * c.element_size() for c in step.caches)
+    return (wbytes + cbytes) / HBM_BYTES_PER_S * 1e3
+
+
+def _events_ms(fn, reps=20):
+    times = []
+    for _ in range(reps + 3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times[3:]))
+
+
+def generate_gate(model, ids, label):
+    """bench_generate's arm on `model`: tok/s and ms per token-step; one
+    step's graph replay vs its eager run from the same static cache and
+    inputs, byte-equal (logits and every cache byte); the eager step's
+    and the replay's device ms beside the bound. Returns the tokens."""
+    model.generate(ids, max_new_tokens=8)          # build and capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=GEN_NEW)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = int(out.shape[1]) - GEN_PROMPT
+    step = model._decode_steps[(GEN_BATCH, 256, False, model.dtype)]
+    with torch.inference_mode():
+        snap = [c.clone() for c in step.caches]
+        step.tok.copy_(out[:, GEN_PROMPT + 40:GEN_PROMPT + 41])
+        step.index.fill_(GEN_PROMPT + 40)
+        step.graph.replay()
+        torch.cuda.synchronize()
+        rlog = step.logits.clone()
+        rcache = [c.clone() for c in step.caches]
+        for c, c0 in zip(step.caches, snap):
+            c.copy_(c0)
+        elog = step.eager()
+        torch.cuda.synchronize()
+        same = torch.equal(_bytes(rlog), _bytes(elog)) and all(
+            torch.equal(_bytes(a), _bytes(b))
+            for a, b in zip(rcache, step.caches))
+        eager_ms = _events_ms(step.eager)
+        replay_ms = _events_ms(step.graph.replay)
+    bound = _gen_bound_ms(model, step)
+    print(f"generate {label} (batch {GEN_BATCH}, prompt {GEN_PROMPT}, {n} "
+          f"new tokens, greedy): {GEN_BATCH * n / dt:.1f} tok/s, "
+          f"{dt / n * 1e3:.4f} ms per token-step (wall); one step: graph "
+          f"replay {replay_ms:.4f} ms, eager {eager_ms:.4f} ms (device, "
+          f"CUDA events), bound {bound:.4f} ms (weights + cache read once "
+          f"at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); replay vs eager "
+          f"byte-equal {same} (logits and {len(step.caches)} caches); "
+          f"captures {step.captures}")
+    if not (same and step.captures == 1 and n == GEN_NEW):
+        raise AssertionError(f"generate {label}: replay differs from eager")
+    return out.cpu().numpy()
+
+
+def generate_phase(model16, card):
+    """5j: dense generation (module docstring)."""
+    from paddle_tpu_torch.inference import LLMEngine, LLMEngineConfig
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_small
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    torch.backends.cudnn.allow_tf32 = False
+    model32 = GPTForCausalLM(gpt_small(), seed=1234)
+    V = model32.config.vocab_size
+    ids_np = np.random.default_rng(0).integers(0, V, (GEN_BATCH, GEN_PROMPT))
+    ids = torch.as_tensor(ids_np, device="cuda")
+    out32 = generate_gate(model32, ids, f"f32 ({card})")
+    generate_gate(model16, ids, f"bf16 ({card})")
+    # the engine's k=1 tokens on the same prompts (f32 pool: K1's f32
+    # kernel)
+    eng = LLMEngine(model32, LLMEngineConfig(
+        num_slots=GEN_BATCH, page_size=16, max_model_len=256,
+        token_budget=256, kv_dtype="float32", decode_k=1))
+    reqs = [eng.add_request(p, max_new_tokens=GEN_NEW) for p in ids_np]
+    _drain(eng)
+    ref = [r.future.result(timeout=0) for r in reqs]
+    ties = _tie_check(model32, "generate vs LLMEngine (f32)", ids_np, ref,
+                      out32, tol=GEN_F32_TIE_TOL)
+    print(f"generate vs LLMEngine k=1 (f32, TF32 off): {GEN_BATCH} x "
+          f"{GEN_NEW} tokens equal but at near-ties (top two within "
+          f"{GEN_F32_TIE_TOL:.0e}): {ties or 'none'}")
+    # a ragged left-padded batch against each row alone
+    rng = np.random.default_rng(5)
+    lens = (128, 57, 100, 9)
+    rows = [rng.integers(0, V, (L,)) for L in lens]
+    pad = np.zeros((len(lens), GEN_PROMPT), np.int64)
+    mask = np.zeros_like(pad)
+    for i, r in enumerate(rows):
+        pad[i, GEN_PROMPT - len(r):] = r
+        mask[i, GEN_PROMPT - len(r):] = 1
+    ragged = model32.generate(torch.as_tensor(pad, device="cuda"),
+                              max_new_tokens=16,
+                              attention_mask=mask).cpu().numpy()
+    alone = [model32.generate(torch.as_tensor(r[None], device="cuda"),
+                              max_new_tokens=16).cpu().numpy()[0]
+             for r in rows]
+    mine = [np.concatenate([r, ragged[i, GEN_PROMPT:]])
+            for i, r in enumerate(rows)]
+    ties = _tie_check(model32, "ragged generate vs alone", rows, alone,
+                      mine, tol=GEN_F32_TIE_TOL)
+    print(f"generate ragged left-padded batch (lengths {lens}) vs each row "
+          f"alone: tokens equal but at near-ties: {ties or 'none'}")
+    del eng, model32
+
+
+# ---- the dynamic-batching server (5k) ----
+
+def serving_phase(card):
+    """5k: bench_serving's arm (module docstring)."""
+    import threading
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.inference import BatchingConfig, InferenceServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # full f32 matmuls
+    dims = (256, 1024, 1024, 64)
+    layers = []
+    for a, b in zip(dims, dims[1:]):
+        layers += [nn.Linear(a, b, device="cuda"), nn.ReLU()]
+    model = nn.Sequential(*layers[:-1])
+    rng = np.random.default_rng(0)
+    load_jax_state_dict(model, {
+        name: (rng.standard_normal(tuple(p.shape)) / np.sqrt(
+            p.shape[0] if p.dim() == 2 else 1)).astype(np.float32)
+        for name, p in model.named_parameters()})
+    xs = rng.standard_normal((512, 256)).astype(np.float32)
+    with torch.inference_mode():
+        own = model(torch.as_tensor(xs, device="cuda")).cpu().numpy()
+    server = InferenceServer(model, BatchingConfig(max_batch_size=64,
+                                                   max_delay_ms=2.0))
+    n_clients, per_client = 8, 64
+    sink = [None] * (n_clients * per_client)
+
+    def client(k):
+        idx = [(k * per_client + i) % 512 for i in range(per_client)]
+        futs = [(i, server.submit(xs[i])) for i in idx]
+        for j, (i, f) in enumerate(futs):
+            sink[k * per_client + j] = (i, f.result(timeout=120)[0])
+
+    with server:
+        server.infer(xs[0])
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,))
+                   for k in range(n_clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        dt = time.perf_counter() - t0
+    rel = max(float(np.max(np.abs(y - own[i])) / np.max(np.abs(own[i])))
+              for i, y in sink)
+    total = n_clients * per_client
+    print(f"InferenceServer (MLP {dims}, max_batch_size 64, max_delay_ms "
+          f"2.0, {n_clients} clients x {per_client}; {card}): "
+          f"{total / dt:.1f} req/s, mean batch {server.mean_batch_size:.1f}"
+          f" ({server.stats['batches']} batches); worst row vs the "
+          f"module's own forward {rel:.2e} of the row's max-abs (tol "
+          f"1e-5; TF32 off)")
+    if not rel <= 1e-5 or any(t.is_alive() for t in threads):
+        raise AssertionError("InferenceServer outputs differ from the "
+                             "module's forward")
+
+
 # ---- draft-model speculation (5e) and weight-only serving (5f) ----
 
 SPEC_K = 4
@@ -2865,9 +3329,10 @@ def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
     its propose window runs eagerly on copies of the draft pools and
     scale planes from the same staged inputs, then as the graph replay
     under the profiler. The emits and every draft pool byte must be
-    equal, the sentinel untouched, and the profiler must see (k+1) x the
-    draft's layers `rpa_tc_kernel` launches and a graph launch in the
-    replay."""
+    equal, the sentinel untouched, and K1's wrapper must count (k+1) x
+    the draft's layers launches in the replay, all on the tensor-core
+    route, the profiler seeing `rpa_tc_kernel`, no other paged kernel
+    and a graph launch (`_paged_records`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2909,10 +3374,15 @@ def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
         kv_c = [p.clone() for p in kv]
         sc_c = [p.clone() for p in kv_scales or []]
         seen["eager"] = prop.eager(kv_c, sc_c or None, smp).cpu()
+        pa.reset_launches()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             emits = launch(kv, kv_scales, smp)
             torch.cuda.synchronize()
+        seen["counted"] = {
+            name: {k: n for k, n in c.items() if n}
+            for name, c in (("launches", pa.launches),
+                            ("tc_launches", pa.tc_launches))}
         seen["emits"] = emits.cpu()
         seen["pools"] = all(torch.equal(_bytes(a), _bytes(b)) for a, b in
                             zip(kv + (kv_scales or []), kv_c + sc_c))
@@ -2930,23 +3400,19 @@ def draft_gate(pa, target, draft, kv_dtype, prompts, sampled=False):
     if "emits" not in seen:
         raise AssertionError("draft gate: no window with two frontier rows")
     rows = seen["prof"].key_averages()
-    tc = sum(e.count for e in rows if e.device_type == DeviceType.CUDA
-             and "rpa_tc_kernel" in e.key)
-    graph_launches = sum(e.count for e in rows
-                         if "cudaGraphLaunch" in e.key)
     want_tc = draft.config.num_layers * (SPEC_K + 1)
+    paged_ok, paged_text = _paged_records(
+        rows, seen["counted"], _pool_key(pa, kv_dtype), want_tc,
+        "K1 in the replay")
     label = f"{kv_dtype}{' sampled' if sampled else ''}"
     same = torch.equal(seen["emits"], seen["eager"])
     print(f"draft gate {label}: propose graph replay vs eager run of one "
           f"window (rows at lag {seen['lags']}): emits equal {same}, draft "
           f"pools and scale planes byte-equal {seen['pools']}, after the "
           f"capture stream's workspace was outgrown ({outgrown}; sentinel "
-          f"intact {bool((sentinel == 7).all())}); the profiler saw {tc} "
-          f"rpa_tc_kernel launches (want {want_tc}) and {graph_launches} "
-          "cudaGraphLaunch in the replay")
+          f"intact {bool((sentinel == 7).all())}); {paged_text}")
     if not (same and seen["pools"] and outgrown and seen["lags"] == [0, 1]
-            and bool((sentinel == 7).all()) and tc == want_tc
-            and graph_launches >= 1):
+            and bool((sentinel == 7).all()) and paged_ok):
         paged = {e.key[:80]: e.count for e in rows
                  if e.device_type == DeviceType.CUDA and "rpa" in e.key}
         raise AssertionError(f"draft gate {label} failed; the profile's "
@@ -3933,6 +4399,14 @@ def main(argv=None):
     t_fleet = time.perf_counter()
     fleet = fleet_phase(pa, model, card)
     print(f"fleet phase: {time.perf_counter() - t_fleet:.1f} s")
+    t_tier = time.perf_counter()
+    tier = tier_phase(pa, model, card)
+    print(f"tier phase: {time.perf_counter() - t_tier:.1f} s")
+    t_gen = time.perf_counter()
+    generate_phase(model, card)
+    serving_phase(card)
+    print(f"generate and server phases: "
+          f"{time.perf_counter() - t_gen:.1f} s")
     del model
     drafts = draft_phase(pa, random, card)
     weights = weights_phase(ig, pa, random, card,
@@ -3992,6 +4466,10 @@ def main(argv=None):
         "constrained"]["launches"]["qblock"]
     # 5h: K1 (bf16 pool) across the 2-replica router burst
     kernels[0]["fleet_burst_launches"] = fleet["router"]["burst_launches"]
+    # 5i: K1 in the tier-on session burst (bf16 pool) and in the spill ->
+    # prefetch round trips (int8, int4 pools)
+    for i, kv in ((0, "bfloat16"), (2, "int8"), (3, "int4")):
+        kernels[i]["tier_burst_launches"] = tier[kv]
     # the int8 GEMM, a row per kernel route: the decode kernel timed at
     # the decode tick (T 8), the wide route (row quantize + wide kernel)
     # at the mixed tick (T 256), with its times at the fleet's budget (T

@@ -12,8 +12,11 @@ CUDA device and raise when no GPU is present; `device="cpu"` asks for
 the plain versions explicitly (`core.place`).
 
 Ported so far: continuous-batching GPT serving — `text.models.gpt`,
-`inference.llm_engine` (`LLMEngine`, `LLMServer`) and the ragged paged
-attention kernel — and the GPT training step: `jit.TrainStep`,
+`inference.llm_engine` (`LLMEngine`, `LLMServer`), the serving fleet
+(`inference.fleet_serving`: prefix cache, KV wire and tier, replicas,
+router) and the ragged paged attention kernel — dense generation
+(`GPTForCausalLM.generate`), the batch server (`inference.serving`),
+beam search (`nn.decode`), and the GPT training step: `jit.TrainStep`,
 `optimizer.AdamW`, bf16 `amp.auto_cast` at O1, the losses, recompute and
 the flash attention forward and backward kernels. ROADMAP.md lists what
 is still to port.

@@ -3,12 +3,15 @@
 The JAX package threads PRNG keys; the port hands out `torch.Generator`s.
 `seed(n)` sets the global seed; `next_generator(device)` returns a fresh
 generator seeded from (seed, call index), so a run is reproducible from
-its seed. `generator_scope(gen)` installs the generator that dropout draws
+its seed. `next_key(device)` hands out jax's key for the same counter,
+`fold_in(PRNGKey(seed), index)` as `core.prng` data, so a sampled
+`generate` right after `seed(n)` draws the reference's tokens.
+`generator_scope(gen)` installs the generator that dropout draws
 from for the length of a block (TrainStep installs one per step); outside
 a scope each dropout call takes a fresh `next_generator`.
 
-The numbers differ from jax's for the same seed: tests never compare
-random bits, they feed both packages the same numpy noise.
+A generator's numbers differ from jax's for the same seed: tests never
+compare them, they feed both packages the same numpy noise.
 """
 import contextlib
 import threading
@@ -16,7 +19,10 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["seed", "next_generator", "generator_scope", "current_generator"]
+from . import prng
+
+__all__ = ["seed", "next_generator", "next_key", "skip", "generator_scope",
+           "current_generator"]
 
 
 class _State(threading.local):
@@ -49,6 +55,28 @@ def next_generator(device="cpu"):
     gen.manual_seed(int(np.random.SeedSequence([s, c]).generate_state(
         1, np.uint64)[0]))
     return gen
+
+
+def next_key(device="cpu"):
+    """The reference's `core.rng.next_key()`: jax's
+    `fold_in(PRNGKey(seed), index)` for the next call index of the same
+    counter `next_generator` draws from, as an int64 [2] key of
+    `core.prng` on `device`."""
+    global _count
+    with _lock:
+        c = _count
+        _count += 1
+        s = _seed
+    return prng.fold_in(prng.prng_key(s, device=device), c)
+
+
+def skip(n=1):
+    """Advance the counter by `n` call indices without drawing: where
+    the reference draws a key the port has no use for (each call of a
+    `to_static` program takes one), so later draws keep its indices."""
+    global _count
+    with _lock:
+        _count += int(n)
 
 
 @contextlib.contextmanager

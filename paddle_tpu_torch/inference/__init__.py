@@ -5,11 +5,13 @@ from . import fleet_serving  # noqa: F401,E402
 from .fleet_serving import (  # noqa: F401,E402
     AutoscalePolicy, FleetRouter, KVPagePayload, LocalReplica,
     OverloadPolicy, Priority, RadixPrefixCache, ReplicaRegistry,
-    RequestCancelled, RequestShed, SLAPolicy, SLAScheduler)
+    KVTierStore, RequestCancelled, RequestShed, SLAPolicy, SLAScheduler)
+from .serving import BatchingConfig, InferenceServer  # noqa: F401,E402
 
 __all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer", "PagePool",
            "PoolExhausted", "fleet_serving", "RadixPrefixCache",
            "SLAPolicy", "SLAScheduler", "Priority", "FleetRouter",
            "AutoscalePolicy", "LocalReplica", "ReplicaRegistry",
            "KVPagePayload", "OverloadPolicy", "RequestShed",
-           "RequestCancelled"]
+           "RequestCancelled", "KVTierStore", "BatchingConfig",
+           "InferenceServer"]

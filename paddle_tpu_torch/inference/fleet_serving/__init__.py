@@ -7,6 +7,8 @@
   `LLMEngineConfig(prefix_cache=True)`.
 * `kv_transfer.py` — the KV-page wire (`KVPagePayload`, the reference's
   frame): the disaggregated prefill -> decode hand-off.
+* `kv_tier.py` — the host-RAM and disk spill tiers below the pool
+  (`KVTierStore`, `prefix_key`) behind `LLMEngineConfig(kv_tier=...)`.
 * `overload.py` — typed shedding / cancellation, the TTFT estimator,
   the prefill circuit breaker and the brownout ladder.
 * `replica.py` — `LLMServer` + engine as a fleet member (heartbeats,
@@ -14,10 +16,10 @@
 * `router.py` — `FleetRouter`: radix-affinity routing, disaggregation,
   autoscale, failover, hot-prefix migration, the overload tick.
 
-The KV tier store (`KVTierStore`, `prefix_key`) is ROADMAP A10b; the
-cross-process stream (`send_kv_payload` / `recv_kv_payload`,
+The cross-process stream (`send_kv_payload` / `recv_kv_payload`,
 `stream_prefill` / `recv_and_decode`) is ROADMAP A11 and raises.
 """
+from .kv_tier import KVTierStore, prefix_key  # noqa: F401
 from .kv_transfer import (KVPagePayload, pack_kv_payload,  # noqa: F401
                           recv_kv_payload, send_kv_payload,
                           unpack_kv_payload)
@@ -33,6 +35,7 @@ from .scheduler import Priority, SLAPolicy, SLAScheduler  # noqa: F401
 
 __all__ = ["RadixPrefixCache", "Priority", "SLAPolicy", "SLAScheduler",
            "KVPagePayload", "pack_kv_payload", "unpack_kv_payload",
+           "KVTierStore", "prefix_key",
            "send_kv_payload", "recv_kv_payload",
            "LocalReplica", "ReplicaRegistry", "fork_model",
            "stream_prefill", "recv_and_decode",

@@ -48,12 +48,6 @@ _KV_PAGES_STREAMED = _obs.counter(
     "pt_disagg_kv_pages_streamed",
     "KV pages imported into a decode replica's pool from a prefill "
     "replica's export (disaggregated serving)")
-# the reference keeps this counter in kv_tier.py, which ROADMAP A10b
-# ports; the router's hot-prefix migration counts here until then
-_MIGRATIONS = _obs.counter(
-    "pt_kv_migrations_total",
-    "hot-prefix page migrations: a prefix's cached pages pulled from a "
-    "busy replica to a less-loaded peer over the KV wire")
 
 _MAGIC = b"PTKV"
 _VERSION = 1

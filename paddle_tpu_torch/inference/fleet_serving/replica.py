@@ -352,9 +352,12 @@ class LocalReplica:
         _REPLICA_OCC.remove(replica=self.name)
 
     def export_telemetry(self, directory=None):
-        raise NotImplementedError(
-            "per-replica telemetry export is not ported yet: ROADMAP A10b "
-            "(HTTP endpoint and telemetry export)")
+        """Per-replica telemetry file (`metrics.rank<r>.<name>.json`):
+        threaded replicas share one rank, so naming by replica keeps
+        every member's final view (observability.export_replica)."""
+        from ...observability import export_replica
+
+        return export_replica(self.name, self.metrics, directory)
 
     def kill(self):
         """Die like a lost process: the serve loop exits at its next

@@ -37,8 +37,8 @@ its queue.
 
 Metrics: pt_router_requests / pt_router_affinity_hits /
 pt_router_replica_live / pt_router_requeues / pt_router_ttft_seconds
-(+ the kv_transfer stream and migration counters). The fleet-wide HTTP
-endpoint (`start_metrics_http`) is ROADMAP A10b.
+(+ the kv_transfer stream and the kv_tier migration counters).
+`start_metrics_http` serves the whole in-process fleet in one scrape.
 """
 import itertools
 import threading
@@ -214,6 +214,7 @@ class FleetRouter:
         self._ttft_hist = _obs.Histogram("router_ttft_local")
         self._monitor = None
         self._running = False
+        self._http = None
         self._last_scale = 0.0
         self._pressure_ticks = 0
         self.stats = {"requests": 0, "affinity_hits": 0, "requeues": 0,
@@ -289,6 +290,9 @@ class FleetRouter:
         if self._monitor is not None:
             self._monitor.join(timeout=30)
             self._monitor = None
+        if self._http is not None:
+            self._http.stop()
+            self._http = None
         for r in (list(self._replicas.values())
                   + list(self._prefill.values())
                   + [rep for rep, _ in list(self._expelled.values())]):
@@ -778,8 +782,8 @@ class FleetRouter:
     def _on_migrate_export(self, rr, target, fut):
         if rr.future.done() or fut is not rr.internal:
             return     # stale attempt: failover already requeued rr
-        from .kv_transfer import (_MIGRATIONS, pack_kv_payload,
-                                  unpack_kv_payload)
+        from .kv_tier import _MIGRATIONS
+        from .kv_transfer import pack_kv_payload, unpack_kv_payload
 
         payload = None if fut.exception() is not None else fut.result()
         if payload is None or not target.alive:
@@ -1251,7 +1255,7 @@ class FleetRouter:
         # tier-aware autoscale signals: fold the per-replica kv_tier
         # snapshots into ONE fleet block with hit and spill-pressure
         # rates (`_tier_block`, the fold `_autoscale_tick` reads; None
-        # until the KV tier, ROADMAP A10b, gives a replica a tier)
+        # when no replica runs a tier)
         kv_tier = self._tier_block(
             (info.get("engine") or {}).get("kv_tier")
             for info in replicas.values())
@@ -1275,9 +1279,16 @@ class FleetRouter:
         return snap
 
     def start_metrics_http(self, port=0, host="127.0.0.1"):
-        raise NotImplementedError(
-            "the fleet-wide /metrics HTTP endpoint is not ported yet: "
-            "ROADMAP A10b (HTTP endpoint and telemetry export)")
+        """Fleet-wide pull endpoint: GET /metrics is the process
+        registry (per-replica pt_replica_* series included) in
+        Prometheus text, /metrics.json adds this router's `metrics()`
+        under "extra". Stopped with the router."""
+        if self._http is None:
+            from ...observability import start_http_server
+
+            self._http = start_http_server(port=port, host=host,
+                                           extra_json=self.metrics)
+        return self._http
 
 
 _scale_names = itertools.count(1000)   # factory-built replica names

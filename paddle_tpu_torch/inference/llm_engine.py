@@ -58,9 +58,17 @@ grammar-constrained decoding).
   `import_kv_pages` writes a payload's pages into freshly allocated
   pages IN PLACE (`index_copy_` into the existing pools: the captured
   graphs hold the pools' addresses) and decodes from its frontier.
+* The KV tier — `kv_tier=` spills evicted trie nodes to host RAM and
+  disk (`fleet_serving.KVTierStore`; the snapshot is `_gather_pages`,
+  ordered on the engine's stream) and prefetches them back through
+  `_write_imported_pages` at admission. Chat sessions — `session_id=`
+  pins a finished turn's blocks, generated tokens included, so the next
+  turn resumes from the conversation's frontier.
 * Overload surface — `abort(rid)`, hard deadlines (`deadline_s`),
-  brownout caps (`apply_brownout`), the process-wide `pt_*` metrics of
-  the port's registry (observability/metrics.py) and `metrics()`.
+  brownout caps (`apply_brownout`; L4 sheds session pinning), the
+  process-wide `pt_*` metrics of the port's registry
+  (observability/metrics.py), `metrics()` and `LLMServer.
+  start_metrics_http`.
 
 On the card each engine runs its steps on a stream of its own, so the
 replicas of one process (fleet_serving.replica) never share K1's
@@ -100,6 +108,10 @@ from ..quantization import runtime as _qrt
 from ..text.models.gpt import sample_tokens
 from .fleet_serving.overload import (RequestCancelled, RequestShed,
                                      note_cancelled, note_shed)
+from .fleet_serving.kv_tier import (_SESSION_ACTIVE, _SESSION_RESUMED,
+                                    _TIER_BYTES, _TIER_EVICTIONS,
+                                    _TIER_HITS, _TIER_PAGES, KVTierStore,
+                                    prefix_key)
 from .fleet_serving.prefix_cache import RadixPrefixCache
 from .fleet_serving.scheduler import Priority, SLAScheduler
 from .serving import _FutureQueueServer
@@ -351,14 +363,6 @@ class PagePool:
                 f"live != {self.num_pages - 1}")
 
 
-# knobs of the JAX engine that this port does not run yet → ROADMAP row
-_UNPORTED_KNOBS = {
-    "kv_tier": "A10b (serving fleet: KV tier)",
-    "session_ttl_s": "A10b (serving fleet: sessions)",
-    "session_max": "A10b (serving fleet: sessions)",
-}
-
-
 class LLMEngineConfig:
     """Engine sizing.
 
@@ -420,24 +424,25 @@ class LLMEngineConfig:
     hash_block_tokens
                   trie block size in tokens; must be a multiple of
                   page_size when the cache is on. Default page_size.
-
-    Every other knob of the JAX engine raises NotImplementedError naming
-    its ROADMAP row when set."""
+    kv_tier       KV memory below the device pool
+                  (fleet_serving.kv_tier). Falsy (default) = off. True
+                  enables the host-RAM spill tier with its defaults; a
+                  dict passes `KVTierStore` knobs through (`ram_bytes`,
+                  `disk_dir`, `disk_bytes`, `max_pending`, `mmap`).
+                  Requires prefix_cache: the tier spills and prefetches
+                  trie nodes.
+    session_ttl_s chat-session TTL: seconds a session stays tracked
+                  after its last turn (default 600). See
+                  `add_request(session_id=)`.
+    session_max   LRU cap on tracked sessions (default 256)."""
 
     def __init__(self, num_slots=4, page_size=16, num_pages=None,
                  max_model_len=None, token_budget=None, kv_dtype=None,
                  seed=0, sla_policy=None, spec_k=None, spec_mode=None,
                  decode_k=None, draft_model=None, token_strs=None,
                  grammar_states=None, prefix_cache=None,
-                 hash_block_tokens=None, **unported):
-        for name, value in unported.items():
-            if name not in _UNPORTED_KNOBS:
-                raise TypeError(
-                    f"LLMEngineConfig got an unexpected keyword {name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"LLMEngineConfig({name}=...) is not ported yet: "
-                    f"ROADMAP {_UNPORTED_KNOBS[name]}")
+                 hash_block_tokens=None, kv_tier=None,
+                 session_ttl_s=None, session_max=None):
         self.num_slots = int(num_slots)
         self.page_size = int(page_size)
         self.num_pages = num_pages
@@ -483,6 +488,16 @@ class LLMEngineConfig:
             raise ValueError(
                 "grammar_states must be >= 2 (row 0 is the reserved "
                 f"mask-identity row), got {self.grammar_states}")
+        self.kv_tier = kv_tier
+        self.session_ttl_s = float(600.0 if session_ttl_s is None
+                                   else session_ttl_s)
+        self.session_max = int(256 if session_max is None
+                               else session_max)
+        if self.kv_tier and not self.prefix_cache:
+            raise ValueError(
+                "kv_tier requires prefix_cache=True: the tier "
+                "spills and prefetches radix-trie nodes, so without "
+                "the trie there is nothing to tier")
         if decode_k is None:
             decode_k = int(os.environ.get("PT_DECODE_K", "1"))
         self.decode_k = int(decode_k)
@@ -756,6 +771,10 @@ class _Request:
         self.top_p = float(top_p)
         self.sample_stream = 0    # engine-assigned at add_request
         self.spec_off = False     # per-request spec_mode="off" opt-out
+        # chat sessions: set by add_request; _session_seen marks a
+        # returning session (the resume telemetry)
+        self.session_id = None
+        self._session_seen = False
         # structured decoding: the compiled DFA and the request's
         # grammar-LOCAL state, a pure function of the generated tokens
         # (each emitted token is replayed through `grammar.advance`), so a
@@ -892,6 +911,22 @@ class LLMEngine:
                              self.hash_block_tokens)
             if cfg.prefix_cache else None)
         self._admit_counter = itertools.count()
+        # KV memory below the pool (fleet_serving.kv_tier): trie
+        # evictions spill to the host tiers, trie misses probe the tier
+        # and prefetch through the import scatter
+        self.kv_tier = None
+        if cfg.kv_tier:
+            kw = dict(cfg.kv_tier) if isinstance(cfg.kv_tier, dict) else {}
+            self.kv_tier = KVTierStore(**kw)
+            self.prefix_cache.spill_fn = self._spill_node
+        self._spill_count = 0     # spills queued (the kv_spill stamp)
+        # chat sessions: session_id -> {last_used, turns}. The KV is not
+        # here: a finished turn's blocks are pinned in the trie and age
+        # into the tier like any prefix; this table tracks liveness for
+        # TTL / LRU expiry and the resume telemetry. Engine thread only
+        self._sessions = collections.OrderedDict()
+        self.session_ttl_s = cfg.session_ttl_s
+        self.session_max = cfg.session_max
         self._step_fn = _PagedStep(model)
         self.stats = {"steps": 0, "tokens_in": 0, "generated": 0,
                       "finished": 0, "preemptions": 0, "fused_steps": 0,
@@ -1107,8 +1142,7 @@ class LLMEngine:
     def metrics(self):
         """Live engine view + the process-wide serving counters of the
         port's registry — the reference's `metrics()`, key for key (its
-        `executables` is the number of captured window graphs here; the
-        KV tier and sessions blocks stay None / zero until ROADMAP A10b).
+        `executables` is the number of captured window graphs here).
         Reads only: safe from another thread."""
         live = sum(r is not None for r in self._slots)
         fused = self._fused_fn
@@ -1152,9 +1186,24 @@ class LLMEngine:
             "request_phase_seconds": _reqtrace.phase_summary(),
             "recent_requests": list(self._timelines),
             "executables": 0 if fused is None else len(fused._graphs),
-            "kv_tier": None,
-            "sessions": {"active": 0, "resumed": 0, "shed": 0},
+            "kv_tier": self._tier_metrics(),
+            "sessions": {"active": len(self._sessions),
+                         "resumed": self.stats.get("sessions_resumed", 0),
+                         "shed": self.stats.get("sessions_shed", 0)},
         }
+
+    def _tier_metrics(self):
+        """kv_tier block of `metrics()`: None without a tier; else the
+        store's snapshot, with the hbm rung's gauges published beside it
+        (the store sees only ram / disk: the device pool is the top
+        rung, so its live pages report here)."""
+        if self.kv_tier is None:
+            return None
+        live = self.pool.num_live
+        per_page = self.pool_bytes() / max(1, self.pool.num_pages)
+        _TIER_PAGES.labels(tier="hbm").set(live)
+        _TIER_BYTES.labels(tier="hbm").set(int(live * per_page))
+        return self.kv_tier.snapshot()
 
     def _spec_metrics(self):
         """Draft-model speculation block of `metrics()`: None without a
@@ -1243,12 +1292,11 @@ class LLMEngine:
         eos_token_id. The grammar compiles and loads into the arena here,
         so a bad or oversized one raises here.
 
-        session_id (persistent chat sessions) is not ported yet: ROADMAP
-        A10b."""
-        if session_id is not None:
-            raise NotImplementedError(
-                "add_request(session_id=...) is not ported yet: ROADMAP "
-                "A10b (serving fleet: sessions)")
+        session_id: the request is one turn of a chat session (needs the
+        prefix cache; ignored without it). The finished turn's blocks,
+        generated tokens included, stay pinned in the trie (and age into
+        the KV tier), so the next turn, whose prompt embeds this one's
+        output, resumes from the conversation's frontier."""
         grammar_obj = self._resolve_constraint(grammar, json_schema,
                                                eos_token_id, spec_mode)
         toks = np.asarray(prompt).reshape(-1)
@@ -1282,6 +1330,9 @@ class LLMEngine:
                 raise
             _STRUCT_REQS.inc()
             self.stats["structured_requests"] += 1
+        if session_id is not None and self.prefix_cache is not None:
+            req.session_id = str(session_id)
+            req._session_seen = self._touch_session(req.session_id)
         _REQS_TOTAL.inc()
         # trace identity: the caller's (the router / server stamped
         # `queued` at its ingress), else the payload's, else fresh
@@ -1467,7 +1518,9 @@ class LLMEngine:
         release its draft pools (the memory returns now), or restore it —
         `reset_pools` reallocates zeroed pools and each slot's
         draft_prefilled reset makes the next window's catch-up replay the
-        draft KV. (L4's session pinning arrives with sessions, A10b.)"""
+        draft KV. L4 sheds session pinning before any traffic is shed:
+        the tracking entries drop (later turns stop resuming); blocks
+        already pinned age out through the trie's LRU."""
         enabled = self._brownout.get("spec_enabled", True)
         if self._spec is not None and enabled is False:
             self._spec_stash, self._spec = self._spec, None
@@ -1483,14 +1536,23 @@ class LLMEngine:
                     r.draft_prefilled = 0   # draft pool is cold: replay
             _KV_POOL_BYTES.labels(dtype=self.kv_dtype).set(
                 self.pool_bytes())
+        if self._brownout.get("session_pin", True) is False \
+                and self._sessions:
+            self.stats["sessions_shed"] = (
+                self.stats.get("sessions_shed", 0) + len(self._sessions))
+            self._sessions.clear()
+            _SESSION_ACTIVE.set(0)
 
     def close(self):
         """Retire the engine: drop the prefix trie (its clear() publishes
         the negative resident-pages delta, so a process that cycles
-        engines does not leave pt_prefix_cache_resident_pages inflated).
-        Idempotent; the engine stays usable with a cold trie."""
+        engines does not leave pt_prefix_cache_resident_pages inflated)
+        and close the KV tier's commit thread. Idempotent; the engine
+        stays usable with a cold trie."""
         if self.prefix_cache is not None:
             self.prefix_cache.clear()
+        if self.kv_tier is not None:
+            self.kv_tier.close()
 
     # ---- disaggregated serving: the KV wire ----
     # Both directions run on the thread that owns the engine (inside
@@ -1665,6 +1727,123 @@ class LLMEngine:
         return KVPagePayload(toks, cached, self.page_size,
                              self.kv_dtype, kv, scales)
 
+    # ---- KV memory below the pool (fleet_serving.kv_tier) ----
+
+    def _spill_node(self, node):
+        """RadixPrefixCache spill hook: one dying trie node's pages to
+        the host (a synchronous snapshot through the export's gather, on
+        the engine's stream: the pages are reused the moment the trie
+        frees them, and a queued window writes them on the same stream)
+        and into the tier's spill queue (the commit is asynchronous).
+        Keyed by the node's full token prefix; the payload carries only
+        the node's own block pages. Swallows its own failures: eviction
+        is relieving pool pressure, and a lost spill only costs the
+        re-prefill."""
+        from .fleet_serving.kv_transfer import KVPagePayload
+
+        try:
+            blocks = []
+            n = node
+            while n.block is not None:
+                blocks.append(n.block)
+                n = n.parent
+            blocks.reverse()
+            toks = np.asarray([t for blk in blocks for t in blk], np.int32)
+            kv, scales = self._gather_pages(node.pages)
+            payload = KVPagePayload(toks, int(toks.size), self.page_size,
+                                    self.kv_dtype, kv, scales)
+            _TIER_EVICTIONS.labels(tier="hbm").inc(len(node.pages))
+            if self.kv_tier.put(prefix_key(toks), payload):
+                self._spill_count += 1
+                self.stats["kv_pages_spilled"] = (
+                    self.stats.get("kv_pages_spilled", 0)
+                    + len(node.pages))
+        except Exception:   # never block the eviction path
+            self.stats["kv_spill_errors"] = (
+                self.stats.get("kv_spill_errors", 0) + 1)
+
+    def _prefetch_tier(self, req, cached, pages):
+        """Extend a trie match from the spill tiers: for each block past
+        the trie's frontier whose prefix the tier holds, allocate fresh
+        pages, write the frame into them IN PLACE
+        (`_write_imported_pages`: captured graphs hold the pools) and
+        re-insert the node, so this request and every later one maps it
+        as an ordinary trie hit. Stops at the first tier miss, a dry
+        pool, or `pages_per_seq`. Returns the extended (cached, pages);
+        the new pages carry the engine's own alloc references, released
+        through the request's pages like match()'s share references."""
+        bt = self.prefix_cache.block_tokens
+        ppb = self.prefix_cache.pages_per_block
+        toks = req.tokens
+        hit = False
+        while (cached + bt <= len(toks)
+               and (len(pages) + ppb) <= self.pages_per_seq):
+            payload = self.kv_tier.get(prefix_key(toks[:cached + bt]))
+            if payload is None:      # a tier miss (or a rotten frame)
+                break
+            new_pages = []
+            try:
+                for _ in range(ppb):
+                    new_pages.append(self._alloc_page())
+            except PoolExhausted:
+                # a prefetch must never starve the request's own prompt
+                # pages: give back and serve what there is
+                self.pool.free(new_pages)
+                break
+            self._write_imported_pages(new_pages, payload)
+            self.prefix_cache.insert(toks[:cached + bt], pages + new_pages)
+            pages.extend(new_pages)
+            cached += bt
+            hit = True
+            self.stats["kv_pages_prefetched"] = (
+                self.stats.get("kv_pages_prefetched", 0) + ppb)
+        if hit:
+            req.trace.stamp("kv_prefetch")
+        return cached, pages
+
+    # ---- chat sessions ----
+
+    def _touch_session(self, sid):
+        """Create or refresh one session entry and TTL / LRU-expire the
+        rest. True when the session already existed (a returning turn).
+        Expiry drops only the tracking entry: the session's KV ages out
+        through the trie's and the tier's LRU like any prefix."""
+        now = _time.perf_counter()
+        seen = sid in self._sessions
+        ent = self._sessions.pop(sid, None) or {"turns": 0}
+        ent["last_used"] = now
+        self._sessions[sid] = ent
+        while self._sessions:
+            head = next(iter(self._sessions))
+            if (len(self._sessions) > self.session_max
+                    or (now - self._sessions[head]["last_used"]
+                        > self.session_ttl_s)):
+                del self._sessions[head]
+            else:
+                break
+        _SESSION_ACTIVE.set(len(self._sessions))
+        return seen
+
+    def _publish_session(self, req):
+        """Pin a finished session turn: insert every full block of the
+        final token sequence, generated tokens included (unlike the
+        prompt-only `_publish_prefix`), so the next turn resumes from
+        the conversation's frontier. The trie holds its reference after
+        `_release` frees the request's own; under pool pressure the
+        blocks spill to the tier like any node."""
+        if (req.session_id is None or self.prefix_cache is None
+                or self._brownout.get("session_pin", True) is False):
+            return
+        bt = self.hash_block_tokens
+        ppb = self.prefix_cache.pages_per_block
+        nb = req.n_prefilled // bt     # only KV-written rows publish
+        if nb:
+            self.prefix_cache.insert(req.tokens[:nb * bt],
+                                     req.pages[:nb * ppb])
+        ent = self._sessions.get(req.session_id)
+        if ent is not None:
+            ent["turns"] += 1
+
     def _finish_prefill(self, slot, req):
         """Retire a prefill-only request at its frontier: export the
         payload, release the slot and pages, resolve the future to the
@@ -1694,6 +1873,8 @@ class LLMEngine:
         self._slots[slot] = None
 
     def _finish(self, slot, req):
+        # session pinning reads req.pages: it precedes the release
+        self._publish_session(req)
         self._release(slot, req)
         self.stats["finished"] += 1
         _FINISHED_TOTAL.inc()
@@ -1750,6 +1931,11 @@ class LLMEngine:
         fully cached prompt splits its tail block back to private
         recompute."""
         cached, pages = self.prefix_cache.match(req.tokens)
+        if self.kv_tier is not None:
+            # extend the trie's frontier from the spill tiers before the
+            # COW cap: a prefetched block re-enters the trie, so a fully
+            # covered prompt splits its tail back like any hit
+            cached, pages = self._prefetch_tier(req, cached, pages)
         splits = 0
         while pages and cached >= len(req.tokens):
             cached -= self.prefix_cache.cow_split(pages)
@@ -1777,6 +1963,7 @@ class LLMEngine:
         as pressure valves), page-table setup, the KV import. False —
         with every transient reference released — when the request
         cannot be placed yet."""
+        spills0 = self._spill_count    # the kv_spill stamp's baseline
         # cheap bails first: a blocked head-of-queue request must not
         # pay a prefix match and a feasibility walk on every tick.
         # (a) no free slot and no legal victim
@@ -1880,6 +2067,18 @@ class LLMEngine:
         if req.t_first_admit is None:
             req.t_first_admit = _time.perf_counter()
             _ADMIT_SECONDS.observe(req.t_first_admit - req.t_submit)
+        if self._spill_count > spills0:
+            # this admission's pool pressure pushed trie pages to the
+            # spill tier (prefix_cache.evict -> _spill_node)
+            req.trace.stamp("kv_spill")
+        if self.kv_tier is not None and req.cached_prefix > 0:
+            _TIER_HITS.labels(tier="hbm").inc()
+        if (req.session_id is not None and req._session_seen
+                and req.cached_prefix > 0):
+            req._session_seen = False   # one resume per turn, not replay
+            _SESSION_RESUMED.inc()
+            self.stats["sessions_resumed"] = (
+                self.stats.get("sessions_resumed", 0) + 1)
         if req.n_prefilled < len(req.tokens) - 1:
             req.trace.stamp("prefill_start")
         else:
@@ -2311,6 +2510,7 @@ class LLMServer(_FutureQueueServer):
     def __init__(self, model, config=None):
         super().__init__()
         self._engine = LLMEngine(model, config)
+        self._http = None
         self.stats = self._engine.stats
         self.stats.setdefault("requests", 0)
 
@@ -2323,13 +2523,23 @@ class LLMServer(_FutureQueueServer):
         return self._engine.metrics()
 
     def start_metrics_http(self, port=0, host="127.0.0.1"):
-        raise NotImplementedError(
-            "the /metrics HTTP endpoint is not ported yet: ROADMAP A10b "
-            "(HTTP endpoint and telemetry export)")
+        """Optional stdlib-only pull endpoint: GET /metrics serves the
+        port's registry in Prometheus text, /metrics.json the snapshot
+        with this engine's view under "extra". port=0 picks a free port;
+        returns the handle (`.url`, `.port`). Stopped with the server."""
+        if self._http is None:
+            from ..observability import start_http_server
+
+            self._http = start_http_server(port=port, host=host,
+                                           extra_json=self.metrics)
+        return self._http
 
     def stop(self):
         super().stop()
         self._engine.close()
+        if self._http is not None:
+            self._http.stop()
+            self._http = None
 
     def submit(self, prompt, max_new_tokens=32, eos_token_id=None,
                tenant="default", priority=None, ttft_slo_s=None,
@@ -2348,12 +2558,8 @@ class LLMServer(_FutureQueueServer):
         The trace is minted here (or taken from the payload), so its
         `queued` stamp covers the server's queue. The engine-side
         `_Request` is attached to the future as `fut.pt_request` once the
-        engine thread has taken it in. `session_id` raises: sessions are
-        ROADMAP A10b."""
-        if session_id is not None:
-            raise NotImplementedError(
-                "submit(session_id=...) is not ported yet: ROADMAP A10b "
-                "(serving fleet: sessions)")
+        engine thread has taken it in. `session_id` marks the request as
+        one turn of a chat session (`LLMEngine.add_request`)."""
         _check_sampling(float(temperature), float(top_p))
         grammar = self._engine._resolve_constraint(
             grammar, json_schema, eos_token_id, spec_mode)
@@ -2371,7 +2577,7 @@ class LLMServer(_FutureQueueServer):
             ttft_slo_s=ttft_slo_s, temperature=float(temperature),
             top_p=float(top_p), prefill_only=bool(prefill_only),
             kv_import=kv_import, trace=trace, deadline_s=deadline_s,
-            spec_mode=spec_mode, grammar=grammar))
+            session_id=session_id, spec_mode=spec_mode, grammar=grammar))
         return fut
 
     def export_prefix(self, tokens):

@@ -3,7 +3,7 @@ import torch.nn.functional as tF
 
 from ... import amp
 
-__all__ = ["gelu"]
+__all__ = ["gelu", "relu"]
 
 
 def gelu(x, approximate=False):
@@ -11,3 +11,8 @@ def gelu(x, approximate=False):
     (`jax.nn.gelu(approximate=False)`)."""
     (x,) = amp.cast_inputs_for("gelu", (x,))
     return tF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    """max(x, 0) elementwise, in x's dtype."""
+    return tF.relu(x)

@@ -1,0 +1,27 @@
+"""Containers (counterpart of paddle_tpu/nn/layer/container.py)."""
+import collections
+
+from torch import nn
+
+__all__ = ["Sequential"]
+
+
+class Sequential(nn.Sequential):
+    """paddle's Sequential: layers as positional arguments (named "0",
+    "1", ...), one OrderedDict, or (name, layer) pairs. The sublayer
+    names are the parameter-name prefixes, so a reference model's
+    `state_dict` loads key for key (`convert.load_jax_state_dict`)."""
+
+    def __init__(self, *layers):
+        if len(layers) == 1 and isinstance(layers[0],
+                                           collections.OrderedDict):
+            super().__init__(layers[0])
+        elif layers and isinstance(layers[0], (list, tuple)):
+            super().__init__(collections.OrderedDict(layers))
+        else:
+            super().__init__(*layers)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, str):
+            return self._modules[idx]
+        return super().__getitem__(idx)

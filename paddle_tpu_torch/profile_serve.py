@@ -28,10 +28,26 @@ greedy requests with prompts of 16-900 tokens, 32 new tokens each
   constrained (`STRUCTURED`: chip_smoke phase 5g's grammars and JSON
   schema, eos token 0; one sampled), the engine given the synthetic
   50304-string vocabulary of `structured_token_strs` and 256 grammar
-  states.
+  states;
+* `kv-tier`: bench.py:2237's `bench_kv_tier_ab` traffic (`KV_TIER`: 8
+  chat sessions x 4 turns, each prompt the previous turn's output plus
+  24 user tokens, 16 new tokens a turn) on an engine whose pool holds
+  about two conversations (`KV_TIER_ENGINE`), served once without the
+  KV tier and once with it (256 MiB of RAM, a disk tier in a temporary
+  directory) and session ids (`kv_tier_side`): prefill tokens of each
+  side, the tier's RAM / disk hits, host ms per spilled and per
+  prefetched page;
+* `generate`: bench.py:498's `bench_generate` arm (`GENERATE`: batch 8,
+  128-token prompts, 128 new tokens, greedy, f32 weights) through
+  `GPTForCausalLM.generate`, one CUDA graph a token step: tok/s and ms
+  per token-step.
+
+The two last loads print host and device ms, the device's idle share
+and the kernels by device time of a profiled run of their traffic; the
+others, run as bursts of `LLMServer`, print:
 
 Each load runs one warm-up burst, one timed burst and one burst under
-`torch.profiler`, then prints:
+`torch.profiler`.
 
 * the card's name and power limit (nvidia-smi);
 * the timed burst's wall time, generated tok/s and median TTFT, engine
@@ -124,6 +140,15 @@ STRUCTURED = [dict(grammar=TEMPLATE, **_EOS), _EOS,
 # load -> (engine knobs, repetitive prompts, request knobs — or one per
 # prompt[, model]): model "draft" serves `spec_draft_pair`'s target with
 # its draft, "int8-weights" the serve model after `quantize_model_int8`
+# bench.py:2237 `bench_kv_tier_ab` at gpt_small: sessions x turns, fresh
+# user tokens a turn, new tokens a turn; a pool of about two
+# conversations, so histories evict between a session's turns
+KV_TIER = dict(sessions=8, turns=4, user_tokens=24, new_tokens=16)
+KV_TIER_ENGINE = dict(num_slots=2, page_size=16, token_budget=64,
+                      max_model_len=256, prefix_cache=True, num_pages=40)
+KV_TIER_RAM = 256 << 20
+# bench.py:498 `bench_generate`
+GENERATE = dict(batch=8, prompt=128, new_tokens=128)
 LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "bf16-repetitive": (dict(kv_dtype="bfloat16"), True, {}),
          "int8": (dict(kv_dtype="int8"), True, {}),
@@ -140,7 +165,9 @@ LOADS = {"serve": (dict(kv_dtype="bfloat16"), False, {}),
          "int8-weights": (dict(kv_dtype="bfloat16"), False, {},
                           "int8-weights"),
          "structured": (dict(kv_dtype="bfloat16", decode_k=4,
-                             grammar_states=256), False, STRUCTURED)}
+                             grammar_states=256), False, STRUCTURED),
+         "kv-tier": (None, False, {}),
+         "generate": (None, False, {}, "f32")}
 
 
 def structured_token_strs(vocab, seed=1234):
@@ -535,6 +562,165 @@ def run_load(model, name, trace=None, draft=None):
     return 0
 
 
+def kv_tier_side(model, tier_dir=None, engine_knobs=None):
+    """One side of bench_kv_tier_ab on `model` (`KV_TIER` traffic on a
+    `KV_TIER_ENGINE` engine): with `tier_dir`, the KV tier (RAM
+    `KV_TIER_RAM`, disk under tier_dir) and a session id per
+    conversation. Drives the engine directly, one request at a time.
+    Returns a dict: `outs` (every turn's tokens, in order), `ttft_s` (per
+    turn), `cold` / `warm` (the indices of the sessions' first turns and
+    of their returning turns), `prompt_tokens`,
+    `prefill_tokens` (prompt tokens minus the trie's saved tokens),
+    `wall_s`, `steps`, the engine's `stats`, the tier's `tier` snapshot,
+    and `spill_s` / `prefetch_s`: host seconds of each spill and of each
+    admission that prefetched, with the pages each moved."""
+    from .inference import LLMEngine
+
+    kt = KV_TIER
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(31)
+    users = [[rng.integers(0, vocab, (kt["user_tokens"],)).astype(np.int32)
+              for _ in range(kt["turns"])] for _ in range(kt["sessions"])]
+    knobs = dict(KV_TIER_ENGINE, **(engine_knobs or {}))
+    if tier_dir is not None:
+        knobs["kv_tier"] = dict(ram_bytes=KV_TIER_RAM, disk_dir=tier_dir)
+    eng = LLMEngine(model, LLMEngineConfig(**knobs))
+    spill_s, prefetch_s = [], []
+    if tier_dir is not None:
+        def timed(fn, sink, key):
+            def run(*a, **kw):
+                n0, t0 = eng.stats.get(key, 0), time.perf_counter()
+                out = fn(*a, **kw)
+                n = eng.stats.get(key, 0) - n0
+                if n:
+                    sink.append((time.perf_counter() - t0, n))
+                return out
+            return run
+        eng.prefix_cache.spill_fn = timed(eng._spill_node, spill_s,
+                                          "kv_pages_spilled")
+        eng._prefetch_tier = timed(eng._prefetch_tier, prefetch_s,
+                                   "kv_pages_prefetched")
+    history = [None] * kt["sessions"]
+    outs, ttfts, prompt_total, steps = [], [], 0, 0
+    t0 = time.perf_counter()
+    for t in range(kt["turns"]):
+        for s in range(kt["sessions"]):
+            prompt = (users[s][t] if history[s] is None else np.concatenate(
+                [history[s].astype(np.int32), users[s][t]]))
+            prompt_total += len(prompt)
+            req = eng.add_request(
+                prompt, max_new_tokens=kt["new_tokens"],
+                session_id=f"chat-{s}" if tier_dir is not None else None)
+            while eng.has_work():
+                eng.step()
+                steps += 1
+            history[s] = req.future.result(timeout=0)
+            outs.append(history[s])
+            ttfts.append(req.t_first_token - req.t_submit)
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize(eng.device)
+    wall = time.perf_counter() - t0
+    out = {"outs": outs, "ttft_s": ttfts, "cold": list(range(
+        kt["sessions"])), "warm": list(range(kt["sessions"], len(outs))),
+        "prompt_tokens": prompt_total,
+        "prefill_tokens": prompt_total
+        - eng.prefix_cache.stats["tokens_saved"],
+        "wall_s": wall, "steps": steps, "stats": dict(eng.stats),
+        "tier": eng.kv_tier.snapshot() if eng.kv_tier else None,
+        "spill_s": spill_s, "prefetch_s": prefetch_s}
+    eng.close()
+    return out
+
+
+def _ms_per_page(timed):
+    pages = sum(n for _, n in timed)
+    return sum(t for t, _ in timed) * 1e3 / pages if pages else float("nan")
+
+
+def _device_profile(fn, top=8):
+    """(wall s, device ms, idle share) of `fn()` under torch.profiler:
+    the device time is the sum of the kernel rows; prints the `top`
+    kernels by device time."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    dev_us = sum(e.self_device_time_total for e in rows)
+    for e in rows[:top]:
+        print(f"  {e.self_device_time_total / 1e3:10.3f} ms "
+              f"{100 * e.self_device_time_total / max(dev_us, 1):5.1f}% "
+              f"{e.count:7d}x  {e.key[:90]}")
+    return wall, dev_us / 1e3, 1.0 - dev_us / 1e6 / wall
+
+
+def run_kv_tier(model):
+    """The `kv-tier` load: both sides of bench_kv_tier_ab, then the tier
+    side again under the profiler."""
+    import tempfile
+
+    kt = KV_TIER
+    with tempfile.TemporaryDirectory(prefix="ptkv_") as d:
+        kv_tier_side(model)                       # warm-up
+        off = kv_tier_side(model)
+        on = kv_tier_side(model, tier_dir=f"{d}/a")
+        wall, dev_ms, idle = _device_profile(
+            lambda: kv_tier_side(model, tier_dir=f"{d}/b"))
+    same = all(np.array_equal(a, b) for a, b in zip(off["outs"], on["outs"]))
+    cut = 1.0 - on["prefill_tokens"] / off["prefill_tokens"]
+    cold, warm = ([np.median([side["ttft_s"][i] for i in side[k]]) * 1e3
+                   for side in (off, on)] for k in ("cold", "warm"))
+    tier = on["tier"]
+    print(f"load kv-tier ({kt['sessions']} sessions x {kt['turns']} turns, "
+          f"{KV_TIER_ENGINE}; {_card()}): prefill tokens off "
+          f"{off['prefill_tokens']} / on {on['prefill_tokens']} of "
+          f"{on['prompt_tokens']} prompt tokens = {100 * cut:.1f}% fewer; "
+          f"greedy tokens equal: {same}; wall off {off['wall_s'] * 1e3:.3f}"
+          f" / on {on['wall_s'] * 1e3:.3f} ms; TTFT medians off / on: "
+          f"cold turns {cold[0]:.3f} / {cold[1]:.3f} ms, returning turns "
+          f"{warm[0]:.3f} / {warm[1]:.3f} ms")
+    print(f"  tier: spills {tier['spills']} ({tier['spill_pages']} pages), "
+          f"RAM hits {tier['ram_hits']}, disk hits {tier['disk_hits']}, "
+          f"misses {tier['misses']}, demotions {tier['demotions']}; "
+          f"{on['stats'].get('kv_pages_prefetched', 0)} pages prefetched; "
+          f"host {_ms_per_page(on['spill_s']):.4f} ms per spilled page, "
+          f"{_ms_per_page(on['prefetch_s']):.4f} ms per prefetched page")
+    print(f"  host {on['wall_s'] * 1e3 / on['steps']:.3f} ms per step() "
+          f"(tier on, {on['steps']} steps); profiled run: {wall * 1e3:.3f} "
+          f"ms wall, device {dev_ms:.3f} ms, idle share {100 * idle:.1f}%")
+    return 0 if same else 1
+
+
+def run_generate(model):
+    """The `generate` load: bench_generate's arm, timed, then under the
+    profiler."""
+    g = GENERATE
+    vocab = model.config.vocab_size
+    ids = torch.as_tensor(np.random.default_rng(0).integers(
+        0, vocab, (g["batch"], g["prompt"])), device=model.device)
+    model.generate(ids, max_new_tokens=8)        # builds and captures
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, max_new_tokens=g["new_tokens"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = int(out.shape[1]) - g["prompt"]
+    wall, dev_ms, idle = _device_profile(
+        lambda: model.generate(ids, max_new_tokens=g["new_tokens"]))
+    print(f"load generate (batch {g['batch']}, prompt {g['prompt']}, "
+          f"{n} new tokens, {model.dtype}; {_card()}): "
+          f"{g['batch'] * n / dt:.1f} tok/s, {dt / n * 1e3:.4f} ms per "
+          f"token-step (host wall); profiled run: {wall * 1e3:.3f} ms wall, "
+          f"device {dev_ms:.3f} ms = {dev_ms / n:.4f} ms per token-step, "
+          f"idle share {100 * idle:.1f}%")
+    return 0
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--load", choices=sorted(LOADS), nargs="+",
@@ -547,6 +733,8 @@ def main(argv=None):
         if kind not in models:
             if kind == "draft":
                 models[kind] = spec_draft_pair(gpt_small())
+            elif kind == "f32":
+                models[kind] = (GPTForCausalLM(gpt_small(), seed=1234), None)
             else:
                 m = GPTForCausalLM(gpt_small(), dtype="bfloat16", seed=1234)
                 if kind == "int8-weights":
@@ -559,7 +747,12 @@ def main(argv=None):
     for i, name in enumerate(args.load):
         last = i == len(args.load) - 1
         model, draft = model_for((LOADS[name][3:] or (None,))[0])
-        rc |= run_load(model, name, args.trace if last else None, draft)
+        if name == "kv-tier":
+            rc |= run_kv_tier(model)
+        elif name == "generate":
+            rc |= run_generate(model)
+        else:
+            rc |= run_load(model, name, args.trace if last else None, draft)
     return rc
 
 

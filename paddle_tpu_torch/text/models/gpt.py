@@ -19,12 +19,21 @@ acceptance. `sample_tokens` is the reference's keyed greedy /
 temperature / top-p sampler, on jax's threefry bits (`core.prng`), with
 the structured-decoding grammar mask (`grammar_allowed`) applied before
 the pick in both windows when the engine passes its arena tables.
+Dense generation: `generate` — greedy / temperature / top-k decoding
+over a static KV cache (`_DecodeStep`, on the card one CUDA graph per
+one-token step), the attention in plain torch ops as the reference's is
+plain jnp.
 """
+import gc
+import math
+
+import numpy as np
 import torch
 from torch import nn
 
 from ... import nn as pnn
 from ...core import prng
+from ...core import rng as _rng
 from ...core.dtype import resolve_dtype
 from ...core.place import resolve_device
 from ...distributed.fleet.meta_parallel.mp_layers import (
@@ -260,6 +269,141 @@ def grammar_allowed(gmask, gstate, vocab):
     return ((words[:, (v // 32).long()] >> (v % 32)) & 1).bool()
 
 
+def _cached_attention(q, k_new, v_new, cache_k, cache_v, index,
+                      pad_lens=None):
+    """The reference's `_cached_attention` (gpt.py:149) over a static
+    cache, IN PLACE: k/v [b, s, h, d] are written into the caches
+    [b, L, h, d] at rows index .. index + s - 1 (`index` a 0-d int64
+    tensor, so a captured step reads it from its static buffer), then q
+    attends over the valid prefix: column j is allowed for query row i
+    when j <= index + i, and, with `pad_lens` [b] (left-pad counts),
+    when j >= pad_lens[b]. The scores are the cache dtype's product
+    scaled by 1 / sqrt(d); the mask (-1e30) and the softmax are f32, the
+    weights go back to the cache dtype for the product with v, and the
+    output takes q's dtype — the reference's dtype at every step."""
+    b, s, _, d = q.shape
+    L = cache_k.shape[1]
+    rows = index + torch.arange(s, device=q.device)
+    cache_k.index_copy_(1, rows, k_new.to(cache_k.dtype))
+    cache_v.index_copy_(1, rows, v_new.to(cache_v.dtype))
+    qt = q.transpose(1, 2)
+    kt = cache_k.transpose(1, 2)
+    vt = cache_v.transpose(1, 2)
+    sc = torch.matmul(qt, kt.transpose(-1, -2)) / math.sqrt(d)
+    cols = torch.arange(L, device=q.device)
+    allowed = (cols[None, :] <= rows[:, None])[None, None]
+    if pad_lens is not None:
+        allowed = allowed & (cols[None, :]
+                             >= pad_lens[:, None])[:, None, None, :]
+    sc = torch.where(allowed, sc.float(), -1e30)
+    w = torch.softmax(sc, dim=-1).to(vt.dtype)
+    return torch.matmul(w, vt).to(q.dtype).transpose(1, 2)
+
+
+def _layer_forward_cached(layer, x, cache_k, cache_v, index, pad_lens=None):
+    """Decoder block over a static cache (the reference's
+    `_layer_forward_cached`, gpt.py:199): the caches are written in
+    place."""
+    b, s = x.shape[0], x.shape[1]
+    q, k, v = split_fused_qkv(layer.qkv(layer.ln1(x)), b, s, layer.nh,
+                              layer.hd)
+    attn = _cached_attention(q, k, v, cache_k, cache_v, index,
+                             pad_lens=pad_lens)
+    x = x + layer.proj(attn.reshape(b, s, layer.nh * layer.hd))
+    return x + layer.fc2(F.gelu(layer.fc1(layer.ln2(x))))
+
+
+class _DecodeStep:
+    """`generate`'s static KV cache and its one-token step for one
+    (batch, cache_len, padded, dtype): the counterpart of the
+    reference's one `to_static` program per step. The caches (2 per
+    layer, [b, cache_len, h, d] in the model's dtype) are allocated once
+    and written in place; the token, the index and the pad counts enter
+    through static buffers. On the card the step is one CUDA graph,
+    captured at its first use (warm-up on a side stream, the collector
+    held off as in the engine's windows) and replayed after; on the CPU
+    it runs eagerly. The prompt step always runs eagerly (its length
+    varies). Graphs and caches live as long as the model, keyed in
+    `GPTForCausalLM._decode_steps`."""
+
+    def __init__(self, model, batch, cache_len, padded):
+        cfg = model.config
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        dev = model.device
+        self.model = model
+        self.caches = [torch.zeros((batch, cache_len, nh, hd),
+                                   dtype=model.dtype, device=dev)
+                       for _ in range(2 * cfg.num_layers)]
+        self.tok = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+        self.index = torch.zeros((), dtype=torch.long, device=dev)
+        self.pad_lens = (torch.zeros((batch,), dtype=torch.long, device=dev)
+                         if padded else None)
+        self.logits = None        # the graph's output buffer
+        self.graph = None
+        self.captures = 0
+        self.replays = 0
+
+    def forward(self, ids, index):
+        """Logits [b, vocab] f32 of the last position of `ids` [b, s],
+        written at `index` (a 0-d tensor) into the caches."""
+        m = self.model
+        s = ids.shape[1]
+        pos = torch.arange(s, device=ids.device) + index
+        if self.pad_lens is not None:
+            # left-padded rows start their positions after the pads
+            pos = (pos[None, :] - self.pad_lens[:, None]).clamp(
+                0, m.config.max_seq_len - 1)
+        x = m.gpt.wte(ids) + m.gpt.wpe(pos)
+        for i, layer in enumerate(m.gpt.layers):
+            x = _layer_forward_cached(layer, x, self.caches[2 * i],
+                                      self.caches[2 * i + 1], index,
+                                      pad_lens=self.pad_lens)
+        x = m.gpt.ln_f(x[:, -1:])
+        return m._logits_from_hidden(x)[:, -1].float()
+
+    def prompt(self, ids):
+        self.index.zero_()
+        return self.forward(ids, self.index)
+
+    def eager(self):
+        """The one-token step from the static buffers, eagerly."""
+        return self.forward(self.tok, self.index)
+
+    def step(self, tok, index):
+        """Logits after feeding `tok` [b] at position `index` (an int)."""
+        self.tok.copy_(tok.view(-1, 1))
+        self.index.fill_(int(index))
+        if self.tok.device.type != "cuda":
+            return self.eager()
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        self.replays += 1
+        return self.logits
+
+    def _capture(self):
+        # the warm-up runs the step itself (the replay after the capture
+        # writes the same cache rows again)
+        side = torch.cuda.Stream(self.tok.device)
+        side.wait_stream(torch.cuda.current_stream(self.tok.device))
+        with torch.cuda.stream(side):
+            self.eager()              # lazy inits stay out of the capture
+        torch.cuda.current_stream(self.tok.device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # a graph freed by the collector mid-capture invalidates it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="global"):
+                self.logits = self.eager()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph = graph
+        self.captures += 1
+
+
 class GPTForCausalLM(nn.Module):
     """LM head tied to the embedding by default (`tie_embeddings=False`:
     a `lm_head` [hidden, vocab] without bias). `device` defaults to CUDA
@@ -330,6 +474,117 @@ class GPTForCausalLM(nn.Module):
                 transpose_weight=True, reduction="sum",
                 block_size=block_size)
         return s / float(total)
+
+    # ---- dense generation over a static KV cache ----
+
+    def generate(self, input_ids, max_new_tokens=32, temperature=1.0,
+                 top_k=None, do_sample=False, attention_mask=None,
+                 eos_token_id=None, pad_token_id=None):
+        """input_ids [b, prompt] -> int64 [b, min(prompt + max_new_tokens,
+        max_seq_len)] on the model's device (the reference's `generate`,
+        gpt.py:788).
+
+        attention_mask: optional [b, prompt] keep-mask for ragged
+        prompts, LEFT-padded (zeros first, so every row's last prompt
+        token sits in the same column); pad columns are masked out of
+        attention and position ids start after the pads.
+
+        eos_token_id: a row that generates eos is finished and emits
+        `pad_token_id` (default: eos_token_id) for every later step; the
+        loop exits once every row is finished (one host sync a step,
+        paid only when eos is given). Prompt tokens never count.
+
+        do_sample: temperature scaling, optional top-k, and a draw with
+        the next key of `core.rng` (`next_key`: jax's fold_in(
+        PRNGKey(seed), index)), so `seed(n)` just before the call gives
+        the reference's tokens (each step also takes one index, as each
+        call of the reference's compiled step draws a key). Greedy
+        otherwise (also at temperature 0).
+
+        The cache is [b, cache_len, h, d] in the model's dtype with
+        cache_len = the total rounded up to 128, capped at max_seq_len;
+        each (b, cache_len, padded) keeps one `_DecodeStep` — on the
+        card one CUDA graph — across calls."""
+        cfg = self.config
+        dev = self.device
+        ids = torch.as_tensor(input_ids, device=dev).long()
+        b, prompt = int(ids.shape[0]), int(ids.shape[1])
+        pads = None
+        if attention_mask is not None:
+            mask = np.asarray(attention_mask.cpu() if torch.is_tensor(
+                attention_mask) else attention_mask)
+            if mask.shape != (b, prompt):
+                raise ValueError(
+                    f"attention_mask shape {mask.shape} != {(b, prompt)}")
+            pads_np = (mask == 0).sum(axis=1)
+            expect = np.arange(prompt)[None, :] >= pads_np[:, None]
+            if not np.array_equal(mask != 0, expect):
+                raise ValueError(
+                    "generate() requires LEFT-padded prompts: "
+                    "attention_mask must be 0s followed by 1s per row")
+            if (pads_np >= prompt).any():
+                raise ValueError(
+                    "attention_mask has an all-zero row (empty prompt): "
+                    "every example needs at least one real token")
+            if pads_np.any():
+                pads = torch.as_tensor(pads_np.astype(np.int64), device=dev)
+        if prompt > cfg.max_seq_len:
+            raise ValueError(
+                f"prompt length {prompt} exceeds max_seq_len "
+                f"{cfg.max_seq_len}")
+        total = min(prompt + max_new_tokens, cfg.max_seq_len)
+        if total <= prompt:   # no budget: nothing to generate
+            return ids
+        cache_len = min(-(-total // 128) * 128, cfg.max_seq_len)
+        key = (b, cache_len, pads is not None, self.dtype)
+        steps = self.__dict__.setdefault("_decode_steps", {})
+        step = steps.get(key)
+        if step is None:
+            step = steps[key] = _DecodeStep(self, b, cache_len,
+                                            pads is not None)
+        if pads is not None:
+            step.pad_lens.copy_(pads)
+
+        def pick(lv):
+            if not do_sample or temperature == 0:
+                return lv.argmax(dim=-1)
+            lv = lv / max(temperature, 1e-6)
+            if top_k is not None:
+                k_eff = min(int(top_k), lv.shape[-1])
+                kth = torch.sort(lv, dim=-1).values[:, -k_eff][:, None]
+                lv = torch.where(lv < kth, -1e30, lv)
+            # jax.random.categorical over [b, V]: one key, the flat
+            # [b * V] Gumbel field
+            noise = prng.gumbel(_rng.next_key(dev), b * lv.shape[-1])
+            return (noise.view(lv.shape) + lv).argmax(dim=-1)
+
+        finished = None
+        if eos_token_id is not None:
+            pad_id = eos_token_id if pad_token_id is None else pad_token_id
+            finished = torch.zeros((b,), dtype=torch.bool, device=dev)
+
+        def stop_update(tok):
+            nonlocal finished
+            if finished is None:
+                return tok
+            tok = torch.where(finished, pad_id, tok)
+            finished = finished | (tok == eos_token_id)
+            return tok
+
+        # each step takes the key the reference's compiled step draws
+        # per call (`rng.skip`), so a pick's key index matches its own
+        with torch.inference_mode():
+            out = [ids]
+            _rng.skip()
+            tok = stop_update(pick(step.prompt(ids)))
+            out.append(tok[:, None])
+            for t in range(1, total - prompt):
+                if finished is not None and bool(finished.all()):
+                    break    # every row hit eos: stop early
+                _rng.skip()
+                tok = stop_update(pick(step.step(tok, prompt + t - 1)))
+                out.append(tok[:, None])
+            return torch.cat(out, dim=1)
 
     def _paged_decode_core(self, tok, pos_ids, slot_ids, write_idx,
                            page_tables, kv_lens, sample_idx, kv,

@@ -15,7 +15,9 @@ through the same transitions as the reference's; engine abort, deadlines
 and brownout caps; the router's parking bound, cancellation, deadline
 admission, breaker and hedging. Waits are polls of at most a second.
 """
+import json
 import time
+import urllib.request
 
 import numpy as np
 import pytest
@@ -154,7 +156,7 @@ def test_replica_registry_heartbeats(model):
         ReplicaRegistry(hb_dir="/nonexistent")
 
 
-def test_replica_submit_surface_matches_engine(model):
+def test_replica_submit_surface_matches_engine(model, tmp_path):
     rng = np.random.default_rng(6)
     prompts = _prompts(rng, [10, 22, 35])
     ref = _reference(model, prompts, max_new=8)
@@ -172,10 +174,17 @@ def test_replica_submit_surface_matches_engine(model):
         m = rep.metrics()
         assert m["replica"]["name"] == rep.name and m["replica"]["alive"]
         assert rep.load() == (0, 0.0)
-        with pytest.raises(NotImplementedError, match="A10b"):
-            rep.submit(prompts[0], session_id="s")
-        with pytest.raises(NotImplementedError, match="A10b"):
-            rep.export_telemetry()
+        # a session turn serves the same tokens; the replica's telemetry
+        # file carries its own view, named by replica
+        np.testing.assert_array_equal(
+            ref[0], rep.submit(prompts[0], max_new_tokens=8,
+                               session_id="s").result(timeout=60))
+        path = rep.export_telemetry(str(tmp_path))
+        assert path.endswith(f".{rep.name}.json")
+        with open(path) as f:
+            dumped = json.load(f)
+        assert dumped["replica"] == rep.name
+        assert dumped["view"]["replica"]["name"] == rep.name
     finally:
         rep.stop()
 
@@ -208,8 +217,12 @@ def test_llm_server_threads_the_submit_surface(model):
         assert pl.n_prefilled == 32
         server.abort(10 ** 9)          # unknown rid: a no-op
         assert server.metrics()["prefix_cache"]["resident_pages"] == 2
-        with pytest.raises(NotImplementedError, match="A10b"):
-            server.start_metrics_http()
+        http = server.start_metrics_http()
+        assert server.start_metrics_http() is http      # one per server
+        with urllib.request.urlopen(http.url + ".json", timeout=10) as r:
+            view = json.loads(r.read())
+        assert view["extra"]["prefix_cache"]["resident_pages"] == 2
+    assert server._http is None                 # stop() ended it
     assert server.engine.pool.num_live == 0     # stop() cleared the trie
 
 
@@ -434,8 +447,13 @@ def test_router_submit_screens_unknown_kwargs(model):
     with router:
         with pytest.raises(TypeError, match="unknown kwarg"):
             router.submit(np.arange(4), max_new_tokenz=3)
-        with pytest.raises(NotImplementedError):
-            router.start_metrics_http()
+        http = router.start_metrics_http()
+        assert router.start_metrics_http() is http      # one per router
+        with urllib.request.urlopen(http.url, timeout=10) as r:
+            assert b"pt_router_requests" in r.read()
+        with urllib.request.urlopen(http.url + ".json", timeout=10) as r:
+            assert "replicas" in json.loads(r.read())["extra"]
+    assert router._http is None                          # stop() ended it
 
 
 class _FakeEngine:

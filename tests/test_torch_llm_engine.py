@@ -189,10 +189,18 @@ def test_engine_rejects_unservable_requests():
     ({"session_ttl_s": 30.0}, "A10"), ({"session_max": 8}, "A10"),
     ({"kv_tier": True}, "A10")])
 def test_unported_knobs_raise_naming_roadmap_row(knob, row):
-    # the prefix cache is ported (tests/test_torch_prefix_cache.py); the
-    # KV tier and sessions wait for ROADMAP A10b
-    with pytest.raises(NotImplementedError, match=row + "b"):
-        teng.LLMEngineConfig(**knob)
+    """The knobs ROADMAP row A10b ported take the reference's values and
+    defaults; the tier keeps the reference's check that it needs the
+    prefix cache (tests/test_torch_kv_tier.py serves with them)."""
+    assert row + "b" == "A10b"
+    if "kv_tier" in knob:
+        for pkg in (teng, jeng):
+            with pytest.raises(ValueError, match="prefix_cache"):
+                pkg.LLMEngineConfig(**knob)
+        knob = dict(knob, prefix_cache=True)
+    tc, jc = teng.LLMEngineConfig(**knob), jeng.LLMEngineConfig(**knob)
+    for name in ("kv_tier", "session_ttl_s", "session_max"):
+        assert getattr(tc, name) == getattr(jc, name), name
 
 
 def test_sampling_knobs_validated_at_submit():

@@ -172,8 +172,11 @@ def test_off_mode_is_a_noop_and_env_parse(monkeypatch, modes):
         assert tmetrics._State().mode == want == jmetrics._State().mode
     with pytest.raises(ValueError):
         tobs.set_mode("loud")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        tobs.start_http_server()
+    http = tobs.start_http_server()     # serves in every mode
+    try:
+        assert http.host == "127.0.0.1" and http.port > 0
+    finally:
+        http.stop()
 
 
 # ---- request traces ----
@@ -377,3 +380,153 @@ def test_chaos_install_clear_and_poison():
     finally:
         tchaos.clear()
     assert tchaos.get_plan() is None
+
+
+# ---- telemetry export and the HTTP endpoint ----
+
+def test_export_all_and_journal_snapshot_match_reference(tmp_path,
+                                                          monkeypatch,
+                                                          modes):
+    """`export_all` writes the registry's Prometheus text and JSON
+    snapshot under the reference's file names and folds a compact
+    snapshot into the anomaly journal, whose JSONL file has the
+    reference's name and line layout."""
+    from paddle_tpu.distributed import resilience as jres
+    from paddle_tpu_torch.distributed import resilience as tres
+
+    monkeypatch.setenv("PT_ANOMALY_DIR", str(tmp_path / "journal"))
+    monkeypatch.setenv("PADDLE_TRAINER_ID", "3")
+    tres.reset()
+    jres.reset()
+    try:
+        tmetrics.registry().counter(
+            "pt_export_probe_total", "export probe").inc(4)
+        d = tobs.export_all(str(tmp_path / "tel"))
+        names = sorted(p.name for p in (tmp_path / "tel").iterdir())
+        assert d == str(tmp_path / "tel")
+        assert "metrics.rank3.prom" in names
+        assert "metrics.rank3.json" in names
+        text = (tmp_path / "tel" / "metrics.rank3.prom").read_text()
+        assert "pt_export_probe_total 4" in text
+        snap = json.loads((tmp_path / "tel" / "metrics.rank3.json")
+                          .read_text())
+        assert snap["pt_export_probe_total"]["series"][0]["value"] == 4
+        ev = tres.events("telemetry_snapshot")[-1]
+        assert ev["note"] == "export_all" and ev["rank"] == 3
+        assert ev["metrics"]["pt_export_probe_total"] == 4
+        entry = tobs.journal_snapshot(note="manual")
+        jentry = jobs.journal_snapshot(note="manual")
+        assert set(entry) == set(jentry)
+        lines = (tmp_path / "journal" / "anomalies.rank3.jsonl"
+                 ).read_text().strip().splitlines()
+        kinds = [json.loads(x)["kind"] for x in lines]
+        assert kinds.count("telemetry_snapshot") == 3   # both packages
+        assert set(json.loads(lines[-1])) == set(json.loads(lines[-2]))
+        assert tobs.bench_snapshot()["pt_export_probe_total"] == 4
+        assert tobs.telemetry_dir() == jobs.telemetry_dir()
+    finally:
+        tres.reset()
+        jres.reset()
+
+
+def test_export_replica_names_a_file_per_replica(tmp_path, modes):
+    paths = [tobs.export_replica(name, lambda n=name: {"who": n},
+                                 directory=str(tmp_path))
+             for name in ("r/0", "r 1")]
+    assert [p.rsplit("/", 1)[1] for p in paths] == [
+        "metrics.rank0.r_0.json", "metrics.rank0.r_1.json"]
+    ref = jobs.export_replica("r/0", lambda: {"who": "r/0"},
+                              directory=str(tmp_path / "ref"))
+    assert ref.rsplit("/", 1)[1] == "metrics.rank0.r_0.json"
+    mine = json.loads(open(paths[0]).read())
+    theirs = json.loads(open(ref).read())
+    assert set(mine) == set(theirs) == {"replica", "view", "metrics"}
+    assert mine["view"] == {"who": "r/0"}
+
+    def boom():
+        raise RuntimeError("view failed")
+
+    bad = json.loads(open(tobs.export_replica(
+        "r2", boom, directory=str(tmp_path))).read())
+    assert "view failed" in bad["view_error"]
+
+
+def test_metrics_http_under_concurrency(modes):
+    """The endpoint on 127.0.0.1 port 0 answers concurrent scrapes while
+    an engine serves: /metrics is the port registry's Prometheus text,
+    /metrics.json its snapshot with the server's view under "extra", any
+    other path 404."""
+    import urllib.error
+    import urllib.request
+
+    model = GPTForCausalLM(gpt_tiny(), device="cpu", seed=3)
+    server = teng.LLMServer(model, teng.LLMEngineConfig(
+        num_slots=2, max_model_len=64))
+    rng = np.random.default_rng(1)
+    scrapes, errors = [], []
+
+    def scraper(url):
+        try:
+            for _ in range(5):
+                with urllib.request.urlopen(url, timeout=30) as r:
+                    scrapes.append(r.read().decode())
+        except Exception as e:
+            errors.append(e)
+
+    handle = None
+    try:
+        with server:
+            handle = server.start_metrics_http()
+            assert handle.host == "127.0.0.1" and handle.port > 0
+            futs = [server.submit(rng.integers(0, 2048, (int(n),)),
+                                  max_new_tokens=3)
+                    for n in rng.integers(4, 20, 6)]
+            threads = [threading.Thread(target=scraper, args=(handle.url,))
+                       for _ in range(3)]
+            for t in threads:
+                t.start()
+            outs = [f.result(timeout=120) for f in futs]
+            for t in threads:
+                t.join(timeout=60)
+            with urllib.request.urlopen(handle.url + ".json",
+                                        timeout=30) as r:
+                j = json.loads(r.read())
+            with pytest.raises(urllib.error.HTTPError):
+                urllib.request.urlopen(
+                    handle.url.replace("/metrics", "/nope"), timeout=30)
+    finally:
+        if handle is not None:
+            handle.stop()
+    assert not errors, errors
+    assert len(outs) == 6 and len(scrapes) == 15
+    assert all("pt_llm_requests_total" in s for s in scrapes)
+    assert j["extra"]["num_slots"] == 2 and j["extra"]["finished"] >= 6
+    assert "pt_llm_requests_total" in j["metrics"]
+    assert server._http is None
+
+
+def test_journal_ring_file_and_flight_mirror(tmp_path, monkeypatch,
+                                             modes):
+    """`resilience.record` appends to the in-memory ring and to
+    anomalies.rank<r>.jsonl, counts `pt_journal_events_total{kind}` and
+    mirrors the event into the flight recorder; the A11 pieces raise."""
+    from paddle_tpu_torch.distributed import resilience as tres
+
+    monkeypatch.setenv("PT_ANOMALY_DIR", str(tmp_path))
+    tres.reset()
+    try:
+        c0 = tres._JOURNAL_EVENTS.labels(kind="probe").value
+        e = tres.record("probe", x=1)
+        assert tres.events("probe")[-1] == e and e["x"] == 1
+        assert tres._JOURNAL_EVENTS.labels(kind="probe").value == c0 + 1
+        line = (tmp_path / "anomalies.rank0.jsonl").read_text()
+        assert json.loads(line.strip().splitlines()[-1])["kind"] == "probe"
+        assert any(ev.get("entry", {}).get("kind") == "probe"
+                   for ev in tfr.recorder().events("journal"))
+        assert tres.recent_failures() == 0
+        for name in ("RetryPolicy", "StepGuard", "DivergenceSentinel",
+                     "PreemptionHandler", "install_preemption_handler"):
+            with pytest.raises(NotImplementedError, match="A11"):
+                getattr(tres, name)()
+    finally:
+        tres.reset()
