@@ -46,8 +46,9 @@ continues:
               and 16; a block whose rows end in different splits; dead and
               narrow blocks; page size 64 and head_dim 128), on bf16, int8
               and int4 pools, each at offset 0 and 3; flash attention
-              forward, dq and dk/dv (K3-K5) at the training path's shapes
-              (b·h 192, s 1024, d 64, bf16, causal) and at smaller f32 /
+              forward, dq and dk/dv (K3-K5) at the training paths' shapes
+              (b·h 192, s 1024, d 64, bf16, causal: bench_gpt; b·h 32,
+              s 2048: bench_gpt1p3b) and at smaller f32 /
               bf16 cases (ragged seq, non-causal, kv_lens with a 0 row,
               seq_k != seq_q, head_dim 8, 32, 96, 128, 256); each case
               must take the route that `tensor_core_route` names (bf16 at
@@ -281,6 +282,32 @@ continues:
               launched 12 times per step, every time on the tensor-core
               route, every loss be finite and the last below the first.
               Prints ms/step, tokens/s and MFU.
+8b. train 1.3B — bench.py:378's bench_gpt1p3b on the port
+              (`profile_train.bench_gpt1p3b_step`): gpt_1p3b with
+              per-layer recompute at b1·s2048, `amp.decorate` O2 (bf16
+              parameters, f32 Adam moments), `AdamW(1e-4)`, the fused head
+              under `auto_cast(level="O2")`, `TrainStep`; 2 warm-up steps,
+              then 5 timed ones with the flash counts set to 0 just
+              before: K3 2 x 24 launches a step (forward and each layer's
+              recompute), K4 and K5 24 each, all on the tensor-core route;
+              every loss finite and the last below the first; every
+              parameter bf16 and every Adam moment f32. Prints ms/step,
+              tok/s, MFU over model_flops at 989 TFLOP/s, peak memory and
+              the optimizer update's device ms a step (one profiled step,
+              the kernels under "optimizer.step").
+8c. remat   — gpt_small at b16·s1024, bf16 O1, `TrainStep(remat=...)`
+              for False, True, dots_saveable and everything_saveable: 2
+              warm-up steps, then 3 timed; the first step's loss and every
+              gradient equal across the four within 1e-6 of each
+              gradient's max-abs. Prints ms/step, peak memory and K3
+              launches a step per policy.
+8d. steptrace A/B — bench.py:1876's bench_steptrace_overhead_ab on the
+              port: a 4-layer 64-wide GPT (vocab 256) at b8·s32, 30 steps
+              a run, telemetry full and metrics interleaved F/M/F/M; the
+              losses bit-identical across the four runs, and each traced
+              step's phases sum to its wall time. Prints the full /
+              metrics ratio of the best runs (the reference's bar: 1.05)
+              and `phase_summary()`.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
@@ -293,6 +320,24 @@ continues:
               and each parameter gradient's max-abs difference over its
               max-abs is within 2e-2, the median over the gradients
               within 1e-2.
+10b. train cross O2 — gpt_1p3b's width with 2 layers, b1·s2048, O2
+              (decorate + auto_cast), per-layer recompute: 3 steps of
+              `AdamW(LinearWarmup(CosineAnnealingDecay(1e-4, 100), 2, 0,
+              1e-4))` with `ClipGradByGlobalNorm(1.0)` through the kernels
+              (all on the tensor-core route) and from the same weights
+              with K3-K5 swapped for their plain versions: the losses,
+              and the f32 loss sums before O2's divide rounds them,
+              within 1e-5 relative; the learning rates equal to their
+              float recomputation; step 1's bf16 gradients within phase
+              10's bounds, their global norms within 1e-2 relative, the
+              clip's output norm min(norm, 1) within 1e-3 (and 0.3 of the
+              norm under a clip at 0.3 of the norm), and the
+              warm-up's lr-0 update leaving every parameter byte-equal;
+              the parameters' change over the 3 steps within 0.25 of the
+              plain run's in L2. Then two `GradScaler` steps at scale
+              1e38 on the kernel model: both skipped (parameters
+              byte-equal), the scale halved after the second
+              (decr_every_n_nan_or_inf 2).
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
@@ -307,13 +352,16 @@ fused burst's (K1) and n-gram burst's (K2) as
 and spill -> prefetch round trips (int8, int4) as
 "tier_burst_launches"; the GEMM's decode route: 5f's decode_k 4
 burst, its wide route: 5f's k=1 burst, each route's count in both
-bursts as "burst_launches"); the last line is
+bursts as "burst_launches"; K3-K5 also phase 8b's launches as
+"train_1p3b_launches" and their times at its shape as "shape_1p3b");
+the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
 import contextlib
 import gc
 import json
+import math
 import os
 import re
 import subprocess
@@ -1360,7 +1408,10 @@ def check_int8_gemm(ig, flush, parent=None):
 # the training path's attention call: gpt_small at b16·s1024 → b·h 192
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 16, 1024, 10
 FA_MAIN = dict(bh=TRAIN_BATCH * 12, s=TRAIN_SEQ, d=64,
-               dtype=torch.bfloat16, causal=True, lens=None)
+               dtype=torch.bfloat16, causal=True, lens=None, b=TRAIN_BATCH)
+# phase 8b's call: gpt_1p3b at b1·s2048 → b·h 32, head_dim 2048 / 32
+FA_1P3B = dict(bh=32, s=2048, d=64, dtype=torch.bfloat16, causal=True,
+               lens=None, b=1)
 # smaller cases: f32, ragged seq (not a multiple of the 64-row tile),
 # non-causal, kv_lens with a 0 row, seq_k != seq_q (`sk`), and the 32-
 # and 16-row tile configs (head_dim 96, 256); bf16 ones on the edges of
@@ -1368,6 +1419,7 @@ FA_MAIN = dict(bh=TRAIN_BATCH * 12, s=TRAIN_SEQ, d=64,
 # (head_dim 32)
 FA_CASES = [
     FA_MAIN,
+    FA_1P3B,
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=True, lens=None),
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=False,
          lens=[200, 0, 57, 64, 1, 130]),
@@ -1461,14 +1513,14 @@ def _fa_run(fa, x, lens, causal, plain):
     return dict(out=out, lse=lse, dq=dq, dk=dk, dv=dv), delta
 
 
-def _fa_library_ms(x, flush):
+def _fa_library_ms(x, flush, case):
     """torch's own fused attention on the same inputs ([b, h, s, d]): its
     causal forward, and its backward (dq, dk, dv in one call) as the
     autograd node that forward recorded, called directly — whichever
     backend SDPA picked, and without the autograd engine's host time in
     the timed window."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    b, h = TRAIN_BATCH, FA_MAIN["bh"] // TRAIN_BATCH
+    b, h = case["b"], case["bh"] // case["b"]
     q, k, v, dout = (t.reshape(b, h, *t.shape[1:]) for t in x)
     fwd_ms = _median_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1504,14 +1556,52 @@ def _fa_gate(label, key, a, b, dt):
     return diff.max().item(), row_rel, mean_rel
 
 
+def _fa_times(fa, case, x, lens, flush, res):
+    """Kernel, plain and library times of K3-K5 on one case's inputs,
+    beside the bound, into res[name]."""
+    q, k, v, dout = x
+    causal = case["causal"]
+    _, delta = _fa_run(fa, x, lens, causal, plain=True)
+    out, lse = fa.flash_forward(q, k, v, causal, lens)
+    calls = {
+        "flash_forward": (
+            lambda: fa.flash_forward(q, k, v, causal, lens),
+            lambda: fa.flash_forward_plain(q, k, v, causal, lens)),
+        "flash_bwd_dq": (
+            lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal, lens),
+            lambda: fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal,
+                                          lens)),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, causal,
+                                     lens),
+            lambda: fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
+                                           lens)),
+    }
+    fwd_lib, bwd_lib = _fa_library_ms(x, flush, case)
+    for name, (kernel, plain) in calls.items():
+        r = res[name]
+        r["ms"] = _median_ms(kernel, flush)
+        r["plain_ms"] = _median_ms(plain, flush, reps=10)
+        r["bound_ms"], r["bound_by"] = _fa_bound(name, case)
+        r["library_ms"] = fwd_lib if name == "flash_forward" else bwd_lib
+        print(f"{name} bf16 b·h {case['bh']} s {case['s']} d "
+              f"{case['d']} causal: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
+              f"{'' if name == 'flash_forward' else ' (dq+dk+dv)'}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+              f"{r['ms'] / r['library_ms']:.2f}x the library")
+
+
 def check_flash_attention(fa, flush):
     """K3/K4/K5 against their plain versions on the card for every case
     of FA_CASES: out, dq, dk, dv row by row (FA_TOL of each row's
     max-abs) and on average (FA_MEAN_TOL), lse absolute (FA_LSE_TOL);
-    rows with kv_len 0 must be exact zeros. Times the main-path case
-    (kernel, plain, library) beside the bound and returns its numbers by
-    kernel."""
-    res = {}
+    rows with kv_len 0 must be exact zeros. Times the main paths' cases
+    (bench_gpt's FA_MAIN, bench_gpt1p3b's FA_1P3B: kernel, plain,
+    library) beside the bound and returns their numbers by kernel, the
+    FA_1P3B ones under "shape_1p3b"."""
+    res, timed = {}, {}
     for case in FA_CASES:
         x, lens = _fa_inputs(case)
         fa.reset_launches()
@@ -1548,47 +1638,20 @@ def check_flash_attention(fa, flush):
             + f" (tol {FA_TOL[case['dtype']]:.0e} / "
               f"{FA_MEAN_TOL[case['dtype']]:.0e}; lse "
               f"{FA_LSE_TOL[case['dtype']]:.0e} abs)")
-        if case is FA_MAIN:
-            res = {"flash_forward": dict(max_abs_err=max(errs["out"],
-                                                         errs["lse"])),
-                   "flash_bwd_dq": dict(max_abs_err=errs["dq"]),
-                   "flash_bwd_dkv": dict(max_abs_err=max(errs["dk"],
-                                                         errs["dv"]))}
-            main = (x, lens)
+        if case is FA_MAIN or case is FA_1P3B:
+            timed[id(case)] = {
+                "flash_forward": dict(max_abs_err=max(errs["out"],
+                                                      errs["lse"])),
+                "flash_bwd_dq": dict(max_abs_err=errs["dq"]),
+                "flash_bwd_dkv": dict(max_abs_err=max(errs["dk"],
+                                                      errs["dv"]))}
+            _fa_times(fa, case, x, lens, flush, timed[id(case)])
         del got, ref
-    x, lens = main
-    q, k, v, dout = x
-    causal = FA_MAIN["causal"]
-    _, delta = _fa_run(fa, x, lens, causal, plain=True)
-    out, lse = fa.flash_forward(q, k, v, causal, lens)
-    calls = {
-        "flash_forward": (
-            lambda: fa.flash_forward(q, k, v, causal, lens),
-            lambda: fa.flash_forward_plain(q, k, v, causal, lens)),
-        "flash_bwd_dq": (
-            lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, causal, lens),
-            lambda: fa.flash_bwd_dq_plain(q, k, v, dout, lse, delta, causal,
-                                          lens)),
-        "flash_bwd_dkv": (
-            lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, causal,
-                                     lens),
-            lambda: fa.flash_bwd_dkv_plain(q, k, v, dout, lse, delta, causal,
-                                           lens)),
-    }
-    fwd_lib, bwd_lib = _fa_library_ms(x, flush)
-    for name, (kernel, plain) in calls.items():
-        r = res[name]
-        r["ms"] = _median_ms(kernel, flush)
-        r["plain_ms"] = _median_ms(plain, flush, reps=10)
-        r["bound_ms"], r["bound_by"] = _fa_bound(name, FA_MAIN)
-        r["library_ms"] = fwd_lib if name == "flash_forward" else bwd_lib
-        print(f"{name} bf16 b·h {FA_MAIN['bh']} s {FA_MAIN['s']} d "
-              f"{FA_MAIN['d']} causal: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
-              f"{'' if name == 'flash_forward' else ' (dq+dk+dv)'}, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
-              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
-              f"{r['ms'] / r['library_ms']:.2f}x the library")
+    res = timed[id(FA_MAIN)]
+    for name, r in res.items():
+        r["shape_1p3b"] = dict(timed[id(FA_1P3B)][name],
+                               shape=[FA_1P3B["bh"], FA_1P3B["s"],
+                                      FA_1P3B["d"]])
     return res
 
 
@@ -4341,6 +4404,407 @@ def train_cross_check_bf16(fa):
                              "with the plain versions")
 
 
+# ---- the rest of the training half (8b-8d, 10b) ----
+
+TRAIN_1P3B_WARM, TRAIN_1P3B_STEPS = 2, 5
+
+
+def _adam_state_dtypes(step):
+    """The set of (parameter dtype) and of (Adam moment dtype) over the
+    step's parameters."""
+    states = step.optimizer._states
+    return ({p.dtype for p in step._params},
+            {states[id(p)][k].dtype for p in step._params
+             for k in ("moment1", "moment2")})
+
+
+def train_1p3b(fa, card):
+    """Phase 8b: bench_gpt1p3b on the port. Returns the flash launches of
+    the timed steps by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.profile_train import (
+        BATCH_1P3B, H100_PEAK_BF16, SEQ_1P3B, bench_gpt1p3b_step, device_us,
+        optimizer_device_us, timed_steps)
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, step, ids = bench_gpt1p3b_step()
+    build_s = time.perf_counter() - t0
+    warm, _ = timed_steps(step, ids, TRAIN_1P3B_WARM)
+    fa.reset_launches()
+    losses, wall = timed_steps(step, ids, TRAIN_1P3B_STEPS)
+    launches, tc = dict(fa.launches), dict(fa.tc_launches)
+    L, n = cfg.num_layers, TRAIN_1P3B_STEPS
+    want = {"flash_forward": 2 * L * n, "flash_bwd_dq": L * n,
+            "flash_bwd_dkv": L * n}
+    if launches != want or tc != want:
+        raise AssertionError(f"8b: flash launches {launches}, tensor-core "
+                             f"{tc} in {n} steps; expected {want}, all on "
+                             "the tensor-core route")
+    losses = warm + losses
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8b: losses not finite and falling: {losses}")
+    p_dtypes, m_dtypes = _adam_state_dtypes(step)
+    if p_dtypes != {torch.bfloat16} or m_dtypes != {torch.float32}:
+        raise AssertionError(f"8b: parameters {p_dtypes}, Adam moments "
+                             f"{m_dtypes}; expected bf16 and f32")
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, pwall = timed_steps(step, ids, 1)
+    dev_us = device_us(prof)
+    opt_us = optimizer_device_us(prof)
+    dt = wall / n
+    tokens = BATCH_1P3B * SEQ_1P3B
+    flops = model_flops(cfg, BATCH_1P3B, SEQ_1P3B)
+    print(f"train 1.3B gpt_1p3b b{BATCH_1P3B}·s{SEQ_1P3B} O2 bf16 params, "
+          f"per-layer recompute, fused head, AdamW ({card}): "
+          f"{dt * 1e3:.3f} ms/step, {tokens / dt:.1f} tok/s, MFU "
+          f"{flops / dt / H100_PEAK_BF16:.4f} ({flops / 1e12:.2f} TFLOP a "
+          f"step at 989 TFLOP/s), loss {losses[0]:.4f} → {losses[-1]:.4f} "
+          f"over {len(losses)} steps, peak memory {peak / 2**30:.2f} GiB; "
+          f"profiled step {pwall * 1e3:.3f} ms wall, device "
+          f"{dev_us / 1e3:.3f} ms, optimizer update "
+          + (f"{opt_us / 1e3:.3f} ms = {100 * opt_us / dev_us:.1f}% of "
+             "device time" if opt_us and dev_us else "not measured")
+          + f"; launches {launches} in {n} steps (tensor-core {tc}); model "
+          f"built in {build_s:.1f} s")
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+REMAT_POLICIES = (False, True, "dots_saveable", "everything_saveable")
+REMAT_WARM, REMAT_STEPS = 2, 3
+# the same ops on the same inputs, recomputed: loss and every gradient
+# equal across the policies up to this share of each gradient's max-abs
+REMAT_TOL = 1e-6
+
+
+def remat_phase(fa, card):
+    """Phase 8c: bench_gpt's BENCH_GPT_REMAT policies on the port."""
+    from paddle_tpu_torch.profile_train import bench_gpt_step, timed_steps
+
+    ref = None
+    for policy in REMAT_POLICIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg, step, ids = bench_gpt_step(TRAIN_BATCH, TRAIN_SEQ, remat=policy)
+        (loss,), _ = timed_steps(step, ids, 1)
+        grads = {n: p.grad.detach().float().clone()
+                 for n, p in step.model.named_parameters()}
+        timed_steps(step, ids, REMAT_WARM - 1)
+        fa.reset_launches()
+        _, wall = timed_steps(step, ids, REMAT_STEPS)
+        k3 = fa.launches["flash_forward"] / REMAT_STEPS
+        peak = torch.cuda.max_memory_allocated()
+        if ref is None:
+            ref = (loss, grads)
+            worst, where = 0.0, "-"
+        else:
+            worst, where, _ = _grad_diff(ref[1], grads)
+            if not (abs(loss - ref[0]) <= REMAT_TOL * abs(ref[0])
+                    and worst <= REMAT_TOL):
+                raise AssertionError(
+                    f"8c: remat={policy!r} first step loss {loss} vs "
+                    f"{ref[0]}, worst gradient error {worst:.3e} ({where})")
+        print(f"remat {policy!r} gpt_small b{TRAIN_BATCH}·s{TRAIN_SEQ} bf16 "
+              f"O1 ({card}): {wall / REMAT_STEPS * 1e3:.3f} ms/step, peak "
+              f"memory {peak / 2**30:.2f} GiB, K3 {k3:.0f} launches a step; "
+              f"first loss {loss:.6f}, worst gradient error vs remat False "
+              f"{worst:.3e} of its max-abs ({where}; tol {REMAT_TOL:.0e})")
+        del step, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+AB_STEPS = 30
+
+
+def steptrace_ab(card):
+    """Phase 8d: bench_steptrace_overhead_ab on the port."""
+    from paddle_tpu_torch import observability
+    from paddle_tpu_torch.core.rng import seed
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.observability import steptrace, tracing
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import (GPTConfig, GPTForCausalLM,
+                                                  GPTPretrainingCriterion)
+
+    # full mode's exports (at exit) go to the checkout's telemetry/
+    os.environ.setdefault("PT_TELEMETRY_DIR", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "telemetry"))
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_layers=4,
+                    num_heads=4, max_seq_len=64)
+    batch, seq = 8, 32
+    ids_np = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                               (batch, seq))
+    crit = GPTPretrainingCriterion()
+
+    def run(mode):
+        prev = observability.set_mode(mode)
+        try:
+            steptrace.reset()
+            steptrace.arm_goodput(
+                flops_per_step=model_flops(cfg, batch, seq),
+                tokens_per_step=batch * seq)
+            seed(0)
+            m = GPTForCausalLM(cfg, seed=0)
+            step = TrainStep(m, lambda mm, i: crit(mm(i), i),
+                             AdamW(1e-3, parameters=m.parameters()))
+            ids = torch.as_tensor(ids_np, device=m.device)
+            step(ids)            # new signature: quiet
+            step(ids)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses = [step(ids) for _ in range(AB_STEPS)]
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            recs = steptrace.recent_steps()
+            for rec in recs:
+                dts = sum(e["dt_s"] for e in rec["timeline"])
+                if abs(dts - rec["total_s"]) > 1e-9:
+                    raise AssertionError(
+                        f"8d {mode}: step {rec['step']}'s phases sum to "
+                        f"{dts} s, its wall time is {rec['total_s']} s")
+            if len(recs) != AB_STEPS + 1:
+                raise AssertionError(f"8d {mode}: {len(recs)} traced "
+                                     f"steps; expected {AB_STEPS + 1}")
+            per_phase = {}
+            for rec in recs[1:]:        # the timed steps
+                for e in rec["timeline"][1:]:
+                    per_phase[e["phase"]] = per_phase.get(
+                        e["phase"], 0.0) + e["dt_s"]
+            return ([x.item() for x in losses], total,
+                    {k: round(v / AB_STEPS * 1e3, 4)
+                     for k, v in per_phase.items()})
+        finally:
+            observability.set_mode(prev)
+            steptrace.reset()
+            tracing.reset()
+
+    totals = {"full": [], "metrics": []}
+    ref, summary = None, None
+    for _ in range(2):
+        for mode in ("full", "metrics"):
+            losses, t, ps = run(mode)
+            totals[mode].append(t)
+            summary = ps if mode == "full" else summary
+            if ref is None:
+                ref = losses
+            elif losses != ref:
+                raise AssertionError(f"8d: {mode} losses differ from the "
+                                     f"first run's: {losses} vs {ref}")
+    ratio = min(totals["full"]) / min(totals["metrics"])
+    print(f"steptrace A/B ({card}): {AB_STEPS} steps a run, full "
+          f"{totals['full']} s vs metrics {totals['metrics']} s, best "
+          f"ratio {ratio:.4f} (reference bar 1.05); losses bit-identical "
+          f"across the 4 runs ({ref[0]!r} → {ref[-1]!r}); full mode's "
+          f"mean ms a step by phase {json.dumps(summary)}; process-wide "
+          f"phase_summary() {json.dumps(steptrace.phase_summary())}")
+
+
+def _warm_cosine_lr(epoch):
+    """LinearWarmup(CosineAnnealingDecay(1e-4, 100), 2, 0, 1e-4)'s lr at
+    `epoch`, recomputed in floats: the warm-up line below epoch 2, then
+    the cosine at its own epoch (one behind)."""
+    if epoch < 2:
+        return (1e-4 - 0.0) * (epoch / float(2)) + 0.0
+    return 0 + (1e-4 - 0) * (1 + math.cos(math.pi * (epoch - 1) / 100)) / 2
+
+
+# 10b: the parameters' change over 3 O2 steps, kernel run vs plain run,
+# in L2 of the plain run's change: Adam steps each element by about lr
+# whatever its gradient's size, so an element whose tiny gradient takes
+# the other sign moves the other way; a skipped update gives 1, a
+# flipped one 2
+O2_MOVE_TOL = 0.25
+
+
+def _global_norm(grads):
+    return float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+
+
+def train_cross_check_o2(fa, card):
+    """Phase 10b: the O2 step at gpt_1p3b's width (2 layers) through the
+    kernels vs their plain versions, with a schedule and clipping; then
+    the GradScaler's skip."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.amp import GradScaler
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.profile_train import gpt1p3b_model, o2_loss
+
+    cfg, kern = gpt1p3b_model(layers=2, model_seed=10)
+    _, plain = gpt1p3b_model(layers=2, model_seed=0)
+    plain.load_state_dict(kern.state_dict())
+    start = {n: p.detach().clone() for n, p in kern.named_parameters()}
+    ids = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (1, 2048)), device=kern.device)
+    names = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = {n: getattr(fa, n) for n in names}
+    cast_inputs_for = amp.cast_inputs_for
+    sums = []
+
+    def spy(op, tensors):
+        # the f32 loss sum, before O2's divide rounds it to bf16
+        if op == "divide":
+            sums.append(float(tensors[0].detach()))
+        return cast_inputs_for(op, tensors)
+
+    runs = []
+    for model, swap in ((kern, False), (plain, True)):
+        sched = lr.LinearWarmup(lr.CosineAnnealingDecay(1e-4, 100), 2, 0,
+                                1e-4)
+        opt = AdamW(sched, parameters=model.parameters(),
+                    grad_clip=ClipGradByGlobalNorm(1.0))
+        step = TrainStep(model, o2_loss, opt)
+        fa.reset_launches()
+        losses, lrs = [], []
+        sums.clear()
+        amp.cast_inputs_for = spy
+        try:
+            if swap:
+                for n in names:
+                    setattr(fa, n, getattr(fa, n + "_plain"))
+            for i in range(3):
+                lrs.append(opt.get_lr())
+                losses.append(float(step(ids)))
+                sched.step()
+                if i == 0:
+                    # step 1's raw gradients, its clip, and its update at
+                    # the warm-up's lr 0 (which leaves every parameter)
+                    pairs = [(p, p.grad) for p in step._params]
+                    grads = {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+                    norm = _global_norm(g for _, g in pairs)
+                    clipped = _global_norm(
+                        g for _, g in opt._grad_clip(pairs))
+                    # and a clip that must bite, at 0.3 of the norm
+                    bitten = _global_norm(g for _, g in ClipGradByGlobalNorm(
+                        0.3 * norm)(pairs)) / (0.3 * norm)
+                    kept = all(torch.equal(p, start[n]) for n, p in
+                               model.named_parameters())
+            torch.cuda.synchronize()
+        finally:
+            amp.cast_inputs_for = cast_inputs_for
+            for n in names:
+                setattr(fa, n, kernels[n])
+        moved = {n: (p.detach().float() - start[n].float())
+                 for n, p in model.named_parameters()}
+        runs.append(dict(loss=losses, lr=lrs, sum=list(sums), grads=grads,
+                         norm=norm, clipped=clipped, bitten=bitten,
+                         kept=kept, moved=moved,
+                         launches=dict(fa.launches),
+                         tc=dict(fa.tc_launches), opt=opt))
+    k, pl = runs
+    lk, lp, rk, nk, tk, opt = (k["loss"], pl["loss"], k["lr"], k["launches"],
+                               k["tc"], k["opt"])
+    want_lr = [_warm_cosine_lr(e) for e in range(3)]
+    L = cfg.num_layers
+    want = {"flash_forward": 2 * L * 3, "flash_bwd_dq": L * 3,
+            "flash_bwd_dkv": L * 3}
+    if not (nk == want and tk == want
+            and set(pl["launches"].values()) == {0}):
+        raise AssertionError(f"10b: kernel run launched {nk} (tensor-core "
+                             f"{tk}), plain run {pl['launches']}; expected "
+                             f"{want}")
+    if not (rk == pl["lr"] == want_lr):
+        raise AssertionError(f"10b: lr sequences {rk} / {pl['lr']}, "
+                             f"recomputed {want_lr}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(lk, lp)]
+    if not (all(np.isfinite(lk)) and max(rel) <= BF16_LOSS_TOL):
+        raise AssertionError(f"10b: losses {lk} vs plain {lp} (relative "
+                             f"{rel}; tol {BF16_LOSS_TOL:.0e})")
+    sum_rel = [abs(a - b) / abs(b) for a, b in zip(k["sum"], pl["sum"])]
+    if not (len(sum_rel) == 3 and all(np.isfinite(k["sum"]))
+            and max(sum_rel) <= BF16_LOSS_TOL):
+        raise AssertionError(f"10b: f32 loss sums {k['sum']} vs plain "
+                             f"{pl['sum']} (relative {sum_rel}; tol "
+                             f"{BF16_LOSS_TOL:.0e})")
+    worst, where, median = _grad_diff(pl["grads"], k["grads"])
+    if not (worst <= BF16_GRAD_TOL and median <= BF16_GRAD_MEDIAN_TOL):
+        raise AssertionError(f"10b: step 1's gradients, kernels vs plain: "
+                             f"worst {worst:.3e} ({where}), median "
+                             f"{median:.3e} of their max-abs")
+    norm_rel = abs(k["norm"] - pl["norm"]) / pl["norm"]
+    clip_rel = [abs(r[c] - w) / w for r in runs for c, w in
+                (("clipped", min(r["norm"], 1.0)), ("bitten", 1.0))]
+    if not (norm_rel <= BF16_GRAD_MEDIAN_TOL and max(clip_rel) <= 1e-3
+            and k["kept"] and pl["kept"]):
+        raise AssertionError(
+            f"10b: step 1's global norms {k['norm']} / {pl['norm']}, "
+            f"after the clip {k['clipped']} / {pl['clipped']}, a clip at "
+            f"0.3 of the norm off by {clip_rel[1]} / {clip_rel[3]}; parameters "
+            f"left by the lr-0 update: {k['kept']} / {pl['kept']}")
+    dk = torch.cat([k["moved"][n].view(-1) for n in pl["moved"]])
+    dp = torch.cat([pl["moved"][n].view(-1) for n in pl["moved"]])
+    move_rel = float((dk - dp).norm() / dp.norm())
+    if not (float(dp.norm()) > 0 and move_rel <= O2_MOVE_TOL):
+        raise AssertionError(f"10b: the parameters' change over 3 steps, "
+                             f"kernels vs plain, off by {move_rel:.3e} in "
+                             f"L2 of the plain run's (tol {O2_MOVE_TOL})")
+    # two overflowing GradScaler steps on the kernel model
+    scaler = GradScaler(init_loss_scaling=1e38)
+    params = [p for p in kern.parameters()]
+    before = [p.detach().clone() for p in params]
+    natural = []
+    for _ in range(2):
+        opt.clear_grad()
+        scaled = scaler.scale(o2_loss(kern, ids))
+        scaled.backward()
+        overflow = not all(bool(torch.isfinite(p.grad).all())
+                           for p in params)
+        natural.append(overflow)
+        if not overflow:
+            # bf16 keeps f32's exponent range: the 1e38 scale overflows the
+            # scaled loss (inf) but the backward is seeded with the scale
+            # itself and stays finite; plant the overflow an overflowing
+            # backward leaves
+            with torch.no_grad():
+                params[0].grad.view(-1)[0] = float("inf")
+        scaler.step(opt)
+        scaler.update()
+    same = all(torch.equal(p, b) for p, b in zip(params, before))
+    if not (same and scaler._scale == 1e38 * 0.5
+            and scaler._bad_steps == 0
+            and not torch.isfinite(scaled.detach())):
+        raise AssertionError(f"10b: GradScaler at 1e38 — parameters "
+                             f"byte-equal {same}, scale {scaler._scale}, "
+                             f"bad steps {scaler._bad_steps}")
+    print(f"train cross-check O2 gpt_1p3b width, 2 layers, b1·s2048, "
+          f"recompute, AdamW(LinearWarmup(CosineAnnealingDecay)) + "
+          f"ClipGradByGlobalNorm(1.0), kernels vs plain versions on the "
+          f"card ({card}): losses {lk} vs {lp} (relative {rel}; tol "
+          f"{BF16_LOSS_TOL:.0e}), lr {rk} equal to the recomputation; "
+          f"f32 loss sums before the O2 divide {k['sum']} vs {pl['sum']} "
+          f"(relative {sum_rel}); step 1's bf16 gradients: worst "
+          f"{worst:.3e} of their max-abs ({where}; tol "
+          f"{BF16_GRAD_TOL:.0e}), median {median:.3e} (tol "
+          f"{BF16_GRAD_MEDIAN_TOL:.0e}); global norm {k['norm']:.6f} vs "
+          f"{pl['norm']:.6f}, after ClipGradByGlobalNorm(1.0) "
+          f"{k['clipped']:.6f} vs {pl['clipped']:.6f}, at 0.3 of the "
+          f"norm off by {max(clip_rel):.2e} (tol 1e-3); lr-0 step left "
+          f"every parameter; parameters' change over 3 steps off by "
+          f"{move_rel:.3e} in L2 (tol {O2_MOVE_TOL}; L2 of the change "
+          f"{float(dp.norm()):.4f}); "
+          f"kernel run launches {nk}, tensor-core {tk}. GradScaler at 1e38: "
+          f"scaled loss {float(scaled.detach())}, two steps skipped "
+          f"(parameters byte-equal), scale → {scaler._scale:.3e}; backward overflowed "
+          f"by itself: {natural}")
+    del kern, plain, runs, opt, k, pl, dk, dp, start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -4415,8 +4879,16 @@ def main(argv=None):
     cross_check()
     cx_launches = cross_quant_spec(pa)
     fa_launches = train(fa)
+    t_train = time.perf_counter()
+    fa_1p3b = train_1p3b(fa, card)
+    remat_phase(fa, card)
+    steptrace_ab(card)
+    print(f"train phases 8b-8d: {time.perf_counter() - t_train:.1f} s")
     train_cross_check()
     train_cross_check_bf16(fa)
+    t_o2 = time.perf_counter()
+    train_cross_check_o2(fa, card)
+    print(f"train cross-check O2 (10b): {time.perf_counter() - t_o2:.1f} s")
     # each kernel's launches come from the main-path run that drives it:
     # K1 on the bf16, int8 and int4 pools the fused phase's greedy
     # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'
@@ -4511,8 +4983,12 @@ def main(argv=None):
                        else {}))
             kernels.append(row)
     for name, r in fres.items():
-        kernels.append(_kernel_row(name, "cuda", fa.SOURCE,
-                                   fa.REPLACES[name], fa_launches[name], r))
+        row = _kernel_row(name, "cuda", fa.SOURCE, fa.REPLACES[name],
+                          fa_launches[name], r)
+        # 8b: bench_gpt1p3b's launches, and the times at its shape
+        row["train_1p3b_launches"] = fa_1p3b[name]
+        row["shape_1p3b"] = r["shape_1p3b"]
+        kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

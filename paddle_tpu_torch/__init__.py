@@ -16,12 +16,15 @@ Ported so far: continuous-batching GPT serving — `text.models.gpt`,
 (`inference.fleet_serving`: prefix cache, KV wire and tier, replicas,
 router) and the ragged paged attention kernel — dense generation
 (`GPTForCausalLM.generate`), the batch server (`inference.serving`),
-beam search (`nn.decode`), and the GPT training step: `jit.TrainStep`,
-`optimizer.AdamW`, bf16 `amp.auto_cast` at O1, the losses, recompute and
+beam search (`nn.decode`), and the GPT training step: `jit.TrainStep`
+with its phase trace (`observability.steptrace`), the optimizers and LR
+schedules (`optimizer`, `regularizer`, `nn.clip`), bf16 `amp` at O1 and
+O2 with `GradScaler`, the losses, recompute with the named policies and
 the flash attention forward and backward kernels. ROADMAP.md lists what
 is still to port.
 """
 from .core.place import resolve_device  # noqa: F401
 from .core.rng import seed  # noqa: F401
+from .regularizer import L1Decay, L2Decay  # noqa: F401
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "L1Decay", "L2Decay"]

@@ -11,12 +11,16 @@ same way, code for code. It never aliases the caller's arrays
 in-place update on either side would leak into the other).
 `export_state_dict(model)` goes the other way: `{name: np.ndarray}`
 copies of the port model's parameters and buffers, so the two packages'
-weights can be compared after training.
+weights can be compared after training. `load_jax_optimizer_state`
+carries a reference optimizer's `state_dict()` (accumulators keyed by
+the reference's parameter names) onto the port's optimizer, so a run
+can resume in the port where a reference run stopped.
 """
 import numpy as np
 import torch
 
-__all__ = ["load_jax_state_dict", "export_state_dict"]
+__all__ = ["load_jax_state_dict", "export_state_dict",
+           "load_jax_optimizer_state"]
 
 
 def _state(model):
@@ -51,3 +55,37 @@ def export_state_dict(model):
             t = t.float()
         out[name] = t.numpy().copy()
     return out
+
+
+def load_jax_optimizer_state(optimizer, model, arrays, names):
+    """Load a reference `Optimizer.state_dict()` exported as `{key:
+    np.ndarray}` (plus its `"@step"` int and `"LR_Scheduler"` dict) into
+    the port's `optimizer` over `model`'s parameters.
+
+    The reference keys accumulators `f"{p.name}_{acc}"` by its own
+    parameter names. `names` gives them: a list in the order of the
+    model's `state_dict()` keys (`[p.name for p in
+    jax_model.state_dict().values()]`), or a dict {state_dict key:
+    reference name}. Each is mapped to the port parameter under the
+    same state_dict key and the optimizer's name for it."""
+    keys = list(model.state_dict().keys())
+    if not isinstance(names, dict):
+        names = list(names)
+        if len(names) != len(keys):
+            raise ValueError(f"{len(names)} names for {len(keys)} "
+                             "state_dict entries")
+        names = dict(zip(keys, names))
+    params = dict(model.named_parameters())
+    own = {id(p): n for n, p in optimizer._params}
+    out = {k: arrays[k] for k in ("@step", "LR_Scheduler") if k in arrays}
+    for key, ref_name in names.items():
+        p = params.get(key)
+        if p is None or id(p) not in own:
+            continue
+        prefix = f"{ref_name}_"
+        for k, v in arrays.items():
+            if k.startswith(prefix) and k[len(prefix):] in \
+                    optimizer._state_for(p):
+                out[f"{own[id(p)]}_{k[len(prefix):]}"] = v
+    optimizer.set_state_dict(out)
+    return optimizer

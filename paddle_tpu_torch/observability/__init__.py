@@ -1,7 +1,8 @@
 """Observability (counterpart of paddle_tpu/observability): the port's
 own metrics registry (`metrics`), span tracer (`tracing`), request
 traces (`reqtrace`), failure flight recorder (`flight_recorder`) and
-the train-step FLOPs accountant (`steptrace`). The telemetry mode comes
+the training goodput plane (`steptrace`: phase traces of each
+`TrainStep`, MFU / goodput gauges, the recompile sentinel). The telemetry mode comes
 from ``PT_TELEMETRY`` (0 off, unset metrics, 1 full), as in the
 reference; in full mode the process writes
 ``metrics.rank<r>.{prom,json}`` and ``trace.rank<r>.jsonl`` to

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import amp
 from ... import nn as pnn
 from ...core import prng
 from ...core import rng as _rng
@@ -52,7 +53,7 @@ class GPTConfig:
     def __init__(self, vocab_size=50304, hidden_size=768, num_layers=12,
                  num_heads=12, ffn_size=None, max_seq_len=1024,
                  dropout=0.0, tie_embeddings=True, recompute=False):
-        checkpoint_policy(recompute)    # named jax policies raise
+        checkpoint_policy(recompute)    # an unknown policy raises
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -61,7 +62,8 @@ class GPTConfig:
         self.max_seq_len = max_seq_len
         self.dropout = dropout
         self.tie_embeddings = tie_embeddings
-        # per-layer activation recompute: False | True (keep nothing)
+        # per-layer activation recompute: False | True (keep nothing) |
+        # a policy name ('dots_saveable', ...) or a torch SAC policy
         self.recompute = recompute
 
 
@@ -83,6 +85,13 @@ def gpt_medium(**kw):
 def gpt_1p3b(**kw):
     return GPTConfig(vocab_size=50304, hidden_size=2048, num_layers=24,
                      num_heads=32, max_seq_len=2048, **kw)
+
+
+def _add(a, b):
+    """a + b, cast as the reference's `add` op is under AMP (O2: to
+    bfloat16)."""
+    a, b = amp.cast_inputs_for("add", (a, b))
+    return a + b
 
 
 class GPTDecoderLayer(nn.Module):
@@ -110,8 +119,9 @@ class GPTDecoderLayer(nn.Module):
         q, k, v = split_fused_qkv(self.qkv(self.ln1(x)), b, s, self.nh,
                                   self.hd)
         attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-        x = x + self.dropout(self.proj(attn.reshape(b, s, self.nh * self.hd)))
-        return x + self.dropout(self.fc2(F.gelu(self.fc1(self.ln2(x)))))
+        x = _add(x, self.dropout(self.proj(attn.reshape(
+            b, s, self.nh * self.hd))))
+        return _add(x, self.dropout(self.fc2(F.gelu(self.fc1(self.ln2(x))))))
 
 
 class GPTModel(nn.Module):
@@ -133,9 +143,10 @@ class GPTModel(nn.Module):
     def forward(self, input_ids):
         s = input_ids.shape[1]
         pos = torch.arange(s, device=input_ids.device)
-        x = self.drop(self.wte(input_ids) + self.wpe(pos))
+        x = self.drop(_add(self.wte(input_ids), self.wpe(pos)))
+        rc = self.config.recompute
         for layer in self.layers:
-            x = recompute(layer, x) if self.config.recompute else layer(x)
+            x = recompute(layer, x, policy=rc) if rc else layer(x)
         return self.ln_f(x)
 
 
@@ -461,7 +472,7 @@ class GPTForCausalLM(nn.Module):
         if labels is None:
             labels = input_ids
         x = self.gpt(input_ids)
-        shift_x = x[:, :-1]
+        (shift_x,) = amp.cast_inputs_for("slice", (x[:, :-1],))
         shift_labels = labels[:, 1:]
         total = shift_labels.shape[0] * shift_labels.shape[1]
         if self.lm_head is not None:
@@ -473,6 +484,8 @@ class GPTForCausalLM(nn.Module):
                 shift_x, self.gpt.wte.weight, shift_labels,
                 transpose_weight=True, reduction="sum",
                 block_size=block_size)
+        # O2 rounds the loss to bfloat16 here, as the reference's divide
+        (s,) = amp.cast_inputs_for("divide", (s,))
         return s / float(total)
 
     # ---- dense generation over a static KV cache ----

@@ -347,8 +347,16 @@ def test_train_step_remat_and_donation():
     for p, q in zip(tm.parameters(), ref.parameters()):
         torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
     assert torch.equal(held, before)          # not donated: left as it was
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        TrainStep(tm, loss_fn, a.optimizer, remat="dots_saveable")
+    # a named policy runs: dots_saveable keeps the matmul outputs and
+    # recomputes the rest, and the step equals the others
+    c = GPTForCausalLM(gpt_tiny(), device="cpu", seed=6)
+    lc = TrainStep(c, loss_fn, AdamW(1e-3, parameters=c.parameters()),
+                   remat="dots_saveable")(ids)
+    torch.testing.assert_close(lc, lb, rtol=1e-6, atol=0)
+    for p, q in zip(c.parameters(), ref.parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-7)
+    with pytest.raises(ValueError, match="unknown checkpoint policy"):
+        TrainStep(tm, loss_fn, a.optimizer, remat="dots")
 
 
 # ------------------------------------------------------------------ losses
@@ -482,10 +490,25 @@ def test_adamw_apply_decay_param_fun_takes_state_dict_names():
 
 
 def test_optimizer_unported_options_raise():
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer.lr import StepDecay
+
     p = [torch.zeros(2, requires_grad=True)]
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        AdamW(1e-3, parameters=p, grad_clip=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+    # grad_clip and an LRScheduler are taken (held to the reference in
+    # tests/test_torch_optimizer.py); lr_ratio is taken and ignored, as
+    # the reference ignores it
+    p[0].grad = torch.full((2,), 10.0)
+    opt = AdamW(StepDecay(0.1, step_size=1, gamma=0.5), parameters=p,
+                grad_clip=ClipGradByGlobalNorm(1e-3), lr_ratio=0.5)
+    assert opt.get_lr() == 0.1
+    opt._learning_rate.step()
+    assert opt.get_lr() == 0.05
+    with pytest.raises(RuntimeError, match="LRScheduler"):
+        opt.set_lr(0.2)
+    opt.step()
+    assert torch.isfinite(p[0]).all() and not torch.equal(
+        p[0], torch.zeros(2))
+    with pytest.raises(TypeError, match="LRScheduler"):
         AdamW(lambda: 1e-3, parameters=p)
     for kw in (dict(multi_precision=True), dict(lazy_mode=True),
                dict(name="opt")):     # not taken: never silently ignored
@@ -507,11 +530,19 @@ def test_amp_lists_and_cast_points_match_reference():
     with tamp.auto_cast(custom_black_list={"linear"}):
         assert TF.linear(x, torch.ones(3, 4)).dtype == torch.float32
     assert not tamp.state().enabled
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        with tamp.auto_cast(level="O2"):
+    # O2: every op but the black list goes down to bfloat16 (held op by
+    # op against the reference in tests/test_torch_amp_o2.py)
+    with tamp.auto_cast(level="O2"):
+        assert TF.gelu(x).dtype == torch.bfloat16
+        assert TF.layer_norm(x.bfloat16(), (3,)).dtype == torch.float32
+    assert tamp.state().level == "O1"
+    lin = torch.nn.Linear(3, 4)
+    lin.register_buffer("scale", torch.ones(2))
+    assert tamp.decorate(lin) is lin
+    assert lin.weight.dtype == lin.scale.dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="unknown AMP level"):
+        with tamp.auto_cast(level="O3"):
             pass
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        tamp.decorate(None)
 
 
 def test_model_flops_matches_reference():
