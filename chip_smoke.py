@@ -228,6 +228,27 @@ continues:
               prefill + decode router); `fleet_capture` (a window captured
               while another replica's thread steps: replay vs eager
               byte-equal).
+5l. disagg  — prefill -> decode across two processes on the one card
+              (`disagg_phase`): the port's launcher (`python -m
+              paddle_tpu_torch.distributed.launch --nproc_per_node=2`)
+              runs paddle_tpu_torch/profile_disagg.py at gpt_small (bf16
+              weights from seed 1234), bf16 and int8 pools, 8 slots,
+              page 16, budget 256, the serve phase's 8 prompt lengths
+              and 32 new tokens, greedy, under the reference chaos test's
+              plan (a sock.send error at rank 0's call 1, a 0.2 s
+              sock.recv stall at rank 1's call 0). Rank 0 prefills every
+              prompt at once on a prefill-only engine and streams each
+              payload over the xproc socket transport; rank 1 serves the
+              prompts on a local engine, then imports the streamed pages
+              into a decode engine as they arrive. Gates: the launcher
+              exits 0 (a dying rank fails it); per pool, rank 1's tokens
+              equal its local engine's, pages imported = sent > 0, trace
+              ids equal in order, each stamped kv_transfer; rank 0 resent
+              (send_retries >= 1) and journaled the injection; K1 in both
+              ranks (and rank 1's local engine), all on the tensor-core
+              route. Prints MB a request, each rank's legs, socket MB/s,
+              disaggregated vs local TTFT, rank 1's decode tok/s, each
+              rank's peak memory and the phase's seconds.
 5i. tier    — the KV tier and chat sessions on bench.py:2237's
               `bench_kv_tier_ab` traffic (`profile_serve.kv_tier_side`: 8
               sessions x 4 turns, each prompt the previous turn's output
@@ -350,7 +371,8 @@ and its propose graph replays' share, and on the bf16 pool 5g's mixed
 fused burst's (K1) and n-gram burst's (K2) as
 "structured_burst_launches", and 5i's tier-on session burst (bf16)
 and spill -> prefetch round trips (int8, int4) as
-"tier_burst_launches"; the GEMM's decode route: 5f's decode_k 4
+"tier_burst_launches", and 5l's per-rank counts (bf16, int8 pools) as
+"disagg_launches"; the GEMM's decode route: 5f's decode_k 4
 burst, its wide route: 5f's k=1 burst, each route's count in both
 bursts as "burst_launches"; K3-K5 also phase 8b's launches as
 "train_1p3b_launches" and their times at its shape as "shape_1p3b");
@@ -2997,6 +3019,194 @@ def fleet_phase(pa, model, card):
                 capture=fleet_capture(model, card))
 
 
+# ---- disaggregated prefill -> decode, two processes on the card (5l) ----
+
+DISAGG_KV = ("bfloat16", "int8")
+DISAGG_TIMEOUT_S = 240
+# the reference's 2-process chaos test's shape (tests/test_fleet_router.py)
+DISAGG_PLAN = {"seed": 77, "injectors": [
+    {"scope": "sock.send", "kind": "error", "at": [1], "ranks": [0]},
+    {"scope": "sock.recv", "kind": "delay", "at": [0], "delay_s": 0.2,
+     "ranks": [1]}]}
+DISAGG_KEY = {"bfloat16": "rpa", "int8": "rpa_int8"}
+
+
+def launch_disagg(out_dir, model="gpt_small", device="cuda",
+                  timeout=DISAGG_TIMEOUT_S):
+    """`python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2
+    paddle_tpu_torch/profile_disagg.py` under DISAGG_PLAN, from the
+    checkout's root; the launcher runs in a session of its own, and a
+    timeout SIGTERMs it (it kills its pod) and then SIGKILLs the rest.
+    Returns (rank 0's json, rank 1's json, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node=2", f"--log_dir={out_dir}/log",
+           os.path.join("paddle_tpu_torch", "profile_disagg.py"),
+           "--model", model, "--device", device,
+           "--kv", ",".join(DISAGG_KV), "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root,
+               PT_CHAOS_PLAN=json.dumps(DISAGG_PLAN))
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 15)
+        try:
+            out, _ = p.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            out, _ = p.communicate()
+        raise AssertionError(f"5l: the launch ran past {timeout} s:\n"
+                             f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        log1 = os.path.join(out_dir, "log", "default.rank1.log")
+        tail = open(log1).read()[-4000:] if os.path.exists(log1) else ""
+        raise AssertionError(f"5l: the launcher exited {p.returncode}:\n"
+                             f"{out[-4000:]}\n--- rank 1 ---\n{tail}")
+    outs = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"disagg_out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs[0], outs[1], seconds
+
+
+def disagg_gates(r0, r1, out_dir):
+    """5l's gates on the ranks' outputs, the K1 counts aside (see
+    `disagg_k1`): per pool, rank 1's tokens equal its local engine's,
+    every page sent is imported, trace ids equal in order and each
+    stamped `kv_transfer`; rank 0 resent at least once (the injected
+    sock.send fault) and journaled the injection."""
+    for kv in DISAGG_KV:
+        p0, p1 = r0["pools"][kv], r1["pools"][kv]
+        bad = [(r["prompt"], r["first_diff"]) for r in p1["received"]
+               if not r["equal"]]
+        if bad:
+            raise AssertionError(
+                f"5l {kv}: the disaggregated tokens differ from the local "
+                f"engine's at (prompt, first different token) {bad}")
+        if not p1["kv_pages_imported"] == p0["sent_pages"] > 0:
+            raise AssertionError(
+                f"5l {kv}: {p0['sent_pages']} pages sent, "
+                f"{p1['kv_pages_imported']} imported")
+        ids = p0["trace_ids"]
+        if (p1["recv_trace_ids"] != ids or len(set(ids)) != len(ids)
+                or not all(r["transfer_stamped"] for r in p1["received"])):
+            raise AssertionError(f"5l {kv}: trace ids sent {ids}, "
+                                 f"received {p1['recv_trace_ids']}")
+    if r0["send_retries"] < 1:
+        raise AssertionError("5l: the injected sock.send fault was not "
+                             "absorbed by a resend (send_retries 0)")
+    with open(os.path.join(out_dir, "log", "anomalies.rank0.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    if not any(e["kind"] == "chaos_injected" and e["scope"] == "sock.send"
+               for e in events):
+        raise AssertionError("5l: rank 0's journal holds no sock.send "
+                             "injection")
+
+
+def disagg_k1(r0, r1):
+    """K1 launched in both ranks on every pool, all on its tensor-core
+    route (a bf16 q), and no other paged kernel. Returns {pool:
+    {"rank0": n, "rank1": n}} (rank 1: its decode engine's round)."""
+    out = {}
+    for kv in DISAGG_KV:
+        key = DISAGG_KEY[kv]
+        counts = {}
+        for name, c in (("rank0", r0["pools"][kv]),
+                        ("rank1", r1["pools"][kv]),
+                        ("rank1 local", r1["pools"][kv]["local"])):
+            n = c["launches"][key]
+            others = {k: v for k, v in c["launches"].items()
+                      if v and k != key}
+            if not n or c["tc_launches"] != c["launches"] or others:
+                raise AssertionError(
+                    f"5l {kv}: {name} launched {c['launches']} (tensor-"
+                    f"core route {c['tc_launches']}); expected K1 "
+                    f"'{key}' only, all on the tensor-core route")
+            counts[name] = n
+        out[kv] = {"rank0": counts["rank0"], "rank1": counts["rank1"]}
+    return out
+
+
+def _med(xs):
+    return float(np.median(np.asarray(xs, dtype=np.float64)))
+
+
+def disagg_report(r0, r1, card, seconds):
+    """Print 5l's numbers, per pool kind, beside the card."""
+    for kv in DISAGG_KV:
+        p0, p1 = r0["pools"][kv], r1["pools"][kv]
+        sent = {r["trace_id"]: r for r in p0["streamed"]}
+        mb, wire_mb, wire_s, socket_mbs, legs = [], 0.0, 0.0, [], []
+        for r in p1["received"]:
+            s0 = sent[r["trace_id"]]
+            f_mb = s0["frame_bytes"] / 1e6
+            # send start (rank 0) -> frame unpacked (rank 1), wall clocks
+            # of one host; less the pack and unpack: the socket's share
+            total_ms = (r["t_arrived"] - s0["t_send0"]) * 1e3
+            wire_ms = total_ms - s0["pack_ms"] - r["unpack_ms"]
+            mb.append(f_mb)
+            legs.append(total_ms)
+            if wire_ms > 0:
+                socket_mbs.append(f_mb / (wire_ms / 1e3))
+                wire_mb += f_mb
+                wire_s += wire_ms / 1e3
+        ttft = [r["ttft_ms"] for r in p1["received"]]
+        lttft = p1["local"]["ttft_ms"]
+        faults = (" (the plan's injected faults land in this round: the "
+                  "0.2 s recv stall and one resend)"
+                  if kv == DISAGG_KV[0] else "")
+        print(f"disagg {kv} ({card}): {r0['model']}, {len(mb)} requests "
+              f"(prompts {r0['prompt_lens']}, {r0['new_tokens']} new "
+              f"tokens, greedy), {p0['sent_pages']} pages streamed rank 0 "
+              f"-> rank 1; MB a request median {_med(mb):.3f} (min "
+              f"{min(mb):.3f}, max {max(mb):.3f}); rank 0 medians: gather "
+              f"{_med([s['gather_ms'] for s in p0['streamed']]):.3f} ms, "
+              f"pack {_med([s['pack_ms'] for s in p0['streamed']]):.3f} ms, "
+              f"pack + send {_med([s['send_ms'] for s in p0['streamed']]):.3f}"
+              f" ms; send start -> unpacked on rank 1 "
+              f"{_med(legs):.3f} ms (max {max(legs):.3f}); rank 1 medians: "
+              f"unpack {_med([r['unpack_ms'] for r in p1['received']]):.3f}"
+              f" ms, unpacked -> imported "
+              f"{_med([r['import_ms'] for r in p1['received']]):.3f} ms; "
+              f"socket {wire_mb / wire_s if wire_s else float('nan'):.1f} "
+              f"MB/s over all frames (median of requests "
+              f"{_med(socket_mbs) if socket_mbs else float('nan'):.1f}); "
+              f"TTFT disaggregated (queued on rank 0 -> first token on "
+              f"rank 1) median {_med(ttft):.1f} ms max {max(ttft):.1f} ms, "
+              f"local engine median {_med(lttft):.1f} ms max "
+              f"{max(lttft):.1f} ms; rank 1 decode "
+              f"{p1['decode_tok_s']:.1f} tok/s, local engine "
+              f"{p1['local']['tok_s']:.1f} tok/s (prefill included); "
+              f"peak MB rank 0 {p0['peak_mb']:.1f}, rank 1 decode "
+              f"{p1['peak_mb']:.1f}, rank 1 local {p1['local']['peak_mb']:.1f};"
+              f" tokens equal the local engine's, pages imported "
+              f"{p1['kv_pages_imported']} = sent{faults}")
+    print(f"disagg phase ({card}): launcher to exit {seconds:.1f} s, "
+          f"rank 0 {r0['seconds']:.1f} s and rank 1 {r1['seconds']:.1f} s "
+          f"of pool rounds; send_retries {r0['send_retries']}")
+
+
+def disagg_phase(card):
+    """5l: prefill on rank 0 -> KV pages over the socket -> decode on
+    rank 1, two processes on the one card (module docstring)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="disagg_") as d:
+        r0, r1, seconds = launch_disagg(d)
+        disagg_gates(r0, r1, d)
+        k1 = disagg_k1(r0, r1)
+        disagg_report(r0, r1, card, seconds)
+    print(f"disagg K1 launches ({card}): {k1} (rank 1 local engine: "
+          + ", ".join(f"{kv} {r1['pools'][kv]['local']['launches'][DISAGG_KEY[kv]]}"
+                      for kv in DISAGG_KV) + ")")
+    return k1
+
+
 # ---- the KV tier and chat sessions (5i) ----
 
 TIER_ROUND_TRIP_LEN = 48      # 3 trie blocks of 16
@@ -4863,6 +5073,9 @@ def main(argv=None):
     t_fleet = time.perf_counter()
     fleet = fleet_phase(pa, model, card)
     print(f"fleet phase: {time.perf_counter() - t_fleet:.1f} s")
+    t_disagg = time.perf_counter()
+    disagg = disagg_phase(card)
+    print(f"disagg phase (5l): {time.perf_counter() - t_disagg:.1f} s")
     t_tier = time.perf_counter()
     tier = tier_phase(pa, model, card)
     print(f"tier phase: {time.perf_counter() - t_tier:.1f} s")
@@ -4938,6 +5151,9 @@ def main(argv=None):
         "constrained"]["launches"]["qblock"]
     # 5h: K1 (bf16 pool) across the 2-replica router burst
     kernels[0]["fleet_burst_launches"] = fleet["router"]["burst_launches"]
+    # 5l: K1 in each rank of the disaggregated run (bf16, int8 pools)
+    kernels[0]["disagg_launches"] = disagg["bfloat16"]
+    kernels[2]["disagg_launches"] = disagg["int8"]
     # 5i: K1 in the tier-on session burst (bf16 pool) and in the spill ->
     # prefetch round trips (int8, int4 pools)
     for i, kv in ((0, "bfloat16"), (2, "int8"), (3, "int4")):

@@ -1,10 +1,14 @@
 """Deterministic, seeded fault injection (counterpart of
 paddle_tpu/distributed/chaos.py, the port's own copy: the same plan
 format, the same seeded schedule, so a plan written for the reference
-fires at the same call indices here). The port wires the
-``replica.kill`` scopes (inference/fleet_serving/replica.py); the
-transport, checkpoint and train-step scopes below belong to the
-reference's subsystems that ROADMAP A11 ports.
+fires at the same call indices here). The port wires the transport
+scopes (``kv.*``, ``sock.*``: distributed/xproc.py), the train-step
+scopes (``step``, ``step.nan``: resilience.StepGuard and
+DivergenceSentinel) and the ``replica.kill`` scopes
+(inference/fleet_serving/replica.py); the checkpoint scopes belong to
+the Checkpointer, which ROADMAP A11(b) ports. Every injection is
+journaled as ``chaos_injected`` in the per-rank anomaly journal
+(distributed/resilience.py).
 
 A :class:`FaultPlan` of scoped injectors is activated by the
 ``PT_CHAOS_PLAN`` environment variable (a JSON object) or
@@ -23,7 +27,8 @@ Design rules:
   executing, so a crash injector that killed the pod does not re-kill
   the restarted pod at the same call index forever.
 
-Scopes of the reference's stack (the port fires ``replica.kill``):
+Scopes of the reference's stack (the port fires all but ``ckpt.*`` and
+``step.dispatch``):
 
 ==================  =====================================================
 scope               injection point
@@ -271,12 +276,15 @@ class FaultPlan:
         return self._execute(chosen, scope, n)
 
     def _journal(self, inj, n):
-        # the reference journals into its anomaly journal; the port has
-        # none, so the injection lands in the flight recorder's ring
-        from ..observability import flight_recorder
+        # the anomaly journal mirrors the event into the flight
+        # recorder's ring; journaling must never break the injection
+        try:
+            from . import resilience
 
-        flight_recorder.record_event("chaos_injected", scope=inj.scope,
-                                     fault=inj.kind, call=n)
+            resilience.record("chaos_injected", scope=inj.scope,
+                              fault=inj.kind, call=n)
+        except Exception:
+            pass
 
     def _execute(self, inj, scope, n):
         if inj.kind == "delay":

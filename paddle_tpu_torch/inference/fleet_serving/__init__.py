@@ -17,7 +17,8 @@
   autoscale, failover, hot-prefix migration, the overload tick.
 
 The cross-process stream (`send_kv_payload` / `recv_kv_payload`,
-`stream_prefill` / `recv_and_decode`) is ROADMAP A11 and raises.
+`stream_prefill` / `recv_and_decode`) rides the xproc p2p socket
+transport between ranks that `distributed.launch` started.
 """
 from .kv_tier import KVTierStore, prefix_key  # noqa: F401
 from .kv_transfer import (KVPagePayload, pack_kv_payload,  # noqa: F401

@@ -22,9 +22,10 @@ a ``uint16`` carrier with ``"bfloat16"`` in the frame's ``pool_dtypes``
 the same bytes).
 
 The cross-process stream (`send_kv_payload` / `recv_kv_payload`) rides
-the reference's xproc transport, which the port does not have yet: both
-raise (ROADMAP A11). In one process the router hands the payload object
-from replica to replica.
+the xproc p2p socket transport (distributed/xproc.py): the frame goes
+byte for byte, resent whole on a dropped connection, under the
+``sock.*`` chaos scopes. In one process the router hands the payload
+object from replica to replica.
 
 Engine surface: `LLMEngine.export_kv_pages(req)` cuts a payload,
 `LLMEngine.import_kv_pages(payload, ...)` admits it at its frontier
@@ -161,12 +162,35 @@ def unpack_kv_payload(raw):
 
 
 def send_kv_payload(payload, dst, tag=KV_STREAM_TAG, timeout_ms=600_000):
-    raise NotImplementedError(
-        "send_kv_payload streams over the xproc transport, which is not "
-        "ported yet: ROADMAP A11")
+    """Stream one payload to rank `dst` over the xproc p2p transport.
+    Byte-for-byte: the frame is already pool-quantized, so it must NOT
+    ride the int8 float re-encoder (`send_bytes`, not `send_np`) —
+    re-quantizing quantized codes would corrupt them. The payload's
+    trace rides the frame header AND the `xproc.send` span (ambient),
+    so the transfer leg shows under the request's trace_id on both
+    sides of the merged timeline."""
+    from ...distributed import xproc
+    from ...observability import reqtrace, tracing
+
+    ctx = (reqtrace.TraceContext.from_dict(payload.trace)
+           if payload.trace else None)
+    with tracing.ambient_trace(ctx):
+        xproc.send_bytes(pack_kv_payload(payload), dst, tag=tag,
+                         timeout_ms=timeout_ms)
 
 
 def recv_kv_payload(src, tag=KV_STREAM_TAG, timeout_ms=600_000):
-    raise NotImplementedError(
-        "recv_kv_payload streams over the xproc transport, which is not "
-        "ported yet: ROADMAP A11")
+    """Receive one payload from rank `src`; a payload with a trace gets
+    the transfer's end stamped on it (``kv_transfer``) on this rank —
+    wall clocks align the cross-process chain."""
+    from ...distributed import xproc
+    from ...observability import reqtrace
+
+    payload = unpack_kv_payload(xproc.recv_bytes(src, tag=tag,
+                                                 timeout_ms=timeout_ms))
+    if payload.trace:
+        ctx = reqtrace.TraceContext.from_dict(payload.trace)
+        ctx.stamp("kv_transfer")
+        payload.trace = ctx.to_dict()
+        payload.trace_ctx = ctx
+    return payload

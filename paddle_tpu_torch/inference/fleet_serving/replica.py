@@ -26,10 +26,18 @@ shared) and under the engine's device gate (a graph capture of one
 replica pauses the others at a step boundary; inference/llm_engine.py).
 `fork_model` gives each replica its own copy of the weights.
 
-The cross-process halves of the hand-off (`stream_prefill` /
-`recv_and_decode`) ride the reference's xproc transport and the
-registry's heartbeat-file mirror (`hb_dir`) its elastic membership:
-both wait for ROADMAP A11 and raise.
+* **Membership files.** Given a directory, the registry mirrors beats
+  into the launcher's `hb_<rank>` file protocol
+  (`distributed.fleet.elastic.touch_heartbeat` / `remove_heartbeat`),
+  so an `ElasticManager` pointed at the same directory observes the
+  serving fleet exactly as it observes a training pod.
+
+* **Cross-process streams.** `stream_prefill` / `recv_and_decode` are
+  the xproc-transport halves of the disaggregated hand-off: finished KV
+  pages ride `kv_transfer.send_kv_payload` over the p2p socket path —
+  RetryPolicy reconnect / resend and the `sock.send` / `sock.recv`
+  chaos scopes included. Each rank has its own CUDA context; two ranks
+  may share one card (paddle_tpu_torch/profile_disagg.py).
 """
 import copy
 import itertools
@@ -75,19 +83,14 @@ def fork_model(model):
 
 
 class ReplicaRegistry:
-    """Heartbeat membership for a replica fleet, held in-process (the
-    reference's optional heartbeat-file mirror, `hb_dir`, is ROADMAP
-    A11)."""
+    """Heartbeat membership for a replica fleet (elastic-style: the
+    registry IS the `hb_<rank>` view, held in-process with an optional
+    file mirror for cross-process observers)."""
 
     def __init__(self, hb_dir=None, timeout_s=2.0):
-        if hb_dir is not None:
-            raise NotImplementedError(
-                "ReplicaRegistry(hb_dir=...) mirrors heartbeats into the "
-                "elastic membership files, which is not ported yet: "
-                "ROADMAP A11")
         self._lock = threading.Lock()
         self._members = {}   # name -> {"replica", "rid", "beat"}
-        self.hb_dir = None
+        self.hb_dir = hb_dir
         self.timeout_s = float(timeout_s)
 
     def register(self, replica):
@@ -95,18 +98,32 @@ class ReplicaRegistry:
             self._members[replica.name] = {
                 "replica": replica, "rid": replica.rid,
                 "beat": time.monotonic()}
+        self._mirror(replica.rid)
         self._publish()
 
     def deregister(self, name):
         with self._lock:
-            self._members.pop(name, None)
+            entry = self._members.pop(name, None)
+        if entry is not None and self.hb_dir:
+            from ...distributed.fleet.elastic import remove_heartbeat
+
+            remove_heartbeat(self.hb_dir, entry["rid"])
         self._publish()
 
     def beat(self, name):
         with self._lock:
             entry = self._members.get(name)
-            if entry is not None:
-                entry["beat"] = time.monotonic()
+            if entry is None:
+                return
+            entry["beat"] = time.monotonic()
+            rid = entry["rid"]
+        self._mirror(rid)
+
+    def _mirror(self, rid):
+        if self.hb_dir:
+            from ...distributed.fleet.elastic import touch_heartbeat
+
+            touch_heartbeat(self.hb_dir, rid)
 
     def ages(self):
         """name -> seconds since the last beat (scrape-safe snapshot)."""
@@ -374,16 +391,29 @@ class LocalReplica:
         self._drop_gauges()
 
 
-# ---- cross-process disaggregation (xproc transport: ROADMAP A11) ----
+# ---- cross-process disaggregation (xproc transport) ----
 
 def stream_prefill(replica, prompt, dst, tag=None, timeout_ms=600_000,
                    **kw):
-    raise NotImplementedError(
-        "stream_prefill streams KV pages over the xproc transport, which "
-        "is not ported yet: ROADMAP A11")
+    """Prefill `prompt` on `replica` and stream the finished KV pages
+    to rank `dst` over the p2p socket path (kv_transfer module
+    docstring: byte-for-byte, RetryPolicy + chaos-injectable). Returns
+    the payload's page count."""
+    from .kv_transfer import KV_STREAM_TAG, send_kv_payload
+
+    payload = replica.submit_prefill(prompt, **kw).result()
+    send_kv_payload(payload, dst,
+                    tag=KV_STREAM_TAG if tag is None else tag,
+                    timeout_ms=timeout_ms)
+    return payload.num_pages
 
 
 def recv_and_decode(replica, src, tag=None, timeout_ms=600_000, **kw):
-    raise NotImplementedError(
-        "recv_and_decode receives KV pages over the xproc transport, "
-        "which is not ported yet: ROADMAP A11")
+    """Receive one streamed payload from rank `src` and admit it on
+    `replica` at its frontier. Returns the decode future."""
+    from .kv_transfer import KV_STREAM_TAG, recv_kv_payload
+
+    payload = recv_kv_payload(src,
+                              tag=KV_STREAM_TAG if tag is None else tag,
+                              timeout_ms=timeout_ms)
+    return replica.submit_imported(payload, **kw)

@@ -3,7 +3,9 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into
 `paddle_tpu_torch/_build/<name>-<hash>.so`, keyed by a hash of the
 source, the shared headers (`csrc/*.cuh`) and the flags, at first use,
-and loaded with `ctypes`. The sources
+and loaded with `ctypes`; its `-Xptxas -v` output is
+`<name>-<hash>.log` (a failed build leaves `<name>-<hash>.<pid>.log`,
+the failing process's own). The sources
 include no PyTorch header, so a build takes seconds. `build(names)`
 starts one `nvcc` per source, all together, and waits for them.
 
@@ -69,8 +71,10 @@ def build(names):
             build_seconds.setdefault(name, 0.0)
             continue
         nvcc = nvcc or _nvcc()
+        # per process, as the .tmp is: ranks of one launch that build at
+        # once must not interleave one log
         tmp = f"{so}.{os.getpid()}.tmp"
-        log = open(so[:-3] + ".log", "w")
+        log = open(f"{so[:-3]}.{os.getpid()}.log", "w")
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, src], stdout=log,
             stderr=subprocess.STDOUT), tmp, so, log, time.perf_counter())
@@ -83,6 +87,7 @@ def build(names):
             failed.append(f"{name} (nvcc exit {rc}, log {log.name})")
             continue
         os.replace(tmp, so)   # atomic: a reader never sees half a library
+        os.replace(log.name, so[:-3] + ".log")   # the library's build log
     if failed:
         raise RuntimeError("CUDA kernel build failed: " + ", ".join(failed))
     return paths

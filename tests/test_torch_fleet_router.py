@@ -16,6 +16,7 @@ and brownout caps; the router's parking bound, cancellation, deadline
 admission, breaker and hedging. Waits are polls of at most a second.
 """
 import json
+import os
 import time
 import urllib.request
 
@@ -139,7 +140,7 @@ def test_fork_model_copies_weights_privately(model):
         assert a.device == b.device and bool((a == b).all()), n
 
 
-def test_replica_registry_heartbeats(model):
+def test_replica_registry_heartbeats(model, tmp_path, monkeypatch):
     reg = ReplicaRegistry(timeout_s=0.5)
     rep = LocalReplica(fork_model(model), name="r0", registry=reg,
                        config=_ecfg())
@@ -152,8 +153,43 @@ def test_replica_registry_heartbeats(model):
     finally:
         reg.deregister("r0")
     assert "r0" not in reg.live()
-    with pytest.raises(NotImplementedError, match="A11"):
-        ReplicaRegistry(hb_dir="/nonexistent")
+    # the heartbeat-file mirror: hb_<rid> files created, refreshed and
+    # removed as the reference's registry does, over the same sequence
+    from types import SimpleNamespace
+
+    from paddle_tpu.inference.fleet_serving import replica as jrep
+    from paddle_tpu_torch.distributed.fleet import elastic as tel
+
+    views = {}
+    for mod, name in ((jrep, "reference"), (None, "port")):
+        d = tmp_path / name
+        regs = (mod.ReplicaRegistry if mod else ReplicaRegistry)(
+            hb_dir=str(d), timeout_s=5.0)
+        a = SimpleNamespace(name="a", rid=3, running=True)
+        b = SimpleNamespace(name="b", rid=5, running=True)
+        seen = []
+        regs.register(a)
+        regs.register(b)
+        seen.append(sorted(os.listdir(d)))
+        before = os.path.getmtime(d / "hb_3")
+        time.sleep(0.02)
+        regs.beat("a")
+        seen.append(os.path.getmtime(d / "hb_3") >= before)
+        regs.deregister("b")
+        seen.append(sorted(os.listdir(d)))
+        regs.deregister("b")             # idempotent
+        regs.deregister("a")
+        seen.append(sorted(os.listdir(d)))
+        views[name] = seen
+    assert views["port"] == views["reference"] == [
+        ["hb_3", "hb_5"], True, ["hb_3"], []]
+    # an ElasticManager over a live registry's directory sees its members
+    reg2 = ReplicaRegistry(hb_dir=str(tmp_path / "live"))
+    reg2.register(SimpleNamespace(name="m", rid=7, running=True))
+    monkeypatch.setenv("PADDLE_HEARTBEAT_DIR", str(tmp_path / "live"))
+    monkeypatch.delenv("PADDLE_ELASTIC_MASTER", raising=False)
+    assert [r for r, _ in tel.ElasticManager().peers()] == [7]
+    reg2.deregister("m")
 
 
 def test_replica_submit_surface_matches_engine(model, tmp_path):

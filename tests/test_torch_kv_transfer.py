@@ -9,7 +9,8 @@ bf16 pool as the port's uint16 words, the reference's ml_dtypes array).
 The port's `_check_import` raises the reference's messages. Plus the
 single-token prompt, a preempted import replaying deterministically,
 the prefill tier publishing its prefix blocks, `export_prefix`, the
-in-place pool write, and the cross-process stream raising (ROADMAP A11).
+in-place pool write, and the cross-process stream raising without a
+multi-process runtime.
 Mirrors the KV-wire cases of tests/test_fleet_router.py.
 """
 import ml_dtypes
@@ -434,13 +435,35 @@ def test_trace_rides_the_payload(pair):
     assert {"kv_import", "first_token"} <= set(req.trace.phases)
 
 
-def test_cross_process_stream_raises_naming_a11():
-    for call in (lambda: tkv.send_kv_payload(None, 1),
-                 lambda: tkv.recv_kv_payload(0),
-                 lambda: trep.stream_prefill(None, [1], 1),
-                 lambda: trep.recv_and_decode(None, 0)):
-        with pytest.raises(NotImplementedError, match="A11"):
+def test_cross_process_stream_needs_the_multiprocess_runtime(pair,
+                                                            monkeypatch):
+    """Without an initialized process group the four stream calls raise
+    the reference's RuntimeError (its `_kv_client` message), binding
+    nothing; run_with_fault_tolerance, which waits for the Checkpointer,
+    still raises naming A11. The stream itself runs between two launched
+    processes in tests/test_torch_disagg.py."""
+    from concurrent.futures import Future
+    from types import SimpleNamespace
+
+    from paddle_tpu_torch.distributed import xproc as txp
+    from paddle_tpu_torch.distributed.fleet import elastic as tel
+
+    jm, tm = pair
+    payload = _prefill(teng, tm, _prompt(5, 20))
+    done = Future()
+    done.set_result(payload)
+    replica = SimpleNamespace(submit_prefill=lambda prompt, **kw: done)
+    monkeypatch.setattr(txp, "_transport", None)
+    for call in (lambda: tkv.send_kv_payload(payload, 1),
+                 lambda: tkv.recv_kv_payload(0, timeout_ms=10),
+                 lambda: trep.stream_prefill(replica, [1], 1),
+                 lambda: trep.recv_and_decode(replica, 0, timeout_ms=10)):
+        with pytest.raises(RuntimeError, match="^p2p send/recv needs the "
+                           "multi-process runtime: start workers via "):
             call()
+    assert txp._transport is None
+    with pytest.raises(NotImplementedError, match="A11"):
+        tel.run_with_fault_tolerance(lambda start: start, None)
 
 
 def test_gather_is_one_copy_of_exact_pages(pair):

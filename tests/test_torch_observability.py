@@ -364,7 +364,10 @@ def test_chaos_plan_fires_as_the_reference(modes):
             assert outs[0] == outs[1]
     assert tplan.injected == jplan.injected
     assert isinstance(tchaos.InjectedFault("s", 1), OSError)
-    evs = tfr.recorder().events("chaos_injected")
+    # as in the reference, an injection is an anomaly-journal event,
+    # which the journal mirrors into the flight recorder's ring
+    evs = [e["entry"] for e in tfr.recorder().events("journal")
+           if e["entry"]["kind"] == "chaos_injected"]
     assert evs and evs[-1]["scope"].startswith("replica.kill")
 
 
@@ -509,7 +512,8 @@ def test_journal_ring_file_and_flight_mirror(tmp_path, monkeypatch,
                                              modes):
     """`resilience.record` appends to the in-memory ring and to
     anomalies.rank<r>.jsonl, counts `pt_journal_events_total{kind}` and
-    mirrors the event into the flight recorder; the A11 pieces raise."""
+    mirrors the event into the flight recorder; the retry policy, the
+    guards and the preemption handler construct and behave."""
     from paddle_tpu_torch.distributed import resilience as tres
 
     monkeypatch.setenv("PT_ANOMALY_DIR", str(tmp_path))
@@ -524,9 +528,29 @@ def test_journal_ring_file_and_flight_mirror(tmp_path, monkeypatch,
         assert any(ev.get("entry", {}).get("kind") == "probe"
                    for ev in tfr.recorder().events("journal"))
         assert tres.recent_failures() == 0
-        for name in ("RetryPolicy", "StepGuard", "DivergenceSentinel",
-                     "PreemptionHandler", "install_preemption_handler"):
-            with pytest.raises(NotImplementedError, match="A11"):
-                getattr(tres, name)()
+        calls = []
+
+        def flaky():
+            calls.append(1)
+            if len(calls) == 1:
+                raise OSError("transient")
+            return "ok"
+
+        pol = tres.RetryPolicy(max_attempts=2, base_s=0.0, name="probe")
+        assert pol.run(flaky) == "ok" and tres.recent_failures() == 1
+        assert not tres.StepGuard().check(torch.tensor(float("nan")))
+        with pytest.raises(tres.DivergenceRollback):
+            tres.DivergenceSentinel().check(float("inf"), step=0)
+        for make in (tres.PreemptionHandler,
+                     tres.install_preemption_handler):
+            h = make()
+            try:
+                assert not h.triggered() and h.drain(step=1)
+            finally:
+                h.restore()
+        kinds = [json.loads(x)["kind"] for x in (
+            tmp_path / "anomalies.rank0.jsonl").read_text().splitlines()]
+        assert kinds == ["probe", "retry", "nan_step", "rollback",
+                         "preempt_drain", "preempt_drain"]
     finally:
         tres.reset()
