@@ -329,6 +329,28 @@ continues:
               step's phases sum to its wall time. Prints the full /
               metrics ratio of the best runs (the reference's bar: 1.05)
               and `phase_summary()`.
+8e. distributed — checkpointed, fault-tolerant data-parallel training
+              at bench_gpt's geometry (gpt_small b16·s1024, bf16 O1,
+              AdamW(1e-4), `profile_dist.build`): (a) `DistributedTrainStep`
+              at world 1, ZeRO os_g, 3 warm-up + 10 timed steps: the losses
+              bit-equal to phase 8's `TrainStep` run, K3-K5 12 x 10 each on
+              the tensor-core route; ms/step, tok/s, MFU beside phase 8's.
+              (b) `run_with_fault_tolerance` around 6 steps with an async
+              `Checkpointer` save every 3 and a chaos fault (scope "step")
+              at step 5: it restores step 3 and ends with the final loss and
+              every parameter and Adam moment byte-equal to an
+              uninterrupted run; a shard of the newest checkpoint truncated,
+              `load_latest` falls back to step 3; prints the checkpoint's
+              bytes, each save's step-path stall and its commit's seconds
+              off the path, and the load's. (c) two processes sharing the
+              card under the launcher (`profile_dist.py`, mesh sharding 2,
+              ZeRO os_g, 8 of the 16 rows a rank, gradients over gloo
+              through the host) for 3 steps: each rank's losses within
+              1e-3 relative of (a)'s first 3, K3-K5 12 x 3 a rank, each
+              rank's shards in one checkpoint with DONE.0 and DONE.1, and
+              a world-1 load of it taking the next step within 1e-3 of
+              (a)'s; prints s/step, the all-reduce's bytes and seconds and
+              each rank's peak memory.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
@@ -375,7 +397,9 @@ and spill -> prefetch round trips (int8, int4) as
 "disagg_launches"; the GEMM's decode route: 5f's decode_k 4
 burst, its wide route: 5f's k=1 burst, each route's count in both
 bursts as "burst_launches"; K3-K5 also phase 8b's launches as
-"train_1p3b_launches" and their times at its shape as "shape_1p3b");
+"train_1p3b_launches" and their times at its shape as "shape_1p3b",
+and phase 8e's launches at world 1 and in each rank of dp 2 as
+"dist_launches");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
@@ -4495,7 +4519,8 @@ def train(fa):
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
           f"{launches} = {cfg.num_layers} x {TRAIN_STEPS} each, tensor-core "
           f"route {tc_launches}")
-    return launches
+    del step
+    return launches, losses, dt * 1e3
 
 
 def train_cross_check():
@@ -5015,6 +5040,327 @@ def train_cross_check_o2(fa, card):
     torch.cuda.empty_cache()
 
 
+# ---- checkpointed, fault-tolerant data-parallel training (8e) ----
+
+DIST_WARM, DIST_STEPS = 3, 10
+# 8e (b): a save every CKPT_EVERY steps, a fault at step CKPT_FAULT_AT,
+# CKPT_STEPS in all
+CKPT_EVERY, CKPT_FAULT_AT, CKPT_STEPS = 3, 5, 6
+DIST_RANKS, DIST_DP2_STEPS = 2, 3
+DIST_TIMEOUT_S = 300
+# 8e (c): two ranks on half batches vs one rank on the whole batch, bf16
+# O1: each rank's backward reduces its 8 rows in another order than the
+# whole batch's, the two gradients are averaged after, and Adam's
+# per-element normalization magnifies differences in small gradient
+# elements into steps of up to lr — the losses of the next steps differ
+# by far less than this
+DIST_LOSS_RTOL = 1e-3
+
+
+def _dist_step(device="cuda", model="gpt_small", zero="os_g"):
+    from paddle_tpu_torch.profile_dist import build
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    return build(model, torch.device(device), zero)
+
+
+def _flash_gate(fa, want, label, counted=True):
+    launches, tc = dict(fa.launches), dict(fa.tc_launches)
+    if counted and (set(launches.values()) != {want}
+                    or set(tc.values()) != {want}):
+        raise AssertionError(f"{label}: flash launches {launches}, tensor-"
+                             f"core {tc}; expected {want} of each, all on "
+                             "the tensor-core route")
+    return launches
+
+
+def dist_world1(fa, card, ref_losses, ref_ms, device="cuda",
+                model="gpt_small", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                counted=True):
+    """8e (a): DistributedTrainStep at world 1, ZeRO os_g, bench_gpt's
+    geometry: its losses against phase 8's TrainStep run (same seed and
+    batch), K3-K5 12 x steps. Returns (all losses, launches)."""
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.profile_dist import global_batch
+    from paddle_tpu_torch.profile_train import H100_PEAK_BF16, timed_steps
+
+    cfg, step = _dist_step(device, model)
+    ids = global_batch(cfg, batch, seq).to(device)
+    warm, _ = timed_steps(step, ids, DIST_WARM)
+    fa.reset_launches()
+    losses, wall = timed_steps(step, ids, DIST_STEPS)
+    launches = _flash_gate(fa, cfg.num_layers * DIST_STEPS, "8e (a)",
+                           counted)
+    losses = warm + losses
+    if losses != list(ref_losses):
+        diff = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        raise AssertionError(f"8e (a): DistributedTrainStep losses {losses} "
+                             f"differ from TrainStep's {list(ref_losses)} "
+                             f"(worst relative {diff:.3e}); expected "
+                             "bit-equal")
+    dt = wall / DIST_STEPS
+    mfu = model_flops(cfg, batch, seq) / dt / H100_PEAK_BF16
+    print(f"8e (a) DistributedTrainStep world 1, ZeRO os_g, {model} "
+          f"b{batch}·s{seq} AdamW ({card}): {dt * 1e3:.3f} ms/step "
+          f"(phase 8's TrainStep {ref_ms:.3f}: {dt * 1e3 / ref_ms:.4f}x), "
+          f"{batch * seq / dt:.1f} tok/s, MFU {mfu:.4f} (989 TFLOP/s); "
+          f"{len(losses)} losses bit-equal to TrainStep's ({losses[0]:.6f}"
+          f" → {losses[-1]:.6f}); launches {launches} = "
+          f"{cfg.num_layers} x {DIST_STEPS}, all tensor-core")
+    del step
+    return losses, launches
+
+
+def _ckpt_run(step, ids, root, plan=None):
+    """CKPT_STEPS steps under run_with_fault_tolerance, an async save
+    every CKPT_EVERY steps; returns (losses by step, starts, saves)."""
+    from paddle_tpu_torch.distributed import chaos
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.distributed.fleet.elastic import (
+        run_with_fault_tolerance)
+
+    ck = Checkpointer(root, model=step.model, train_step=step,
+                      async_save=True, keep=3)
+    losses, starts, saves = {}, [], []
+
+    def train_fn(start):
+        starts.append(start)
+        for s in range(start, CKPT_STEPS):
+            chaos.fire("step")
+            losses[s] = float(step(ids))
+            if (s + 1) % CKPT_EVERY == 0:
+                ck.save(s + 1)
+                saves.append(ck.last_stats)
+        ck.wait()
+        return CKPT_STEPS
+
+    if plan is not None:
+        chaos.install(plan)
+    try:
+        run_with_fault_tolerance(train_fn, ck)
+    finally:
+        chaos.clear()
+    return losses, starts, saves, ck
+
+
+def _state_equal(a, b):
+    """Every parameter and every Adam accumulator of two steps' models
+    byte-equal: the names that differ."""
+    pa, pb = dict(a.model.named_parameters()), dict(b.model.named_parameters())
+    bad = [n for n in pa if not torch.equal(pa[n], pb[n])]
+    sa, sb = a.optimizer._states, b.optimizer._states
+    for n in pa:
+        for k, v in sa[id(pa[n])].items():
+            if not torch.equal(v, sb[id(pb[n])][k]):
+                bad.append(f"{n}/{k}")
+    return bad
+
+
+def ckpt_phase(card, device="cuda", model="gpt_small", batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ):
+    """8e (b): run_with_fault_tolerance around bench_gpt's step with an
+    async save every 3 steps and an injected fault at step 5: it restores
+    step 3 and ends bit-equal to an uninterrupted 6-step run; a torn
+    checkpoint is skipped by load_latest."""
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.profile_dist import global_batch
+
+    plan = {"injectors": [{"scope": "step", "kind": "error",
+                           "at": [CKPT_FAULT_AT]}]}
+    with tempfile.TemporaryDirectory(prefix="ckpt_") as d:
+        cfg, ft = _dist_step(device, model)
+        ids = global_batch(cfg, batch, seq).to(device)
+        t0 = time.perf_counter()
+        ft_losses, starts, saves, ck = _ckpt_run(ft, ids, d + "/ft", plan)
+        ft_s = time.perf_counter() - t0
+        if starts != [0, CKPT_EVERY]:
+            raise AssertionError(f"8e (b): the run started at {starts}; "
+                                 f"expected [0, {CKPT_EVERY}] (a restore "
+                                 f"of step {CKPT_EVERY})")
+        _, ref = _dist_step(device, model)
+        ref_losses, _, _, _ = _ckpt_run(ref, ids, d + "/ref")
+        bad = _state_equal(ft, ref)
+        if ft_losses != ref_losses or bad:
+            raise AssertionError(f"8e (b): the resumed run's losses "
+                                 f"{ft_losses} vs {ref_losses}; tensors "
+                                 f"not byte-equal: {bad[:8]}")
+        # the torn fallback: truncate one shard of the newest checkpoint
+        newest = ck._dir(CKPT_STEPS)
+        with open(os.path.join(newest, "meta.json")) as f:
+            meta = json.load(f)
+        nbytes = sum(meta["integrity"]["shards"].values())
+        shard = os.path.join(newest, "shards",
+                             meta["leaves"][0]["shards"][0]["file"])
+        with open(shard, "r+b") as f:
+            f.truncate(os.path.getsize(shard) - 8)
+        got = Checkpointer(d + "/ft", model=ft.model,
+                           train_step=ft).load_latest()
+        if got != CKPT_EVERY:
+            raise AssertionError(f"8e (b): load_latest past a torn "
+                                 f"checkpoint gave {got}; expected "
+                                 f"{CKPT_EVERY}")
+        t0 = time.perf_counter()
+        Checkpointer(d + "/ref", model=ref.model, train_step=ref).load(
+            CKPT_STEPS)
+        load_s = time.perf_counter() - t0
+    stats = [(s["stall_s"], s["committer"].seconds, s["committer"].bytes)
+             for s in saves]
+    print(f"8e (b) checkpoint + fault tolerance, {model} b{batch}·s{seq} "
+          f"AdamW ({card}): fault at step {CKPT_FAULT_AT} → "
+          f"restored step {CKPT_EVERY}, finished {CKPT_STEPS} steps in "
+          f"{ft_s:.2f} s; final loss {ft_losses[CKPT_STEPS - 1]:.6f} and "
+          f"every parameter and moment byte-equal to the uninterrupted "
+          f"run; checkpoint {nbytes} bytes ({nbytes / 1e9:.4f} GB); saves "
+          + "; ".join(f"step-path stall {st * 1e3:.1f} ms "
+                      f"({b / st / 1e9:.2f} GB/s), commit {c:.3f} s off the "
+                      f"path ({b / c / 1e9:.3f} GB/s)"
+                      for st, c, b in stats)
+          + f"; load of {CKPT_STEPS} {load_s:.3f} s "
+          f"({nbytes / load_s / 1e9:.3f} GB/s); a truncated shard in "
+          f"step {CKPT_STEPS}'s checkpoint: load_latest fell back to "
+          f"{got}")
+    del ft, ref
+    return {"bytes": nbytes, "saves": stats, "load_s": load_s}
+
+
+def launch_dist(out_dir, model="gpt_small", device="cuda", batch=TRAIN_BATCH,
+                seq=TRAIN_SEQ, timeout=DIST_TIMEOUT_S):
+    """`python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2
+    paddle_tpu_torch/profile_dist.py` at ZeRO os_g over a sharding axis
+    of 2, saving a checkpoint; returns (the ranks' json, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           f"--nproc_per_node={DIST_RANKS}", f"--log_dir={out_dir}/log",
+           os.path.join("paddle_tpu_torch", "profile_dist.py"),
+           "--model", model, "--device", device, "--sharding",
+           str(DIST_RANKS), "--zero", "os_g", "--steps",
+           str(DIST_DP2_STEPS), "--batch", str(batch), "--seq", str(seq),
+           "--ckpt", os.path.join(out_dir, "ck"), "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PT_CHAOS_PLAN", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 15)
+        try:
+            out, _ = p.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            out, _ = p.communicate()
+        raise AssertionError(f"8e (c): the launch ran past {timeout} s:\n"
+                             f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        log1 = os.path.join(out_dir, "log", "default.rank1.log")
+        tail = open(log1).read()[-4000:] if os.path.exists(log1) else ""
+        raise AssertionError(f"8e (c): the launcher exited {p.returncode}:"
+                             f"\n{out[-4000:]}\n--- rank 1 ---\n{tail}")
+    outs = []
+    for r in range(DIST_RANKS):
+        with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, seconds
+
+
+def _rel(a, b):
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def dist_dp2(card, world1_losses, device="cuda", model="gpt_small",
+             batch=TRAIN_BATCH, seq=TRAIN_SEQ, counted=True):
+    """8e (c): two processes sharing the card at ZeRO os_g (sharding axis
+    2, 8 rows a rank), gradients through gloo on the host; then a world-1
+    process (this one) loads their checkpoint and takes the next step.
+    Returns each rank's flash launches."""
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.profile_dist import global_batch
+
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    n = DIST_DP2_STEPS
+    with tempfile.TemporaryDirectory(prefix="dist_") as d:
+        outs, seconds = launch_dist(d, model, device, batch, seq)
+        for r, o in enumerate(outs):
+            rel = _rel(o["losses"], world1_losses[:n])
+            if rel > DIST_LOSS_RTOL:
+                raise AssertionError(f"8e (c): rank {r}'s losses "
+                                     f"{o['losses']} vs world 1's "
+                                     f"{world1_losses[:n]} (relative "
+                                     f"{rel:.3e} > {DIST_LOSS_RTOL})")
+            if counted:
+                from paddle_tpu_torch.profile_dist import MODELS
+
+                L = MODELS[model][0]().num_layers
+                want = {k: L * n for k in o["launches"]}
+                if o["launches"] != want or o["tc_launches"] != want:
+                    raise AssertionError(f"8e (c): rank {r} launched "
+                                         f"{o['launches']} (tensor-core "
+                                         f"{o['tc_launches']}); expected "
+                                         f"{want}")
+            if not o["ckpt_files"]:
+                raise AssertionError(f"8e (c): rank {r} wrote no shard "
+                                     "into the checkpoint")
+        ck_dir = os.path.join(d, "ck", f"ckpt-{n:08d}")
+        markers = sorted(f for f in os.listdir(ck_dir)
+                         if f.startswith("DONE."))
+        if markers != [f"DONE.{r}" for r in range(DIST_RANKS)]:
+            raise AssertionError(f"8e (c): commit markers {markers}")
+        cfg, step = _dist_step(device, model)
+        got = Checkpointer(os.path.join(d, "ck"), model=step.model,
+                           train_step=step).load_latest()
+        ids = global_batch(cfg, batch, seq).to(device)
+        nxt = float(step(ids))
+        rel_next = abs(nxt - world1_losses[n]) / abs(world1_losses[n])
+        if got != n or rel_next > DIST_LOSS_RTOL:
+            raise AssertionError(f"8e (c): world 1 loaded step {got} and "
+                                 f"took loss {nxt} vs the uninterrupted "
+                                 f"{world1_losses[n]} (relative "
+                                 f"{rel_next:.3e})")
+        del step
+    o0, o1 = outs
+    rels = [_rel(o["losses"], world1_losses[:n]) for o in outs]
+    print(f"8e (c) dp 2 on one card (two processes, mesh sharding 2, ZeRO "
+          f"os_g, {batch // DIST_RANKS} rows a rank, gradients over gloo "
+          f"through the host; {card}): launcher to exit {seconds:.1f} s; "
+          + "; ".join(
+              f"rank {o['rank']}: s/step {[round(s, 4) for s in o['step_seconds']]}"
+              f", all-reduce {o['comm'][-1]['bytes']} bytes in "
+              f"{o['comm'][-1]['seconds']:.3f} s "
+              f"({o['comm'][-1]['bytes'] / o['comm'][-1]['seconds'] / 1e9:.3f}"
+              f" GB/s; step's gradient exchange {o['comm'][-1]['step_comm_s']:.3f}"
+              f" s; parameter blocks' all-gather "
+              f"{o['comm'][-1].get('gather_s', 0.0):.3f} s), peak "
+              + (f"{o['peak_mb']:.0f} MB" if o["peak_mb"] is not None
+                 else "not measured")
+              + f", losses {o['losses']} "
+              f"(relative to world 1 {rel:.2e}), launches {o['launches']}, "
+              f"checkpoint save {o['ckpt_seconds']:.2f} s, "
+              f"{len(o['ckpt_files'])} shard files"
+              for o, rel in zip(outs, rels))
+          + f"; DONE.0 and DONE.1 present; world 1 loaded step {n} and "
+          f"took loss {nxt:.6f} vs the uninterrupted {world1_losses[n]:.6f}"
+          f" (relative {rel_next:.2e}; tol {DIST_LOSS_RTOL:.0e})")
+    return {f"rank{o['rank']}": o["launches"] for o in (o0, o1)}
+
+
+def dist_phase(fa, card, train_losses, train_ms):
+    """8e: (a), (b), (c) in turn; returns the flash launches of (a) and
+    of each rank of (c)."""
+    t0 = time.perf_counter()
+    losses, launches = dist_world1(fa, card, train_losses, train_ms)
+    ckpt = ckpt_phase(card)
+    ranks = dist_dp2(card, losses)
+    print(f"8e phase: {time.perf_counter() - t0:.1f} s")
+    return {"world1": launches, **ranks, "ckpt": ckpt}
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -5091,12 +5437,13 @@ def main(argv=None):
     structured = structured_phase(pa, card)
     cross_check()
     cx_launches = cross_quant_spec(pa)
-    fa_launches = train(fa)
+    fa_launches, train_losses, train_ms = train(fa)
     t_train = time.perf_counter()
     fa_1p3b = train_1p3b(fa, card)
     remat_phase(fa, card)
     steptrace_ab(card)
     print(f"train phases 8b-8d: {time.perf_counter() - t_train:.1f} s")
+    dist = dist_phase(fa, card, train_losses, train_ms)
     train_cross_check()
     train_cross_check_bf16(fa)
     t_o2 = time.perf_counter()
@@ -5204,6 +5551,10 @@ def main(argv=None):
         # 8b: bench_gpt1p3b's launches, and the times at its shape
         row["train_1p3b_launches"] = fa_1p3b[name]
         row["shape_1p3b"] = r["shape_1p3b"]
+        # 8e: DistributedTrainStep at world 1, and each rank of dp 2
+        row["dist_launches"] = {"world1": dist["world1"][name],
+                                "dp2_rank0": dist["rank0"][name],
+                                "dp2_rank1": dist["rank1"][name]}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,18 +1,36 @@
-"""Counterpart of paddle_tpu/distributed: the multi-process runtime.
+"""Counterpart of paddle_tpu/distributed: the multi-process runtime and
+data-parallel training.
 
 `launch` starts the workers, `env` rendezvouses them over a TCPStore
-into a gloo process group, `xproc` carries the eager collectives and
-the p2p socket transport, `collective` the paddle-shaped eager API over
-it, `resilience` the retry policy, step guards, preemption handler and
-anomaly journal, `chaos` the seeded fault injection, and
-`fleet.elastic` the heartbeat and join membership.
+into a gloo process group, `mesh` lays the process world out as the
+hybrid mesh, `xproc` carries the eager collectives and the p2p socket
+transport, `collective` the paddle-shaped API over it (the world group
+and the mesh-axis groups, `spmd`), `communication.stream` its stream
+variants, `checkpoint` the sharded asynchronous atomic Checkpointer,
+`parallel_step` the data-parallel / ZeRO `DistributedTrainStep`,
+`sharding` the group_sharded entry point, `resilience` the retry policy,
+step guards, preemption handler and anomaly journal, `chaos` the seeded
+fault injection, and `fleet` the strategy facade, the topology, the
+meta-optimizers, the heartbeat and join membership and
+`run_with_fault_tolerance`.
 """
 from . import chaos  # noqa: F401
+from . import checkpoint  # noqa: F401
 from . import collective  # noqa: F401
+from . import communication  # noqa: F401
 from . import env  # noqa: F401
+from . import mesh  # noqa: F401
+from . import parallel_step  # noqa: F401
 from . import resilience  # noqa: F401
+from . import sharding  # noqa: F401
 from . import xproc  # noqa: F401
+from . import fleet  # noqa: F401
 from .chaos import FaultPlan  # noqa: F401
+from .checkpoint import (  # noqa: F401
+    Checkpointer,
+    load_state_dict,
+    save_state_dict,
+)
 from .collective import (  # noqa: F401
     Group,
     P2POp,
@@ -41,10 +59,24 @@ from .collective import (  # noqa: F401
     spmd,
     wait,
 )
+from .communication import stream  # noqa: F401
 from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
+from .fleet.elastic import run_with_fault_tolerance  # noqa: F401
+from .mesh import PartitionSpec, init_mesh, reset_mesh  # noqa: F401
+from .parallel_step import (  # noqa: F401
+    DistributedTrainStep,
+    shard_params_and_opt,
+    sharding_of,
+)
 from .resilience import (  # noqa: F401
+    DivergenceRollback,
+    DivergenceSentinel,
     RetryPolicy,
     StepAbort,
     StepGuard,
     install_preemption_handler,
+)
+from .sharding import (  # noqa: F401
+    group_sharded_parallel,
+    save_group_sharded_model,
 )

@@ -5,8 +5,8 @@ fires at the same call indices here). The port wires the transport
 scopes (``kv.*``, ``sock.*``: distributed/xproc.py), the train-step
 scopes (``step``, ``step.nan``: resilience.StepGuard and
 DivergenceSentinel) and the ``replica.kill`` scopes
-(inference/fleet_serving/replica.py); the checkpoint scopes belong to
-the Checkpointer, which ROADMAP A11(b) ports. Every injection is
+(inference/fleet_serving/replica.py) and the checkpoint scopes
+(``ckpt.*``: distributed/checkpoint.py). Every injection is
 journaled as ``chaos_injected`` in the per-rank anomaly journal
 (distributed/resilience.py).
 
@@ -27,8 +27,7 @@ Design rules:
   executing, so a crash injector that killed the pod does not re-kill
   the restarted pod at the same call index forever.
 
-Scopes of the reference's stack (the port fires all but ``ckpt.*`` and
-``step.dispatch``):
+Scopes of the reference's stack:
 
 ==================  =====================================================
 scope               injection point

@@ -14,8 +14,10 @@ The pieces:
   `pending_join_files`, `request_scale_out`), which the serving fleet's
   `ReplicaRegistry(hb_dir=...)` publishes through too.
 
-`run_with_fault_tolerance` restores from the Checkpointer, which the
-port does not have yet: it raises, naming ROADMAP A11.
+`run_with_fault_tolerance` is the in-process supervision loop over a
+`distributed.checkpoint.Checkpointer`: restore the latest complete
+checkpoint, re-enter the train function, and on a failure restore again
+(a divergence rollback without consuming a restart).
 """
 import time
 
@@ -33,6 +35,9 @@ _PEER_AGE = _obs.gauge("pt_elastic_peer_age_seconds",
 _PEERS = _obs.gauge("pt_elastic_peers", "registered peers")
 _STALE_PEERS = _obs.gauge("pt_elastic_stale_peers",
                           "peers past the heartbeat timeout")
+_TRAIN_RESTARTS = _obs.counter(
+    "pt_elastic_train_restarts_total",
+    "in-process fault-tolerant restarts (run_with_fault_tolerance)")
 
 ELASTIC_EXIT_CODE = 101  # reference manager.py ELASTIC_EXIT_CODE
 
@@ -252,12 +257,88 @@ def request_scale_out(n=1, hb_dir=None, master=None):
     return n
 
 
+def _drain_checkpointer(checkpointer):
+    """Join any in-flight async commit before restoring. A failed
+    commit must not abort the recovery itself — its checkpoint simply
+    never became COMPLETE and load_latest falls back past it."""
+    from ..resilience import record
+
+    try:
+        checkpointer.wait()
+    except Exception as e:
+        record("ckpt_drain_failed", error=repr(e))
+
+
 def run_with_fault_tolerance(train_fn, checkpointer, max_restarts=3,
                              backoff_s=0.0, on_restart=None, retry=None,
                              manager=None):
-    """Run `train_fn(start_step)`, restoring from a Checkpointer and
-    retrying on failure (the reference's supervision loop)."""
-    raise NotImplementedError(
-        "run_with_fault_tolerance restores from the Checkpointer "
-        "(distributed/checkpoint.py), which is not ported yet: ROADMAP "
-        "A11")
+    """Run `train_fn(start_step) -> last_step`, restoring from
+    `checkpointer` (distributed.checkpoint.Checkpointer) and retrying on
+    failure.
+
+    train_fn must checkpoint through `checkpointer` as it goes; on an
+    exception the latest COMPLETE checkpoint is loaded (half-written
+    ones are invisible by construction — the per-rank DONE marker
+    protocol) and train_fn is re-entered at the restored step. Raises
+    the last error after max_restarts.
+
+    Two recovery tiers compose here:
+
+    * ``DivergenceRollback`` (a resilience.DivergenceSentinel demanding
+      a rollback on NaN/Inf or a loss spike) restores and resumes
+      WITHOUT consuming a restart — the sentinel bounds its own budget
+      (StepAbort past it), marks the poisoned data window, and the
+      re-entered train_fn consults ``sentinel.should_skip(step)`` to
+      advance past it. Journaled as ``train_rollback``.
+    * any other exception consumes one of `max_restarts` in-process
+      restarts — unless `manager` (an ElasticManager) reports a STALE
+      PEER, in which case the failure is escalated to the launcher
+      immediately (``elastic_escalate``): an in-process retry cannot
+      re-form a pod whose member died; `launch --max_restart` can.
+
+    `retry` (a resilience.RetryPolicy) supplies exponential backoff +
+    jitter between attempts; the legacy fixed `backoff_s` applies when
+    no policy is given. Every restart is journaled to the per-rank
+    anomaly log (resilience.record)."""
+    from ..resilience import DivergenceRollback, record
+
+    attempt = 0
+    while True:
+        start = checkpointer.load_latest() or 0
+        try:
+            return train_fn(start)
+        except DivergenceRollback as e:
+            record("train_rollback", start_step=start, step=e.step,
+                   reason=e.reason)
+            # postmortem BEFORE the restore overwrites the live state:
+            # the ring holds the journal/span trail that led into the
+            # divergence
+            try:
+                from ...observability import flight_recorder as _fr
+
+                _fr.dump("divergence_rollback", step=e.step,
+                         rollback_reason=e.reason, start_step=start,
+                         value=str(e.value))
+            except Exception:  # the dump must not abort the recovery
+                pass
+            _drain_checkpointer(checkpointer)
+            continue
+        except Exception as e:
+            attempt += 1
+            _TRAIN_RESTARTS.inc()
+            record("train_restart", attempt=attempt, start_step=start,
+                   error=repr(e))
+            if attempt > max_restarts:
+                raise
+            if manager is not None and getattr(manager, "enabled", False) \
+                    and manager.watch() == ElasticStatus.RESTART:
+                record("elastic_escalate", attempt=attempt,
+                       error=repr(e))
+                raise
+            _drain_checkpointer(checkpointer)
+            if on_restart is not None:
+                on_restart(attempt)
+            delay = (retry.backoff(attempt - 1) if retry is not None
+                     else backoff_s)
+            if delay:
+                time.sleep(delay)

@@ -1,0 +1,6 @@
+"""Counterpart of paddle_tpu/distributed/fleet/utils: the hybrid-parallel
+helpers (`hybrid_parallel_util`)."""
+from . import hybrid_parallel_util  # noqa: F401
+from .hybrid_parallel_util import (  # noqa: F401
+    broadcast_dp_parameters, broadcast_mp_parameters,
+    fused_allreduce_gradients)

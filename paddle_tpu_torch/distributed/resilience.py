@@ -351,8 +351,7 @@ class DivergenceRollback(RuntimeError):
     forward is not enough — restore the last COMPLETE checkpoint and
     advance past the poisoned data window.
     `fleet.elastic.run_with_fault_tolerance` catches this and restores
-    WITHOUT consuming a restart (the sentinel bounds its own budget;
-    the port's loop waits for the Checkpointer, ROADMAP A11(b))."""
+    WITHOUT consuming a restart (the sentinel bounds its own budget)."""
 
     def __init__(self, msg, step=None, reason="nan", value=None):
         super().__init__(msg)
@@ -373,9 +372,8 @@ class DivergenceSentinel:
     anomaly, marks the poisoned data window (``should_skip``), and
     raises :class:`DivergenceRollback` so the supervision loop
     (`run_with_fault_tolerance`) restores the last COMPLETE checkpoint
-    and resumes in-process — no pod restart, commitment preserved by
-    `Checkpointer.load` (both ROADMAP A11(b) in the port: until then the
-    caller restores).
+    and resumes in-process through `Checkpointer.load` — no pod
+    restart.
 
     Detection: non-finite loss (reason ``nan``), or — once
     ``min_history`` finite losses are in the rolling window — a loss

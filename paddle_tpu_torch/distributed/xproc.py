@@ -181,12 +181,14 @@ def _u8(nparr):
     return torch.from_numpy(np.frombuffer(nparr.tobytes(), np.uint8).copy())
 
 
-def _gather(nparr):
-    """The stacked (world, ...) matrix of every rank's array."""
+def _gather(nparr, group=None):
+    """The stacked (world, ...) matrix of every rank's array (of every
+    member's, in group-rank order, for a subgroup)."""
     dist = _dist()
     mine = _u8(nparr)
-    parts = [mine.new_empty(mine.shape) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, mine)
+    parts = [mine.new_empty(mine.shape)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, mine, group=group)
     return np.stack([p.numpy().view(nparr.dtype).reshape(nparr.shape)
                      for p in parts])
 
@@ -199,7 +201,7 @@ def _accumulator(nparr, op):
     return out_dtype, out_dtype
 
 
-def _gloo_reduce(nparr, op, out_dtype, acc):
+def _gloo_reduce(nparr, op, out_dtype, acc, group=None):
     """sum / avg / max / min in gloo, in the reference's result dtype."""
     import torch
 
@@ -207,16 +209,18 @@ def _gloo_reduce(nparr, op, out_dtype, acc):
     t = torch.from_numpy(np.array(nparr, dtype=acc, copy=True))
     red = {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
            "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN}[op]
-    dist.all_reduce(t, op=red)
+    dist.all_reduce(t, op=red, group=group)
     out = t.numpy()
     if op == "avg":
-        out = np.true_divide(out, dist.get_world_size(), dtype=acc)
+        out = np.true_divide(out, dist.get_world_size(group), dtype=acc)
     return np.asarray(out.astype(out_dtype, copy=False))
 
 
-def _collective_np(kind, nparr, op="sum", src=0):
+def _collective_np(kind, nparr, op="sum", src=0, group=None):
     """Returns the gathered (world, ...) matrix for 'all_gather', the
-    reduced / broadcast local value otherwise."""
+    reduced / broadcast local value otherwise. `group`: a
+    `torch.distributed` subgroup (None: the world); `src` is a global
+    rank."""
     nparr = np.ascontiguousarray(nparr)
     with _trace_span(f"xproc.{kind}", op=op, bytes=int(nparr.nbytes)):
         if kind == "all_reduce" and _quant_allreduce_enabled() and op in (
@@ -229,31 +233,31 @@ def _collective_np(kind, nparr, op="sum", src=0):
                 return _NP_REDUCERS[op](nparr[None])
             return nparr
         if kind == "all_gather":
-            return _gather(nparr)
+            return _gather(nparr, group)
         if kind == "broadcast":
             t = _u8(nparr)
-            _dist().broadcast(t, src=src)
+            _dist().broadcast(t, src=src, group=group)
             return t.numpy().view(nparr.dtype).reshape(nparr.shape)
         out_dtype, acc = _accumulator(nparr, op)
         if op != "prod" and acc.type in _GLOO_DTYPES:
-            return _gloo_reduce(nparr, op, out_dtype, acc)
-        return _NP_REDUCERS[op](_gather(nparr))
+            return _gloo_reduce(nparr, op, out_dtype, acc, group)
+        return _NP_REDUCERS[op](_gather(nparr, group))
 
 
-def all_reduce_np(nparr, op="sum"):
+def all_reduce_np(nparr, op="sum", group=None):
     """nparr (local value) -> reduced np.ndarray, same shape."""
     if op not in _NP_REDUCERS:
         raise ValueError(f"unknown reduce op {op}")
-    return _collective_np("all_reduce", nparr, op=op)
+    return _collective_np("all_reduce", nparr, op=op, group=group)
 
 
-def all_gather_np(nparr):
+def all_gather_np(nparr, group=None):
     """nparr (local value) -> stacked (world,)+shape np.ndarray."""
-    return _collective_np("all_gather", nparr)
+    return _collective_np("all_gather", nparr, group=group)
 
 
-def broadcast_np(nparr, src=0):
-    return _collective_np("broadcast", nparr, src=src)
+def broadcast_np(nparr, src=0, group=None):
+    return _collective_np("broadcast", nparr, src=src, group=group)
 
 
 def barrier():

@@ -82,6 +82,11 @@ class Optimizer:
     `params` are either. The learning rate is a float or an
     `LRScheduler`."""
 
+    # the update of each element reads only that element's gradient and
+    # state (a ZeRO rank may update its block alone); False where the
+    # update reads norms over the whole parameter
+    _elementwise = True
+
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None):
         if parameters is None:
@@ -159,10 +164,13 @@ class Optimizer:
     def _decoupled_wd(self):
         return False
 
-    def _state_for(self, p):
+    def _state_for(self, p, like=None):
+        """`p`'s accumulators, made on first use in the shape of `like`
+        (a ZeRO rank's slice of `p`) or of `p`."""
         state = self._states.get(id(p))
         if state is None:
-            state = self._states[id(p)] = self._init_state(p)
+            state = self._states[id(p)] = self._init_state(
+                p if like is None else like)
         return state
 
     def _weight_decay_coeff(self, name, p, group):
@@ -181,17 +189,24 @@ class Optimizer:
         return self.get_lr() if lr is None else (
             float(lr()) if callable(lr) else float(lr))
 
-    def _apply(self, group, lr, pairs):
+    def _apply(self, group, lr, pairs, targets=None):
+        """`targets` maps id(p) → the tensor the update writes and the
+        gradient's matching slice (a ZeRO rank's block of `p`): the
+        update runs on that block, its accumulators shaped like it."""
         for p, g in pairs:
             if g is None:
                 continue
+            t = p
+            if targets is not None and id(p) in targets:
+                t, dim, start, length = targets[id(p)]
+                g = g.narrow(dim, start, length)
             name = self._names[id(p)]
             attr = getattr(p, "optimize_attr", None) or {}
             plr = lr * attr.get("learning_rate", 1.0)
             wd = self._weight_decay_coeff(name, p, group)
             if wd and not self._decoupled_wd():
-                g = g + _weak(wd, p) * p
-            self._update(p, g.to(_acc_dtype(p)), self._state_for(p),
+                g = g + _weak(wd, t) * t
+            self._update(t, g.to(_acc_dtype(t)), self._state_for(p, t),
                          plr, wd if self._decoupled_wd() else 0.0, name)
 
     @torch.no_grad()
@@ -206,13 +221,14 @@ class Optimizer:
                 self._apply(group, self._group_lr(group), pairs)
 
     @torch.no_grad()
-    def _train_step_update(self, params):
+    def _train_step_update(self, params, targets=None):
         """The update the reference's compiled `TrainStep` applies
         (`apply_gradients_tree`): `grad_clip` over the gradients of all
         of `params` at once, in their order, where `step()` clips group
         by group; a callable group learning rate is refused, as the
         compiled step would freeze it. Parameters this optimizer was not
-        given are left alone."""
+        given are left alone. `targets`: as in `_apply` (the clip sees
+        the whole gradients)."""
         with torch.profiler.record_function("optimizer.step"):
             group_of = {}
             for group in self._param_groups:
@@ -231,7 +247,7 @@ class Optimizer:
             lrs = {id(g): self._group_lr(g) for g in self._param_groups}
             for p, g in pairs:
                 group = group_of[id(p)]
-                self._apply(group, lrs[id(group)], [(p, g)])
+                self._apply(group, lrs[id(group)], [(p, g)], targets)
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None):
@@ -457,6 +473,8 @@ class Lamb(Optimizer):
     """`exclude_from_weight_decay_fn(param)` sees the parameter with its
     `.name` set to the optimizer's key for it."""
 
+    _elementwise = False
+
     def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01, beta1=0.9,
                  beta2=0.999, epsilon=1e-6, parameters=None, grad_clip=None,
                  exclude_from_weight_decay_fn=None):
@@ -494,6 +512,8 @@ class LarsMomentum(Optimizer):
     """LARS over momentum: local_lr = lr·coeff·‖p‖ / (‖g‖ + wd·‖p‖ + eps)
     (lr·coeff where a norm is 0), in f32. `exclude_from_weight_decay`
     name tags are matched against the parameter's key."""
+
+    _elementwise = False
 
     def __init__(self, learning_rate=0.001, momentum=0.9, lars_coeff=0.001,
                  lars_weight_decay=0.0005, parameters=None, grad_clip=None,

@@ -11,8 +11,9 @@ membership master's health telemetry (the reference's
 test_membership_master_health_telemetry), `ElasticManager` over a
 heartbeat directory, `request_scale_out`'s join files and the
 `touch_heartbeat` / `remove_heartbeat` protocol match the reference's.
-`run_with_fault_tolerance` still raises (ROADMAP A11). A kernel build's
-log is its process's own until the build succeeds.
+`run_with_fault_tolerance` restores through a Checkpointer (the whole
+contract: tests/test_torch_fault_tolerance.py). A kernel build's log is
+its process's own until the build succeeds.
 """
 import os
 import re
@@ -278,13 +279,37 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert (g.nranks, g.rank, tdist.is_initialized()) == (1, 0, True)
     t = torch.tensor([2.0, 3.0])
     assert tdist.all_reduce(t) is t and t.tolist() == [2.0, 3.0]
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdist.new_group(axes=("mp",))
+    # a mesh axis of a one-process world: a group of one, the identity
+    mp = tdist.new_group(axes=("mp",))
+    assert (mp.axes, mp.nranks, mp.rank) == (("mp",), 1, 0)
+    assert tdist.all_reduce(t, group=mp) is t and t.tolist() == [2.0, 3.0]
 
 
-def test_run_with_fault_tolerance_raises_naming_a11():
-    with pytest.raises(NotImplementedError, match="A11"):
-        tel.run_with_fault_tolerance(lambda start: start, object())
+def test_run_with_fault_tolerance_raises_naming_a11(tmp_path):
+    """(The loop no longer raises: ROADMAP A11(b) part 1 ported it.) A
+    failed first attempt restores the Checkpointer's latest complete
+    checkpoint and re-enters at its step."""
+    import torch
+
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+
+    w = torch.nn.Parameter(torch.zeros(2))
+    ck = Checkpointer(str(tmp_path / "ck"), model=torch.nn.ParameterList(
+        [w]))
+    starts = []
+
+    def train_fn(start):
+        starts.append(start)
+        for s in range(start, 4):
+            with torch.no_grad():
+                w.add_(1.0)
+            ck.save(s + 1)
+            if s == 2 and len(starts) == 1:
+                raise RuntimeError("lost a worker")
+        return 4
+
+    assert tel.run_with_fault_tolerance(train_fn, ck) == 4
+    assert starts == [0, 3] and w.tolist() == [4.0, 4.0]
 
 
 def test_kernel_build_log_is_per_process_until_it_succeeds(monkeypatch,
