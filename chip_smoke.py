@@ -351,6 +351,34 @@ continues:
               a world-1 load of it taking the next step within 1e-3 of
               (a)'s; prints s/step, the all-reduce's bytes and seconds and
               each rank's peak memory.
+8f. tensor and pipeline parallelism — (a) bench.py:427's
+              bench_gpt1p3b_pp at world 1: `PipelinedGPTForCausalLM(
+              gpt_1p3b, n_micro=2, remat="layer")` under bf16 O2,
+              `AdamW(1e-4)`, `HybridTrainStep` on the degenerate mesh, b2·
+              s2048, 2 warm-up + 5 timed steps: K3 96 launches a step (24
+              layers x 2 micro-batches, forward and recompute), K4 and K5
+              48, all tensor-core; against the serial GPTForCausalLM at
+              the same weights (carried by `convert.pipelined_to_gpt_state`),
+              batch and remat, timed in the same call as the yardstick:
+              step 0's f32 loss within 5e-5 relative (the serial one read
+              before O2's divide) and its gradients within 1e-1 of their
+              max-abs (median 5e-2), where two planted faults (the first
+              layer skipped, the last micro-batch dropped) must fail both.
+              Prints ms/step, tok/s, MFU at 989 TFLOP/s, peak memory and
+              one profiled step's device time for each. (b) pp 2 x mp 2
+              as four processes sharing the card (`profile_dist.py --mesh
+              pp=2,mp=2`): gpt_small b8·s1024, n_micro 4, per-layer remat,
+              bf16 O1, 3 steps, gloo for every collective through the
+              host, p2p over the socket transport: each rank's losses
+              within 3e-5 relative of a world-1 run on the card (same seed
+              and batch; the two planted faults at world 1 must fail it),
+              K3 48 launches a step a rank (6 layers x 4 x 2),
+              K4 and K5 24, all tensor-core, each rank's executed schedule
+              equal to its stage's row of `schedule_table(4, 2)`, and the
+              ranks' one checkpoint loaded at world 1 equal to their
+              gathered shards. Prints s/step, the p2p and mp all-reduce
+              bytes and seconds, the tied wte's all-reduce and each rank's
+              peak memory.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
@@ -398,8 +426,9 @@ and spill -> prefetch round trips (int8, int4) as
 burst, its wide route: 5f's k=1 burst, each route's count in both
 bursts as "burst_launches"; K3-K5 also phase 8b's launches as
 "train_1p3b_launches" and their times at its shape as "shape_1p3b",
-and phase 8e's launches at world 1 and in each rank of dp 2 as
-"dist_launches");
+phase 8e's launches at world 1 and in each rank of dp 2 as
+"dist_launches", and phase 8f's at world 1 (1.3B) and in each rank of
+pp 2 x mp 2 as "pipe_launches");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
@@ -5361,6 +5390,424 @@ def dist_phase(fa, card, train_losses, train_ms):
     return {"world1": launches, **ranks, "ckpt": ckpt}
 
 
+# ---- tensor and pipeline parallelism (8f) ----
+
+PP_WARM, PP_STEPS = 2, 5
+PP_BATCH, PP_SEQ, PP_MICRO = 2, 2048, 2
+# 8f (a), against the serial GPT at the same weights and batch: step 0's
+# f32 loss (the serial one taken before O2's divide rounds it to bf16),
+# and step 0's bf16 gradients (each one's max-abs difference over its
+# max-abs: the worst, and the median over the gradients). The pipelined
+# GPT's GELU is jax's tanh form (the reference's gpt_pipeline.py; the flat
+# GPT's is the exact erf) and it sums two micro-batches' bf16 gradients.
+# Each limit lies between the sound run's gap and the gaps of two faults
+# the phase plants at the same weights (the first layer skipped; the last
+# micro-batch dropped), which must fail it. On an H100: loss 7.1e-6 sound,
+# 1.7e-3 and 1.9e-4 planted; gradients worst 2.3e-2 / median 1.2e-2
+# sound, at least 1.46 / 0.88 planted.
+PP_LOSS_RTOL = 5e-5
+PP_GRAD_TOL, PP_GRAD_MEDIAN_TOL = 1e-1, 5e-2
+MESH_RANKS, MESH_STEPS = 4, 3
+MESH_BATCH, MESH_SEQ = 8, 1024
+MESH_TIMEOUT_S = 300
+# 8f (b): four ranks (pp 2 x mp 2) against world 1, bf16 O1: each
+# row-parallel matmul's two bf16 partial products are rounded before the
+# all-reduce adds them, and the micro losses meet in another order. The
+# limit lies between that gap and the planted faults' at world 1 (on an
+# H100: 1.17e-5 sound; 6.1e-5 and 2.1e-4 planted).
+MESH_LOSS_RTOL = 3e-5
+
+
+def _pp_o2_loss(m, ids):
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        return m.loss(ids)
+
+
+def planted_faults(model, ids, loss_fn, grads=False):
+    """A pipelined GPT's loss at its current weights with a fault planted:
+    the first decoder layer skipped, and the last micro-batch dropped.
+    {fault: (f32 loss, the parameters' gradients or None)}; the model is
+    left as it was (no update, gradients cleared)."""
+    M = model.n_micro
+    stacked = model._stacked
+    out = {}
+    for name in ("first layer skipped", "last micro-batch dropped"):
+        x = ids
+        if name == "first layer skipped":
+            model._stacked = lambda: {k: v[1:] for k, v in stacked().items()}
+        else:
+            model.n_micro = M - 1
+            x = ids[:ids.shape[0] // M * (M - 1)]
+        try:
+            with torch.set_grad_enabled(grads):
+                loss = loss_fn(model, x)
+                g = None
+                if grads:
+                    loss.backward()
+                    g = {n: p.grad.clone()
+                         for n, p in model.named_parameters()}
+        finally:
+            model.__dict__.pop("_stacked", None)
+            model.n_micro = M
+            model.zero_grad(set_to_none=True)
+        out[name] = (float(loss.detach()), g)
+    return out
+
+
+def pp_world1(fa, card):
+    """8f (a): bench_gpt1p3b_pp on the card at world 1 — the pipelined
+    GPT-1.3B (n_micro 2, per-layer remat) under bf16 O2 through
+    HybridTrainStep on the degenerate mesh, beside the serial
+    GPTForCausalLM step at the same weights (carried by convert), batch
+    and remat policy. Step 0's f32 loss and gradients are held to the
+    serial step's, and shown to catch two planted faults. Returns the
+    flash launches of the timed steps."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.convert import pipelined_to_gpt_state
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.jit import HybridTrainStep, TrainStep
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profile_train import (H100_PEAK_BF16, _ids,
+                                                kernel_rows, o2_loss,
+                                                timed_steps)
+    from paddle_tpu_torch.text.models.gpt import GPTForCausalLM, gpt_1p3b
+    from paddle_tpu_torch.text.models.gpt_pipeline import (
+        PipelinedGPTForCausalLM)
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(step):
+        # one more step under the profiler: its device time by kernel
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            timed_steps(step, ids, 1)
+        out = {}
+        for e in kernel_rows(prof):
+            out[e.key] = out.get(e.key, 0) + e.self_device_time_total
+        return out
+
+    tmesh.reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = gpt_1p3b(recompute=True)
+    pipe = PipelinedGPTForCausalLM(cfg, n_micro=PP_MICRO, remat="layer",
+                                   device="cuda", seed=0)
+    flat = GPTForCausalLM(cfg, device="cuda", seed=0)
+    with torch.no_grad():
+        sd = pipelined_to_gpt_state(
+            {n: p.detach() for n, p in pipe.named_parameters()}, cfg)
+        for n, p in flat.named_parameters():
+            p.copy_(sd[n])
+    del sd
+    amp.decorate(pipe, level="O2", dtype="bfloat16")
+    amp.decorate(flat, level="O2", dtype="bfloat16")
+    build_s = time.perf_counter() - t0
+    ids = _ids(cfg, PP_BATCH, PP_SEQ, "cuda")
+    tokens = PP_BATCH * (PP_SEQ - 1)
+
+    def flat_grads(model):
+        return pipelined_to_gpt_state(
+            {n: p.grad for n, p in model.named_parameters()}, cfg)
+
+    # the serial step, its f32 loss sums taken before O2's divide
+    serial = TrainStep(flat, o2_loss,
+                       AdamW(1e-4, parameters=flat.parameters()))
+    cast_inputs_for, sums = amp.cast_inputs_for, []
+
+    def spy(op, tensors):
+        if op == "divide":
+            sums.append(float(tensors[0].detach()))
+        return cast_inputs_for(op, tensors)
+
+    amp.cast_inputs_for = spy
+    try:
+        s_warm, _ = timed_steps(serial, ids, 1)
+        s_grads = {n: p.grad.clone() for n, p in flat.named_parameters()}
+        s_warm += timed_steps(serial, ids, PP_WARM - 1)[0]
+        _, s_wall = timed_steps(serial, ids, PP_STEPS)
+    finally:
+        amp.cast_inputs_for = cast_inputs_for
+    s_mean = [x / tokens for x in sums]
+    s_prof = profiled(serial)
+    del serial, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    faults = {}
+    for name, (loss, g) in planted_faults(pipe, ids, _pp_o2_loss,
+                                          grads=True).items():
+        worst, where, median = _grad_diff(s_grads, pipelined_to_gpt_state(
+            g, cfg))
+        faults[name] = (abs(loss - s_mean[0]) / abs(s_mean[0]), worst,
+                        median)
+        del g
+    step = HybridTrainStep(pipe, _pp_o2_loss,
+                           AdamW(1e-4, parameters=pipe.parameters()))
+    warm, _ = timed_steps(step, ids, 1)
+    worst, where, median = _grad_diff(s_grads, flat_grads(pipe))
+    del s_grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    warm += timed_steps(step, ids, PP_WARM - 1)[0]
+    fa.reset_launches()
+    losses, wall = timed_steps(step, ids, PP_STEPS)
+    launches, tc = dict(fa.launches), dict(fa.tc_launches)
+    peak = torch.cuda.max_memory_allocated()
+    p_prof = profiled(step)
+    more = sorted(set(p_prof) | set(s_prof), key=lambda k: s_prof.get(k, 0)
+                  - p_prof.get(k, 0))[:4]
+    L, n, M = cfg.num_layers, PP_STEPS, PP_MICRO
+    rel = abs(warm[0] - s_mean[0]) / abs(s_mean[0])
+    losses = warm + losses
+    traj = _rel(losses, s_mean)
+    dt, s_dt = wall / n, s_wall / n
+    flops = model_flops(cfg, PP_BATCH, PP_SEQ)
+    print(f"8f (a) PipelinedGPTForCausalLM gpt_1p3b, degenerate mesh, "
+          f"n_micro {M}, per-layer remat, O2, HybridTrainStep, "
+          f"b{PP_BATCH}·s{PP_SEQ} ({card}): {dt * 1e3:.3f} ms/step, "
+          f"{PP_BATCH * PP_SEQ / dt:.1f} tok/s, MFU "
+          f"{flops / dt / H100_PEAK_BF16:.4f} (989 TFLOP/s), peak "
+          f"{peak / 2**30:.2f} GiB; the serial GPTForCausalLM step at the "
+          f"same weights, batch and remat {s_dt * 1e3:.3f} ms/step "
+          f"({dt / s_dt:.4f}x); one profiled step each: device "
+          f"{sum(p_prof.values()) / 1e3:.3f} ms vs the serial "
+          f"{sum(s_prof.values()) / 1e3:.3f} ms, the kernels that grew "
+          f"most (ms, pipelined vs serial): "
+          + ", ".join(f"{k[:60]} {p_prof.get(k, 0) / 1e3:.3f} vs "
+                      f"{s_prof.get(k, 0) / 1e3:.3f}" for k in more)
+          + f"; step 0's f32 loss {warm[0]:.6f} vs the "
+          f"serial f32 {s_mean[0]:.6f} (bf16 {s_warm[0]}; relative "
+          f"{rel:.3e}, tol {PP_LOSS_RTOL:.0e}); step 0's gradients: worst "
+          f"{worst:.3e} of their max-abs ({where}; tol "
+          f"{PP_GRAD_TOL:.0e}), median {median:.3e} (tol "
+          f"{PP_GRAD_MEDIAN_TOL:.0e}); planted faults at the same weights: "
+          + "; ".join(f"{k}: loss {v[0]:.3e}, gradients worst {v[1]:.3e}, "
+                      f"median {v[2]:.3e}" for k, v in faults.items())
+          + f"; the {len(losses)} steps' losses {losses[0]:.4f} → "
+          f"{losses[-1]:.4f}, off the serial f32 trajectory by {traj:.3e} "
+          f"at most; launches {launches} in {n} steps = ({L} layers x {M} "
+          f"micro-batches, x 2 for K3), all tensor-core; models built in "
+          f"{build_s:.1f} s")
+    want = {"flash_forward": 2 * L * M * n, "flash_bwd_dq": L * M * n,
+            "flash_bwd_dkv": L * M * n}
+    if launches != want or tc != want:
+        raise AssertionError(f"8f (a): flash launches {launches}, tensor-"
+                             f"core {tc} in {n} steps; expected {want}")
+    if rel > PP_LOSS_RTOL:
+        raise AssertionError(f"8f (a): step 0's loss {warm[0]} vs the "
+                             f"serial GPT's f32 {s_mean[0]} (relative "
+                             f"{rel:.3e} > {PP_LOSS_RTOL})")
+    if not (worst <= PP_GRAD_TOL and median <= PP_GRAD_MEDIAN_TOL):
+        raise AssertionError(f"8f (a): step 0's gradients vs the serial "
+                             f"GPT's: worst {worst:.3e} ({where}), median "
+                             f"{median:.3e}")
+    for k, (lr, gw, gm) in faults.items():
+        if lr <= PP_LOSS_RTOL or (gw <= PP_GRAD_TOL
+                                  and gm <= PP_GRAD_MEDIAN_TOL):
+            raise AssertionError(f"8f (a): a planted fault ({k}) passes a "
+                                 f"gate: loss {lr:.3e}, gradients worst "
+                                 f"{gw:.3e}, median {gm:.3e}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8f (a): losses not finite and falling: "
+                             f"{losses}")
+    del step, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S):
+    """`profile_dist.py --mesh pp=2,mp=2` under the launcher, four
+    processes sharing the card; returns (the ranks' json, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           f"--nproc_per_node={MESH_RANKS}", f"--log_dir={out_dir}/log",
+           os.path.join("paddle_tpu_torch", "profile_dist.py"),
+           "--model", "gpt_small", "--device", "cuda", "--mesh",
+           "pp=2,mp=2", "--steps", str(MESH_STEPS), "--batch", str(MESH_BATCH),
+           "--seq", str(MESH_SEQ), "--ckpt", os.path.join(out_dir, "ck"),
+           "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PT_CHAOS_PLAN", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 15)
+        try:
+            out, _ = p.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            out, _ = p.communicate()
+        raise AssertionError(f"8f (b): the launch ran past {timeout} s:\n"
+                             f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        tails = ""
+        for r in range(MESH_RANKS):
+            f = os.path.join(out_dir, "log", f"default.rank{r}.log")
+            if os.path.exists(f):
+                tails += f"\n--- rank {r} ---\n" + open(f).read()[-3000:]
+        raise AssertionError(f"8f (b): the launcher exited {p.returncode}:"
+                             f"\n{out[-4000:]}{tails}")
+    outs = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, seconds
+
+
+def _per_step(o, kind, key):
+    """(bytes, seconds) of one comm kind a steady step, summed over its
+    sub-kinds' send / receive (the last step's)."""
+    d = o["comm"][-1][kind]
+    if key is not None:
+        d = {k: v for k, v in d.items() if k.startswith(key)}
+        return (sum(v["bytes"] for v in d.values()),
+                sum(v["seconds"] for v in d.values()))
+    return d.get("bytes", 0), d.get("seconds", 0.0)
+
+
+def _step0(o):
+    """A rank's first step: its seconds, its p2p receives' wait and its
+    mp all-reduces' seconds, and the model build before it."""
+    c = o["comm"][0]
+    recv = c["p2p"].get("p2p_recv", {}).get("seconds", 0.0)
+    mp = c["mp"].get("allreduce", {}).get("seconds", 0.0)
+    return (f"; step 0 {o['step_seconds'][0]:.2f} s (p2p receives "
+            f"{recv:.2f} s, mp all-reduces {mp:.2f} s; the model built in "
+            f"{o['build_s']:.1f} s before it)")
+
+
+def pp_mp_phase(fa, card):
+    """8f (b): pp 2 x mp 2 as four processes sharing the card
+    (`profile_dist.py --mesh`), gpt_small b8·s1024, n_micro 4, per-layer
+    remat, bf16 O1, 3 steps, gloo for every collective and the socket
+    transport for p2p: each rank's losses against a world-1
+    PipelinedGPTForCausalLM on the card (same weights and batch), its
+    K3-K5 launches, its executed schedule against the tick table, and
+    one checkpoint of every rank's shards loaded at world 1. Returns the
+    ranks' flash launches."""
+    from paddle_tpu_torch.convert import gather_pipelined_state
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.pipeline_1f1b \
+        import schedule_table
+    from paddle_tpu_torch.profile_dist import (N_MICRO, build_pipelined,
+                                               global_batch)
+
+    tmesh.reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg, ref = build_pipelined("gpt_small", dev)
+    ids = global_batch(cfg, MESH_BATCH, MESH_SEQ).to(dev)
+    faults = {k: v[0] for k, v in
+              planted_faults(ref.model, ids, ref.loss_fn).items()}
+    ref_losses = [float(ref(ids)) for _ in range(MESH_STEPS)]
+    faults = {k: abs(v - ref_losses[0]) / abs(ref_losses[0])
+              for k, v in faults.items()}
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    L = cfg.num_layers // 2
+    with tempfile.TemporaryDirectory(prefix="mesh_") as d:
+        outs, seconds = launch_mesh(d)
+        table = schedule_table(N_MICRO, 2)
+        shards = {}
+        for r, o in enumerate(outs):
+            k = MESH_STEPS * L * N_MICRO
+            want = {"flash_forward": 2 * k, "flash_bwd_dq": k,
+                    "flash_bwd_dkv": k}
+            if o["launches"] != want or o["tc_launches"] != want:
+                raise AssertionError(f"8f (b): rank {r} launched "
+                                     f"{o['launches']} (tensor-core "
+                                     f"{o['tc_launches']}); expected {want}")
+            stage = o["coord"]["pp"]
+            rows = []
+            for t, f, b in table[stage]:
+                if f is not None:
+                    rows.append([str(t), "F", str(f[0]), str(f[1])])
+                if b is not None:
+                    rows.append([str(t), "B", str(b[0]), str(b[1])])
+            if o["schedule"] != rows:
+                raise AssertionError(f"8f (b): rank {r} ran {o['schedule']}"
+                                     f"; the table's row is {rows}")
+            shards[(stage, o["coord"]["mp"])] = dict(np.load(
+                os.path.join(d, f"params_{r}.npz")))
+        gathered = gather_pipelined_state(shards, cfg, 2, 2)
+        t0 = time.perf_counter()
+        _, w1 = build_pipelined("gpt_small", dev)
+        got = Checkpointer(os.path.join(d, "ck"), model=w1.model,
+                           train_step=w1).load_latest()
+        load_s = time.perf_counter() - t0
+        bad = [n for n, p in w1.model.named_parameters()
+               if not np.array_equal(p.detach().float().cpu().numpy(),
+                                     gathered[n])]
+        if got != MESH_STEPS or bad:
+            raise AssertionError(f"8f (b): world 1 loaded step {got}; "
+                                 f"parameters unequal to the gathered "
+                                 f"shards: {bad[:8]}")
+        del w1
+    print(f"8f (b) pp 2 x mp 2 on one card (four processes, gpt_small "
+          f"b{MESH_BATCH}·s{MESH_SEQ}, n_micro {N_MICRO}, per-layer "
+          f"remat, bf16 O1, HybridTrainStep; gloo through the host for the "
+          f"mp all-reduces, the socket transport for p2p; {card}): launcher "
+          f"to exit {seconds:.1f} s; world 1 on the card {ref_losses}; "
+          f"planted faults at world 1 off its step 0 by "
+          + ", ".join(f"{v:.3e} ({k})" for k, v in faults.items())
+          + f" (tol {MESH_LOSS_RTOL:.0e}); "
+          + "; ".join(
+              f"rank {o['rank']} (pp {o['coord']['pp']}, mp "
+              f"{o['coord']['mp']}): s/step "
+              f"{[round(x, 4) for x in o['step_seconds']]}, p2p "
+              f"{_per_step(o, 'p2p', 'p2p_send')[0]} bytes sent, "
+              f"{_per_step(o, 'p2p', 'p2p')[1]:.3f} s in send + receive, mp "
+              f"all-reduce {_per_step(o, 'mp', 'allreduce')[0]} bytes in "
+              f"{_per_step(o, 'mp', 'allreduce')[1]:.3f} s, tied wte "
+              f"all-reduce {_per_step(o, 'tied_wte', None)[0]} bytes in "
+              f"{_per_step(o, 'tied_wte', None)[1]:.3f} s a step, peak "
+              + (f"{o['peak_mb']:.0f} MB" if o["peak_mb"] is not None
+                 else "not measured")
+              + _step0(o)
+              + f", losses {o['losses']} (relative to world 1 "
+              f"{_rel(o['losses'], ref_losses):.2e}), launches "
+              f"{o['launches']}, schedule = the table's row of stage "
+              f"{o['coord']['pp']}"
+              for o in outs)
+          + f"; the checkpoint (each rank's shards) loaded at world 1, step "
+          f"{got}, every parameter equal to the gathered shards, in "
+          f"{load_s:.2f} s")
+    for o in outs:
+        rel = _rel(o["losses"], ref_losses)
+        if rel > MESH_LOSS_RTOL:
+            raise AssertionError(f"8f (b): rank {o['rank']}'s losses "
+                                 f"{o['losses']} vs world 1's {ref_losses} "
+                                 f"(relative {rel:.3e} > {MESH_LOSS_RTOL})")
+    bad = {k: v for k, v in faults.items() if v <= MESH_LOSS_RTOL}
+    if bad:
+        raise AssertionError(f"8f (b): planted faults at world 1 pass the "
+                             f"loss gate ({MESH_LOSS_RTOL}): {bad}")
+    return {f"rank{o['rank']}": o["launches"] for o in outs}
+
+
+def pipe_phase(fa, card):
+    """8f: (a) and (b); returns their flash launches."""
+    t0 = time.perf_counter()
+    w1 = pp_world1(fa, card)
+    ranks = pp_mp_phase(fa, card)
+    print(f"8f phase: {time.perf_counter() - t0:.1f} s")
+    return {"world1_1p3b": w1, **{f"pp2mp2_{k}": v
+                                  for k, v in ranks.items()}}
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -5444,6 +5891,7 @@ def main(argv=None):
     steptrace_ab(card)
     print(f"train phases 8b-8d: {time.perf_counter() - t_train:.1f} s")
     dist = dist_phase(fa, card, train_losses, train_ms)
+    pipe = pipe_phase(fa, card)
     train_cross_check()
     train_cross_check_bf16(fa)
     t_o2 = time.perf_counter()
@@ -5555,6 +6003,9 @@ def main(argv=None):
         row["dist_launches"] = {"world1": dist["world1"][name],
                                 "dp2_rank0": dist["rank0"][name],
                                 "dp2_rank1": dist["rank1"][name]}
+        # 8f: the pipelined GPT-1.3B at world 1, and each rank of pp 2 x
+        # mp 2
+        row["pipe_launches"] = {k: v[name] for k, v in pipe.items()}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,12 +8,17 @@ transport, `collective` the paddle-shaped API over it (the world group
 and the mesh-axis groups, `spmd`), `communication.stream` its stream
 variants, `checkpoint` the sharded asynchronous atomic Checkpointer,
 `parallel_step` the data-parallel / ZeRO `DistributedTrainStep`,
-`sharding` the group_sharded entry point, `resilience` the retry policy,
+`sharding` the group_sharded entry point, `hybrid3d` the DP × TP × PP
+plan, the GPipe schedule and the int8 TP placements, `api_extra` the
+tensor-parallel `split`, `spawn` and the gloo facade (re-exported by
+`parallel_with_gloo`), `cloud_utils` the cluster layout from the env
+contract, `resilience` the retry policy,
 step guards, preemption handler and anomaly journal, `chaos` the seeded
 fault injection, and `fleet` the strategy facade, the topology, the
 meta-optimizers, the heartbeat and join membership and
 `run_with_fault_tolerance`.
 """
+from . import api_extra  # noqa: F401
 from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import collective  # noqa: F401
@@ -24,7 +29,19 @@ from . import parallel_step  # noqa: F401
 from . import resilience  # noqa: F401
 from . import sharding  # noqa: F401
 from . import xproc  # noqa: F401
+from . import cloud_utils  # noqa: F401
 from . import fleet  # noqa: F401
+from . import hybrid3d  # noqa: F401
+from . import parallel_with_gloo  # noqa: F401
+from .api_extra import (  # noqa: F401
+    ParallelMode,
+    destroy_process_group,
+    gloo_barrier,
+    gloo_init_parallel_env,
+    gloo_release,
+    spawn,
+    split,
+)
 from .chaos import FaultPlan  # noqa: F401
 from .checkpoint import (  # noqa: F401
     Checkpointer,

@@ -536,7 +536,9 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
     """The group's reduction of the input (the concatenation of
     `tensor_list` when it is a list, `tensor_list` itself when it is a
     tensor, else `tensor`), split along dim 0: this rank gets its
-    position's chunk."""
+    position's chunk, written into `tensor` when the input came from
+    `tensor_list` (paddle's semantics, at every group size: in one
+    process or a group of one the chunk is the whole input)."""
     from . import xproc
 
     parts = tensor_list if isinstance(tensor_list, (list, tuple)) else None
@@ -544,11 +546,15 @@ def reduce_scatter(tensor, tensor_list=None, op=ReduceOp.SUM, group=None,
          else torch.as_tensor(tensor_list if isinstance(
              tensor_list, torch.Tensor) else tensor))
     if not _multiprocess():
-        return tensor
-    _prepare(group)
-    members, idx, _, _ = _layout(group, masked=False)
+        members, idx = [env_mod.get_rank()], 0
+    else:
+        _prepare(group)
+        members, idx, _, _ = _layout(group, masked=False)
     n = len(members)
     if n == 1:
+        # a group of one reduces nothing: its whole input is its chunk
+        if parts is not None or isinstance(tensor_list, torch.Tensor):
+            return _write(tensor, _host(t))
         return tensor
     if t.shape[0] % n:
         raise ValueError(f"reduce_scatter: dim 0 ({t.shape[0]}) is not "

@@ -5,9 +5,10 @@ paddle_tpu/distributed/fleet/__init__.py).
 hybrid mesh and builds the `HybridCommunicateGroup`;
 `distributed_optimizer` applies the strategy's meta-optimizers (lars,
 dgc, localsgd) and its sharding stage (the ZeRO level
-`DistributedTrainStep` takes). Tensor and pipeline parallelism are not
-ported yet (ROADMAP A11): `TensorParallel`, `PipelineParallel` and
-`distributed_model` at pp_degree > 1 raise.
+`DistributedTrainStep` takes). `TensorParallel` makes the replicated
+parameters equal over the mp group; `PipelineParallel` (and
+`distributed_model` at pp_degree > 1) wraps a layer stack in the
+pipeline's `train_batch` / `eval_batch` (meta_parallel).
 """
 from .. import collective as coll
 from .. import env as env_mod
@@ -28,12 +29,6 @@ __all__ = [
 ]
 
 _SHARDING_STAGES = {1: "os", 2: "os_g", 3: "p_g_os"}
-
-
-def _a11(what):
-    raise NotImplementedError(
-        f"{what} is tensor / pipeline parallelism, which is not ported "
-        "yet: ROADMAP A11")
 
 
 class DistributedStrategy:
@@ -113,10 +108,10 @@ class _Fleet:
 
     def distributed_model(self, model):
         """Data parallelism and ZeRO need no wrapper (the train step
-        reduces the gradients): the model itself. pp_degree > 1 is the
-        pipeline wrapper, which is not ported yet."""
+        reduces the gradients): the model itself. At pp_degree > 1 the
+        `PipelineParallel` wrapper."""
         if self._hcg and self._hcg.get_pipe_parallel_world_size() > 1:
-            _a11("distributed_model at pp_degree > 1 (PipelineParallel)")
+            return PipelineParallel(model, self._hcg, self._strategy)
         return model
 
     def distributed_optimizer(self, optimizer, strategy=None):
@@ -193,8 +188,17 @@ get_hybrid_communicate_group = fleet.get_hybrid_communicate_group
 
 
 class TensorParallel:
+    """The layers themselves, as the reference returns them, after their
+    replicated (non-mp) parameters are broadcast over the mp group from
+    its first rank: the Megatron layers' shards are each rank's own, and
+    everything else must agree (GSPMD gives the reference that
+    agreement)."""
+
     def __new__(cls, layers, hcg=None, **kwargs):
-        _a11("TensorParallel")
+        from .utils.hybrid_parallel_util import broadcast_mp_parameters
+
+        broadcast_mp_parameters(layers, hcg)
+        return layers
 
 
 class ShardingParallel:
@@ -205,4 +209,6 @@ class ShardingParallel:
 
 
 def PipelineParallel(layers, hcg=None, strategy=None):
-    _a11("PipelineParallel")
+    from .meta_parallel.pipeline_parallel import PipelineParallel as PP
+
+    return PP(layers, hcg, strategy)

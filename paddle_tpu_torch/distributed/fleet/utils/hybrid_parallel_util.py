@@ -87,10 +87,11 @@ def _broadcast_params(parameters, axis):
 
 
 def broadcast_mp_parameters(model, hcg=None):
-    """Sync the parameters across the mp group from its first rank (the
-    port's tensor-parallel layers hold whole weights, so every parameter
-    is shared)."""
-    _broadcast_params(list(model.parameters()), "mp")
+    """Sync the replicated parameters across the mp group from its first
+    rank; an mp shard (`mp_shard`, set by the tensor-parallel
+    layers) is each rank's own and stays."""
+    _broadcast_params([p for p in model.parameters()
+                       if not getattr(p, "mp_shard", False)], "mp")
 
 
 def broadcast_dp_parameters(model, hcg=None):

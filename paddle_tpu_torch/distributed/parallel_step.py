@@ -132,6 +132,8 @@ class DistributedTrainStep:
     gradient exchange is quant_collective's (ROADMAP A11)."""
 
     _steptrace_family = "dist"
+    # the mesh axis the ZeRO blocks split over
+    _zero_axis = "sharding"
 
     def __init__(self, model, loss_fn, optimizer, zero_level=None,
                  batch_specs=None, remat=False, quant_allreduce=None):
@@ -158,7 +160,8 @@ class DistributedTrainStep:
         self.batch_specs = batch_specs
         self.remat = remat
         if zero_level:
-            shard_params_and_opt(model, optimizer, zero_level)
+            shard_params_and_opt(model, optimizer, zero_level,
+                                 axis=self._zero_axis)
         self._named = [(n, p) for n, p in model.named_parameters()
                        if p.requires_grad]
         self._params = [p for _, p in self._named]
@@ -167,15 +170,15 @@ class DistributedTrainStep:
         # block; parameters at p_g_os keep only their block between steps
         self._blocks = {}
         self._sharded_params = set()
-        n = mesh_mod.axis_size("sharding")
+        n = mesh_mod.axis_size(self._zero_axis)
         if zero_level and n > 1:
             if not getattr(optimizer, "_elementwise", True):
                 raise NotImplementedError(
                     f"{type(optimizer).__name__} reads norms over whole "
                     "parameters: it cannot update a ZeRO block alone")
-            pos = mesh_mod.axis_index("sharding")
+            pos = mesh_mod.axis_index(self._zero_axis)
             for p in self._params:
-                spec = _zero_spec(p, zero_level, None)
+                spec = _zero_spec(p, zero_level, None, axis=self._zero_axis)
                 split = _split(spec)
                 if split is None:
                     continue
@@ -239,7 +242,7 @@ class DistributedTrainStep:
         if not ps:
             return {}
         t0 = time.perf_counter()
-        members, _ = axis_comm(("sharding",))
+        members, _ = axis_comm((self._zero_axis,))
         blocks = [parts_of(p) for p in ps]
         flat = torch.cat([b.detach().reshape(-1) for b in blocks])
         mat = torch.from_numpy(np.ascontiguousarray(

@@ -23,6 +23,9 @@ raw gradients, before any clipping, as the reference's aux output). The
 plane only observes the step: losses are bit-identical in every mode.
 The reference's `profiler.benchmark()` ips meter belongs to the
 profiler, which is not ported yet (ROADMAP A12).
+
+`HybridTrainStep` (hybrid_step.py) is the DP × TP × PP step over the
+process mesh.
 """
 import time
 import warnings
@@ -36,7 +39,7 @@ from ..observability import metrics as _obs
 from ..observability import steptrace as _steptrace
 from ..observability.tracing import trace_span as _trace_span
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "HybridTrainStep"]
 
 # runtime telemetry, under the reference's metric names
 _STEP_SECONDS = _obs.histogram(
@@ -162,3 +165,13 @@ class TrainStep:
         tr.stamp("opt_publish")
         _, self._steptrace_prev_end = _steptrace.end_step(tr)
         return loss
+
+
+def __getattr__(name):
+    # HybridTrainStep reaches into distributed/, which imports this
+    # module: load it on first use
+    if name == "HybridTrainStep":
+        from .hybrid_step import HybridTrainStep
+
+        return HybridTrainStep
+    raise AttributeError(name)

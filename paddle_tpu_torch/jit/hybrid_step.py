@@ -1,0 +1,151 @@
+"""HybridTrainStep — the DP × TP × PP train step (counterpart of
+paddle_tpu/jit/hybrid_step.py).
+
+One process per mesh position. Each call takes the GLOBAL batch, as the
+reference's does, and hands it whole to `loss_fn`: a pipelined model
+keeps each dp rank's rows of every micro-batch itself, runs its stage of
+the pipeline and its mp shards. The gradients are then averaged over
+``dp`` only — the mp and pp gradients are shard-local already (each rank
+holds its own slice of each parameter) — in one coalesced host
+all-reduce per dtype, and the loss with them.
+
+ZeRO composes on `config.zero_axis` (``dp`` by default: the dp ranks are
+the replica group the optimizer state shards over): ``os`` / ``os_g`` /
+``p_g_os`` as `DistributedTrainStep` runs them, each block a
+slice of this rank's parameter shard. A model whose `shard_storage()`
+asked for it keeps its parameter blocks over ``sharding`` (p_g_os).
+
+The Checkpointer's hooks write each shard as a `LocalShard` of the
+LOGICAL array (the model's `layout()`), so a pp × mp checkpoint loads
+at world 1, in the port and in the reference. `quant_allreduce` (or a
+config / PT_QUANT_ALLREDUCE_XLA asking for it) raises: the int8 dp
+all-reduce is quant_collective's, ROADMAP A11 part 4. `compile_stats`
+and `analyze_step` are A12's, as for `TrainStep`.
+"""
+import os
+
+from ..distributed.checkpoint import LocalShard
+from ..distributed.parallel_step import DistributedTrainStep
+from . import TrainStep
+
+__all__ = ["HybridTrainStep"]
+
+
+def _env_quant():
+    return os.environ.get("PT_QUANT_ALLREDUCE_XLA", "0").strip().lower() \
+        in ("1", "true", "yes", "on")
+
+
+class HybridTrainStep(DistributedTrainStep, TrainStep):
+    """loss_fn(model, *batch) -> scalar loss, typically
+    `lambda m, ids: m.loss(ids)` over a `PipelinedGPTForCausalLM`.
+    config: an optional `hybrid3d.Hybrid3DConfig` (its ZeRO level and
+    axis; it rides into `describe()`). `donate_params` is taken for
+    TrainStep's signature: the update runs in place, as
+    DistributedTrainStep's does."""
+
+    _steptrace_family = "hybrid3d"
+
+    def __init__(self, model, loss_fn, optimizer, config=None,
+                 donate_params=True, remat=False, quant_allreduce=None):
+        if quant_allreduce is None:
+            quant_allreduce = getattr(config, "quant_allreduce", None)
+        if quant_allreduce is None:
+            quant_allreduce = _env_quant()
+        if quant_allreduce:
+            raise NotImplementedError(
+                "quant_allreduce: the block-scaled int8 dp gradient "
+                "all-reduce is quant_collective's, which is not ported "
+                "yet: ROADMAP A11 (quant_collective, part 4)")
+        self.config = config
+        self.quant_allreduce = False
+        self.donate_params = donate_params
+        zero = getattr(config, "zero", None)
+        self._zero_axis = getattr(config, "zero_axis", "dp")
+        storage = getattr(model, "_storage_axis", None)
+        if storage and not zero:
+            zero, self._zero_axis = "p_g_os", storage
+        super().__init__(model, loss_fn, optimizer, zero_level=zero,
+                         remat=remat, quant_allreduce=False)
+
+    # ---- layout: the batch enters whole, the gradients average over dp
+    def _batch_axes(self):
+        return ("dp",)
+
+    def _slice_batch(self, batch):
+        return list(batch)
+
+    def describe(self):
+        """Mesh / config stamp for records and telemetry."""
+        from ..distributed import mesh as mesh_mod
+
+        out = {"mesh": {a: int(s) for a, s in
+                        mesh_mod.global_mesh().shape.items()
+                        if s > 1 or a in ("dp", "pp", "mp")}}
+        if self.config is not None:
+            out.update(self.config.describe())
+        return out
+
+    # ---- the Checkpointer's hooks, in logical coordinates ----
+    def _logical(self, name):
+        """(logical shape, this rank's index ranges, slices) of parameter
+        `name` of a layout-aware model; None for any other."""
+        from ..convert import pipelined_slices
+
+        m = self.model
+        shapes = m.logical_shapes() if hasattr(m, "layout") else {}
+        if name not in shapes:
+            return None
+        pp, mp, stage, r, V = m.layout()
+        if V > 1:
+            raise NotImplementedError(
+                "checkpointing an interleaved (n_virtual > 1) pipelined "
+                "model: a stage's rows are not one block of the stack")
+        shape = shapes[name]
+        sl = pipelined_slices(name, shape, m.config.num_layers, pp, mp,
+                              stage, r, V)
+        index = [[s.start or 0, n if s.stop is None else s.stop]
+                 for s, n in zip(sl, shape)]
+        return shape, index, sl
+
+    def _lift(self, name, v):
+        """A value of parameter `name`'s local shape (or a LocalShard of
+        it) as a LocalShard of the logical array."""
+        lg = self._logical(name)
+        if lg is None:
+            return v
+        shape, index, _ = lg
+        if isinstance(v, LocalShard):
+            idx = [[a + s, b + s] for (a, b), (s, _) in zip(v.index, index)]
+            return LocalShard(v.tensor, shape, idx)
+        if v.dim() != len(shape):
+            # a per-parameter scalar state: its holders write it whole
+            # (rank 0 may hold no copy of this parameter)
+            return LocalShard(v.detach(), tuple(v.shape),
+                              [[0, n] for n in v.shape])
+        return LocalShard(v.detach(), shape, index)
+
+    def _lower(self, name, full):
+        """This rank's slice of a logical array."""
+        lg = self._logical(name)
+        if lg is None or full.dim() != len(lg[0]):
+            return full
+        return full[tuple(lg[2])]
+
+    def _checkpoint_model_state(self):
+        out = super()._checkpoint_model_state()
+        return {n: self._lift(n, v) for n, v in out.items()}
+
+    def _restore_model_state(self, model_sd):
+        super()._restore_model_state(
+            {n: self._lower(n, v) for n, v in model_sd.items()})
+
+    def _checkpoint_opt_states(self):
+        out = super()._checkpoint_opt_states()
+        return {n: {k: self._lift(n, v) for k, v in d.items()}
+                for n, d in out.items()}
+
+    def _restore_opt_states(self, opt_sd):
+        super()._restore_opt_states(
+            {n: {k: self._lower(n, v) for k, v in d.items()}
+             for n, d in opt_sd.items()})

@@ -82,6 +82,23 @@ class _WeightOnlyLinear(nn.Module):
         w = linear.weight                      # [in, out] (paddle layout)
         self.in_features = int(w.shape[0])
         self.out_features = int(w.shape[1])
+        # tensor parallelism (distributed/hybrid3d/tp.py): None (whole),
+        # "column" (this rank's output channels) or "row" (its input
+        # rows: the product all-reduced, the bias added after); a
+        # parallel layer's shard keeps its placement and flags
+        self.tp_placement = None
+        self.gather_output = False
+        self.input_is_parallel = False
+        if getattr(linear, "world_size", 1) > 1:
+            from ..distributed.fleet.meta_parallel.mp_layers import (
+                ColumnParallelLinear)
+
+            if isinstance(linear, ColumnParallelLinear):
+                self.tp_placement = "column"
+                self.gather_output = linear.gather_output
+            else:
+                self.tp_placement = "row"
+                self.input_is_parallel = linear.input_is_parallel
         q = torch.from_numpy(q)
         if self.int4:
             q = pack_int4(q, axis=0)
@@ -96,19 +113,30 @@ class _WeightOnlyLinear(nn.Module):
         return super()._apply(*args, **kw)
 
     def forward(self, x):
+        from ..distributed.fleet.meta_parallel import mp_ops
         from ..ops.cuda_kernels import int8_gemm
 
+        row = self.tp_placement == "row"
+        if row and not self.input_is_parallel:
+            x = mp_ops.split_mp(x)
+        bias = None if row else self.bias
         prepared = None
         if x.device.type == "cuda":
             prepared = self._gemm_weight
             if (prepared is None or prepared.weight_q is not self.weight_q
                     or prepared.w_step is not self.w_step
-                    or prepared.bias is not self.bias):
+                    or prepared.bias is not bias):
                 prepared = self._gemm_weight = int8_gemm.prepare(
-                    self.weight_q, self.w_step, self.int4, self.bias)
-        return int8_gemm.w8a8_linear(x, self.weight_q, self.w_step,
-                                     self.bias, int4=self.int4,
-                                     prepared=prepared)
+                    self.weight_q, self.w_step, self.int4, bias)
+        out = int8_gemm.w8a8_linear(x, self.weight_q, self.w_step, bias,
+                                    int4=self.int4, prepared=prepared)
+        if row:
+            out = mp_ops.allreduce_mp(out)
+            return out if self.bias is None else out + self.bias.to(
+                out.dtype)
+        if self.tp_placement == "column" and self.gather_output:
+            return mp_ops.gather_mp(out)
+        return out
 
 
 class Int8WeightOnlyLinear(_WeightOnlyLinear):
@@ -119,12 +147,31 @@ class Int8WeightOnlyLinear(_WeightOnlyLinear):
     def __init__(self, linear):
         from . import quantize_weight_int8
 
-        q, scale = quantize_weight_int8(linear.weight, axis=1)
+        if (getattr(linear, "world_size", 1) > 1
+                and hasattr(linear, "input_is_parallel")):
+            q, scale = _row_shard_codes(linear.weight)
+        else:
+            q, scale = quantize_weight_int8(linear.weight, axis=1)
         super().__init__(linear, q, scale, QMAX)
 
     def extra_repr(self):
         return (f"in={self.in_features}, out={self.out_features}, "
                 "weight=int8 per-channel")
+
+
+def _row_shard_codes(w):
+    """A RowParallelLinear shard's per-out-channel codes against the
+    WHOLE weight's scales (the absmax all-reduced over mp by max), so
+    they equal the rows of the whole weight's codes: the reference
+    quantizes the logical weight, then places its rows."""
+    from ..distributed.fleet.meta_parallel.mp_ops import all_reduce_mp_raw
+
+    wv = w.detach().to("cpu", torch.float32)
+    absmax = all_reduce_mp_raw(wv.abs().amax(dim=0, keepdim=True),
+                               op="max")
+    scale = np.maximum(absmax.numpy(), 1e-8)
+    q = np.clip(np.round(wv.numpy() / scale * QMAX), -QMAX, QMAX)
+    return q.astype(np.int8), np.asarray(scale, dtype=np.float32)
 
 
 class Int4WeightOnlyLinear(_WeightOnlyLinear):
@@ -201,14 +248,33 @@ def quantize_model_int8(model, skip=(), tp_shard=True):
     `RowParallelLinear`) for `Int8WeightOnlyLinear`, in place. Embeddings
     and the tied vocab head (which reads the embedding) stay float.
     skip: attribute-path substrings to leave float (e.g. ("lm_head",)).
-    tp_shard: the reference shards the buffers over a tensor-parallel
-    mesh; on one rank there is nothing to shard (ROADMAP A11).
+    tp_shard: on a mesh with mp > 1, cut each whole layer's buffers to
+    this rank's share (distributed/hybrid3d/tp.py: a plain Linear takes
+    'auto'); the shards of the parallel layers are this rank's share
+    already and keep their placement (column, or row with the whole
+    weight's scales). The report then gains `tp_placements` {path:
+    placement}.
 
     Returns {layers, weight_bytes_fp, weight_bytes_int8} (weights only,
     the steps included in the int8 bytes)."""
+    from ..distributed import mesh as mesh_mod
+
     report = {"layers": 0, "weight_bytes_fp": 0, "weight_bytes_int8": 0}
-    return _swap_linears(model, skip, Int8WeightOnlyLinear, report,
-                         "weight_bytes_int8")
+    swapped = []
+
+    def make(sub):
+        q = Int8WeightOnlyLinear(sub)
+        swapped.append(q)
+        return q
+
+    _swap_linears(model, skip, make, report, "weight_bytes_int8")
+    if tp_shard and mesh_mod.axis_size("mp") > 1:
+        from ..distributed.hybrid3d.tp import shard_int8_linear
+
+        paths = {id(m): n for n, m in model.named_modules()}
+        report["tp_placements"] = {
+            paths[id(q)]: shard_int8_linear(q, "auto") for q in swapped}
+    return report
 
 
 def quantize_model_int4(model, skip=()):

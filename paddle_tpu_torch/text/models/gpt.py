@@ -39,7 +39,9 @@ from ...core.dtype import resolve_dtype
 from ...core.place import resolve_device
 from ...distributed.fleet.meta_parallel.mp_layers import (
     ColumnParallelLinear, ParallelCrossEntropy, RowParallelLinear,
-    VocabParallelEmbedding, split_fused_qkv)
+    VocabParallelEmbedding, mp_degree, parallel_cross_entropy,
+    split_fused_qkv)
+from ...distributed.fleet.meta_parallel.mp_ops import copy_to_mp
 from ...distributed.fleet.recompute import checkpoint_policy, recompute
 from ...nn import functional as F
 from ...quantization import runtime as _qrt
@@ -102,7 +104,13 @@ class GPTDecoderLayer(nn.Module):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         d = config.hidden_size
-        self.nh = config.num_heads
+        # at mp > 1 this rank's heads: the qkv shard holds them from each
+        # of q, k and v (mp_layers.qkv_shard_columns), in [3, nh/mp, hd]
+        mp, _ = mp_degree()
+        if config.num_heads % mp:
+            raise ValueError(f"num_heads={config.num_heads} not divisible "
+                             f"by mp={mp}")
+        self.nh = config.num_heads // mp
         self.hd = d // config.num_heads
         self.ln1 = pnn.LayerNorm(d, **kw)
         self.qkv = ColumnParallelLinear(d, 3 * d, gather_output=False, **kw)
@@ -457,8 +465,9 @@ class GPTForCausalLM(nn.Module):
     def _logits_from_hidden(self, x):
         if self.lm_head is not None:
             return self.lm_head(x)
-        # tied head: x @ wte.weight.T (wte.weight is [vocab, d])
-        return F.linear(x, self.gpt.wte.weight.t())
+        # tied head: x @ wte.weight.T (wte.weight is [vocab, d]); at
+        # mp > 1 this rank's vocab columns
+        return F.linear(copy_to_mp(x), self.gpt.wte.weight.t())
 
     def forward(self, input_ids):
         return self._logits_from_hidden(self.gpt(input_ids))
@@ -475,7 +484,11 @@ class GPTForCausalLM(nn.Module):
         (shift_x,) = amp.cast_inputs_for("slice", (x[:, :-1],))
         shift_labels = labels[:, 1:]
         total = shift_labels.shape[0] * shift_labels.shape[1]
-        if self.lm_head is not None:
+        if mp_degree()[0] > 1:
+            # vocab-parallel: this rank's logits through the parallel CE
+            s = parallel_cross_entropy(self._logits_from_hidden(shift_x),
+                                       shift_labels).sum()
+        elif self.lm_head is not None:
             s = F.fused_linear_cross_entropy(
                 shift_x, self.lm_head.weight, shift_labels,
                 reduction="sum", block_size=block_size)

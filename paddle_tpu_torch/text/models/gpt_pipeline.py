@@ -1,0 +1,480 @@
+"""Pipeline-parallel GPT with Megatron tensor parallelism inside each
+stage (counterpart of paddle_tpu/text/models/gpt_pipeline.py; dense FFN
+only).
+
+The decoder parameters are STACKED [L, ...] under the reference's names
+(`stk_*`) and layouts. One process per mesh position holds its share:
+its stage's rows of every stack (with n_virtual > 1 its chunks, round
+robin) and, per array, its ``mp`` columns (qkv and fc1: column-parallel)
+or rows (proj and fc2: row-parallel), LayerNorms and output biases whole.
+The fused qkv is HEAD-MAJOR, [nh, 3, hd], so a contiguous column shard is
+a whole number of heads with their q, k and v.
+
+Stage 0 holds the embedding (`wte` rows of its vocab range, `wpe`); the
+last stage holds the final LayerNorm and the head, which is tied to
+`wte`. With stages in separate processes both hold the same mp slice of
+`wte`, and their two gradients are summed over the {first, last} stage
+pair of each mp index (the reference's shared-weight all-reduce; it gets
+the sum from outer autodiff). At pp 1 the pair is one rank.
+
+`loss(ids)` splits the global batch into `n_micro` micro-batches (each
+dp rank keeps its rows of every micro) and runs the 1F1B schedule
+(`schedule="gpipe"`: GPipe; n_virtual > 1: interleaved virtual stages;
+forward-only fill-drain when grad is off). Each stage brackets its
+parallel pairs with `copy_to_mp` / `allreduce_mp`, and the head is the
+vocab-parallel CE. Attention goes through `F.scaled_dot_product_attention`,
+i.e. the flash kernels K3-K5 on the card. `remat`: "stage" recomputes a
+stage from its kept input in the backward tick, "layer" recomputes each
+decoder layer (`fleet.recompute`), False keeps everything.
+
+MoE (`moe_experts > 0`) and a mesh with sp > 1 raise, naming ROADMAP
+A11's parts 3 and 5.
+"""
+import torch
+from torch import nn
+
+from ... import amp
+from ...core.dtype import resolve_dtype
+from ...core.place import resolve_device
+from ...distributed import mesh as mesh_mod
+from ...distributed.fleet.meta_parallel.mp_ops import (allreduce_mp,
+                                                       copy_to_mp,
+                                                       gather_mp)
+from ...distributed.fleet.meta_parallel.mp_layers import (
+    parallel_cross_entropy, vocab_parallel_lookup)
+from ...nn import functional as F
+from .gpt import GPTConfig  # noqa: F401
+
+__all__ = ["PipelinedGPTForCausalLM"]
+
+# the per-layer arrays, in the reference's creation order, with their
+# shapes as functions of (d, ffn)
+_STACK = (("ln1_w", lambda d, f: [d]), ("ln1_b", lambda d, f: [d]),
+          ("qkv_w", lambda d, f: [d, 3 * d]),
+          ("qkv_b", lambda d, f: [3 * d]),
+          ("proj_w", lambda d, f: [d, d]), ("proj_b", lambda d, f: [d]),
+          ("ln2_w", lambda d, f: [d]), ("ln2_b", lambda d, f: [d]),
+          ("fc1_w", lambda d, f: [d, f]), ("fc1_b", lambda d, f: [f]),
+          ("fc2_w", lambda d, f: [f, d]), ("fc2_b", lambda d, f: [d]))
+
+
+def _add(a, b):
+    a, b = amp.cast_inputs_for("add", (a, b))
+    return a + b
+
+
+def _layernorm(x, w, b):
+    return F.layer_norm(x, [x.shape[-1]], w, b, 1e-5)
+
+
+def _decoder_fwd(p, x, nh, mp=1):
+    """One pre-LN decoder block as a function of its parameter dict (this
+    rank's shards: qkv / fc1 column-parallel, proj / fc2 row-parallel).
+    Each parallel pair enters through `copy_to_mp` and leaves through
+    `allreduce_mp` (identities at mp 1)."""
+    b, s, d = x.shape
+    nh_loc = nh // mp
+    hd = d // nh
+    h = _layernorm(x, p["ln1_w"], p["ln1_b"])
+    qkv = F.linear(copy_to_mp(h), p["qkv_w"], p["qkv_b"])
+    q, k, v = qkv.reshape(b, s, nh_loc, 3, hd).unbind(3)
+    attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    attn = attn.reshape(b, s, nh_loc * hd)
+    x = _add(_add(x, allreduce_mp(F.linear(attn, p["proj_w"]))),
+             p["proj_b"])
+    h = _layernorm(x, p["ln2_w"], p["ln2_b"])
+    part = F.linear(F.gelu(F.linear(copy_to_mp(h), p["fc1_w"],
+                                    p["fc1_b"]), approximate=True),
+                    p["fc2_w"])
+    return _add(_add(x, allreduce_mp(part)), p["fc2_b"])
+
+
+def _vocab_parallel_ce(sh, wte_loc, sl, mp):
+    """Per-token CE over a vocab-sharded head: [N, d] @ [d, V/mp] local
+    logits, the LSE reduced across mp (the reference's algorithm)."""
+    logits = F.linear(copy_to_mp(sh), wte_loc.t())
+    return parallel_cross_entropy(logits, sl)
+
+
+class _TiedGrad(torch.autograd.Function):
+    """Identity forward; backward sums the gradient over the {first, last}
+    stage pair (the tied `wte`'s embedding and head uses)."""
+
+    @staticmethod
+    def forward(ctx, w, group, stats):
+        ctx.group, ctx.stats = group, stats
+        return w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, g):
+        import time
+
+        from ...distributed import collective
+
+        t0 = time.perf_counter()
+        g = collective.all_reduce(g.contiguous().clone(), group=ctx.group)
+        st = ctx.stats
+        st["calls"] = st.get("calls", 0) + 1
+        st["bytes"] = st.get("bytes", 0) + g.numel() * g.element_size()
+        st["seconds"] = st.get("seconds", 0.0) + time.perf_counter() - t0
+        return g, None, None
+
+
+class PipelinedGPTForCausalLM(nn.Module):
+    """GPT whose decoder parameters are stacked [num_layers, ...] and held
+    by stage (pp) and by Megatron shard (mp); see the module docstring.
+    `forward(ids)` returns the whole logits; `loss(ids)` runs the
+    pipeline. Weights come from `seed` (each logical array drawn whole,
+    then cut, so every mesh gets the same model) or from the reference's
+    state dict (`convert.cut_pipelined_state`)."""
+
+    # the reference's int8 dp all-reduce knob (quant_collective: ROADMAP
+    # A11 part 4); HybridTrainStep raises when it is on
+    quant_allreduce = None
+
+    def __init__(self, config, n_micro=4, remat="stage", n_virtual=1,
+                 moe_experts=0, moe_hidden=None, moe_aux_weight=0.01,
+                 moe_capacity_factor=1.25, moe_topk=1, schedule="1f1b",
+                 device=None, dtype="float32", seed=0):
+        super().__init__()
+        if schedule not in ("1f1b", "gpipe"):
+            raise ValueError(
+                f"schedule={schedule!r}: expected '1f1b' or 'gpipe'")
+        if schedule == "gpipe" and n_virtual != 1:
+            raise ValueError(
+                "interleaved virtual stages are a 1F1B refinement; "
+                "gpipe runs n_virtual=1")
+        if not isinstance(n_virtual, int) or n_virtual < 1:
+            raise ValueError(
+                f"n_virtual={n_virtual!r}: expected an int >= 1")
+        if remat is True:
+            remat = "stage"
+        if remat not in ("stage", "layer", False):
+            raise ValueError(
+                f"remat={remat!r}: expected 'stage', 'layer', or False")
+        if moe_experts:
+            raise NotImplementedError(
+                "moe_experts > 0: the MoE FFN is not ported yet: ROADMAP "
+                "A11 (MoE, part 3)")
+        self.config = config
+        self.n_micro = n_micro
+        self.schedule = schedule
+        self.n_virtual = n_virtual
+        self.remat = remat
+        self.moe_experts = 0
+        mesh = mesh_mod.global_mesh()
+        me = mesh_mod.coord()
+        self.pp, self.mp = mesh.shape["pp"], mesh.shape["mp"]
+        self.stage, self.mp_rank = me["pp"], me["mp"]
+        self._validate()
+        device = resolve_device(device)
+        dtype = resolve_dtype(dtype)
+        d, L, ffn = config.hidden_size, config.num_layers, config.ffn_size
+        V = n_virtual if self.pp > 1 else 1
+        self._local_layers = L // (self.pp * V) * V
+
+        def param(shape):
+            return nn.Parameter(torch.empty(shape, device=device,
+                                            dtype=dtype))
+
+        first, last = self.stage == 0, self.stage == self.pp - 1
+        self.wte = param([config.vocab_size // self.mp, d]) \
+            if first or last else None
+        self.wpe = param([config.max_seq_len, d]) if first else None
+        from ...convert import PIPELINED_MP_DIM
+
+        self._stack_names = [n for n, _ in _STACK]
+        for name, shape_of in _STACK:
+            shape = shape_of(d, ffn)
+            md = PIPELINED_MP_DIM[name]
+            if md is not None:
+                shape[md] //= self.mp
+            setattr(self, "stk_" + name,
+                    param([self._local_layers] + shape))
+        self.lnf_w = param([d]) if last else None
+        self.lnf_b = param([d]) if last else None
+        # the reference's specs, recorded; an mp shard is marked
+        # `mp_shard` (TensorParallel's broadcast skips it)
+        from ...distributed.fleet.meta_parallel.mp_layers import (
+            mark_sharding)
+
+        for name, _ in _STACK:
+            p = getattr(self, "stk_" + name)
+            spec = ["pp"] + [None] * (p.dim() - 1)
+            md = PIPELINED_MP_DIM[name]
+            if md is not None:
+                spec[1 + md] = "mp"
+            mark_sharding(p, *spec)
+            p.mp_shard = md is not None and self.mp > 1
+        if self.wte is not None:
+            mark_sharding(self.wte, "mp", None)
+            self.wte.mp_shard = self.mp > 1
+        self.register_buffer("aux_loss", torch.zeros(
+            (), dtype=torch.float32, device=device))
+        # the tied wte's gradient pair and its all-reduce's numbers
+        self.tied_stats = {}
+        self._pair = None
+        from ...distributed import xproc
+
+        if xproc.is_multiprocess():
+            from ...distributed import collective
+
+            # every gloo subgroup this model's step uses, made now, on
+            # every rank in one order (a stage would otherwise make its
+            # mp group at its first forward, after the previous stage's)
+            for axis in ("dp", "pp", "mp"):
+                collective.axis_comm((axis,))
+            if self.pp > 1:
+                self._pair = collective.new_group(
+                    ranks=[0, self.pp - 1], axes=("pp",))
+        self.reset_parameters(seed)
+
+    def _validate(self):
+        cfg = self.config
+        V = self.n_virtual if self.pp > 1 else 1
+        if self.pp > 1 and cfg.num_layers % (self.pp * V):
+            raise ValueError(
+                f"num_layers={cfg.num_layers} not divisible by "
+                f"pp*n_virtual={self.pp}*{V}")
+        if self.mp > 1:
+            for dim, what in ((cfg.num_heads, "num_heads"),
+                              (cfg.vocab_size, "vocab_size"),
+                              (cfg.ffn_size, "ffn_size")):
+                if dim % self.mp:
+                    raise ValueError(
+                        f"{what}={dim} not divisible by mp={self.mp}")
+
+    # ---- weights ----
+    def logical_shapes(self):
+        """{name: logical shape} of every parameter of the whole model."""
+        cfg = self.config
+        d, L = cfg.hidden_size, cfg.num_layers
+        out = {"wte": [cfg.vocab_size, d], "wpe": [cfg.max_seq_len, d],
+               "lnf_w": [d], "lnf_b": [d]}
+        for name, shape_of in _STACK:
+            out["stk_" + name] = [L] + shape_of(d, cfg.ffn_size)
+        return out
+
+    def layout(self):
+        """(pp, mp, stage, mp_rank, n_virtual) of this rank's share."""
+        return (self.pp, self.mp, self.stage, self.mp_rank,
+                self.n_virtual if self.pp > 1 else 1)
+
+    @torch.no_grad()
+    def load_logical(self, arrays):
+        """Copy this rank's slice of a logical state dict (numpy arrays or
+        tensors, e.g. the reference's `state_dict()`) into the model."""
+        from ...convert import cut_pipelined_state
+
+        pp, mp, stage, r, V = self.layout()
+        cut = cut_pipelined_state(arrays, self.config, pp, mp, stage, r, V)
+        own = dict(self.named_parameters())
+        missing = sorted(set(own) - set(cut))
+        if missing:
+            raise KeyError(f"state dict is missing {missing}")
+        for name, p in own.items():
+            t = cut[name]
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(t.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(t.to(device=p.device, dtype=p.dtype))
+        return self
+
+    @torch.no_grad()
+    def reset_parameters(self, seed=0):
+        """Each logical array drawn whole from a generator of its own
+        (N(0, 0.02) matrices, LayerNorm ones, zero biases), then cut to
+        this rank's share: the same model on every mesh."""
+        own = dict(self.named_parameters())
+        dev = next(iter(own.values())).device
+        arrays = {}
+        for i, (name, shape) in enumerate(self.logical_shapes().items()):
+            if name not in own:
+                continue
+            short = name[4:] if name.startswith("stk_") else name
+            if short.endswith("_b"):
+                arrays[name] = torch.zeros(shape, device=dev)
+            elif short in ("ln1_w", "ln2_w", "lnf_w"):
+                arrays[name] = torch.ones(shape, device=dev)
+            else:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(int(seed) * 1000003 + i)
+                arrays[name] = torch.empty(shape, device=dev).normal_(
+                    0.0, 0.02, generator=gen)
+        self.load_logical(arrays)
+
+    def shard_storage(self):
+        """ZeRO parameter storage composed with the pipeline: on a mesh
+        with a 'sharding' axis > 1 the train step keeps each parameter's
+        block over that axis between steps (p_g_os, the ZeRO placement
+        policy); a no-op otherwise. Call before building the step."""
+        if mesh_mod.axis_size("sharding") > 1:
+            self._storage_axis = "sharding"
+        return self
+
+    # ---- pieces ----
+    def _tied(self, w):
+        if self._pair is None or w is None:
+            return w
+        return _TiedGrad.apply(w, self._pair, self.tied_stats)
+
+    def _embed(self, ids):
+        wte = self._tied(self.wte)
+        if self.mp > 1:
+            e = vocab_parallel_lookup(ids, wte, self.mp_rank * wte.shape[0])
+        else:
+            e = F.embedding(ids, wte)
+        return _add(e, self.wpe[:ids.shape[-1]])
+
+    def _block_fn(self):
+        from ...distributed.fleet.recompute import recompute
+
+        nh, mp = self.config.num_heads, self.mp
+
+        def layer(p, x):
+            return _decoder_fwd(p, x, nh, mp)
+
+        per_layer = layer
+        if self.remat == "layer":
+            def per_layer(p, x):
+                return recompute(layer, p, x)
+
+        def block(stage_params, x):
+            rows = {k: v.unbind(0) for k, v in stage_params.items()}
+            for i in range(len(next(iter(rows.values())))):
+                x = per_layer({k: r[i] for k, r in rows.items()}, x)
+            return x
+
+        return block
+
+    def _loss_fn(self):
+        mp = self.mp
+
+        def loss_fn(y, labels, post):
+            h = _layernorm(y, post["lnf_w"], post["lnf_b"])
+            sh = h[:, :-1].reshape(-1, h.shape[-1])
+            sl = labels[:, 1:].reshape(-1)
+            if mp == 1:
+                # the fused head CE: the [tokens, vocab] logits are never
+                # kept
+                return F.fused_linear_cross_entropy(
+                    sh, post["wte"], sl, transpose_weight=True,
+                    block_size=2048).float()
+            return _vocab_parallel_ce(sh, post["wte"], sl, mp).mean()
+
+        return loss_fn
+
+    def _stacked(self):
+        V = self.n_virtual if self.pp > 1 else 1
+        out = {}
+        for n in self._stack_names:
+            a = getattr(self, "stk_" + n)
+            out[n] = a.view(V, a.shape[0] // V, *a.shape[1:]) if V > 1 \
+                else a
+        return out
+
+    def _post(self):
+        if self.stage != self.pp - 1:
+            return {}
+        return {"wte": self._tied(self.wte), "lnf_w": self.lnf_w,
+                "lnf_b": self.lnf_b}
+
+    def _micro(self, ids):
+        """[B, s] → [M, rows of this dp rank, s]."""
+        M = self.n_micro
+        B = ids.shape[0]
+        assert B % M == 0, f"batch {B} not divisible by n_micro {M}"
+        mb = B // M
+        dp = mesh_mod.axis_size("dp")
+        x = ids.reshape(M, mb, ids.shape[-1])
+        if dp > 1:
+            if mb % dp:
+                raise ValueError(
+                    f"per-micro batch {mb} not divisible by dp={dp}; pick "
+                    "batch/n_micro so each dp shard gets an equal slice")
+            c = mb // dp
+            r = mesh_mod.axis_index("dp")
+            x = x[:, r * c:(r + 1) * c]
+        return x
+
+    # ---- API ----
+    def loss(self, input_ids, labels=None):
+        """Mean LM loss through the pipeline schedule (the forward-only
+        fill-drain when grad is off). At dp > 1 this dp rank's rows
+        (HybridTrainStep averages the ranks' losses and gradients)."""
+        from ...distributed.fleet.meta_parallel.pipeline_1f1b import (
+            pipeline_1f1b, pipeline_forward_loss)
+
+        if mesh_mod.axis_size("sp") > 1:
+            raise NotImplementedError(
+                "an sp > 1 mesh: sequence parallelism inside pipeline "
+                "stages is not ported yet: ROADMAP A11 (sequence "
+                "parallelism, part 5)")
+        dev = self.stk_ln1_w.device
+        labels = input_ids if labels is None else labels
+        ids_m = self._micro(torch.as_tensor(input_ids, device=dev))
+        lbl_m = self._micro(torch.as_tensor(labels, device=dev))
+        if self.stage == 0:
+            x_m = self._embed(ids_m)
+        else:
+            d = self.config.hidden_size
+            x_m = torch.zeros(tuple(ids_m.shape) + (d,),
+                              dtype=self.stk_ln1_w.dtype, device=dev)
+        V = self.n_virtual if self.pp > 1 else 1
+        block_fn, loss_fn = self._block_fn(), self._loss_fn()
+        stacked, post = self._stacked(), self._post()
+        if not torch.is_grad_enabled() and V == 1:
+            return pipeline_forward_loss(block_fn, loss_fn, stacked, post,
+                                         (x_m, lbl_m))
+        remat = self.remat == "stage"
+        if self.schedule == "gpipe" and self.pp > 1:
+            from ...distributed.hybrid3d.schedule import pipeline_gpipe
+
+            return pipeline_gpipe(block_fn, loss_fn, stacked, post,
+                                  (x_m, lbl_m), remat=remat)
+        return pipeline_1f1b(block_fn, loss_fn, stacked, post, (x_m, lbl_m),
+                             remat=remat, num_virtual=V)
+
+    @torch.no_grad()
+    def forward(self, input_ids):
+        """Whole logits [b, s, vocab] on every rank (the eval path): the
+        batch through the stages as one micro-batch, the head on the last
+        stage, gathered over mp and summed over pp."""
+        from ...distributed.fleet.meta_parallel.mp_ops import (
+            all_reduce_mp_raw)
+        from ...distributed.fleet.meta_parallel.pipeline_1f1b import (
+            fill_drain, pp_world)
+
+        dev = self.stk_ln1_w.device
+        ids = torch.as_tensor(input_ids, device=dev)
+        block = self._block_fn()
+        stacked = self._stacked()
+        V = self.n_virtual if self.pp > 1 else 1
+
+        def stage_fn(p, x):
+            for v in range(V):
+                x = block({k: a[v] for k, a in p.items()} if V > 1 else p,
+                          x)
+            return x
+
+        pp, stage, members = pp_world()
+        b, s = ids.shape
+        x = self._embed(ids) if stage == 0 else torch.zeros(
+            (b, s, self.config.hidden_size), dtype=self.stk_ln1_w.dtype,
+            device=dev)
+        if pp == 1:
+            outs = [stage_fn(stacked, x)]
+        elif V > 1:
+            raise NotImplementedError(
+                "forward of an interleaved model across stages: the "
+                "fill-drain runs one chunk a stage (use loss)")
+        else:
+            outs = fill_drain(stage_fn, stacked, x[None], stage, pp,
+                              members)
+        logits = torch.zeros((b, s, self.config.vocab_size),
+                             dtype=torch.float32, device=dev)
+        if stage == pp - 1:
+            h = _layernorm(outs[0], self.lnf_w, self.lnf_b)
+            logits = gather_mp(F.linear(h, self.wte.t())).float()
+        return all_reduce_mp_raw(logits, axis="pp", kind="pp_logits") \
+            if pp > 1 else logits

@@ -217,3 +217,34 @@ def test_eager_world_group_and_axis_group_ranks(battery):
         np.testing.assert_array_equal(battery[r]["eager_world_all_gather"],
                                       np.arange(4.0))
         assert battery[r]["group_rank_nranks"].tolist() == [r % 2, 2]
+
+
+def test_reduce_scatter_list_at_world_one():
+    """A list input fills `tensor` in one process too (paddle's list
+    semantics at every group size): the chunk of a group of one is the
+    whole concatenated list. The reference ignores the list and returns
+    `tensor` unchanged (ROADMAP §C, a quirk the port does not follow)."""
+    out = torch.zeros(2)
+    got = tdist.reduce_scatter(out, [torch.tensor([1.0, 2.0])])
+    assert got is out and out.tolist() == [1.0, 2.0]
+    out = torch.zeros(4)
+    tdist.reduce_scatter(out, [torch.tensor([1.0, 2.0]),
+                               torch.tensor([3.0, 4.0])],
+                         group=tdist.new_group(axes=("mp",)))
+    assert out.tolist() == [1.0, 2.0, 3.0, 4.0]
+    x = torch.arange(4.0)
+    assert tdist.reduce_scatter(x) is x and x.tolist() == [0, 1, 2, 3]
+
+
+def test_reduce_scatter_list_across_ranks(battery):
+    """The 4-process battery's list case over each mp group: every rank's
+    two parts concatenated, summed over the group, and this rank's mp
+    position's half written into `tensor` (and returned)."""
+    for r in range(4):
+        a, b = 2 * (r // 2), 2 * (r // 2) + 1
+        whole = sum(torch.cat(worker.reduce_scatter_list(k)).numpy()
+                    for k in (a, b))
+        want = whole[2 * (r % 2):2 * (r % 2) + 2]
+        got = battery[r]["reduce_scatter_list_mp"]
+        np.testing.assert_array_equal(got[0], want)
+        np.testing.assert_array_equal(got[1], want)

@@ -297,10 +297,12 @@ def test_group_sharded_and_refusals():
                 zero_level="os")
     finally:
         tmesh.reset_mesh()
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfleet.TensorParallel(m)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tfleet.PipelineParallel(m)
+    # tensor and pipeline parallelism are ported (ROADMAP A11(b) parts
+    # 1-2): at world 1 TensorParallel is the layers themselves and
+    # PipelineParallel wraps them
+    assert tfleet.TensorParallel(m) is m
+    pp = tfleet.PipelineParallel(m)
+    assert pp._layers is m and pp.accumulate_steps == 1
 
 
 def test_profile_dist_defaults_to_the_card_and_runs_on_the_cpu(

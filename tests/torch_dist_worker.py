@@ -101,7 +101,19 @@ def collectives(out):
         None, torch.tensor([float(rank)])).numpy()
     g = D.new_group(axes=("mp",))
     res["group_rank_nranks"] = np.array([g.rank, g.nranks])
+    # reduce_scatter's list form (paddle's semantics): the mp group's sum
+    # of each rank's concatenated list, this rank's chunk into `tensor`
+    out_t = torch.zeros(2)
+    ret = D.reduce_scatter(out_t, reduce_scatter_list(rank), group=g)
+    res["reduce_scatter_list_mp"] = np.stack([out_t.numpy(), ret.numpy()])
     np.savez(os.path.join(out, f"coll_r{rank}.npz"), **res)
+
+
+def reduce_scatter_list(rank):
+    """The list each rank hands reduce_scatter: two 2-element parts."""
+    import torch
+
+    return [torch.full((2,), float(rank + 1)), torch.arange(2.0) + rank]
 
 
 # ---- training -------------------------------------------------------

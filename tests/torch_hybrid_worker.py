@@ -1,0 +1,510 @@
+"""Worker of the port's tensor- and pipeline-parallel tests
+(tests/test_torch_mp_layers.py, test_torch_pipeline.py,
+test_torch_hybrid3d.py, test_torch_gpt_pipeline.py), run under
+`python -m paddle_tpu_torch.distributed.launch`:
+
+    torch_hybrid_worker.py mp OUT      # 2 ranks, mesh mp 2
+    torch_hybrid_worker.py hybrid OUT  # 4 ranks: pp 2 x mp 2, dp 2 x pp 2
+    torch_hybrid_worker.py 3d OUT      # 8 ranks: dp 2 x tp 2 x pp 2
+
+Inputs and whole weights come from OUT (written by the test from a seed
+with numpy and from the reference's models); each rank writes its
+results to OUT as npz / JSON.
+"""
+import json
+import os
+import sys
+
+import numpy as np
+
+# the small GPT of the hybrid tests (bench_train_3d's geometry)
+CFG = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
+           max_seq_len=32)
+N_MICRO, STEPS, LR = 4, 3, 1e-3
+
+
+def _root():
+    return os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _cfg():
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    return GPTConfig(**CFG)
+
+
+def _np(t):
+    t = t.detach()
+    if t.dtype.is_floating_point:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+# ---- mp 2: the Megatron layers ---------------------------------------
+
+def mp(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        mp_layers as mpu)
+    from paddle_tpu_torch.distributed.hybrid3d import int8_tp_placement
+    from paddle_tpu_torch.quantization.runtime import quantize_model_int8
+
+    D.init_parallel_env(mp=2, device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    a = {k: torch.from_numpy(v) for k, v in
+         np.load(os.path.join(out, "mp_inputs.npz")).items()}
+    res = {}
+
+    def run(name, layer, x, gy, w, b=None):
+        mpu.load_full(layer, w, b)
+        x = x.clone().requires_grad_()
+        y = layer(x)
+        (y * gy).sum().backward()
+        res[f"{name}/out"] = _np(y)
+        res[f"{name}/dx"] = _np(x.grad)
+        res[f"{name}/dw"] = _np(layer.weight.grad)
+        if layer.bias is not None:
+            res[f"{name}/db"] = _np(layer.bias.grad)
+
+    c = slice(rank * 3, rank * 3 + 3)
+    run("col_gather", mpu.ColumnParallelLinear(8, 6, device="cpu"),
+        a["x"], a["gy"], a["w"], a["b"])
+    run("col_local", mpu.ColumnParallelLinear(8, 6, gather_output=False,
+                                              device="cpu"),
+        a["x"], a["gy"][:, c], a["w"], a["b"])
+    run("row_split", mpu.RowParallelLinear(6, 8, device="cpu"),
+        a["x6"], a["gy8"], a["w_row"], a["b8"])
+    run("row_parallel", mpu.RowParallelLinear(6, 8, input_is_parallel=True,
+                                              device="cpu"),
+        a["x6"][:, c], a["gy8"], a["w_row"], a["b8"])
+    emb = mpu.load_full(mpu.VocabParallelEmbedding(16, 4, device="cpu"),
+                        a["emb"])
+    e = emb(a["ids"])
+    (e * a["gy_emb"]).sum().backward()
+    res["emb/out"], res["emb/dw"] = _np(e), _np(emb.weight.grad)
+    # vocab-parallel CE on this rank's 8 of the 16 vocab columns
+    lg = a["logits"][:, rank * 8:rank * 8 + 8].clone().requires_grad_()
+    loss = mpu.ParallelCrossEntropy(ignore_index=-100)(lg, a["labels"])
+    loss.sum().backward()
+    res["ce/loss"], res["ce/dlogits"] = _np(loss), _np(lg.grad)
+    # a Megatron MLP: column (no gather) -> gelu -> row (parallel input);
+    # copy_to_mp / allreduce_mp must give the serial input gradient
+    col = mpu.load_full(mpu.ColumnParallelLinear(
+        8, 16, gather_output=False, device="cpu"), a["w1"], a["b1"])
+    row = mpu.load_full(mpu.RowParallelLinear(
+        16, 8, input_is_parallel=True, device="cpu"), a["w2"], a["b2"])
+    x = a["x"].clone().requires_grad_()
+    h = row(torch.nn.functional.gelu(col(x)))
+    (h * a["gy_mlp"]).sum().backward()
+    res["mlp/out"], res["mlp/dx"] = _np(h), _np(x.grad)
+    res["mlp/dw1"], res["mlp/dw2"] = _np(col.weight.grad), _np(
+        row.weight.grad)
+    # the flat GPT at mp 2 (per-head qkv shard) from the reference's
+    # weights: the loss and the whole logits
+    from paddle_tpu_torch.convert import cut_gpt_state, load_jax_state_dict
+    from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
+                                                  GPTPretrainingCriterion)
+
+    gw = dict(np.load(os.path.join(out, "gpt_weights.npz")))
+    ids = torch.from_numpy(np.load(os.path.join(out, "gpt_ids.npy")))
+    m = GPTForCausalLM(_cfg(), device="cpu")
+    load_jax_state_dict(m, cut_gpt_state(gw, _cfg(), 2, rank))
+    logits = m(ids)
+    gl = GPTPretrainingCriterion()(logits, ids)
+    gl.backward()
+    res["gpt/loss"] = _np(gl)
+    res["gpt/logits"] = _np(_gather_last(logits))
+    res["gpt/dqkv"] = _np(m.gpt.layers[0].qkv.weight.grad)
+    res["gpt/fused_loss"] = _np(m.fused_head_loss(ids))
+    # split: the op-level layers from core.rng's stream
+    rng.seed(5)
+    xs = a["x"]
+    res["split/col"] = _np(D.split(xs, (8, 6), operation="linear", axis=1))
+    res["split/row"] = _np(D.split(xs, (8, 6), operation="linear", axis=0))
+    res["split/emb"] = _np(D.split(a["ids"][:2, :2], (16, 4),
+                                   operation="embedding"))
+    try:
+        D.split(xs, (8, 6), operation="conv")
+    except ValueError:
+        res["split/conv_raises"] = np.array(1)
+    # int8 TP: whole Linears cut by quantize_model_int8(tp_shard=True);
+    # the parallel layers' own shards quantized in place
+    seq = torch.nn.Sequential(
+        _linear(a["q_w1"], a["q_b1"]), torch.nn.ReLU(),
+        _linear(a["q_w2"], a["q_b2"]))
+    rep = quantize_model_int8(seq)
+    res["int8/placements"] = np.array(json.dumps(rep["tp_placements"]))
+    res["int8/out"] = _np(seq(a["q_x"]))
+    res["int8/w_step0"] = _np(seq[0].w_step)
+    lin = torch.nn.Sequential(_linear(a["q_w3"], a["q_b3"]))
+    quantize_model_int8(lin)
+    res["int8/row_out"] = _np(lin(a["q_x32"]))
+    res["int8/row_placement"] = np.array(int8_tp_placement(lin[0]))
+    par = torch.nn.Sequential(
+        mpu.load_full(mpu.ColumnParallelLinear(16, 32, gather_output=False,
+                                               device="cpu"),
+                      a["q_w1"], a["q_b1"]),
+        torch.nn.ReLU(),
+        mpu.load_full(mpu.RowParallelLinear(32, 8, input_is_parallel=True,
+                                            device="cpu"),
+                      a["q_w2"], a["q_b2"]))
+    rep = quantize_model_int8(par)
+    res["int8/par_placements"] = np.array(json.dumps(rep["tp_placements"]))
+    res["int8/par_out"] = _np(par(a["q_x"]))
+    res["int8/par_row_codes"] = _np(par[2].weight_q)
+    # TensorParallel: replicated parameters from the mp group's first
+    # rank, the shards untouched
+    tp = torch.nn.Sequential(
+        torch.nn.Linear(3, 3),
+        mpu.ColumnParallelLinear(3, 4, gather_output=False, device="cpu"))
+    with torch.no_grad():
+        tp[0].weight.fill_(float(rank + 1))
+        tp[1].weight.fill_(float(rank + 10))
+    assert fleet.TensorParallel(tp) is tp
+    res["tp/replicated"] = _np(tp[0].weight)
+    res["tp/shard"] = _np(tp[1].weight)
+    np.savez(os.path.join(out, f"mp_r{rank}.npz"), **res)
+
+
+def _linear(w, b):
+    import torch
+
+    from paddle_tpu_torch.nn.layer.common import Linear
+
+    lin = Linear(w.shape[0], w.shape[1], device="cpu")
+    with torch.no_grad():
+        lin.weight.copy_(w)
+        lin.bias.copy_(b)
+    return lin
+
+
+def _gather_last(t):
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_ops import (
+        gather_mp)
+
+    return gather_mp(t.detach())
+
+
+# ---- pp 2 x mp 2 and dp 2 x pp 2: the pipelined GPT -------------------
+
+HYBRID_RUNS = [
+    # (name, mesh, model kwargs, step config kwargs)
+    ("pp2mp2", dict(pp=2, mp=2), {}, {}),
+    ("gpipe", dict(pp=2, mp=2), dict(schedule="gpipe"), {}),
+    ("v2", dict(pp=2, mp=2), dict(n_virtual=2), {}),
+    ("layer", dict(pp=2, mp=2), dict(remat="layer"), {}),
+    ("dp2pp2_zero_os", dict(dp=2, pp=2), {}, dict(zero="os")),
+    # shard_storage: parameter blocks over 'sharding' (ZeRO p_g_os)
+    ("pp2_storage", dict(pp=2, sharding=2), {}, {}),
+]
+
+
+def _model(w, **kw):
+    from paddle_tpu_torch.text.models.gpt_pipeline import (
+        PipelinedGPTForCausalLM)
+
+    m = PipelinedGPTForCausalLM(_cfg(), n_micro=N_MICRO, device="cpu",
+                                **kw)
+    return m.load_logical(w)
+
+
+def _local_state(m):
+    return {n: _np(p) for n, p in m.named_parameters()}
+
+
+def hybrid(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+    # the module (its package re-exports the function of the same name)
+    p1 = sys.modules["paddle_tpu_torch.distributed.fleet.meta_parallel."
+                     "pipeline_1f1b"]
+    from paddle_tpu_torch.distributed.hybrid3d import (Hybrid3DConfig,
+                                                       build_gpt3d)
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    w = dict(np.load(os.path.join(out, "pipe_weights.npz")))
+    ids = torch.from_numpy(np.load(os.path.join(out, "pipe_ids.npy")))
+    res = {}
+    for name, mesh, model_kw, step_kw in HYBRID_RUNS:
+        mesh_mod.init_mesh(**mesh)
+        coord = mesh_mod.coord()
+        res[f"{name}/coord"] = [coord["dp"], coord["pp"], coord["mp"]]
+        if name == "pp2mp2":
+            # the gradients of one loss at the reference's weights
+            m = _model(w, **model_kw)
+            m.loss(ids).backward()
+            np.savez(os.path.join(out, f"grads_r{rank}.npz"),
+                     **{n: _np(p.grad) for n, p in m.named_parameters()})
+            with torch.no_grad():
+                res["eval/no_grad_loss"] = float(m.loss(ids))
+            res["eval/grad_loss"] = float(m.loss(ids).detach())
+            res["forward/logits_sum"] = float(m(ids[:2]).double().sum())
+        cfg3d = Hybrid3DConfig(**{k: mesh.get(k, 1) for k in ("dp", "pp")},
+                               tp=mesh.get("mp", 1), n_micro=N_MICRO,
+                               **step_kw,
+                               **({"schedule": model_kw["schedule"]}
+                                  if "schedule" in model_kw else {}),
+                               **({"n_virtual": model_kw["n_virtual"]}
+                                  if "n_virtual" in model_kw else {}),
+                               **({"remat": model_kw["remat"]}
+                                  if "remat" in model_kw else {}))
+        m = build_gpt3d(_cfg(), cfg3d, device="cpu").load_logical(w)
+        if "sharding" in mesh:
+            m.shard_storage()
+        opt = AdamW(LR, parameters=m.parameters())
+        step = HybridTrainStep(m, lambda mm, i: mm.loss(i), opt,
+                               config=cfg3d)
+        p1.stats.clear()
+        mp_ops.reset_stats()
+        res[f"{name}/losses"] = [float(step(ids)) for _ in range(STEPS)]
+        res[f"{name}/schedule"] = [list(map(str, r))
+                                   for r in p1.last_schedule]
+        res[f"{name}/describe"] = step.describe()
+        np.savez(os.path.join(out, f"{name}_params_r{rank}.npz"),
+                 **_local_state(m))
+        if name == "pp2mp2":
+            res["pp2mp2/p2p"] = dict(p1.stats)
+            res["pp2mp2/mp"] = dict(mp_ops.stats)
+            res["pp2mp2/tied"] = dict(m.tied_stats)
+            ck = Checkpointer(os.path.join(out, "ckpt"), model=m,
+                              train_step=step)
+            ck.save(STEPS)
+        if name == "pp2_storage":
+            res[f"{name}/block_shapes"] = {
+                n: list(p.shape) for n, p in m.named_parameters()}
+            full = step.full_parameters()
+            np.savez(os.path.join(out, f"{name}_params_r{rank}.npz"),
+                     **{n: _np(t) for n, t in full.items()})
+        if name == "dp2pp2_zero_os":
+            res[f"{name}/moment_shapes"] = sorted(
+                {str(tuple(v.shape)) for st in opt._states.values()
+                 for v in st.values() if v.dim()})
+        mesh_mod.reset_mesh()
+    res.update(_pipeline_layer(rank))
+    with open(os.path.join(out, f"hybrid_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def pipeline_layer_descs():
+    """A 4-entry stack: a tied embedding, two Linears, the tied head."""
+    import torch
+
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, SharedLayerDesc)
+
+    def head(emb, x):
+        return x @ emb.weight.t()
+
+    return [SharedLayerDesc("emb", torch.nn.Embedding, None, "weight",
+                            12, 6),
+            LayerDesc(torch.nn.Linear, 6, 6),
+            LayerDesc(torch.nn.Linear, 6, 6),
+            SharedLayerDesc("emb", torch.nn.Embedding, head, "weight",
+                            12, 6)]
+
+
+def pipeline_layer_run(distributed_model=None):
+    """Two train_batch steps of the PipelineLayer stack from seeded
+    weights: (losses, {name: param})."""
+    import torch
+
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineLayer)
+    from paddle_tpu_torch.optimizer import SGD
+
+    torch.manual_seed(0)
+    stack = PipelineLayer(
+        pipeline_layer_descs(), num_stages=2,
+        loss_fn=lambda out, y: torch.nn.functional.cross_entropy(
+            out.reshape(-1, out.shape[-1]), y.reshape(-1)))
+    # every stage starts from the same seeded logical weights
+    gen = torch.Generator().manual_seed(1)
+    full = {"0.weight": torch.randn(12, 6, generator=gen) * 0.3}
+    for i in (1, 2):
+        full[f"{i}.weight"] = torch.randn(6, 6, generator=gen) * 0.3
+        full[f"{i}.bias"] = torch.zeros(6)
+    with torch.no_grad():
+        for n, p in stack.named_parameters():
+            # the head's copy of the shared embedding is entry 3's
+            p.copy_(full.get(n, full["0.weight"]))
+    st = fleet.DistributedStrategy()
+    st.pipeline_configs["accumulate_steps"] = 2
+    model = fleet.PipelineParallel(stack, None, st)
+    opt = SGD(0.1, parameters=stack.parameters())
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randint(0, 12, (4, 5), generator=gen)
+    y = torch.randint(0, 12, (4, 5), generator=gen)
+    losses = [float(model.train_batch((x, y), opt)) for _ in range(2)]
+    with torch.no_grad():
+        ev = float(model.eval_batch((x, y)))
+    return losses, ev, {n: _np(p) for n, p in stack.named_parameters()}
+
+
+def _pipeline_layer(rank):
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+
+    mesh_mod.init_mesh(dp=2, pp=2)
+    losses, ev, params = pipeline_layer_run()
+    out = {"pplayer/losses": losses, "pplayer/eval": ev,
+           "pplayer/params": {k: v.tolist() for k, v in params.items()}}
+    out.update(_generic(rank))
+    mesh_mod.reset_mesh()
+    return out
+
+
+def generic_inputs():
+    """The functional pipeline cases' inputs: a 4-layer tanh stack, a
+    head, 6 micro-batches of 2 rows (the reference's test_pipeline_1f1b
+    shapes, cut to 4 layers)."""
+    rng = np.random.default_rng(0)
+    L, d, M, mb = 4, 8, 6, 2
+    return dict(
+        W=(rng.standard_normal((L, d, d)) * 0.3).astype(np.float32),
+        Wh=(rng.standard_normal((d, 3)) * 0.3).astype(np.float32),
+        xs=rng.standard_normal((M, mb, d)).astype(np.float32),
+        ys=rng.integers(0, 3, (M, mb)).astype(np.int64),
+        G=rng.standard_normal((M, mb, d)).astype(np.float32))
+
+
+def _generic(rank):
+    """pipeline_1f1b, pipeline_gpipe, interleaved_pipeline_loss,
+    spmd_pipeline and HybridParallelInferenceHelper over plain tensors on
+    a pp 2 stage pair: losses, outputs and each rank's gradients."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        interleaved_pipeline_loss, pipeline_1f1b, spmd_pipeline)
+    from paddle_tpu_torch.distributed.fleet.utils import (
+        HybridParallelInferenceHelper)
+    from paddle_tpu_torch.distributed.hybrid3d import pipeline_gpipe
+
+    a = {k: torch.from_numpy(v) for k, v in generic_inputs().items()}
+    stage = mesh_mod.axis_index("pp")
+
+    def block(w, x):
+        for i in range(w.shape[0]):
+            x = torch.tanh(x @ w[i])
+        return x
+
+    def head(y, labels, wh):
+        lp = torch.log_softmax(y @ wh, -1)
+        return -lp.gather(-1, labels[..., None]).mean()
+
+    out = {}
+    rows = {1: [2 * stage, 2 * stage + 1], 2: [stage, stage + 2]}
+    for name, fn, V in (("1f1b", pipeline_1f1b, 1),
+                        ("gpipe", pipeline_gpipe, 1),
+                        ("interleaved", interleaved_pipeline_loss, 2)):
+        w = a["W"][rows[V]]
+        if V > 1:
+            w = w.reshape(2, 1, 8, 8)   # [V, layers a chunk, d, d]
+        w = w.clone().requires_grad_()
+        wh = a["Wh"].clone().requires_grad_()
+        xs = a["xs"].clone().requires_grad_()
+        if V > 1:
+            loss = fn(block, head, w, wh, (xs, a["ys"]), num_virtual=2,
+                      remat=False)
+        else:
+            loss = fn(block, head, w, wh, (xs, a["ys"]))
+        loss.backward()
+        out[f"gen/{name}/loss"] = float(loss)
+        out[f"gen/{name}/dw"] = w.grad.reshape(2, 8, 8).tolist()
+        out[f"gen/{name}/dwh"] = None if wh.grad is None else \
+            wh.grad.tolist()
+        out[f"gen/{name}/dx"] = None if xs.grad is None else \
+            xs.grad.tolist()
+    # PipelineSpecs.dp_axis: each dp rank runs its row of every micro,
+    # the loss and the gradients averaged over dp inside the pipeline
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        PipelineSpecs)
+
+    r = mesh_mod.axis_index("dp")
+    w = a["W"][rows[1]].clone().requires_grad_()
+    wh = a["Wh"].clone().requires_grad_()
+    xs = a["xs"][:, r:r + 1].clone().requires_grad_()
+    loss = pipeline_1f1b(block, head, w, wh, (xs, a["ys"][:, r:r + 1]),
+                         specs=PipelineSpecs(dp_axis="dp"))
+    loss.backward()
+    out["gen/dp/loss"] = float(loss)
+    out["gen/dp/dw"] = w.grad.tolist()
+    out["gen/dp/dwh"] = None if wh.grad is None else wh.grad.tolist()
+    out["gen/dp/dx"] = None if xs.grad is None else xs.grad.tolist()
+    w = a["W"][rows[1]].clone().requires_grad_()
+    xs = a["xs"].clone().requires_grad_()
+    y = spmd_pipeline(block, w, xs)
+    (y * a["G"]).sum().backward()
+    out["gen/spmd/out"] = y.detach().tolist()
+    out["gen/spmd/dw"] = w.grad.tolist()
+    out["gen/spmd/dx"] = xs.grad.tolist()
+    helper = HybridParallelInferenceHelper(
+        block, a["W"][rows[1]], head_fn=lambda x, wh: x @ wh,
+        post_params=a["Wh"], micro_batches=3)
+    out["gen/infer"] = helper.forward(a["xs"].reshape(12, 8)[:11]).tolist()
+    return out
+
+
+# ---- dp 2 x tp 2 x pp 2 ------------------------------------------------
+
+def three_d(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed.hybrid3d import (Hybrid3DConfig,
+                                                       build_gpt3d,
+                                                       init_hybrid_mesh)
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    w = dict(np.load(os.path.join(out, "pipe_weights.npz")))
+    ids = torch.from_numpy(np.load(os.path.join(out, "pipe_ids.npy")))
+    cfg3d = Hybrid3DConfig(dp=2, tp=2, pp=2, n_micro=N_MICRO)
+    init_hybrid_mesh(cfg3d)
+    m = build_gpt3d(_cfg(), cfg3d, device="cpu").load_logical(w)
+    step = HybridTrainStep(m, lambda mm, i: mm.loss(i),
+                           AdamW(LR, parameters=m.parameters()),
+                           config=cfg3d)
+    res = {"losses": [float(step(ids)) for _ in range(STEPS)],
+           "tag": cfg3d.tag(), "describe": step.describe(),
+           "grad_bytes": step.comm_stats.get("bytes", 0)}
+    with open(os.path.join(out, f"3d_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+
+def spawn_target(out, scale):
+    """`distributed.spawn`'s worker: the gloo bring-up from the env
+    contract, a world all-reduce and the gloo barrier."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+
+    D.init_parallel_env(device="cpu")
+    t = D.all_reduce(torch.tensor([float(D.get_rank() + 1) * scale]))
+    D.gloo_barrier()
+    D.gloo_release()
+    with open(os.path.join(out, f"spawn_r{D.get_rank()}.json"), "w") as f:
+        json.dump({"sum": float(t[0]), "world": D.get_world_size(),
+                   "local": os.environ["PADDLE_LOCAL_RANK"]}, f)
+
+
+if __name__ == "__main__":
+    sys.path.insert(0, _root())
+    {"mp": mp, "hybrid": hybrid, "3d": three_d}[sys.argv[1]](sys.argv[2])
