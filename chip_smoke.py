@@ -379,6 +379,53 @@ continues:
               gathered shards. Prints s/step, the p2p and mp all-reduce
               bytes and seconds, the tied wte's all-reduce and each rank's
               peak memory.
+8g. mixture of experts and the int8 gradient exchange — (a) bench.py:
+              427's bench_gpt1p3b_pp arm with BENCH_MOE_EXPERTS:
+              `PipelinedGPTForCausalLM` at gpt_1p3b's widths (d 2048, 32
+              heads of 64) with its depth cut from 24 layers to 4, 8
+              experts of hidden 8192, top-1, capacity 1.25, n_micro 2,
+              per-layer remat, bf16 O2, AdamW(1e-4), HybridTrainStep on
+              the degenerate mesh, b2·s2048, 2 warm-up + 5 timed steps.
+              Gate 1: one full-width MoE FFN (T 2048) at top-1 and top-2,
+              f32 with TF32 off, card vs CPU from the same weights: the
+              same expert for every token, the same kept set, outputs
+              within 1e-4 of their max-abs, aux within 1e-6. Gate 2: step
+              0 through K3-K5 against the same weights with their plain
+              versions, the plain run routed as the kernels' run routed
+              (an ulp of a bf16 gate logit flips a near tie): the f32
+              loss within 1e-4 relative, the gradients within 1e-1 of
+              their max-abs (median 5e-2; an H100 reads 2.5e-6 and 1.2e-2
+              / 8.0e-3, the faults at least 6.3e-4 and 0.82 / 0.42), the
+              share of tokens the plain run would route alike printed.
+              Two faults planted on the card
+              (the capacity drop skipped; the gate probability left out of
+              the combine) must fail gates 1 and 2. Gate 3: K3 16 launches
+              a step (4 layers x 2 micro-batches, forward and recompute),
+              K4 and K5 8, all tensor-core. Gate 4: the 7 steps' losses
+              (aux term included) finite and falling. Prints ms/step,
+              tok/s, MFU at 989 TFLOP/s over the active top-1 FLOPs, peak
+              memory, tokens per expert and the dropped share, and one
+              profiled step's device ms (expert GEMMs, dispatch / combine,
+              attention, the rest). (b) ep 2 as two processes sharing the
+              card (`profile_dist.py --mesh ep=2 --moe 4`): gpt_small
+              widths, 2 layers, b2·s1024, n_micro 2, bf16 O1, capacity
+              4.0, 3 steps: each rank's step 0 loss (the same weights)
+              within 3e-5 relative of a world-1 run on the card, the next
+              steps within 1e-3 (bf16 rounding orders, magnified by Adam),
+              the all-to-all replaced by a self-copy must fail both, each
+              rank
+              holds 2 of the 4 experts, K3-K5 8 / 4 / 4 a step a rank;
+              prints the all-to-all's calls, bytes and seconds a step and
+              s/step. (c) in 8e (c)'s launch, after its exact steps: 3
+              steps of `DistributedTrainStep(quant_allreduce=True)` from
+              the same start: losses within 5 % of the exact ones, the
+              exchange's bytes at most 0.26 of the exact f32 exchange's,
+              the int8 mean of a whole gradient within one int8 step of
+              the exact mean in every block (an H100 reads 0.994; the
+              exchange skipped, a planted fault, reads 118 and must fail
+              it), a NaN planted in rank 0's gradient
+              decoding to NaN in the same block on both ranks; prints the
+              exchange's seconds a step beside the exact one's.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
@@ -427,8 +474,9 @@ burst, its wide route: 5f's k=1 burst, each route's count in both
 bursts as "burst_launches"; K3-K5 also phase 8b's launches as
 "train_1p3b_launches" and their times at its shape as "shape_1p3b",
 phase 8e's launches at world 1 and in each rank of dp 2 as
-"dist_launches", and phase 8f's at world 1 (1.3B) and in each rank of
-pp 2 x mp 2 as "pipe_launches");
+"dist_launches", phase 8f's at world 1 (1.3B) and in each rank of
+pp 2 x mp 2 as "pipe_launches", and phase 8g's at world 1 (the MoE GPT)
+and in each rank of ep 2 as "moe_launches");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
@@ -5266,7 +5314,8 @@ def launch_dist(out_dir, model="gpt_small", device="cuda", batch=TRAIN_BATCH,
            "--model", model, "--device", device, "--sharding",
            str(DIST_RANKS), "--zero", "os_g", "--steps",
            str(DIST_DP2_STEPS), "--batch", str(batch), "--seq", str(seq),
-           "--ckpt", os.path.join(out_dir, "ck"), "--out", out_dir]
+           "--ckpt", os.path.join(out_dir, "ck"), "--out", out_dir,
+           "--quant-steps", str(QUANT_STEPS)]
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("PT_CHAOS_PLAN", None)
     t0 = time.perf_counter()
@@ -5306,7 +5355,8 @@ def dist_dp2(card, world1_losses, device="cuda", model="gpt_small",
     """8e (c): two processes sharing the card at ZeRO os_g (sharding axis
     2, 8 rows a rank), gradients through gloo on the host; then a world-1
     process (this one) loads their checkpoint and takes the next step.
-    Returns each rank's flash launches."""
+    The same launch then runs 8g (c)'s int8 steps. Returns each rank's
+    flash launches and the ranks' records."""
     from paddle_tpu_torch.distributed.checkpoint import Checkpointer
     from paddle_tpu_torch.profile_dist import global_batch
 
@@ -5376,18 +5426,18 @@ def dist_dp2(card, world1_losses, device="cuda", model="gpt_small",
           + f"; DONE.0 and DONE.1 present; world 1 loaded step {n} and "
           f"took loss {nxt:.6f} vs the uninterrupted {world1_losses[n]:.6f}"
           f" (relative {rel_next:.2e}; tol {DIST_LOSS_RTOL:.0e})")
-    return {f"rank{o['rank']}": o["launches"] for o in (o0, o1)}
+    return {f"rank{o['rank']}": o["launches"] for o in (o0, o1)}, outs
 
 
 def dist_phase(fa, card, train_losses, train_ms):
     """8e: (a), (b), (c) in turn; returns the flash launches of (a) and
-    of each rank of (c)."""
+    of each rank of (c), and (c)'s records (for 8g (c))."""
     t0 = time.perf_counter()
     losses, launches = dist_world1(fa, card, train_losses, train_ms)
     ckpt = ckpt_phase(card)
-    ranks = dist_dp2(card, losses)
+    ranks, outs = dist_dp2(card, losses)
     print(f"8e phase: {time.perf_counter() - t0:.1f} s")
-    return {"world1": launches, **ranks, "ckpt": ckpt}
+    return {"world1": launches, **ranks, "ckpt": ckpt, "outs": outs}
 
 
 # ---- tensor and pipeline parallelism (8f) ----
@@ -5808,6 +5858,566 @@ def pipe_phase(fa, card):
                                   for k, v in ranks.items()}}
 
 
+# ---- mixture-of-experts training and the int8 gradient exchange (8g) ----
+
+# 8g (a): bench.py:427's bench_gpt1p3b_pp arm with BENCH_MOE_EXPERTS 8 at
+# gpt_1p3b's widths, its depth cut from 24 layers to 4
+MOE_E, MOE_TOPK, MOE_CF, MOE_LAYERS = 8, 1, 1.25, 4
+MOE_BATCH, MOE_SEQ, MOE_MICRO = 2, 2048, 2
+MOE_WARM, MOE_STEPS = 2, 5
+# gate 1: one full-width MoE FFN, f32 with TF32 off, card vs CPU
+MOE_FFN_TOKENS = 2048
+MOE_FFN_OUT_TOL, MOE_FFN_AUX_TOL = 1e-4, 1e-6
+# gate 2: step 0 through K3-K5 vs their plain versions, bf16 O2. The
+# kernels' rounding moves a token's bf16 gate logits by an ulp, which
+# flips a near-tie routing (1.2 % of the routings on an H100), and a
+# flipped token's expert gradients move with it; so the plain run and
+# the planted faults replay the kernel run's routing (`_moe_routes`'
+# `replay`), and the gate holds the rest of the step. The limits are
+# 8f (a)'s, between the sound gap and the two planted faults (the
+# capacity drop skipped; the gate probability left out of the combine).
+# On an H100: loss 2.5e-6 sound, 1.1e-3 and 6.3e-4 planted; gradients
+# worst 1.2e-2 / median 8.0e-3 sound, at least 0.82 / 0.42 planted
+MOE_LOSS_RTOL = 1e-4
+MOE_GRAD_TOL, MOE_GRAD_MEDIAN_TOL = 1e-1, 5e-2
+# 8g (b): two processes, ep 2, gpt_small widths, 2 layers, capacity 4.0
+# (nothing drops, so the grouped routing keeps the serial token set)
+MOE_EP_RANKS, MOE_EP_E, MOE_EP_LAYERS, MOE_EP_CF = 2, 4, 2, 4.0
+MOE_EP_BATCH, MOE_EP_SEQ, MOE_EP_MICRO, MOE_EP_STEPS = 2, 1024, 2, 3
+# each rank's step 0 loss (the same weights as world 1's) within
+# MOE_EP_LOSS_RTOL; the later steps within MOE_EP_TRAJ_RTOL, 8e (c)'s
+# bar: under bf16 O1 the experts' weight gradients sum their bucket rows
+# in another order at ep 2 (each rank's group, then the other's), and
+# Adam's per-element normalization turns those roundings into steps of
+# up to lr (an H100: step 0 4.3e-7, the next steps 1.0e-4; the same gap
+# on the CPU in bf16, none in f32). The self-copy fault moves step 0 by
+# 1.0e-3 and the trajectory by 8.5e-3.
+MOE_EP_LOSS_RTOL, MOE_EP_TRAJ_RTOL = 3e-5, 1e-3
+MOE_EP_TIMEOUT_S = 300
+# 8g (c), in 8e (c)'s launch: the reference's bar
+# (tests/test_quant_collective.py:168) and a quarter of the f32 bytes;
+# the int8 mean of a whole gradient within one int8 step of the exact
+# mean in every block (the two rounding passes' bound over one axis,
+# half a step each; 1e-3 of a step more for the f32 arithmetic). On an
+# H100, gpt_small's wte gradient: 0.994 steps sound, 118 with the
+# exchange skipped
+QUANT_STEPS, QUANT_LOSS_RTOL, QUANT_BYTES_RATIO = 3, 0.05, 0.26
+QUANT_GAP_STEPS = 1.001
+
+
+def _moe_model(seed=0):
+    """The 8g (a) model: PipelinedGPTForCausalLM at gpt_1p3b's widths, 4
+    layers, 8 experts of hidden 8192, top-1 at capacity 1.25, n_micro 2,
+    per-layer remat, decorated O2."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models.gpt import gpt_1p3b
+    from paddle_tpu_torch.text.models.gpt_pipeline import (
+        PipelinedGPTForCausalLM)
+
+    cfg = gpt_1p3b()
+    cfg.num_layers = MOE_LAYERS
+    model = PipelinedGPTForCausalLM(
+        cfg, n_micro=MOE_MICRO, remat="layer", moe_experts=MOE_E,
+        moe_hidden=cfg.ffn_size, moe_topk=MOE_TOPK,
+        moe_capacity_factor=MOE_CF, device="cuda", seed=seed)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    return cfg, model
+
+
+@contextlib.contextmanager
+def _moe_routes(routes, fault=None, replay=None):
+    """Record each routing call's (experts it would pick, kept) into
+    `routes`; with `replay` (an earlier run's `routes`, in call order),
+    route each call to the experts recorded there instead, the gate
+    probabilities taken from this call's own; with `fault`, plant it:
+    "capacity drop skipped" (every token fits) or "gate probability left
+    out" (the combine weighs each expert's output by 1)."""
+    from paddle_tpu_torch.distributed import moe as tmoe
+
+    route, capacity = tmoe._route, tmoe.moe_a2a_capacity
+    replay = None if replay is None else iter(replay)
+
+    def spy(probs, num_experts, cap):
+        if replay is None:
+            out = route(probs, num_experts, cap)
+            mine = out[0]
+        else:
+            # probs <= 1: the recorded expert takes every argmax
+            idx = next(replay)[0].to(probs.device)
+            out = route(probs.detach() + 2.0 * torch.nn.functional.one_hot(
+                idx, num_experts).to(probs.dtype), num_experts, cap)
+            out = (out[0], probs.gather(-1, idx[:, None])[:, 0]) + out[2:]
+            mine = probs.argmax(-1)
+        routes.append((mine.detach().cpu(), out[4].detach().cpu()))
+        if fault == "gate probability left out":
+            out = (out[0], torch.ones_like(out[1])) + out[2:]
+        return out
+
+    tmoe._route = spy
+    if fault == "capacity drop skipped":
+        tmoe.moe_a2a_capacity = lambda tokens, ep, e, cf: tokens // ep
+    try:
+        yield routes
+    finally:
+        tmoe._route, tmoe.moe_a2a_capacity = route, capacity
+
+
+def moe_ffn_gate(card, d=2048, dh=8192, T=MOE_FFN_TOKENS):
+    """8g (a) gate 1: one full-width MoE FFN (`_moe_ffn`: d 2048, 8
+    experts of 8192, T 2048, capacity 1.25) at top-1 and top-2, in f32
+    with TF32 off, on the card and on the CPU from the same weights and
+    input: the same expert for every token, the same kept set, outputs
+    within 1e-4 of their max-abs, aux within 1e-6; each planted fault on
+    the card fails it."""
+    from paddle_tpu_torch.text.models.gpt_pipeline import _moe_ffn
+
+    E = MOE_E
+    gen = torch.Generator().manual_seed(17)
+
+    def rnd(*shape, scale=0.02):
+        return torch.randn(*shape, generator=gen) * scale
+
+    p_cpu = {"gate_w": rnd(d, E), "moe_w1": rnd(E, d, dh),
+             "moe_b1": rnd(E, 1, dh), "moe_w2": rnd(E, dh, d),
+             "moe_b2": rnd(E, 1, d)}
+    # the tokens lean towards expert 0 (a component along its gate
+    # column), so that it overflows at top-1 and at top-2 and the
+    # capacity drop shows
+    g0 = p_cpu["gate_w"][:, 0]
+    h_cpu = torch.nn.functional.layer_norm(
+        rnd(1, T, d, scale=1.0) + 1.5 * g0 / g0.norm(), [d])
+    p_gpu = {k: v.cuda() for k, v in p_cpu.items()}
+    h_gpu = h_cpu.cuda()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def run(p, h, topk, fault=None):
+        routes = []
+        with _moe_routes(routes, fault), torch.no_grad():
+            out, aux = _moe_ffn(p, h, E, 1, MOE_CF, 1, topk)
+        return out.float().cpu(), float(aux), routes
+
+    def compare(ref, got):
+        same_expert = all(torch.equal(a[0], b[0])
+                          for a, b in zip(ref[2], got[2]))
+        same_kept = all(torch.equal(a[1], b[1])
+                        for a, b in zip(ref[2], got[2]))
+        err = float((got[0] - ref[0]).abs().max() / ref[0].abs().max())
+        aux = abs(got[1] - ref[1])
+        ok = (len(ref[2]) == len(got[2]) and same_expert and same_kept
+              and err <= MOE_FFN_OUT_TOL and aux <= MOE_FFN_AUX_TOL)
+        return ok, same_expert, same_kept, err, aux
+
+    lines, fails = [], []
+    try:
+        for topk in (1, 2):
+            cpu = run(p_cpu, h_cpu, topk)
+            t0 = time.perf_counter()
+            card_run = run(p_gpu, h_gpu, topk)
+            torch.cuda.synchronize()
+            ok, se, sk, err, aux = compare(cpu, card_run)
+            dropped = sum(int((~k).sum()) for _, k in cpu[2])
+            lines.append(f"top-{topk}: same experts {se}, same kept set "
+                         f"{sk} ({dropped} of {T * topk} routings dropped "
+                         f"on both), output {err:.3e} of its max-abs (tol "
+                         f"{MOE_FFN_OUT_TOL:.0e}), aux {cpu[1]:.6f} vs "
+                         f"{card_run[1]:.6f} (|diff| {aux:.2e}, tol "
+                         f"{MOE_FFN_AUX_TOL:.0e}), card "
+                         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+            if not ok:
+                fails.append(f"top-{topk}")
+            for fault in ("capacity drop skipped",
+                          "gate probability left out"):
+                f_ok, se, sk, err, aux = compare(
+                    cpu, run(p_gpu, h_gpu, topk, fault))
+                lines.append(f"  planted '{fault}': same kept set {sk}, "
+                             f"output {err:.3e}, aux |diff| {aux:.2e} -> "
+                             f"{'PASSES (bad)' if f_ok else 'fails'}")
+                if f_ok:
+                    fails.append(f"top-{topk} planted {fault}")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    print(f"8g (a) gate 1, one MoE FFN at full width (d {d}, {E} experts "
+          f"of {dh}, T {T}, capacity {MOE_CF}), f32 TF32 off, card vs CPU "
+          f"({card}): " + "; ".join(lines))
+    if fails:
+        raise AssertionError(f"8g (a) gate 1 failed: {fails}")
+    del p_gpu, h_gpu
+
+
+def _moe_step0(model, ids, fault=None, replay=None):
+    """One forward + backward of `model` at its weights (no update):
+    (the f32 loss, {name: gradient}, routes); `replay` routes it as an
+    earlier run's routes say (`_moe_routes`)."""
+    routes = []
+    model.zero_grad(set_to_none=True)
+    with _moe_routes(routes, fault, replay):
+        loss = _pp_o2_loss(model, ids)
+        loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads, routes
+
+
+def _moe_breakdown(prof):
+    """One profiled step's device ms: the expert GEMMs (aten::bmm, forward,
+    recompute and backward), dispatch / combine with the routing (the
+    index gathers, their backward scatters, argmax, cumsum, one-hot),
+    attention (K3-K5), the optimizer update and the rest."""
+    from torch.autograd import DeviceType
+
+    from paddle_tpu_torch.profile_train import (OPT_RANGE, device_us,
+                                                kernel_rows)
+
+    rows = prof.key_averages()
+    total = device_us(prof)
+
+    def ops(names):
+        return sum(e.device_time_total for e in rows
+                   if e.device_type == DeviceType.CPU and e.key in names)
+
+    experts = ops({"aten::bmm"})
+    dispatch = ops({"aten::index_select", "aten::index_add_",
+                    "aten::index_put_", "aten::argmax", "aten::cumsum",
+                    "aten::one_hot", "aten::gather", "aten::nonzero"})
+    attention = sum(e.self_device_time_total for e in kernel_rows(prof)
+                    if "fa_fwd" in e.key or "fa_bwd" in e.key)
+    update = ops({OPT_RANGE})
+    return {"total": total / 1e3, "expert GEMMs": experts / 1e3,
+            "dispatch / combine": dispatch / 1e3,
+            "attention (K3-K5)": attention / 1e3,
+            "optimizer update": update / 1e3,
+            "rest": (total - experts - dispatch - attention - update)
+            / 1e3}
+
+
+def moe_world1(fa, card):
+    """8g (a): the MoE GPT at gpt_1p3b's widths (4 layers) under bf16 O2,
+    AdamW(1e-4), HybridTrainStep on the degenerate mesh, b2·s2048: gate
+    1 (`moe_ffn_gate`); gate 2, step 0 through K3-K5 against the same
+    weights with their plain versions, routed as the kernels' run routed
+    (the f32 loss and every gradient; the share of tokens the plain run
+    would route alike printed; the two planted faults, on the same
+    routing, must fail it); gate 3, the flash launches of the timed
+    steps; gate 4, the 7 steps' losses (aux term included) finite and
+    falling. Returns the flash launches of the timed steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.distributed import moe as tmoe
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.observability.steptrace import model_flops
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profile_train import (H100_PEAK_BF16, _ids,
+                                                timed_steps)
+
+    tmesh.reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_ffn_gate(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg, model = _moe_model()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    ids = _ids(cfg, MOE_BATCH, MOE_SEQ, "cuda")
+    # gate 2
+    loss_k, grads_k, routes_k = _moe_step0(model, ids)
+    names = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+    kernels = {n: getattr(fa, n) for n in names}
+    fa.reset_launches()
+    try:
+        for n in names:
+            setattr(fa, n, getattr(fa, n + "_plain"))
+        loss_p, grads_p, routes_p = _moe_step0(model, ids,
+                                               replay=routes_k)
+    finally:
+        for n in names:
+            setattr(fa, n, kernels[n])
+    plain_launches = dict(fa.launches)
+    alike = float(np.mean([float((a[0] == b[0]).float().mean())
+                           for a, b in zip(routes_k, routes_p)]))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    worst, where, median = _grad_diff(grads_p, grads_k)
+    del grads_k
+    faults = {}
+    for fault in ("capacity drop skipped", "gate probability left out"):
+        lf, gf, _ = _moe_step0(model, ids, fault, replay=routes_k)
+        fw, _, fm = _grad_diff(grads_p, gf)
+        faults[fault] = (abs(lf - loss_p) / abs(loss_p), fw, fm)
+        del gf
+    del grads_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the training run
+    step = HybridTrainStep(model, _pp_o2_loss,
+                           AdamW(1e-4, parameters=model.parameters()))
+    torch.cuda.reset_peak_memory_stats()
+    warm, _ = timed_steps(step, ids, MOE_WARM)
+    auxs = [float(model.aux_loss)]
+    fa.reset_launches()
+    losses, wall = timed_steps(step, ids, MOE_STEPS)
+    launches, tc = dict(fa.launches), dict(fa.tc_launches)
+    auxs.append(float(model.aux_loss))
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        timed_steps(step, ids, 1)
+    split = _moe_breakdown(prof)
+    tmoe.route_stats = {}
+    try:
+        with torch.no_grad():
+            _pp_o2_loss(model, ids)
+        routing = tmoe.route_stats
+    finally:
+        tmoe.route_stats = None
+    n, L, M = MOE_STEPS, MOE_LAYERS, MOE_MICRO
+    dt = wall / n
+    losses = warm + losses
+    flops = model_flops(cfg, MOE_BATCH, MOE_SEQ)   # ffn = one expert's
+    print(f"8g (a) PipelinedGPTForCausalLM MoE, gpt_1p3b widths (d 2048, "
+          f"32 heads of 64), {L} layers of 24, {MOE_E} experts of hidden "
+          f"{cfg.ffn_size}, top-{MOE_TOPK}, capacity {MOE_CF}, n_micro "
+          f"{M}, per-layer remat, O2, AdamW(1e-4), HybridTrainStep, "
+          f"b{MOE_BATCH}·s{MOE_SEQ} ({card}; {n_params / 1e9:.3f} B "
+          f"parameters, built (host) in {build_s:.1f} s): "
+          f"{dt * 1e3:.3f} ms/step, "
+          f"{MOE_BATCH * MOE_SEQ / dt:.1f} tok/s, MFU "
+          f"{flops / dt / H100_PEAK_BF16:.4f} at 989 TFLOP/s over the "
+          f"active top-1 FLOPs ({flops / 1e12:.3f} TFLOP a step: one "
+          f"expert a token; the dispatch and combine are index gathers "
+          f"and not counted, nor the capacity's empty slots), peak "
+          f"{peak / 2**30:.2f} GiB; one profiled step's device ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; tokens per expert (no-grad pass at the final weights, "
+          f"summed over layers and micro-batches) {routing['tokens']}, "
+          f"dropped {routing['dropped']} of {routing['routed']} "
+          f"({routing['dropped'] / routing['routed']:.4f}); gate 2, step 0 "
+          f"kernels vs plain: f32 loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(relative {rel:.3e}, tol {MOE_LOSS_RTOL:.0e}), gradients worst "
+          f"{worst:.3e} of their max-abs ({where}; tol {MOE_GRAD_TOL:.0e}),"
+          f" median {median:.3e} (tol {MOE_GRAD_MEDIAN_TOL:.0e}), on the "
+          f"kernels' routing (the plain run's own would route "
+          f"{alike:.5f} of the tokens alike); planted faults: "
+          + "; ".join(f"{k}: loss {v[0]:.3e}, gradients worst {v[1]:.3e}, "
+                      f"median {v[2]:.3e}" for k, v in faults.items())
+          + f"; the {len(losses)} steps' losses (aux term included) "
+          f"{[round(x, 4) for x in losses]}, aux {auxs[0]:.4f} -> "
+          f"{auxs[1]:.4f}; launches {launches} in {n} steps ({L} layers x "
+          f"{M} micro-batches, x 2 for K3), tensor-core {tc}; the plain "
+          f"run launched {plain_launches}")
+    want = {"flash_forward": 2 * L * M * n, "flash_bwd_dq": L * M * n,
+            "flash_bwd_dkv": L * M * n}
+    if launches != want or tc != want or set(
+            plain_launches.values()) - {0}:
+        raise AssertionError(f"8g (a): flash launches {launches}, tensor-"
+                             f"core {tc} in {n} steps, the plain run's "
+                             f"{plain_launches}; expected {want}")
+    if not (rel <= MOE_LOSS_RTOL and worst <= MOE_GRAD_TOL
+            and median <= MOE_GRAD_MEDIAN_TOL):
+        raise AssertionError(f"8g (a): step 0 kernels vs plain: loss "
+                             f"{rel:.3e}, gradients worst {worst:.3e} "
+                             f"({where}), median {median:.3e}")
+    for k, (lr, gw, gm) in faults.items():
+        if lr <= MOE_LOSS_RTOL and gw <= MOE_GRAD_TOL \
+                and gm <= MOE_GRAD_MEDIAN_TOL:
+            raise AssertionError(f"8g (a): a planted fault ({k}) passes "
+                                 f"gate 2: loss {lr:.3e}, gradients worst "
+                                 f"{gw:.3e}, median {gm:.3e}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"8g (a): losses not finite and falling: "
+                             f"{losses}")
+    del step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
+              timeout=MOE_EP_TIMEOUT_S):
+    """`profile_dist.py --mesh ep=2 --moe 4` under the launcher, two
+    processes sharing the card, with the self-copy fault planted after
+    the steps; returns (the ranks' json, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           f"--nproc_per_node={MOE_EP_RANKS}", f"--log_dir={out_dir}/log",
+           os.path.join("paddle_tpu_torch", "profile_dist.py"),
+           "--model", model, "--device", device, "--mesh",
+           f"ep={MOE_EP_RANKS}", "--moe", str(MOE_EP_E), "--moe-cf",
+           str(MOE_EP_CF), "--layers", str(MOE_EP_LAYERS), "--n-micro",
+           str(MOE_EP_MICRO), "--steps", str(MOE_EP_STEPS), "--batch",
+           str(MOE_EP_BATCH), "--seq", str(seq), "--plant",
+           "a2a_self_copy", "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PT_CHAOS_PLAN", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 15)
+        try:
+            out, _ = p.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            out, _ = p.communicate()
+        raise AssertionError(f"8g (b): the launch ran past {timeout} s:\n"
+                             f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        log1 = os.path.join(out_dir, "log", "default.rank1.log")
+        tail = open(log1).read()[-4000:] if os.path.exists(log1) else ""
+        raise AssertionError(f"8g (b): the launcher exited {p.returncode}:"
+                             f"\n{out[-4000:]}\n--- rank 1 ---\n{tail}")
+    outs = []
+    for r in range(MOE_EP_RANKS):
+        with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, seconds
+
+
+def moe_ep_phase(card, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
+                 counted=True):
+    """8g (b): ep 2 as two processes sharing the card: each rank's step 0
+    loss (at the same weights) within 3e-5 relative of a world-1 run on
+    the card, its later steps within 1e-3; the self-copy fault fails
+    both; each rank holds 2 of the 4 experts; K3-K5 per rank. Returns
+    the ranks' flash launches."""
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.profile_dist import build_pipelined, global_batch
+
+    tmesh.reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, ref = build_pipelined(
+        model, torch.device(device), moe=MOE_EP_E, moe_cf=MOE_EP_CF,
+        layers=MOE_EP_LAYERS, n_micro=MOE_EP_MICRO)
+    ids = global_batch(cfg, MOE_EP_BATCH, seq).to(device)
+    ref_losses = [float(ref(ids)) for _ in range(MOE_EP_STEPS)]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ep_") as d:
+        outs, seconds = launch_ep(d, device, model, seq)
+    L, M, n = MOE_EP_LAYERS, MOE_EP_MICRO, MOE_EP_STEPS
+    want = {"flash_forward": 2 * L * M * n, "flash_bwd_dq": L * M * n,
+            "flash_bwd_dkv": L * M * n}
+    rels = [(_rel(o["losses"][:1], ref_losses), _rel(o["losses"],
+                                                     ref_losses))
+            for o in outs]
+    planted = [(_rel(o["planted_losses"][:1], ref_losses),
+                _rel(o["planted_losses"], ref_losses)) for o in outs]
+
+    def a2a(o):
+        d = o["comm"][-1]["mp"].get("alltoall", {})
+        return d.get("calls", 0), d.get("bytes", 0), d.get("seconds", 0.0)
+
+    print(f"8g (b) ep {MOE_EP_RANKS} on one card (two processes, {model} "
+          f"widths, {L} layers, {MOE_EP_E} experts of hidden "
+          f"{cfg.ffn_size}, top-1, capacity {MOE_EP_CF}, "
+          f"b{MOE_EP_BATCH}·s{seq}, n_micro "
+          f"{M}, bf16 O1, HybridTrainStep; the token all-to-all over gloo "
+          f"through the host; {card}): launcher to exit {seconds:.1f} s; "
+          f"world 1 on the card {ref_losses}; "
+          + "; ".join(
+              f"rank {o['rank']} (ep {o['coord']['ep']}, holds "
+              f"{o['experts_held']} experts): s/step "
+              f"{[round(x, 4) for x in o['step_seconds']]}, all-to-all "
+              f"{a2a(o)[0]} calls, {a2a(o)[1]} bytes, {a2a(o)[2]:.3f} s a "
+              f"step, losses {o['losses']} (relative to world 1: step 0 "
+              f"{rel[0]:.2e}, tol {MOE_EP_LOSS_RTOL:.0e}; all steps "
+              f"{rel[1]:.2e}, tol {MOE_EP_TRAJ_RTOL:.0e}), aux "
+              f"{[round(x, 5) for x in o['aux']]}, tokens per expert "
+              f"{o['routing']['tokens']} (dropped {o['routing']['dropped']}"
+              f" of {o['routing']['routed']}), planted self-copy "
+              f"all-to-all {o['planted_losses']} (relative: step 0 "
+              f"{pl[0]:.2e}, all steps {pl[1]:.2e}), "
+              f"launches {o['launches']}, peak "
+              + (f"{o['peak_mb']:.0f} MB" if o["peak_mb"] is not None
+                 else "not measured")
+              for o, rel, pl in zip(outs, rels, planted)))
+    for o, rel, pl in zip(outs, rels, planted):
+        if rel[0] > MOE_EP_LOSS_RTOL or rel[1] > MOE_EP_TRAJ_RTOL:
+            raise AssertionError(f"8g (b): rank {o['rank']}'s losses "
+                                 f"{o['losses']} vs world 1's {ref_losses}"
+                                 f" (relative {rel[0]:.3e}, {rel[1]:.3e})")
+        if pl[0] <= MOE_EP_LOSS_RTOL or pl[1] <= MOE_EP_TRAJ_RTOL:
+            raise AssertionError(f"8g (b): the planted self-copy passes a "
+                                 f"gate on rank {o['rank']}: "
+                                 f"{o['planted_losses']} ({pl[0]:.3e}, "
+                                 f"{pl[1]:.3e})")
+        if o["experts_held"] != MOE_EP_E // MOE_EP_RANKS:
+            raise AssertionError(f"8g (b): rank {o['rank']} holds "
+                                 f"{o['experts_held']} experts")
+        if counted and (o["launches"] != want or o["tc_launches"] != want):
+            raise AssertionError(f"8g (b): rank {o['rank']} launched "
+                                 f"{o['launches']} (tensor-core "
+                                 f"{o['tc_launches']}); expected {want}")
+    return {f"rank{o['rank']}": o["launches"] for o in outs}
+
+
+def quant_gate(outs, card):
+    """8g (c), from 8e (c)'s launch: 3 steps of DistributedTrainStep(
+    quant_allreduce=True) from the same start as the exact steps: losses
+    within 5 % of the exact run's, the exchange's bytes at most 0.26 of
+    the exact f32 exchange's, the int8 mean of a whole gradient within
+    one int8 step of the exact mean in every block (the exchange skipped,
+    planted, must fail that), and a NaN planted in rank 0's gradient
+    decoding to NaN in the same block on both ranks."""
+    blocks = [tuple(o["poison_blocks"]) for o in outs]
+    lines = []
+    for o in outs:
+        q, exact = o["quant"], o["losses"][:QUANT_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(q["losses"], exact))
+        ratio = q["comm"][-1]["bytes"] / o["comm"][-1]["bytes"]
+        lines.append(
+            f"rank {o['rank']}: int8 losses {q['losses']} vs exact {exact}"
+            f" (relative {rel:.3e}, tol {QUANT_LOSS_RTOL}); the exchange "
+            f"{q['comm'][-1]['bytes']} bytes in "
+            f"{q['comm'][-1]['seconds']:.3f} s a step vs the exact "
+            f"{o['comm'][-1]['bytes']} bytes in "
+            f"{o['comm'][-1]['seconds']:.3f} s ({ratio:.4f}x, tol "
+            f"{QUANT_BYTES_RATIO}); s/step "
+            f"{[round(x, 4) for x in q['step_seconds']]} vs "
+            f"{[round(x, 4) for x in o['step_seconds']]}; a gradient of "
+            f"{o['exchange_numel']} elements: int8 mean vs the exact one "
+            f"{o['exchange_gap']:.4f} int8 steps at most (tol "
+            f"{QUANT_GAP_STEPS}), with the exchange skipped (planted) "
+            f"{o['exchange_gap_planted']:.4f}; the planted NaN decoded as "
+            f"NaN in blocks {o['poison_blocks']} ({o['poison_nan']} "
+            f"elements)")
+        if rel > QUANT_LOSS_RTOL or ratio > QUANT_BYTES_RATIO or not (
+                o["exchange_gap"] <= QUANT_GAP_STEPS
+                < o["exchange_gap_planted"]):
+            raise AssertionError(f"8g (c): {lines[-1]}")
+    from paddle_tpu_torch.profile_dist import POISON_AT
+
+    print(f"8g (c) the int8 gradient exchange in 8e (c)'s launch (ZeRO "
+          f"os_g over sharding 2, axes {outs[0]['quant']['axes']}; {card}):"
+          f" " + "; ".join(lines))
+    if len(set(blocks)) != 1 or blocks[0] != (POISON_AT // 512,):
+        raise AssertionError(f"8g (c): the NaN planted at {POISON_AT} on "
+                             f"rank 0 decoded in blocks {blocks}")
+
+
+def moe_phase(fa, card, dist_outs):
+    """8g: (a), (b), (c); returns the flash launches of (a) and of each
+    rank of (b)."""
+    t0 = time.perf_counter()
+    w1 = moe_world1(fa, card)
+    ranks = moe_ep_phase(card)
+    quant_gate(dist_outs, card)
+    print(f"8g phase: {time.perf_counter() - t0:.1f} s")
+    return {"world1_moe_1p3b_widths": w1,
+            **{f"ep2_{k}": v for k, v in ranks.items()}}
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -5892,6 +6502,7 @@ def main(argv=None):
     print(f"train phases 8b-8d: {time.perf_counter() - t_train:.1f} s")
     dist = dist_phase(fa, card, train_losses, train_ms)
     pipe = pipe_phase(fa, card)
+    moe = moe_phase(fa, card, dist["outs"])
     train_cross_check()
     train_cross_check_bf16(fa)
     t_o2 = time.perf_counter()
@@ -6006,6 +6617,9 @@ def main(argv=None):
         # 8f: the pipelined GPT-1.3B at world 1, and each rank of pp 2 x
         # mp 2
         row["pipe_launches"] = {k: v[name] for k, v in pipe.items()}
+        # 8g: the MoE GPT at gpt_1p3b's widths at world 1, and each rank
+        # of ep 2
+        row["moe_launches"] = {k: v[name] for k, v in moe.items()}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

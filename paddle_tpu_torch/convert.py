@@ -116,7 +116,11 @@ def load_jax_optimizer_state(optimizer, model, arrays, names):
 PIPELINED_MP_DIM = {"ln1_w": None, "ln1_b": None, "qkv_w": 1, "qkv_b": 0,
                     "proj_w": 0, "proj_b": None, "ln2_w": None,
                     "ln2_b": None, "fc1_w": 1, "fc1_b": 0, "fc2_w": 0,
-                    "fc2_b": None}
+                    "fc2_b": None, "gate_w": None, "moe_w1": None,
+                    "moe_b1": None, "moe_w2": None, "moe_b2": None}
+# the per-layer dim cut over "ep": the MoE experts' (the gate is whole)
+PIPELINED_EP_DIM = dict.fromkeys(PIPELINED_MP_DIM)
+PIPELINED_EP_DIM.update(moe_w1=0, moe_b1=0, moe_w2=0, moe_b2=0)
 
 
 def _as_tensor(a):
@@ -152,18 +156,20 @@ def pipelined_holds(name, pp, stage):
 
 
 def pipelined_slices(name, shape, num_layers, pp, mp, stage, mp_rank,
-                     n_virtual=1):
+                     n_virtual=1, ep=1, ep_rank=0):
     """Per dim of logical array `name` (of `shape`): the indices (a
-    slice, or a list for an interleaved stack) this rank holds."""
+    slice, or a list for an interleaved stack) this rank holds — its
+    stage's layers, its mp columns or rows, its ep block of experts."""
     out = [slice(None)] * len(shape)
     if name.startswith("stk_"):
         rows = stage_layers(num_layers, pp, stage, n_virtual)
         out[0] = (slice(rows[0], rows[-1] + 1)
                   if rows == list(range(rows[0], rows[-1] + 1)) else rows)
-        d = PIPELINED_MP_DIM[name[4:]]
-        if d is not None:
-            c = shape[1 + d] // mp
-            out[1 + d] = slice(mp_rank * c, (mp_rank + 1) * c)
+        for d, n, r in ((PIPELINED_MP_DIM[name[4:]], mp, mp_rank),
+                        (PIPELINED_EP_DIM[name[4:]], ep, ep_rank)):
+            if d is not None:
+                c = shape[1 + d] // n
+                out[1 + d] = slice(r * c, (r + 1) * c)
     elif name == "wte":
         c = shape[0] // mp
         out[0] = slice(mp_rank * c, (mp_rank + 1) * c)
@@ -180,11 +186,11 @@ def _take(t, slices):
 
 
 def cut_pipelined_state(arrays, config, pp=1, mp=1, stage=0, mp_rank=0,
-                        n_virtual=1):
+                        n_virtual=1, ep=1, ep_rank=0):
     """{name: this rank's slice} of a PipelinedGPTForCausalLM's logical
     state dict (the reference's `state_dict()` as numpy arrays or
-    tensors), for the rank at (`stage`, `mp_rank`) of a pp x mp mesh;
-    only the names that stage holds (`pipelined_holds`)."""
+    tensors), for the rank at (`stage`, `mp_rank`, `ep_rank`) of a pp x
+    mp x ep mesh; only the names that stage holds (`pipelined_holds`)."""
     out = {}
     for name, a in arrays.items():
         if not pipelined_holds(name, pp, stage):
@@ -192,15 +198,17 @@ def cut_pipelined_state(arrays, config, pp=1, mp=1, stage=0, mp_rank=0,
         t = _as_tensor(a)
         out[name] = _take(t, pipelined_slices(
             name, tuple(t.shape), config.num_layers, pp, mp, stage,
-            mp_rank, n_virtual)).contiguous()
+            mp_rank, n_virtual, ep, ep_rank)).contiguous()
     return out
 
 
-def gather_pipelined_state(shards, config, pp=1, mp=1, n_virtual=1):
-    """The inverse of `cut_pipelined_state`: {(stage, mp_rank): {name:
-    slice}} of every rank → {name: logical np.ndarray}."""
+def gather_pipelined_state(shards, config, pp=1, mp=1, n_virtual=1, ep=1):
+    """The inverse of `cut_pipelined_state`: {(stage, mp_rank) or (stage,
+    mp_rank, ep_rank): {name: slice}} of every rank → {name: logical
+    np.ndarray}."""
     out = {}
-    for (stage, r), sd in sorted(shards.items()):
+    for key, sd in sorted(shards.items()):
+        stage, r, e = (tuple(key) + (0,))[:3]
         for name, a in sd.items():
             t = _as_tensor(a)
             if t.dtype == torch.bfloat16:
@@ -208,15 +216,16 @@ def gather_pipelined_state(shards, config, pp=1, mp=1, n_virtual=1):
             shape = list(t.shape)
             if name.startswith("stk_"):
                 shape[0] = config.num_layers
-                d = PIPELINED_MP_DIM[name[4:]]
-                if d is not None:
-                    shape[1 + d] *= mp
+                for d, n in ((PIPELINED_MP_DIM[name[4:]], mp),
+                             (PIPELINED_EP_DIM[name[4:]], ep)):
+                    if d is not None:
+                        shape[1 + d] *= n
             elif name == "wte":
                 shape[0] *= mp
             if name not in out:
                 out[name] = torch.zeros(shape, dtype=t.dtype)
             sl = pipelined_slices(name, shape, config.num_layers, pp, mp,
-                                  stage, r, n_virtual)
+                                  stage, r, n_virtual, ep, e)
             dst = out[name]
             if isinstance(sl[0], list):
                 for k, row in enumerate(sl[0]):
@@ -253,7 +262,13 @@ def pipelined_to_gpt_state(arrays, config):
     """A PipelinedGPTForCausalLM's logical state dict → the flat
     `GPTForCausalLM`'s (tied head): the stacked arrays unstacked per
     layer, the head-major qkv columns put back in [3, nh, hd] order.
-    Tensors stay on their device (numpy becomes CPU tensors)."""
+    Tensors stay on their device (numpy becomes CPU tensors). The flat
+    GPT has no experts: a MoE model's state raises."""
+    if "stk_gate_w" in arrays:
+        raise ValueError(
+            "pipelined_to_gpt_state: a MoE model's state (stk_gate_w, "
+            "stk_moe_*) has no flat GPTForCausalLM counterpart, whose "
+            "FFN is dense")
     t = {k: _as_tensor(v) for k, v in arrays.items()}
     out = {"gpt.wte.weight": t["wte"], "gpt.wpe.weight": t["wpe"],
            "gpt.ln_f.weight": t["lnf_w"], "gpt.ln_f.bias": t["lnf_b"]}

@@ -12,7 +12,10 @@ variants, `checkpoint` the sharded asynchronous atomic Checkpointer,
 plan, the GPipe schedule and the int8 TP placements, `api_extra` the
 tensor-parallel `split`, `spawn` and the gloo facade (re-exported by
 `parallel_with_gloo`), `cloud_utils` the cluster layout from the env
-contract, `resilience` the retry policy,
+contract, `moe` the mixture-of-experts layers with the token
+all-to-all over ``ep`` (re-exported by `models.moe`; `utils` holds the
+eager `global_scatter` / `global_gather`), `quant_collective` the
+block-scaled int8 gradient mean, `resilience` the retry policy,
 step guards, preemption handler and anomaly journal, `chaos` the seeded
 fault injection, and `fleet` the strategy facade, the topology, the
 meta-optimizers, the heartbeat and join membership and
@@ -25,9 +28,13 @@ from . import collective  # noqa: F401
 from . import communication  # noqa: F401
 from . import env  # noqa: F401
 from . import mesh  # noqa: F401
+from . import moe  # noqa: F401
+from . import models  # noqa: F401
 from . import parallel_step  # noqa: F401
+from . import quant_collective  # noqa: F401
 from . import resilience  # noqa: F401
 from . import sharding  # noqa: F401
+from . import utils  # noqa: F401
 from . import xproc  # noqa: F401
 from . import cloud_utils  # noqa: F401
 from . import fleet  # noqa: F401

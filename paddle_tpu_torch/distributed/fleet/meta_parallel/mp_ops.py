@@ -21,6 +21,12 @@ and multiply it by the mp degree: the pairing above is the whole point of
 the module. At mp 1, or in one process, every op is the identity. The
 collectives run over gloo through host memory (`xproc`), as the port's
 other collectives do; `stats` counts their bytes and seconds.
+
+`axis` may name one mesh axis or a tuple of them: the group is then the
+ranks that share every other coordinate, ordered row-major over the
+axes given (the MoE gate statistics reduce over ("dp", "ep") this way,
+in one collective). `all_to_all_mp_raw` is the equal-chunk all-to-all
+over such a group (the MoE token exchange; kind "alltoall").
 """
 import time
 
@@ -28,7 +34,8 @@ import numpy as np
 import torch
 
 __all__ = ["copy_to_mp", "allreduce_mp", "gather_mp", "split_mp",
-           "mp_world", "stats", "reset_stats"]
+           "mp_world", "all_reduce_mp_raw", "all_gather_mp_raw",
+           "all_to_all_mp_raw", "stats", "reset_stats"]
 
 # bytes sent into the mp collectives and their seconds, by kind
 stats = {}
@@ -45,15 +52,20 @@ def _note(kind, nbytes, seconds):
     d["seconds"] += seconds
 
 
+def _axes(axis):
+    return (axis,) if isinstance(axis, str) else tuple(axis)
+
+
 def mp_world(axis="mp"):
     """(members by position, this rank's position, torch group) of this
-    rank's group along `axis`; ([rank], 0, None) in one process."""
+    rank's group along `axis` (one mesh axis or a tuple of them);
+    ([rank], 0, None) in one process."""
     from ... import env, xproc
     from ...collective import axis_comm
 
     if not xproc.is_multiprocess():
         return [env.get_rank()], 0, None
-    members, pg = axis_comm((axis,))
+    members, pg = axis_comm(_axes(axis))
     return members, members.index(env.get_rank()), pg
 
 
@@ -84,7 +96,9 @@ def all_reduce_mp_raw(x, op="sum", axis="mp", kind="allreduce"):
     return _back(red, x)
 
 
-def _all_gather_last(x, axis="mp"):
+def all_gather_mp_raw(x, axis="mp", dim=-1, kind="allgather"):
+    """Every member's `x` concatenated along `dim` in position order,
+    outside autograd."""
     from ...collective import _gather_np
 
     members, _, pg = mp_world(axis)
@@ -93,9 +107,38 @@ def _all_gather_last(x, axis="mp"):
     host = _host(x)
     t0 = time.perf_counter()
     mat = _gather_np(host, members)
-    _note("allgather", host.nbytes, time.perf_counter() - t0)
+    _note(kind, host.nbytes, time.perf_counter() - t0)
     return torch.cat([_back(mat[i], x) for i in range(len(members))],
-                     dim=-1)
+                     dim=dim)
+
+
+def all_to_all_mp_raw(x, axis="ep", kind="alltoall"):
+    """x [n, ...] over a group of n: chunk j goes to the member at
+    position j, and this rank's chunk from the member at position i lands
+    in slot i of the result (rank r's chunk j lands in rank j's slot r).
+    One gloo all-to-all on host copies, outside autograd."""
+    import torch.distributed as tdist
+
+    members, _, pg = mp_world(axis)
+    n = len(members)
+    if n == 1:
+        return x
+    if x.shape[0] != n:
+        raise ValueError(f"all-to-all over {axis}: leading dim "
+                         f"{x.shape[0]} != group size {n}")
+    # a torch group numbers its ranks ascending; chunks go by position
+    order = sorted(members)
+    to_group = [members.index(r) for r in order]
+    t0 = time.perf_counter()
+    h = x.detach().cpu()
+    send = h[to_group].contiguous()
+    recv = torch.empty_like(send)
+    tdist.all_to_all_single(recv, send, group=pg)
+    back = torch.empty_like(recv)
+    back[to_group] = recv
+    _note(kind, send.numel() * send.element_size(),
+          time.perf_counter() - t0)
+    return back.to(x.device)
 
 
 def _slice_last(x, axis="mp"):
@@ -136,7 +179,7 @@ class _GatherMp(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return _all_gather_last(x, axis)
+        return all_gather_mp_raw(x, axis)
 
     @staticmethod
     def backward(ctx, g):
@@ -151,7 +194,7 @@ class _SplitMp(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather_last(g.contiguous(), ctx.axis), None
+        return all_gather_mp_raw(g.contiguous(), ctx.axis), None
 
 
 def _trivial(axis):

@@ -41,6 +41,16 @@ all-reduced over ``pp``, so every stage returns it.
 
 The degenerate ``pp == 1`` branch runs straight-line, still
 micro-batched, with remat honoured: the one-card path.
+
+The aux channel (`aux_weight`, the MoE load-balancing term): the block
+then returns (y, aux). Each stage sums the aux of its valid forward
+units, the sum is all-reduced over ``pp`` and divided by M, and each
+valid backward unit seeds the aux's cotangent with `aux_weight` (times
+the dp size when `specs.dp_axis` averages the gradients here, and times
+`aux_dp` when the caller's step averages them over that many ranks
+afterwards: the aux is the global batch's value and each rank's
+gradient a partial of it, the reference's `aux_seed`). The result is
+the pair (loss + aux_weight·aux, aux), the second a detached metric.
 """
 import json
 import struct
@@ -73,8 +83,10 @@ class PipelineSpecs(NamedTuple):
     of the port already holds its shards, so `stacked` / `post` / `x` /
     `y` are recorded, not applied. `dp_axis` names the axis the loss and
     the gradients are averaged over (each dp rank ran its rows);
-    `sum_axes` (sequence parallelism) and `quant_dp` (the int8 gradient
-    all-reduce) are ROADMAP A11's later parts and raise."""
+    `quant_dp` averages the gradients over `dp_axis` with the
+    block-scaled int8 exchange (`distributed.quant_collective`; the loss
+    and the aux stay exact). `sum_axes` (sequence parallelism) is ROADMAP
+    A11's part 5 and raises."""
     stacked: Optional[Tuple] = None
     post: Optional[Tuple] = None
     x: Optional[tuple] = None
@@ -200,21 +212,37 @@ def pp_world():
 
 # --------------------------------------------------------- the schedule
 
-def _check_specs(specs, aux_weight):
+def _check_specs(specs, aux_weight, aux_dp=1):
+    """(specs, the aux cotangent seed or None)."""
     sp = specs if specs is not None else PipelineSpecs()
     if sp.sum_axes:
         raise NotImplementedError(
             "sum_axes: sequence parallelism inside pipeline stages is not "
             "ported yet: ROADMAP A11 (sequence parallelism, part 5)")
-    if sp.quant_dp:
-        raise NotImplementedError(
-            "quant_dp: the int8 gradient all-reduce is quant_collective's, "
-            "not ported yet: ROADMAP A11 (quant_collective, part 4)")
-    if aux_weight is not None:
-        raise NotImplementedError(
-            "aux_weight: the MoE load-balancing channel is not ported "
-            "yet: ROADMAP A11 (MoE, part 3)")
-    return sp
+    if aux_weight is None:
+        return sp, None
+    seed = float(aux_weight) * aux_dp
+    if sp.dp_axis is not None:
+        seed *= mesh_mod.axis_size(sp.dp_axis)
+    return sp, seed
+
+
+class _AuxTerm(torch.autograd.Function):
+    """aux · `weight` forward; the cotangent times `seed` backward (the
+    aux's gradient seeded as the reference's `aux_seed`)."""
+
+    @staticmethod
+    def forward(ctx, aux, weight, seed):
+        ctx.seed = seed
+        return aux * weight
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.seed, None, None
+
+
+def _split_aux(out, has_aux):
+    return out if has_aux else (out, None)
 
 
 def _chunk(tree, v, V):
@@ -233,17 +261,27 @@ def _wrap_remat(block_fn, remat):
 
 
 def _straight_line(block_fn, loss_fn, stacked, post, x_micro, y_micro,
-                   remat, V):
+                   remat, V, aux_weight=None, aux_seed=None):
     """pp == 1: every micro through every chunk, the mean of the micro
-    losses, under the caller's autograd."""
+    losses, under the caller's autograd; with the aux channel (loss +
+    aux_weight·aux, aux), the aux the mean over micros of each micro's
+    sum over chunks."""
     blk = _wrap_remat(block_fn, remat)
-    losses = []
+    has_aux = aux_weight is not None
+    losses, auxs = [], []
     for m in range(x_micro.shape[0]):
         x = x_micro[m]
         for v in range(V):
-            x = blk(_chunk(stacked, v, V), x)
+            x, a = _split_aux(blk(_chunk(stacked, v, V), x), has_aux)
+            if has_aux:
+                auxs.append(a.float())
         losses.append(loss_fn(x, y_micro[m], post).float())
-    return torch.stack(losses).mean()
+    loss = torch.stack(losses).mean()
+    if not has_aux:
+        return loss
+    aux = torch.stack(auxs).sum() / x_micro.shape[0]
+    seed = aux_weight if aux_seed is None else aux_seed
+    return loss + _AuxTerm.apply(aux, float(aux_weight), seed), aux.detach()
 
 
 def _leaf(x):
@@ -252,11 +290,14 @@ def _leaf(x):
 
 
 def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
-               remat, V, stage, pp, members):
+               remat, V, stage, pp, members, aux_seed=None):
     """Walk this stage's rows of a tick table. Returns (loss sum over
-    this stage's head units, stacked leaves, post leaves, input
+    this stage's head units, aux sum over its forward units (None
+    without the aux channel), stacked leaves, post leaves, input
     cotangents [M, ...] or None) — the leaves carry the accumulated
-    gradients."""
+    gradients. With `aux_seed` the block returns (y, aux) and each
+    backward unit seeds the aux's cotangent with it."""
+    has_aux = aux_seed is not None
     s_leaves, s_def = pytree.tree_flatten(stacked)
     h_leaves, h_def = pytree.tree_flatten(post)
     s_leaves = [p.detach().requires_grad_(p.requires_grad)
@@ -273,6 +314,7 @@ def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
     grad_in = x_micro.is_floating_point()
     dxs = torch.zeros_like(x_micro) if stage == 0 and grad_in else None
     loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+    aux_sum = torch.zeros((), dtype=torch.float32, device=device)
     log = []
     for t, fwd, bwd in rows:
         if fwd is not None:
@@ -283,15 +325,19 @@ def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
                 x_in = _recv(prv, _TAG_FWD, device)
             if remat:
                 with torch.no_grad():
-                    out = block_fn(_chunk(s_tree, v, V), x_in)
+                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                 x_in), has_aux)
                 saved[(m, v)] = x_in
             else:
                 x_leaf = _leaf(x_in)
                 with torch.enable_grad():
                     # the chunk's selection inside the graph: its
                     # gradient reaches the stacked leaf
-                    out = block_fn(_chunk(s_tree, v, V), x_leaf)
-                saved[(m, v)] = (x_leaf, out)
+                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                 x_leaf), has_aux)
+                saved[(m, v)] = (x_leaf, out, a)
+            if has_aux:
+                aux_sum = aux_sum + a.detach().float()
             if not (stage == pp - 1 and v == V - 1):
                 _send(out, nxt, _TAG_FWD)
             log.append((t, "F", m, v))
@@ -300,17 +346,21 @@ def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
             if remat:
                 x_leaf = _leaf(saved.pop((m, v)))
                 with torch.enable_grad():
-                    out = block_fn(_chunk(s_tree, v, V), x_leaf)
+                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                 x_leaf), has_aux)
             else:
-                x_leaf, out = saved.pop((m, v))
+                x_leaf, out, a = saved.pop((m, v))
             with torch.enable_grad():
                 if stage == pp - 1 and v == V - 1:
                     lv = loss_fn(out, y_micro[m], h_tree).float()
-                    torch.autograd.backward(lv)
+                    roots, cots = [lv], [torch.ones_like(lv)]
                     loss_sum = loss_sum + lv.detach()
                 else:
-                    torch.autograd.backward(out,
-                                            _recv(nxt, _TAG_BWD, device))
+                    roots, cots = [out], [_recv(nxt, _TAG_BWD, device)]
+                if has_aux and a.requires_grad:
+                    roots.append(a)
+                    cots.append(torch.full_like(a, aux_seed))
+                torch.autograd.backward(roots, cots)
             if stage == 0 and v == 0:
                 if dxs is not None and x_leaf.grad is not None:
                     dxs[m] = x_leaf.grad
@@ -320,23 +370,28 @@ def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
                       prv, _TAG_BWD)
             log.append((t, "B", m, v))
     last_schedule[:] = log
-    return loss_sum, s_leaves, h_leaves, dxs
+    return (loss_sum, aux_sum if has_aux else None, s_leaves, h_leaves,
+            dxs)
 
 
 class _PipelineFn(torch.autograd.Function):
     """The schedule as one autograd node: forward runs it and keeps the
     gradients; backward returns them scaled by the incoming cotangent
-    (the reference's custom_vjp)."""
+    (the reference's custom_vjp). With the aux channel the second
+    output, the aux, is a detached metric."""
 
     @staticmethod
     def forward(ctx, run, n_stacked, x_micro, *flat):
-        loss, s_grads, h_grads, dx = run(x_micro, list(flat[:n_stacked]),
-                                         list(flat[n_stacked:]))
+        loss, aux, s_grads, h_grads, dx = run(
+            x_micro, list(flat[:n_stacked]), list(flat[n_stacked:]))
         ctx.grads = (dx, s_grads, h_grads)
-        return loss
+        if aux is None:
+            return loss
+        ctx.mark_non_differentiable(aux)
+        return loss, aux
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_aux):
         dx, s_grads, h_grads = ctx.grads
         ctx.grads = None
 
@@ -351,36 +406,54 @@ class _PipelineFn(torch.autograd.Function):
                 *[scale(t, n) for t, n in zip(grads, needs[3:])])
 
 
-def _finish(loss_sum, s_leaves, h_leaves, dxs, M, sp):
-    """1/M on the loss and every gradient; the loss summed over pp (it
-    lives on the last stage); the dp average when `sp.dp_axis` names one
-    (each dp rank ran its rows)."""
+def _finish(loss_sum, aux_sum, s_leaves, h_leaves, dxs, M, sp,
+            aux_weight=None):
+    """1/M on the loss, the aux and every gradient; the loss (it lives on
+    the last stage) and the aux (each stage's layers') summed over pp;
+    the dp average when `sp.dp_axis` names one (each dp rank ran its
+    rows), in int8 for the gradients under `sp.quant_dp`. Returns (loss
+    + aux_weight·aux, aux or None, stacked grads, post grads, dx)."""
     from ..utils.hybrid_parallel_util import coalesced_all_reduce
     from .mp_ops import all_reduce_mp_raw
 
     inv_m = 1.0 / M
-    loss = all_reduce_mp_raw(loss_sum, axis="pp", kind="pp_loss") * inv_m
+    scalars = loss_sum.reshape(1) if aux_sum is None else torch.stack(
+        [loss_sum, aux_sum])
+    scalars = all_reduce_mp_raw(scalars, axis="pp", kind="pp_loss") * inv_m
     grads = [None if p.grad is None else p.grad * inv_m
              for p in s_leaves + h_leaves]
     dx = None if dxs is None else dxs * inv_m
     if sp.dp_axis is not None and mesh_mod.axis_size(sp.dp_axis) > 1:
         n = mesh_mod.axis_size(sp.dp_axis)
         have = [i for i, g in enumerate(grads) if g is not None]
-        red = coalesced_all_reduce([grads[i] for i in have] + [
-            loss.reshape(1)], (sp.dp_axis,), op="avg")
+        if sp.quant_dp:
+            from ...quant_collective import quantized_pmean_tree
+
+            red = quantized_pmean_tree([grads[i] for i in have],
+                                       (sp.dp_axis,))
+            scalars = coalesced_all_reduce([scalars], (sp.dp_axis,),
+                                           op="avg")[0]
+        else:
+            red = coalesced_all_reduce([grads[i] for i in have] + [
+                scalars], (sp.dp_axis,), op="avg")
+            scalars = red.pop()
         for i, g in zip(have, red):
             grads[i] = g
-        loss = red[-1].reshape(())
         if dx is not None:
             dx = dx / n
+    loss = scalars[0]
+    aux = None if aux_sum is None else scalars[1]
+    if aux is not None:
+        loss = loss + float(aux_weight) * aux
     ns = len(s_leaves)
-    return loss, grads[:ns], grads[ns:], dx
+    return loss, aux, grads[:ns], grads[ns:], dx
 
 
 def _pipeline(rows_of, block_fn, loss_fn, stacked_params, post_params,
-              batch, remat, V, specs):
+              batch, remat, V, specs, aux_weight=None, aux_seed=None):
     """Run the schedule whose per-stage rows `rows_of(M, pp)` gives, as
-    one differentiable call."""
+    one differentiable call (the pair (loss, aux) with the aux
+    channel)."""
     x_micro, y_micro = batch
     pp, stage, members = pp_world()
     s_leaves, s_def = pytree.tree_flatten(stacked_params)
@@ -392,15 +465,16 @@ def _pipeline(rows_of, block_fn, loss_fn, stacked_params, post_params,
         h = pytree.tree_unflatten(h_flat, h_def)
         rows = rows_of(M, pp)[stage]
         out = _run_table(rows, block_fn, loss_fn, s, h, x, y_micro, remat,
-                         V, stage, pp, members)
-        return _finish(*out, M, specs)
+                         V, stage, pp, members, aux_seed)
+        return _finish(*out, M, specs, aux_weight)
 
     return _PipelineFn.apply(run, len(s_leaves), x_micro, *s_leaves,
                              *h_leaves)
 
 
 def pipeline_1f1b(block_fn, loss_fn, stacked_params, post_params, batch,
-                  remat=True, num_virtual=1, specs=None, aux_weight=None):
+                  remat=True, num_virtual=1, specs=None, aux_weight=None,
+                  aux_dp=1):
     """Differentiable 1F1B pipeline loss.
 
     block_fn(stage_params, x) -> y: one stage's forward; stage_params is
@@ -418,61 +492,79 @@ def pipeline_1f1b(block_fn, loss_fn, stacked_params, post_params, batch,
         instead of keeping its autograd graph (False). At pp 1 a policy
         name applies to each chunk (`fleet.recompute`).
 
+    aux_weight: when not None, block_fn returns (y, aux) and the result
+        is the pair (loss + aux_weight·aux, aux) (module docstring).
+    aux_dp: the number of ranks the caller averages the gradients over
+        after this call (HybridTrainStep's dp); it scales the aux's
+        cotangent seed as `specs.dp_axis`'s size does.
+
     Returns the mean micro-batch loss on every stage. Gradients flow to
     stacked_params, to post_params on the last stage and to x_micro on
     stage 0."""
-    sp = _check_specs(specs, aux_weight)
+    sp, seed = _check_specs(specs, aux_weight, aux_dp)
     x_micro, y_micro = batch
     V = num_virtual
     if pp_world()[0] == 1:
-        loss = _straight_line(block_fn, loss_fn, stacked_params,
-                              post_params, x_micro, y_micro, remat, V)
-        if sp.dp_axis is not None:
-            loss = _dp_mean(loss, sp.dp_axis)
-        return loss
+        out = _straight_line(block_fn, loss_fn, stacked_params,
+                             post_params, x_micro, y_micro, remat, V,
+                             aux_weight, seed)
+        return _dp_mean(out, sp.dp_axis)
     return _pipeline(lambda M, pp: schedule_table(M, pp, V), block_fn,
                      loss_fn, stacked_params, post_params, batch,
-                     bool(remat), V, sp)
+                     bool(remat), V, sp, aux_weight, seed)
 
 
-def _dp_mean(loss, axis):
-    """The mean of each dp rank's loss; the gradient of each rank's share
-    is 1/dp of its own (the reference's pmean)."""
-    from .mp_ops import allreduce_mp
+def _dp_mean(out, axis):
+    """The mean of each dp rank's loss (and aux); the gradient of each
+    rank's share is 1/dp of its own (the reference's pmean)."""
+    from .mp_ops import all_reduce_mp_raw, allreduce_mp
 
-    n = mesh_mod.axis_size(axis)
+    n = mesh_mod.axis_size(axis) if axis is not None else 1
     if n == 1:
-        return loss
-    return allreduce_mp(loss / n, axis)
+        return out
+    if isinstance(out, tuple):
+        loss, aux = out
+        return (allreduce_mp(loss / n, axis),
+                all_reduce_mp_raw(aux, axis=axis, op="avg",
+                                  kind="dp_aux"))
+    return allreduce_mp(out / n, axis)
 
 
 def pipeline_forward_loss(block_fn, loss_fn, stacked_params, post_params,
                           batch, specs=None, aux_weight=None):
     """Forward-only fill-drain pipeline loss (the eval path: M + pp − 1
     ticks, no gradient machinery): stage s forwards micro m at tick
-    m + s. Every stage returns the mean micro loss."""
-    sp = _check_specs(specs, aux_weight)
+    m + s. Every stage returns the mean micro loss (with `aux_weight`,
+    the pair (loss + aux_weight·mean aux, mean aux))."""
+    sp, seed = _check_specs(specs, aux_weight)
+    has_aux = aux_weight is not None
     x_micro, y_micro = batch
     M = x_micro.shape[0]
     pp, stage, members = pp_world()
     with torch.no_grad():
         if pp == 1:
-            loss = _straight_line(block_fn, loss_fn, stacked_params,
-                                  post_params, x_micro, y_micro, False, 1)
-        else:
-            outs = fill_drain(block_fn, stacked_params, x_micro, stage, pp,
-                              members)
-            loss_sum = torch.zeros((), dtype=torch.float32,
-                                   device=x_micro.device)
-            if stage == pp - 1:
-                for m in range(M):
-                    loss_sum = loss_sum + loss_fn(outs[m], y_micro[m],
-                                                  post_params).float()
-            loss, _, _, _ = _finish(loss_sum, [], [], None, M, sp)
-            return loss
-        if sp.dp_axis is not None:
-            loss = _dp_mean(loss, sp.dp_axis)
-        return loss
+            out = _straight_line(block_fn, loss_fn, stacked_params,
+                                 post_params, x_micro, y_micro, False, 1,
+                                 aux_weight, seed)
+            return _dp_mean(out, sp.dp_axis)
+        auxs = []
+
+        def blk(p, x):
+            y, a = _split_aux(block_fn(p, x), has_aux)
+            auxs.append(a)
+            return y
+
+        outs = fill_drain(blk, stacked_params, x_micro, stage, pp, members)
+        device = x_micro.device
+        loss_sum = torch.zeros((), dtype=torch.float32, device=device)
+        if stage == pp - 1:
+            for m in range(M):
+                loss_sum = loss_sum + loss_fn(outs[m], y_micro[m],
+                                              post_params).float()
+        aux_sum = (torch.stack(auxs).float().sum() if has_aux else None)
+        loss, aux, _, _, _ = _finish(loss_sum, aux_sum, [], [], None, M,
+                                     sp, aux_weight)
+        return (loss, aux) if has_aux else loss
 
 
 def fill_drain(block_fn, params, xs, stage, pp, members):

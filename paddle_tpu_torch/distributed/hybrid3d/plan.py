@@ -27,8 +27,7 @@ class Hybrid3DConfig:
     'layer' | False. zero: None | 'os' | 'os_g' | 'p_g_os' over
     `zero_axis` ('dp' or 'sharding'). sp: the sequence-parallel degree.
     quant_allreduce: the int8 dp gradient all-reduce (None defers to the
-    PT_QUANT_ALLREDUCE_XLA env; HybridTrainStep raises when it is on:
-    quant_collective is ROADMAP A11 part 4)."""
+    PT_QUANT_ALLREDUCE_XLA env; `distributed.quant_collective`)."""
     dp: int = 1
     tp: int = 1
     pp: int = 1

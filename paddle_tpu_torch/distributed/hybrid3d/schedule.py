@@ -45,16 +45,19 @@ def gpipe_table(M, pp):
 
 
 def pipeline_gpipe(block_fn, loss_fn, stacked_params, post_params, batch,
-                   remat=True, specs=None, aux_weight=None):
+                   remat=True, specs=None, aux_weight=None, aux_dp=1):
     """Differentiable GPipe pipeline loss: `pipeline_1f1b`'s contract
-    (block_fn / loss_fn / stacked / post / batch / specs) on the
-    all-forward-then-all-backward schedule. No virtual stages:
+    (block_fn / loss_fn / stacked / post / batch / specs / aux_weight /
+    aux_dp)
+    on the all-forward-then-all-backward schedule. No virtual stages:
     interleaving is a 1F1B refinement."""
-    sp = _check_specs(specs, aux_weight)
+    sp, seed = _check_specs(specs, aux_weight, aux_dp)
     x_micro, y_micro = batch
     if pp_world()[0] == 1:
-        loss = _straight_line(block_fn, loss_fn, stacked_params,
-                              post_params, x_micro, y_micro, remat, 1)
-        return _dp_mean(loss, sp.dp_axis) if sp.dp_axis else loss
+        out = _straight_line(block_fn, loss_fn, stacked_params,
+                             post_params, x_micro, y_micro, remat, 1,
+                             aux_weight, seed)
+        return _dp_mean(out, sp.dp_axis)
     return _pipeline(gpipe_table, block_fn, loss_fn, stacked_params,
-                     post_params, batch, bool(remat), 1, sp)
+                     post_params, batch, bool(remat), 1, sp, aux_weight,
+                     seed)

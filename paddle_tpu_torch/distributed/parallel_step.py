@@ -24,11 +24,18 @@ size (`_zero_spec`), and this rank owns one block:
 
 `grad_clip` sees the whole averaged gradients. Optimizers whose update
 reads norms over a whole parameter (LarsMomentum, Lamb, DGCMomentum)
-refuse a sharded level. At world 1 the step computes exactly what
+refuse a sharded level.
+
+`quant_allreduce=True` (or PT_QUANT_ALLREDUCE_XLA=1) averages the
+gradients over the replica axes (``dp``, then ``sharding``) with the
+block-scaled int8 exchange (`quant_collective.quantized_pmean_tree`);
+the loss stays an exact mean. As the reference's, it takes replicated
+parameters and the default batch layout only: ZeRO ``p_g_os``, custom
+`batch_specs` and a mesh-sharded parameter raise its ValueErrors
+(`_validate_quant_path`). At world 1 the step computes exactly what
 `jit.TrainStep` computes, and the steptrace telemetry is the same
 ("dist" family).
 """
-import os
 import time
 import warnings
 
@@ -128,8 +135,8 @@ class DistributedTrainStep:
     dim 0 over ("dp", "sharding")). zero_level: None, "os", "os_g" or
     "p_g_os" (None takes the optimizer's `_zero_level`, which
     `sharding.group_sharded_parallel` sets). remat as `jit.TrainStep`'s.
-    quant_allreduce=True (or PT_QUANT_ALLREDUCE_XLA=1) raises: the int8
-    gradient exchange is quant_collective's (ROADMAP A11)."""
+    quant_allreduce: the int8 gradient exchange (None follows
+    PT_QUANT_ALLREDUCE_XLA; module docstring)."""
 
     _steptrace_family = "dist"
     # the mesh axis the ZeRO blocks split over
@@ -138,16 +145,11 @@ class DistributedTrainStep:
     def __init__(self, model, loss_fn, optimizer, zero_level=None,
                  batch_specs=None, remat=False, quant_allreduce=None):
         from .fleet.recompute import checkpoint_policy
+        from .quant_collective import xla_quant_enabled
 
         if quant_allreduce is None:
-            quant_allreduce = os.environ.get(
-                "PT_QUANT_ALLREDUCE_XLA", "0").strip().lower() in (
-                    "1", "true", "yes", "on")
-        if quant_allreduce:
-            raise NotImplementedError(
-                "quant_allreduce: the block-scaled int8 gradient exchange "
-                "is quant_collective's, which is not ported yet: ROADMAP "
-                "A11")
+            quant_allreduce = xla_quant_enabled()
+        self.quant_allreduce = bool(quant_allreduce)
         zero_level = zero_level or getattr(optimizer, "_zero_level", None)
         if zero_level not in (None,) + _LEVELS:
             raise ValueError(f"zero_level {zero_level!r}: use one of "
@@ -166,6 +168,12 @@ class DistributedTrainStep:
                        if p.requires_grad]
         self._params = [p for _, p in self._named]
         self._data_axes = self._batch_axes()
+        self._quant_axes = ()
+        if self.quant_allreduce:
+            self._quant_axes = tuple(a for a in self._quant_axis_names()
+                                     if mesh_mod.axis_size(a) > 1)
+            if self._quant_axes:
+                self._validate_quant_path()
         # ZeRO: id(p) -> (dim, n, position, global shape) of the rank's
         # block; parameters at p_g_os keep only their block between steps
         self._blocks = {}
@@ -195,6 +203,38 @@ class DistributedTrainStep:
         # and seconds ("bytes", "seconds"; with the copies around it
         # "step_comm_s"), the blocks' all-gathers' seconds ("gather_s")
         self.comm_stats = {}
+
+    # ---- the int8 gradient exchange ----
+    def _quant_axis_names(self):
+        return ("dp", "sharding")
+
+    def _validate_quant_path(self):
+        """The int8 exchange averages replicated gradients over the
+        replica axes: parameters must be replicated and the batch must
+        take the default replica-axis layout (the reference's rules and
+        messages)."""
+        if self.zero == "p_g_os":
+            raise ValueError(
+                "quant_allreduce does not compose with zero_level="
+                "'p_g_os' (sharded param storage): the int8 grad "
+                "exchange assumes replicated params. Use 'os'/'os_g' "
+                "(sharded optimizer state composes fine) or disable "
+                "PT_QUANT_ALLREDUCE_XLA for this step")
+        if self.batch_specs is not None:
+            raise ValueError(
+                "quant_allreduce supports the default replica-axis "
+                "batch sharding only (custom batch_specs — e.g. "
+                "sequence sharding — would need their own loss "
+                "reduction semantics inside the shard_map)")
+        for p in self._params:
+            spec = getattr(p, "_pspec", None)
+            if spec is not None and any(s is not None for s in spec):
+                raise ValueError(
+                    f"quant_allreduce: parameter with _pspec {spec} is "
+                    "mesh-sharded — the int8 grad exchange supports "
+                    "replicated params only (TP models: use "
+                    "HybridTrainStep, whose pipeline schedule "
+                    "quantizes the dp axis while mp stays exact)")
 
     # ---- layout ----
     def _batch_axes(self):
@@ -303,12 +343,22 @@ class DistributedTrainStep:
                 p.grad = torch.zeros_like(p)
         stats = self.comm_stats
         t0 = time.perf_counter()
-        grads = coalesced_all_reduce(
-            [p.grad for p in self._params] + [loss.detach().reshape(1)],
-            self._data_axes, op="avg", stats=stats)
+        if self._quant_axes:
+            from .quant_collective import quantized_pmean_tree
+
+            grads = quantized_pmean_tree([p.grad for p in self._params],
+                                         self._quant_axes, stats=stats)
+            loss = coalesced_all_reduce([loss.detach().reshape(1)],
+                                        self._data_axes, op="avg",
+                                        stats=stats)[0]
+        else:
+            grads = coalesced_all_reduce(
+                [p.grad for p in self._params] + [loss.detach().reshape(1)],
+                self._data_axes, op="avg", stats=stats)
+            loss = grads.pop()
         for p, g in zip(self._params, grads):
             p.grad = g
-        loss = grads[-1].reshape(())
+        loss = loss.reshape(())
         stats["step_comm_s"] = time.perf_counter() - t0
         if not self._blocks:
             self.optimizer._train_step_update(self._params)

@@ -27,10 +27,14 @@ group for the collectives.
   `_CONNECT_RETRY` / `_SEND_RETRY`, the ``sock.*`` chaos scopes).
   ``PADDLE_TPU_P2P_TRANSPORT=kv`` routes payloads through the store
   instead (base64, every byte transits the store; for debugging).
-* The int8 wire of the quantized collectives (``PT_QUANT_ALLREDUCE=1``,
-  ``PTQ8`` frames) is quant_collective's, ROADMAP A11(b): while that
-  variable is set, the entry points that would quantize raise, naming
-  A11, rather than sending exact bytes in silence.
+* The int8 wire (``PT_QUANT_ALLREDUCE=1``, ``PTQ8`` frames of
+  `quantization.runtime.encode_int8_wire`): a sum / avg all-reduce of an
+  eligible float payload (fp32 / fp64, at least 512 elements) across
+  processes gathers every rank's frame and reduces the decoded matrix —
+  each rank decodes its own frame too, so every rank reduces the same
+  values — and `send_np` sends the frame (`recv_np` decodes it by its
+  magic). Max / min / prod, integer payloads and `quantize=False` stay
+  exact; `pt_quant_allreduce_bytes_saved` counts the bytes saved.
 """
 import base64
 import datetime
@@ -139,25 +143,39 @@ class _DeprecatedStats(MutableMapping):
 stats = _DeprecatedStats()
 
 
-# ---- the int8 wire (quant_collective, ROADMAP A11(b)) ----
+# ---- the int8 wire (quantization.runtime's codec) ----
 
-def _quant_allreduce_enabled():
-    return os.environ.get("PT_QUANT_ALLREDUCE", "0").strip().lower() in (
-        "1", "true", "yes", "on")
-
-
-def _wire_eligible(arr, min_size=512):
-    """The reference's rule: fp32 / fp64 payloads above a size floor."""
-    return arr.dtype in (np.float32, np.float64) and arr.size >= min_size
+_QUANT_SAVED = _obs.counter(
+    "pt_quant_allreduce_bytes_saved",
+    "wire bytes saved by the opt-in int8-with-scale codec "
+    "(PT_QUANT_ALLREDUCE=1): raw float bytes minus encoded bytes, "
+    "counted at the publishing rank, all-reduce fallback + p2p")
 
 
-def _quant_wire_unported(what):
-    raise NotImplementedError(
-        f"{what} rides the int8 wire (PT_QUANT_ALLREDUCE=1), which is "
-        "quant_collective's and not ported yet: ROADMAP A11")
+def _quant_runtime():
+    """quantization.runtime, imported at first use (xproc loads with
+    distributed, before quantization)."""
+    from ..quantization import runtime
+
+    return runtime
 
 
-# must match the reference's quantization.runtime.WIRE_MAGIC
+def _maybe_quant_encode(nparr, op):
+    """(frame, decode) for a sum / avg all-reduce of an eligible payload
+    under PT_QUANT_ALLREDUCE=1, else None (the exact path): max / min /
+    prod on quantized values would change the selected element."""
+    if op not in ("sum", "avg"):
+        return None
+    qrt = _quant_runtime()
+    if not (qrt.quant_allreduce_enabled() and qrt.wire_eligible(nparr)):
+        return None
+    payload = qrt.encode_int8_wire(nparr)
+    _QUANT_SAVED.inc(max(0, nparr.nbytes - len(payload)))
+    return payload, qrt.decode_int8_wire
+
+
+# checked by prefix, so recv never imports the codec for exact frames;
+# np.save frames start with b"\x93NUMPY"
 _QUANT_WIRE_MAGIC = b"PTQ8"
 
 
@@ -223,9 +241,6 @@ def _collective_np(kind, nparr, op="sum", src=0, group=None):
     rank."""
     nparr = np.ascontiguousarray(nparr)
     with _trace_span(f"xproc.{kind}", op=op, bytes=int(nparr.nbytes)):
-        if kind == "all_reduce" and _quant_allreduce_enabled() and op in (
-                "sum", "avg") and _wire_eligible(nparr):
-            _quant_wire_unported("an fp32 / fp64 all-reduce")
         if not is_multiprocess():
             if kind == "all_gather":
                 return nparr[None].copy()
@@ -238,6 +253,14 @@ def _collective_np(kind, nparr, op="sum", src=0, group=None):
             t = _u8(nparr)
             _dist().broadcast(t, src=src, group=group)
             return t.numpy().view(nparr.dtype).reshape(nparr.shape)
+        if kind == "all_reduce":
+            enc = _maybe_quant_encode(nparr, op)
+            if enc is not None:
+                payload, decode = enc
+                mat = np.stack([decode(b) for b in _gather_bytes(
+                    payload, group)])
+                return _NP_REDUCERS[op](mat).astype(nparr.dtype,
+                                                    copy=False)
         out_dtype, acc = _accumulator(nparr, op)
         if op != "prod" and acc.type in _GLOO_DTYPES:
             return _gloo_reduce(nparr, op, out_dtype, acc, group)
@@ -279,16 +302,21 @@ def all_gather_obj(obj, max_len=1 << 27):
 def all_gather_bytes(payload: bytes, max_len=1 << 20):
     """Gather variable-length byte strings: length-prefixed, padded
     uint8 buffers (the reference's all_gather_object)."""
+    return _gather_bytes(payload, None, max_len)
+
+
+def _gather_bytes(payload, group=None, max_len=None):
+    """Every member's byte string (in group-rank order)."""
     n = len(payload)
-    lens = all_gather_np(np.array([n], np.int32))[:, 0]
+    lens = all_gather_np(np.array([n], np.int32), group=group)[:, 0]
     width = int(lens.max())
     _BYTES_TOTAL.labels(channel="gather").inc(width * len(lens))
-    if width > max_len:
+    if max_len is not None and width > max_len:
         # raise on ALL ranks (post-gather) so no peer is left blocking
         raise ValueError(f"object too large to gather ({width} > {max_len})")
     buf = np.zeros((width,), np.uint8)
     buf[:n] = np.frombuffer(payload, np.uint8)
-    mat = all_gather_np(buf)
+    mat = all_gather_np(buf, group=group)
     return [mat[i, : int(lens[i])].tobytes() for i in range(len(lens))]
 
 
@@ -617,15 +645,19 @@ def recv_bytes(src: int, tag: int = 0, timeout_ms: int = 600_000) -> bytes:
 
 def send_np(arr, dst: int, tag: int = 0, timeout_ms: int = 600_000,
             quantize=None):
-    """Send one array as an ``np.save`` frame. quantize=None would pick
-    the int8 wire for float payloads under PT_QUANT_ALLREDUCE=1, and
-    quantize=True asks for it: both raise while the wire is unported
-    (module docstring). quantize=False is always exact."""
+    """Send one array. quantize=None picks the int8 wire frame for an
+    eligible float payload under PT_QUANT_ALLREDUCE=1; quantize=True
+    asks for it; quantize=False sends the exact ``np.save`` frame (for
+    payloads that must stay bit-exact)."""
     arr = np.ascontiguousarray(arr)
     if quantize is None:
-        quantize = _quant_allreduce_enabled() and _wire_eligible(arr)
+        qrt = _quant_runtime()
+        quantize = qrt.quant_allreduce_enabled() and qrt.wire_eligible(arr)
     if quantize:
-        _quant_wire_unported("send_np of a float payload")
+        payload = _quant_runtime().encode_int8_wire(arr)
+        _QUANT_SAVED.inc(max(0, arr.nbytes - len(payload)))
+        send_bytes(payload, dst, tag, timeout_ms)
+        return
     buf = io.BytesIO()
     np.save(buf, arr, allow_pickle=False)
     send_bytes(buf.getvalue(), dst, tag, timeout_ms)
@@ -633,6 +665,6 @@ def send_np(arr, dst: int, tag: int = 0, timeout_ms: int = 600_000,
 
 def recv_np(src: int, tag: int = 0, timeout_ms: int = 600_000):
     raw = recv_bytes(src, tag, timeout_ms)
-    if raw[:4] == _QUANT_WIRE_MAGIC:    # a peer's quantized frame
-        _quant_wire_unported("a PTQ8 frame")
+    if raw[:4] == _QUANT_WIRE_MAGIC:    # a self-describing int8 frame
+        return _quant_runtime().decode_int8_wire(raw)
     return np.load(io.BytesIO(raw), allow_pickle=False)

@@ -15,25 +15,25 @@ the replica group the optimizer state shards over): ``os`` / ``os_g`` /
 slice of this rank's parameter shard. A model whose `shard_storage()`
 asked for it keeps its parameter blocks over ``sharding`` (p_g_os).
 
-The Checkpointer's hooks write each shard as a `LocalShard` of the
-LOGICAL array (the model's `layout()`), so a pp × mp checkpoint loads
-at world 1, in the port and in the reference. `quant_allreduce` (or a
-config / PT_QUANT_ALLREDUCE_XLA asking for it) raises: the int8 dp
-all-reduce is quant_collective's, ROADMAP A11 part 4. `compile_stats`
-and `analyze_step` are A12's, as for `TrainStep`.
-"""
-import os
+A MoE model's `aux_loss` is the global batch's value on every dp rank
+already (its gate statistics are reduced over dp), so it takes no part
+in the dp average; the model tells its pipeline the dp size, which
+scales the aux's gradient for this average (the reference's `aux_seed`).
 
+The Checkpointer's hooks write each shard as a `LocalShard` of the
+LOGICAL array (the model's `layout()` and `expert_layout()`), so a pp ×
+mp × ep checkpoint loads at world 1, in the port and in the reference.
+`quant_allreduce` (or a config / PT_QUANT_ALLREDUCE_XLA asking for it)
+averages the gradients over dp with the block-scaled int8 exchange
+(`distributed.quant_collective`); mp, pp and the tied wte's pair stay
+exact, and so do the loss and the aux. `compile_stats` and
+`analyze_step` are A12's, as for `TrainStep`.
+"""
 from ..distributed.checkpoint import LocalShard
 from ..distributed.parallel_step import DistributedTrainStep
 from . import TrainStep
 
 __all__ = ["HybridTrainStep"]
-
-
-def _env_quant():
-    return os.environ.get("PT_QUANT_ALLREDUCE_XLA", "0").strip().lower() \
-        in ("1", "true", "yes", "on")
 
 
 class HybridTrainStep(DistributedTrainStep, TrainStep):
@@ -48,17 +48,13 @@ class HybridTrainStep(DistributedTrainStep, TrainStep):
 
     def __init__(self, model, loss_fn, optimizer, config=None,
                  donate_params=True, remat=False, quant_allreduce=None):
+        from ..distributed.quant_collective import xla_quant_enabled
+
         if quant_allreduce is None:
             quant_allreduce = getattr(config, "quant_allreduce", None)
         if quant_allreduce is None:
-            quant_allreduce = _env_quant()
-        if quant_allreduce:
-            raise NotImplementedError(
-                "quant_allreduce: the block-scaled int8 dp gradient "
-                "all-reduce is quant_collective's, which is not ported "
-                "yet: ROADMAP A11 (quant_collective, part 4)")
+            quant_allreduce = xla_quant_enabled()
         self.config = config
-        self.quant_allreduce = False
         self.donate_params = donate_params
         zero = getattr(config, "zero", None)
         self._zero_axis = getattr(config, "zero_axis", "dp")
@@ -66,11 +62,18 @@ class HybridTrainStep(DistributedTrainStep, TrainStep):
         if storage and not zero:
             zero, self._zero_axis = "p_g_os", storage
         super().__init__(model, loss_fn, optimizer, zero_level=zero,
-                         remat=remat, quant_allreduce=False)
+                         remat=remat, quant_allreduce=bool(quant_allreduce))
 
     # ---- layout: the batch enters whole, the gradients average over dp
     def _batch_axes(self):
         return ("dp",)
+
+    def _quant_axis_names(self):
+        return ("dp",)
+
+    def _validate_quant_path(self):
+        """Only dp is quantized: each rank's mp / pp / ep shards stay its
+        own, so sharded parameters are the normal case here."""
 
     def _slice_batch(self, batch):
         return list(batch)
@@ -97,13 +100,15 @@ class HybridTrainStep(DistributedTrainStep, TrainStep):
         if name not in shapes:
             return None
         pp, mp, stage, r, V = m.layout()
+        ep, ep_rank = m.expert_layout() if hasattr(
+            m, "expert_layout") else (1, 0)
         if V > 1:
             raise NotImplementedError(
                 "checkpointing an interleaved (n_virtual > 1) pipelined "
                 "model: a stage's rows are not one block of the stack")
         shape = shapes[name]
         sl = pipelined_slices(name, shape, m.config.num_layers, pp, mp,
-                              stage, r, V)
+                              stage, r, V, ep, ep_rank)
         index = [[s.start or 0, n if s.stop is None else s.stop]
                  for s, n in zip(sl, shape)]
         return shape, index, sl

@@ -39,6 +39,25 @@ and the mp all-reduces' calls, bytes and seconds per step, the tied
 embedding's gradient all-reduce, and the schedule it ran (the tick
 table's row of its stage); with `--ckpt` the rank also writes its
 parameter shards as DIR/params_<rank>.npz, for a gather.
+
+Mixture of experts: `--moe E` (with `--moe-topk`, `--moe-cf`; the
+expert hidden size is the model's ffn_size) makes each layer's FFN a MoE
+of E experts, cut over an ``ep`` axis of `--mesh` (`--mesh ep=2 --moe
+4`: each rank holds 2 experts, the tokens cross by all-to-all).
+`--layers` and `--n-micro` cut the depth and set the micro-batches. The
+record then also holds each step's aux term and the all-to-all's calls,
+bytes and seconds ("alltoall" under "mp"), and, from one no-grad pass
+after the steps, this rank's tokens per expert and dropped share.
+`--plant a2a_self_copy` then rebuilds the model and takes the same
+steps with each all-to-all replaced by a copy of its input (a planted
+fault the callers' loss gate must catch), recorded as "planted_losses".
+
+The int8 gradient exchange: `--quant-steps N` (data-parallel mode)
+rebuilds the model after the exact steps and takes N steps of
+`DistributedTrainStep(quant_allreduce=True)`, recording their losses
+and the exchange's bytes and seconds ("quant"), then plants a NaN in one
+gradient element on rank 0 only and records the NaN blocks each rank
+decodes ("poison_blocks").
 """
 import os
 import sys
@@ -68,6 +87,8 @@ from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,  # noqa: E402
                                               gpt_small, gpt_tiny)
 
 MODELS = {"gpt_small": (gpt_small, True), "gpt_tiny": (gpt_tiny, False)}
+# the element the poison check plants its NaN at
+POISON_AT = 12345
 # the mesh mode's pipeline: micro-batches a step, and the recompute policy
 N_MICRO, REMAT = 4, "layer"
 
@@ -87,8 +108,21 @@ def parse_args(argv=None):
                     help="checkpoint root to save the last step into")
     ap.add_argument("--out", required=True)
     ap.add_argument("--mesh", default=None,
-                    help="tensor / pipeline mesh, e.g. pp=2,mp=2: train "
-                    "PipelinedGPTForCausalLM through HybridTrainStep")
+                    help="tensor / pipeline / expert mesh, e.g. pp=2,mp=2 "
+                    "or ep=2: train PipelinedGPTForCausalLM through "
+                    "HybridTrainStep")
+    ap.add_argument("--moe", type=int, default=0,
+                    help="experts per MoE layer (0: the dense FFN)")
+    ap.add_argument("--moe-topk", type=int, default=1)
+    ap.add_argument("--moe-cf", type=float, default=1.25,
+                    help="the MoE capacity factor")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="decoder layers (default: the model's)")
+    ap.add_argument("--n-micro", type=int, default=N_MICRO)
+    ap.add_argument("--plant", default=None, choices=("a2a_self_copy",))
+    ap.add_argument("--quant-steps", type=int, default=0,
+                    help="steps of the int8 gradient exchange after the "
+                    "exact ones (data-parallel mode)")
     return ap.parse_args(argv)
 
 
@@ -97,25 +131,37 @@ def parse_mesh(text):
     out = {}
     for part in text.split(","):
         k, v = part.split("=")
-        if k.strip() not in ("dp", "pp", "mp"):
-            raise ValueError(f"--mesh axis {k!r}: expected dp, pp or mp")
+        if k.strip() not in ("dp", "pp", "mp", "ep"):
+            raise ValueError(f"--mesh axis {k!r}: expected dp, pp, mp or "
+                             "ep")
         out[k.strip()] = int(v)
     return out
 
 
-def build_pipelined(model_name, device):
+def model_config(model_name, layers=None):
+    """(config, O1 or not) of `model_name`, its depth cut to `layers`."""
+    make, o1 = MODELS[model_name]
+    cfg = make()
+    if layers:
+        cfg.num_layers = layers
+    return cfg, o1
+
+
+def build_pipelined(model_name, device, moe=0, moe_topk=1, moe_cf=1.25,
+                    layers=None, n_micro=N_MICRO):
     """(config, HybridTrainStep) over the current mesh: the pipelined GPT
-    from seed 0 (the same logical weights on every mesh), N_MICRO
-    micro-batches, REMAT recompute, AdamW(1e-4), bf16 O1 for gpt_small."""
+    from seed 0 (the same logical weights on every mesh), `n_micro`
+    micro-batches, REMAT recompute, AdamW(1e-4), bf16 O1 for gpt_small;
+    with `moe` experts a MoE FFN in every layer."""
     from paddle_tpu_torch.jit import HybridTrainStep
     from paddle_tpu_torch.text.models.gpt_pipeline import (
         PipelinedGPTForCausalLM)
 
-    make, o1 = MODELS[model_name]
     seed(0)
-    cfg = make()
+    cfg, o1 = model_config(model_name, layers)
     model = PipelinedGPTForCausalLM(
-        cfg, n_micro=N_MICRO, remat=REMAT, device=device, seed=0)
+        cfg, n_micro=n_micro, remat=REMAT, device=device, seed=0,
+        moe_experts=moe, moe_topk=moe_topk, moe_capacity_factor=moe_cf)
 
     def loss_fn(m, ids):
         if not o1:
@@ -135,9 +181,14 @@ def _delta(after, before):
     return out
 
 
+def _self_copy(x, axis="ep", kind="alltoall"):
+    return x
+
+
 def main_mesh(args):
     import copy
 
+    from paddle_tpu_torch.distributed import moe as moe_mod
     from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
     from paddle_tpu_torch.distributed.mesh import coord
 
@@ -150,14 +201,16 @@ def main_mesh(args):
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.reset_peak_memory_stats(device)
+    kw = dict(moe=args.moe, moe_topk=args.moe_topk, moe_cf=args.moe_cf,
+              layers=args.layers, n_micro=args.n_micro)
     t0 = time.perf_counter()
-    cfg, step = build_pipelined(args.model, device)
+    cfg, step = build_pipelined(args.model, device, **kw)
     build_s = time.perf_counter() - t0
     ids = global_batch(cfg, args.batch, args.seq)
     fa.reset_launches()
     p1.stats.clear()
     mp_ops.reset_stats()
-    losses, step_s, comm = [], [], []
+    losses, step_s, comm, auxs = [], [], [], []
     for _ in range(args.steps):
         before = (copy.deepcopy(p1.stats), copy.deepcopy(mp_ops.stats),
                   dict(step.model.tied_stats))
@@ -166,6 +219,7 @@ def main_mesh(args):
         losses.append(float(step(ids)))
         _sync(device)
         step_s.append(time.perf_counter() - t0)
+        auxs.append(float(step.model.aux_loss))
         comm.append({"dp": dict(step.comm_stats),
                      "p2p": _delta(p1.stats, before[0]),
                      "mp": _delta(mp_ops.stats, before[1]),
@@ -175,13 +229,35 @@ def main_mesh(args):
                device_name=(torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
                mesh=dist.mesh.global_mesh().shape, coord=coord(),
-               n_micro=N_MICRO, remat=REMAT, batch=args.batch,
-               seq=args.seq, build_s=build_s, losses=losses,
-               step_seconds=step_s, comm=comm,
+               n_micro=args.n_micro, remat=REMAT, batch=args.batch,
+               seq=args.seq, layers=cfg.num_layers, build_s=build_s,
+               losses=losses, step_seconds=step_s, comm=comm,
                schedule=[list(map(str, r)) for r in p1.last_schedule],
                launches=dict(fa.launches), tc_launches=dict(fa.tc_launches),
                peak_mb=(torch.cuda.max_memory_allocated(device) / 2**20
                         if device.type == "cuda" else None))
+    if args.moe:
+        m = step.model
+        out.update(moe=args.moe, moe_topk=args.moe_topk,
+                   moe_cf=args.moe_cf, aux=auxs,
+                   experts_held=int(m.stk_moe_w1.shape[1]))
+        moe_mod.route_stats = {}
+        with torch.no_grad():
+            m.loss(ids)
+        out["routing"] = moe_mod.route_stats
+        moe_mod.route_stats = None
+    if args.plant:
+        # the same steps of a fresh model, every all-to-all a self-copy
+        del step
+        real = mp_ops.all_to_all_mp_raw
+        mp_ops.all_to_all_mp_raw = _self_copy
+        try:
+            _, bad = build_pipelined(args.model, device, **kw)
+            out["planted_losses"] = [float(bad(ids))
+                                     for _ in range(args.steps)]
+        finally:
+            mp_ops.all_to_all_mp_raw = real
+        del bad
     os.makedirs(args.out, exist_ok=True)
     if args.ckpt:
         t0 = time.perf_counter()
@@ -199,7 +275,7 @@ def main_mesh(args):
     xproc.barrier()       # no rank exits before all finished
 
 
-def build(model_name, device, zero_level=None):
+def build(model_name, device, zero_level=None, quant_allreduce=False):
     """(config, DistributedTrainStep): bench_gpt's model and optimizer."""
     make, o1 = MODELS[model_name]
     seed(0)
@@ -215,7 +291,8 @@ def build(model_name, device, zero_level=None):
 
     opt = AdamW(1e-4, parameters=model.parameters())
     return cfg, dist.DistributedTrainStep(model, loss_fn, opt,
-                                          zero_level=zero_level)
+                                          zero_level=zero_level,
+                                          quant_allreduce=quant_allreduce)
 
 
 def global_batch(cfg, batch, seq):
@@ -266,10 +343,84 @@ def main(argv=None):
         d = ck._dir(args.steps)
         out["ckpt_files"] = sorted(f for f in os.listdir(
             os.path.join(d, "shards")) if f"#r{rank}s" in f)
+    if args.quant_steps:
+        del step
+        out.update(quant_phase(args, device, ids))
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, f"dist_out_{rank}.json"), "w") as f:
         json.dump(out, f)
     xproc.barrier()       # neither rank exits before both finished
+
+
+def exchange_gap(g, axes):
+    """The largest |int8 mean − exact mean| of the f32 [N] `g` over this
+    rank's group along `axes`, each block's in units of its int8 step
+    (the group's block absmax / 127): one axis's two rounding passes
+    bound it by one step. The exact mean is taken in float64."""
+    from paddle_tpu_torch.distributed import quant_collective as qc
+    from paddle_tpu_torch.distributed.collective import _gather_np, axis_comm
+
+    members, _ = axis_comm(tuple(axes))
+    mat = _gather_np(g.cpu().numpy(), members).astype(np.float64)
+    got = qc.quantized_pmean(g, axes).cpu().numpy().astype(np.float64)
+    B = qc.DEFAULT_BLOCK
+    pad = -g.numel() % B
+
+    def blocks(a):
+        a = np.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)])
+        return np.abs(a.reshape(a.shape[:-1] + (-1, B)))
+
+    step = blocks(mat).max(axis=(0, 2)) / qc.QMAX
+    gap = blocks(got - mat.mean(0)).max(-1)
+    return float((gap / np.maximum(step, 1e-12)).max())
+
+
+def quant_phase(args, device, ids):
+    """`--quant-steps` steps of the int8 gradient exchange from the same
+    start as the exact steps, then two checks on this rank's own first
+    gradient at the final weights: the int8 mean against the exact one
+    (`exchange_gap`), also with the exchange skipped (each rank keeps
+    its own gradient: a planted fault the check must catch), and the NaN
+    poison. {"quant": the losses, each step's seconds and the exchange's
+    numbers, "exchange_gap" / "exchange_gap_planted": the gaps in int8
+    steps, "poison_blocks": the NaN blocks this rank decoded}."""
+    from paddle_tpu_torch.distributed import quant_collective as qc
+
+    _, step = build(args.model, device, args.zero, quant_allreduce=True)
+    losses, step_s, comm = [], [], []
+    for _ in range(args.quant_steps):
+        _sync(device)
+        t0 = time.perf_counter()
+        losses.append(float(step(ids)))
+        _sync(device)
+        step_s.append(time.perf_counter() - t0)
+        comm.append(dict(step.comm_stats))
+    # this rank's own gradient (the step's are the exchanged ones): one
+    # backward of its rows at the final weights
+    step.optimizer.clear_grad()
+    step._loss([b.to(device) for b in step._slice_batch([ids])]).backward()
+    g = next(p.grad for p in step._params if p.grad is not None).detach()
+    g = g.reshape(-1).float().clone()
+    axes = step._quant_axes
+    gap = exchange_gap(g, axes)
+    one_axis = qc._one_axis
+    qc._one_axis = lambda flat, axis, block, stats: flat
+    try:
+        planted = exchange_gap(g, axes)
+    finally:
+        qc._one_axis = one_axis
+    # a NaN in one element of rank 0's gradient only: every rank must
+    # decode the same whole block to NaN
+    if dist.get_rank() == 0:
+        g[POISON_AT] = float("nan")
+    red = qc.quantized_pmean(g, axes)
+    bad = torch.nonzero(torch.isnan(red)).reshape(-1).cpu().numpy()
+    blocks = sorted({int(i) // qc.DEFAULT_BLOCK for i in bad})
+    return {"quant": {"losses": losses, "step_seconds": step_s,
+                      "comm": comm, "axes": list(axes)},
+            "exchange_gap": gap, "exchange_gap_planted": planted,
+            "exchange_numel": g.numel(),
+            "poison_blocks": blocks, "poison_nan": int(bad.size)}
 
 
 if __name__ == "__main__":

@@ -26,10 +26,21 @@ The codecs follow the reference op for op (upcast to f32, scale =
 max(absmax, 1e-8) / qmax, round half to even, clip), so codes and scales
 are bit-identical to it for the same rows.
 
-Env knob: PT_KV_DTYPE, the engine's default kv dtype (float32 |
-bfloat16 | int8 | int4; unset = the model's dtype).
+The eager int8 wire (`encode_int8_wire` / `decode_int8_wire`): a float
+array as a self-describing frame — header ``<4sBBHIQ`` (magic PTQ8,
+version, dtype code, ndim, block, size), the shape as u32s, per-block
+fp32 scales (absmax/127 over blocks of 2048 elements, at least 1e-12),
+the int8 codes (round half to even, clipped). A non-finite value makes
+its block's scale non-finite, and the whole block decodes to NaN. The
+frame of an array is byte-equal to the reference's. The eager
+collectives (`distributed.xproc`) use it for sum / avg all-reduces and
+`send_np` under PT_QUANT_ALLREDUCE=1 (`quant_allreduce_enabled`).
+
+Env knobs: PT_KV_DTYPE, the engine's default kv dtype (float32 |
+bfloat16 | int8 | int4; unset = the model's dtype); PT_QUANT_ALLREDUCE.
 """
 import os
+import struct
 
 import numpy as np
 import torch
@@ -39,7 +50,9 @@ __all__ = ["QMAX", "QMAX4", "Int8WeightOnlyLinear", "Int4WeightOnlyLinear",
            "quantize_model_int8", "quantize_model_int4", "pack_int4",
            "unpack_int4", "resolve_kv_dtype", "kv_scale_shape",
            "quantize_kv_rows", "dequantize_kv", "quantize_kv_rows_int4",
-           "dequantize_kv_int4"]
+           "dequantize_kv_int4", "WIRE_MAGIC", "quant_allreduce_enabled",
+           "wire_eligible", "encode_int8_wire", "decode_int8_wire",
+           "is_quant_wire"]
 
 QMAX = 127.0
 QMAX4 = 7.0
@@ -358,3 +371,71 @@ def quantize_kv_rows_int4(x):
 def dequantize_kv_int4(packed, scale):
     """Inverse of `quantize_kv_rows_int4` → [T, H, D] float32."""
     return unpack_int4(packed, axis=-1).to(torch.float32) * scale[..., None]
+
+
+# ---------------------------------------------------------------- wire
+
+WIRE_MAGIC = b"PTQ8"
+_WIRE_VERSION = 1
+_WIRE_DTYPES = {0: np.float32, 1: np.float64}
+_WIRE_CODES = {np.dtype(np.float32): 0, np.dtype(np.float64): 1}
+_WIRE_HDR = struct.Struct("<4sBBHIQ")  # magic, ver, dtype, ndim, block, size
+
+
+def quant_allreduce_enabled():
+    """The PT_QUANT_ALLREDUCE opt-in of the eager int8 wire."""
+    return os.environ.get("PT_QUANT_ALLREDUCE", "0").strip().lower() in (
+        "1", "true", "yes", "on")
+
+
+def wire_eligible(arr, min_size=512):
+    """fp32 / fp64 payloads of at least `min_size` elements ride the
+    wire. Data-independent (dtype and size only): inside a collective
+    every rank must take the same path; a non-finite value travels as a
+    NaN block instead."""
+    return arr.dtype in (np.float32, np.float64) and arr.size >= min_size
+
+
+def encode_int8_wire(arr, block=2048):
+    """float array → the self-describing int8 frame (module docstring);
+    about a quarter of the fp32 bytes."""
+    a = np.ascontiguousarray(arr)
+    code = _WIRE_CODES[np.dtype(a.dtype)]
+    flat = a.reshape(-1).astype(np.float32)
+    n = flat.size
+    nblocks = -(-n // block) if n else 0
+    padded = np.pad(flat, (0, nblocks * block - n)).reshape(nblocks, block)
+    # a non-finite value makes its block's scale NaN / inf, which decodes
+    # the whole block to NaN on every rank
+    scales = np.maximum(np.abs(padded).max(axis=1), 1e-12) / QMAX
+    with np.errstate(invalid="ignore", over="ignore"):
+        ratio = np.nan_to_num(padded / scales[:, None], nan=0.0,
+                              posinf=QMAX, neginf=-QMAX)
+    q = np.clip(np.round(ratio), -QMAX, QMAX).astype(np.int8)
+    head = _WIRE_HDR.pack(WIRE_MAGIC, _WIRE_VERSION, code, a.ndim, block,
+                          n)
+    shape = np.asarray(a.shape, np.uint32).tobytes()
+    return head + shape + scales.astype(np.float32).tobytes() + \
+        q.reshape(-1)[:n].tobytes()
+
+
+def decode_int8_wire(buf):
+    """The inverse of `encode_int8_wire`: the array, in its float dtype."""
+    magic, ver, code, ndim, block, n = _WIRE_HDR.unpack_from(buf, 0)
+    if magic != WIRE_MAGIC or ver != _WIRE_VERSION:
+        raise ValueError("not a PTQ8 int8 wire frame")
+    off = _WIRE_HDR.size
+    shape = tuple(np.frombuffer(buf, np.uint32, ndim, off))
+    off += 4 * ndim
+    nblocks = -(-n // block) if n else 0
+    scales = np.frombuffer(buf, np.float32, nblocks, off)
+    off += 4 * nblocks
+    q = np.frombuffer(buf, np.int8, n, off).astype(np.float32)
+    with np.errstate(invalid="ignore"):  # poison blocks: 0 × inf → NaN
+        vals = (np.pad(q, (0, nblocks * block - n)).reshape(nblocks, block)
+                * scales[:, None]).reshape(-1)[:n]
+    return vals.astype(_WIRE_DTYPES[code]).reshape(shape)
+
+
+def is_quant_wire(buf):
+    return bytes(buf[:4]) == WIRE_MAGIC

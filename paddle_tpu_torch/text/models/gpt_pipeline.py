@@ -1,6 +1,6 @@
 """Pipeline-parallel GPT with Megatron tensor parallelism inside each
-stage (counterpart of paddle_tpu/text/models/gpt_pipeline.py; dense FFN
-only).
+stage and an optional mixture-of-experts FFN (counterpart of
+paddle_tpu/text/models/gpt_pipeline.py).
 
 The decoder parameters are STACKED [L, ...] under the reference's names
 (`stk_*`) and layouts. One process per mesh position holds its share:
@@ -27,8 +27,19 @@ i.e. the flash kernels K3-K5 on the card. `remat`: "stage" recomputes a
 stage from its kept input in the backward tick, "layer" recomputes each
 decoder layer (`fleet.recompute`), False keeps everything.
 
-MoE (`moe_experts > 0`) and a mesh with sp > 1 raise, naming ROADMAP
-A11's parts 3 and 5.
+MoE (`moe_experts > 0`): each layer's dense FFN becomes a top-k MoE
+(`moe_topk`, capacity `moe_capacity_factor`) with the stacked leaves
+`gate_w` [L, d, E] and `moe_w1` / `moe_b1` / `moe_w2` / `moe_b2` [L, E,
+...], their expert dim cut over ``ep``: each ep rank holds E/ep experts,
+and the dense `fc*` leaves are absent. At ep 1 a layer dispatches its
+whole local token set to the experts; at ep > 1 it goes through
+`distributed.moe.moe_a2a_dispatch_combine` (the token all-to-all). The
+gate statistics are all-reduced over every token-sharding axis (dp, ep),
+so the load-balancing aux is the global batch's on every rank, and the
+capacity is counted per (dp, ep) token group. `loss()` returns
+loss + moe_aux_weight·aux and keeps aux in the `aux_loss` buffer.
+
+A mesh with sp > 1 raises, naming ROADMAP A11's part 5.
 """
 import torch
 from torch import nn
@@ -48,14 +59,23 @@ from .gpt import GPTConfig  # noqa: F401
 __all__ = ["PipelinedGPTForCausalLM"]
 
 # the per-layer arrays, in the reference's creation order, with their
-# shapes as functions of (d, ffn)
-_STACK = (("ln1_w", lambda d, f: [d]), ("ln1_b", lambda d, f: [d]),
-          ("qkv_w", lambda d, f: [d, 3 * d]),
-          ("qkv_b", lambda d, f: [3 * d]),
-          ("proj_w", lambda d, f: [d, d]), ("proj_b", lambda d, f: [d]),
-          ("ln2_w", lambda d, f: [d]), ("ln2_b", lambda d, f: [d]),
-          ("fc1_w", lambda d, f: [d, f]), ("fc1_b", lambda d, f: [f]),
-          ("fc2_w", lambda d, f: [f, d]), ("fc2_b", lambda d, f: [d]))
+# shapes as functions of (d, ffn, experts, expert hidden): the attention
+# half, then the dense FFN or the MoE one
+_ATTN = (("ln1_w", lambda d, f, e, h: [d]), ("ln1_b", lambda d, f, e, h: [d]),
+         ("qkv_w", lambda d, f, e, h: [d, 3 * d]),
+         ("qkv_b", lambda d, f, e, h: [3 * d]),
+         ("proj_w", lambda d, f, e, h: [d, d]),
+         ("proj_b", lambda d, f, e, h: [d]),
+         ("ln2_w", lambda d, f, e, h: [d]), ("ln2_b", lambda d, f, e, h: [d]))
+_DENSE = (("fc1_w", lambda d, f, e, h: [d, f]),
+          ("fc1_b", lambda d, f, e, h: [f]),
+          ("fc2_w", lambda d, f, e, h: [f, d]),
+          ("fc2_b", lambda d, f, e, h: [d]))
+_MOE = (("gate_w", lambda d, f, e, h: [d, e]),
+        ("moe_w1", lambda d, f, e, h: [e, d, h]),
+        ("moe_b1", lambda d, f, e, h: [e, 1, h]),
+        ("moe_w2", lambda d, f, e, h: [e, h, d]),
+        ("moe_b2", lambda d, f, e, h: [e, 1, d]))
 
 
 def _add(a, b):
@@ -67,11 +87,12 @@ def _layernorm(x, w, b):
     return F.layer_norm(x, [x.shape[-1]], w, b, 1e-5)
 
 
-def _decoder_fwd(p, x, nh, mp=1):
+def _decoder_fwd(p, x, nh, mp=1, ep=1, moe_cf=1.25, dp=1, moe_topk=1):
     """One pre-LN decoder block as a function of its parameter dict (this
     rank's shards: qkv / fc1 column-parallel, proj / fc2 row-parallel).
     Each parallel pair enters through `copy_to_mp` and leaves through
-    `allreduce_mp` (identities at mp 1)."""
+    `allreduce_mp` (identities at mp 1). Returns (x, aux): the MoE
+    load-balancing term (`_moe_ffn`), 0 for the dense FFN."""
     b, s, d = x.shape
     nh_loc = nh // mp
     hd = d // nh
@@ -83,10 +104,38 @@ def _decoder_fwd(p, x, nh, mp=1):
     x = _add(_add(x, allreduce_mp(F.linear(attn, p["proj_w"]))),
              p["proj_b"])
     h = _layernorm(x, p["ln2_w"], p["ln2_b"])
+    if "gate_w" in p:
+        out, aux = _moe_ffn(p, h, p["gate_w"].shape[-1], ep, moe_cf, dp,
+                            moe_topk)
+        return _add(x, out), aux
     part = F.linear(F.gelu(F.linear(copy_to_mp(h), p["fc1_w"],
                                     p["fc1_b"]), approximate=True),
                     p["fc2_w"])
-    return _add(_add(x, allreduce_mp(part)), p["fc2_b"])
+    return _add(_add(x, allreduce_mp(part)), p["fc2_b"]), 0.0
+
+
+def _moe_ffn(p, h, n_experts, ep, cf=1.25, dp=1, topk=1):
+    """Top-k MoE FFN over this rank's expert shards (the reference's
+    `_moe_ffn`): `moe_a2a_dispatch_combine` at every ep. At ep 1 its
+    exchanges are identities, so it is the reference's dense local
+    dispatch of the whole token set, one pass per round at capacity
+    ceil(t·cf·k/E). The gate statistics all-reduce over every
+    token-sharding axis (dp, ep), so aux is the global batch's value.
+    Returns (out [b, s, d], aux)."""
+    from ...distributed.moe import expert_ffn, moe_a2a_dispatch_combine
+
+    b, s, d = h.shape
+    stat_axes = tuple(n for n, sz in (("dp", dp), ("ep", ep)) if sz > 1)
+
+    def experts(expert_in):
+        return expert_ffn(expert_in, p["moe_w1"], p["moe_b1"], p["moe_w2"],
+                          p["moe_b2"], lambda t: F.gelu(t, approximate=True))
+
+    out, aux = moe_a2a_dispatch_combine(
+        h.reshape(b * s, d), p["gate_w"], experts, n_experts, ep,
+        capacity_factor=cf, axis="ep", stat_axes=stat_axes or None,
+        n_stat_shards=dp * ep, topk=topk)
+    return out.reshape(b, s, -1), aux
 
 
 def _vocab_parallel_ce(sh, wte_loc, sl, mp):
@@ -128,8 +177,9 @@ class PipelinedGPTForCausalLM(nn.Module):
     then cut, so every mesh gets the same model) or from the reference's
     state dict (`convert.cut_pipelined_state`)."""
 
-    # the reference's int8 dp all-reduce knob (quant_collective: ROADMAP
-    # A11 part 4); HybridTrainStep raises when it is on
+    # the reference's int8 dp all-reduce knob, recorded: in the port the
+    # dp exchange is HybridTrainStep's, and its own quant_allreduce (or
+    # Hybrid3DConfig's, or PT_QUANT_ALLREDUCE_XLA) quantizes it
     quant_allreduce = None
 
     def __init__(self, config, n_micro=4, remat="stage", n_virtual=1,
@@ -152,20 +202,24 @@ class PipelinedGPTForCausalLM(nn.Module):
         if remat not in ("stage", "layer", False):
             raise ValueError(
                 f"remat={remat!r}: expected 'stage', 'layer', or False")
-        if moe_experts:
-            raise NotImplementedError(
-                "moe_experts > 0: the MoE FFN is not ported yet: ROADMAP "
-                "A11 (MoE, part 3)")
         self.config = config
         self.n_micro = n_micro
         self.schedule = schedule
         self.n_virtual = n_virtual
         self.remat = remat
-        self.moe_experts = 0
+        self.moe_experts = int(moe_experts)
+        self.moe_hidden = moe_hidden or config.ffn_size
+        self.moe_aux_weight = float(moe_aux_weight)
+        self.moe_capacity_factor = float(moe_capacity_factor)
+        self.moe_topk = int(moe_topk)
         mesh = mesh_mod.global_mesh()
         me = mesh_mod.coord()
         self.pp, self.mp = mesh.shape["pp"], mesh.shape["mp"]
         self.stage, self.mp_rank = me["pp"], me["mp"]
+        self.dp = mesh.shape["dp"]
+        # the experts' split: a dense model's ep ranks are replicas
+        self.ep = mesh.shape["ep"] if self.moe_experts else 1
+        self.ep_rank = me["ep"] if self.moe_experts else 0
         self._validate()
         device = resolve_device(device)
         dtype = resolve_dtype(dtype)
@@ -181,14 +235,16 @@ class PipelinedGPTForCausalLM(nn.Module):
         self.wte = param([config.vocab_size // self.mp, d]) \
             if first or last else None
         self.wpe = param([config.max_seq_len, d]) if first else None
-        from ...convert import PIPELINED_MP_DIM
+        from ...convert import PIPELINED_EP_DIM, PIPELINED_MP_DIM
 
-        self._stack_names = [n for n, _ in _STACK]
-        for name, shape_of in _STACK:
-            shape = shape_of(d, ffn)
-            md = PIPELINED_MP_DIM[name]
+        stack = self._stack()
+        self._stack_names = [n for n, _ in stack]
+        for name, shape in stack:
+            md, ed = PIPELINED_MP_DIM[name], PIPELINED_EP_DIM[name]
             if md is not None:
                 shape[md] //= self.mp
+            if ed is not None:
+                shape[ed] //= self.ep
             setattr(self, "stk_" + name,
                     param([self._local_layers] + shape))
         self.lnf_w = param([d]) if last else None
@@ -198,12 +254,14 @@ class PipelinedGPTForCausalLM(nn.Module):
         from ...distributed.fleet.meta_parallel.mp_layers import (
             mark_sharding)
 
-        for name, _ in _STACK:
+        for name in self._stack_names:
             p = getattr(self, "stk_" + name)
             spec = ["pp"] + [None] * (p.dim() - 1)
-            md = PIPELINED_MP_DIM[name]
+            md, ed = PIPELINED_MP_DIM[name], PIPELINED_EP_DIM[name]
             if md is not None:
                 spec[1 + md] = "mp"
+            if ed is not None:
+                spec[1 + ed] = "ep"
             mark_sharding(p, *spec)
             p.mp_shard = md is not None and self.mp > 1
         if self.wte is not None:
@@ -222,12 +280,30 @@ class PipelinedGPTForCausalLM(nn.Module):
             # every gloo subgroup this model's step uses, made now, on
             # every rank in one order (a stage would otherwise make its
             # mp group at its first forward, after the previous stage's)
-            for axis in ("dp", "pp", "mp"):
-                collective.axis_comm((axis,))
+            for axes in (("dp",), ("pp",), ("mp",), ("ep",),
+                         self._stat_axes()):
+                if axes:
+                    collective.axis_comm(axes)
             if self.pp > 1:
                 self._pair = collective.new_group(
                     ranks=[0, self.pp - 1], axes=("pp",))
         self.reset_parameters(seed)
+
+    def _stack(self):
+        """[(name, logical per-layer shape)] of this model's stacked
+        arrays, in the reference's creation order."""
+        cfg = self.config
+        args = (cfg.hidden_size, cfg.ffn_size, self.moe_experts,
+                self.moe_hidden)
+        return [(n, f(*args)) for n, f in
+                _ATTN + (_MOE if self.moe_experts else _DENSE)]
+
+    def _stat_axes(self):
+        """The token-sharding axes the MoE gate statistics reduce over."""
+        if not self.moe_experts:
+            return ()
+        return tuple(a for a, n in (("dp", self.dp), ("ep", self.ep))
+                     if n > 1)
 
     def _validate(self):
         cfg = self.config
@@ -237,12 +313,19 @@ class PipelinedGPTForCausalLM(nn.Module):
                 f"num_layers={cfg.num_layers} not divisible by "
                 f"pp*n_virtual={self.pp}*{V}")
         if self.mp > 1:
-            for dim, what in ((cfg.num_heads, "num_heads"),
-                              (cfg.vocab_size, "vocab_size"),
-                              (cfg.ffn_size, "ffn_size")):
+            dims = [(cfg.num_heads, "num_heads"),
+                    (cfg.vocab_size, "vocab_size")]
+            if not self.moe_experts:
+                # the dense fc pair is mp-sharded; the experts are not
+                dims.append((cfg.ffn_size, "ffn_size"))
+            for dim, what in dims:
                 if dim % self.mp:
                     raise ValueError(
                         f"{what}={dim} not divisible by mp={self.mp}")
+        if self.ep > 1 and self.moe_experts % self.ep:
+            raise ValueError(
+                f"moe_experts={self.moe_experts} not divisible by "
+                f"ep={self.ep}")
 
     # ---- weights ----
     def logical_shapes(self):
@@ -251,14 +334,18 @@ class PipelinedGPTForCausalLM(nn.Module):
         d, L = cfg.hidden_size, cfg.num_layers
         out = {"wte": [cfg.vocab_size, d], "wpe": [cfg.max_seq_len, d],
                "lnf_w": [d], "lnf_b": [d]}
-        for name, shape_of in _STACK:
-            out["stk_" + name] = [L] + shape_of(d, cfg.ffn_size)
+        for name, shape in self._stack():
+            out["stk_" + name] = [L] + shape
         return out
 
     def layout(self):
         """(pp, mp, stage, mp_rank, n_virtual) of this rank's share."""
         return (self.pp, self.mp, self.stage, self.mp_rank,
                 self.n_virtual if self.pp > 1 else 1)
+
+    def expert_layout(self):
+        """(ep, ep_rank): the experts' split and this rank's block."""
+        return self.ep, self.ep_rank
 
     @torch.no_grad()
     def load_logical(self, arrays):
@@ -267,7 +354,8 @@ class PipelinedGPTForCausalLM(nn.Module):
         from ...convert import cut_pipelined_state
 
         pp, mp, stage, r, V = self.layout()
-        cut = cut_pipelined_state(arrays, self.config, pp, mp, stage, r, V)
+        cut = cut_pipelined_state(arrays, self.config, pp, mp, stage, r, V,
+                                  ep=self.ep, ep_rank=self.ep_rank)
         own = dict(self.named_parameters())
         missing = sorted(set(own) - set(cut))
         if missing:
@@ -292,7 +380,7 @@ class PipelinedGPTForCausalLM(nn.Module):
             if name not in own:
                 continue
             short = name[4:] if name.startswith("stk_") else name
-            if short.endswith("_b"):
+            if short.endswith("_b") or short in ("moe_b1", "moe_b2"):
                 arrays[name] = torch.zeros(shape, device=dev)
             elif short in ("ln1_w", "ln2_w", "lnf_w"):
                 arrays[name] = torch.ones(shape, device=dev)
@@ -326,13 +414,18 @@ class PipelinedGPTForCausalLM(nn.Module):
             e = F.embedding(ids, wte)
         return _add(e, self.wpe[:ids.shape[-1]])
 
-    def _block_fn(self):
+    def _block_fn(self, with_aux=None):
+        """block(stage_params, x) over this rank's layers: x, or (x, aux
+        summed over the layers) for a MoE model."""
         from ...distributed.fleet.recompute import recompute
 
         nh, mp = self.config.num_heads, self.mp
+        with_aux = bool(self.moe_experts) if with_aux is None else with_aux
+        kw = dict(ep=self.ep, moe_cf=self.moe_capacity_factor, dp=self.dp,
+                  moe_topk=self.moe_topk)
 
         def layer(p, x):
-            return _decoder_fwd(p, x, nh, mp)
+            return _decoder_fwd(p, x, nh, mp, **kw)
 
         per_layer = layer
         if self.remat == "layer":
@@ -341,9 +434,12 @@ class PipelinedGPTForCausalLM(nn.Module):
 
         def block(stage_params, x):
             rows = {k: v.unbind(0) for k, v in stage_params.items()}
+            aux = None
             for i in range(len(next(iter(rows.values())))):
-                x = per_layer({k: r[i] for k, r in rows.items()}, x)
-            return x
+                x, a = per_layer({k: r[i] for k, r in rows.items()}, x)
+                if with_aux:
+                    aux = a if aux is None else aux + a
+            return (x, aux) if with_aux else x
 
         return block
 
@@ -414,6 +510,15 @@ class PipelinedGPTForCausalLM(nn.Module):
         labels = input_ids if labels is None else labels
         ids_m = self._micro(torch.as_tensor(input_ids, device=dev))
         lbl_m = self._micro(torch.as_tensor(labels, device=dev))
+        if self.ep > 1:
+            # the all-to-all dispatch cuts each shard's tokens into ep
+            # groups
+            toks = ids_m.shape[1] * ids_m.shape[2]
+            if toks % self.ep:
+                raise ValueError(
+                    f"tokens per shard {toks} not divisible by ep="
+                    f"{self.ep} (adjust batch/n_micro/dp/sp so each ep "
+                    "group is equal)")
         if self.stage == 0:
             x_m = self._embed(ids_m)
         else:
@@ -423,17 +528,32 @@ class PipelinedGPTForCausalLM(nn.Module):
         V = self.n_virtual if self.pp > 1 else 1
         block_fn, loss_fn = self._block_fn(), self._loss_fn()
         stacked, post = self._stacked(), self._post()
+        aux_w = self.moe_aux_weight if self.moe_experts else None
         if not torch.is_grad_enabled() and V == 1:
-            return pipeline_forward_loss(block_fn, loss_fn, stacked, post,
-                                         (x_m, lbl_m))
-        remat = self.remat == "stage"
-        if self.schedule == "gpipe" and self.pp > 1:
-            from ...distributed.hybrid3d.schedule import pipeline_gpipe
+            out = pipeline_forward_loss(block_fn, loss_fn, stacked, post,
+                                        (x_m, lbl_m), aux_weight=aux_w)
+        else:
+            remat = self.remat == "stage"
+            if self.schedule == "gpipe" and self.pp > 1:
+                from ...distributed.hybrid3d.schedule import pipeline_gpipe
 
-            return pipeline_gpipe(block_fn, loss_fn, stacked, post,
-                                  (x_m, lbl_m), remat=remat)
-        return pipeline_1f1b(block_fn, loss_fn, stacked, post, (x_m, lbl_m),
-                             remat=remat, num_virtual=V)
+                out = pipeline_gpipe(block_fn, loss_fn, stacked, post,
+                                     (x_m, lbl_m), remat=remat,
+                                     aux_weight=aux_w, aux_dp=self.dp)
+            else:
+                # HybridTrainStep averages the gradients over dp after
+                # the pipeline: aux_dp scales the aux's seed for it
+                out = pipeline_1f1b(block_fn, loss_fn, stacked, post,
+                                    (x_m, lbl_m), remat=remat,
+                                    num_virtual=V, aux_weight=aux_w,
+                                    aux_dp=self.dp)
+        if aux_w is None:
+            return out
+        # the pipeline returns (loss + aux_weight·aux, aux): the aux is a
+        # detached metric kept in the buffer
+        total, aux = out
+        self.aux_loss.copy_(aux.detach().reshape(()))
+        return total
 
     @torch.no_grad()
     def forward(self, input_ids):
@@ -447,7 +567,7 @@ class PipelinedGPTForCausalLM(nn.Module):
 
         dev = self.stk_ln1_w.device
         ids = torch.as_tensor(input_ids, device=dev)
-        block = self._block_fn()
+        block = self._block_fn(with_aux=False)
         stacked = self._stacked()
         V = self.n_virtual if self.pp > 1 else 1
 

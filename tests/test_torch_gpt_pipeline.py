@@ -9,9 +9,11 @@ reference's trajectory, the no-grad loss equals the training one, and
 `forward` gives the reference's logits. `convert` carries the weights
 to the flat GPTForCausalLM and back (head-major qkv against
 [3, nh, hd]); a rank's slices of a pp × mp mesh, interleaved stacks
-included, gather back to the whole. What keeps raising names its
-ROADMAP row: MoE (part 3) and sp > 1 (part 5); indivisible meshes raise
-the reference's messages.
+included, gather back to the whole. The MoE model (moe_experts > 0) at
+world 1 tracks the reference's trajectory and aux (tests/test_torch_moe
+holds its routing, gradients and meshes). What keeps raising names its
+ROADMAP row: sp > 1 (part 5); indivisible meshes raise the reference's
+messages.
 
 Tolerances: losses 1e-5 relative (f32 on CPU, the two frameworks'
 summation orders; the reference's matmuls at "highest" precision);
@@ -173,10 +175,39 @@ def test_cut_and_gather_round_trip(ref, pp, mp, V):
     assert s0["stk_proj_w"].shape == (4 // pp, 64 // mp, 64)
 
 
+def test_moe_world_one_trajectory_matches_reference():
+    """moe_experts=4 (top-1, the default capacity, which drops tokens
+    here): the model holds the MoE leaves in place of the dense FFN, and
+    three TrainStep steps track the reference's losses and aux."""
+    ids = _ids(3)
+    jmesh.reset_mesh()
+    jmesh.init_mesh(devices=jax.devices()[:1])
+    with jax.default_matmul_precision("highest"):
+        paddle.seed(0)
+        jm = JaxPipe(JaxCfg(**CFG), n_micro=4, moe_experts=4)
+        w = {k: np.array(v.numpy()) for k, v in jm.state_dict().items()}
+        step = paddle.jit.TrainStep(jm, lambda mm, i: mm.loss(i),
+                                    paddle.optimizer.AdamW(
+                                        1e-3, parameters=jm.parameters()))
+        t = paddle.to_tensor(ids)
+        want = []
+        for _ in range(3):
+            want.append((float(step(t).numpy()),
+                         float(jm.aux_loss.numpy())))
+    jmesh.reset_mesh()
+    m = _port(w, moe_experts=4)
+    assert m.stk_moe_w1.shape == (4, 4, 64, 256)
+    assert not hasattr(m, "stk_fc1_w")
+    step = TrainStep(m, lambda mm, i: mm.loss(i),
+                     AdamW(1e-3, parameters=m.parameters()))
+    got = []
+    for _ in range(3):
+        got.append((float(step(torch.as_tensor(ids))), float(m.aux_loss)))
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+
+
 def test_what_keeps_raising_and_validation():
     cfg = GPTConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="A11.*MoE, part 3"):
-        PipelinedGPTForCausalLM(cfg, moe_experts=4, device="cpu")
     tmesh.init_mesh(sp=2, world_size=2)
     m = PipelinedGPTForCausalLM(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="A11.*part 5"):

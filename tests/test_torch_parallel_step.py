@@ -271,8 +271,10 @@ def test_world_one_equals_train_step(zero):
 
 def test_group_sharded_and_refusals():
     """group_sharded_parallel records the level the step takes;
-    save_group_sharded_model names A12; quant_allreduce, a norm-reading
-    optimizer over a split axis, and tensor / pipeline wrappers raise."""
+    save_group_sharded_model names A12; quant_allreduce validates its
+    path (the reference's ValueError at ZeRO p_g_os), a norm-reading
+    optimizer over a split axis raises, and the tensor / pipeline
+    wrappers wrap."""
     from paddle_tpu_torch.distributed import fleet as tfleet
     from paddle_tpu_torch.distributed.sharding import (
         group_sharded_parallel, save_group_sharded_model)
@@ -287,10 +289,14 @@ def test_group_sharded_and_refusals():
                                       opt).zero == "os_g"
     with pytest.raises(NotImplementedError, match="A12"):
         save_group_sharded_model(m, "/nonexistent/x")
-    with pytest.raises(NotImplementedError, match="A11"):
-        tdist.DistributedTrainStep(m, None, opt, quant_allreduce=True)
+    # at world 1 there is no replica axis to quantize over
+    assert tdist.DistributedTrainStep(m, None, opt, quant_allreduce=True
+                                      )._quant_axes == ()
     tmesh.init_mesh(sharding=2, world_size=2)
     try:
+        with pytest.raises(ValueError, match="zero_level='p_g_os'"):
+            tdist.DistributedTrainStep(m, None, opt, zero_level="p_g_os",
+                                       quant_allreduce=True)
         with pytest.raises(NotImplementedError, match="norms"):
             tdist.DistributedTrainStep(
                 m, None, LarsMomentum(0.1, parameters=m.parameters()),

@@ -380,7 +380,46 @@ def _generic_reference():
             [np.asarray(g) for g in g_out], np.asarray(logits))
 
 
-@pytest.mark.parametrize("name", ["1f1b", "gpipe", "interleaved", "dp"])
+def _generic_aux_reference():
+    """The reference's pipeline_1f1b with aux_weight 0.1 over the serial
+    stack, each layer adding mean(y²) to the aux: ((loss + 0.1·aux,
+    aux), its gradients)."""
+    import jax.numpy as jnp
+
+    from paddle_tpu.distributed.fleet.meta_parallel.pipeline_1f1b import (
+        pipeline_1f1b as jpipe)
+
+    a = worker.generic_inputs()
+
+    def head(y, labels, wh):
+        lp = jax.nn.log_softmax(y @ wh, -1)
+        return -jnp.mean(jnp.take_along_axis(lp, labels[..., None], -1))
+
+    def block(W, x):
+        def body(h, w):
+            h = jnp.tanh(h @ w)
+            return h, jnp.mean(h * h)
+        out, auxs = jax.lax.scan(body, x, W)
+        return out, jnp.sum(auxs)
+
+    jmesh.reset_mesh()
+    jmesh.init_mesh(devices=jax.devices()[:1])
+    try:
+        with jax.default_matmul_precision("highest"):
+            ys = jnp.asarray(a["ys"])
+            (loss, aux), grads = jax.value_and_grad(
+                lambda W, wh, xs: jpipe(block, head, W, wh, (xs, ys),
+                                        aux_weight=0.1),
+                argnums=(0, 1, 2), has_aux=True)(
+                    jnp.asarray(a["W"]), jnp.asarray(a["Wh"]),
+                    jnp.asarray(a["xs"]))
+    finally:
+        jmesh.reset_mesh()
+    return (float(loss), float(aux)), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("name", ["1f1b", "gpipe", "interleaved", "dp",
+                                  "aux", "dp_aux"])
 def test_functional_pipelines_match_reference(hybrid_job, name):
     """pipeline_1f1b (stage remat), pipeline_gpipe and
     interleaved_pipeline_loss (V 2, round-robin chunks, no remat) over a
@@ -390,11 +429,20 @@ def test_functional_pipelines_match_reference(hybrid_job, name):
     serial path) on the whole stack. "dp": 1F1B with
     PipelineSpecs(dp_axis="dp"), each dp rank on its row of every
     micro-batch: the global loss and gradients, and each rank's rows of
-    the input cotangent."""
-    loss, (dW, dWh, dX), _, _, _ = _generic_reference()
+    the input cotangent. "aux" / "dp_aux": the same with the aux channel
+    (aux_weight 0.1, each layer adding mean(y²), over dp its global
+    value): the pair (loss + 0.1·aux, aux) and the gradients of the
+    reference's pipeline_1f1b with aux_weight."""
+    if name in ("aux", "dp_aux"):
+        (loss, aux), (dW, dWh, dX) = _generic_aux_reference()
+    else:
+        loss, (dW, dWh, dX), _, _, _ = _generic_reference()
     for o in hybrid_job["res"]:
         dp, stage, _ = o["dp2pp2_zero_os/coord"]
-        if name == "dp":
+        if name in ("aux", "dp_aux"):
+            np.testing.assert_allclose(o[f"gen/{name}/aux"], aux,
+                                       rtol=1e-5)
+        if name in ("dp", "dp_aux"):
             dX_ = dX[:, dp:dp + 1]
         else:
             dX_ = dX
@@ -410,6 +458,28 @@ def test_functional_pipelines_match_reference(hybrid_job, name):
             assert o[f"gen/{name}/dwh"] is None
             np.testing.assert_allclose(o[f"gen/{name}/dx"], dX_,
                                        rtol=1e-4, atol=1e-6)
+
+
+def test_quant_dp_pipeline_within_the_int8_bound(hybrid_job):
+    """PipelineSpecs(dp_axis="dp", quant_dp=True): the loss exact, each
+    stage's gradients within the int8 exchange's bound of the exact mean
+    (two roundings of a block's absmax / 127) and equal on both dp
+    ranks; the input cotangents exact."""
+    loss, (dW, dWh, dX), _, _, _ = _generic_reference()
+    got = {}
+    for o in hybrid_job["res"]:
+        dp, stage, _ = o["dp2pp2_zero_os/coord"]
+        np.testing.assert_allclose(o["gen/dp_quant/loss"], loss, rtol=1e-5)
+        dw = np.asarray(o["gen/dp_quant/dw"])
+        want = dW[[2 * stage, 2 * stage + 1]]
+        assert np.abs(dw - want).max() <= 2 * np.abs(want).max() / 127
+        got.setdefault(stage, []).append(dw)
+        if stage == 0:
+            np.testing.assert_allclose(o["gen/dp_quant/dx"],
+                                       dX[:, dp:dp + 1], rtol=1e-4,
+                                       atol=1e-6)
+    for stage, dws in got.items():
+        np.testing.assert_array_equal(dws[0], dws[1])
 
 
 def test_spmd_pipeline_and_inference_helper(hybrid_job):

@@ -7,7 +7,7 @@ injected `kv.get` faults, the connect retried until a peer listens (the
 reference's tests/test_chaos.py cases), the frame header byte-equal to
 the reference's, the `stats` view, frames over a transport's own
 listener (tags out of order, a resent duplicate dropped), the one-process
-collectives and the int8 wire raising (ROADMAP A11).
+collectives and the int8 wire's frames (byte-equal to the reference's).
 
 One 2-process launch (`python -m paddle_tpu_torch.distributed.launch`,
 gloo on the CPU) covers send / recv of bytes and arrays over several
@@ -200,16 +200,42 @@ def test_no_runtime_raises_the_reference_shape(monkeypatch):
 
 
 def test_int8_wire_raises_naming_a11(monkeypatch, store):
+    """The int8 wire (PT_QUANT_ALLREDUCE=1): an eligible float payload
+    sent with `send_np` travels as the reference's PTQ8 frame, byte for
+    byte, and `recv_np` decodes it to the reference's values; a poisoned
+    block decodes to NaN; quantize=False, integer and small payloads stay
+    exact; a one-process all-reduce is the identity, as the reference's
+    compiled path."""
+    from paddle_tpu.quantization import runtime as jrt
+    from paddle_tpu_torch.quantization import runtime as trt
+
     monkeypatch.setenv("PT_QUANT_ALLREDUCE", "1")
-    big = np.ones(1024, np.float32)
-    with pytest.raises(NotImplementedError, match="A11"):
-        txp.all_reduce_np(big)
-    with pytest.raises(NotImplementedError, match="A11"):
-        txp.send_np(big, 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        txp.send_np(np.ones(3, np.float32), 1, quantize=True)
+    monkeypatch.setenv("PADDLE_TPU_P2P_TRANSPORT", "kv")
+    rng = np.random.default_rng(0)
+    big = (rng.standard_normal((3, 1500)) * 5).astype(np.float32)
+    poisoned = big.copy()
+    poisoned[1, 7] = np.nan
+    for arr in (big, poisoned, big.astype(np.float64)):
+        assert trt.encode_int8_wire(arr) == jrt.encode_int8_wire(arr)
+        txp.send_np(arr, 0, tag=0x51)
+        raw = txp.recv_bytes(0, tag=0x51)
+        assert raw == jrt.encode_int8_wire(arr) and trt.is_quant_wire(raw)
+        txp.send_np(arr, 0, tag=0x52)
+        got = txp.recv_np(0, tag=0x52)
+        want = jrt.decode_int8_wire(jrt.encode_int8_wire(arr))
+        assert got.dtype == arr.dtype
+        np.testing.assert_array_equal(got, want)
+    nan_rows = np.isnan(trt.decode_int8_wire(
+        trt.encode_int8_wire(poisoned))).reshape(-1)
+    assert nan_rows[:2048].all() and not nan_rows[2048:].any()
+    assert trt.WIRE_MAGIC == jrt.WIRE_MAGIC == txp._QUANT_WIRE_MAGIC
+    for arr in (np.ones(3, np.float32), np.ones(1024, np.int32)):
+        assert trt.wire_eligible(arr) == jrt.wire_eligible(arr) is False
+    txp.send_np(big, 0, tag=0x53, quantize=False)
+    np.testing.assert_array_equal(txp.recv_np(0, tag=0x53), big)
     # exact payloads stay exact: ints, small arrays, max / min
     assert txp.all_reduce_np(np.ones(1024, np.int32)).dtype == np.int64
+    np.testing.assert_array_equal(txp.all_reduce_np(big), big)
     assert txp.all_reduce_np(big, op="max") is not None
     assert txp.all_reduce_np(np.ones(8, np.float32)).shape == (8,)
 

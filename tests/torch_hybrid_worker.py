@@ -6,6 +6,9 @@ test_torch_hybrid3d.py, test_torch_gpt_pipeline.py), run under
     torch_hybrid_worker.py mp OUT      # 2 ranks, mesh mp 2
     torch_hybrid_worker.py hybrid OUT  # 4 ranks: pp 2 x mp 2, dp 2 x pp 2
     torch_hybrid_worker.py 3d OUT      # 8 ranks: dp 2 x tp 2 x pp 2
+    torch_hybrid_worker.py moe OUT     # 4 ranks: pp 2 x ep 2, ep 2 x dp 2
+    torch_hybrid_worker.py quant OUT   # 2 or 4 ranks: quantized_pmean
+    torch_hybrid_worker.py hybrid_quant OUT  # 4 ranks: dp 2 x pp 2, int8
 
 Inputs and whole weights come from OUT (written by the test from a seed
 with numpy and from the reference's models); each rank writes its
@@ -444,6 +447,45 @@ def _generic(rank):
     out["gen/dp/dw"] = w.grad.tolist()
     out["gen/dp/dwh"] = None if wh.grad is None else wh.grad.tolist()
     out["gen/dp/dx"] = None if xs.grad is None else xs.grad.tolist()
+    # the aux channel: each layer adds mean(y²) to the aux (over dp its
+    # all-reduce / 2, the global value), weighted 0.1; and the int8 dp
+    # exchange of PipelineSpecs(quant_dp=True)
+    from paddle_tpu_torch.distributed.fleet.meta_parallel.mp_ops import (
+        allreduce_mp)
+
+    def block_aux(w, x, dp):
+        aux = 0.0
+        for i in range(w.shape[0]):
+            x = torch.tanh(x @ w[i])
+            m = (x * x).mean()
+            aux = aux + (allreduce_mp(m, "dp") / 2 if dp else m)
+        return x, aux
+
+    for name, specs in (("aux", None),
+                        ("dp_aux", PipelineSpecs(dp_axis="dp")),
+                        ("dp_quant", PipelineSpecs(dp_axis="dp",
+                                                   quant_dp=True))):
+        dp = specs is not None
+        sl = slice(r, r + 1) if dp else slice(None)
+        w = a["W"][rows[1]].clone().requires_grad_()
+        wh = a["Wh"].clone().requires_grad_()
+        xs = a["xs"][:, sl].clone().requires_grad_()
+        batch = (xs, a["ys"][:, sl])
+        aux = None
+        if name == "dp_quant":
+            loss = pipeline_1f1b(block, head, w, wh, batch, specs=specs)
+        else:
+            loss, aux = pipeline_1f1b(
+                lambda w_, x_, _dp=dp: block_aux(w_, x_, _dp), head, w, wh,
+                batch, specs=specs, aux_weight=0.1)
+        loss.backward()
+        out[f"gen/{name}/loss"] = float(loss)
+        out[f"gen/{name}/aux"] = None if aux is None else float(aux)
+        out[f"gen/{name}/dw"] = w.grad.tolist()
+        out[f"gen/{name}/dwh"] = None if wh.grad is None else \
+            wh.grad.tolist()
+        out[f"gen/{name}/dx"] = None if xs.grad is None else \
+            xs.grad.tolist()
     w = a["W"][rows[1]].clone().requires_grad_()
     xs = a["xs"].clone().requires_grad_()
     y = spmd_pipeline(block, w, xs)
@@ -489,6 +531,181 @@ def three_d(out):
 
 
 
+# ---- the MoE GPT: pp 2 x ep 2, ep 2 x dp 2 ----------------------------
+
+MOE = dict(moe_experts=4, moe_hidden=64, moe_capacity_factor=4.0)
+MOE_RUNS = [("pp2ep2", dict(pp=2, ep=2), dict(moe_topk=1)),
+            ("ep2dp2", dict(dp=2, ep=2), dict(moe_topk=2))]
+
+
+def moe(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import mp_ops
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt_pipeline import (
+        PipelinedGPTForCausalLM)
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    w = dict(np.load(os.path.join(out, "moe_weights.npz")))
+    ids = torch.from_numpy(np.load(os.path.join(out, "moe_ids.npy")))
+    res = {}
+    for name, mesh, kw in MOE_RUNS:
+        mesh_mod.init_mesh(**mesh)
+        m = PipelinedGPTForCausalLM(_cfg(), n_micro=N_MICRO, device="cpu",
+                                    **MOE, **kw).load_logical(w)
+        step = HybridTrainStep(m, lambda mm, i: mm.loss(i),
+                               AdamW(LR, parameters=m.parameters()))
+        mp_ops.reset_stats()
+        losses, auxs = [], []
+        for _ in range(STEPS):
+            losses.append(float(step(ids)))
+            auxs.append(float(m.aux_loss))
+        c = mesh_mod.coord()
+        res[name] = {"losses": losses, "aux": auxs,
+                     "coord": [c["dp"], c["pp"], c["ep"]],
+                     "experts": int(m.stk_moe_w1.shape[1]),
+                     "alltoall": mp_ops.stats.get("alltoall", {})}
+        if name == "pp2ep2":
+            Checkpointer(os.path.join(out, "ckpt"), model=m,
+                         train_step=step).save(STEPS)
+            np.savez(os.path.join(out, f"moe_params_r{rank}.npz"),
+                     **_local_state(m))
+        mesh_mod.reset_mesh()
+    with open(os.path.join(out, f"moe_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+# ---- HybridTrainStep(quant_allreduce) at dp 2 x pp 2 ----------------------
+
+def hybrid_quant(out):
+    """The reference's _hybrid_pair: gpt vocab 128, d 32, 2 layers, n_micro
+    2, AdamW(1e-2), the 1F1B (6 steps) and GPipe (3 steps) schedules,
+    exact and int8 dp exchanges, from one seeded model."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.hybrid3d import (Hybrid3DConfig,
+                                                       build_gpt3d,
+                                                       init_hybrid_mesh)
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import GPTConfig
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    cfg = GPTConfig(vocab_size=128, hidden_size=32, num_layers=2,
+                    num_heads=4, max_seq_len=32)
+    ids = torch.as_tensor(np.random.default_rng(1).integers(0, 128,
+                                                             (4, 16)))
+    res = {}
+    for sched, steps in (("1f1b", 6), ("gpipe", 3)):
+        for quant in (False, True):
+            c = Hybrid3DConfig(dp=2, pp=2, n_micro=2, schedule=sched,
+                               quant_allreduce=quant)
+            mesh_mod.reset_mesh()
+            init_hybrid_mesh(c)
+            m = build_gpt3d(cfg, c, device="cpu", seed=0)
+            step = HybridTrainStep(m, lambda mm, i: mm.loss(i),
+                                   AdamW(1e-2, parameters=m.parameters()),
+                                   config=c)
+            losses = [float(step(ids)) for _ in range(steps)]
+            res[f"{sched}/{'quant' if quant else 'exact'}"] = {
+                "losses": losses, "bytes": step.comm_stats["bytes"]}
+    with open(os.path.join(out, f"hybrid_quant_r{D.get_rank()}.json"),
+              "w") as f:
+        json.dump(res, f)
+
+
+# ---- quantized_pmean on 2 or 4 ranks -----------------------------------
+
+def quant(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed import quant_collective as qc
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank, n = D.get_rank(), D.get_world_size()
+    a = dict(np.load(os.path.join(out, f"quant_inputs_{n}.npz")))
+    res = {}
+    for case, axes, mesh in (("dp", "dp", dict(dp=n)),
+                             ("dp_sharding", ("dp", "sharding"),
+                              dict(dp=2, sharding=n // 2))):
+        if case == "dp_sharding" and n < 4:
+            continue
+        mesh_mod.init_mesh(**mesh)
+        stats = {}
+        res[f"{case}/x"] = qc.quantized_pmean(
+            torch.from_numpy(a[f"x_r{rank}"]), axes, stats=stats).numpy()
+        res[f"{case}/bytes"] = np.asarray(stats["bytes"])
+        res[f"{case}/nan"] = qc.quantized_pmean(
+            torch.from_numpy(a[f"nan_r{rank}"]), axes).numpy()
+        tree = {"w": torch.from_numpy(a[f"w_r{rank}"]),
+                "b": torch.from_numpy(a[f"b_r{rank}"]),
+                "m": torch.from_numpy(a[f"m_r{rank}"]).to(torch.bfloat16)}
+        got = qc.quantized_pmean_tree(tree, axes)
+        for k, v in got.items():
+            res[f"{case}/tree_{k}"] = v.float().numpy()
+            res[f"{case}/tree_{k}_dtype"] = np.asarray(str(v.dtype))
+        mesh_mod.reset_mesh()
+    # the eager int8 wire: an avg all-reduce over the world
+    from paddle_tpu_torch.distributed import xproc
+
+    os.environ["PT_QUANT_ALLREDUCE"] = "1"
+    res["wire/avg"] = xproc.all_reduce_np(a[f"x_r{rank}"], op="avg")
+    res["wire/max"] = xproc.all_reduce_np(a[f"x_r{rank}"], op="max")
+    os.environ["PT_QUANT_ALLREDUCE"] = "0"
+    res.update(_quant_step(a, n))
+    np.savez(os.path.join(out, f"quant_r{rank}.npz"), **res)
+
+
+def quant_net(a):
+    """The Linear(128, 128) of the quantized step, from the test's
+    weights."""
+    import torch
+
+    net = torch.nn.Linear(128, 128)
+    with torch.no_grad():
+        net.weight.copy_(torch.from_numpy(a["net_w"]))
+        net.bias.copy_(torch.from_numpy(a["net_b"]))
+    return net
+
+
+def quant_loss(m, x, y):
+    return ((m(x) - y) ** 2).mean()
+
+
+def _quant_step(a, n):
+    """DistributedTrainStep(quant_allreduce=True) at dp n: six SGD steps
+    on the global batch, and the gradient exchange's bytes."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.optimizer import SGD
+
+    mesh_mod.init_mesh(dp=n)
+    net = quant_net(a)
+    step = D.DistributedTrainStep(net, quant_loss,
+                                  SGD(0.1, parameters=net.parameters()),
+                                  quant_allreduce=True)
+    x, y = torch.from_numpy(a["step_x"]), torch.from_numpy(a["step_y"])
+    losses = [float(step(x, y)) for _ in range(6)]
+    mesh_mod.reset_mesh()
+    return {"step/losses": np.asarray(losses),
+            "step/bytes": np.asarray(step.comm_stats["bytes"])}
+
+
 def spawn_target(out, scale):
     """`distributed.spawn`'s worker: the gloo bring-up from the env
     contract, a world all-reduce and the gloo barrier."""
@@ -507,4 +724,5 @@ def spawn_target(out, scale):
 
 if __name__ == "__main__":
     sys.path.insert(0, _root())
-    {"mp": mp, "hybrid": hybrid, "3d": three_d}[sys.argv[1]](sys.argv[2])
+    {"mp": mp, "hybrid": hybrid, "3d": three_d, "moe": moe,
+     "quant": quant, "hybrid_quant": hybrid_quant}[sys.argv[1]](sys.argv[2])
