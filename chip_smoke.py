@@ -367,13 +367,14 @@ continues:
               Prints ms/step, tok/s, MFU at 989 TFLOP/s, peak memory and
               one profiled step's device time for each. (b) pp 2 x mp 2
               as four processes sharing the card (`profile_dist.py --mesh
-              pp=2,mp=2`): gpt_small b8·s1024, n_micro 4, per-layer remat,
-              bf16 O1, 3 steps, gloo for every collective through the
+              pp=2,mp=2`): gpt_small's widths, depth cut from 12 layers
+              to 6 (to make room for 8h), b8·s1024, n_micro 4, per-layer
+              remat, bf16 O1, 3 steps, gloo for every collective through the
               host, p2p over the socket transport: each rank's losses
               within 3e-5 relative of a world-1 run on the card (same seed
               and batch; the two planted faults at world 1 must fail it),
-              K3 48 launches a step a rank (6 layers x 4 x 2),
-              K4 and K5 24, all tensor-core, each rank's executed schedule
+              K3 24 launches a step a rank (3 layers x 4 x 2),
+              K4 and K5 12, all tensor-core, each rank's executed schedule
               equal to its stage's row of `schedule_table(4, 2)`, and the
               ranks' one checkpoint loaded at world 1 equal to their
               gathered shards. Prints s/step, the p2p and mp all-reduce
@@ -426,6 +427,42 @@ continues:
               it), a NaN planted in rank 0's gradient
               decoding to NaN in the same block on both ranks; prints the
               exchange's seconds a step beside the exact one's.
+8h. sequence parallelism and the auto-parallel Engine — (a) the lse
+              route: `flash_attention_lse_bhd` at gpt_1p3b's attention
+              shape (B·H 32, S 2048, D 64, bf16), causal and full, with
+              random cotangents on out AND lse: out, lse, dq, dk and dv
+              against the plain f32 autograd of the same function (each
+              error over the reference's max-abs: out 2e-2, lse 1e-3
+              absolute, gradients 5e-2); the lse cotangent dropped (a
+              planted fault) must fail the gradients' gate. Then two
+              processes sharing the card (`profile_dist.py --ring-check
+              --auto`): `ring_flash_attention` at sp 2 over one
+              4096-token causal sequence (b 1, 32 heads, head_dim 64,
+              bf16), each rank's output and q / k / v gradient shards
+              within 2e-2 (out) / 5e-2 (gradients) of flash attention
+              over the whole sequence and of the dense f32
+              `ring_attention`; K3 once causal on rank 0, once causal and
+              once full on rank 1, K4 / K5 alike, all tensor-core. (c) in
+              the same launch: the auto-parallel Engine in full-auto
+              mode over the two processes (the H100 ClusterSpec lays the
+              world out), gpt_small widths at 2 layers as plain layers
+              (`profile_dist.auto_gpt`), f32, b4·s512, AdamW(1e-4), 3
+              steps: the plan printed, the losses within 5e-5 relative of
+              the same model's serial steps on the card. (b) the
+              pipelined GPT at pp 2 x sp 2, four processes (`profile_dist
+              --mesh pp=2,sp=2`): gpt_small widths, depth cut to 4
+              layers, b4·s2048, n_micro 2, per-layer remat, bf16 O1,
+              HybridTrainStep, AdamW(1e-4), 3 steps: step 0's loss within
+              3e-5 relative of world 1 on the card (the same weights),
+              the next steps within 1e-3, the sp replicas' parameters
+              bit-equal after the steps; K3 2·(idx + 1), K4 / K5 idx + 1
+              per layer and micro-batch on sp rank idx, all
+              tensor-core. Three planted faults each fail a gate: a ring
+              that skips its blocks below the diagonal and labels
+              shifted within each shard (step 0's loss), the gradients
+              left unsummed over sp (the replicas' parameters). Prints
+              s/step, the ring's frames, bytes and seconds a step, peak
+              memory a rank.
 9. train cross — f32 gpt_small at b2·s128 (TF32 off): one TrainStep on
               the card and one on the CPU from the same weights; the loss
               and every parameter gradient agree to 1e-3 of each
@@ -475,8 +512,10 @@ bursts as "burst_launches"; K3-K5 also phase 8b's launches as
 "train_1p3b_launches" and their times at its shape as "shape_1p3b",
 phase 8e's launches at world 1 and in each rank of dp 2 as
 "dist_launches", phase 8f's at world 1 (1.3B) and in each rank of
-pp 2 x mp 2 as "pipe_launches", and phase 8g's at world 1 (the MoE GPT)
-and in each rank of ep 2 as "moe_launches");
+pp 2 x mp 2 as "pipe_launches", phase 8g's at world 1 (the MoE GPT)
+and in each rank of ep 2 as "moe_launches", and phase 8h's in each rank
+of the sp 2 ring check and of pp 2 x sp 2 as "sp_launches", with their
+causal share as "sp_causal_launches");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
@@ -5458,13 +5497,15 @@ PP_BATCH, PP_SEQ, PP_MICRO = 2, 2048, 2
 PP_LOSS_RTOL = 5e-5
 PP_GRAD_TOL, PP_GRAD_MEDIAN_TOL = 1e-1, 5e-2
 MESH_RANKS, MESH_STEPS = 4, 3
+# 8f (b)'s depth, cut from gpt_small's 12 layers to make room for 8h
+MESH_LAYERS = 6
 MESH_BATCH, MESH_SEQ = 8, 1024
 MESH_TIMEOUT_S = 300
 # 8f (b): four ranks (pp 2 x mp 2) against world 1, bf16 O1: each
 # row-parallel matmul's two bf16 partial products are rounded before the
 # all-reduce adds them, and the micro losses meet in another order. The
 # limit lies between that gap and the planted faults' at world 1 (on an
-# H100: 1.17e-5 sound; 6.1e-5 and 2.1e-4 planted).
+# H100 at 12 layers: 1.17e-5 sound; 6.1e-5 and 2.1e-4 planted).
 MESH_LOSS_RTOL = 3e-5
 
 
@@ -5678,7 +5719,8 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S):
            f"--nproc_per_node={MESH_RANKS}", f"--log_dir={out_dir}/log",
            os.path.join("paddle_tpu_torch", "profile_dist.py"),
            "--model", "gpt_small", "--device", "cuda", "--mesh",
-           "pp=2,mp=2", "--steps", str(MESH_STEPS), "--batch", str(MESH_BATCH),
+           "pp=2,mp=2", "--layers", str(MESH_LAYERS), "--steps",
+           str(MESH_STEPS), "--batch", str(MESH_BATCH),
            "--seq", str(MESH_SEQ), "--ckpt", os.path.join(out_dir, "ck"),
            "--out", out_dir]
     env = dict(os.environ, PYTHONPATH=root)
@@ -5757,7 +5799,7 @@ def pp_mp_phase(fa, card):
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    cfg, ref = build_pipelined("gpt_small", dev)
+    cfg, ref = build_pipelined("gpt_small", dev, layers=MESH_LAYERS)
     ids = global_batch(cfg, MESH_BATCH, MESH_SEQ).to(dev)
     faults = {k: v[0] for k, v in
               planted_faults(ref.model, ids, ref.loss_fn).items()}
@@ -5794,7 +5836,7 @@ def pp_mp_phase(fa, card):
                 os.path.join(d, f"params_{r}.npz")))
         gathered = gather_pipelined_state(shards, cfg, 2, 2)
         t0 = time.perf_counter()
-        _, w1 = build_pipelined("gpt_small", dev)
+        _, w1 = build_pipelined("gpt_small", dev, layers=MESH_LAYERS)
         got = Checkpointer(os.path.join(d, "ck"), model=w1.model,
                            train_step=w1).load_latest()
         load_s = time.perf_counter() - t0
@@ -5807,7 +5849,8 @@ def pp_mp_phase(fa, card):
                                  f"shards: {bad[:8]}")
         del w1
     print(f"8f (b) pp 2 x mp 2 on one card (four processes, gpt_small "
-          f"b{MESH_BATCH}·s{MESH_SEQ}, n_micro {N_MICRO}, per-layer "
+          f"widths x {MESH_LAYERS} layers, b{MESH_BATCH}·s{MESH_SEQ}, "
+          f"n_micro {N_MICRO}, per-layer "
           f"remat, bf16 O1, HybridTrainStep; gloo through the host for the "
           f"mp all-reduces, the socket transport for p2p; {card}): launcher "
           f"to exit {seconds:.1f} s; world 1 on the card {ref_losses}; "
@@ -6418,6 +6461,357 @@ def moe_phase(fa, card, dist_outs):
             **{f"ep2_{k}": v for k, v in ranks.items()}}
 
 
+# ---- sequence parallelism and the auto-parallel Engine (8h) ----
+
+# (a) the lse route at gpt_1p3b's attention shape, bf16 against the plain
+# f32 autograd: out and the gradients over their reference's max-abs, lse
+# absolute. Bounds set from bf16's 8-bit mantissa (p, ds rounded before
+# their products: the flash phase's 2e-2 / 5e-2).
+LSE_BH, LSE_S, LSE_D = 32, 2048, 64
+LSE_OUT_TOL, LSE_LSE_TOL, LSE_GRAD_TOL = 2e-2, 1e-3, 5e-2
+# the 2-process launch: the ring check, then the full-auto Engine
+RING_SEQ, RING_OUT_TOL, RING_GRAD_TOL = 4096, 2e-2, 5e-2
+AUTO_LAYERS, AUTO_BATCH, AUTO_SEQ, AUTO_STEPS = 2, 4, 512, 3
+AUTO_LOSS_RTOL = 5e-5
+CHECKS_TIMEOUT_S = 300
+# (b) pp 2 x sp 2: gpt_small widths, depth cut to 4 layers
+SP_RANKS, SP_LAYERS, SP_BATCH, SP_SEQ, SP_MICRO, SP_STEPS = 4, 4, 4, 2048, \
+    2, 3
+SP_LOSS_RTOL, SP_LATER_RTOL = 3e-5, 1e-3
+SP_TIMEOUT_S = 420
+SP_PLANTS = ("ring_skip", "label_unshifted", "sp_grad_sum")
+
+
+def _plain_lse_attention(q, k, v, causal):
+    """The plain f32 version of `flash_attention_lse_bhd`: (out, lse
+    [bh, 1, s]) by dense softmax, differentiable in both."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    sc = torch.matmul(qf, kf.transpose(1, 2)) / math.sqrt(q.shape[-1])
+    if causal:
+        s = q.shape[1]
+        keep = torch.ones((s, s), dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, -1e30)
+    lse = torch.logsumexp(sc, dim=-1)
+    out = torch.matmul(torch.exp(sc - lse[..., None]), vf)
+    return out, lse[:, None, :]
+
+
+def _err(got, want):
+    return float((got.detach().float() - want.detach().float()).abs().max()
+                 / want.detach().float().abs().max().clamp_min(1e-30))
+
+
+def lse_route_gate(fa, device="cuda", shape=(LSE_BH, LSE_S, LSE_D)):
+    """8h (a), one process: the lse route with a non-zero lse cotangent,
+    causal and full, against the plain f32 autograd; the cotangent
+    dropped must fail the gradients' bound."""
+    gen = torch.Generator(device=device).manual_seed(81)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=device)
+                  .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn((shape[0], 1, shape[1]), generator=gen,
+                        device=device)
+    res = {}
+    for causal in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out, lse = fa.flash_attention_lse_bhd(*leaves, causal)
+        torch.autograd.backward([out, lse], [g, g_lse])
+        got = [out, lse] + [t.grad for t in leaves]
+        refs = [t.clone().requires_grad_() for t in (q, k, v)]
+        ro, rl = _plain_lse_attention(*refs, causal)
+        torch.autograd.backward([ro, rl], [g.float(), g_lse])
+        want = [ro, rl] + [t.grad for t in refs]
+        # the planted fault: the kernels' backward without the lse
+        # cotangent
+        dropped = fa._attn_bwd(q, k, v, out.detach(), lse.detach(), g,
+                               causal)
+        torch.cuda.synchronize()
+        e = {"out": _err(got[0], want[0]),
+             "lse": float((got[1] - want[1]).detach().abs().max()),
+             "dq": _err(got[2], want[2]), "dk": _err(got[3], want[3]),
+             "dv": _err(got[4], want[4]),
+             "dropped": max(_err(a, b) for a, b in zip(dropped, want[2:]))}
+        res["causal" if causal else "full"] = e
+    print(f"8h (a) the lse route (flash_attention_lse_bhd, [B·H {LSE_BH}, "
+          f"S {LSE_S}, D {LSE_D}] bf16, random out and lse cotangents) vs "
+          f"the plain f32 autograd, error over max-abs (lse absolute): "
+          + "; ".join(f"{k}: " + ", ".join(f"{n} {x:.3e}" for n, x in
+                                          e.items()) for k, e in res.items())
+          + f" (tol out {LSE_OUT_TOL:.0e}, lse {LSE_LSE_TOL:.0e}, gradients "
+          f"{LSE_GRAD_TOL:.0e}; 'dropped': the lse cotangent left out, a "
+          f"planted fault that must fail the gradients' tol)")
+    for k, e in res.items():
+        bad = [n for n, tol in (("out", LSE_OUT_TOL), ("lse", LSE_LSE_TOL),
+                                ("dq", LSE_GRAD_TOL), ("dk", LSE_GRAD_TOL),
+                                ("dv", LSE_GRAD_TOL)) if not e[n] <= tol]
+        if bad:
+            raise AssertionError(f"8h (a) lse route ({k}): {bad} off "
+                                 f"their tolerances: {e}")
+        if not e["dropped"] > LSE_GRAD_TOL:
+            raise AssertionError(f"8h (a) lse route ({k}): the dropped lse "
+                                 f"cotangent passes the gradients' gate: "
+                                 f"{e['dropped']:.3e}")
+    return res
+
+
+def _launch_profile_dist(out_dir, nproc, args, timeout, label):
+    """`profile_dist.py ARGS` under the launcher, `nproc` processes
+    sharing the card; returns (the ranks' json, seconds)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           f"--nproc_per_node={nproc}", f"--log_dir={out_dir}/log",
+           os.path.join("paddle_tpu_torch", "profile_dist.py"),
+           *args, "--out", out_dir]
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("PT_CHAOS_PLAN", None)
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, 15)
+        try:
+            out, _ = p.communicate(timeout=20)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, 9)
+            out, _ = p.communicate()
+        raise AssertionError(f"{label}: the launch ran past {timeout} s:\n"
+                             f"{out[-4000:]}")
+    seconds = time.perf_counter() - t0
+    if p.returncode != 0:
+        tails = ""
+        for r in range(nproc):
+            f = os.path.join(out_dir, "log", f"default.rank{r}.log")
+            if os.path.exists(f):
+                tails += f"\n--- rank {r} ---\n" + open(f).read()[-3000:]
+        raise AssertionError(f"{label}: the launcher exited {p.returncode}:"
+                             f"\n{out[-4000:]}{tails}")
+    outs = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
+            outs.append(json.load(f))
+    return outs, seconds
+
+
+def auto_serial(device="cuda", model="gpt_small", seq=AUTO_SEQ):
+    """The full-auto arm's model stepped serially (no Engine, one
+    process): its losses, the reference of 8h (c)'s gate."""
+    from paddle_tpu_torch.core.rng import seed
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profile_dist import (auto_batches, auto_gpt,
+                                               lm_loss, model_config)
+
+    cfg, _ = model_config(model, AUTO_LAYERS)
+    seed(0)
+    m = auto_gpt(cfg, torch.device(device))
+    opt = AdamW(1e-4, parameters=m.parameters())
+    losses = []
+    for x, y in auto_batches(cfg, AUTO_BATCH, seq, AUTO_STEPS):
+        loss = lm_loss(m(x.to(device)), y.to(device))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(float(loss))
+    del m, opt
+    return losses
+
+
+def ring_auto_phase(card, device="cuda", model="gpt_small",
+                    ring_seq=RING_SEQ, auto_seq=AUTO_SEQ, counted=True):
+    """8h (a)'s ring and (c): one 2-process launch. Returns the ranks'
+    ring-call flash launches (all and causal)."""
+    serial = auto_serial(device, model, auto_seq)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ring_") as d:
+        outs, seconds = _launch_profile_dist(
+            d, 2, ["--model", model, "--device", device, "--ring-check",
+                   "--ring-seq", str(ring_seq), "--auto", "--layers",
+                   str(AUTO_LAYERS), "--batch", str(AUTO_BATCH), "--seq",
+                   str(auto_seq), "--steps", str(AUTO_STEPS)],
+            CHECKS_TIMEOUT_S, "8h (a, c)")
+    fails = []
+    for o in outs:
+        rc, a = o["ring_check"], o["auto"]
+        i = rc["idx"]
+        for ref in ("vs_whole", "vs_dense"):
+            e = rc[ref]
+            if not (e["out"] <= RING_OUT_TOL and max(
+                    e[n] for n in ("dq", "dk", "dv")) <= RING_GRAD_TOL):
+                fails.append(f"rank {o['rank']} {ref} {e}")
+        want = {"flash_forward": i + 1, "flash_bwd_dq": i + 1,
+                "flash_bwd_dkv": i + 1}
+        causal = dict.fromkeys(want, 1)
+        if counted and (rc["launches"] != want or rc["tc_launches"] != want
+                        or rc["causal_launches"] != causal):
+            fails.append(f"rank {o['rank']} ring launches {rc['launches']}"
+                         f" (tensor-core {rc['tc_launches']}, causal "
+                         f"{rc['causal_launches']}); expected {want}, "
+                         f"causal {causal}")
+        rel = _rel(a["losses"], serial)
+        if not rel <= AUTO_LOSS_RTOL:
+            fails.append(f"rank {o['rank']} Engine losses {a['losses']} vs "
+                         f"serial {serial}: {rel:.3e}")
+    a0 = outs[0]["auto"]
+    print(f"8h (a) ring_flash_attention at sp 2 over one {ring_seq}-token "
+          f"causal sequence (b 1, 32 heads, head_dim 64, "
+          f"{outs[0]['ring_check']['dtype']}), two processes on one card "
+          f"({card}): launcher to exit {seconds:.1f} s; "
+          + "; ".join(
+              f"rank {o['rank']}: vs the whole sequence's flash "
+              + ", ".join(f"{n} {x:.3e}" for n, x in
+                          o["ring_check"]["vs_whole"].items())
+              + ", vs the dense f32 ring "
+              + ", ".join(f"{n} {x:.3e}" for n, x in
+                          o["ring_check"]["vs_dense"].items())
+              + f" (tol {RING_OUT_TOL:.0e} / {RING_GRAD_TOL:.0e}); ring "
+              f"call {o['ring_check']['seconds']:.3f} s, frames "
+              f"{o['ring_check']['ring'].get('ring_p2p', {})}, launches "
+              f"{o['ring_check']['launches']} (causal "
+              f"{o['ring_check']['causal_launches']}, tensor-core "
+              f"{o['ring_check']['tc_launches']})" for o in outs))
+    print(f"8h (c) the auto-parallel Engine, auto_mode='full' over 2 "
+          f"processes, the H100 ClusterSpec, gpt_small widths x "
+          f"{AUTO_LAYERS} layers as plain layers, f32, b{AUTO_BATCH}·"
+          f"s{auto_seq}, AdamW(1e-4) ({card}): plan {a0['plan']}; mesh "
+          f"{ {k: v for k, v in a0['mesh'].items() if v > 1} }; realized "
+          f"{[u for u in a0['realized'] if u[1] != 'rep']} ("
+          f"{sum(u[1] == 'rep' for u in a0['realized'])} units "
+          f"replicated); losses "
+          + "; ".join(f"rank {o['rank']} {o['auto']['losses']}"
+                      for o in outs)
+          + f" vs serial {serial} (tol {AUTO_LOSS_RTOL:.0e}); s/step "
+          + "; ".join(f"rank {o['rank']} "
+                      f"{[round(x, 4) for x in o['auto']['step_seconds']]}"
+                      for o in outs)
+          + f"; mp collectives a step (rank 0) {a0['comm'][-1]}; peak "
+          + ", ".join("not measured" if o["peak_mb"] is None else
+                      f"{o['peak_mb']:.0f} MB" for o in outs))
+    if fails:
+        raise AssertionError("8h (a, c): " + "; ".join(fails))
+    return {f"ring_rank{o['rank']}": (o["ring_check"]["launches"],
+                                      o["ring_check"]["causal_launches"])
+            for o in outs}
+
+
+def pp_sp_phase(card, device="cuda", model="gpt_small", seq=SP_SEQ,
+                counted=True):
+    """8h (b): pp 2 x sp 2 as four processes sharing the card, against a
+    world-1 run of the same pipelined GPT on the card, with the three
+    planted faults. Returns the ranks' flash launches (all and causal)."""
+    from paddle_tpu_torch.distributed import mesh as tmesh
+    from paddle_tpu_torch.profile_dist import build_pipelined, global_batch
+
+    tmesh.reset_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, ref = build_pipelined(model, torch.device(device),
+                               layers=SP_LAYERS, n_micro=SP_MICRO, seq=seq)
+    ids = global_batch(cfg, SP_BATCH, seq).to(device)
+    ref_losses = [float(ref(ids)) for _ in range(SP_STEPS)]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    args = ["--model", model, "--device", device, "--mesh", "pp=2,sp=2",
+            "--layers", str(SP_LAYERS), "--n-micro", str(SP_MICRO),
+            "--steps", str(SP_STEPS), "--batch", str(SP_BATCH), "--seq",
+            str(seq)]
+    for plant in SP_PLANTS:
+        args += ["--plant", plant]
+    with tempfile.TemporaryDirectory(prefix="sp_") as d:
+        outs, seconds = _launch_profile_dist(d, SP_RANKS, args,
+                                             SP_TIMEOUT_S, "8h (b)")
+    fails = []
+    L = SP_LAYERS // 2
+    digests = {}
+    for o in outs:
+        c = o["coord"]
+        digests.setdefault(c["pp"], {})[c["sp"]] = o
+        n = SP_STEPS * L * SP_MICRO * (c["sp"] + 1)
+        want = {"flash_forward": 2 * n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n}
+        k = SP_STEPS * L * SP_MICRO
+        causal = {"flash_forward": 2 * k, "flash_bwd_dq": k,
+                  "flash_bwd_dkv": k}
+        if counted and (o["launches"] != want or o["tc_launches"] != want
+                        or o["causal_launches"] != causal):
+            fails.append(f"rank {o['rank']} launched {o['launches']} "
+                         f"(tensor-core {o['tc_launches']}, causal "
+                         f"{o['causal_launches']}); expected {want}, "
+                         f"causal {causal}")
+        r0 = abs(o["losses"][0] - ref_losses[0]) / abs(ref_losses[0])
+        rl = _rel(o["losses"][1:], ref_losses[1:])
+        if not (r0 <= SP_LOSS_RTOL and rl <= SP_LATER_RTOL):
+            fails.append(f"rank {o['rank']} losses {o['losses']} vs world "
+                         f"1 {ref_losses}: step 0 {r0:.3e}, later "
+                         f"{rl:.3e}")
+    planted = {}
+    for stage, by_sp in digests.items():
+        if by_sp[0]["param_digest"] != by_sp[1]["param_digest"]:
+            fails.append(f"stage {stage}: the sp replicas' parameters "
+                         "differ after the steps")
+        p0, p1 = by_sp[0]["planted"], by_sp[1]["planted"]
+        for name in ("ring_skip", "label_unshifted"):
+            x = abs(p0[name]["losses"][0] - ref_losses[0]) / abs(
+                ref_losses[0])
+            planted[name] = max(planted.get(name, 0.0), x)
+        # the fault shows where any stage's replicas part
+        planted["sp_grad_sum replicas equal"] = planted.get(
+            "sp_grad_sum replicas equal", True) and (
+            p0["sp_grad_sum"]["param_digest"]
+            == p1["sp_grad_sum"]["param_digest"])
+    for name in ("ring_skip", "label_unshifted"):
+        if not planted[name] > SP_LOSS_RTOL:
+            fails.append(f"the planted {name} passes the step-0 gate: "
+                         f"{planted[name]:.3e}")
+    if planted["sp_grad_sum replicas equal"]:
+        fails.append("the planted sp_grad_sum leaves the sp replicas "
+                     "equal")
+
+    def ring(o):
+        d = o["comm"][-1]["ring"].get("ring_p2p", {})
+        return (f"{d.get('calls', 0)} frames, {d.get('bytes', 0)} bytes, "
+                f"{d.get('seconds', 0.0):.3f} s")
+
+    print(f"8h (b) PipelinedGPTForCausalLM at pp 2 x sp 2 on one card "
+          f"(four processes; gpt_small widths, depth cut to {SP_LAYERS} "
+          f"layers; b{SP_BATCH}·s{seq}, n_micro {SP_MICRO}, per-layer "
+          f"remat, bf16 O1, HybridTrainStep, AdamW(1e-4); the ring over "
+          f"the socket transport, the sp gradient sums and the tied wte "
+          f"over gloo; {card}): launcher to exit {seconds:.1f} s; world 1 "
+          f"on the card {ref_losses}; planted: ring_skip "
+          f"{planted['ring_skip']:.3e}, label_unshifted "
+          f"{planted['label_unshifted']:.3e} off world 1's step 0 (tol "
+          f"{SP_LOSS_RTOL:.0e}), sp_grad_sum: the sp replicas' parameters "
+          f"{'equal' if planted['sp_grad_sum replicas equal'] else 'differ'}"
+          f"; " + "; ".join(
+              f"rank {o['rank']} (pp {o['coord']['pp']}, sp "
+              f"{o['coord']['sp']}): s/step "
+              f"{[round(x, 4) for x in o['step_seconds']]}, the ring a "
+              f"step {ring(o)}, peak "
+              + (f"{o['peak_mb']:.0f} MB" if o["peak_mb"] is not None
+                 else "not measured")
+              + f", losses {o['losses']}, launches {o['launches']} (causal "
+              f"{o['causal_launches']})" for o in outs))
+    if fails:
+        raise AssertionError("8h (b): " + "; ".join(fails))
+    return {f"pp2sp2_rank{o['rank']}": (o["launches"], o["causal_launches"])
+            for o in outs}
+
+
+def sp_phase(fa, card):
+    """8h: (a) the lse route and the ring, (c) the Engine (one launch),
+    (b) pp 2 x sp 2; returns the flash launches of each rank's ring
+    call and of pp 2 x sp 2."""
+    t0 = time.perf_counter()
+    lse_route_gate(fa)
+    launches = ring_auto_phase(card)
+    launches.update(pp_sp_phase(card))
+    print(f"8h phase: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -6503,6 +6897,7 @@ def main(argv=None):
     dist = dist_phase(fa, card, train_losses, train_ms)
     pipe = pipe_phase(fa, card)
     moe = moe_phase(fa, card, dist["outs"])
+    sp = sp_phase(fa, card)
     train_cross_check()
     train_cross_check_bf16(fa)
     t_o2 = time.perf_counter()
@@ -6620,6 +7015,9 @@ def main(argv=None):
         # 8g: the MoE GPT at gpt_1p3b's widths at world 1, and each rank
         # of ep 2
         row["moe_launches"] = {k: v[name] for k, v in moe.items()}
+        # 8h: each rank's ring call (sp 2) and each rank of pp 2 x sp 2
+        row["sp_launches"] = {k: v[0][name] for k, v in sp.items()}
+        row["sp_causal_launches"] = {k: v[1][name] for k, v in sp.items()}
         kernels.append(row)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,13 +15,16 @@ tensor-parallel `split`, `spawn` and the gloo facade (re-exported by
 contract, `moe` the mixture-of-experts layers with the token
 all-to-all over ``ep`` (re-exported by `models.moe`; `utils` holds the
 eager `global_scatter` / `global_gather`), `quant_collective` the
-block-scaled int8 gradient mean, `resilience` the retry policy,
+block-scaled int8 gradient mean, `sequence_parallel` ring and Ulysses
+attention over ``sp``, `auto_parallel` the annotations, the cost-model
+planner and the Engine, `resilience` the retry policy,
 step guards, preemption handler and anomaly journal, `chaos` the seeded
 fault injection, and `fleet` the strategy facade, the topology, the
 meta-optimizers, the heartbeat and join membership and
 `run_with_fault_tolerance`.
 """
 from . import api_extra  # noqa: F401
+from . import auto_parallel  # noqa: F401
 from . import chaos  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import collective  # noqa: F401
@@ -33,6 +36,7 @@ from . import models  # noqa: F401
 from . import parallel_step  # noqa: F401
 from . import quant_collective  # noqa: F401
 from . import resilience  # noqa: F401
+from . import sequence_parallel  # noqa: F401
 from . import sharding  # noqa: F401
 from . import utils  # noqa: F401
 from . import xproc  # noqa: F401
@@ -100,6 +104,13 @@ from .resilience import (  # noqa: F401
     StepGuard,
     install_preemption_handler,
 )
+from .sequence_parallel import (  # noqa: F401
+    RingAttention,
+    ring_attention,
+    ring_flash_attention,
+    ulysses_attention,
+)
+from .auto_parallel import shard_op, shard_tensor  # noqa: F401
 from .sharding import (  # noqa: F401
     group_sharded_parallel,
     save_group_sharded_model,

@@ -107,12 +107,14 @@ class TornCheckpointError(ValueError):
 class LocalShard:
     """This rank's block of a global array: `tensor` holds the elements
     `index` (one [start, stop) pair per dimension) of an array of
-    `global_shape`."""
+    `global_shape`. `write=False` marks a replica of a block another rank
+    writes (a save lists the leaf but writes no file for it)."""
 
-    def __init__(self, tensor, global_shape, index):
+    def __init__(self, tensor, global_shape, index, write=True):
         self.tensor = tensor
         self.global_shape = tuple(int(d) for d in global_shape)
         self.index = [[int(a), int(b)] for a, b in index]
+        self.write = bool(write)
 
     def __repr__(self):
         return (f"LocalShard({tuple(self.tensor.shape)} of "
@@ -353,7 +355,7 @@ def save_state_dict(state, path, async_save=False, _stall_start=None):
             if isinstance(leaf, LocalShard):
                 data, shape, idx = leaf.tensor, leaf.global_shape, \
                     leaf.index
-                owner = True
+                owner = leaf.write
             else:
                 data, shape = leaf, tuple(leaf.shape)
                 idx = [[0, int(d)] for d in shape]

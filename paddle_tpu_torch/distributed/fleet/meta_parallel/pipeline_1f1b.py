@@ -51,6 +51,18 @@ the dp size when `specs.dp_axis` averages the gradients here, and times
 afterwards: the aux is the global batch's value and each rank's
 gradient a partial of it, the reference's `aux_seed`). The result is
 the pair (loss + aux_weight·aux, aux), the second a detached metric.
+
+Sequence parallelism (`specs.sum_axes`, e.g. ("sp",)): each rank of those
+axes holds a partial of the global loss (its shard's masked token sum
+over the global token count), so the loss, the aux and the parameter
+gradients are SUMMED over them after the pp reduction, and the aux's
+cotangent seed is scaled by their sizes (the block pre-scales the aux
+by their inverse). The input cotangents need no touch-up: the ring's
+own backward routed the cross-shard terms. A pp == 1 run with sum axes
+takes the one-stage table, so the same reductions apply. Each forward
+and backward tick names its micro-batch (× V + chunk) and its phase in
+`sequence_parallel.ring_scope`, so the ring frames of a tick are tagged
+apart from every other's.
 """
 import json
 import struct
@@ -61,6 +73,7 @@ import torch
 from torch.utils import _pytree as pytree
 
 from ... import mesh as mesh_mod
+from ...sequence_parallel import ring_scope
 
 __all__ = ["pipeline_1f1b", "pipeline_forward_loss",
            "interleaved_pipeline_loss", "interleaved_stacking_order",
@@ -85,8 +98,9 @@ class PipelineSpecs(NamedTuple):
     the gradients are averaged over (each dp rank ran its rows);
     `quant_dp` averages the gradients over `dp_axis` with the
     block-scaled int8 exchange (`distributed.quant_collective`; the loss
-    and the aux stay exact). `sum_axes` (sequence parallelism) is ROADMAP
-    A11's part 5 and raises."""
+    and the aux stay exact). `sum_axes` (sequence parallelism) names the
+    axes the loss, the aux and the gradients are summed over (each rank
+    holds a partial of them)."""
     stacked: Optional[Tuple] = None
     post: Optional[Tuple] = None
     x: Optional[tuple] = None
@@ -215,16 +229,19 @@ def pp_world():
 def _check_specs(specs, aux_weight, aux_dp=1):
     """(specs, the aux cotangent seed or None)."""
     sp = specs if specs is not None else PipelineSpecs()
-    if sp.sum_axes:
-        raise NotImplementedError(
-            "sum_axes: sequence parallelism inside pipeline stages is not "
-            "ported yet: ROADMAP A11 (sequence parallelism, part 5)")
     if aux_weight is None:
         return sp, None
     seed = float(aux_weight) * aux_dp
     if sp.dp_axis is not None:
         seed *= mesh_mod.axis_size(sp.dp_axis)
+    for ax in sp.sum_axes or ():
+        seed *= mesh_mod.axis_size(ax)
     return sp, seed
+
+
+def _sum_axes(sp):
+    """The sum axes of size > 1, as one group's axes (or ())."""
+    return tuple(a for a in sp.sum_axes or () if mesh_mod.axis_size(a) > 1)
 
 
 class _AuxTerm(torch.autograd.Function):
@@ -319,55 +336,57 @@ def _run_table(rows, block_fn, loss_fn, stacked, post, x_micro, y_micro,
     for t, fwd, bwd in rows:
         if fwd is not None:
             m, v = fwd
-            if stage == 0 and v == 0:
-                x_in = x_micro[m]
-            else:
-                x_in = _recv(prv, _TAG_FWD, device)
-            if remat:
-                with torch.no_grad():
-                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
-                                                 x_in), has_aux)
-                saved[(m, v)] = x_in
-            else:
-                x_leaf = _leaf(x_in)
-                with torch.enable_grad():
-                    # the chunk's selection inside the graph: its
-                    # gradient reaches the stacked leaf
-                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
-                                                 x_leaf), has_aux)
-                saved[(m, v)] = (x_leaf, out, a)
-            if has_aux:
-                aux_sum = aux_sum + a.detach().float()
-            if not (stage == pp - 1 and v == V - 1):
-                _send(out, nxt, _TAG_FWD)
+            with ring_scope(micro=m * V + v, phase="forward"):
+                if stage == 0 and v == 0:
+                    x_in = x_micro[m]
+                else:
+                    x_in = _recv(prv, _TAG_FWD, device)
+                if remat:
+                    with torch.no_grad():
+                        out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                     x_in), has_aux)
+                    saved[(m, v)] = x_in
+                else:
+                    x_leaf = _leaf(x_in)
+                    with torch.enable_grad():
+                        # the chunk's selection inside the graph: its
+                        # gradient reaches the stacked leaf
+                        out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                     x_leaf), has_aux)
+                    saved[(m, v)] = (x_leaf, out, a)
+                if has_aux:
+                    aux_sum = aux_sum + a.detach().float()
+                if not (stage == pp - 1 and v == V - 1):
+                    _send(out, nxt, _TAG_FWD)
             log.append((t, "F", m, v))
         if bwd is not None:
             m, v = bwd
-            if remat:
-                x_leaf = _leaf(saved.pop((m, v)))
-                with torch.enable_grad():
-                    out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
-                                                 x_leaf), has_aux)
-            else:
-                x_leaf, out, a = saved.pop((m, v))
-            with torch.enable_grad():
-                if stage == pp - 1 and v == V - 1:
-                    lv = loss_fn(out, y_micro[m], h_tree).float()
-                    roots, cots = [lv], [torch.ones_like(lv)]
-                    loss_sum = loss_sum + lv.detach()
+            with ring_scope(micro=m * V + v, phase="recompute"):
+                if remat:
+                    x_leaf = _leaf(saved.pop((m, v)))
+                    with torch.enable_grad():
+                        out, a = _split_aux(block_fn(_chunk(s_tree, v, V),
+                                                     x_leaf), has_aux)
                 else:
-                    roots, cots = [out], [_recv(nxt, _TAG_BWD, device)]
-                if has_aux and a.requires_grad:
-                    roots.append(a)
-                    cots.append(torch.full_like(a, aux_seed))
-                torch.autograd.backward(roots, cots)
-            if stage == 0 and v == 0:
-                if dxs is not None and x_leaf.grad is not None:
-                    dxs[m] = x_leaf.grad
-            else:
-                dx = x_leaf.grad
-                _send(dx if dx is not None else torch.zeros_like(x_leaf),
-                      prv, _TAG_BWD)
+                    x_leaf, out, a = saved.pop((m, v))
+                with torch.enable_grad():
+                    if stage == pp - 1 and v == V - 1:
+                        lv = loss_fn(out, y_micro[m], h_tree).float()
+                        roots, cots = [lv], [torch.ones_like(lv)]
+                        loss_sum = loss_sum + lv.detach()
+                    else:
+                        roots, cots = [out], [_recv(nxt, _TAG_BWD, device)]
+                    if has_aux and a.requires_grad:
+                        roots.append(a)
+                        cots.append(torch.full_like(a, aux_seed))
+                    torch.autograd.backward(roots, cots)
+                if stage == 0 and v == 0:
+                    if dxs is not None and x_leaf.grad is not None:
+                        dxs[m] = x_leaf.grad
+                else:
+                    dx = x_leaf.grad
+                    _send(dx if dx is not None else torch.zeros_like(x_leaf),
+                          prv, _TAG_BWD)
             log.append((t, "B", m, v))
     last_schedule[:] = log
     return (loss_sum, aux_sum if has_aux else None, s_leaves, h_leaves,
@@ -406,13 +425,29 @@ class _PipelineFn(torch.autograd.Function):
                 *[scale(t, n) for t, n in zip(grads, needs[3:])])
 
 
+def _sum_partials(grads, scalars, axes):
+    """Sum the gradients (in place in the list) and the loss / aux
+    scalars over `axes`, one coalesced all-reduce; returns the scalars."""
+    from ..utils.hybrid_parallel_util import coalesced_all_reduce
+
+    have = [i for i, g in enumerate(grads) if g is not None]
+    red = coalesced_all_reduce([grads[i] for i in have] + [scalars], axes,
+                               op="sum")
+    scalars = red.pop()
+    for i, g in zip(have, red):
+        grads[i] = g
+    return scalars
+
+
 def _finish(loss_sum, aux_sum, s_leaves, h_leaves, dxs, M, sp,
             aux_weight=None):
     """1/M on the loss, the aux and every gradient; the loss (it lives on
     the last stage) and the aux (each stage's layers') summed over pp;
-    the dp average when `sp.dp_axis` names one (each dp rank ran its
-    rows), in int8 for the gradients under `sp.quant_dp`. Returns (loss
-    + aux_weight·aux, aux or None, stacked grads, post grads, dx)."""
+    the loss, the aux and the gradients summed over `sp.sum_axes` (one
+    coalesced all-reduce); the dp average when `sp.dp_axis` names one
+    (each dp rank ran its rows), in int8 for the gradients under
+    `sp.quant_dp`. Returns (loss + aux_weight·aux, aux or None, stacked
+    grads, post grads, dx)."""
     from ..utils.hybrid_parallel_util import coalesced_all_reduce
     from .mp_ops import all_reduce_mp_raw
 
@@ -423,6 +458,9 @@ def _finish(loss_sum, aux_sum, s_leaves, h_leaves, dxs, M, sp,
     grads = [None if p.grad is None else p.grad * inv_m
              for p in s_leaves + h_leaves]
     dx = None if dxs is None else dxs * inv_m
+    axes = _sum_axes(sp)
+    if axes:
+        scalars = _sum_partials(grads, scalars, axes)
     if sp.dp_axis is not None and mesh_mod.axis_size(sp.dp_axis) > 1:
         n = mesh_mod.axis_size(sp.dp_axis)
         have = [i for i, g in enumerate(grads) if g is not None]
@@ -504,7 +542,7 @@ def pipeline_1f1b(block_fn, loss_fn, stacked_params, post_params, batch,
     sp, seed = _check_specs(specs, aux_weight, aux_dp)
     x_micro, y_micro = batch
     V = num_virtual
-    if pp_world()[0] == 1:
+    if pp_world()[0] == 1 and not _sum_axes(sp):
         out = _straight_line(block_fn, loss_fn, stacked_params,
                              post_params, x_micro, y_micro, remat, V,
                              aux_weight, seed)
@@ -542,7 +580,7 @@ def pipeline_forward_loss(block_fn, loss_fn, stacked_params, post_params,
     M = x_micro.shape[0]
     pp, stage, members = pp_world()
     with torch.no_grad():
-        if pp == 1:
+        if pp == 1 and not _sum_axes(sp):
             out = _straight_line(block_fn, loss_fn, stacked_params,
                                  post_params, x_micro, y_micro, False, 1,
                                  aux_weight, seed)
@@ -580,7 +618,8 @@ def fill_drain(block_fn, params, xs, stage, pp, members):
         if not 0 <= m < M:
             continue
         x_in = xs[m] if stage == 0 else _recv(prv, _TAG_FWD, xs.device)
-        out = block_fn(params, x_in)
+        with ring_scope(micro=m, phase="forward"):
+            out = block_fn(params, x_in)
         if stage == pp - 1:
             outs.append(out)
         else:

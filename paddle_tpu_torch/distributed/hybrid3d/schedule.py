@@ -12,11 +12,11 @@ kept inputs — on GPipe's two serialized halves:
 with Tf = M + pp − 1, so the step is `gpipe_ticks` = 2(M + pp − 1) ticks
 against 1F1B's M + 2(pp − 1), and every stage keeps all M micro inputs
 (or graphs, without remat) across the halves: O(M) activations against
-1F1B's O(pp). Both schedules share `PipelineSpecs`, remat and the
-degenerate pp == 1 path.
+1F1B's O(pp). Both schedules share `PipelineSpecs` (the sequence
+parallel `sum_axes` included), remat and the degenerate pp == 1 path.
 """
 from ..fleet.meta_parallel.pipeline_1f1b import (
-    _check_specs, _dp_mean, _pipeline, _straight_line, pp_world)
+    _check_specs, _dp_mean, _pipeline, _straight_line, _sum_axes, pp_world)
 
 __all__ = ["pipeline_gpipe", "gpipe_ticks", "gpipe_table"]
 
@@ -53,7 +53,7 @@ def pipeline_gpipe(block_fn, loss_fn, stacked_params, post_params, batch,
     interleaving is a 1F1B refinement."""
     sp, seed = _check_specs(specs, aux_weight, aux_dp)
     x_micro, y_micro = batch
-    if pp_world()[0] == 1:
+    if pp_world()[0] == 1 and not _sum_axes(sp):
         out = _straight_line(block_fn, loss_fn, stacked_params,
                              post_params, x_micro, y_micro, remat, 1,
                              aux_weight, seed)

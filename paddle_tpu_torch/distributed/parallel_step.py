@@ -168,6 +168,7 @@ class DistributedTrainStep:
                        if p.requires_grad]
         self._params = [p for _, p in self._named]
         self._data_axes = self._batch_axes()
+        self._check_batch_specs()
         self._quant_axes = ()
         if self.quant_allreduce:
             self._quant_axes = tuple(a for a in self._quant_axis_names()
@@ -247,6 +248,27 @@ class DistributedTrainStep:
                     if a not in axes:
                         axes.append(a)
         return tuple(axes)
+
+    def _check_batch_specs(self):
+        """Only a batch split along its first (row) dimension is the
+        reference's math here: each rank's loss over its rows, averaged.
+        A spec that splits another dimension (sequence sharding, e.g.
+        P("dp", "sp")) leaves the GSPMD reference computing the serial
+        model on the whole sequence, while each rank here would run its
+        columns alone — positions restarting at 0, attention stopping at
+        the shard's edge, the label shift losing a position a shard —
+        and return another loss. So it raises."""
+        for spec in self.batch_specs or ():
+            for entry in tuple(spec or ())[1:]:
+                axes = (entry,) if isinstance(entry, str) else tuple(
+                    entry or ())
+                if any(mesh_mod.axis_size(a) > 1 for a in axes):
+                    raise NotImplementedError(
+                        f"batch spec {spec}: a batch split along a "
+                        "dimension other than the first (a sequence-"
+                        "sharded step) is not ported: ROADMAP A11 "
+                        "(sequence parallelism, part 5b); train "
+                        "PipelinedGPTForCausalLM on an sp mesh instead")
 
     def _block_of(self, p, full):
         """This rank's block of `full` (a tensor of p's whole shape)."""

@@ -23,12 +23,21 @@ scales the aux's gradient for this average (the reference's `aux_seed`).
 The Checkpointer's hooks write each shard as a `LocalShard` of the
 LOGICAL array (the model's `layout()` and `expert_layout()`), so a pp ×
 mp × ep checkpoint loads at world 1, in the port and in the reference.
+The sp ranks hold identical shards: sp rank 0 writes them and every sp
+rank loads them.
 `quant_allreduce` (or a config / PT_QUANT_ALLREDUCE_XLA asking for it)
 averages the gradients over dp with the block-scaled int8 exchange
 (`distributed.quant_collective`); mp, pp and the tied wte's pair stay
 exact, and so do the loss and the aux. `compile_stats` and
 `analyze_step` are A12's, as for `TrainStep`.
+
+Sequence parallelism needs nothing more here: the pipelined model's
+pipeline already sums every parameter's partial gradient over sp (the
+reference's shard_map transpose; the embedding's as it leaves stage 0)
+and reports the loss as the sum of the shards' partials, so the step's
+average stays over dp alone.
 """
+from ..distributed import mesh as mesh_mod
 from ..distributed.checkpoint import LocalShard
 from ..distributed.parallel_step import DistributedTrainStep
 from . import TrainStep
@@ -80,8 +89,6 @@ class HybridTrainStep(DistributedTrainStep, TrainStep):
 
     def describe(self):
         """Mesh / config stamp for records and telemetry."""
-        from ..distributed import mesh as mesh_mod
-
         out = {"mesh": {a: int(s) for a, s in
                         mesh_mod.global_mesh().shape.items()
                         if s > 1 or a in ("dp", "pp", "mp")}}
@@ -120,15 +127,17 @@ class HybridTrainStep(DistributedTrainStep, TrainStep):
         if lg is None:
             return v
         shape, index, _ = lg
+        # the sp ranks hold identical shards: sp rank 0 writes them
+        write = mesh_mod.axis_index("sp") == 0
         if isinstance(v, LocalShard):
             idx = [[a + s, b + s] for (a, b), (s, _) in zip(v.index, index)]
-            return LocalShard(v.tensor, shape, idx)
+            return LocalShard(v.tensor, shape, idx, write and v.write)
         if v.dim() != len(shape):
             # a per-parameter scalar state: its holders write it whole
             # (rank 0 may hold no copy of this parameter)
             return LocalShard(v.detach(), tuple(v.shape),
-                              [[0, n] for n in v.shape])
-        return LocalShard(v.detach(), shape, index)
+                              [[0, n] for n in v.shape], write)
+        return LocalShard(v.detach(), shape, index, write)
 
     def _lower(self, name, full):
         """This rank's slice of a logical array."""

@@ -2,3 +2,4 @@ from .common import Dropout, Embedding, Linear  # noqa: F401
 from .norm import LayerNorm  # noqa: F401
 from .activation import ReLU  # noqa: F401
 from .container import Sequential  # noqa: F401
+from .transformer import MultiHeadAttention  # noqa: F401

@@ -20,7 +20,8 @@ tensor-core kernels (`fa_fwd_tc_kernel`, `fa_bwd_dq_tc_kernel`,
 `fa_bwd_dkv_tc_kernel`), every other input to the f32-math CUDA-core
 kernels, which stay the exact f32 path. A route is never a fallback: a
 build or launch error raises. `tc_launches` counts the launches that
-took the tensor-core route.
+took the tensor-core route, `causal_launches` those of the causal
+variant (a ring block on the diagonal; a block below it runs full).
 
 `_FlashAttentionBHD` and `_FlashAttentionLseBHD` are the autograd
 Functions that mirror the reference's two `custom_vjp`s;
@@ -38,7 +39,7 @@ __all__ = ["flash_attention_bshd", "flash_attention_lse_bhd",
            "flash_forward", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_forward_plain", "flash_bwd_dq_plain",
            "flash_bwd_dkv_plain", "launches", "tc_launches",
-           "reset_launches", "tensor_core_route"]
+           "causal_launches", "reset_launches", "tensor_core_route"]
 
 NEG_INF = -1e30
 DEFAULT_BLOCK_Q = 512
@@ -54,10 +55,12 @@ TC_HEAD_DIMS = (64, 128)
 
 launches = dict.fromkeys(REPLACES, 0)
 tc_launches = dict.fromkeys(REPLACES, 0)
+# the launches of the causal (diagonal) variant; the rest ran full
+causal_launches = dict.fromkeys(REPLACES, 0)
 
 
 def reset_launches():
-    for counts in (launches, tc_launches):
+    for counts in (launches, tc_launches, causal_launches):
         for name in counts:
             counts[name] = 0
 
@@ -222,6 +225,7 @@ def flash_forward(q, k, v, causal=False, lens=None):
     _raise_on(err, "flash attention forward")
     launches["flash_forward"] += 1
     tc_launches["flash_forward"] += tc
+    causal_launches["flash_forward"] += bool(causal)
     return out, lse
 
 
@@ -242,6 +246,7 @@ def flash_bwd_dq(q, k, v, g, lse, delta, causal=False, lens=None):
     _raise_on(err, "flash attention dq")
     launches["flash_bwd_dq"] += 1
     tc_launches["flash_bwd_dq"] += tc
+    causal_launches["flash_bwd_dq"] += bool(causal)
     return dq
 
 
@@ -263,6 +268,7 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, lens=None):
     _raise_on(err, "flash attention dk/dv")
     launches["flash_bwd_dkv"] += 1
     tc_launches["flash_bwd_dkv"] += tc
+    causal_launches["flash_bwd_dkv"] += bool(causal)
     return dk, dv
 
 

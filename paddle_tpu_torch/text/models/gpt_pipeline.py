@@ -34,12 +34,25 @@ MoE (`moe_experts > 0`): each layer's dense FFN becomes a top-k MoE
 and the dense `fc*` leaves are absent. At ep 1 a layer dispatches its
 whole local token set to the experts; at ep > 1 it goes through
 `distributed.moe.moe_a2a_dispatch_combine` (the token all-to-all). The
-gate statistics are all-reduced over every token-sharding axis (dp, ep),
-so the load-balancing aux is the global batch's on every rank, and the
-capacity is counted per (dp, ep) token group. `loss()` returns
+gate statistics are all-reduced over every token-sharding axis (dp, sp,
+ep), so the load-balancing aux is the global batch's on every rank, and
+the capacity is counted per (dp, sp, ep) token group. `loss()` returns
 loss + moe_aux_weight·aux and keeps aux in the `aux_loss` buffer.
 
-A mesh with sp > 1 raises, naming ROADMAP A11's part 5.
+Sequence parallelism (an ``sp`` axis > 1, with pp > 1 as in the
+reference): each sp rank holds the whole stage and runs its own columns
+of every sequence. Stage 0 embeds them with their GLOBAL positions; the
+labels are shifted on the whole sequence before the cut (position t
+carries token t + 1, the last position −1, masked), so no shard loses a
+position at its edge. Attention runs as a causal ring over the sp group
+(`distributed.sequence_parallel`): `ring_flash_attention` on the card
+(K3-K5 per K/V block), the dense `ring_attention` on the CPU (the
+reference's own CPU path). Each shard's loss is its masked token sum
+over the global count b·(s − 1), a partial that the pipeline sums over
+sp (`PipelineSpecs.sum_axes`) with the gradients; the embedding's two
+weights, used outside the pipeline, sum theirs over sp as they leave
+stage 0 (`copy_to_mp(w, "sp")`). A MoE layer's aux is pre-scaled by
+1/sp so the sum gives it back.
 """
 import torch
 from torch import nn
@@ -87,45 +100,64 @@ def _layernorm(x, w, b):
     return F.layer_norm(x, [x.shape[-1]], w, b, 1e-5)
 
 
-def _decoder_fwd(p, x, nh, mp=1, ep=1, moe_cf=1.25, dp=1, moe_topk=1):
+def _attention(q, k, v, sp):
+    """Causal attention on [b, s, h, hd]: the flash kernels over the whole
+    local sequence, or at sp > 1 the ring over the sp group (the flash
+    ring on a CUDA tensor, the dense f32 ring on a CPU one)."""
+    if sp == 1:
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    from ...distributed.sequence_parallel import (ring_attention,
+                                                  ring_flash_attention)
+
+    q, k, v = amp.cast_inputs_for("flash_attention", (q, k, v))
+    ring = ring_flash_attention if q.is_cuda else ring_attention
+    return ring(q, k, v, causal=True, axis_name="sp")
+
+
+def _decoder_fwd(p, x, nh, mp=1, ep=1, moe_cf=1.25, dp=1, moe_topk=1,
+                 sp=1):
     """One pre-LN decoder block as a function of its parameter dict (this
     rank's shards: qkv / fc1 column-parallel, proj / fc2 row-parallel).
     Each parallel pair enters through `copy_to_mp` and leaves through
-    `allreduce_mp` (identities at mp 1). Returns (x, aux): the MoE
-    load-balancing term (`_moe_ffn`), 0 for the dense FFN."""
+    `allreduce_mp` (identities at mp 1); at sp > 1 `x` is this rank's
+    sequence shard and attention is the ring. Returns (x, aux): the MoE
+    load-balancing term (`_moe_ffn`) pre-scaled by 1/sp, 0 for the dense
+    FFN."""
     b, s, d = x.shape
     nh_loc = nh // mp
     hd = d // nh
     h = _layernorm(x, p["ln1_w"], p["ln1_b"])
     qkv = F.linear(copy_to_mp(h), p["qkv_w"], p["qkv_b"])
     q, k, v = qkv.reshape(b, s, nh_loc, 3, hd).unbind(3)
-    attn = F.scaled_dot_product_attention(q, k, v, is_causal=True)
-    attn = attn.reshape(b, s, nh_loc * hd)
+    attn = _attention(q, k, v, sp).reshape(b, s, nh_loc * hd)
     x = _add(_add(x, allreduce_mp(F.linear(attn, p["proj_w"]))),
              p["proj_b"])
     h = _layernorm(x, p["ln2_w"], p["ln2_b"])
     if "gate_w" in p:
         out, aux = _moe_ffn(p, h, p["gate_w"].shape[-1], ep, moe_cf, dp,
-                            moe_topk)
-        return _add(x, out), aux
+                            moe_topk, sp)
+        # aux is the global batch's value on every rank: 1/sp lets the
+        # pipeline's sum over sp give it back
+        return _add(x, out), aux / sp
     part = F.linear(F.gelu(F.linear(copy_to_mp(h), p["fc1_w"],
                                     p["fc1_b"]), approximate=True),
                     p["fc2_w"])
     return _add(_add(x, allreduce_mp(part)), p["fc2_b"]), 0.0
 
 
-def _moe_ffn(p, h, n_experts, ep, cf=1.25, dp=1, topk=1):
+def _moe_ffn(p, h, n_experts, ep, cf=1.25, dp=1, topk=1, sp=1):
     """Top-k MoE FFN over this rank's expert shards (the reference's
     `_moe_ffn`): `moe_a2a_dispatch_combine` at every ep. At ep 1 its
     exchanges are identities, so it is the reference's dense local
     dispatch of the whole token set, one pass per round at capacity
     ceil(t·cf·k/E). The gate statistics all-reduce over every
-    token-sharding axis (dp, ep), so aux is the global batch's value.
+    token-sharding axis (dp, sp, ep), so aux is the global batch's value.
     Returns (out [b, s, d], aux)."""
     from ...distributed.moe import expert_ffn, moe_a2a_dispatch_combine
 
     b, s, d = h.shape
-    stat_axes = tuple(n for n, sz in (("dp", dp), ("ep", ep)) if sz > 1)
+    stat_axes = tuple(n for n, sz in (("dp", dp), ("sp", sp), ("ep", ep))
+                      if sz > 1)
 
     def experts(expert_in):
         return expert_ffn(expert_in, p["moe_w1"], p["moe_b1"], p["moe_w2"],
@@ -134,7 +166,7 @@ def _moe_ffn(p, h, n_experts, ep, cf=1.25, dp=1, topk=1):
     out, aux = moe_a2a_dispatch_combine(
         h.reshape(b * s, d), p["gate_w"], experts, n_experts, ep,
         capacity_factor=cf, axis="ep", stat_axes=stat_axes or None,
-        n_stat_shards=dp * ep, topk=topk)
+        n_stat_shards=dp * sp * ep, topk=topk)
     return out.reshape(b, s, -1), aux
 
 
@@ -217,6 +249,7 @@ class PipelinedGPTForCausalLM(nn.Module):
         self.pp, self.mp = mesh.shape["pp"], mesh.shape["mp"]
         self.stage, self.mp_rank = me["pp"], me["mp"]
         self.dp = mesh.shape["dp"]
+        self.sp, self.sp_rank = mesh.shape["sp"], me["sp"]
         # the experts' split: a dense model's ep ranks are replicas
         self.ep = mesh.shape["ep"] if self.moe_experts else 1
         self.ep_rank = me["ep"] if self.moe_experts else 0
@@ -280,7 +313,7 @@ class PipelinedGPTForCausalLM(nn.Module):
             # every gloo subgroup this model's step uses, made now, on
             # every rank in one order (a stage would otherwise make its
             # mp group at its first forward, after the previous stage's)
-            for axes in (("dp",), ("pp",), ("mp",), ("ep",),
+            for axes in (("dp",), ("pp",), ("mp",), ("sp",), ("ep",),
                          self._stat_axes()):
                 if axes:
                     collective.axis_comm(axes)
@@ -302,8 +335,8 @@ class PipelinedGPTForCausalLM(nn.Module):
         """The token-sharding axes the MoE gate statistics reduce over."""
         if not self.moe_experts:
             return ()
-        return tuple(a for a, n in (("dp", self.dp), ("ep", self.ep))
-                     if n > 1)
+        return tuple(a for a, n in (("dp", self.dp), ("sp", self.sp),
+                                    ("ep", self.ep)) if n > 1)
 
     def _validate(self):
         cfg = self.config
@@ -406,23 +439,31 @@ class PipelinedGPTForCausalLM(nn.Module):
             return w
         return _TiedGrad.apply(w, self._pair, self.tied_stats)
 
-    def _embed(self, ids):
+    def _embed(self, ids, start=0):
+        """The embedding of `ids` at positions start, start + 1, ...; at
+        sp > 1 each weight's gradient is summed over sp on its way out."""
         wte = self._tied(self.wte)
+        wpe = self.wpe
+        if self.sp > 1:
+            wte, wpe = copy_to_mp(wte, "sp"), copy_to_mp(wpe, "sp")
         if self.mp > 1:
             e = vocab_parallel_lookup(ids, wte, self.mp_rank * wte.shape[0])
         else:
             e = F.embedding(ids, wte)
-        return _add(e, self.wpe[:ids.shape[-1]])
+        return _add(e, wpe[start:start + ids.shape[-1]])
 
-    def _block_fn(self, with_aux=None):
+    def _block_fn(self, with_aux=None, sp=None):
         """block(stage_params, x) over this rank's layers: x, or (x, aux
-        summed over the layers) for a MoE model."""
+        summed over the layers) for a MoE model. `sp` (default the
+        mesh's) > 1 runs attention as the ring over this rank's shard."""
         from ...distributed.fleet.recompute import recompute
+        from ...distributed.sequence_parallel import ring_scope
 
         nh, mp = self.config.num_heads, self.mp
         with_aux = bool(self.moe_experts) if with_aux is None else with_aux
         kw = dict(ep=self.ep, moe_cf=self.moe_capacity_factor, dp=self.dp,
-                  moe_topk=self.moe_topk)
+                  moe_topk=self.moe_topk,
+                  sp=self.sp if sp is None else sp)
 
         def layer(p, x):
             return _decoder_fwd(p, x, nh, mp, **kw)
@@ -436,7 +477,8 @@ class PipelinedGPTForCausalLM(nn.Module):
             rows = {k: v.unbind(0) for k, v in stage_params.items()}
             aux = None
             for i in range(len(next(iter(rows.values())))):
-                x, a = per_layer({k: r[i] for k, r in rows.items()}, x)
+                with ring_scope(layer=i):
+                    x, a = per_layer({k: r[i] for k, r in rows.items()}, x)
                 if with_aux:
                     aux = a if aux is None else aux + a
             return (x, aux) if with_aux else x
@@ -444,19 +486,31 @@ class PipelinedGPTForCausalLM(nn.Module):
         return block
 
     def _loss_fn(self):
-        mp = self.mp
+        mp, sp = self.mp, self.sp
 
-        def loss_fn(y, labels, post):
-            h = _layernorm(y, post["lnf_w"], post["lnf_b"])
-            sh = h[:, :-1].reshape(-1, h.shape[-1])
-            sl = labels[:, 1:].reshape(-1)
+        def per_token(sh, sl, post, reduction):
             if mp == 1:
                 # the fused head CE: the [tokens, vocab] logits are never
                 # kept
                 return F.fused_linear_cross_entropy(
                     sh, post["wte"], sl, transpose_weight=True,
-                    block_size=2048).float()
-            return _vocab_parallel_ce(sh, post["wte"], sl, mp).mean()
+                    reduction=reduction, block_size=2048).float()
+            tok = _vocab_parallel_ce(sh, post["wte"], sl, mp)
+            return tok.mean() if reduction == "mean" else tok
+
+        def loss_fn(y, labels, post):
+            h = _layernorm(y, post["lnf_w"], post["lnf_b"])
+            if sp == 1:
+                sh = h[:, :-1].reshape(-1, h.shape[-1])
+                return per_token(sh, labels[:, 1:].reshape(-1), post, "mean")
+            # labels arrive pre-shifted (the last global position -1):
+            # this shard's partial of the global mean, summed over sp by
+            # the pipeline
+            b, s_loc = labels.shape
+            valid = (labels >= 0).reshape(-1)
+            sl = torch.clamp(labels, min=0).reshape(-1)
+            tok = per_token(h.reshape(-1, h.shape[-1]), sl, post, "none")
+            return torch.where(valid, tok, 0.0).sum() / (b * (s_loc * sp - 1))
 
         return loss_fn
 
@@ -493,23 +547,49 @@ class PipelinedGPTForCausalLM(nn.Module):
             x = x[:, r * c:(r + 1) * c]
         return x
 
+    def _sp_columns(self, ids, labels):
+        """(ids, labels, start) of this sp rank's columns: the labels
+        shifted on the whole sequence before the cut (position t carries
+        token t + 1, the last position -1, masked)."""
+        labels = torch.cat([labels[:, 1:], torch.full_like(labels[:, :1],
+                                                           -1)], dim=1)
+        s_loc = ids.shape[1] // self.sp
+        start = self.sp_rank * s_loc
+        return (ids[:, start:start + s_loc],
+                labels[:, start:start + s_loc], start)
+
     # ---- API ----
     def loss(self, input_ids, labels=None):
         """Mean LM loss through the pipeline schedule (the forward-only
         fill-drain when grad is off). At dp > 1 this dp rank's rows
-        (HybridTrainStep averages the ranks' losses and gradients)."""
+        (HybridTrainStep averages the ranks' losses and gradients); at
+        sp > 1 the global loss on every sp rank, the sum of the shards'
+        partials (module docstring)."""
         from ...distributed.fleet.meta_parallel.pipeline_1f1b import (
-            pipeline_1f1b, pipeline_forward_loss)
+            PipelineSpecs, pipeline_1f1b, pipeline_forward_loss)
 
-        if mesh_mod.axis_size("sp") > 1:
-            raise NotImplementedError(
-                "an sp > 1 mesh: sequence parallelism inside pipeline "
-                "stages is not ported yet: ROADMAP A11 (sequence "
-                "parallelism, part 5)")
+        sp = self.sp
+        if sp > 1 and self.pp == 1:
+            # the reference: nothing annotates the sequence dim on its
+            # degenerate path, so sp-fold replication would burn sp x the
+            # FLOPs
+            raise ValueError(
+                "sequence parallelism in PipelinedGPTForCausalLM "
+                "needs pp > 1 (use DistributedTrainStep with a "
+                "seq-sharded batch_specs for GSPMD-only sp)")
         dev = self.stk_ln1_w.device
-        labels = input_ids if labels is None else labels
-        ids_m = self._micro(torch.as_tensor(input_ids, device=dev))
-        lbl_m = self._micro(torch.as_tensor(labels, device=dev))
+        ids = torch.as_tensor(input_ids, device=dev)
+        labels = ids if labels is None else torch.as_tensor(labels,
+                                                            device=dev)
+        start = 0
+        if sp > 1:
+            if ids.shape[1] % sp:
+                raise ValueError(
+                    f"sequence length {ids.shape[1]} not divisible by "
+                    f"sp={sp}")
+            ids, labels, start = self._sp_columns(ids, labels)
+        ids_m = self._micro(ids)
+        lbl_m = self._micro(labels)
         if self.ep > 1:
             # the all-to-all dispatch cuts each shard's tokens into ep
             # groups
@@ -520,7 +600,7 @@ class PipelinedGPTForCausalLM(nn.Module):
                     f"{self.ep} (adjust batch/n_micro/dp/sp so each ep "
                     "group is equal)")
         if self.stage == 0:
-            x_m = self._embed(ids_m)
+            x_m = self._embed(ids_m, start)
         else:
             d = self.config.hidden_size
             x_m = torch.zeros(tuple(ids_m.shape) + (d,),
@@ -529,9 +609,11 @@ class PipelinedGPTForCausalLM(nn.Module):
         block_fn, loss_fn = self._block_fn(), self._loss_fn()
         stacked, post = self._stacked(), self._post()
         aux_w = self.moe_aux_weight if self.moe_experts else None
+        specs = PipelineSpecs(sum_axes=("sp",)) if sp > 1 else None
         if not torch.is_grad_enabled() and V == 1:
             out = pipeline_forward_loss(block_fn, loss_fn, stacked, post,
-                                        (x_m, lbl_m), aux_weight=aux_w)
+                                        (x_m, lbl_m), specs=specs,
+                                        aux_weight=aux_w)
         else:
             remat = self.remat == "stage"
             if self.schedule == "gpipe" and self.pp > 1:
@@ -539,14 +621,15 @@ class PipelinedGPTForCausalLM(nn.Module):
 
                 out = pipeline_gpipe(block_fn, loss_fn, stacked, post,
                                      (x_m, lbl_m), remat=remat,
-                                     aux_weight=aux_w, aux_dp=self.dp)
+                                     specs=specs, aux_weight=aux_w,
+                                     aux_dp=self.dp)
             else:
                 # HybridTrainStep averages the gradients over dp after
                 # the pipeline: aux_dp scales the aux's seed for it
                 out = pipeline_1f1b(block_fn, loss_fn, stacked, post,
                                     (x_m, lbl_m), remat=remat,
-                                    num_virtual=V, aux_weight=aux_w,
-                                    aux_dp=self.dp)
+                                    num_virtual=V, specs=specs,
+                                    aux_weight=aux_w, aux_dp=self.dp)
         if aux_w is None:
             return out
         # the pipeline returns (loss + aux_weight·aux, aux): the aux is a
@@ -559,7 +642,8 @@ class PipelinedGPTForCausalLM(nn.Module):
     def forward(self, input_ids):
         """Whole logits [b, s, vocab] on every rank (the eval path): the
         batch through the stages as one micro-batch, the head on the last
-        stage, gathered over mp and summed over pp."""
+        stage, gathered over mp and summed over pp. At sp > 1 every sp
+        rank runs the whole sequence (the reference's serial forward)."""
         from ...distributed.fleet.meta_parallel.mp_ops import (
             all_reduce_mp_raw)
         from ...distributed.fleet.meta_parallel.pipeline_1f1b import (
@@ -567,7 +651,7 @@ class PipelinedGPTForCausalLM(nn.Module):
 
         dev = self.stk_ln1_w.device
         ids = torch.as_tensor(input_ids, device=dev)
-        block = self._block_fn(with_aux=False)
+        block = self._block_fn(with_aux=False, sp=1)
         stacked = self._stacked()
         V = self.n_virtual if self.pp > 1 else 1
 

@@ -11,9 +11,9 @@ to the flat GPTForCausalLM and back (head-major qkv against
 [3, nh, hd]); a rank's slices of a pp × mp mesh, interleaved stacks
 included, gather back to the whole. The MoE model (moe_experts > 0) at
 world 1 tracks the reference's trajectory and aux (tests/test_torch_moe
-holds its routing, gradients and meshes). What keeps raising names its
-ROADMAP row: sp > 1 (part 5); indivisible meshes raise the reference's
-messages.
+holds its routing, gradients and meshes). An sp > 1 mesh at pp 1 and
+indivisible meshes raise the reference's messages
+(tests/test_torch_sequence_parallel holds the sp meshes).
 
 Tolerances: losses 1e-5 relative (f32 on CPU, the two frameworks'
 summation orders; the reference's matmuls at "highest" precision);
@@ -210,7 +210,8 @@ def test_what_keeps_raising_and_validation():
     cfg = GPTConfig(**CFG)
     tmesh.init_mesh(sp=2, world_size=2)
     m = PipelinedGPTForCausalLM(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11.*part 5"):
+    # the reference's: sequence parallelism needs pp > 1
+    with pytest.raises(ValueError, match="needs pp > 1"):
         m.loss(torch.zeros((8, 16), dtype=torch.long))
     tmesh.reset_mesh()
     for kw in (dict(schedule="pipedream"),
@@ -304,7 +305,7 @@ def test_profile_dist_mesh_mode_at_world_one(tmp_path, monkeypatch):
     assert out["coord"]["pp"] == 0 and out["mesh"]["mp"] == 1
     assert out["launches"] == {"flash_forward": 0, "flash_bwd_dq": 0,
                                "flash_bwd_dkv": 0}
-    assert set(out["comm"][0]) == {"dp", "p2p", "mp", "tied_wte"}
+    assert set(out["comm"][0]) == {"dp", "p2p", "mp", "tied_wte", "ring"}
     saved = dict(np.load(tmp_path / "params_0.npz"))
     m = PipelinedGPTForCausalLM(GPTConfig(**CFG), device="cpu")
     step = HybridTrainStep(m, lambda mm, i: mm.loss(i),
@@ -313,5 +314,6 @@ def test_profile_dist_mesh_mode_at_world_one(tmp_path, monkeypatch):
                         train_step=step).load_latest() == 2
     for n, p in m.named_parameters():
         np.testing.assert_array_equal(p.detach().numpy(), saved[n])
+    assert profile_dist.parse_mesh("pp=2,sp=2") == {"pp": 2, "sp": 2}
     with pytest.raises(ValueError, match="--mesh axis"):
-        profile_dist.parse_mesh("pp=2,sp=2")
+        profile_dist.parse_mesh("pp=2,tp=2")

@@ -9,6 +9,10 @@ test_torch_hybrid3d.py, test_torch_gpt_pipeline.py), run under
     torch_hybrid_worker.py moe OUT     # 4 ranks: pp 2 x ep 2, ep 2 x dp 2
     torch_hybrid_worker.py quant OUT   # 2 or 4 ranks: quantized_pmean
     torch_hybrid_worker.py hybrid_quant OUT  # 4 ranks: dp 2 x pp 2, int8
+    torch_hybrid_worker.py ring OUT    # 4 ranks: sp 4, then dp 2 x sp 2
+    torch_hybrid_worker.py sp_pipe OUT # 4 ranks: pp 2 x sp 2
+    torch_hybrid_worker.py sp_3d OUT   # 8 ranks: pp 2 x mp 2 x sp 2
+    torch_hybrid_worker.py auto OUT    # 2 ranks: the auto-parallel Engine
 
 Inputs and whole weights come from OUT (written by the test from a seed
 with numpy and from the reference's models); each rank writes its
@@ -722,7 +726,341 @@ def spawn_target(out, scale):
                    "local": os.environ["PADDLE_LOCAL_RANK"]}, f)
 
 
+# ---- sequence parallelism: the ring and Ulysses attention -----------------
+
+RING_RUNS = [("sp4", dict(sp=4)), ("sp2", dict(dp=2, sp=2))]
+RING_FNS = ("ring_attention", "ring_flash_attention", "ulysses_attention")
+
+
+def ring(out):
+    """Each attention function on this rank's sequence shard of seeded
+    q / k / v, causal and full, with the gradients of a probe loss; the
+    Ulysses heads check; the sep group; the sequence-sharded
+    DistributedTrainStep's label."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed import sequence_parallel as SP
+    from paddle_tpu_torch.distributed.fleet.topology import (
+        HybridCommunicateGroup)
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec as P
+    from paddle_tpu_torch.distributed.parallel_step import (
+        DistributedTrainStep)
+    from paddle_tpu_torch.optimizer import SGD
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    a = dict(np.load(os.path.join(out, "ring_inputs.npz")))
+    res, meta = {}, {}
+    for name, mesh in RING_RUNS:
+        mesh_mod.init_mesh(**mesh)
+        sp, idx = mesh["sp"], mesh_mod.coord()["sp"]
+        s_loc = a["q"].shape[1] // sp
+        cols = slice(idx * s_loc, (idx + 1) * s_loc)
+        SP.stats.clear()
+        for fn in RING_FNS:
+            for causal in (False, True):
+                q, k, v = (torch.from_numpy(a[n][:, cols]).requires_grad_()
+                           for n in ("q", "k", "v"))
+                o = getattr(SP, fn)(q, k, v, causal=causal)
+                (o * torch.from_numpy(a["w"][:, cols])).sum().backward()
+                key = f"{name}/{fn}/{int(causal)}"
+                res[f"{key}/out"] = _np(o)
+                for n, t in (("dq", q), ("dk", k), ("dv", v)):
+                    res[f"{key}/{n}"] = _np(t.grad)
+        meta[name] = {"idx": idx, "stats": {k: dict(v) for k, v in
+                                            SP.stats.items()}}
+        try:
+            bad = torch.zeros(1, s_loc, sp + 1, 4)
+            SP.ulysses_attention(bad, bad, bad)
+        except ValueError as e:
+            meta[name]["ulysses_error"] = str(e)
+        hcg = HybridCommunicateGroup(
+            dp_degree=mesh.get("dp", 1), sp_degree=sp)
+        g = hcg.get_sep_parallel_group()
+        meta[name]["sep"] = {"axes": list(g.axes), "nranks": g.nranks,
+                             "rank": g.rank,
+                             "ring": mesh_mod.global_mesh().group_ranks(
+                                 ("sp",), rank)}
+        mesh_mod.reset_mesh()
+    # a sequence-sharded DistributedTrainStep raises with its label
+    mesh_mod.init_mesh(dp=2, sp=2)
+    net = torch.nn.Linear(4, 4)
+    try:
+        DistributedTrainStep(net, lambda m, x: m(x).sum(),
+                             SGD(0.1, parameters=net.parameters()),
+                             batch_specs=[P("dp", "sp")])
+    except NotImplementedError as e:
+        meta["seq_step_error"] = str(e)
+    mesh_mod.reset_mesh()
+    np.savez(os.path.join(out, f"ring_r{rank}.npz"), **res)
+    with open(os.path.join(out, f"ring_r{rank}.json"), "w") as f:
+        json.dump(meta, f)
+
+
+# ---- sequence parallelism inside the pipelined GPT --------------------------
+
+SP_RUNS = [
+    # (name, mesh, model kwargs, weights file)
+    ("pp2sp2", dict(pp=2, sp=2), {}, "pipe"),
+    ("gpipe", dict(pp=2, sp=2), dict(schedule="gpipe"), "pipe"),
+    ("layer", dict(pp=2, sp=2), dict(remat="layer"), "pipe"),
+    ("moe", dict(pp=2, sp=2), dict(MOE, moe_topk=1), "moe"),
+]
+
+
+def _sp_train(name, mesh, kw, w, ids, out, rank, res):
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed import sequence_parallel as SP
+    from paddle_tpu_torch.distributed.checkpoint import Checkpointer
+    from paddle_tpu_torch.jit import HybridTrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    mesh_mod.init_mesh(**mesh)
+    m = _model(w, **kw)
+    if name == "pp2sp2":
+        with torch.no_grad():
+            res["eval/no_grad_loss"] = float(m.loss(ids))
+        res["eval/grad_loss"] = float(m.loss(ids).detach())
+        res["forward/logits_sum"] = float(m(ids[:2]).double().sum())
+        m.zero_grad(set_to_none=True)
+    step = HybridTrainStep(m, lambda mm, i: mm.loss(i),
+                           AdamW(LR, parameters=m.parameters()))
+    SP.stats.clear()
+    losses, auxs = [], []
+    for _ in range(STEPS):
+        losses.append(float(step(ids)))
+        auxs.append(float(m.aux_loss))
+    c = mesh_mod.coord()
+    res[name] = {"losses": losses, "aux": auxs,
+                 "coord": [c["dp"], c["pp"], c["mp"], c["sp"]],
+                 "ring": {k: dict(v) for k, v in SP.stats.items()}}
+    if name == "pp2sp2":
+        Checkpointer(os.path.join(out, "sp_ckpt"), model=m,
+                     train_step=step).save(STEPS)
+        np.savez(os.path.join(out, f"sp_params_r{rank}.npz"),
+                 **_local_state(m))
+    mesh_mod.reset_mesh()
+
+
+def sp_pipe(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    ids = torch.from_numpy(np.load(os.path.join(out, "sp_ids.npy")))
+    res = {}
+    for name, mesh, kw, wfile in SP_RUNS:
+        w = dict(np.load(os.path.join(out, f"{wfile}_weights.npz")))
+        _sp_train(name, mesh, kw, w, ids, out, rank, res)
+    with open(os.path.join(out, f"sp_pipe_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+def sp_3d(out):
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    ids = torch.from_numpy(np.load(os.path.join(out, "sp_ids.npy")))
+    w = dict(np.load(os.path.join(out, "pipe_weights.npz")))
+    res = {}
+    _sp_train("pp2mp2sp2", dict(pp=2, mp=2, sp=2), {}, w, ids, out, rank,
+              res)
+    with open(os.path.join(out, f"sp_3d_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
+# ---- the auto-parallel Engine ----------------------------------------------
+
+# the full-auto model: under the reference's ClusterSpec at batch 64 the
+# planner splits the attention heads, fc1, fc2 and the head over mp 2
+AUTO = dict(V=64, d=2048, nh=8, ffn=2048, batch=64, seq=4, lr=1e-4)
+# the reference's ClusterSpec (a TPU v5e): the parity runs price with it
+REF_CLUSTER = (197e12, 4.5e10, 16e9)
+
+
+def auto_net(device="cpu"):
+    """Embedding → causal MultiHeadAttention (+ residual) → fc1 / relu /
+    fc2 (+ residual) → head: the port's layers under the reference's
+    names (test_torch_auto_parallel builds the reference's twin)."""
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.nn import functional as F
+
+    V, d, nh, ffn = AUTO["V"], AUTO["d"], AUTO["nh"], AUTO["ffn"]
+
+    class AutoNet(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            kw = dict(device=device)
+            self.emb = pnn.Embedding(V, d, **kw)
+            self.attn = pnn.MultiHeadAttention(d, nh, **kw)
+            self.fc1 = pnn.Linear(d, ffn, **kw)
+            self.fc2 = pnn.Linear(ffn, d, **kw)
+            self.head = pnn.Linear(d, V, **kw)
+
+        def forward(self, ids):
+            h = self.emb(ids)
+            s = ids.shape[1]
+            mask = torch.ones((s, s), dtype=torch.bool,
+                              device=ids.device).tril()
+            h = h + self.attn(h, h, h, mask)
+            h = h + self.fc2(F.relu(self.fc1(h)))
+            return self.head(h)
+
+    return AutoNet()
+
+
+def lm_loss(out, y):
+    from paddle_tpu_torch.nn import functional as F
+
+    return F.cross_entropy(out.reshape(-1, out.shape[-1]), y.reshape(-1))
+
+
+def mlp_net():
+    """The reference tests' _mlp: 16 → 32 → 8 → 4 with ReLUs."""
+    from paddle_tpu_torch import nn as pnn
+
+    return pnn.Sequential(pnn.Linear(16, 32), pnn.ReLU(), pnn.Linear(32, 8),
+                          pnn.ReLU(), pnn.Linear(8, 4))
+
+
+def emb_mlp_net():
+    """The reference tests' _EmbMLP: Embedding(32, 8), the mean over the
+    ids, four Linears."""
+    import torch
+
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.nn import functional as F
+
+    class EmbMLP(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = pnn.Embedding(32, 8)
+            self.l1 = pnn.Linear(8, 16)
+            self.l2 = pnn.Linear(16, 16)
+            self.l3 = pnn.Linear(16, 8)
+            self.l4 = pnn.Linear(8, 4)
+
+        def forward(self, ids):
+            h = self.emb(ids).mean(dim=1)
+            h = F.relu(self.l1(h))
+            h = F.relu(self.l2(h))
+            h = F.relu(self.l3(h))
+            return self.l4(h)
+
+    return EmbMLP()
+
+
+def _loaded(net, w):
+    import torch
+
+    with torch.no_grad():
+        for n, p in net.named_parameters():
+            p.copy_(torch.from_numpy(w[n]))
+    return net
+
+
+def _plan_record(plan):
+    return {"mesh": plan.mesh, "zero": plan.zero, "cost": plan.cost,
+            "bytes": plan.per_device_bytes,
+            "specs": {n: list(s) for n, s in plan.param_specs.items()}}
+
+
+def auto(out):
+    """Four Engine runs on 2 ranks: full-auto on a live mp 2 mesh and
+    with the world laid out from the plan (the reference's ClusterSpec),
+    plan_tp (tensor_parallel.enable) and a partial annotation completed
+    (auto_mode "semi"). Each records its fit losses; the first also its
+    plan, realized units, evaluate and predict."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.distributed import auto_parallel as A
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    a = dict(np.load(os.path.join(out, "auto_inputs.npz")))
+    cluster = A.ClusterSpec(*REF_CLUSTER)
+    res = {}
+    batches = [(torch.from_numpy(a[f"ids{i}"]), torch.from_numpy(a[f"y{i}"]))
+               for i in range(STEPS)]
+    for name, live in (("full_live", True), ("full_world", False)):
+        if live:
+            mesh_mod.init_mesh(mp=2)
+        m = _loaded(auto_net(), {k[5:]: v for k, v in a.items()
+                                 if k.startswith("auto/")})
+        st = A.Strategy()
+        st.auto_mode = "full"
+        eng = A.Engine(m, loss=lm_loss,
+                       optimizer=AdamW(AUTO["lr"],
+                                       parameters=m.parameters()),
+                       cluster=cluster, strategy=st)
+        hist = eng.fit(batches, batch_size=AUTO["batch"])
+        r = {"losses": hist, "plan": _plan_record(eng.plan),
+             "mesh": mesh_mod.global_mesh().shape,
+             "realized": [list(u) for u in eng.realized],
+             "shapes": {n: list(p.shape) for n, p in m.named_parameters()}}
+        if live:
+            r["eval"] = eng.evaluate([batches[0]])["loss"]
+            r["pred_sum"] = float(eng.predict([(batches[0][0],)])[0]
+                                  .double().sum())
+        res[name] = r
+        mesh_mod.reset_mesh()
+    # plan_tp (tensor_parallel.enable) on the reference's _mlp
+    mesh_mod.init_mesh(mp=2)
+    m = _loaded(mlp_net(), {k[4:]: v for k, v in a.items()
+                            if k.startswith("mlp/")})
+    st = A.Strategy()
+    st.tensor_parallel.enable = True
+    eng = A.Engine(m, loss=F.cross_entropy,
+                   optimizer=SGD(0.1, parameters=m.parameters()),
+                   strategy=st)
+    xy = [(torch.from_numpy(a["mlp_x"]), torch.from_numpy(a["mlp_y"]))] * 3
+    res["plan_tp"] = {"losses": eng.fit(xy, batch_size=32),
+                      "realized": [list(u) for u in eng.realized]}
+    mesh_mod.reset_mesh()
+    # a partial annotation completed (emb hidden-sharded, l2 column)
+    mesh_mod.init_mesh(mp=2)
+    m = _loaded(emb_mlp_net(), {k[4:]: v for k, v in a.items()
+                                if k.startswith("emb/")})
+    A.shard_tensor(m.emb.weight, shard_spec=[None, "mp"])
+    A.shard_tensor(m.l2.weight, shard_spec=[None, "mp"])
+    eng = A.Engine(m, loss=F.cross_entropy,
+                   optimizer=SGD(0.1, parameters=m.parameters()))
+    xy = [(torch.from_numpy(a["emb_ids"]), torch.from_numpy(a["emb_y"]))] * 5
+    res["completion"] = {"losses": eng.fit(xy, batch_size=16),
+                         "realized": [list(u) for u in eng.realized]}
+    # reshard: whole -> this rank's columns -> whole again
+    t = torch.arange(8 * 16, dtype=torch.float32).reshape(8, 16)
+    A.reshard(t, shard_spec=[None, "mp"])
+    res["reshard"] = {"block": _np(t).tolist(), "spec": list(t._pspec)}
+    A.reshard(t, shard_spec=[None, None])
+    res["reshard"]["whole"] = _np(t).tolist()
+    mesh_mod.reset_mesh()
+    with open(os.path.join(out, f"auto_r{rank}.json"), "w") as f:
+        json.dump(res, f)
+
+
 if __name__ == "__main__":
     sys.path.insert(0, _root())
     {"mp": mp, "hybrid": hybrid, "3d": three_d, "moe": moe,
-     "quant": quant, "hybrid_quant": hybrid_quant}[sys.argv[1]](sys.argv[2])
+     "quant": quant, "hybrid_quant": hybrid_quant, "ring": ring,
+     "sp_pipe": sp_pipe, "sp_3d": sp_3d,
+     "auto": auto}[sys.argv[1]](sys.argv[2])
