@@ -8,7 +8,11 @@ its seed. `next_key(device)` hands out jax's key for the same counter,
 `generate` right after `seed(n)` draws the reference's tokens.
 `generator_scope(gen)` installs the generator that dropout draws
 from for the length of a block (TrainStep installs one per step); outside
-a scope each dropout call takes a fresh `next_generator`.
+a scope each dropout call takes a fresh `next_generator`. Weight
+initializers draw from the scoped generator too (a model builds its
+layers under one seeded from its `seed`); outside a scope they take
+`next_init_generator`, a stream of its own, so building a layer leaves
+the indices of dropout's and sampling's draws as they were.
 
 A generator's numbers differ from jax's for the same seed: tests never
 compare them, they feed both packages the same numpy noise.
@@ -21,8 +25,8 @@ import torch
 
 from . import prng
 
-__all__ = ["seed", "next_generator", "next_key", "skip", "generator_scope",
-           "current_generator"]
+__all__ = ["seed", "next_generator", "next_init_generator", "next_key",
+           "skip", "generator_scope", "current_generator"]
 
 
 class _State(threading.local):
@@ -33,14 +37,24 @@ class _State(threading.local):
 _lock = threading.Lock()
 _seed = int(np.random.randint(0, 2**31 - 1))
 _count = 0
+_init_count = 0
 _state = _State()
 
 
 def seed(n):
-    """paddle.seed: restart the stream of `next_generator` from `n`."""
-    global _seed, _count
+    """paddle.seed: restart the streams of `next_generator` and
+    `next_init_generator` from `n`."""
+    global _seed, _count, _init_count
     with _lock:
-        _seed, _count = int(n), 0
+        _seed, _count, _init_count = int(n), 0, 0
+
+
+def _seeded(device, words):
+    gen = torch.Generator(device=device)
+    # numpy's SeedSequence mixes the words into one 64-bit seed
+    gen.manual_seed(int(np.random.SeedSequence(words).generate_state(
+        1, np.uint64)[0]))
+    return gen
 
 
 def next_generator(device="cpu"):
@@ -50,11 +64,19 @@ def next_generator(device="cpu"):
         c = _count
         _count += 1
         s = _seed
-    gen = torch.Generator(device=device)
-    # numpy's SeedSequence mixes (seed, index) into one 64-bit seed
-    gen.manual_seed(int(np.random.SeedSequence([s, c]).generate_state(
-        1, np.uint64)[0]))
-    return gen
+    return _seeded(device, [s, c])
+
+
+def next_init_generator(device="cpu"):
+    """A fresh generator for a weight initializer outside a generator
+    scope, deterministic in (seed, initializer call index) and apart
+    from `next_generator`'s stream."""
+    global _init_count
+    with _lock:
+        c = _init_count
+        _init_count += 1
+        s = _seed
+    return _seeded(device, [s, c, 1])
 
 
 def next_key(device="cpu"):

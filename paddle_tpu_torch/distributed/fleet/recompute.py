@@ -25,8 +25,10 @@ The recompute runs in backward, outside the forward's context, so the
 forward's context is replayed around it: dropout draws the same mask
 (the generator installed by `core.rng.generator_scope` is replayed from
 its state at the start of the block), and the AMP cast policy in force
-at the forward is put back (`amp.policy_scope`). The SAC contexts are
-entered beside that replay, not in its place.
+at the forward is put back (`amp.policy_scope`). It runs inside
+`core.recompute.recompute_scope()`, so state the forward updates in
+place (batch norm's running statistics) changes once a step. The SAC
+contexts are entered beside that replay, not in its place.
 """
 import contextlib
 
@@ -35,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from ... import amp
+from ...core import recompute as _recompute_state
 from ...core import rng
 
 __all__ = ["recompute", "recompute_sequential", "checkpoint_policy",
@@ -106,10 +109,12 @@ def _remat_contexts(policy):
     def contexts():
         fwd_rng, re_rng = _rng_replay_contexts()
         re_amp = amp.policy_scope(amp.current_policy())
+        re_state = _recompute_state.recompute_scope()
         if policy is None:
-            return fwd_rng, _entered(re_rng, re_amp)
+            return fwd_rng, _entered(re_rng, re_amp, re_state)
         fwd_sac, re_sac = create_selective_checkpoint_contexts(policy)
-        return _entered(fwd_rng, fwd_sac), _entered(re_rng, re_amp, re_sac)
+        return (_entered(fwd_rng, fwd_sac),
+                _entered(re_rng, re_amp, re_state, re_sac))
     return contexts
 
 

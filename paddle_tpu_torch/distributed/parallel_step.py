@@ -132,9 +132,12 @@ class DistributedTrainStep:
     """loss_fn(model, *batch) -> scalar loss. Each call takes one
     optimizer step on the global `batch` and returns the global loss
     (detached). batch_specs: one PartitionSpec per batch tensor (default:
-    dim 0 over ("dp", "sharding")). zero_level: None, "os", "os_g" or
-    "p_g_os" (None takes the optimizer's `_zero_level`, which
-    `sharding.group_sharded_parallel` sets). remat as `jit.TrainStep`'s.
+    dim 0 over ("dp", "sharding")); the rows split over the first
+    dimension's axes, and a later dimension's axes (P("dp", "sp")) hold
+    the rows whole, as the reference's GSPMD step computes them.
+    zero_level: None, "os", "os_g" or "p_g_os" (None takes the
+    optimizer's `_zero_level`, which `sharding.group_sharded_parallel`
+    sets). remat as `jit.TrainStep`'s.
     quant_allreduce: the int8 gradient exchange (None follows
     PT_QUANT_ALLREDUCE_XLA; module docstring)."""
 
@@ -168,7 +171,6 @@ class DistributedTrainStep:
                        if p.requires_grad]
         self._params = [p for _, p in self._named]
         self._data_axes = self._batch_axes()
-        self._check_batch_specs()
         self._quant_axes = ()
         if self.quant_allreduce:
             self._quant_axes = tuple(a for a in self._quant_axis_names()
@@ -239,36 +241,17 @@ class DistributedTrainStep:
 
     # ---- layout ----
     def _batch_axes(self):
+        """The axes the batch's rows split over: the gradients and the
+        loss are averaged over them."""
         if self.batch_specs is None:
             return ("dp", "sharding")
         axes = []
         for spec in self.batch_specs:
-            for e in spec or ():
+            for e in tuple(spec or ())[:1]:
                 for a in ((e,) if isinstance(e, str) else (e or ())):
                     if a not in axes:
                         axes.append(a)
         return tuple(axes)
-
-    def _check_batch_specs(self):
-        """Only a batch split along its first (row) dimension is the
-        reference's math here: each rank's loss over its rows, averaged.
-        A spec that splits another dimension (sequence sharding, e.g.
-        P("dp", "sp")) leaves the GSPMD reference computing the serial
-        model on the whole sequence, while each rank here would run its
-        columns alone — positions restarting at 0, attention stopping at
-        the shard's edge, the label shift losing a position a shard —
-        and return another loss. So it raises."""
-        for spec in self.batch_specs or ():
-            for entry in tuple(spec or ())[1:]:
-                axes = (entry,) if isinstance(entry, str) else tuple(
-                    entry or ())
-                if any(mesh_mod.axis_size(a) > 1 for a in axes):
-                    raise NotImplementedError(
-                        f"batch spec {spec}: a batch split along a "
-                        "dimension other than the first (a sequence-"
-                        "sharded step) is not ported: ROADMAP A11 "
-                        "(sequence parallelism, part 5b); train "
-                        "PipelinedGPTForCausalLM on an sp mesh instead")
 
     def _block_of(self, p, full):
         """This rank's block of `full` (a tensor of p's whole shape)."""
@@ -279,9 +262,18 @@ class DistributedTrainStep:
     def _slice_batch(self, batch):
         from .collective import _block
 
-        specs = self.batch_specs or [
-            P(("dp", "sharding")) if getattr(b, "ndim", 0) else P()
-            for b in batch]
+        if self.batch_specs is None:
+            specs = [P(("dp", "sharding")) if getattr(b, "ndim", 0) else P()
+                     for b in batch]
+        else:
+            # the rows alone. A spec that also splits a later dimension
+            # (P("dp", "sp")) is run by the reference through GSPMD,
+            # which computes the serial model over the whole sequence:
+            # here every rank of that axis keeps its rows' whole sequence
+            # and computes the serial model and loss over it, so its
+            # gradients equal its replicas' and the average runs over the
+            # row axes alone (`_batch_axes`)
+            specs = [P(*tuple(s or ())[:1]) for s in self.batch_specs]
         return [_block(b, s) for b, s in zip(batch, specs)]
 
     # ---- the step ----

@@ -24,6 +24,11 @@ plane only observes the step: losses are bit-identical in every mode.
 The reference's `profiler.benchmark()` ips meter belongs to the
 profiler, which is not ported yet (ROADMAP A12).
 
+Batch norm's running statistics are updated in place by the forward,
+once a step: under `remat` the recompute in backward skips the update
+(`core.recompute`), as the reference's step writes its frozen state back
+once whatever `jax.checkpoint` recomputes.
+
 `HybridTrainStep` (hybrid_step.py) is the DP × TP × PP step over the
 process mesh.
 """
@@ -34,7 +39,6 @@ import numpy as np
 import torch
 
 from ..core import rng
-from ..distributed.fleet.recompute import checkpoint_policy, run_with_policy
 from ..observability import metrics as _obs
 from ..observability import steptrace as _steptrace
 from ..observability.tracing import trace_span as _trace_span
@@ -72,6 +76,9 @@ class TrainStep:
 
     def __init__(self, model, loss_fn, optimizer, donate_params=True,
                  remat=False):
+        # distributed/ imports this module: load the recompute on use
+        from ..distributed.fleet.recompute import checkpoint_policy
+
         self._policy = checkpoint_policy(remat)
         self.model = model
         self.loss_fn = loss_fn
@@ -91,6 +98,8 @@ class TrainStep:
         return len(self._batch_signatures)
 
     def _loss(self, batch):
+        from ..distributed.fleet.recompute import run_with_policy
+
         if not self.remat:
             return self.loss_fn(self.model, *batch)
         return run_with_policy(lambda *b: self.loss_fn(self.model, *b),

@@ -2,32 +2,38 @@
 
 Parameter layouts follow paddle, not torch: `Linear.weight` is
 [in_features, out_features], so parameter names and shapes match the
-JAX package's `state_dict` key for key. Parameters are created
-uninitialized on the given device; the owning model initializes them
-from an explicit `torch.Generator`.
+JAX package's `state_dict` key for key. Parameters are made by
+`layers.create_parameter` under the reference's defaults (`Linear`:
+XavierUniform weight, zero bias; `Embedding`: Normal(0, 1)) or the
+`weight_attr` / `bias_attr` given; a model that has its own init (the
+GPT's N(0, 0.02) from its `seed`) overwrites them.
 """
 import torch
 from torch import nn
 
 from ...core import rng
 from .. import functional as F
+from .. import initializer as I
+from .layers import create_parameter
 
 __all__ = ["Linear", "Embedding", "Dropout"]
 
 
-def _param(shape, device, dtype):
-    return nn.Parameter(torch.empty(shape, device=device, dtype=dtype))
-
-
 class Linear(nn.Module):
-    def __init__(self, in_features, out_features, has_bias=True,
-                 device=None, dtype=None):
+    """`has_bias=False` is `bias_attr=False`."""
+
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None, has_bias=True, device=None,
+                 dtype=None):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.weight = _param((in_features, out_features), device, dtype)
-        self.bias = (_param((out_features,), device, dtype) if has_bias
-                     else None)
+        kw = dict(dtype=dtype, device=device)
+        self.weight = create_parameter((in_features, out_features),
+                                       weight_attr, **kw)
+        self.bias = create_parameter((out_features,),
+                                     bias_attr if has_bias else False,
+                                     is_bias=True, **kw)
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
@@ -38,10 +44,12 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, device=None,
-                 dtype=None):
+    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
+                 name=None, device=None, dtype=None):
         super().__init__()
-        self.weight = _param((num_embeddings, embedding_dim), device, dtype)
+        self.weight = create_parameter(
+            (num_embeddings, embedding_dim), weight_attr, dtype=dtype,
+            device=device, default_initializer=I.Normal(0.0, 1.0))
 
     def forward(self, x):
         return F.embedding(x, self.weight)

@@ -1,16 +1,19 @@
-"""Containers (counterpart of paddle_tpu/nn/layer/container.py)."""
+"""Containers (counterpart of paddle_tpu/nn/layer/container.py).
+
+Sublayers are named "0", "1", ... (or by the names given), which are the
+parameter-name prefixes, so a reference model's `state_dict` loads key
+for key (`convert.load_jax_state_dict`).
+"""
 import collections
 
 from torch import nn
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
 class Sequential(nn.Sequential):
     """paddle's Sequential: layers as positional arguments (named "0",
-    "1", ...), one OrderedDict, or (name, layer) pairs. The sublayer
-    names are the parameter-name prefixes, so a reference model's
-    `state_dict` loads key for key (`convert.load_jax_state_dict`)."""
+    "1", ...), one OrderedDict, or (name, layer) pairs."""
 
     def __init__(self, *layers):
         if len(layers) == 1 and isinstance(layers[0],
@@ -25,3 +28,16 @@ class Sequential(nn.Sequential):
         if isinstance(idx, str):
             return self._modules[idx]
         return super().__getitem__(idx)
+
+
+class LayerList(nn.ModuleList):
+    """paddle's LayerList (`append`, `insert`, `extend`, indexing and
+    slices, as torch's ModuleList)."""
+
+
+class ParameterList(nn.ParameterList):
+    """paddle's ParameterList over `nn.Parameter`s."""
+
+
+class LayerDict(nn.ModuleDict):
+    """paddle's LayerDict: sublayers by name, in insertion order."""

@@ -318,6 +318,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    # the vision path's modules are among the scanned
+    scanned = {f.relative_to(ROOT).as_posix() for f in files}
+    for name in ("vision/models/resnet.py", "vision/models/lenet.py",
+                 "nn/functional/conv.py", "nn/functional/pooling.py",
+                 "nn/functional/norm.py", "nn/functional/activation.py",
+                 "nn/layer/conv.py", "nn/layer/pooling.py",
+                 "nn/layer/norm.py", "nn/layer/layers.py",
+                 "nn/initializer/__init__.py", "core/recompute.py"):
+        assert f"paddle_tpu_torch/{name}" in scanned, name
     bad = []
     for f in files:
         for mod in _imports(f):

@@ -10,6 +10,7 @@ test_torch_hybrid3d.py, test_torch_gpt_pipeline.py), run under
     torch_hybrid_worker.py quant OUT   # 2 or 4 ranks: quantized_pmean
     torch_hybrid_worker.py hybrid_quant OUT  # 4 ranks: dp 2 x pp 2, int8
     torch_hybrid_worker.py ring OUT    # 4 ranks: sp 4, then dp 2 x sp 2
+    torch_hybrid_worker.py seq_step OUT  # 2 ranks sp 2, or 4: dp 2 x sp 2
     torch_hybrid_worker.py sp_pipe OUT # 4 ranks: pp 2 x sp 2
     torch_hybrid_worker.py sp_3d OUT   # 8 ranks: pp 2 x mp 2 x sp 2
     torch_hybrid_worker.py auto OUT    # 2 ranks: the auto-parallel Engine
@@ -735,8 +736,7 @@ RING_FNS = ("ring_attention", "ring_flash_attention", "ulysses_attention")
 def ring(out):
     """Each attention function on this rank's sequence shard of seeded
     q / k / v, causal and full, with the gradients of a probe loss; the
-    Ulysses heads check; the sep group; the sequence-sharded
-    DistributedTrainStep's label."""
+    Ulysses heads check; the sep group."""
     import torch
 
     from paddle_tpu_torch import distributed as D
@@ -744,10 +744,6 @@ def ring(out):
     from paddle_tpu_torch.distributed import sequence_parallel as SP
     from paddle_tpu_torch.distributed.fleet.topology import (
         HybridCommunicateGroup)
-    from paddle_tpu_torch.distributed.mesh import PartitionSpec as P
-    from paddle_tpu_torch.distributed.parallel_step import (
-        DistributedTrainStep)
-    from paddle_tpu_torch.optimizer import SGD
 
     D.init_parallel_env(device="cpu")
     torch.set_num_threads(1)
@@ -785,19 +781,54 @@ def ring(out):
                              "ring": mesh_mod.global_mesh().group_ranks(
                                  ("sp",), rank)}
         mesh_mod.reset_mesh()
-    # a sequence-sharded DistributedTrainStep raises with its label
-    mesh_mod.init_mesh(dp=2, sp=2)
-    net = torch.nn.Linear(4, 4)
-    try:
-        DistributedTrainStep(net, lambda m, x: m(x).sum(),
-                             SGD(0.1, parameters=net.parameters()),
-                             batch_specs=[P("dp", "sp")])
-    except NotImplementedError as e:
-        meta["seq_step_error"] = str(e)
-    mesh_mod.reset_mesh()
     np.savez(os.path.join(out, f"ring_r{rank}.npz"), **res)
     with open(os.path.join(out, f"ring_r{rank}.json"), "w") as f:
         json.dump(meta, f)
+
+
+# ---- the sequence-sharded DistributedTrainStep ------------------------------
+
+# the flat gpt_tiny case of the sequence-sharded step, and its mesh by
+# world size
+SEQ_CFG = dict(vocab_size=256, hidden_size=64, num_layers=2, num_heads=4,
+               max_seq_len=32)
+SEQ_MESHES = {2: dict(sp=2), 4: dict(dp=2, sp=2)}
+
+
+def seq_step(out):
+    """`DistributedTrainStep(batch_specs=[P("dp", "sp")])` over the flat
+    GPT from the reference's weights: three AdamW steps on the global
+    batch; each rank writes its losses, its coordinate and its
+    parameters."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.convert import load_jax_state_dict
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.distributed.mesh import PartitionSpec as P
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.gpt import (GPTConfig, GPTForCausalLM,
+                                                  GPTPretrainingCriterion)
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank, world = D.get_rank(), D.get_world_size()
+    mesh_mod.init_mesh(**SEQ_MESHES[world])
+    m = GPTForCausalLM(GPTConfig(**SEQ_CFG), device="cpu")
+    load_jax_state_dict(m, dict(np.load(os.path.join(out,
+                                                      "seq_weights.npz"))))
+    ids = torch.from_numpy(np.load(os.path.join(out, "seq_ids.npy")))
+    crit = GPTPretrainingCriterion()
+    step = D.DistributedTrainStep(
+        m, lambda mm, i: crit(mm(i), i),
+        AdamW(LR, parameters=m.parameters()), batch_specs=[P("dp", "sp")])
+    losses = [float(step(ids)) for _ in range(STEPS)]
+    c = mesh_mod.coord()
+    np.savez(os.path.join(out, f"seq{world}_r{rank}.npz"),
+             **{n: _np(p) for n, p in m.named_parameters()})
+    with open(os.path.join(out, f"seq{world}_r{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "dp": c["dp"], "sp": c["sp"]}, f)
+    mesh_mod.reset_mesh()
 
 
 # ---- sequence parallelism inside the pipelined GPT --------------------------
@@ -1062,5 +1093,5 @@ if __name__ == "__main__":
     sys.path.insert(0, _root())
     {"mp": mp, "hybrid": hybrid, "3d": three_d, "moe": moe,
      "quant": quant, "hybrid_quant": hybrid_quant, "ring": ring,
-     "sp_pipe": sp_pipe, "sp_3d": sp_3d,
+     "sp_pipe": sp_pipe, "sp_3d": sp_3d, "seq_step": seq_step,
      "auto": auto}[sys.argv[1]](sys.argv[2])
