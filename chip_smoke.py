@@ -52,7 +52,10 @@ continues:
               bf16 cases (ragged seq, non-causal, kv_lens with a 0 row,
               seq_k != seq_q, head_dim 8, 32, 96, 128, 256); each case
               must take the route that `tensor_core_route` names (bf16 at
-              head_dim 64 / 128: the tensor-core K3-K5).
+              head_dim 64 / 128: the tensor-core K3-K5); and at bench_bert's
+              bidirectional b·h 384, s 512, d 64, bf16, with no mask and
+              with phase 12 (c)'s lengths as kv_lens (a row's length
+              repeated over its 12 heads).
               Kernel / plain / library times (CUDA events, median of 30
               launches, L2 flushed before each, a spin kernel queued
               ahead so the window holds no host gaps) beside the least
@@ -526,6 +529,37 @@ continues:
               on the card and on the CPU from the same weights, losses
               and parameters within 1e-5; then 20 timed steps, ms/step
               and steps/s.
+12. bert     — BERT / ERNIE pretraining (text.models.bert) on the tensor
+              API, K3-K5 bidirectional (no new kernel). (a) BERT-base
+              widths at 2 layers, f32 with TF32 off, b2·s128: one
+              TrainStep (AdamW) on the card and on the CPU from the same
+              weights, the loss within 1e-5 relative, each gradient's
+              max-abs difference within 1e-5 of its max-abs; two planted
+              card steps, attention forced causal and TF32 allowed in
+              the matmuls, must each fail a gate by 2x. (b) bench_bert (bench.py:199): bert_base,
+              b32·s512, bf16 O1, AdamW(1e-4), TrainStep, ids / labels /
+              NSP labels from default_rng(0) as bench.py:227-233, both
+              heads (forward() + BertPretrainingCriterion, and
+              fused_mlm_loss) from the same weights: 3 warm-up and 10
+              timed steps each; ms/step, samples/s, peak memory, MFU
+              (bench.py:247-252's FLOP count over 989 TFLOP/s); step 0's
+              O1 loss within 1e-2 relative of the f32 loss at those
+              weights; K3-K5 12 x 13 each a head, all on the tensor
+              cores, none causal. (c) a padded b32·s512 batch as 1-D
+              lengths (one row full, one short, the rest drawn): one O1
+              step, K3-K5 12 each with kv_lens on the tensor cores,
+              against the same batch's step through the 2-D keep-mask
+              (the dense path): the sequence output on the valid
+              positions (the worst row's mean difference) within 2e-2 of
+              its mean, each gradient within 6e-2 of its max-abs; the
+              step with no mask (planted: the padding attended) must
+              fail a gate by 2x. (d) the tensor API on CUDA
+              tensors against the port's CPU result, 30 cases (the
+              traps: descending sorts and top-k with ties, repeated-index
+              scatter / put_along_axis / index_put, unique's first
+              occurrence, nonzero, mode; and a spread of the rest):
+              integer, bool and index outputs equal, float ones within
+              1e-5 of max(1, max-abs).
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
@@ -548,7 +582,9 @@ phase 8e's launches at world 1 and in each rank of dp 2 as
 pp 2 x mp 2 as "pipe_launches", phase 8g's at world 1 (the MoE GPT)
 and in each rank of ep 2 as "moe_launches", and phase 8h's in each rank
 of the sp 2 ring check and of pp 2 x sp 2 as "sp_launches", with their
-causal share as "sp_causal_launches");
+causal share as "sp_causal_launches", and phase 12's in each
+bench_bert head and in the padded batch as "bert_launches", with their
+times at bench_bert's bidirectional shape as "shape_bert");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
@@ -1625,6 +1661,23 @@ FA_MAIN = dict(bh=TRAIN_BATCH * 12, s=TRAIN_SEQ, d=64,
 # phase 8b's call: gpt_1p3b at b1·s2048 → b·h 32, head_dim 2048 / 32
 FA_1P3B = dict(bh=32, s=2048, d=64, dtype=torch.bfloat16, causal=True,
                lens=None, b=1)
+# phase 12's call: bench_bert (bert_base at b32·s512) → b·h 384, head_dim
+# 768 / 12, bidirectional
+FA_BERT = dict(bh=32 * 12, s=512, d=64, dtype=torch.bfloat16, causal=False,
+               lens=None, b=32)
+
+
+def bert_pad_lens(b=32, s=512):
+    """12 (c)'s padded batch as lengths: row 0 at full length, row 1
+    short (s // 14), the rest drawn from default_rng(2) in [1, s]."""
+    lens = np.random.default_rng(2).integers(1, s + 1, b)
+    lens[0], lens[1] = s, max(1, s // 14)
+    return lens
+
+
+# phase 12 (c)'s call: the same shape with those lengths as kv_lens, one
+# a row repeated over its 12 heads (the [b, s, h, d] → [b·h, s, d] cut)
+FA_BERT_PAD = dict(FA_BERT, lens=np.repeat(bert_pad_lens(), 12).tolist())
 # smaller cases: f32, ragged seq (not a multiple of the 64-row tile),
 # non-causal, kv_lens with a 0 row, seq_k != seq_q (`sk`), and the 32-
 # and 16-row tile configs (head_dim 96, 256); bf16 ones on the edges of
@@ -1633,6 +1686,8 @@ FA_1P3B = dict(bh=32, s=2048, d=64, dtype=torch.bfloat16, causal=True,
 FA_CASES = [
     FA_MAIN,
     FA_1P3B,
+    FA_BERT,
+    FA_BERT_PAD,
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=True, lens=None),
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=False,
          lens=[200, 0, 57, 64, 1, 130]),
@@ -1728,16 +1783,17 @@ def _fa_run(fa, x, lens, causal, plain):
 
 def _fa_library_ms(x, flush, case):
     """torch's own fused attention on the same inputs ([b, h, s, d]): its
-    causal forward, and its backward (dq, dk, dv in one call) as the
-    autograd node that forward recorded, called directly — whichever
-    backend SDPA picked, and without the autograd engine's host time in
-    the timed window."""
+    forward (causal as the case is), and its backward (dq, dk, dv in one
+    call) as the autograd node that forward recorded, called directly —
+    whichever backend SDPA picked, and without the autograd engine's host
+    time in the timed window."""
     sdpa = torch.nn.functional.scaled_dot_product_attention
     b, h = case["b"], case["bh"] // case["b"]
+    causal = case["causal"]
     q, k, v, dout = (t.reshape(b, h, *t.shape[1:]) for t in x)
-    fwd_ms = _median_ms(lambda: sdpa(q, k, v, is_causal=True), flush)
+    fwd_ms = _median_ms(lambda: sdpa(q, k, v, is_causal=causal), flush)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    node = sdpa(qg, kg, vg, is_causal=True).grad_fn
+    node = sdpa(qg, kg, vg, is_causal=causal).grad_fn
     bwd_ms = _median_ms(lambda: node(dout), flush)
     return fwd_ms, bwd_ms
 
@@ -1798,7 +1854,8 @@ def _fa_times(fa, case, x, lens, flush, res):
         r["bound_ms"], r["bound_by"] = _fa_bound(name, case)
         r["library_ms"] = fwd_lib if name == "flash_forward" else bwd_lib
         print(f"{name} bf16 b·h {case['bh']} s {case['s']} d "
-              f"{case['d']} causal: kernel {r['ms']:.4f} ms, plain "
+              f"{case['d']} {'causal' if causal else 'full'}: kernel "
+              f"{r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms"
               f"{'' if name == 'flash_forward' else ' (dq+dk+dv)'}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
@@ -1811,9 +1868,10 @@ def check_flash_attention(fa, flush):
     of FA_CASES: out, dq, dk, dv row by row (FA_TOL of each row's
     max-abs) and on average (FA_MEAN_TOL), lse absolute (FA_LSE_TOL);
     rows with kv_len 0 must be exact zeros. Times the main paths' cases
-    (bench_gpt's FA_MAIN, bench_gpt1p3b's FA_1P3B: kernel, plain,
-    library) beside the bound and returns their numbers by kernel, the
-    FA_1P3B ones under "shape_1p3b"."""
+    (bench_gpt's FA_MAIN, bench_gpt1p3b's FA_1P3B, bench_bert's FA_BERT:
+    kernel, plain, library) beside the bound and returns their numbers by
+    kernel, the FA_1P3B ones under "shape_1p3b", the FA_BERT ones under
+    "shape_bert"."""
     res, timed = {}, {}
     for case in FA_CASES:
         x, lens = _fa_inputs(case)
@@ -1851,7 +1909,7 @@ def check_flash_attention(fa, flush):
             + f" (tol {FA_TOL[case['dtype']]:.0e} / "
               f"{FA_MEAN_TOL[case['dtype']]:.0e}; lse "
               f"{FA_LSE_TOL[case['dtype']]:.0e} abs)")
-        if case is FA_MAIN or case is FA_1P3B:
+        if case is FA_MAIN or case is FA_1P3B or case is FA_BERT:
             timed[id(case)] = {
                 "flash_forward": dict(max_abs_err=max(errs["out"],
                                                       errs["lse"])),
@@ -1862,9 +1920,10 @@ def check_flash_attention(fa, flush):
         del got, ref
     res = timed[id(FA_MAIN)]
     for name, r in res.items():
-        r["shape_1p3b"] = dict(timed[id(FA_1P3B)][name],
-                               shape=[FA_1P3B["bh"], FA_1P3B["s"],
-                                      FA_1P3B["d"]])
+        for key, case in (("shape_1p3b", FA_1P3B), ("shape_bert", FA_BERT)):
+            r[key] = dict(timed[id(case)][name],
+                          shape=[case["bh"], case["s"], case["d"]],
+                          causal=case["causal"])
     return res
 
 
@@ -7257,6 +7316,501 @@ def vision_phase(card):
     return resnet, lenet
 
 
+# ---- BERT / ERNIE pretraining and the tensor API (12) ----
+
+# (a): BERT-base widths, depth cut, f32 with TF32 off, b2·s128, card vs CPU;
+# the loss relative, each gradient's max-abs difference over its max-abs.
+# The limits sit between the sound readings (H100 80GB HBM3: loss 8.5e-8,
+# worst gradient 1.52e-6) and the planted faults (causal attention: loss
+# 1.0e-3, gradients 1.37; TF32 matmuls on the card: 4.0e-6, 9.9e-4)
+BERT_CROSS_LAYERS, BERT_CROSS_BATCH, BERT_CROSS_SEQ = 2, 2, 128
+BERT_CROSS_LOSS_TOL = 1e-5
+BERT_CROSS_GRAD_TOL = 1e-5
+# (b) bench_bert (bench.py:199): bert_base, b32·s512, bf16 O1, AdamW(1e-4)
+BERT_BATCH, BERT_SEQ = 32, 512
+BERT_WARM, BERT_STEPS = 3, 10
+BERT_O1_TOL = 1e-2       # step 0's O1 loss vs the f32 loss, relative
+# (c): the lengths (kv_lens) route vs the keep-mask (dense) route, both
+# bf16 O1 from the same weights: the sequence output on each row's valid
+# positions (the worst row's mean |difference| over its mean |value|) and
+# each gradient's max-abs difference over its max-abs (the worst). Set
+# from the readings (H100 80GB HBM3): sound 5.36e-3 / 2.32e-2; planted no
+# mask (the padding attended) 0.164 / 0.279
+BERT_PAD_SEQ_TOL = 2e-2
+BERT_PAD_GRAD_TOL = 6e-2
+# (d): float outputs card vs CPU, of max(1, the CPU's max-abs)
+TAPI_TOL = 1e-5
+
+
+def _bert_batch(cfg, b, s, seed):
+    """bench.py:227-233's ids (int32), MLM labels (15 % of positions,
+    -100 elsewhere) and NSP labels, from default_rng(seed), on the card."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, cfg.vocab_size, (b, s))
+    labels = np.full((b, s), -100, np.int64)
+    mask = rng.random((b, s)) < 0.15
+    labels[mask] = ids[mask]
+    nsp = rng.integers(0, 2, (b,))
+    dev = torch.device("cuda")
+    return (torch.as_tensor(ids.astype(np.int32), device=dev),
+            torch.as_tensor(labels, device=dev), torch.as_tensor(nsp,
+                                                                 device=dev))
+
+
+class _CausalF:
+    """The functional namespace with scaled_dot_product_attention forced
+    causal: 12 (a)'s planted fault."""
+
+    def __init__(self, F):
+        self._F = F
+
+    def __getattr__(self, name):
+        return getattr(self._F, name)
+
+    def scaled_dot_product_attention(self, *a, **kw):
+        return self._F.scaled_dot_product_attention(*a, **dict(
+            kw, is_causal=True))
+
+
+def _bert_grads(model, batch):
+    """(loss, {name: f32 gradient on the host}) of one TrainStep."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.text.models.bert import BertPretrainingCriterion
+
+    crit = BertPretrainingCriterion()
+
+    def loss_fn(m, ids, labels, nsp):
+        ml, nl = m(ids)
+        return crit(ml, labels, nl, nsp)
+
+    step = TrainStep(model, loss_fn, AdamW(1e-4, parameters=model.parameters()))
+    dev = next(model.parameters()).device
+    loss = float(step(*(t.to(dev) for t in batch)))
+    return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+def bert_cross(fa):
+    """12 (a): one f32 TrainStep of BERT-base widths (depth cut) on the
+    card (K3-K5 bidirectional, CUDA-core route for f32) and on the CPU
+    (their plain versions) from the same weights; then two planted card
+    steps, attention forced causal and TF32 allowed in the matmuls, each
+    of which must fail a gate by 2x."""
+    from paddle_tpu_torch.text.models import bert
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = bert.BertConfig(**dict(vars(bert.bert_base()),
+                                 num_layers=BERT_CROSS_LAYERS))
+    gpu = bert.BertForPretraining(cfg, seed=12)
+    w0 = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    cpu = bert.BertForPretraining(cfg, device="cpu", seed=None)
+    cpu.load_state_dict({k: v.cpu() for k, v in w0.items()})
+    batch = _bert_batch(cfg, BERT_CROSS_BATCH, BERT_CROSS_SEQ, 12)
+    fa.reset_launches()
+    lg, gg = _bert_grads(gpu, batch)
+    launches, causal = dict(fa.launches), dict(fa.causal_launches)
+    lc, gc = _bert_grads(cpu, batch)
+    planted = bert.BertForPretraining(cfg, seed=None)
+    planted.load_state_dict(w0)
+    F = bert.F
+    bert.F = _CausalF(F)
+    try:
+        lp, gp = _bert_grads(planted, batch)
+    finally:
+        bert.F = F
+    planted.load_state_dict(w0)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        lt, gt = _bert_grads(planted, batch)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    loss_rel = abs(lg - lc) / abs(lc)
+    worst, where, median = _grad_diff(gc, gg)
+
+    def ratio(loss, grads):
+        w, at, _ = _grad_diff(gc, grads)
+        rel = abs(loss - lc) / abs(lc)
+        return (rel, w, at,
+                max(rel / BERT_CROSS_LOSS_TOL, w / BERT_CROSS_GRAD_TOL))
+
+    p_loss, p_worst, p_where, p_ratio = ratio(lp, gp)
+    t_loss, t_worst, t_where, t_ratio = ratio(lt, gt)
+    print(f"12 (a) BERT-base widths x {BERT_CROSS_LAYERS} layers f32 (TF32 "
+          f"off) b{BERT_CROSS_BATCH}·s{BERT_CROSS_SEQ}, one TrainStep, card "
+          f"vs CPU: loss {lg:.6f} vs {lc:.6f} (relative {loss_rel:.3e}; tol "
+          f"{BERT_CROSS_LOSS_TOL:.0e}), gradients: worst {worst:.3e} of its "
+          f"max-abs ({where}; tol {BERT_CROSS_GRAD_TOL:.0e}), median "
+          f"{median:.3e} over {len(gc)} parameters; card launches "
+          f"{launches} (non-causal); planted causal=True on the card: loss "
+          f"{p_loss:.3e}, gradients worst {p_worst:.3e} ({p_where}) -> "
+          f"{p_ratio:.1f}x its gate; planted TF32 matmuls on the card: loss "
+          f"{t_loss:.3e}, gradients worst {t_worst:.3e} ({t_where}) -> "
+          f"{t_ratio:.1f}x its gate")
+    if launches != dict.fromkeys(fa.REPLACES, BERT_CROSS_LAYERS) or any(
+            causal.values()):
+        raise AssertionError(f"12 (a): card launches {launches}, causal "
+                             f"{causal}")
+    if not (loss_rel <= BERT_CROSS_LOSS_TOL and worst <= BERT_CROSS_GRAD_TOL):
+        raise AssertionError("12 (a): the card's BERT step disagrees with "
+                             "the CPU's")
+    for fault, r in (("causal", p_ratio), ("TF32", t_ratio)):
+        if r < 2.0:
+            raise AssertionError(f"12 (a): the planted {fault} fault moved "
+                                 f"its measure only {r:.2f}x its gate")
+    del gpu, cpu, planted
+    return {"loss_rel": loss_rel, "worst": worst, "planted": p_ratio,
+            "planted_tf32": t_ratio}
+
+
+def _bert_flops(cfg, batch, seq):
+    """bench.py:247-252's count: 6 x the matmul parameters a token, plus
+    the attention's products, forward and backward."""
+    d, L, v = cfg.hidden_size, cfg.num_layers, cfg.vocab_size
+    per_layer = 4 * d * d + 2 * d * cfg.intermediate_size
+    p_matmul = L * per_layer + v * d + 2 * d * d
+    return 6 * p_matmul * batch * seq + L * batch * (4 * seq * seq * d) * 3
+
+
+def _flash_counts(fa, want, label):
+    """K3-K5's counts since the last reset: `want` each, all on the
+    tensor cores, none causal."""
+    got = (dict(fa.launches), dict(fa.tc_launches), dict(fa.causal_launches))
+    if (got[0] != dict.fromkeys(fa.REPLACES, want) or got[1] != got[0]
+            or any(got[2].values())):
+        raise AssertionError(f"12 {label}: launches {got[0]}, tensor-core "
+                             f"{got[1]}, causal {got[2]}; expected {want} "
+                             "each, all tensor-core, none causal")
+    return got[0]
+
+
+def bench_bert(fa, card):
+    """12 (b): bench_bert on the port — bert_base, b32·s512, bf16 O1,
+    AdamW(1e-4), `TrainStep`, both heads (forward() + the criterion, and
+    fused_mlm_loss) from the same weights: 3 warm-up and 10 timed steps
+    each, step 0's O1 loss against the f32 loss at those weights. Returns
+    (the model with its first weights, their copy, the launches by head)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profile_train import H100_PEAK_BF16
+    from paddle_tpu_torch.text.models import bert
+
+    cfg = bert.bert_base()
+    model = bert.BertForPretraining(cfg, seed=0)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    crit = bert.BertPretrainingCriterion()
+    ids, labels, nsp = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, 0)
+    with torch.no_grad():
+        ml, nl = model(ids)
+        f32_loss = float(crit(ml, labels, nl, nsp))
+        del ml, nl
+
+    def forward_head(m, a, b, c):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            ml, nl = m(a)
+            return crit(ml, b, nl, c)
+
+    def fused_head(m, a, b, c):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            return m.fused_mlm_loss(a, b, nsp_labels=c, block_size=4096)
+
+    flops = _bert_flops(cfg, BERT_BATCH, BERT_SEQ)
+    out = {}
+    for head, loss_fn in (("forward head", forward_head),
+                          ("fused head", fused_head)):
+        model.load_state_dict(w0)
+        step = TrainStep(model, loss_fn,
+                         AdamW(1e-4, parameters=model.parameters()))
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        warm = [float(step(ids, labels, nsp)) for _ in range(BERT_WARM)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [step(ids, labels, nsp) for _ in range(BERT_STEPS)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / BERT_STEPS
+        losses = warm + [float(x) for x in losses]
+        launches = _flash_counts(
+            fa, cfg.num_layers * (BERT_WARM + BERT_STEPS), f"(b) {head}")
+        o1_rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        mfu = flops / dt / H100_PEAK_BF16
+        print(f"12 (b) bench_bert bert_base b{BERT_BATCH}·s{BERT_SEQ} bf16 "
+              f"O1 AdamW(1e-4) TrainStep, {head} ({card}): "
+              f"{dt * 1e3:.3f} ms/step, {BERT_BATCH / dt:.1f} samples/s, "
+              f"MFU {mfu:.4f} ({flops / 1e12:.3f} TFLOP a step at 989 "
+              f"TFLOP/s), peak memory {peak:.2f} GiB; step 0's O1 loss "
+              f"{losses[0]:.6f} vs f32 {f32_loss:.6f} (relative "
+              f"{o1_rel:.3e}; tol {BERT_O1_TOL:.0e}); losses "
+              f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
+              f"steps; launches {launches} = {cfg.num_layers} x "
+              f"{BERT_WARM + BERT_STEPS}, all tensor-core, none causal")
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+                and o1_rel <= BERT_O1_TOL):
+            raise AssertionError(f"12 (b) {head}: losses {losses}, f32 "
+                                 f"{f32_loss}")
+        out[head] = dict(ms=dt * 1e3, samples_per_s=BERT_BATCH / dt,
+                         mfu=mfu, peak_gib=peak, launches=launches)
+        del step
+    return model, w0, out
+
+
+def _bert_pad_run(model, w0, loss_fn, batch):
+    """One O1 TrainStep from `w0`: (the sequence output as f32, {name:
+    f32 gradient}), both on the card."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model.load_state_dict(w0)
+    seen = []
+    hook = model.bert.register_forward_hook(
+        lambda m, i, o: seen.append(o[0].detach().float()))
+    step = TrainStep(model, loss_fn, AdamW(1e-4,
+                                           parameters=model.parameters()))
+    try:
+        step(*batch)
+    finally:
+        hook.remove()
+    return seen[0], {n: p.grad.float().clone()
+                     for n, p in model.named_parameters()}
+
+
+def _pad_seq_diff(ref, other, lens):
+    """The worst row's mean |difference| over its valid positions, over
+    the row's mean |value| there."""
+    worst = 0.0
+    for r, n in enumerate(lens.tolist()):
+        a, b = ref[r, :n], other[r, :n]
+        worst = max(worst, ((b - a).abs().mean()
+                            / a.abs().mean().clamp(min=1e-30)).item())
+    return worst
+
+
+def bert_padded(fa, model, w0, card):
+    """12 (c): a padded bench_bert batch as 1-D lengths (`bert_pad_lens`:
+    one row at full length, one short, the rest drawn), one O1 TrainStep
+    from `w0` on each route: K3-K5 with kv_lens on the tensor-core route
+    (counted), and the same batch through the 2-D keep-mask (the dense
+    path). The sequence output on the valid positions and every gradient
+    must agree; the same step with no mask (planted: the padding
+    attended) must miss a limit by 2x."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.text.models import bert
+
+    cfg = model.config
+    crit = bert.BertPretrainingCriterion()
+    ids, labels, nsp = _bert_batch(cfg, BERT_BATCH, BERT_SEQ, 1)
+    lens = bert_pad_lens(BERT_BATCH, BERT_SEQ)
+    lens_t = torch.as_tensor(lens, device="cuda")
+    keep = (torch.arange(BERT_SEQ, device="cuda")[None, :]
+            < lens_t[:, None]).long()
+
+    def loss_fn(m, a, mask, b, c):
+        with amp.auto_cast(level="O1", dtype="bfloat16"):
+            ml, nl = m(a, attention_mask=mask)
+            return crit(ml, b, nl, c)
+
+    dense = _bert_pad_run(model, w0, loss_fn, (ids, keep, labels, nsp))
+    fa.reset_launches()
+    got = _bert_pad_run(model, w0, loss_fn, (ids, lens_t, labels, nsp))
+    torch.cuda.synchronize()
+    launches = _flash_counts(fa, cfg.num_layers, "(c)")
+    planted = _bert_pad_run(model, w0,
+                            lambda m, a, b, c: loss_fn(m, a, None, b, c),
+                            (ids, labels, nsp))
+    seq = _pad_seq_diff(dense[0], got[0], lens)
+    worst, where, median = _grad_diff(dense[1], got[1])
+    p_seq = _pad_seq_diff(dense[0], planted[0], lens)
+    p_worst, p_where, _ = _grad_diff(dense[1], planted[1])
+    p_ratio = max(p_seq / BERT_PAD_SEQ_TOL, p_worst / BERT_PAD_GRAD_TOL)
+    print(f"12 (c) padded bench_bert batch (lengths {int(lens.min())}-"
+          f"{int(lens.max())}, mean {lens.mean():.1f}) ({card}): the kv_lens "
+          f"route vs the keep-mask (dense) route, one O1 step each: "
+          f"sequence output on the valid positions, worst row {seq:.3e} "
+          f"(tol {BERT_PAD_SEQ_TOL:.0e}); gradients worst {worst:.3e} "
+          f"({where}; tol {BERT_PAD_GRAD_TOL:.0e}), median {median:.3e}; "
+          f"launches {launches}, all tensor-core, none causal; planted no "
+          f"mask (padding attended): sequence {p_seq:.3e}, gradients worst "
+          f"{p_worst:.3e} ({p_where}) -> {p_ratio:.1f}x its gate")
+    if not (np.isfinite(seq) and seq <= BERT_PAD_SEQ_TOL
+            and worst <= BERT_PAD_GRAD_TOL):
+        raise AssertionError("12 (c): the kv_lens route disagrees with the "
+                             "dense route")
+    if p_ratio < 2.0:
+        raise AssertionError(f"12 (c): the planted fault (padding attended) "
+                             f"moved its measure only {p_ratio:.2f}x its "
+                             "gate")
+    return launches
+
+
+def _tapi_cases():
+    """(label, function name, inputs builder, kwargs): the tensor API on
+    the card against the port's CPU result (12 d). The traps of the port:
+    descending sorts with ties, top-k ties, repeated-index writes,
+    unique's first occurrence, nonzero, mode; and a spread of the rest."""
+    def ints(g, *shape, hi=5):
+        return g.integers(0, hi, shape)
+
+    def f32(g, *shape):
+        return g.standard_normal(shape).astype(np.float32)
+
+    def ties(g, *shape):
+        return np.round(g.standard_normal(shape), 1).astype(np.float32)
+
+    return [
+        ("argsort descending ties", "argsort",
+         lambda g: [ints(g, 64, 257)], dict(axis=1, descending=True)),
+        ("argsort ascending ties", "argsort",
+         lambda g: [ties(g, 300, 64)], dict(axis=0)),
+        ("sort descending", "sort", lambda g: [ties(g, 64, 257)],
+         dict(axis=1, descending=True)),
+        ("topk ties largest", "topk", lambda g: [ties(g, 64, 500)],
+         dict(k=17)),
+        ("topk ties smallest", "topk", lambda g: [ties(g, 64, 500)],
+         dict(k=17, largest=False)),
+        ("unique return_index", "unique", lambda g: [ints(g, 20000, hi=300)],
+         dict(return_index=True, return_inverse=True, return_counts=True)),
+        ("unique rows", "unique", lambda g: [ints(g, 4000, 3, hi=4)],
+         dict(axis=0, return_index=True, return_counts=True)),
+        ("scatter repeated rows", "scatter",
+         lambda g: [f32(g, 300, 64), ints(g, 5000, hi=300), f32(g, 5000, 64)],
+         {}),
+        ("scatter overwrite=False", "scatter",
+         lambda g: [f32(g, 300, 64), ints(g, 5000, hi=300), f32(g, 5000, 64)],
+         dict(overwrite=False)),
+        ("put_along_axis repeated", "put_along_axis",
+         lambda g: [f32(g, 64, 100), ints(g, 64, 500, hi=100),
+                    f32(g, 64, 500)], dict(axis=1)),
+        ("put_along_axis add", "put_along_axis",
+         lambda g: [f32(g, 64, 100), ints(g, 64, 500, hi=100),
+                    f32(g, 64, 500)], dict(axis=1, reduce="add")),
+        ("index_put repeated", "index_put",
+         lambda g: [f32(g, 200, 8), (ints(g, 3000, hi=200),),
+                    f32(g, 3000, 8)], {}),
+        ("nonzero", "nonzero", lambda g: [ints(g, 100, 200, hi=3)], {}),
+        ("mode", "mode", lambda g: [ints(g, 50, 301, hi=7)], dict(axis=1)),
+        ("kthvalue ties", "kthvalue", lambda g: [ties(g, 40, 129)],
+         dict(k=50, axis=1)),
+        ("cummax ties", "cummax", lambda g: [ties(g, 16, 1000)],
+         dict(axis=1)),
+        ("searchsorted", "searchsorted",
+         lambda g: [np.sort(ties(g, 1000)), ties(g, 4000)], dict(right=True)),
+        ("gather_nd", "gather_nd",
+         lambda g: [f32(g, 30, 40, 8), ints(g, 500, 2, hi=30)], {}),
+        ("masked_select", "masked_select",
+         lambda g: [f32(g, 300, 70), ints(g, 300, 70, hi=2).astype(bool)],
+         {}),
+        ("unique_consecutive", "unique_consecutive",
+         lambda g: [ints(g, 5000, hi=3)],
+         dict(return_inverse=True, return_counts=True)),
+        ("one_hot", "one_hot", lambda g: [ints(g, 3000, hi=12)],
+         dict(num_classes=10)),
+        ("reshape 0 / -1", "reshape", lambda g: [f32(g, 6, 8, 10)],
+         dict(shape=[0, -1, 5])),
+        ("strided_slice negative", "strided_slice",
+         lambda g: [f32(g, 50, 60)],
+         dict(axes=[0, 1], starts=[49, 3], ends=[0, 60], strides=[-3, 4])),
+        ("pad reflect", "pad", lambda g: [f32(g, 2, 3, 20, 30)],
+         dict(pad=[3, 2, 4, 1], mode="reflect")),
+        ("logsumexp", "logsumexp", lambda g: [f32(g, 64, 300)], dict(axis=1)),
+        ("cumsum", "cumsum", lambda g: [f32(g, 64, 300)], dict(axis=1)),
+        ("median even", "median", lambda g: [f32(g, 64, 300)], dict(axis=1)),
+        ("where", "where",
+         lambda g: [ints(g, 80, 90, hi=2).astype(bool), f32(g, 80, 90),
+                    f32(g, 90)], {}),
+        ("sum int32", "sum", lambda g: [ints(g, 70, 80, hi=9).astype(
+            np.int32)], dict(axis=0)),
+        ("mean", "mean", lambda g: [f32(g, 64, 300)], dict(axis=[0, 1])),
+    ]
+
+
+def _tapi_args(v, dev):
+    if isinstance(v, np.ndarray):
+        return torch.as_tensor(v, device=dev)
+    if isinstance(v, tuple):
+        return tuple(_tapi_args(x, dev) for x in v)
+    return v
+
+
+def _tapi_leaves(out):
+    if isinstance(out, (list, tuple)):
+        return [x for o in out for x in _tapi_leaves(o)]
+    return [out]
+
+
+def tensor_api_on_card(card):
+    """12 (d): each case of `_tapi_cases` on CUDA tensors against the
+    port's CPU result: integer, bool and index outputs exact, float ones
+    within TAPI_TOL; the dtypes and shapes equal."""
+    from paddle_tpu_torch import ops
+
+    exact = floats = 0
+    worst = 0.0
+    for i, (label, fn, build, kw) in enumerate(_tapi_cases()):
+        inputs = build(np.random.default_rng(100 + i))
+        got = getattr(ops, fn)(*(_tapi_args(v, "cuda") for v in inputs),
+                               **kw)
+        want = getattr(ops, fn)(*(_tapi_args(v, "cpu") for v in inputs), **kw)
+        g_leaves, w_leaves = _tapi_leaves(got), _tapi_leaves(want)
+        if len(g_leaves) != len(w_leaves):
+            raise AssertionError(f"12 (d) {label}: {len(g_leaves)} outputs "
+                                 f"vs {len(w_leaves)}")
+        for g, w in zip(g_leaves, w_leaves):
+            if g.device.type != "cuda":
+                raise AssertionError(f"12 (d) {label}: output on {g.device}")
+            g = g.cpu()
+            if g.dtype != w.dtype or g.shape != w.shape:
+                raise AssertionError(f"12 (d) {label}: {g.dtype} "
+                                     f"{tuple(g.shape)} vs {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            if w.is_floating_point():
+                err = float((g - w).abs().max()) if w.numel() else 0.0
+                rel = err / max(1.0, float(w.abs().max()) if w.numel()
+                                else 1.0)
+                worst = max(worst, rel)
+                floats += 1
+                if not rel <= TAPI_TOL:
+                    raise AssertionError(f"12 (d) {label}: {rel:.3e} of "
+                                         f"max(1, max-abs) > {TAPI_TOL:.0e}")
+            else:
+                exact += 1
+                if not torch.equal(g, w):
+                    raise AssertionError(f"12 (d) {label}: not equal to the "
+                                         "CPU's")
+    n = len(_tapi_cases())
+    print(f"12 (d) the tensor API on the card vs the port's CPU ({card}): "
+          f"{n} cases, {exact} integer / bool / index outputs equal, "
+          f"{floats} float outputs within {worst:.3e} of max(1, max-abs) "
+          f"(tol {TAPI_TOL:.0e})")
+    return n
+
+
+def bert_phase(fa, card):
+    """12: (a) card vs CPU with its planted fault, (b) bench_bert, (c) the
+    padded batch, (d) the tensor API on the card. Returns K3-K5's
+    launches in (b) and (c) by kernel and run."""
+    t0 = time.perf_counter()
+    bert_cross(fa)
+    model, w0, bench = bench_bert(fa, card)
+    padded = bert_padded(fa, model, w0, card)
+    del model, w0
+    gc.collect()
+    torch.cuda.empty_cache()
+    tensor_api_on_card(card)
+    print(f"bert phase (12): {time.perf_counter() - t0:.1f} s")
+    return {name: {"bench_bert forward head":
+                   bench["forward head"]["launches"][name],
+                   "bench_bert fused head":
+                   bench["fused head"]["launches"][name],
+                   "padded kv_lens": padded[name]}
+            for name in fa.REPLACES}
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -7282,11 +7836,12 @@ def main(argv=None):
     from paddle_tpu_torch.ops.cuda_kernels import paged_attention as pa
 
     card = _card()
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _build.build(["paged_attention", "flash_attention", "int8_gemm"])
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
     build_report(_build, fa.TC_HEAD_DIMS)
+    t_checks = time.perf_counter()
     paged_launch_smem(pa)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     kres = check_paged_attention(pa, flush)
@@ -7297,6 +7852,8 @@ def main(argv=None):
         ig, flush, load_parent(args.parent) if args.parent else None)
     sampler_ms = check_prng(flush)
     del flush
+    print(f"kernel checks (2-3): {time.perf_counter() - t_checks:.1f} s")
+    t_serve = time.perf_counter()
     model = serve_model()
     vocab = model.config.vocab_size
     serve(pa, model)
@@ -7312,6 +7869,7 @@ def main(argv=None):
                     f"gpt_small {kv} KV + ngram spec_k 4")
     fused = fused_phase(pa, model, random, card)
     print(f"sampler: {sampler_ms:.4f} ms a call ({card})")
+    print(f"serve phases (4-5d): {time.perf_counter() - t_serve:.1f} s")
     t_fleet = time.perf_counter()
     fleet = fleet_phase(pa, model, card)
     print(f"fleet phase: {time.perf_counter() - t_fleet:.1f} s")
@@ -7327,28 +7885,41 @@ def main(argv=None):
     print(f"generate and server phases: "
           f"{time.perf_counter() - t_gen:.1f} s")
     del model
+    t_draft = time.perf_counter()
     drafts = draft_phase(pa, random, card)
     weights = weights_phase(ig, pa, random, card,
                             fused[("bfloat16", 4)]["greedy"]["dev_ms"])
     structured = structured_phase(pa, card)
+    print(f"draft, weights and structured phases (5e-5g): "
+          f"{time.perf_counter() - t_draft:.1f} s")
+    t_cross = time.perf_counter()
     cross_check()
     cx_launches = cross_quant_spec(pa)
     fa_launches, train_losses, train_ms = train(fa)
+    print(f"cross checks and train (6-8): "
+          f"{time.perf_counter() - t_cross:.1f} s")
     t_train = time.perf_counter()
     fa_1p3b = train_1p3b(fa, card)
     remat_phase(fa, card)
     steptrace_ab(card)
     print(f"train phases 8b-8d: {time.perf_counter() - t_train:.1f} s")
+    t_dist = time.perf_counter()
     dist = dist_phase(fa, card, train_losses, train_ms)
     pipe = pipe_phase(fa, card)
     moe = moe_phase(fa, card, dist["outs"])
     sp = sp_phase(fa, card)
+    print(f"multi-process phases (8e-8h): "
+          f"{time.perf_counter() - t_dist:.1f} s")
+    t_cross = time.perf_counter()
     train_cross_check()
     train_cross_check_bf16(fa)
     t_o2 = time.perf_counter()
     train_cross_check_o2(fa, card)
     print(f"train cross-check O2 (10b): {time.perf_counter() - t_o2:.1f} s")
+    print(f"train cross-checks (9-10b): "
+          f"{time.perf_counter() - t_cross:.1f} s")
     vision_phase(card)
+    bert = bert_phase(fa, card)
     # each kernel's launches come from the main-path run that drives it:
     # K1 on the bf16, int8 and int4 pools the fused phase's greedy
     # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'
@@ -7464,7 +8035,13 @@ def main(argv=None):
         # 8h: each rank's ring call (sp 2) and each rank of pp 2 x sp 2
         row["sp_launches"] = {k: v[0][name] for k, v in sp.items()}
         row["sp_causal_launches"] = {k: v[1][name] for k, v in sp.items()}
+        # 12: bench_bert's two heads and the padded batch (kv_lens), all
+        # bidirectional; the times at bench_bert's shape
+        row["bert_launches"] = bert[name]
+        row["shape_bert"] = r["shape_bert"]
         kernels.append(row)
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
+          "build to the result")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,11 +20,52 @@ beam search (`nn.decode`), and the GPT training step: `jit.TrainStep`
 with its phase trace (`observability.steptrace`), the optimizers and LR
 schedules (`optimizer`, `regularizer`, `nn.clip`), bf16 `amp` at O1 and
 O2 with `GradScaler`, the losses, recompute with the named policies and
-the flash attention forward and backward kernels. ROADMAP.md lists what
-is still to port.
-"""
-from .core.place import resolve_device  # noqa: F401
-from .core.rng import seed  # noqa: F401
-from .regularizer import L1Decay, L2Decay  # noqa: F401
+the flash attention forward and backward kernels; the data-, tensor-,
+pipeline- and sequence-parallel runtimes (`distributed`); the vision
+models (`vision.models`); BERT / ERNIE pretraining
+(`text.models.bert`); and the tensor API.
 
-__all__ = ["resolve_device", "seed", "L1Decay", "L2Decay"]
+The tensor API is the reference's top-level namespace: `import
+paddle_tpu_torch as paddle; paddle.reshape(x, [0, -1])` — the ops of
+`ops` (creation, math, manipulation, linalg, extras, control flow),
+`paddle.linalg`, the dtype names (`paddle.float32` is
+`torch.float32`), `set_device` / `get_device` (the device the creation
+functions place on) and `Tensor` / `Parameter`. The ops are plain
+functions on `torch.Tensor`; `torch.Tensor` itself is not patched
+(`ops.TENSOR_METHODS` maps the reference's Tensor methods to them).
+ROADMAP.md lists what is still to port.
+"""
+import importlib as _importlib
+
+import torch as _torch
+
+from .core.place import (get_device, resolve_device,  # noqa: F401
+                         set_device)
+from .core.rng import seed  # noqa: F401
+from .core.dtype import (  # noqa: F401
+    bfloat16,
+    bool_ as bool,  # noqa: A001  (paddle.bool)
+    complex64,
+    complex128,
+    float16,
+    float32,
+    float64,
+    get_default_dtype,
+    int8,
+    int16,
+    int32,
+    int64,
+    set_default_dtype,
+    uint8,
+)
+from .regularizer import L1Decay, L2Decay  # noqa: F401
+from .tensor_core import Parameter, Tensor  # noqa: F401
+from . import ops  # noqa: F401
+from .ops import *  # noqa: F401,F403
+# the top-level linalg namespace, not the ops.linalg the line above bound
+linalg = _importlib.import_module(".linalg", __name__)
+
+no_grad = _torch.no_grad
+enable_grad = _torch.enable_grad
+is_grad_enabled = _torch.is_grad_enabled
+dtype = _torch.dtype

@@ -22,7 +22,8 @@ coordinate and each array's placement, `gather_pipelined_state` puts
 the ranks' slices back together, `cut_gpt_state` cuts an mp rank's
 slice of the flat GPT's; `pipelined_to_gpt_state` /
 `gpt_to_pipelined_state` carry weights between the pipelined and the
-flat GPT (head-major qkv against [3, nh, hd]).
+flat GPT (head-major qkv against [3, nh, hd]); `cut_bert_state` cuts an
+mp rank's slice of a BERT / ERNIE model's.
 """
 import numpy as np
 import torch
@@ -30,7 +31,8 @@ import torch
 __all__ = ["load_jax_state_dict", "export_state_dict",
            "load_jax_optimizer_state", "cut_pipelined_state",
            "gather_pipelined_state", "pipelined_to_gpt_state",
-           "gpt_to_pipelined_state", "cut_gpt_state", "stage_layers",
+           "gpt_to_pipelined_state", "cut_gpt_state", "cut_bert_state",
+           "stage_layers",
            "pipelined_holds", "pipelined_slices"]
 
 
@@ -297,7 +299,8 @@ def gpt_to_pipelined_state(arrays, config):
     return out
 
 
-def cut_gpt_state(arrays, config, mp=1, mp_rank=0):
+def cut_gpt_state(arrays, config, mp=1, mp_rank=0,
+                  vocab_rows=("gpt.wte.weight",)):
     """This mp rank's slice of a flat `GPTForCausalLM`'s state dict: the
     qkv columns of its heads from each of q, k and v
     (`mp_layers.qkv_shard_columns`), fc1 columns, proj / fc2 rows, the
@@ -318,8 +321,16 @@ def cut_gpt_state(arrays, config, mp=1, mp_rank=0):
                 c = t.shape[-1] // mp
                 t = t.narrow(t.dim() - 1, mp_rank * c, c)
             elif name.endswith("proj.weight") or name.endswith(
-                    "fc2.weight") or name == "gpt.wte.weight":
+                    "fc2.weight") or name in vocab_rows:
                 c = t.shape[0] // mp
                 t = t.narrow(0, mp_rank * c, c)
         out[name] = t.contiguous()
     return out
+
+
+def cut_bert_state(arrays, config, mp=1, mp_rank=0):
+    """This mp rank's slice of a BERT / ERNIE model's state dict: the
+    encoder layers cut as the flat GPT's (`cut_gpt_state`), the vocab
+    rows of the word embedding."""
+    rows = tuple(n for n in arrays if n.endswith("embeddings.word.weight"))
+    return cut_gpt_state(arrays, config, mp, mp_rank, vocab_rows=rows)

@@ -26,7 +26,8 @@ import torch
 from . import prng
 
 __all__ = ["seed", "next_generator", "next_init_generator", "next_key",
-           "skip", "generator_scope", "current_generator"]
+           "skip", "generator_scope", "current_generator", "get_state",
+           "set_state"]
 
 
 class _State(threading.local):
@@ -115,3 +116,16 @@ def current_generator():
     """The generator installed by the innermost `generator_scope`, or
     None."""
     return _state.scoped
+
+
+def get_state():
+    """The streams' state, (seed, call index, initializer call index):
+    `set_state` of it replays the same generators."""
+    with _lock:
+        return (_seed, _count, _init_count)
+
+
+def set_state(state):
+    global _seed, _count, _init_count
+    with _lock:
+        _seed, _count, _init_count = (int(v) for v in state)

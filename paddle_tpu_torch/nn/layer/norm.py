@@ -7,10 +7,12 @@ training (biased variance, paddle's momentum) and reads them in eval or
 under `use_global_stats`.
 
 `SyncBatchNorm` is plain batch norm, as in the reference, where GSPMD
-computes over the global batch. One process per rank would take its own
-rows' statistics instead, so a batch norm in training under a process
-world whose data axes (dp × sharding) hold more than one rank raises,
-naming A12, until the statistics are all-reduced.
+computes over the global batch. The port runs one process per rank, so
+a batch norm in training under a mesh whose data axes (dp × sharding,
+the axes `DistributedTrainStep` cuts rows over) hold more than one rank
+takes the global batch's statistics through `F.global_batch_norm`
+(every batch-norm class alike, as in the reference); the sp ranks hold
+the same rows and stay out of them.
 """
 import numpy as np
 import torch
@@ -64,10 +66,10 @@ class _BatchNormBase(nn.Module):
     def forward(self, input):
         if (self.training and not self._use_global_stats
                 and _data_parallel_ranks() > 1):
-            raise NotImplementedError(
-                "batch norm in training over a data-parallel process "
-                "world takes each rank's statistics alone: ROADMAP A12 "
-                "(batch norm over a data-parallel world)")
+            return F.global_batch_norm(
+                input, self._mean, self._variance, self.weight, self.bias,
+                momentum=self._momentum, epsilon=self._epsilon,
+                data_format=self._data_format)
         return F.batch_norm(
             input, self._mean, self._variance, self.weight, self.bias,
             training=self.training, momentum=self._momentum,

@@ -222,36 +222,49 @@ def _linear_classes():
     return Linear, ColumnParallelLinear, RowParallelLinear
 
 
-def _swap_linears(model, skip, make, report, key, odd=False):
+def _swap_linears(model, skip, make, report, key, odd=False,
+                  threads=1):
     """Swap every Linear-family sublayer not matched by `skip` (attribute
     path substrings) for `make(sub)`, in place, filling `report`'s layer
     count and weight bytes (`key`: the quantized bytes' entry); with
     `odd`, layers of odd in_features stay float and are counted in
-    `skipped_odd`."""
-    linear_types = _linear_classes()
+    `skipped_odd`. `threads` > 1 runs the `make` calls in that many
+    threads (each layer's quantization is independent, and numpy's array
+    passes release the GIL); the swaps and the report follow the layers'
+    order either way."""
+    from concurrent.futures import ThreadPoolExecutor
 
-    def swap(layer, prefix=""):
+    linear_types = _linear_classes()
+    todo = []
+
+    def collect(layer, prefix=""):
         for name, sub in list(layer.named_children()):
             path = f"{prefix}.{name}" if prefix else name
             if isinstance(sub, _WeightOnlyLinear):
                 continue                   # already quantized
             if isinstance(sub, linear_types) and not any(
                     s in path for s in skip):
-                w = sub.weight
-                if odd and int(w.shape[0]) % 2:
+                if odd and int(sub.weight.shape[0]) % 2:
                     report["skipped_odd"] += 1
                     continue
-                wrapped = make(sub)
-                report["layers"] += 1
-                report["weight_bytes_fp"] += w.numel() * w.element_size()
-                report[key] += sum(
-                    b.numel() * b.element_size()
-                    for b in (wrapped.weight_q, wrapped.w_step))
-                setattr(layer, name, wrapped)
+                todo.append((layer, name, sub))
             else:
-                swap(sub, path)
+                collect(sub, path)
 
-    swap(model)
+    collect(model)
+    subs = [sub for _, _, sub in todo]
+    if threads > 1 and len(subs) > 1:
+        with ThreadPoolExecutor(max_workers=threads) as pool:
+            made = list(pool.map(make, subs))
+    else:
+        made = [make(sub) for sub in subs]
+    for (layer, name, sub), wrapped in zip(todo, made):
+        w = sub.weight
+        report["layers"] += 1
+        report["weight_bytes_fp"] += w.numel() * w.element_size()
+        report[key] += sum(b.numel() * b.element_size()
+                           for b in (wrapped.weight_q, wrapped.w_step))
+        setattr(layer, name, wrapped)
     model.eval()
     return report
 
@@ -293,13 +306,16 @@ def quantize_model_int8(model, skip=(), tp_shard=True):
 def quantize_model_int4(model, skip=()):
     """`quantize_model_int8`'s packed-int4 sibling: `Int4WeightOnlyLinear`
     (MSE clip search per out channel). Layers with an odd in_features
-    cannot pair nibbles and stay float, counted in `skipped_odd`.
+    cannot pair nibbles and stay float, counted in `skipped_odd`. The
+    searches (40 clip fractions over each whole weight, on the host) run
+    in a thread a CPU core; the codes do not depend on it.
 
     Returns {layers, skipped_odd, weight_bytes_fp, weight_bytes_int4}."""
     report = {"layers": 0, "skipped_odd": 0, "weight_bytes_fp": 0,
               "weight_bytes_int4": 0}
     return _swap_linears(model, skip, Int4WeightOnlyLinear, report,
-                         "weight_bytes_int4", odd=True)
+                         "weight_bytes_int4", odd=True,
+                         threads=os.cpu_count() or 1)
 
 
 # ---------------------------------------------------------------- kv cache

@@ -325,7 +325,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "nn/functional/norm.py", "nn/functional/activation.py",
                  "nn/layer/conv.py", "nn/layer/pooling.py",
                  "nn/layer/norm.py", "nn/layer/layers.py",
-                 "nn/initializer/__init__.py", "core/recompute.py"):
+                 "nn/initializer/__init__.py", "core/recompute.py",
+                 "ops/__init__.py", "ops/_helpers.py", "ops/creation.py",
+                 "ops/math.py", "ops/manipulation.py", "ops/activation.py",
+                 "ops/linalg.py", "ops/extras.py", "ops/control_flow.py",
+                 "ops/api_misc.py", "tensor_core.py", "linalg.py",
+                 "text/models/bert.py"):
         assert f"paddle_tpu_torch/{name}" in scanned, name
     bad = []
     for f in files:

@@ -26,8 +26,25 @@ max-abs (over 1 where that is smaller: running means sit near 0).
   norm); `remat=True` equal to `remat=False` bit for bit, and a recompute
   that updated the statistics again (planted) moves them;
 * LeNet's eager `backward` / `step` / `clear_grad` loop for three steps:
-  losses and parameters 1e-5.
+  losses and parameters 1e-5;
+* batch norm over a data-parallel process world (gloo ranks under the
+  port's launcher, tests/torch_hybrid_worker.py `bn`): at dp 2 each
+  layer of `BatchNorm2D` / `SyncBatchNorm` in NCHW and NHWC on its
+  half of a seeded [8, 16, 6, 6] batch against the reference's
+  `batch_norm` on the whole batch — output, input gradient, the ranks'
+  summed weight and bias gradients, every rank's running statistics —
+  1e-5; three Momentum steps of ResNet-18 under `DistributedTrainStep`
+  at dp 2 and at dp 2 × sharding 2 (os_g) against the reference's step
+  on its CPU mesh: losses 1e-5 relative, running statistics 1e-5, the
+  dp replicas' parameters bit-equal; and the statistics of each rank's
+  rows alone put ResNet-18's loss more than 1e-3 off the global
+  batch's. A mesh that declares dp 2 in a process without peers is
+  plain batch norm there.
 """
+import json
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -45,6 +62,9 @@ from paddle_tpu_torch.jit import TrainStep
 from paddle_tpu_torch.nn import functional as TF
 from paddle_tpu_torch.optimizer import Momentum
 from paddle_tpu_torch.vision import models as TM
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_hybrid_worker as worker  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
@@ -281,20 +301,166 @@ def test_models_default_to_cuda(monkeypatch):
             make()
 
 
-def test_batch_norm_over_a_data_parallel_world_raises():
-    """One process per rank would normalize with its rows' statistics
-    alone, where the reference's GSPMD step takes the global batch's."""
-    tm = TM.LeNet(device="cpu")
+def test_batch_norm_under_a_peerless_data_parallel_mesh_is_local():
+    """A mesh that declares dp 2 in a process without peers: the data
+    axes' collectives are the identity there, as the port's others are,
+    so the global batch is this process's own and the result is plain
+    batch norm's (it used to raise)."""
     bn = TM.resnet18(num_classes=10, device="cpu").bn1
-    x = torch.zeros(2, 64, 4, 4)
+    x = torch.from_numpy(_batch(4, (64, 4, 4))[0])
+    want = TF.batch_norm(x, torch.zeros(64), torch.ones(64), bn.weight,
+                         bn.bias, training=True)
     tmesh.init_mesh(dp=2, world_size=2)
     try:
-        with pytest.raises(NotImplementedError,
-                           match=r"A12 \(batch norm over a data-parallel "
-                                 r"world\)"):
-            bn(x)
+        got = bn(x)
+        assert _rel(got.detach().numpy(), want.detach().numpy()) < 1e-6
         bn.eval()
         bn(x)
-        tm(torch.zeros(1, 1, 28, 28))
+        TM.LeNet(device="cpu")(torch.zeros(1, 1, 28, 28))
     finally:
         tmesh.reset_mesh()
+
+
+# ---- batch norm over a data-parallel process world (gloo ranks) -----------
+
+def _bn_inputs():
+    rng = np.random.default_rng(31)
+    return {"x": rng.standard_normal((8, 16, 6, 6)).astype(np.float32) * 2
+            + 0.5,
+            "gy": rng.standard_normal((8, 16, 6, 6)).astype(np.float32),
+            "w": rng.uniform(0.5, 1.5, 16).astype(np.float32),
+            "b": rng.standard_normal(16).astype(np.float32),
+            # the batch of the single-process steps above (B = 16): at 8
+            # images the serial steps already drift 2.4e-5 apart by the
+            # third (the summation noise these steps magnify)
+            "images": _batch(B)[0], "labels": _batch(B)[1]}
+
+
+@pytest.fixture(scope="module")
+def bn_job(tmp_path_factory):
+    """The worker at dp 2 and at dp 2 × sharding 2 (tests/
+    torch_hybrid_worker.py `bn`), on the reference's ResNet-18 weights."""
+    from test_torch_mp_layers import launch_worker
+
+    out = tmp_path_factory.mktemp("bn")
+    a = _bn_inputs()
+    paddle.seed(0)
+    jm = JM.resnet18(num_classes=10)
+    w = {k: np.array(v.numpy()) for k, v in jm.state_dict().items()}
+    np.savez(out / "bn_inputs.npz", **a)
+    np.savez(out / "bn_weights.npz", **w)
+    runs = {}
+    for world in sorted(worker.BN_MESHES):
+        launch_worker("bn", out, world, timeout=300)
+        runs[world] = [
+            (dict(np.load(out / f"bn{world}_r{r}.npz")),
+             json.load(open(out / f"bn{world}_r{r}.json")))
+            for r in range(world)]
+    return a, w, runs
+
+
+def _reference_bn(a, fmt):
+    """(out, dx, dw, db, running mean, running var) of the reference's
+    batch_norm over the whole batch in training, Σ out · gy."""
+    x, gy = a["x"], a["gy"]
+    if fmt == "NHWC":
+        x, gy = x.transpose(0, 2, 3, 1), gy.transpose(0, 2, 3, 1)
+    xt = paddle.to_tensor(x, stop_gradient=False)
+    wt = paddle.to_tensor(a["w"], stop_gradient=False)
+    bt = paddle.to_tensor(a["b"], stop_gradient=False)
+    rm = paddle.to_tensor(np.zeros(16, np.float32))
+    rv = paddle.to_tensor(np.ones(16, np.float32))
+    y = paddle.nn.functional.batch_norm(xt, rm, rv, wt, bt, training=True,
+                                        data_format=fmt)
+    dx, dw, db = paddle.grad(paddle.sum(y * paddle.to_tensor(gy)),
+                             [xt, wt, bt])
+    return [np.asarray(t.numpy()) for t in (y, dx, dw, db, rm, rv)]
+
+
+@pytest.mark.parametrize("cls,fmt", worker.BN_LAYERS)
+def test_batch_norm_over_a_data_parallel_world_takes_the_global_batch(
+        bn_job, cls, fmt):
+    """At dp 2 each rank holds half of a seeded [8, 16, 6, 6] batch: its
+    output and input gradient are the reference's whole-batch ones on
+    its rows, the ranks' weight and bias gradients add up to the
+    reference's, and every rank's running statistics are the
+    reference's, all within 1e-5."""
+    a, _, runs = bn_job
+    want = dict(zip(("out", "dx", "dw", "db", "mean", "var"),
+                    _reference_bn(a, fmt)))
+    ranks = sorted(runs[2], key=lambda r: r[1]["pos"])
+    key = f"{cls}/{fmt}"
+    for name in ("out", "dx"):
+        got = np.concatenate([r[0][f"{key}/{name}"] for r in ranks])
+        assert _rel(got, want[name]) < STAT_TOL, name
+    for name in ("dw", "db"):
+        got = sum(r[0][f"{key}/{name}"] for r in ranks)
+        assert _rel(got, want[name]) < STAT_TOL, name
+    for r in ranks:
+        for name in ("mean", "var"):
+            assert _near(r[0][f"{key}/{name}"], want[name], STAT_TOL), name
+
+
+def _reference_dist_steps(w, a, mesh):
+    from paddle_tpu import distributed as jdist
+    from paddle_tpu.distributed import mesh as jmesh
+
+    n = int(np.prod(list(mesh.values())))
+    jmesh.reset_mesh()
+    jmesh.init_mesh(devices=jax.devices()[:n], **mesh)
+    try:
+        jm = JM.resnet18(num_classes=10)
+        jm.set_state_dict({k: paddle.to_tensor(v) for k, v in w.items()})
+        opt = paddle.optimizer.Momentum(LR, parameters=jm.parameters())
+        step = jdist.DistributedTrainStep(
+            jm, lambda m, x, y: paddle.nn.functional.cross_entropy(m(x), y),
+            opt, zero_level="os_g" if mesh.get("sharding", 1) > 1 else None)
+        with jax.default_matmul_precision("highest"):
+            losses = [float(step(paddle.to_tensor(a["images"]),
+                                 paddle.to_tensor(a["labels"])).numpy())
+                      for _ in range(3)]
+        return losses, {k: np.asarray(v.numpy(), np.float32)
+                        for k, v in jm.state_dict().items()}
+    finally:
+        jmesh.reset_mesh()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_resnet18_distributed_steps_match_the_reference(bn_job, world):
+    """Three Momentum steps of ResNet-18 under DistributedTrainStep at
+    dp 2 and at dp 2 × sharding 2 (os_g): the losses and the running
+    statistics within 1e-5 of the reference's DistributedTrainStep on
+    its CPU mesh (the global batch's statistics there), and the dp
+    replicas' parameters bit-equal."""
+    a, w, runs = bn_job
+    want_losses, want_state = _reference_dist_steps(
+        w, a, worker.BN_MESHES[world])
+    ranks = runs[world]
+    for res, meta in ranks:
+        np.testing.assert_allclose(meta["losses"], want_losses,
+                                   rtol=STAT_TOL)
+        state = {k[len("resnet/"):]: v for k, v in res.items()
+                 if k.startswith("resnet/")}
+        assert set(state) == set(want_state)
+        for k, v in _stats(state).items():
+            assert _near(v, want_state[k], STAT_TOL), k
+    first = ranks[0][0]
+    for res, meta in ranks[1:]:
+        for k, v in res.items():
+            if k.startswith("resnet/"):
+                assert np.array_equal(v, first[k]), (meta, k)
+
+
+def test_each_ranks_own_statistics_are_not_the_global_batch():
+    """Why the statistics must be global: ResNet-18's training loss on
+    the batch of 8 against the mean of its two halves' losses, each half
+    normalized by its own statistics (what a rank alone would compute)
+    — more than 1e-3 apart."""
+    _, tm, _ = _pair("resnet18", num_classes=10)
+    x, y = (torch.from_numpy(v) for v in _batch(8))
+    with torch.no_grad():
+        whole = float(TF.cross_entropy(tm(x), y))
+        halves = np.mean([float(TF.cross_entropy(tm(x[i:i + 4]),
+                                                 y[i:i + 4]))
+                          for i in (0, 4)])
+    assert abs(whole - halves) > 1e-3

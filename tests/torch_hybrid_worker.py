@@ -14,6 +14,8 @@ test_torch_hybrid3d.py, test_torch_gpt_pipeline.py), run under
     torch_hybrid_worker.py sp_pipe OUT # 4 ranks: pp 2 x sp 2
     torch_hybrid_worker.py sp_3d OUT   # 8 ranks: pp 2 x mp 2 x sp 2
     torch_hybrid_worker.py auto OUT    # 2 ranks: the auto-parallel Engine
+    torch_hybrid_worker.py bn OUT      # 2 ranks dp 2, or 4: dp 2 x sharding 2
+    torch_hybrid_worker.py bert_mp OUT # 2 ranks: BERT at mp 2
 
 Inputs and whole weights come from OUT (written by the test from a seed
 with numpy and from the reference's models); each rank writes its
@@ -1089,9 +1091,124 @@ def auto(out):
         json.dump(res, f)
 
 
+# ---- batch norm over a data-parallel world ---------------------------------
+
+BN_MESHES = {2: dict(dp=2), 4: dict(dp=2, sharding=2)}
+BN_LAYERS = [(cls, fmt) for cls in ("BatchNorm2D", "SyncBatchNorm")
+             for fmt in ("NCHW", "NHWC")]
+BN_STEPS, BN_LR = 3, 1e-3
+
+
+def bn(out):
+    """At dp 2: each batch-norm layer of BN_LAYERS in training on this
+    rank's rows of the seeded batch (output, input / weight / bias
+    gradients of Σ out · gy, running statistics); at both meshes three
+    Momentum steps of resnet18 under DistributedTrainStep (os_g over
+    sharding). Each rank writes its results and its coordinate."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import export_state_dict, load_jax_state_dict
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    D.init_parallel_env(device="cpu")
+    torch.set_num_threads(1)
+    rank, world = D.get_rank(), D.get_world_size()
+    mesh_mod.init_mesh(**BN_MESHES[world])
+    c = mesh_mod.coord()
+    pos = c["dp"] * mesh_mod.axis_size("sharding") + c["sharding"]
+    a = dict(np.load(os.path.join(out, "bn_inputs.npz")))
+    res = {}
+    if world == 2:
+        n = a["x"].shape[0] // world
+        rows = slice(pos * n, (pos + 1) * n)
+        for cls, fmt in BN_LAYERS:
+            layer = getattr(nn, cls)(a["x"].shape[1], data_format=fmt,
+                                     device="cpu")
+            with torch.no_grad():
+                layer.weight.copy_(torch.from_numpy(a["w"]))
+                layer.bias.copy_(torch.from_numpy(a["b"]))
+            x, gy = a["x"][rows], a["gy"][rows]
+            if fmt == "NHWC":
+                x, gy = x.transpose(0, 2, 3, 1), gy.transpose(0, 2, 3, 1)
+            x = torch.tensor(x, requires_grad=True)
+            y = layer(x)
+            (y * torch.from_numpy(np.ascontiguousarray(gy))).sum().backward()
+            key = f"{cls}/{fmt}"
+            res[f"{key}/out"] = _np(y)
+            res[f"{key}/dx"] = _np(x.grad)
+            res[f"{key}/dw"] = _np(layer.weight.grad)
+            res[f"{key}/db"] = _np(layer.bias.grad)
+            res[f"{key}/mean"] = _np(layer._mean)
+            res[f"{key}/var"] = _np(layer._variance)
+    m = resnet18(num_classes=10, device="cpu")
+    load_jax_state_dict(m, dict(np.load(os.path.join(out, "bn_weights.npz"))))
+    step = D.DistributedTrainStep(
+        m, lambda mm, x, y: F.cross_entropy(mm(x), y),
+        Momentum(BN_LR, parameters=m.parameters()),
+        zero_level="os_g" if mesh_mod.axis_size("sharding") > 1 else None)
+    x, y = torch.from_numpy(a["images"]), torch.from_numpy(a["labels"])
+    losses = [float(step(x, y)) for _ in range(BN_STEPS)]
+    for k, v in export_state_dict(m).items():
+        res[f"resnet/{k}"] = v
+    np.savez(os.path.join(out, f"bn{world}_r{rank}.npz"), **res)
+    with open(os.path.join(out, f"bn{world}_r{rank}.json"), "w") as f:
+        json.dump({"losses": losses, "dp": c["dp"],
+                   "sharding": c["sharding"], "pos": pos}, f)
+    mesh_mod.reset_mesh()
+
+
+# ---- BERT at mp 2 ----------------------------------------------------------
+
+BERT_MASKS = ("keep2d", "lengths")
+
+
+def bert_mp(out):
+    """bert_tiny's BertForPretraining at mp 2, each rank holding its shard
+    of the whole weights: the MLM logits (its vocab columns), the NSP
+    logits and the criterion's loss under each mask form."""
+    import torch
+
+    from paddle_tpu_torch import distributed as D
+    from paddle_tpu_torch.convert import cut_bert_state, load_jax_state_dict
+    from paddle_tpu_torch.distributed import mesh as mesh_mod
+    from paddle_tpu_torch.text.models import bert
+
+    D.init_parallel_env(mp=2, device="cpu")
+    torch.set_num_threads(1)
+    rank = D.get_rank()
+    cfg = bert.bert_tiny()
+    m = bert.BertForPretraining(cfg, device="cpu")
+    w = dict(np.load(os.path.join(out, "bert_weights.npz")))
+    load_jax_state_dict(m, cut_bert_state(w, cfg, mp=2,
+                                          mp_rank=mesh_mod.axis_index("mp")))
+    a = {k: torch.from_numpy(v) for k, v in
+         np.load(os.path.join(out, "bert_inputs.npz")).items()}
+    b, s = a["ids"].shape
+    lens = torch.tensor([s, 9])
+    masks = {"keep2d": (torch.arange(s)[None, :] < lens[:, None]).long(),
+             "lengths": lens}
+    crit = bert.BertPretrainingCriterion()
+    res, meta = {}, {}
+    with torch.no_grad():
+        for kind in BERT_MASKS:
+            ml, nl = m(a["ids"], a["tt"], masks[kind])
+            res[f"{kind}/mlm"] = _np(ml)
+            res[f"{kind}/nsp"] = _np(nl)
+            meta[f"{kind}/loss"] = float(crit(ml, a["labels"], nl, a["nsp"]))
+    np.savez(os.path.join(out, f"bert_mp_r{rank}.npz"), **res)
+    with open(os.path.join(out, f"bert_mp_r{rank}.json"), "w") as f:
+        json.dump(meta, f)
+    mesh_mod.reset_mesh()
+
+
 if __name__ == "__main__":
     sys.path.insert(0, _root())
     {"mp": mp, "hybrid": hybrid, "3d": three_d, "moe": moe,
      "quant": quant, "hybrid_quant": hybrid_quant, "ring": ring,
      "sp_pipe": sp_pipe, "sp_3d": sp_3d, "seq_step": seq_step,
-     "auto": auto}[sys.argv[1]](sys.argv[2])
+     "auto": auto, "bn": bn, "bert_mp": bert_mp}[sys.argv[1]](sys.argv[2])
