@@ -372,7 +372,8 @@ continues:
               as four processes sharing the card (`profile_dist.py --mesh
               pp=2,mp=2`): gpt_small's widths, depth cut from 12 layers
               to 6 (to make room for 8h), b8·s1024, n_micro 4, per-layer
-              remat, bf16 O1, 3 steps, gloo for every collective through the
+              remat, bf16 O1, 2 steps (3 until the room for phase 13),
+              gloo for every collective through the
               host, p2p over the socket transport: each rank's losses
               within 3e-5 relative of a world-1 run on the card (same seed
               and batch; the two planted faults at world 1 must fail it),
@@ -413,7 +414,8 @@ continues:
               attention, the rest). (b) ep 2 as two processes sharing the
               card (`profile_dist.py --mesh ep=2 --moe 4`): gpt_small
               widths, 2 layers, b2·s1024, n_micro 2, bf16 O1, capacity
-              4.0, 3 steps: each rank's step 0 loss (the same weights)
+              4.0, 2 steps (3 until the room for phase 13): each rank's
+              step 0 loss (the same weights)
               within 3e-5 relative of a world-1 run on the card, the next
               steps within 1e-3 (bf16 rounding orders, magnified by Adam),
               the all-to-all replaced by a self-copy must fail both, each
@@ -455,7 +457,8 @@ continues:
               pipelined GPT at pp 2 x sp 2, four processes (`profile_dist
               --mesh pp=2,sp=2`): gpt_small widths, depth cut to 4
               layers, b4·s2048, n_micro 2, per-layer remat, bf16 O1,
-              HybridTrainStep, AdamW(1e-4), 3 steps: step 0's loss within
+              HybridTrainStep, AdamW(1e-4), 2 steps (3 until the room for
+              phase 13): step 0's loss within
               3e-5 relative of world 1 on the card (the same weights),
               the next steps within 1e-3, the sp replicas' parameters
               bit-equal after the steps; K3 2·(idx + 1), K4 / K5 idx + 1
@@ -554,12 +557,46 @@ continues:
               its mean, each gradient within 6e-2 of its max-abs; the
               step with no mask (planted: the padding attended) must
               fail a gate by 2x. (d) the tensor API on CUDA
-              tensors against the port's CPU result, 30 cases (the
+              tensors against the port's CPU result, 31 cases (the
               traps: descending sorts and top-k with ties, repeated-index
               scatter / put_along_axis / index_put, unique's first
-              occurrence, nonzero, mode; and a spread of the rest):
-              integer, bool and index outputs equal, float ones within
-              1e-5 of max(1, max-abs).
+              occurrence and its NaNs folded into one, nonzero, mode;
+              and a spread of the rest): integer, bool and index outputs
+              equal, float ones within 1e-5 of max(1, max-abs), NaNs in
+              the same places.
+13. mt       — Transformer-base (`nn.Transformer()` at its defaults: d 512,
+              8 heads, 6 + 6 layers, FFN 2048, post-norm; dropout 0.1,
+              attention and activation dropout 0) with source and target
+              embeddings over a 37,000-id vocabulary scaled by √512 plus
+              sinusoidal positions, the projection tied to the target
+              embedding, label smoothing 0.1 (`F.label_smooth` +
+              `cross_entropy(soft_label=True)`), Adam(0.9, 0.98, 1e-9)
+              under NoamDecay(512, 4000); K3-K5 run the encoder's
+              self-attention and the equal-length cross-attention (no new
+              kernel). (a) its widths at 2 + 2 layers, f32 with TF32
+              off, dropout 0, b2 · source 128 · target 128: one
+              TrainStep on the card and on the CPU from the same weights,
+              the loss within 1e-5 relative, each gradient within 1e-4
+              of its max-abs; the decoder without its tgt_mask (planted)
+              must fail a gate by 2x. (b) 6 + 6 layers, b32 · source 128
+              · target 128, bf16 O1, `jit.TrainStep`, 3 warm-up and 10
+              timed steps: ms/step, target tokens/s, peak memory, MFU
+              (the step's FLOPs from the shapes over 989 TFLOP/s); step
+              0's O1 loss within 1e-2 of the f32 loss under the same
+              dropout masks; K3-K5 12 x 13 each, all on the tensor
+              cores, none causal. (c) beam search with the caches on the
+              (b) model, f32: b8 · source 128, beam 4, at most 32 new
+              tokens, `BeamSearchDecoder` + `dynamic_decode` over a cell
+              carrying `TransformerDecoder.gen_cache(memory)` (static
+              caches and memory tiled by `tile_beam_merge_with_batch`):
+              every step's cached logits within 1e-4 of a no-cache
+              decoder forward over the same prefixes; the caches not
+              appended (planted) must fail it by 2x; tokens/s; the CPU's
+              decode beside it for information. (d) a 2-layer
+              bidirectional LSTM (512), a GRU and a SimpleRNN, b32 ·
+              t128, f32 with TF32 off: outputs, final states and
+              gradients card vs CPU and the card's fused route vs its
+              plain loop within 1e-4 of max-abs; ms forward + backward.
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
@@ -584,12 +621,15 @@ and in each rank of ep 2 as "moe_launches", and phase 8h's in each rank
 of the sp 2 ring check and of pp 2 x sp 2 as "sp_launches", with their
 causal share as "sp_causal_launches", and phase 12's in each
 bench_bert head and in the padded batch as "bert_launches", with their
-times at bench_bert's bidirectional shape as "shape_bert");
+times at bench_bert's bidirectional shape as "shape_bert", and phase
+13 (b)'s as "mt_launches", with their times at its shape [B·H 256, S
+128, D 64] as "shape_mt");
 the last line is
 {"ok": true, "device": {...}}. Exits non-zero without printing a result
 when no CUDA device is present.
 """
 import contextlib
+import copy
 import gc
 import json
 import math
@@ -1665,6 +1705,11 @@ FA_1P3B = dict(bh=32, s=2048, d=64, dtype=torch.bfloat16, causal=True,
 # 768 / 12, bidirectional
 FA_BERT = dict(bh=32 * 12, s=512, d=64, dtype=torch.bfloat16, causal=False,
                lens=None, b=32)
+# phase 13 (b)'s call: Transformer-base at b32, source and target 128 →
+# b·h 256, head_dim 512 / 8, bidirectional (the encoder's self-attention
+# and the equal-length cross-attention)
+FA_MT = dict(bh=32 * 8, s=128, d=64, dtype=torch.bfloat16, causal=False,
+             lens=None, b=32)
 
 
 def bert_pad_lens(b=32, s=512):
@@ -1688,6 +1733,7 @@ FA_CASES = [
     FA_1P3B,
     FA_BERT,
     FA_BERT_PAD,
+    FA_MT,
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=True, lens=None),
     dict(bh=6, s=200, d=64, dtype=torch.float32, causal=False,
          lens=[200, 0, 57, 64, 1, 130]),
@@ -1868,10 +1914,11 @@ def check_flash_attention(fa, flush):
     of FA_CASES: out, dq, dk, dv row by row (FA_TOL of each row's
     max-abs) and on average (FA_MEAN_TOL), lse absolute (FA_LSE_TOL);
     rows with kv_len 0 must be exact zeros. Times the main paths' cases
-    (bench_gpt's FA_MAIN, bench_gpt1p3b's FA_1P3B, bench_bert's FA_BERT:
+    (bench_gpt's FA_MAIN, bench_gpt1p3b's FA_1P3B, bench_bert's FA_BERT,
+    Transformer-base's FA_MT:
     kernel, plain, library) beside the bound and returns their numbers by
     kernel, the FA_1P3B ones under "shape_1p3b", the FA_BERT ones under
-    "shape_bert"."""
+    "shape_bert", the FA_MT ones (phase 13) under "shape_mt"."""
     res, timed = {}, {}
     for case in FA_CASES:
         x, lens = _fa_inputs(case)
@@ -1909,7 +1956,8 @@ def check_flash_attention(fa, flush):
             + f" (tol {FA_TOL[case['dtype']]:.0e} / "
               f"{FA_MEAN_TOL[case['dtype']]:.0e}; lse "
               f"{FA_LSE_TOL[case['dtype']]:.0e} abs)")
-        if case is FA_MAIN or case is FA_1P3B or case is FA_BERT:
+        if case is FA_MAIN or case is FA_1P3B or case is FA_BERT \
+                or case is FA_MT:
             timed[id(case)] = {
                 "flash_forward": dict(max_abs_err=max(errs["out"],
                                                       errs["lse"])),
@@ -1920,7 +1968,8 @@ def check_flash_attention(fa, flush):
         del got, ref
     res = timed[id(FA_MAIN)]
     for name, r in res.items():
-        for key, case in (("shape_1p3b", FA_1P3B), ("shape_bert", FA_BERT)):
+        for key, case in (("shape_1p3b", FA_1P3B), ("shape_bert", FA_BERT),
+                          ("shape_mt", FA_MT)):
             r[key] = dict(timed[id(case)][name],
                           shape=[case["bh"], case["s"], case["d"]],
                           causal=case["causal"])
@@ -5824,9 +5873,10 @@ def pp_world1(fa, card):
     return launches
 
 
-def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S):
+def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S, meanwhile=None):
     """`profile_dist.py --mesh pp=2,mp=2` under the launcher, four
-    processes sharing the card; returns (the ranks' json, seconds)."""
+    processes sharing the card, with `meanwhile()` run here while they
+    start; returns (the ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            f"--nproc_per_node={MESH_RANKS}", f"--log_dir={out_dir}/log",
@@ -5843,6 +5893,8 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S):
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
     try:
+        if meanwhile is not None:
+            meanwhile()
         out, _ = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, 15)
@@ -5853,6 +5905,10 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S):
             out, _ = p.communicate()
         raise AssertionError(f"8f (b): the launch ran past {timeout} s:\n"
                              f"{out[-4000:]}")
+    except BaseException:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        raise
     seconds = time.perf_counter() - t0
     if p.returncode != 0:
         tails = ""
@@ -5894,7 +5950,8 @@ def _step0(o):
 def pp_mp_phase(fa, card):
     """8f (b): pp 2 x mp 2 as four processes sharing the card
     (`profile_dist.py --mesh`), gpt_small b8·s1024, n_micro 4, per-layer
-    remat, bf16 O1, 3 steps, gloo for every collective and the socket
+    remat, bf16 O1, MESH_STEPS steps, gloo for every collective and the
+    socket
     transport for p2p: each rank's losses against a world-1
     PipelinedGPTForCausalLM on the card (same weights and batch), its
     K3-K5 launches, its executed schedule against the tick table, and
@@ -5912,19 +5969,27 @@ def pp_mp_phase(fa, card):
     gc.collect()
     torch.cuda.empty_cache()
     dev = torch.device("cuda")
-    cfg, ref = build_pipelined("gpt_small", dev, layers=MESH_LAYERS)
-    ids = global_batch(cfg, MESH_BATCH, MESH_SEQ).to(dev)
-    faults = {k: v[0] for k, v in
-              planted_faults(ref.model, ids, ref.loss_fn).items()}
-    ref_losses = [float(ref(ids)) for _ in range(MESH_STEPS)]
-    faults = {k: abs(v - ref_losses[0]) / abs(ref_losses[0])
-              for k, v in faults.items()}
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
-    L = cfg.num_layers // 2
+    world = {}
+
+    def world1():
+        # the world-1 reference, run while the four processes start
+        cfg, ref = build_pipelined("gpt_small", dev, layers=MESH_LAYERS)
+        ids = global_batch(cfg, MESH_BATCH, MESH_SEQ).to(dev)
+        faults = {k: v[0] for k, v in
+                  planted_faults(ref.model, ids, ref.loss_fn).items()}
+        losses = [float(ref(ids)) for _ in range(MESH_STEPS)]
+        world.update(cfg=cfg, ref_losses=losses, faults={
+            k: abs(v - losses[0]) / abs(losses[0])
+            for k, v in faults.items()})
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory(prefix="mesh_") as d:
-        outs, seconds = launch_mesh(d)
+        outs, seconds = launch_mesh(d, meanwhile=world1)
+        cfg, ref_losses, faults = (world[k] for k in (
+            "cfg", "ref_losses", "faults"))
+        L = cfg.num_layers // 2
         table = schedule_table(N_MICRO, 2)
         shards = {}
         for r, o in enumerate(outs):
@@ -6394,10 +6459,11 @@ def moe_world1(fa, card):
 
 
 def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
-              timeout=MOE_EP_TIMEOUT_S):
+              timeout=MOE_EP_TIMEOUT_S, meanwhile=None):
     """`profile_dist.py --mesh ep=2 --moe 4` under the launcher, two
     processes sharing the card, with the self-copy fault planted after
-    the steps; returns (the ranks' json, seconds)."""
+    the steps and `meanwhile()` run here while they start; returns (the
+    ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            f"--nproc_per_node={MOE_EP_RANKS}", f"--log_dir={out_dir}/log",
@@ -6415,6 +6481,8 @@ def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
     try:
+        if meanwhile is not None:
+            meanwhile()
         out, _ = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, 15)
@@ -6425,6 +6493,10 @@ def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
             out, _ = p.communicate()
         raise AssertionError(f"8g (b): the launch ran past {timeout} s:\n"
                              f"{out[-4000:]}")
+    except BaseException:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        raise
     seconds = time.perf_counter() - t0
     if p.returncode != 0:
         log1 = os.path.join(out_dir, "log", "default.rank1.log")
@@ -6451,16 +6523,23 @@ def moe_ep_phase(card, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
     tmesh.reset_mesh()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, ref = build_pipelined(
-        model, torch.device(device), moe=MOE_EP_E, moe_cf=MOE_EP_CF,
-        layers=MOE_EP_LAYERS, n_micro=MOE_EP_MICRO)
-    ids = global_batch(cfg, MOE_EP_BATCH, seq).to(device)
-    ref_losses = [float(ref(ids)) for _ in range(MOE_EP_STEPS)]
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    world = {}
+
+    def world1():
+        # the world-1 reference, run while the two processes start
+        cfg, ref = build_pipelined(
+            model, torch.device(device), moe=MOE_EP_E, moe_cf=MOE_EP_CF,
+            layers=MOE_EP_LAYERS, n_micro=MOE_EP_MICRO)
+        ids = global_batch(cfg, MOE_EP_BATCH, seq).to(device)
+        world.update(cfg=cfg, ref_losses=[float(ref(ids))
+                                       for _ in range(MOE_EP_STEPS)])
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory(prefix="ep_") as d:
-        outs, seconds = launch_ep(d, device, model, seq)
+        outs, seconds = launch_ep(d, device, model, seq, meanwhile=world1)
+    cfg, ref_losses = world["cfg"], world["ref_losses"]
     L, M, n = MOE_EP_LAYERS, MOE_EP_MICRO, MOE_EP_STEPS
     want = {"flash_forward": 2 * L * M * n, "flash_bwd_dq": L * M * n,
             "flash_bwd_dkv": L * M * n}
@@ -6666,9 +6745,11 @@ def lse_route_gate(fa, device="cuda", shape=(LSE_BH, LSE_S, LSE_D)):
     return res
 
 
-def _launch_profile_dist(out_dir, nproc, args, timeout, label):
+def _launch_profile_dist(out_dir, nproc, args, timeout, label,
+                         meanwhile=None):
     """`profile_dist.py ARGS` under the launcher, `nproc` processes
-    sharing the card; returns (the ranks' json, seconds)."""
+    sharing the card, with `meanwhile()` run here while they start;
+    returns (the ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            f"--nproc_per_node={nproc}", f"--log_dir={out_dir}/log",
@@ -6681,6 +6762,8 @@ def _launch_profile_dist(out_dir, nproc, args, timeout, label):
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
     try:
+        if meanwhile is not None:
+            meanwhile()
         out, _ = p.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, 15)
@@ -6691,6 +6774,10 @@ def _launch_profile_dist(out_dir, nproc, args, timeout, label):
             out, _ = p.communicate()
         raise AssertionError(f"{label}: the launch ran past {timeout} s:\n"
                              f"{out[-4000:]}")
+    except BaseException:
+        os.killpg(p.pid, 9)
+        p.communicate()
+        raise
     seconds = time.perf_counter() - t0
     if p.returncode != 0:
         tails = ""
@@ -6734,16 +6821,21 @@ def ring_auto_phase(card, device="cuda", model="gpt_small",
                     ring_seq=RING_SEQ, auto_seq=AUTO_SEQ, counted=True):
     """8h (a)'s ring and (c): one 2-process launch. Returns the ranks'
     ring-call flash launches (all and causal)."""
-    serial = auto_serial(device, model, auto_seq)
-    gc.collect()
-    torch.cuda.empty_cache()
+    serial = []
+
+    def world1():
+        # (c)'s serial reference, run while the two processes start
+        serial.extend(auto_serial(device, model, auto_seq))
+        gc.collect()
+        torch.cuda.empty_cache()
+
     with tempfile.TemporaryDirectory(prefix="ring_") as d:
         outs, seconds = _launch_profile_dist(
             d, 2, ["--model", model, "--device", device, "--ring-check",
                    "--ring-seq", str(ring_seq), "--auto", "--layers",
                    str(AUTO_LAYERS), "--batch", str(AUTO_BATCH), "--seq",
                    str(auto_seq), "--steps", str(AUTO_STEPS)],
-            CHECKS_TIMEOUT_S, "8h (a, c)")
+            CHECKS_TIMEOUT_S, "8h (a, c)", meanwhile=world1)
     fails = []
     for o in outs:
         rc, a = o["ring_check"], o["auto"]
@@ -6819,13 +6911,19 @@ def pp_sp_phase(card, device="cuda", model="gpt_small", seq=SP_SEQ,
     tmesh.reset_mesh()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg, ref = build_pipelined(model, torch.device(device),
-                               layers=SP_LAYERS, n_micro=SP_MICRO, seq=seq)
-    ids = global_batch(cfg, SP_BATCH, seq).to(device)
-    ref_losses = [float(ref(ids)) for _ in range(SP_STEPS)]
-    del ref
-    gc.collect()
-    torch.cuda.empty_cache()
+    ref_losses = []
+
+    def world1():
+        # the world-1 reference, run while the four processes start
+        cfg, ref = build_pipelined(model, torch.device(device),
+                                   layers=SP_LAYERS, n_micro=SP_MICRO,
+                                   seq=seq)
+        ids = global_batch(cfg, SP_BATCH, seq).to(device)
+        ref_losses.extend(float(ref(ids)) for _ in range(SP_STEPS))
+        del ref
+        gc.collect()
+        torch.cuda.empty_cache()
+
     args = ["--model", model, "--device", device, "--mesh", "pp=2,sp=2",
             "--layers", str(SP_LAYERS), "--n-micro", str(SP_MICRO),
             "--steps", str(SP_STEPS), "--batch", str(SP_BATCH), "--seq",
@@ -6834,7 +6932,8 @@ def pp_sp_phase(card, device="cuda", model="gpt_small", seq=SP_SEQ,
         args += ["--plant", plant]
     with tempfile.TemporaryDirectory(prefix="sp_") as d:
         outs, seconds = _launch_profile_dist(d, SP_RANKS, args,
-                                             SP_TIMEOUT_S, "8h (b)")
+                                             SP_TIMEOUT_S, "8h (b)",
+                                             meanwhile=world1)
     fails = []
     L = SP_LAYERS // 2
     digests = {}
@@ -7385,7 +7484,7 @@ def _bert_grads(model, batch):
         return crit(ml, labels, nl, nsp)
 
     step = TrainStep(model, loss_fn, AdamW(1e-4, parameters=model.parameters()))
-    dev = next(model.parameters()).device
+    dev = next(iter(model.parameters())).device
     loss = float(step(*(t.to(dev) for t in batch)))
     return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
 
@@ -7677,6 +7776,10 @@ def _tapi_cases():
          dict(return_index=True, return_inverse=True, return_counts=True)),
         ("unique rows", "unique", lambda g: [ints(g, 4000, 3, hi=4)],
          dict(axis=0, return_index=True, return_counts=True)),
+        ("unique with NaNs", "unique",
+         lambda g: [np.where(g.random(5000) < 0.1, np.nan,
+                             ties(g, 5000)).astype(np.float32)],
+         dict(return_index=True, return_inverse=True, return_counts=True)),
         ("scatter repeated rows", "scatter",
          lambda g: [f32(g, 300, 64), ints(g, 5000, hi=300), f32(g, 5000, 64)],
          {}),
@@ -7769,6 +7872,10 @@ def tensor_api_on_card(card):
                                      f"{tuple(g.shape)} vs {w.dtype} "
                                      f"{tuple(w.shape)}")
             if w.is_floating_point():
+                nan = torch.isnan(w)
+                if not torch.equal(nan, torch.isnan(g)):
+                    raise AssertionError(f"12 (d) {label}: NaNs differ")
+                g, w = g[~nan], w[~nan]
                 err = float((g - w).abs().max()) if w.numel() else 0.0
                 rel = err / max(1.0, float(w.abs().max()) if w.numel()
                                 else 1.0)
@@ -7809,6 +7916,488 @@ def bert_phase(fa, card):
                    bench["fused head"]["launches"][name],
                    "padded kv_lens": padded[name]}
             for name in fa.REPLACES}
+
+
+# ---- Transformer-base training, beam search and the RNNs (13) ----
+
+# The model: `nn.Transformer()` at its defaults (Transformer-base, Vaswani
+# et al. 2017, Table 3: d_model 512, 8 heads of 64, 6 + 6 layers, FFN
+# 2048, ReLU, post-norm), dropout 0.1 with attn_dropout / act_dropout 0
+# (§5.4); source and target embeddings over one 37,000-id vocabulary
+# (§5.1) scaled by √512 plus sinusoidal positions (§3.5); the pre-softmax
+# projection tied to the target embedding (§3.4); label smoothing 0.1
+# through `F.label_smooth` and `cross_entropy(soft_label=True)`;
+# Adam(0.9, 0.98, 1e-9) under NoamDecay(512, 4000) (§5.3). Ids from
+# default_rng.
+MT_VOCAB, MT_D, MT_HEADS, MT_FF = 37000, 512, 8, 2048
+MT_START, MT_END = 1, 2
+# (a): the widths at 2 + 2 layers, f32 with TF32 off, dropout 0,
+# b2 · source 128 · target 128, one TrainStep, card (K3-K5 on the CUDA
+# cores: f32) vs CPU (their plain versions); the loss relative, each
+# gradient's max-abs difference over its max-abs. The planted fault: the
+# decoder run without its tgt_mask.
+MT_CROSS_LAYERS, MT_CROSS_BATCH, MT_CROSS_SEQ = 2, 2, 128
+MT_CROSS_LOSS_TOL = 1e-5
+MT_CROSS_GRAD_TOL = 1e-4
+# (b): 6 + 6 layers, b32 · source 128 · target 128 (4096 tokens a side),
+# bf16 O1, `jit.TrainStep`, 3 warm-up and 10 timed steps
+MT_BATCH, MT_SEQ = 32, 128
+MT_WARM, MT_STEPS = 3, 10
+MT_O1_TOL = 1e-2         # step 0's O1 loss vs the f32 loss, relative
+# (c): the (b) model after its steps, f32, b8 · source 128, beam 4, at
+# most 32 new tokens; the gate: each cached step's logits against a
+# no-cache decoder forward over the same prefixes, max-abs difference
+# over the logits' max-abs
+MT_BEAM_BATCH, MT_BEAM, MT_BEAM_STEPS = 8, 4, 32
+MT_BEAM_TOL = 1e-4
+# (d): a 2-layer bidirectional LSTM (input and hidden 512), a 1-layer GRU
+# and SimpleRNN, b32 · t128, f32 with TF32 off: outputs, final states and
+# gradients card vs CPU, and the fused route vs the plain loop on the
+# card, each over its reference's max-abs
+RNN_BATCH, RNN_T, RNN_WIDTH = 32, 128, 512
+RNN_TOL = 1e-4
+
+
+def _sinusoid(n, d, device):
+    pos = torch.arange(n, dtype=torch.float64)[:, None]
+    i = torch.arange(0, d, 2, dtype=torch.float64)
+    ang = pos / torch.pow(10000.0, i / d)
+    pe = torch.zeros(n, d, dtype=torch.float64)
+    pe[:, 0::2], pe[:, 1::2] = torch.sin(ang), torch.cos(ang)
+    return pe.float().to(device)
+
+
+def mt_model(layers=6, dropout=0.1, seed=0, device="cuda"):
+    """Transformer-base around `nn.Transformer`, built on the CPU from
+    `seed` (the port's initializers draw there) and moved to `device`."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.nn import functional as F
+
+    class MTModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            # N(0, d^-1/2): the tied projection then starts with unit-scale
+            # logits
+            emb = nn.ParamAttr(initializer=nn.initializer.Normal(
+                0.0, MT_D ** -0.5))
+            self.src_emb = nn.Embedding(MT_VOCAB, MT_D, weight_attr=emb)
+            self.tgt_emb = nn.Embedding(MT_VOCAB, MT_D, weight_attr=emb)
+            self.transformer = nn.Transformer(
+                MT_D, MT_HEADS, layers, layers, MT_FF, dropout=dropout,
+                attn_dropout=0.0, act_dropout=0.0)
+            self.drop = nn.Dropout(dropout)
+            self.register_buffer("pe", _sinusoid(1024, MT_D, "cpu"),
+                                 persistable=False)
+
+        def embed(self, emb, ids, offset=0):
+            x = emb(ids) * math.sqrt(MT_D)
+            return self.drop(x + self.pe[offset:offset + ids.shape[1]])
+
+        def logits(self, h):
+            return F.linear(h, self.tgt_emb.weight.T)
+
+        def forward(self, src, tgt_in, tgt_mask=True):
+            mask = (self.transformer.generate_square_subsequent_mask(
+                tgt_in.shape[1]) if tgt_mask else None)
+            h = self.transformer(self.embed(self.src_emb, src),
+                                 self.embed(self.tgt_emb, tgt_in),
+                                 tgt_mask=mask)
+            return self.logits(h)
+
+    rng.seed(seed)
+    with rng.generator_scope(torch.Generator().manual_seed(seed)):
+        model = MTModel()
+    return model.to(device)
+
+
+def mt_loss(model, src, tgt_in, labels, tgt_mask=True):
+    """Label-smoothed (0.1) cross entropy over the tied logits."""
+    from paddle_tpu_torch.nn import functional as F
+
+    logits = model(src, tgt_in, tgt_mask)
+    soft = F.label_smooth(F.one_hot(labels, MT_VOCAB), epsilon=0.1)
+    return F.cross_entropy(logits, soft, soft_label=True)
+
+
+def mt_o1_loss(model, src, tgt_in, labels):
+    from paddle_tpu_torch import amp
+
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        return mt_loss(model, src, tgt_in, labels)
+
+
+def mt_batch(b, s, seed, device):
+    """(source, target input, target labels): ids in [3, vocab), the
+    target input the labels shifted right after the start token."""
+    g = np.random.default_rng(seed)
+    src = g.integers(3, MT_VOCAB, (b, s))
+    tgt = g.integers(3, MT_VOCAB, (b, s))
+    tin = np.concatenate([np.full((b, 1), MT_START), tgt[:, :-1]], 1)
+    return tuple(torch.as_tensor(a, device=device) for a in (src, tin, tgt))
+
+
+def mt_flops(b, s, layers=6):
+    """6 x the matrix parameters a token (the tied projection counted),
+    plus the 3 x layers attention products: 4·b·s²·d forward, x3 with
+    the backward."""
+    enc = layers * (4 * MT_D * MT_D + 2 * MT_D * MT_FF)
+    dec = layers * (8 * MT_D * MT_D + 2 * MT_D * MT_FF)
+    return (6 * b * s * (enc + dec + MT_VOCAB * MT_D)
+            + 3 * layers * 12 * b * s * s * MT_D)
+
+
+def _mt_optimizer(model):
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+
+    sched = NoamDecay(d_model=MT_D, warmup_steps=4000)
+    return Adam(sched, beta1=0.9, beta2=0.98, epsilon=1e-9,
+                parameters=model.parameters()), sched
+
+
+def _mt_grads(model, batch, tgt_mask=True):
+    """(loss, {name: gradient on the host}) of one f32 TrainStep."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt, _ = _mt_optimizer(model)
+    step = TrainStep(model, lambda m, a, b, c: mt_loss(m, a, b, c,
+                                                       tgt_mask), opt)
+    loss = float(step(*batch))
+    return loss, {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+def mt_cross(fa):
+    """13 (a): one f32 TrainStep of Transformer-base's widths at 2 + 2
+    layers on the card and on the CPU from the same weights, and the
+    planted card step (the decoder without its tgt_mask)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = mt_model(MT_CROSS_LAYERS, dropout=0.0, seed=21)
+    w0 = {k: v.detach().clone() for k, v in gpu.state_dict().items()}
+    cpu = mt_model(MT_CROSS_LAYERS, dropout=0.0, seed=21, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in w0.items()})
+    batch = mt_batch(MT_CROSS_BATCH, MT_CROSS_SEQ, 21, "cuda")
+    fa.reset_launches()
+    lg, gg = _mt_grads(gpu, batch)
+    launches = dict(fa.launches)
+    lc, gc = _mt_grads(cpu, tuple(t.cpu() for t in batch))
+    gpu.load_state_dict(w0)
+    lp, gp = _mt_grads(gpu, batch, tgt_mask=False)
+    loss_rel = abs(lg - lc) / abs(lc)
+    # the key projections' biases take a gradient of exactly 0 (softmax is
+    # shift-invariant per row): both sides hold rounding noise there
+    gc = {n: g for n, g in gc.items() if not n.endswith("k_proj.bias")}
+    worst, where, median = _grad_diff(gc, gg)
+    p_worst, p_where, _ = _grad_diff(gc, gp)
+    p_loss = abs(lp - lc) / abs(lc)
+    p_ratio = max(p_loss / MT_CROSS_LOSS_TOL, p_worst / MT_CROSS_GRAD_TOL)
+    print(f"13 (a) Transformer-base widths x {MT_CROSS_LAYERS} + "
+          f"{MT_CROSS_LAYERS} layers f32 (TF32 off) b{MT_CROSS_BATCH} · "
+          f"source {MT_CROSS_SEQ} · target {MT_CROSS_SEQ}, one TrainStep, "
+          f"card vs CPU: loss {lg:.6f} vs {lc:.6f} (relative {loss_rel:.3e}; "
+          f"tol {MT_CROSS_LOSS_TOL:.0e}), gradients: worst {worst:.3e} of "
+          f"its max-abs ({where}; tol {MT_CROSS_GRAD_TOL:.0e}), median "
+          f"{median:.3e} over {len(gc)} parameters (the k_proj biases, 0 in "
+          f"exact arithmetic, left out); card launches "
+          f"{launches}; planted (no tgt_mask): loss {p_loss:.3e}, gradients "
+          f"worst {p_worst:.3e} ({p_where}) -> {p_ratio:.1f}x its gate")
+    want = 2 * MT_CROSS_LAYERS      # encoder self + equal-length cross
+    if launches != dict.fromkeys(fa.REPLACES, want):
+        raise AssertionError(f"13 (a): card launches {launches}, expected "
+                             f"{want} each")
+    if not (loss_rel <= MT_CROSS_LOSS_TOL and worst <= MT_CROSS_GRAD_TOL):
+        raise AssertionError("13 (a): the card's Transformer step disagrees "
+                             "with the CPU's")
+    if p_ratio < 2.0:
+        raise AssertionError(f"13 (a): the planted fault moved its measure "
+                             f"only {p_ratio:.2f}x its gate")
+    del gpu, cpu
+    return {"loss_rel": loss_rel, "worst": worst, "planted": p_ratio}
+
+
+def mt_bench(fa, card):
+    """13 (b): Transformer-base whole, bf16 O1, `TrainStep`, the Noam
+    schedule stepped after each step; K3-K5 counted from zero over the
+    13 steps. Returns (the model after its steps, K3-K5's launches)."""
+    from paddle_tpu_torch.core import rng
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.profile_train import H100_PEAK_BF16
+
+    model = mt_model(seed=0)
+    batch = mt_batch(MT_BATCH, MT_SEQ, 0, "cuda")
+    # the f32 loss at the first weights, under the dropout masks the
+    # first TrainStep draws (the same generator: seed, then the same
+    # call index)
+    rng.seed(7)
+    with torch.no_grad(), rng.generator_scope(rng.next_generator("cuda")):
+        f32_loss = float(mt_loss(model, *batch))
+    opt, sched = _mt_optimizer(model)
+    step = TrainStep(model, mt_o1_loss, opt)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rng.seed(7)
+    fa.reset_launches()
+    losses = []
+    for i in range(MT_WARM + MT_STEPS):
+        if i == MT_WARM:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        losses.append(step(*batch))
+        sched.step()
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / MT_STEPS
+    launches = (dict(fa.launches), dict(fa.tc_launches),
+                dict(fa.causal_launches))
+    prof_line = _mt_profile(step, sched, batch)
+    losses = [float(x) for x in losses]
+    flops = mt_flops(MT_BATCH, MT_SEQ)
+    mfu = flops / dt / H100_PEAK_BF16
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    o1_rel = abs(losses[0] - f32_loss) / abs(f32_loss)
+    tokens = MT_BATCH * MT_SEQ
+    print(f"13 (b) Transformer-base (6 + 6 layers, d {MT_D}, {MT_HEADS} "
+          f"heads, FFN {MT_FF}, vocab {MT_VOCAB}) b{MT_BATCH} · source "
+          f"{MT_SEQ} · target {MT_SEQ} bf16 O1 Adam(0.9, 0.98, 1e-9) + "
+          f"NoamDecay(512, 4000) TrainStep ({card}): {dt * 1e3:.3f} ms/step, "
+          f"{tokens / dt:.1f} target tokens/s, MFU {mfu:.4f} "
+          f"({flops / 1e12:.4f} TFLOP a step at 989 TFLOP/s), peak memory "
+          f"{peak:.2f} GiB; step 0's O1 loss {losses[0]:.6f} vs f32 "
+          f"{f32_loss:.6f} (relative {o1_rel:.3e}; tol {MT_O1_TOL:.0e}); "
+          f"losses {losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} "
+          f"steps (lr {opt.get_lr():.3e} at the last: the warm-up); "
+          f"launches {launches[0]}, tensor-core {launches[1]}, causal "
+          f"{launches[2]}")
+    print(prof_line)
+    want = 2 * 6 * (MT_WARM + MT_STEPS)
+    if (launches[0] != dict.fromkeys(fa.REPLACES, want)
+            or launches[1] != launches[0] or any(launches[2].values())):
+        raise AssertionError(f"13 (b): launches {launches}; expected {want} "
+                             "each, all tensor-core, none causal")
+    if not (all(np.isfinite(losses)) and o1_rel <= MT_O1_TOL):
+        raise AssertionError(f"13 (b): losses {losses}, f32 {f32_loss}")
+    return model, launches[0], dict(ms=dt * 1e3, tokens_per_s=tokens / dt,
+                                    mfu=mfu, peak_gib=peak)
+
+
+def _mt_profile(step, sched, batch):
+    """One more step of 13 (b) under torch.profiler: its wall and device
+    time, the idle share, the kernels it launched, the optimizer
+    update's device share and the device time by category
+    (profile_train's)."""
+    from paddle_tpu_torch import profile_train as pt
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(*batch)
+        sched.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = pt.kernel_rows(prof)
+    dev = pt.device_us(prof)
+    if not dev:
+        return "13 (b) profiled step: the profiler recorded no device time"
+    cats = {}
+    for e in rows:
+        cat = next((c for c, keys in pt.CATEGORIES
+                    if any(k in e.key for k in keys)), "other")
+        cats[cat] = cats.get(cat, 0) + e.self_device_time_total
+    opt = pt.optimizer_device_us(prof)
+    return (f"13 (b) one profiled step: {wall * 1e3:.3f} ms wall, device "
+            f"{dev / 1e3:.3f} ms, idle {100 * (1 - dev / 1e6 / wall):.1f} %, "
+            f"{sum(e.count for e in rows)} kernel launches; the optimizer "
+            f"update {opt / 1e3:.3f} ms ({100 * opt / dev:.1f} %); by "
+            f"category: " + ", ".join(
+                f"{c} {us / 1e3:.3f} ms" for c, us in
+                sorted(cats.items(), key=lambda kv: -kv[1])))
+
+
+def _mt_decode(model, src, check=False, fault=False):
+    """Beam search with the caches: `BeamSearchDecoder` + `dynamic_decode`
+    over a cell that carries `TransformerDecoder.gen_cache(memory)`'s
+    incremental caches and the prefix; the static caches and the memory
+    tiled by `tile_beam_merge_with_batch`. With `check`, each step's
+    cached logits against a no-cache decoder forward over the same
+    prefixes (returns the worst max-abs difference over the logits'
+    max-abs); `fault` drops every append to the caches after the
+    first step's."""
+    from paddle_tpu_torch import nn
+
+    tile = nn.BeamSearchDecoder.tile_beam_merge_with_batch
+    dec = model.transformer.decoder
+    mem = model.transformer.encoder(model.embed(model.src_emb, src))
+    caches = dec.gen_cache(mem)
+    static = [nn.MultiHeadAttention.StaticCache(tile(s.k, MT_BEAM),
+                                                tile(s.v, MT_BEAM))
+              for _, s in caches]
+    mem_t = tile(mem, MT_BEAM)
+    worst = [0.0]
+
+    def cell(ids, state):
+        incr, prefix = state
+        t = prefix.shape[1]
+        x = model.embed(model.tgt_emb, ids[:, None], offset=t)
+        h, new = dec(x, mem_t, cache=[(c, s) for c, s in
+                                      zip(incr, static)])
+        logits = model.logits(h[:, 0])
+        prefix = torch.cat([prefix, ids[:, None]], 1)
+        if check:
+            full = dec(model.embed(model.tgt_emb, prefix), mem_t,
+                       tgt_mask=model.transformer
+                       .generate_square_subsequent_mask(t + 1))
+            ref = model.logits(full[:, -1])
+            worst[0] = max(worst[0], float((logits - ref).abs().max()
+                                           / ref.abs().max()))
+        nxt = incr if fault and t else [c for c, _ in new]
+        return logits, (nxt, prefix)
+
+    bsd = nn.BeamSearchDecoder(cell, MT_START, MT_END, MT_BEAM)
+    empty = torch.zeros((src.shape[0], 0), dtype=torch.int64,
+                        device=src.device)
+    ids, _, lens = nn.dynamic_decode(
+        bsd, inits=([c for c, _ in caches], empty),
+        max_step_num=MT_BEAM_STEPS, return_length=True)
+    return ids, lens, worst[0]
+
+
+def mt_beam(model, card):
+    """13 (c): the (b) model, f32, eval: a timed beam search, the gated
+    one, the planted one (caches not appended after the first step: from
+    the third position on each step attends a stale prefix), and the same
+    search on
+    the CPU from the same weights (for information)."""
+    model.eval()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    src = mt_batch(MT_BEAM_BATCH, MT_SEQ, 3, "cuda")[0]
+    with torch.no_grad():
+        _mt_decode(model, src[:1])                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ids, lens, _ = _mt_decode(model, src)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        _, _, worst = _mt_decode(model, src, check=True)
+        _, _, planted = _mt_decode(model, src, check=True, fault=True)
+        cids, _, _ = _mt_decode(copy.deepcopy(model).cpu(), src.cpu())
+    steps = ids.shape[1]
+    same = int(sum(torch.equal(a, b) for a, b in zip(ids.cpu()[:, :, 0],
+                                                     cids[:, :, 0])))
+    new_tokens = MT_BEAM_BATCH * steps
+    print(f"13 (c) beam search, Transformer-base after 13 (b), f32, "
+          f"b{MT_BEAM_BATCH} · source {MT_SEQ}, beam {MT_BEAM}, "
+          f"{steps} steps ({card}): {dt * 1e3:.1f} ms, "
+          f"{new_tokens / dt:.1f} tokens/s ({new_tokens} best-beam tokens), "
+          f"{MT_BEAM_BATCH * MT_BEAM * steps / dt:.1f} beam tokens/s; the "
+          f"cached step vs a no-cache forward over the same prefixes: "
+          f"worst {worst:.3e} of the logits' max-abs (tol "
+          f"{MT_BEAM_TOL:.0e}); planted (cache not appended): {planted:.3e}"
+          f" -> {planted / MT_BEAM_TOL:.1f}x its gate; best beams equal to "
+          f"the CPU's decode from the same weights: {same} of "
+          f"{MT_BEAM_BATCH} (information only)")
+    if not worst <= MT_BEAM_TOL:
+        raise AssertionError("13 (c): the cached decode disagrees with the "
+                             "no-cache forward")
+    if planted < 2 * MT_BEAM_TOL:
+        raise AssertionError(f"13 (c): the planted fault moved its measure "
+                             f"only {planted / MT_BEAM_TOL:.2f}x its gate")
+    return dict(ms=dt * 1e3, tokens_per_s=new_tokens / dt, worst=worst,
+                planted=planted, same=same)
+
+
+def _flat_rnn(res):
+    """An RNN's (outputs, final states) as a list of tensors."""
+    out, st = res
+    return [out] + (list(st) if isinstance(st, tuple) else [st])
+
+
+def _rnn_run(net, x, probes, loop=False):
+    """Σ (outputs and final states) · probes, backward, on the net's own
+    route or (`loop`) its plain time loop: (every leaf as f32 on the
+    host, {name: gradient}, input gradient, ms)."""
+    x = x.detach().clone().requires_grad_()
+    net.zero_grad()
+    t0 = time.perf_counter()
+    leaves = _flat_rnn(net._apply_route(net._loop, x) if loop else net(x))
+    sum((a * p).sum() for a, p in zip(leaves, probes)).backward()
+    if x.is_cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return ([a.detach().float().cpu() for a in leaves],
+            {n: p.grad.float().cpu() for n, p in net.named_parameters()},
+            x.grad.float().cpu(), ms)
+
+
+def _rnn_gap(ref, got):
+    (rl, rg, rx, _), (gl, gg, gx, _) = ref, got
+    errs = [((a - b).abs().max() / b.abs().max()).item()
+            for a, b in zip(gl, rl)]
+    errs += [((gg[n] - r).abs().max() / r.abs().max().clamp(min=1e-30)
+              ).item() for n, r in rg.items()]
+    errs.append(((gx - rx).abs().max() / rx.abs().max()).item())
+    return max(errs)
+
+
+def rnn_phase(card):
+    """13 (d): the RNNs card vs CPU and, on the card, the fused route vs
+    the plain loop; ms for forward + backward (the second of two runs)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for label, build in (
+            ("LSTM 2-layer bidirect", lambda: nn.LSTM(
+                RNN_WIDTH, RNN_WIDTH, num_layers=2, direction="bidirect")),
+            ("GRU", lambda: nn.GRU(RNN_WIDTH, RNN_WIDTH)),
+            ("SimpleRNN", lambda: nn.SimpleRNN(RNN_WIDTH, RNN_WIDTH))):
+        rng.seed(31)
+        cpu = build()
+        gpu = build().to("cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        g = torch.Generator().manual_seed(31)
+        x = torch.randn(RNN_BATCH, RNN_T, RNN_WIDTH, generator=g)
+        with torch.no_grad():
+            shapes = [o.shape for o in _flat_rnn(cpu(x[:, :2]))]
+        shapes[0] = (RNN_BATCH, RNN_T) + tuple(shapes[0][2:])
+        probes = [torch.randn(s, generator=g) for s in shapes]
+        ref = _rnn_run(cpu, x, probes)
+        xg, pg = x.cuda(), [p.cuda() for p in probes]
+        fused = [_rnn_run(gpu, xg, pg) for _ in range(2)][-1]
+        plain = [_rnn_run(gpu, xg, pg, loop=True) for _ in range(2)][-1]
+        vs_cpu = max(_rnn_gap(ref, fused), _rnn_gap(ref, plain))
+        vs_plain = _rnn_gap(plain, fused)
+        print(f"13 (d) {label} {RNN_WIDTH} b{RNN_BATCH} · t{RNN_T} f32 (TF32 "
+              f"off) ({card}): card vs CPU worst {vs_cpu:.3e} of max-abs "
+              f"over the outputs, final states and gradients (tol "
+              f"{RNN_TOL:.0e}); fused route vs the plain loop on the card "
+              f"{vs_plain:.3e}; forward + backward {fused[3]:.2f} ms fused, "
+              f"{plain[3]:.2f} ms plain loop, {ref[3]:.1f} ms on the CPU")
+        if not (vs_cpu <= RNN_TOL and vs_plain <= RNN_TOL):
+            raise AssertionError(f"13 (d) {label}: the card disagrees")
+        out[label] = dict(fused_ms=fused[3], plain_ms=plain[3],
+                          vs_cpu=vs_cpu, vs_plain=vs_plain)
+    return out
+
+
+def mt_phase(fa, card):
+    """13: (a) card vs CPU with its planted fault, (b) Transformer-base,
+    (c) the cached beam search, (d) the RNNs. Returns K3-K5's launches in
+    (b) by kernel."""
+    t0 = time.perf_counter()
+    mt_cross(fa)
+    model, launches, _ = mt_bench(fa, card)
+    mt_beam(model, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rnn_phase(card)
+    print(f"transformer phase (13): {time.perf_counter() - t0:.1f} s")
+    return launches
 
 
 def _kernel_row(name, route, source, replaces, launches, r):
@@ -7920,6 +8509,7 @@ def main(argv=None):
           f"{time.perf_counter() - t_cross:.1f} s")
     vision_phase(card)
     bert = bert_phase(fa, card)
+    mt = mt_phase(fa, card)
     # each kernel's launches come from the main-path run that drives it:
     # K1 on the bf16, int8 and int4 pools the fused phase's greedy
     # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'
@@ -8039,6 +8629,11 @@ def main(argv=None):
         # bidirectional; the times at bench_bert's shape
         row["bert_launches"] = bert[name]
         row["shape_bert"] = r["shape_bert"]
+        # 13 (b): Transformer-base's steps (the encoder's self-attention
+        # and the equal-length cross-attention, bidirectional); the times
+        # at its shape
+        row["mt_launches"] = mt[name]
+        row["shape_mt"] = r["shape_mt"]
         kernels.append(row)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           "build to the result")

@@ -33,7 +33,10 @@ paddle_tpu_torch as paddle; paddle.reshape(x, [0, -1])` — the ops of
 functions place on) and `Tensor` / `Parameter`. The ops are plain
 functions on `torch.Tensor`; `torch.Tensor` itself is not patched
 (`ops.TENSOR_METHODS` maps the reference's Tensor methods to them).
-ROADMAP.md lists what is still to port.
+The skeleton around them is the reference's too: the Place classes and
+device queries, `grad` / `autograd`, `save` / `load`, the flags, and
+every ported subpackage bound at the top (`paddle.nn`,
+`paddle.distributed`, ...). ROADMAP.md lists what is still to port.
 """
 import importlib as _importlib
 
@@ -65,7 +68,46 @@ from .ops import *  # noqa: F401,F403
 # the top-level linalg namespace, not the ops.linalg the line above bound
 linalg = _importlib.import_module(".linalg", __name__)
 
-no_grad = _torch.no_grad
-enable_grad = _torch.enable_grad
-is_grad_enabled = _torch.is_grad_enabled
+from .core.place import (  # noqa: F401,E402
+    CPUPlace,
+    CUDAPinnedPlace,
+    CUDAPlace,
+    CustomPlace,
+    IPUPlace,
+    MLUPlace,
+    NPUPlace,
+    TPUPlace,
+    XPUPlace,
+    device_count,
+    get_cudnn_version,
+    get_place,
+    is_compiled_with_cinn,
+    is_compiled_with_cuda,
+    is_compiled_with_ipu,
+    is_compiled_with_mlu,
+    is_compiled_with_npu,
+    is_compiled_with_rocm,
+    is_compiled_with_tpu,
+    is_compiled_with_xpu,
+)
+from .core.flags import get_flags, set_flags  # noqa: F401,E402
+from .core.rng import get_rng_state_tracker  # noqa: F401,E402
+from . import autograd  # noqa: F401,E402
+from .autograd import enable_grad, no_grad  # noqa: F401,E402
+from .autograd.engine import grad, is_grad_enabled  # noqa: F401,E402
+
+# the ported subpackages, bound as the reference binds its own
+# (paddle_tpu/__init__.py:71-104); none builds or loads a CUDA library
+# on import
+for _sub in ("observability", "nn", "optimizer", "amp", "framework", "jit",
+             "distributed", "vision", "text", "incubate", "inference",
+             "quantization"):
+    globals()[_sub] = _importlib.import_module("." + _sub, __name__)
+
+from .framework.io_state import load, save  # noqa: F401,E402
+from .framework.random import (get_cuda_rng_state,  # noqa: F401,E402
+                               set_cuda_rng_state)
+
+ParamAttr = nn.ParamAttr  # noqa: F821
+DataParallel = distributed.DataParallel  # noqa: F821
 dtype = _torch.dtype

@@ -1,3 +1,6 @@
-"""Device and dtype resolution (counterpart of paddle_tpu/core)."""
+"""Device, dtype, random streams, flags and errors (counterpart of
+paddle_tpu/core)."""
+from . import dtype, enforce, flags, place, rng  # noqa: F401
 from .dtype import resolve_dtype  # noqa: F401
-from .place import resolve_device  # noqa: F401
+from .place import (CPUPlace, CUDAPlace, Place, TPUPlace,  # noqa: F401
+                    get_device, get_place, resolve_device, set_device)

@@ -5,6 +5,11 @@ runs on CUDA, and raises when no GPU is present instead of carrying on
 quietly on the CPU. `device="cpu"` is the explicit request for the
 plain PyTorch versions of every kernel (what the CPU tests use).
 
+The reference's `Place` classes name devices: `CPUPlace()` the CPU,
+`CUDAPlace(i)` and the accelerator places (`TPUPlace(i)`, ...) the CUDA
+device `i`. The `is_compiled_with_*` queries and `device_count` answer
+for this machine: CUDA when a GPU is present, never a TPU.
+
 The tensor API's creation functions (`ops.creation`) take no device
 argument in the reference: they place on the current device, which
 `set_device` sets ("cpu", "gpu", "gpu:1", "cuda:0") and
@@ -13,7 +18,14 @@ no GPU is present.
 """
 import torch
 
-__all__ = ["resolve_device", "set_device", "get_device", "current_device"]
+__all__ = ["resolve_device", "set_device", "get_device", "current_device",
+           "Place", "CPUPlace", "CUDAPlace", "TPUPlace", "CUDAPinnedPlace",
+           "XPUPlace", "NPUPlace", "MLUPlace", "IPUPlace", "CustomPlace",
+           "get_place", "is_compiled_with_cuda", "is_compiled_with_tpu",
+           "is_compiled_with_rocm", "is_compiled_with_cinn",
+           "is_compiled_with_xpu", "is_compiled_with_npu",
+           "is_compiled_with_mlu", "is_compiled_with_ipu",
+           "get_cudnn_version", "device_count"]
 
 _current = None
 
@@ -32,9 +44,11 @@ def resolve_device(device=None):
 
 
 def set_device(device):
-    """paddle.set_device: the device the tensor API creates on. Returns
-    the torch.device."""
+    """paddle.set_device: the device the tensor API creates on ("cpu",
+    "gpu:1", a Place). Returns the torch.device."""
     global _current
+    if isinstance(device, Place):
+        device = device.torch_device()
     name = str(device)
     if name.startswith("gpu"):
         name = "cuda" + name[3:]
@@ -52,3 +66,129 @@ def get_device():
     """paddle.get_device: "cpu" or "gpu:<index>"."""
     d = current_device()
     return "cpu" if d.type == "cpu" else f"gpu:{d.index or 0}"
+
+
+# ---- the reference's Place classes and device queries (core/place.py) ----
+
+class Place:
+    """A device, compared by (kind, device_id). `torch_device()` is the
+    torch device it names."""
+
+    kind = "unknown"
+
+    def __init__(self, device_id=0):
+        self.device_id = int(device_id)
+
+    def get_device_id(self):
+        return self.device_id
+
+    def __eq__(self, other):
+        return (isinstance(other, Place) and self.kind == other.kind
+                and self.device_id == other.device_id)
+
+    def __hash__(self):
+        return hash((self.kind, self.device_id))
+
+    def __repr__(self):
+        return f"Place({self.kind}:{self.device_id})"
+
+    def torch_device(self):
+        if self.kind == "cpu":
+            return torch.device("cpu")
+        return torch.device("cuda", self.device_id)
+
+
+class CPUPlace(Place):
+    kind = "cpu"
+
+    def __init__(self):
+        super().__init__(0)
+
+
+class CUDAPlace(Place):
+    kind = "gpu"
+
+
+class TPUPlace(Place):
+    """Accepted for API compatibility; the port's accelerator is the
+    CUDA device of the same index."""
+
+    kind = "tpu"
+
+
+class CUDAPinnedPlace(CPUPlace):
+    pass
+
+
+class XPUPlace(TPUPlace):
+    """Accepted for API compatibility; maps to the CUDA device."""
+
+
+class NPUPlace(TPUPlace):
+    """Accepted for API compatibility; maps to the CUDA device."""
+
+
+class MLUPlace(TPUPlace):
+    """Accepted for API compatibility; maps to the CUDA device."""
+
+
+class IPUPlace(TPUPlace):
+    """Accepted for API compatibility; maps to the CUDA device."""
+
+
+class CustomPlace(Place):
+    """A device type by name ("cpu" names the CPU, anything else the CUDA
+    device)."""
+
+    def __init__(self, device_type, device_id=0):
+        super().__init__(device_id)
+        self.kind = str(device_type)
+
+
+def get_place():
+    """The current device (`set_device`) as a Place."""
+    d = current_device()
+    return CPUPlace() if d.type == "cpu" else CUDAPlace(d.index or 0)
+
+
+def is_compiled_with_cuda():
+    """True when this machine runs the port on a CUDA GPU."""
+    return torch.cuda.is_available()
+
+
+def is_compiled_with_tpu():
+    return False
+
+
+def is_compiled_with_rocm():
+    return torch.version.hip is not None
+
+
+def is_compiled_with_cinn():
+    return False
+
+
+def is_compiled_with_xpu():
+    return False
+
+
+def is_compiled_with_npu():
+    return False
+
+
+def is_compiled_with_mlu():
+    return False
+
+
+def is_compiled_with_ipu():
+    return False
+
+
+def get_cudnn_version():
+    return (torch.backends.cudnn.version() if torch.cuda.is_available()
+            else None)
+
+
+def device_count():
+    """The CUDA devices this machine has (0 without a GPU)."""
+    return torch.cuda.device_count()

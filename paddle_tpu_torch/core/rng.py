@@ -14,6 +14,15 @@ layers under one seeded from its `seed`); outside a scope they take
 `next_init_generator`, a stream of its own, so building a layer leaves
 the indices of dropout's and sampling's draws as they were.
 
+The reference's stateful surface sits over the same streams:
+`Generator(seed)` is a stream of its own (`next_generator`,
+`get_state` / `set_state`, `manual_seed`); `default_generator()` is the
+global stream itself (its `manual_seed` is `seed`); an
+`RNGStatesTracker` keeps named Generators, and inside its
+`rng_state(name)` every `next_generator` call draws from that stream
+(the model-parallel dropout streams). A state taken with `get_state`
+and set back replays the same draws.
+
 A generator's numbers differ from jax's for the same seed: tests never
 compare them, they feed both packages the same numpy noise.
 """
@@ -27,12 +36,14 @@ from . import prng
 
 __all__ = ["seed", "next_generator", "next_init_generator", "next_key",
            "skip", "generator_scope", "current_generator", "get_state",
-           "set_state"]
+           "set_state", "Generator", "default_generator", "RNGStatesTracker",
+           "get_rng_state_tracker"]
 
 
 class _State(threading.local):
     def __init__(self):
         self.scoped = None
+        self.stream = None      # a tracker's Generator inside rng_state
 
 
 _lock = threading.Lock()
@@ -59,8 +70,12 @@ def _seeded(device, words):
 
 
 def next_generator(device="cpu"):
-    """A fresh generator on `device`, deterministic in (seed, call index)."""
+    """A fresh generator on `device`, deterministic in (seed, call index)
+    — of the tracker stream whose `rng_state` block is open, else of the
+    global stream."""
     global _count
+    if _state.stream is not None:
+        return _state.stream.next_generator(device)
     with _lock:
         c = _count
         _count += 1
@@ -129,3 +144,108 @@ def set_state(state):
     global _seed, _count, _init_count
     with _lock:
         _seed, _count, _init_count = (int(v) for v in state)
+
+
+class Generator:
+    """A seeded stream of its own: each `next_generator(device)` is
+    deterministic in (seed, call index)."""
+
+    def __init__(self, seed=0):
+        self._seed = int(seed)
+        self._count = 0
+        self._lock = threading.Lock()
+
+    def manual_seed(self, seed):
+        with self._lock:
+            self._seed, self._count = int(seed), 0
+        return self
+
+    def seed(self):
+        return self._seed
+
+    def _next_index(self):
+        with self._lock:
+            c = self._count
+            self._count += 1
+        return self._seed, c
+
+    def next_generator(self, device="cpu"):
+        s, c = self._next_index()
+        return _seeded(device, [s, c, 2])
+
+    def next_key(self, device="cpu"):
+        """jax's fold_in(PRNGKey(seed), index) as a `core.prng` key."""
+        s, c = self._next_index()
+        return prng.fold_in(prng.prng_key(s, device=device), c)
+
+    def get_state(self):
+        return (self._seed, self._count)
+
+    def set_state(self, state):
+        with self._lock:
+            self._seed, self._count = int(state[0]), int(state[1])
+
+
+class _GlobalGenerator(Generator):
+    """The global stream (`seed`, `next_generator`) as a Generator."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+
+    def manual_seed(self, s):
+        seed(s)
+        return self
+
+    def seed(self):
+        return get_state()[0]
+
+    def next_generator(self, device="cpu"):
+        return next_generator(device)
+
+    def next_key(self, device="cpu"):
+        return next_key(device)
+
+    def get_state(self):
+        return get_state()
+
+    def set_state(self, state):
+        set_state(state)
+
+
+class RNGStatesTracker:
+    """Named streams (the reference's model-parallel RNG tracker):
+    inside `rng_state(name)` every draw comes from that stream."""
+
+    def __init__(self):
+        self.states = {}
+
+    def add(self, name, seed):
+        if name in self.states:
+            raise ValueError(f"rng state {name!r} already exists")
+        self.states[name] = Generator(seed)
+
+    def get(self, name):
+        return self.states[name]
+
+    def reset(self):
+        self.states = {}
+
+    @contextlib.contextmanager
+    def rng_state(self, name="global"):
+        old, _state.stream = _state.stream, self.states[name]
+        try:
+            yield
+        finally:
+            _state.stream = old
+
+
+_default_generator = _GlobalGenerator()
+_tracker = RNGStatesTracker()
+
+
+def default_generator():
+    return _default_generator
+
+
+def get_rng_state_tracker():
+    return _tracker

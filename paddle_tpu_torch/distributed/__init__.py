@@ -90,7 +90,8 @@ from .collective import (  # noqa: F401
 from .communication import stream  # noqa: F401
 from .env import ParallelEnv, get_rank, get_world_size  # noqa: F401
 from .fleet.elastic import run_with_fault_tolerance  # noqa: F401
-from .mesh import PartitionSpec, init_mesh, reset_mesh  # noqa: F401
+from .mesh import (PartitionSpec, global_mesh, init_mesh,  # noqa: F401
+                   reset_mesh)
 from .parallel_step import (  # noqa: F401
     DistributedTrainStep,
     shard_params_and_opt,
@@ -115,3 +116,11 @@ from .sharding import (  # noqa: F401
     group_sharded_parallel,
     save_group_sharded_model,
 )
+from .fleet.recompute import recompute, recompute_sequential  # noqa: F401,E402
+
+
+def DataParallel(layers, **kwargs):
+    """The reference's DataParallel is the identity (its gradient sync is
+    compiled into the step); here `DistributedTrainStep` averages the
+    gradients over the data ranks."""
+    return layers

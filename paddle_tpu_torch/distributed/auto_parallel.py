@@ -792,15 +792,12 @@ def _embedding_fwd(layer, ids, mode, ax, start):
 
 def _attention_fwd(layer, query, key=None, value=None, attn_mask=None,
                    cache=None, ax="mp", heads=1):
+    """A realized MultiHeadAttention: this rank's heads, the caches
+    (`gen_cache` of the cut projections) holding them as the layer's
+    do, through the layer's own `_attend`."""
     from .fleet.meta_parallel.mp_ops import allreduce_mp, copy_to_mp
     from ..nn import functional as F
-    from ..nn.layer.transformer import _convert_attention_mask
 
-    if cache is not None:
-        raise NotImplementedError(
-            "MultiHeadAttention caches: ROADMAP A12 (nn/layer/transformer)")
-    key = query if key is None else key
-    value = key if value is None else value
     ins = {}
 
     def entered(t):
@@ -813,16 +810,12 @@ def _attention_fwd(layer, query, key=None, value=None, attn_mask=None,
         return layer._split_heads(F.linear(entered(t), lin.weight, lin.bias),
                                   heads)
 
-    q = proj(layer.q_proj, query)
-    k = proj(layer.k_proj, key)
-    v = proj(layer.v_proj, value)
-    out = F.scaled_dot_product_attention(
-        q, k, v, attn_mask=_convert_attention_mask(attn_mask, q.dtype),
-        dropout_p=layer.dropout, training=layer.training)
-    out = out.reshape(out.shape[0], out.shape[1], heads * layer.head_dim)
-    o = layer.out_proj
-    y = allreduce_mp(F.linear(out, o.weight), ax)
-    return y if o.bias is None else y + o.bias
+    def out(x):
+        o = layer.out_proj
+        y = allreduce_mp(F.linear(x, o.weight), ax)
+        return y if o.bias is None else y + o.bias
+
+    return layer._attend(query, key, value, attn_mask, cache, proj, out)
 
 
 def realize(model):
@@ -923,7 +916,7 @@ def _loader(data, batch_size, shuffle=False, drop_last=False):
 
 
 def _device_of(model):
-    p = next(model.parameters(), None)
+    p = next(iter(model.parameters()), None)
     return p.device if p is not None else torch.device("cpu")
 
 

@@ -13,7 +13,8 @@ pipeline's `train_batch` / `eval_batch` (meta_parallel).
 from .. import collective as coll
 from .. import env as env_mod
 from .. import mesh as mesh_mod
-from ..parallel_step import DistributedTrainStep  # noqa: F401
+from ..parallel_step import (DistributedTrainStep,  # noqa: F401
+                             shard_params_and_opt)
 from . import elastic  # noqa: F401
 from . import meta_optimizers  # noqa: F401
 from . import topology as topo_mod  # noqa: F401
@@ -26,6 +27,7 @@ __all__ = [
     "DistributedStrategy", "HybridCommunicateGroup", "CommunicateTopology",
     "get_hybrid_communicate_group", "DistributedTrainStep",
     "PipelineParallel", "TensorParallel", "ShardingParallel", "fleet",
+    "shard_params_and_opt",
 ]
 
 _SHARDING_STAGES = {1: "os", 2: "os_g", 3: "p_g_os"}

@@ -39,6 +39,7 @@ from .... import amp
 from ....nn import functional as F
 from ....nn.functional import cross_entropy
 from ....nn.layer.common import Embedding, Linear
+from ....nn.layer.layers import Layer
 from ... import mesh as mesh_mod
 from .mp_ops import (all_reduce_mp_raw, allreduce_mp, copy_to_mp,
                      gather_mp, mp_world, split_mp)
@@ -200,7 +201,7 @@ def parallel_cross_entropy(logits, label, ignore_index=-100, axis="mp"):
     return torch.where(lbl == ignore_index, 0.0, loss)
 
 
-class ParallelCrossEntropy(nn.Module):
+class ParallelCrossEntropy(Layer):
     """Vocab-parallel softmax CE (reduction "none"); at mp 1 the plain
     per-position CE over the whole vocab."""
 

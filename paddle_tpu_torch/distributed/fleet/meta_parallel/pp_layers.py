@@ -15,6 +15,7 @@ import numpy as np
 from torch import nn
 
 from ... import mesh as mesh_mod
+from ....nn.layer.layers import Layer
 
 __all__ = ["LayerDesc", "SharedLayerDesc", "SegmentLayers", "PipelineLayer"]
 
@@ -87,7 +88,7 @@ class SegmentLayers:
         return bounds
 
 
-class PipelineLayer(nn.Module):
+class PipelineLayer(Layer):
     """Declarative stage list. With the mesh's pp axis of `num_stages`
     positions (in several processes) this rank builds and runs its
     segment only; otherwise every layer, in order."""
@@ -203,7 +204,7 @@ class PipelineLayer(nn.Module):
         return x
 
 
-class _FnLayer(nn.Module):
+class _FnLayer(Layer):
     def __init__(self, fn):
         super().__init__()
         self._fn = fn
@@ -212,7 +213,7 @@ class _FnLayer(nn.Module):
         return self._fn(*args)
 
 
-class _SharedRef(nn.Module):
+class _SharedRef(Layer):
     """An occurrence of a shared layer through its `forward_func`: the
     prototype's parameters (registered here when this occurrence owns
     them, else held in a list, not as a submodule)."""

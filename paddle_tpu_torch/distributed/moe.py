@@ -49,6 +49,7 @@ from ..core.dtype import resolve_dtype
 from ..core.place import resolve_device
 from ..nn import functional as F
 from ..nn.layer.common import Linear
+from ..nn.layer.layers import Layer
 from .fleet.meta_parallel import mp_ops
 
 __all__ = ["MoELayer", "NaiveGate", "SwitchGate", "GShardGate",
@@ -368,7 +369,7 @@ def expert_ffn(expert_in, w1, b1, w2, b2, act):
 _ACTS = {"gelu": lambda h: F.gelu(h, approximate=True), "relu": F.relu}
 
 
-class NaiveGate(nn.Module):
+class NaiveGate(Layer):
     """The top-k linear gate: a Linear [d_model, num_experts] with bias."""
 
     def __init__(self, d_model, num_experts, topk=2, device=None,
@@ -404,7 +405,7 @@ def _xavier_(w, fan_in, fan_out, gen):
     w.uniform_(-limit, limit, generator=gen)
 
 
-class MoELayer(nn.Module):
+class MoELayer(Layer):
     """The MoE layer: stacked experts w1 [E, d, dh], b1 [E, 1, dh], w2
     [E, dh, d], b2 [E, 1, d] (their specs recorded over "ep"), the gate
     (a `NaiveGate` of `topk` by default), top-k routing at

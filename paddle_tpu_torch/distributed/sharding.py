@@ -32,9 +32,10 @@ def group_sharded_parallel(model, optimizer, level="os_g", scaler=None,
 
 
 def save_group_sharded_model(model, output, optimizer=None):
-    """The reference writes `.pdparams` / `.pdopt` through
-    framework.io_state, which is ROADMAP A12: not ported yet."""
-    raise NotImplementedError(
-        "save_group_sharded_model writes through framework.io_state "
-        "(paddle.save), which is not ported yet: ROADMAP A12; checkpoint "
-        "through distributed.checkpoint.Checkpointer")
+    """`output`.pdparams (the model's state_dict) and, with an
+    optimizer, `output`.pdopt (its state_dict), through `paddle.save`."""
+    from ..framework.io_state import save
+
+    save(model.state_dict(), output + ".pdparams")
+    if optimizer is not None:
+        save(optimizer.state_dict(), output + ".pdopt")

@@ -7,6 +7,7 @@ from .fleet_serving import (  # noqa: F401,E402
     OverloadPolicy, Priority, RadixPrefixCache, ReplicaRegistry,
     KVTierStore, RequestCancelled, RequestShed, SLAPolicy, SLAScheduler)
 from .serving import BatchingConfig, InferenceServer  # noqa: F401,E402
+from .speculative import SpeculativeDecoder  # noqa: F401,E402
 
 __all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer", "PagePool",
            "PoolExhausted", "fleet_serving", "RadixPrefixCache",
@@ -14,4 +15,4 @@ __all__ = ["LLMEngine", "LLMEngineConfig", "LLMServer", "PagePool",
            "AutoscalePolicy", "LocalReplica", "ReplicaRegistry",
            "KVPagePayload", "OverloadPolicy", "RequestShed",
            "RequestCancelled", "KVTierStore", "BatchingConfig",
-           "InferenceServer"]
+           "InferenceServer", "SpeculativeDecoder"]

@@ -4,10 +4,11 @@ paddle_tpu/nn/functional/attention.py).
 `scaled_dot_product_attention` follows the reference's dispatch: with no
 `attn_mask`, no attention dropout and seq_q == seq_k it runs flash
 attention (ops/cuda_kernels/flash_attention.py) — on a CUDA tensor always
-the hand-written kernels K3 (forward) and K4 + K5 (backward), on a CPU
-tensor their plain versions. A mask, attention dropout or cross-length
-attention takes `dense_attention_bshd`, the reference's own non-kernel
-path. `paged_attention` is the serving path: the ragged paged attention
+the hand-written kernels K3 (forward) and K4 + K5 (backward), which raise
+on a dtype they do not take (float16, float64), on a CPU tensor their
+plain versions, float32 and bfloat16 only. A mask, attention dropout,
+cross-length attention or another float dtype on the CPU takes
+`dense_attention_bshd`, the reference's own non-kernel path. `paged_attention` is the serving path: the ragged paged attention
 kernels (K1, or K2 on the speculative verify layout) on a CUDA tensor,
 their plain version on a CPU tensor.
 """
@@ -22,6 +23,11 @@ from ...ops.cuda_kernels import paged_attention as _pa
 
 __all__ = ["scaled_dot_product_attention", "dense_attention_bshd",
            "paged_attention"]
+
+# the flash kernels' dtypes; on the CPU another dtype (float64 under the
+# reference's x64) takes the dense path, on the card it reaches the kernel
+# wrapper and raises
+_FLASH_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def dense_attention_bshd(q, k, v, is_causal=False, attn_mask=None,
@@ -64,7 +70,9 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if kv_lens is not None and attn_mask is not None:
         raise ValueError("pass either attn_mask or kv_lens, not both")
     if (attn_mask is None and dropout_p == 0.0
-            and query.shape[1] == key.shape[1]):
+            and query.shape[1] == key.shape[1]
+            and (query.dtype in _FLASH_DTYPES
+                 or query.device.type != "cpu")):
         q, k, v = amp.cast_inputs_for("flash_attention",
                                       (query, key, value))
         return _fa.flash_attention_bshd(q, k, v, causal=is_causal,

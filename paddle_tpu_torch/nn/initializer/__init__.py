@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ...core import rng
-from ...core.dtype import resolve_dtype
+from ...core.dtype import convert_dtype as resolve_dtype
 
 __all__ = [
     "Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",

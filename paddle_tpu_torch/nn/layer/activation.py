@@ -1,11 +1,10 @@
 """Activation layers (counterpart of paddle_tpu/nn/layer/activation.py):
 each holds its function's arguments and calls it; `PReLU` holds its
 slope parameter (`weight`, Constant(init) by default)."""
-from torch import nn
 
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 __all__ = [
     "CELU", "ELU", "GELU", "GLU", "Hardshrink", "Hardsigmoid", "Hardswish",
@@ -21,7 +20,7 @@ def _layer(name, fname, *params):
     tuple of (argument, default) in the function's order) and `name`."""
 
     def __init__(self, *args, name=None, **kw):
-        nn.Module.__init__(self)
+        Layer.__init__(self)
         values = dict(params)
         values.update(zip([p for p, _ in params], args))
         values.update(kw)
@@ -30,7 +29,7 @@ def _layer(name, fname, *params):
     def forward(self, x):
         return getattr(F, fname)(x, *self._args)
 
-    return type(name, (nn.Module,), {"__init__": __init__,
+    return type(name, (Layer,), {"__init__": __init__,
                                      "forward": forward})
 
 
@@ -64,7 +63,7 @@ ThresholdedReLU = _layer("ThresholdedReLU", "thresholded_relu",
                          ("threshold", 1.0))
 
 
-class PReLU(nn.Module):
+class PReLU(Layer):
     def __init__(self, num_parameters=1, init=0.25, weight_attr=None,
                  data_format="NCHW", name=None, device=None, dtype=None):
         super().__init__()
@@ -77,7 +76,7 @@ class PReLU(nn.Module):
         return F.prelu(x, self.weight, self._data_format)
 
 
-class RReLU(nn.Module):
+class RReLU(Layer):
     """Random slopes in training, their mean in eval."""
 
     def __init__(self, lower=1.0 / 8.0, upper=1.0 / 3.0, name=None):
@@ -88,7 +87,7 @@ class RReLU(nn.Module):
         return F.rrelu(x, self._lower, self._upper, self.training)
 
 
-class Softmax2D(nn.Module):
+class Softmax2D(Layer):
     """Softmax over the channel axis of [C, H, W] or [N, C, H, W]."""
 
     def forward(self, x):

@@ -6,20 +6,35 @@ JAX package's `state_dict` key for key. Parameters are made by
 `layers.create_parameter` under the reference's defaults (`Linear`:
 XavierUniform weight, zero bias; `Embedding`: Normal(0, 1)) or the
 `weight_attr` / `bias_attr` given; a model that has its own init (the
-GPT's N(0, 0.02) from its `seed`) overwrites them.
+GPT's N(0, 0.02) from its `seed`) overwrites them. The dropouts draw
+from the port's generators (`F.dropout`).
 """
 import torch
-from torch import nn
 
 from ...core import rng
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
-__all__ = ["Linear", "Embedding", "Dropout"]
+__all__ = [
+    "PairwiseDistance", "Fold", "Linear", "Identity", "Dropout",
+    "Dropout2D", "Dropout3D", "AlphaDropout", "Embedding", "Flatten",
+    "Pad1D", "Pad2D", "Pad3D", "ZeroPad2D", "Upsample",
+    "UpsamplingNearest2D", "UpsamplingBilinear2D", "Bilinear",
+    "CosineSimilarity", "Unfold", "PixelShuffle", "PixelUnshuffle",
+    "ChannelShuffle",
+]
 
 
-class Linear(nn.Module):
+class Identity(Layer):
+    def __init__(self, *args, **kwargs):
+        super().__init__()
+
+    def forward(self, input):
+        return input
+
+
+class Linear(Layer):
     """`has_bias=False` is `bias_attr=False`."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
@@ -43,34 +58,257 @@ class Linear(nn.Module):
                 f"out_features={self.out_features}")
 
 
-class Embedding(nn.Module):
-    def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 name=None, device=None, dtype=None):
+class Embedding(Layer):
+    """The `padding_idx` row starts at zero and its output stays zero."""
+
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None, device=None,
+                 dtype=None):
         super().__init__()
+        self._padding_idx = padding_idx
         self.weight = create_parameter(
             (num_embeddings, embedding_dim), weight_attr, dtype=dtype,
             device=device, default_initializer=I.Normal(0.0, 1.0))
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
 
     def forward(self, x):
-        return F.embedding(x, self.weight)
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
 
 
-class Dropout(nn.Module):
-    """paddle's "upscale_in_train" dropout. Identity in eval mode (every
-    serving path); in training the keep mask is drawn from an explicit
-    generator: the one given here, else the one installed by
-    `core.rng.generator_scope` (TrainStep installs one per step), else a
-    fresh `core.rng.next_generator`."""
+class Dropout(Layer):
+    """paddle's dropout (`F.dropout`: "upscale_in_train" or
+    "downscale_in_infer", an optional `axis`). In training the keep
+    mask is drawn from the generator given here, else the one
+    `core.rng.generator_scope` installs (TrainStep installs one per
+    step), else a fresh `core.rng.next_generator`."""
 
-    def __init__(self, p=0.5, generator=None):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None,
+                 generator=None):
         super().__init__()
         self.p = float(p)
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        gen = (self.generator or rng.current_generator()
-               or rng.next_generator(x.device))
-        keep = torch.rand(x.shape, generator=gen, device=x.device) >= self.p
-        return torch.where(keep, x / (1.0 - self.p), torch.zeros_like(x))
+        if self.generator is None:
+            return F.dropout(x, self.p, self.axis, self.training, self.mode)
+        with rng.generator_scope(self.generator):
+            return F.dropout(x, self.p, self.axis, self.training, self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}, axis={self.axis}, mode={self.mode}"
+
+
+class Dropout2D(Layer):
+    def __init__(self, p=0.5, data_format="NCHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return F.dropout2d(input, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class Dropout3D(Layer):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None):
+        super().__init__()
+        self.p = p
+        self.data_format = data_format
+
+    def forward(self, input):
+        return F.dropout3d(input, p=self.p, training=self.training,
+                           data_format=self.data_format)
+
+
+class AlphaDropout(Layer):
+    def __init__(self, p=0.5, name=None):
+        super().__init__()
+        self.p = p
+
+    def forward(self, input):
+        return F.alpha_dropout(input, p=self.p, training=self.training)
+
+
+class Flatten(Layer):
+    def __init__(self, start_axis=1, stop_axis=-1):
+        super().__init__()
+        self.start_axis = start_axis
+        self.stop_axis = stop_axis
+
+    def forward(self, input):
+        from ...ops.manipulation import flatten
+
+        return flatten(input, start_axis=self.start_axis,
+                       stop_axis=self.stop_axis)
+
+
+class _PadNd(Layer):
+    def __init__(self, padding, mode, value, data_format):
+        super().__init__()
+        self._pad = padding
+        self._mode = mode
+        self._value = value
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pad(x, self._pad, mode=self._mode, value=self._value,
+                     data_format=self._data_format)
+
+
+class Pad1D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 2
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 4
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Pad3D(_PadNd):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        if isinstance(padding, int):
+            padding = [padding] * 6
+        super().__init__(padding, mode, value, data_format)
+
+
+class Upsample(Layer):
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size = size
+        self.scale_factor = scale_factor
+        self.mode = mode
+        self.align_corners = align_corners
+        self.align_mode = align_mode
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class Bilinear(Layer):
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None):
+        super().__init__()
+        self.weight = self.create_parameter(
+            [out_features, in1_features, in2_features], attr=weight_attr)
+        self.bias = self.create_parameter([1, out_features], attr=bias_attr,
+                                          is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self._axis = axis
+        self._eps = eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, axis=self._axis, eps=self._eps)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, input):
+        return F.unfold(input, self.kernel_sizes, self.strides,
+                        self.paddings, self.dilations)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.kernel_sizes = kernel_sizes
+        self.strides = strides
+        self.paddings = paddings
+        self.dilations = dilations
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, self.kernel_sizes, self.strides,
+                      self.paddings, self.dilations)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self._factor = upscale_factor
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self._factor, self._data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self._factor = downscale_factor
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self._factor, self._data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self._groups = groups
+        self._data_format = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self._groups, self._data_format)
+
+
+class PairwiseDistance(Layer):
+    def __init__(self, p=2.0, epsilon=1e-6, keepdim=False, name=None):
+        super().__init__()
+        self.p = p
+        self.epsilon = epsilon
+        self.keepdim = keepdim
+
+    def forward(self, x, y):
+        return F.pairwise_distance(x, y, p=self.p, epsilon=self.epsilon,
+                                   keepdim=self.keepdim)

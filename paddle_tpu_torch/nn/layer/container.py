@@ -2,16 +2,19 @@
 
 Sublayers are named "0", "1", ... (or by the names given), which are the
 parameter-name prefixes, so a reference model's `state_dict` loads key
-for key (`convert.load_jax_state_dict`).
+for key (`convert.load_jax_state_dict`). Each is torch's container and
+a `Layer`.
 """
 import collections
 
 from torch import nn
 
+from .layers import Layer
+
 __all__ = ["Sequential", "LayerList", "ParameterList", "LayerDict"]
 
 
-class Sequential(nn.Sequential):
+class Sequential(nn.Sequential, Layer):
     """paddle's Sequential: layers as positional arguments (named "0",
     "1", ...), one OrderedDict, or (name, layer) pairs."""
 
@@ -30,14 +33,14 @@ class Sequential(nn.Sequential):
         return super().__getitem__(idx)
 
 
-class LayerList(nn.ModuleList):
+class LayerList(nn.ModuleList, Layer):
     """paddle's LayerList (`append`, `insert`, `extend`, indexing and
     slices, as torch's ModuleList)."""
 
 
-class ParameterList(nn.ParameterList):
+class ParameterList(nn.ParameterList, Layer):
     """paddle's ParameterList over `nn.Parameter`s."""
 
 
-class LayerDict(nn.ModuleDict):
+class LayerDict(nn.ModuleDict, Layer):
     """paddle's LayerDict: sublayers by name, in insertion order."""

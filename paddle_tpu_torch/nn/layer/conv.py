@@ -5,10 +5,9 @@ transpose, XavierUniform by default; the bias [out], zeros, absent with
 `bias_attr=False`. Both come from `layers.create_parameter`, so
 `weight_attr` / `bias_attr` take a `ParamAttr`, an initializer or False.
 """
-from torch import nn
 
 from .. import functional as F
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 __all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
            "Conv2DTranspose", "Conv3DTranspose"]
@@ -18,7 +17,7 @@ def _ntuple(v, n):
     return (v,) * n if isinstance(v, int) else tuple(v)
 
 
-class _ConvNd(nn.Module):
+class _ConvNd(Layer):
     _n = 2
     _transposed = False
 

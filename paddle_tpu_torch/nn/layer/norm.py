@@ -16,13 +16,12 @@ the same rows and stay out of them.
 """
 import numpy as np
 import torch
-from torch import nn
 
 from ... import amp
 from ...core.dtype import resolve_dtype
 from .. import functional as F
 from .. import initializer as I
-from .layers import create_parameter
+from .layers import Layer, create_parameter
 
 __all__ = [
     "SpectralNorm", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
@@ -46,7 +45,7 @@ def _data_parallel_ranks():
     return mesh.axis_size("dp") * mesh.axis_size("sharding")
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, device=None, dtype=None):
@@ -140,7 +139,7 @@ class SyncBatchNorm(_BatchNormBase):
         return out
 
 
-class LayerNorm(nn.Module):
+class LayerNorm(Layer):
     def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
                  bias_attr=None, name=None, device=None, dtype=None):
         super().__init__()
@@ -159,7 +158,7 @@ class LayerNorm(nn.Module):
         return f"normalized_shape={self.normalized_shape}"
 
 
-class GroupNorm(nn.Module):
+class GroupNorm(Layer):
     def __init__(self, num_groups, num_channels, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  name=None, device=None, dtype=None):
@@ -176,7 +175,7 @@ class GroupNorm(nn.Module):
                             self.weight, self.bias, self._data_format)
 
 
-class _InstanceNormBase(nn.Module):
+class _InstanceNormBase(Layer):
     """The affine pair is `scale` and `bias`; `weight_attr=False` drops
     both, as in the reference."""
 
@@ -208,7 +207,7 @@ class InstanceNorm3D(_InstanceNormBase):
     pass
 
 
-class LocalResponseNorm(nn.Module):
+class LocalResponseNorm(Layer):
     def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
                  data_format="NCHW", name=None):
         super().__init__()
@@ -223,7 +222,7 @@ class LocalResponseNorm(nn.Module):
                                      self.k, self.data_format)
 
 
-class SpectralNorm(nn.Module):
+class SpectralNorm(Layer):
     """weight / σ, σ the largest singular value of the weight reshaped
     to [shape[dim], rest], by power iteration from the buffers `weight_u`
     / `weight_v` (seeded as the reference seeds them), which each call

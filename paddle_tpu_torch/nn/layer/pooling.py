@@ -1,8 +1,8 @@
 """Pooling layers (counterpart of paddle_tpu/nn/layer/pooling.py): each
 holds its functional's arguments under the reference's names."""
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = [
     "MaxPool1D", "MaxPool2D", "MaxPool3D",
@@ -13,7 +13,7 @@ __all__ = [
 ]
 
 
-class _MaxPool(nn.Module):
+class _MaxPool(Layer):
     _n, _format = 2, "NCHW"
 
     def __init__(self, kernel_size, stride=None, padding=0,
@@ -50,7 +50,7 @@ class MaxPool3D(_MaxPool):
     _n, _format = 3, "NCDHW"
 
 
-class _AvgPool(nn.Module):
+class _AvgPool(Layer):
     _n, _format = 2, "NCHW"
 
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
@@ -98,7 +98,7 @@ class AvgPool3D(_AvgPool):
     _n, _format = 3, "NCDHW"
 
 
-class _AdaptivePool(nn.Module):
+class _AdaptivePool(Layer):
     _n, _mode, _format = 2, "avg", "NCHW"
 
     def __init__(self, output_size, data_format=None, name=None):
@@ -146,7 +146,7 @@ class AdaptiveMaxPool3D(_AdaptiveMaxPool):
     _n = 3
 
 
-class _MaxUnPool(nn.Module):
+class _MaxUnPool(Layer):
     _n, _format = 2, "NCHW"
 
     def __init__(self, kernel_size, stride=None, padding=0, data_format=None,

@@ -1,19 +1,40 @@
-"""Multi-head attention (counterpart of the MultiHeadAttention of
-paddle_tpu/nn/layer/transformer.py; the encoder / decoder stacks are
-ROADMAP A12's).
+"""Transformer layers (counterpart of paddle_tpu/nn/layer/transformer.py):
+`MultiHeadAttention` with its caches, the encoder and decoder layers
+and stacks, and `Transformer`.
 
 The q / k / v / out projections are paddle `Linear`s under the
 reference's names, so a reference state dict loads key for key and the
 auto-parallel planner sees the same units. A boolean `attn_mask` (True
 keeps) becomes the reference's additive 0 / -1e9 mask in q's dtype.
+Attention is `F.scaled_dot_product_attention`: with no mask, no
+attention dropout and equal lengths it runs the flash kernels (K3-K5 on
+a CUDA tensor), else the dense path.
+
+Caches follow the reference: `gen_cache(key, type=Cache)` is an empty
+incremental cache [batch, 0, heads, head_dim] in float32 whatever the
+model's dtype, to which each step appends its keys and values (so under
+bf16 the appended cache is float32, and attention sees q, k, v promoted
+to a common dtype as jnp promotes them); `gen_cache(key, value,
+type=StaticCache)` holds the projected memory for cross-attention. A
+layer given a `Cache` returns (output, new cache); the stacks take and
+return one cache per layer. The stacks deep-copy the layer they are
+given, so every layer starts from the same weights.
 """
+import collections
+import copy
+
 import torch
-from torch import nn
 
 from .. import functional as F
-from .common import Linear
+from .common import Dropout, Linear
+from .container import LayerList
+from .layers import Layer
+from .norm import LayerNorm
 
-__all__ = ["MultiHeadAttention"]
+__all__ = [
+    "MultiHeadAttention", "TransformerEncoderLayer", "TransformerEncoder",
+    "TransformerDecoderLayer", "TransformerDecoder", "Transformer",
+]
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -25,9 +46,20 @@ def _convert_attention_mask(attn_mask, dtype):
     return attn_mask
 
 
-class MultiHeadAttention(nn.Module):
+def _common_dtype(*ts):
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+class MultiHeadAttention(Layer):
+    Cache = collections.namedtuple("Cache", ["k", "v"])
+    StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
+
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False, device=None, dtype=None):
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, device=None, dtype=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.kdim = kdim if kdim is not None else embed_dim
@@ -38,28 +70,271 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         assert self.head_dim * num_heads == embed_dim
         kw = dict(device=device, dtype=dtype)
-        self.q_proj = Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = Linear(self.kdim, embed_dim, **kw)
-        self.v_proj = Linear(self.vdim, embed_dim, **kw)
-        self.out_proj = Linear(embed_dim, embed_dim, **kw)
+        self.q_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.k_proj = Linear(self.kdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.v_proj = Linear(self.vdim, embed_dim, weight_attr, bias_attr,
+                             **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
+                               **kw)
 
     def _split_heads(self, x, heads=None):
-        return x.reshape(x.shape[0], x.shape[1], heads or self.num_heads,
-                         self.head_dim)
+        # the heads this layer's projections give (fewer than num_heads
+        # once the auto-parallel Engine has cut them)
+        return x.reshape(x.shape[0], x.shape[1], heads or -1, self.head_dim)
+
+    def gen_cache(self, key, value=None, type=None):
+        if type == MultiHeadAttention.StaticCache:
+            k = self._split_heads(self.k_proj(key))
+            v = self._split_heads(self.v_proj(value if value is not None
+                                              else key))
+            return self.StaticCache(k, v)
+        heads = self.q_proj.weight.shape[1] // self.head_dim
+        k = torch.zeros((key.shape[0], 0, heads, self.head_dim),
+                        dtype=torch.float32, device=key.device)
+        return self.Cache(k, torch.zeros_like(k))
 
     def forward(self, query, key=None, value=None, attn_mask=None,
                 cache=None):
-        if cache is not None:
-            raise NotImplementedError(
-                "MultiHeadAttention caches: ROADMAP A12 (nn/layer/"
-                "transformer)")
+        return self._attend(query, key, value, attn_mask, cache,
+                            lambda lin, t: self._split_heads(lin(t)),
+                            self.out_proj)
+
+    def _attend(self, query, key, value, attn_mask, cache, project, out):
+        """The attention with the reference's cache rules, shared with
+        the auto-parallel Engine's realized layer (which brings its own
+        cut projections): `project(linear, x)` gives x's heads, `out`
+        maps the merged heads to the output. A `StaticCache` is the keys
+        and values; a `Cache` gets this step's appended and is returned
+        beside the output."""
         key = query if key is None else key
         value = key if value is None else value
-        q = self._split_heads(self.q_proj(query))
-        k = self._split_heads(self.k_proj(key))
-        v = self._split_heads(self.v_proj(value))
-        out = F.scaled_dot_product_attention(
-            q, k, v, attn_mask=_convert_attention_mask(attn_mask, q.dtype),
+        q = project(self.q_proj, query)
+        if isinstance(cache, self.StaticCache):
+            k, v = cache.k, cache.v
+        else:
+            k = project(self.k_proj, key)
+            v = project(self.v_proj, value)
+            if isinstance(cache, self.Cache):
+                k = torch.cat([cache.k, k], 1)
+                v = torch.cat([cache.v, v], 1)
+                cache = self.Cache(k, v)
+        qa, ka, va = _common_dtype(q, k, v)
+        o = F.scaled_dot_product_attention(
+            qa, ka, va, attn_mask=_convert_attention_mask(attn_mask,
+                                                          q.dtype),
             dropout_p=self.dropout, training=self.training)
-        return self.out_proj(out.reshape(out.shape[0], out.shape[1],
-                                         self.embed_dim))
+        y = out(o.reshape(o.shape[0], o.shape[1], -1))
+        if cache is not None and not isinstance(cache, self.StaticCache):
+            return y, cache
+        return y
+
+
+class TransformerEncoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, dropout=attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout, mode="upscale_in_train")
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout2 = Dropout(dropout, mode="upscale_in_train")
+        self.activation = getattr(F, activation)
+
+    def forward(self, src, src_mask=None, cache=None):
+        residual = src
+        if self.normalize_before:
+            src = self.norm1(src)
+        if cache is None:
+            src = self.self_attn(src, src, src, src_mask)
+        else:
+            src, cache = self.self_attn(src, src, src, src_mask, cache)
+        src = residual + self.dropout1(src)
+        if not self.normalize_before:
+            src = self.norm1(src)
+        residual = src
+        if self.normalize_before:
+            src = self.norm2(src)
+        src = self.linear2(self.dropout(self.activation(self.linear1(src))))
+        src = residual + self.dropout2(src)
+        if not self.normalize_before:
+            src = self.norm2(src)
+        return src if cache is None else (src, cache)
+
+    def gen_cache(self, src):
+        return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
+
+
+class TransformerEncoder(Layer):
+    def __init__(self, encoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([encoder_layer] + [
+            copy.deepcopy(encoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, src, src_mask=None, cache=None):
+        output, new_caches = src, []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, src_mask=src_mask)
+            else:
+                output, c = mod(output, src_mask=src_mask, cache=cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, src):
+        return [layer.gen_cache(src) for layer in self.layers]
+
+
+class TransformerDecoderLayer(Layer):
+    def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None):
+        super().__init__()
+        attn_dropout = dropout if attn_dropout is None else attn_dropout
+        act_dropout = dropout if act_dropout is None else act_dropout
+        self.normalize_before = normalize_before
+        self.self_attn = MultiHeadAttention(
+            d_model, nhead, attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr)
+        self.cross_attn = MultiHeadAttention(
+            d_model, nhead, attn_dropout, weight_attr=weight_attr,
+            bias_attr=bias_attr)
+        self.linear1 = Linear(d_model, dim_feedforward, weight_attr,
+                              bias_attr)
+        self.dropout = Dropout(act_dropout, mode="upscale_in_train")
+        self.linear2 = Linear(dim_feedforward, d_model, weight_attr,
+                              bias_attr)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.norm3 = LayerNorm(d_model)
+        self.dropout1 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout2 = Dropout(dropout, mode="upscale_in_train")
+        self.dropout3 = Dropout(dropout, mode="upscale_in_train")
+        self.activation = getattr(F, activation)
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm1(tgt)
+        if cache is None:
+            tgt = self.self_attn(tgt, tgt, tgt, tgt_mask)
+        else:
+            tgt, incr = self.self_attn(tgt, tgt, tgt, tgt_mask, cache[0])
+        tgt = residual + self.dropout1(tgt)
+        if not self.normalize_before:
+            tgt = self.norm1(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm2(tgt)
+        tgt = self.cross_attn(tgt, memory, memory, memory_mask,
+                              None if cache is None else cache[1])
+        tgt = residual + self.dropout2(tgt)
+        if not self.normalize_before:
+            tgt = self.norm2(tgt)
+        residual = tgt
+        if self.normalize_before:
+            tgt = self.norm3(tgt)
+        tgt = self.linear2(self.dropout(self.activation(self.linear1(tgt))))
+        tgt = residual + self.dropout3(tgt)
+        if not self.normalize_before:
+            tgt = self.norm3(tgt)
+        return tgt if cache is None else (tgt, (incr, cache[1]))
+
+    def gen_cache(self, memory):
+        incr = self.self_attn.gen_cache(memory,
+                                        type=MultiHeadAttention.Cache)
+        static = self.cross_attn.gen_cache(
+            memory, memory, type=MultiHeadAttention.StaticCache)
+        return incr, static
+
+
+class TransformerDecoder(Layer):
+    def __init__(self, decoder_layer, num_layers, norm=None):
+        super().__init__()
+        self.layers = LayerList([decoder_layer] + [
+            copy.deepcopy(decoder_layer) for _ in range(num_layers - 1)])
+        self.num_layers = num_layers
+        self.norm = norm
+
+    def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
+                cache=None):
+        output, new_caches = tgt, []
+        for i, mod in enumerate(self.layers):
+            if cache is None:
+                output = mod(output, memory, tgt_mask, memory_mask)
+            else:
+                output, c = mod(output, memory, tgt_mask, memory_mask,
+                                cache[i])
+                new_caches.append(c)
+        if self.norm is not None:
+            output = self.norm(output)
+        return output if cache is None else (output, new_caches)
+
+    def gen_cache(self, memory, do_zip=False):
+        cache = [layer.gen_cache(memory) for layer in self.layers]
+        return list(zip(*cache)) if do_zip else cache
+
+
+class Transformer(Layer):
+    """The encoder-decoder (defaults: Transformer-base, d_model 512, 8
+    heads, 6 + 6 layers, FFN 2048, post-norm)."""
+
+    def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
+                 num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
+                 activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None):
+        super().__init__()
+        if custom_encoder is not None:
+            self.encoder = custom_encoder
+        else:
+            layer = TransformerEncoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            self.encoder = TransformerEncoder(
+                layer, num_encoder_layers,
+                LayerNorm(d_model) if normalize_before else None)
+        if custom_decoder is not None:
+            self.decoder = custom_decoder
+        else:
+            layer = TransformerDecoderLayer(
+                d_model, nhead, dim_feedforward, dropout, activation,
+                attn_dropout, act_dropout, normalize_before, weight_attr,
+                bias_attr)
+            self.decoder = TransformerDecoder(
+                layer, num_decoder_layers,
+                LayerNorm(d_model) if normalize_before else None)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def forward(self, src, tgt, src_mask=None, tgt_mask=None,
+                memory_mask=None):
+        memory = self.encoder(src, src_mask=src_mask)
+        return self.decoder(tgt, memory, tgt_mask=tgt_mask,
+                            memory_mask=memory_mask)
+
+    def generate_square_subsequent_mask(self, length):
+        """[length, length] float32: 0 on and below the diagonal, -inf
+        above (on the device of the model's parameters)."""
+        dev = next(iter(self.parameters())).device
+        keep = torch.ones((length, length), dtype=torch.bool,
+                          device=dev).tril()
+        return torch.where(keep, 0.0, float("-inf")).to(torch.float32)

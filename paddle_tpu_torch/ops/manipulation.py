@@ -457,12 +457,24 @@ def unique(x, return_index=False, return_inverse=False, return_counts=False,
            axis=None, dtype="int64", name=None):
     """np.unique's: the sorted unique values (rows along `axis`), then
     as asked the index of each one's first occurrence, the inverse and
-    the counts."""
+    the counts. NaNs sort last and count as one value, as in numpy."""
     x = tensor_of(x)
     src = x.reshape(-1) if axis is None else x
     dim = 0 if axis is None else int(axis)
-    u, inv, cnt = torch.unique(src, sorted=True, return_inverse=True,
-                               return_counts=True, dim=dim)
+    nan = (torch.isnan(src) if axis is None and src.is_floating_point()
+           else None)
+    if nan is not None and bool(nan.any()):
+        # numpy sorts NaN last and folds every NaN into one value
+        u, inv_k, cnt = torch.unique(src[~nan], sorted=True,
+                                     return_inverse=True, return_counts=True)
+        inv = torch.full(src.shape, u.numel(), dtype=inv_k.dtype,
+                         device=x.device)
+        inv[~nan] = inv_k
+        u = torch.cat([u, src.new_full((1,), float("nan"))])
+        cnt = torch.cat([cnt, nan.sum().reshape(1).to(cnt.dtype)])
+    else:
+        u, inv, cnt = torch.unique(src, sorted=True, return_inverse=True,
+                                   return_counts=True, dim=dim)
     out = [u]
     if return_index:
         n = src.shape[dim]

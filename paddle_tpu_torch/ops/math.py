@@ -89,7 +89,20 @@ ceil = unary_op("ceil", torch.ceil)
 round = unary_op("round", torch.round)
 trunc = unary_op("trunc", torch.trunc)
 frac = unary_op("frac", lambda a: a - torch.trunc(a))
-sign = unary_op("sign", torch.sign)
+class _Sign(torch.autograd.Function):
+    """jnp.sign: x / |x| (0 at 0) for a complex x, -1 / 0 / 1 for a real
+    one; its gradient is zero, as jax defines it."""
+
+    @staticmethod
+    def forward(ctx, a):
+        return torch.sgn(a) if a.is_complex() else torch.sign(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return torch.zeros_like(g)
+
+
+sign = unary_op("sign", _Sign.apply)
 sgn = sign
 erf = unary_op("erf", torch.erf)
 erfinv = unary_op("erfinv", torch.erfinv)

@@ -46,6 +46,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..nn.layer.layers import Layer
+
 __all__ = ["QMAX", "QMAX4", "Int8WeightOnlyLinear", "Int4WeightOnlyLinear",
            "quantize_model_int8", "quantize_model_int4", "pack_int4",
            "unpack_int4", "resolve_kv_dtype", "kv_scale_shape",
@@ -80,7 +82,7 @@ def unpack_int4(packed, axis=0):
 
 # ---------------------------------------------------------------- weights
 
-class _WeightOnlyLinear(nn.Module):
+class _WeightOnlyLinear(Layer):
     """A Linear over per-out-channel quantized weights: the buffers
     `weight_q` and `w_step` (the step = scale / qmax), the float bias kept
     as the replaced layer's parameter. Forward: the W8A8 linear

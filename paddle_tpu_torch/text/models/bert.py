@@ -37,6 +37,7 @@ from ...distributed.fleet.meta_parallel.mp_layers import (
     VocabParallelEmbedding, mp_degree, shard_activation, split_fused_qkv)
 from ...distributed.fleet.meta_parallel.mp_ops import copy_to_mp
 from ...nn import functional as F
+from ...nn.layer.layers import Layer
 from ...ops import creation
 from ...ops import manipulation as manip
 from ...ops import math as pmath
@@ -84,7 +85,7 @@ def _kw(device, dtype):
     return {"device": device, "dtype": dtype}
 
 
-class _Built(nn.Module):
+class _Built(Layer):
     """A model entry point: resolves its device and dtype, and draws its
     weights from `seed` once built (a sub-model built with seed None
     leaves that to its owner)."""
@@ -94,7 +95,7 @@ class _Built(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, seed=0):
-        dev = next(self.parameters()).device
+        dev = next(iter(self.parameters())).device
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
         for name, p in self.named_parameters():
@@ -106,7 +107,7 @@ class _Built(nn.Module):
                 p.normal_(0.0, 0.02, generator=gen)
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     """word + position + token-type embeddings → LN → dropout."""
 
     def __init__(self, config, device=None, dtype=None):
@@ -131,7 +132,7 @@ class BertEmbeddings(nn.Module):
         return self.drop(self.ln(x))
 
 
-class BertEncoderLayer(nn.Module):
+class BertEncoderLayer(Layer):
     """Post-LN encoder block (BERT convention), fused qkv, bidirectional
     attention with an additive padding mask or per-example lengths."""
 
@@ -266,7 +267,7 @@ class BertForPretraining(_Built):
         return loss
 
 
-class BertPretrainingCriterion(nn.Module):
+class BertPretrainingCriterion(Layer):
     """Masked-LM vocab-parallel CE (ignore_index −100) + NSP CE."""
 
     def __init__(self, use_nsp=True):

@@ -44,6 +44,7 @@ from ...distributed.fleet.meta_parallel.mp_layers import (
 from ...distributed.fleet.meta_parallel.mp_ops import copy_to_mp
 from ...distributed.fleet.recompute import checkpoint_policy, recompute
 from ...nn import functional as F
+from ...nn.layer.layers import Layer
 from ...quantization import runtime as _qrt
 
 __all__ = ["GPTConfig", "GPTDecoderLayer", "GPTModel", "GPTForCausalLM",
@@ -96,7 +97,7 @@ def _add(a, b):
     return a + b
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN block: LN → fused-qkv attention → residual, LN → MLP →
     residual."""
 
@@ -132,7 +133,7 @@ class GPTDecoderLayer(nn.Module):
         return _add(x, self.dropout(self.fc2(F.gelu(self.fc1(self.ln2(x))))))
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Token + position embeddings, N decoder layers, final LN."""
 
     def __init__(self, config, device=None, dtype=None):
@@ -423,7 +424,7 @@ class _DecodeStep:
         self.captures += 1
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """LM head tied to the embedding by default (`tie_embeddings=False`:
     a `lm_head` [hidden, vocab] without bias). `device` defaults to CUDA
     (raises when no GPU is present; `device="cpu"` runs the plain
@@ -824,7 +825,7 @@ class GPTForCausalLM(nn.Module):
         return emits.t(), kv, kv_scales
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Shifted next-token cross entropy, mean over every position."""
 
     def __init__(self):

@@ -67,6 +67,7 @@ from ...distributed.fleet.meta_parallel.mp_ops import (allreduce_mp,
 from ...distributed.fleet.meta_parallel.mp_layers import (
     parallel_cross_entropy, vocab_parallel_lookup)
 from ...nn import functional as F
+from ...nn.layer.layers import Layer
 from .gpt import GPTConfig  # noqa: F401
 
 __all__ = ["PipelinedGPTForCausalLM"]
@@ -201,7 +202,7 @@ class _TiedGrad(torch.autograd.Function):
         return g, None, None
 
 
-class PipelinedGPTForCausalLM(nn.Module):
+class PipelinedGPTForCausalLM(Layer):
     """GPT whose decoder parameters are stacked [num_layers, ...] and held
     by stage (pp) and by Megatron shard (mp); see the module docstring.
     `forward(ids)` returns the whole logits; `loss(ids)` runs the

@@ -4,12 +4,13 @@ import torch
 from torch import nn
 
 from ... import nn as pnn
+from ...nn.layer.layers import Layer
 from ._build import place, seeded_build
 
 __all__ = ["LeNet"]
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     def __init__(self, num_classes=10, device=None, seed=0):
         super().__init__()
         self.num_classes = num_classes

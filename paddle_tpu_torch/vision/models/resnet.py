@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ... import nn as pnn
+from ...nn.layer.layers import Layer
 from ._build import place, seeded_build
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
@@ -21,7 +22,7 @@ __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnext152_64x4d", "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -46,7 +47,7 @@ class BasicBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -76,7 +77,7 @@ class BottleneckBlock(nn.Module):
         return self.relu(out + identity)
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     def __init__(self, block, depth=50, width=64, num_classes=1000,
                  with_pool=True, groups=1, device=None, seed=0):
         super().__init__()

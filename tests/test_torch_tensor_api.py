@@ -1175,6 +1175,11 @@ def test_top_level_namespace_and_dtypes():
     for name in ("to_tensor", "reshape", "matmul", "sum", "topk", "scan",
                  "add_n", "logcumsumexp", "cond", "while_loop"):
         assert getattr(T, name) is getattr(tops, name), name
+    # every ported subpackage is bound at the top, as the reference's
+    # are (test_top_level_namespace_binds_every_ported_subpackage)
+    for sub in _SUBPACKAGES:
+        assert getattr(T, sub.split(".")[0]).__name__.startswith(
+            "paddle_tpu_torch.")
     old = T.get_default_dtype()
     T.set_default_dtype("float64")
     try:
@@ -1182,6 +1187,108 @@ def test_top_level_namespace_and_dtypes():
         assert T.arange(0.0, 1.0, 0.5).dtype == torch.float64
     finally:
         T.set_default_dtype(old)
+
+
+# the ported subpackages the top level binds, with the reference's
+# module at the same path
+_SUBPACKAGES = ["optimizer", "distributed", "distributed.fleet", "jit",
+                "vision", "vision.models", "text", "inference", "incubate",
+                "observability", "nn", "amp", "framework", "autograd",
+                "quantization"]
+
+
+@pytest.mark.parametrize("sub", _SUBPACKAGES)
+def test_top_level_namespace_binds_every_ported_subpackage(sub):
+    """`import paddle_tpu_torch as paddle` reaches each ported subpackage
+    (no jax imported, no CUDA library built or loaded), and each exports
+    every name the reference's exports that the port defines in that
+    subpackage's modules."""
+    import importlib
+    import subprocess
+    import sys
+    import types
+
+    mod = T
+    for part in sub.split("."):
+        mod = getattr(mod, part)
+    assert isinstance(mod, types.ModuleType) and \
+        mod.__name__ == "paddle_tpu_torch." + sub
+    ref = importlib.import_module("paddle_tpu." + sub)
+    defined = set()
+    for name, m in list(sys.modules.items()):
+        if m is not None and (name == mod.__name__ or name.startswith(
+                mod.__name__ + ".")):
+            defined |= {n for n in vars(m) if not n.startswith("_")}
+    ref_names = {n for n in dir(ref) if not n.startswith("_")
+                 and not isinstance(getattr(ref, n), types.ModuleType)}
+    unexported = sorted(n for n in ref_names & defined
+                        if not hasattr(mod, n))
+    assert not unexported, unexported
+    if sub == "optimizer":
+        code = ("import sys, paddle_tpu_torch as p; "
+                "from paddle_tpu_torch.ops.cuda_kernels import _build; "
+                "assert 'jax' not in sys.modules; "
+                "assert not _build._libs; "
+                "print(p.jit.HybridTrainStep.__name__, "
+                "p.inference.SpeculativeDecoder.__name__, "
+                "p.distributed.global_mesh.__name__, "
+                "p.distributed.recompute.__name__, "
+                "p.distributed.recompute_sequential.__name__, "
+                "p.distributed.DataParallel(3), "
+                "p.distributed.fleet.shard_params_and_opt.__name__, "
+                "p.vision.resnet50.__name__, p.vision.LeNet.__name__, "
+                "p.ParamAttr.__name__, p.DataParallel(4))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120,
+                             env=dict(os.environ, JAX_PLATFORMS="cpu"))
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == [
+            "HybridTrainStep", "SpeculativeDecoder", "global_mesh",
+            "recompute", "recompute_sequential", "3",
+            "shard_params_and_opt", "resnet50", "LeNet", "ParamAttr", "4"]
+
+
+def test_unique_folds_nans_as_the_reference():
+    """numpy's unique (the reference) sorts NaN last and folds every NaN
+    into one value; all four outputs agree."""
+    nan = np.nan
+    for data in ([nan, nan], [nan, 1.0], [2.0, nan, 1.0, 2.0],
+                 [nan, 3.0, nan, -1.0, 3.0, nan, 0.5]):
+        a = np.array(data, np.float32)
+        ref = J.unique(J.to_tensor(a), return_index=True,
+                       return_inverse=True, return_counts=True)
+        got = tops.unique(torch.from_numpy(a), return_index=True,
+                          return_inverse=True, return_counts=True)
+        for r, g in zip(ref, got):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(r.numpy()))
+        assert len(got) == 4
+    u, c = tops.unique(torch.tensor([2.0, nan, 1.0, 2.0]),
+                       return_counts=True)
+    assert u[:2].tolist() == [1.0, 2.0] and bool(torch.isnan(u[2]))
+    assert c.tolist() == [1, 2, 1]
+
+
+@pytest.mark.parametrize("name", ["sign", "sgn"])
+def test_sign_of_a_complex_tensor_is_x_over_its_modulus(name):
+    """jnp.sign: x / |x|, 0 at 0; its gradient is zero, as jax defines
+    it, for complex and real inputs alike."""
+    for a in (np.array([1j, 3 + 4j, 0j, -2 - 2j], np.complex64),
+              np.array([1j, 3 + 4j, 0j], np.complex128),
+              np.array([-1.5, 0.0, 2.0], np.float32)):
+        ref = getattr(J, name)(J.to_tensor(a))
+        x = torch.from_numpy(a).requires_grad_()
+        got = getattr(T, name)(x)
+        assert got.dtype == x.dtype
+        np.testing.assert_allclose(got.detach().numpy(),
+                                   np.asarray(ref.numpy()), rtol=1e-6)
+        jx = J.to_tensor(a, stop_gradient=False)
+        (jg,) = J.grad(J.real(getattr(J, name)(jx)).sum()
+                       if np.iscomplexobj(a) else getattr(J, name)(jx).sum(),
+                       jx)
+        (tg,) = T.grad(got.real.sum() if got.is_complex() else got.sum(), x)
+        assert not np.any(np.asarray(jg.numpy())) and not tg.any()
+    np.testing.assert_allclose(
+        T.sign(torch.tensor([3 + 4j])).numpy(), [0.6 + 0.8j], rtol=1e-6)
 
 
 def test_creation_defaults_to_cuda_and_raises_without_a_gpu(monkeypatch):

@@ -425,11 +425,30 @@ def test_fused_linear_cross_entropy_loss_and_grads_match(transpose_weight):
 
 
 @pytest.mark.parametrize("kw", [dict(soft_label=True),
-                                dict(use_softmax=False), dict(axis=0)])
-def test_unported_cross_entropy_forms_raise_naming_roadmap_row(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        TF.cross_entropy(torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
-                         **kw)
+                                dict(use_softmax=False), dict(axis=0)],
+                         ids=["soft_label", "use_softmax", "axis"])
+def test_cross_entropy_forms_match_the_reference(kw):
+    """The three forms beside the fused hard-label path: soft labels,
+    probabilities in (no softmax) and a non-last class axis; the loss and
+    the input's gradient, f32, against the reference."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(0.05, 1.0, (6, 5)).astype(np.float32)
+    if kw.get("use_softmax") is False:
+        x = x / x.sum(-1, keepdims=True)
+    if kw.get("soft_label"):
+        y = rng.uniform(0.1, 1.0, (6, 5)).astype(np.float32)
+        y = y / y.sum(-1, keepdims=True)
+    else:
+        y = rng.integers(0, 6 if kw.get("axis") == 0 else 5,
+                         (5,) if kw.get("axis") == 0 else (6,))
+    jx = paddle.to_tensor(x, stop_gradient=False)
+    jloss = JF.cross_entropy(jx, paddle.to_tensor(y), **kw)
+    jloss.backward()
+    tx = torch.from_numpy(x).requires_grad_()
+    tloss = TF.cross_entropy(tx, torch.from_numpy(y), **kw)
+    tloss.backward()
+    assert _rel_err(tloss, jloss.numpy()) <= 1e-6
+    assert _rel_err(tx.grad, jx.grad.numpy()) <= 1e-6
 
 
 # --------------------------------------------------------------- optimizer
