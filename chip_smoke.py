@@ -597,6 +597,56 @@ continues:
               t128, f32 with TF32 off: outputs, final states and
               gradients card vs CPU and the card's fused route vs its
               plain loop within 1e-4 of max-abs; ms forward + backward.
+14. hapi     — the high-level vision training path (no new kernel;
+              cuDNN's convolutions through the port's `F.conv2d`). (a)
+              every family of the rest of the zoo (MobileNet v1 / v2 /
+              v3 small / large at scale 0.25-0.5, VGG-11 with batch norm,
+              AlexNet, SqueezeNet 1.0 / 1.1, DenseNet-121, GoogLeNet with
+              its aux heads, Inception-v3, ShuffleNetV2 x0.25 and its
+              swish variant) at the CPU tests' sizes (64 px, 96 for
+              AlexNet and Inception-v3, 10 classes; VGG without its
+              classifier, read out by a random projection), b2,
+              dropout 0, f32 with TF32 off, one forward + backward on
+              the card and on the CPU (in 4 processes meanwhile) from the
+              same weights: in eval mode the loss and every gradient
+              (max-abs difference over max-abs) within 1e-4; in train
+              mode the loss within 1e-4 and the gradients within 1e-3
+              of their norm, but for MobileNetV2, DenseNet-121 and
+              Inception-v3, whose train-mode gradients at random init
+              amplify rounding past any such limit (eval mode alone);
+              MobileNetV2 without its residual add and ShuffleNetV2
+              without its channel shuffle (planted) must fail the eval
+              gate by 2x, and the latter the train gate. (b) an ImageNet-style folder written
+              from a seed into a temporary directory (16 classes, 1024
+              training and 256 eval images, uint8 HWC `.npy`, sides
+              256-384) read by `DatasetFolder(loader=np.load)` through
+              the training transform (RandomResizedCrop(224),
+              RandomHorizontalFlip, Normalize(ImageNet mean / std, HWC),
+              Transpose) and the eval one (Resize(256), CenterCrop(224),
+              Normalize, Transpose); the eval loader's batches at
+              num_workers 4 byte-equal, in order, to num_workers 0;
+              images/s at 0 and 4 workers. (c) `hapi.Model` over
+              `vision.models.mobilenet_v2()` (width 1.0, 1000 classes,
+              3.5 M parameters): prepare(Momentum(0.1, 0.9),
+              CrossEntropyLoss, Accuracy(topk=(1, 5))), fit(train, eval,
+              batch_size 64, epochs 1, num_workers 4) in f32: 16 finite
+              losses, the optimizer's `_step_count` and
+              `pt_train_steps_total` each 16 up; the weights after fit
+              evaluated on the card and on the CPU port (TF32 off) over
+              the 256 eval images: the loss within 1e-6 relative, the
+              logits within 1e-5 of max-abs, top-1 / top-5 equal but on
+              counted near-ties, and the card's eval with TF32 allowed
+              (planted) failing a gate by 2x; one `fit` step of 16 eval
+              images (one a class) from those weights, card vs CPU: the
+              loss within 1e-5, the update within 5e-2 of its norm, the
+              step over labels shifted by one image (planted) failing a
+              gate by 2x; `predict` after `save` and a fresh
+              `Model.load` bit-equal to `predict` before; ms/step and
+              images/s from `profiler.benchmark()`, the same TrainStep on
+              a batch already on the card, the idle share of one profiled
+              step, peak memory, MFU = 3 x 2 x `hapi.flops` MACs at 224²
+              x 64 / step time over the f32 peak (67 TFLOP/s) and over
+              989 TFLOP/s.
 
 The line before the last is {"kernels": [...]}: each route of K1 and K2
 (bf16, f32, int8, int4 pools), K3-K5 and the int8 GEMM (int8 and int4
@@ -3332,14 +3382,13 @@ DISAGG_KEY = {"bfloat16": "rpa", "int8": "rpa_int8"}
 
 def launch_disagg(out_dir, model="gpt_small", device="cuda",
                   timeout=DISAGG_TIMEOUT_S):
-    """`python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2
-    paddle_tpu_torch/profile_disagg.py` under DISAGG_PLAN, from the
+    """The launcher (`launcher_cmd`) with --nproc_per_node=2 over
+    paddle_tpu_torch/profile_disagg.py under DISAGG_PLAN, from the
     checkout's root; the launcher runs in a session of its own, and a
     timeout SIGTERMs it (it kills its pod) and then SIGKILLs the rest.
     Returns (rank 0's json, rank 1's json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           "--nproc_per_node=2", f"--log_dir={out_dir}/log",
+    cmd = [*launcher_cmd(2, f"{out_dir}/log"),
            os.path.join("paddle_tpu_torch", "profile_disagg.py"),
            "--model", model, "--device", device,
            "--kv", ",".join(DISAGG_KV), "--out", out_dir]
@@ -5501,14 +5550,45 @@ def ckpt_phase(card, device="cuda", model="gpt_small", batch=TRAIN_BATCH,
     return {"bytes": nbytes, "saves": stats, "load_s": load_s}
 
 
+
+def launcher_cmd(nproc, log_dir):
+    """The user's launch command for `nproc` ranks: `python -m
+    paddle_tpu_torch.distributed.launch`, which hosts their store."""
+    return [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+            f"--nproc_per_node={nproc}", f"--log_dir={log_dir}"]
+
+
+STARTUP_STAMPS = ("imports", "rendezvous", "cuda_context", "kernels",
+                  "blas", "model", "dynamo", "ready")
+
+
+def print_startup(label, outs, t_wall):
+    """What each rank of a launch did before its first step, from its
+    record's "startup" stamps (profile_dist.py): the seconds each stage
+    took, the launcher's spawn first (the command's start to the rank's
+    first line), then each step's seconds."""
+    parts = []
+    for o in outs:
+        st = o.get("startup")
+        if not st:
+            continue
+        prev, segs = 0.0, [f"spawn {st['proc_start'] - t_wall:.2f}"]
+        for k in STARTUP_STAMPS:
+            if k in st:
+                segs.append(f"{k} {st[k] - prev:.2f}")
+                prev = st[k]
+        steps = o.get("step_seconds") or []
+        segs.append("steps " + ", ".join(f"{x:.2f}" for x in steps))
+        parts.append(f"rank {o['rank']}: " + ", ".join(segs))
+    print(f"{label} startup, seconds a stage: " + "; ".join(parts))
+
 def launch_dist(out_dir, model="gpt_small", device="cuda", batch=TRAIN_BATCH,
                 seq=TRAIN_SEQ, timeout=DIST_TIMEOUT_S):
-    """`python -m paddle_tpu_torch.distributed.launch --nproc_per_node=2
-    paddle_tpu_torch/profile_dist.py` at ZeRO os_g over a sharding axis
+    """The launcher (`launcher_cmd`) with --nproc_per_node=2 over
+    paddle_tpu_torch/profile_dist.py at ZeRO os_g over a sharding axis
     of 2, saving a checkpoint; returns (the ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           f"--nproc_per_node={DIST_RANKS}", f"--log_dir={out_dir}/log",
+    cmd = [*launcher_cmd(DIST_RANKS, f"{out_dir}/log"),
            os.path.join("paddle_tpu_torch", "profile_dist.py"),
            "--model", model, "--device", device, "--sharding",
            str(DIST_RANKS), "--zero", "os_g", "--steps",
@@ -5518,6 +5598,7 @@ def launch_dist(out_dir, model="gpt_small", device="cuda", batch=TRAIN_BATCH,
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("PT_CHAOS_PLAN", None)
     t0 = time.perf_counter()
+    t_wall = time.time()
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
@@ -5542,6 +5623,7 @@ def launch_dist(out_dir, model="gpt_small", device="cuda", batch=TRAIN_BATCH,
     for r in range(DIST_RANKS):
         with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
             outs.append(json.load(f))
+    print_startup("8e (c)", outs, t_wall)
     return outs, seconds
 
 
@@ -5878,8 +5960,7 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S, meanwhile=None):
     processes sharing the card, with `meanwhile()` run here while they
     start; returns (the ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           f"--nproc_per_node={MESH_RANKS}", f"--log_dir={out_dir}/log",
+    cmd = [*launcher_cmd(MESH_RANKS, f"{out_dir}/log"),
            os.path.join("paddle_tpu_torch", "profile_dist.py"),
            "--model", "gpt_small", "--device", "cuda", "--mesh",
            "pp=2,mp=2", "--layers", str(MESH_LAYERS), "--steps",
@@ -5889,6 +5970,7 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S, meanwhile=None):
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("PT_CHAOS_PLAN", None)
     t0 = time.perf_counter()
+    t_wall = time.time()
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
@@ -5922,6 +6004,7 @@ def launch_mesh(out_dir, timeout=MESH_TIMEOUT_S, meanwhile=None):
     for r in range(MESH_RANKS):
         with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
             outs.append(json.load(f))
+    print_startup("8f (b)", outs, t_wall)
     return outs, seconds
 
 
@@ -6465,8 +6548,7 @@ def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
     the steps and `meanwhile()` run here while they start; returns (the
     ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           f"--nproc_per_node={MOE_EP_RANKS}", f"--log_dir={out_dir}/log",
+    cmd = [*launcher_cmd(MOE_EP_RANKS, f"{out_dir}/log"),
            os.path.join("paddle_tpu_torch", "profile_dist.py"),
            "--model", model, "--device", device, "--mesh",
            f"ep={MOE_EP_RANKS}", "--moe", str(MOE_EP_E), "--moe-cf",
@@ -6477,6 +6559,7 @@ def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("PT_CHAOS_PLAN", None)
     t0 = time.perf_counter()
+    t_wall = time.time()
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
@@ -6507,6 +6590,7 @@ def launch_ep(out_dir, device="cuda", model="gpt_small", seq=MOE_EP_SEQ,
     for r in range(MOE_EP_RANKS):
         with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
             outs.append(json.load(f))
+    print_startup("8g (b)", outs, t_wall)
     return outs, seconds
 
 
@@ -6751,13 +6835,13 @@ def _launch_profile_dist(out_dir, nproc, args, timeout, label,
     sharing the card, with `meanwhile()` run here while they start;
     returns (the ranks' json, seconds)."""
     root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-           f"--nproc_per_node={nproc}", f"--log_dir={out_dir}/log",
+    cmd = [*launcher_cmd(nproc, f"{out_dir}/log"),
            os.path.join("paddle_tpu_torch", "profile_dist.py"),
            *args, "--out", out_dir]
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("PT_CHAOS_PLAN", None)
     t0 = time.perf_counter()
+    t_wall = time.time()
     p = subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
                          stderr=subprocess.STDOUT, text=True,
                          start_new_session=True)
@@ -6791,6 +6875,7 @@ def _launch_profile_dist(out_dir, nproc, args, timeout, label,
     for r in range(nproc):
         with open(os.path.join(out_dir, f"dist_out_{r}.json")) as f:
             outs.append(json.load(f))
+    print_startup(label, outs, t_wall)
     return outs, seconds
 
 
@@ -8400,6 +8485,697 @@ def mt_phase(fa, card):
     return launches
 
 
+# ---- the high-level vision training path (14) ----
+#
+# A paddle user's image-classification loop: `paddle.Model(net).prepare(
+# opt, loss, Accuracy()).fit(DatasetFolder(..., transform), eval_data,
+# batch_size, num_workers=4)` — the port's DataLoader with its worker
+# processes, the vision transforms and datasets, hapi and the profiler's
+# ips meter over `jit.TrainStep`. No Pallas kernel is on this path
+# (convolutions are cuDNN's), so it adds no row to the kernels line.
+
+# 14 (a): (constructor, its arguments, image side, classes); VGG without
+# its classifier, as in tests/test_torch_vision_zoo.py (at 64 px its
+# first linear layer alone holds 102.8 M weights: seconds of CPU steps
+# and a gigabyte of gradients to carry back), read out by a fixed
+# random projection
+ZOO_CASES = [
+    ("mobilenet_v1", dict(scale=0.25), 64, 10),
+    ("mobilenet_v2", dict(scale=0.5), 64, 10),
+    ("mobilenet_v3_small", dict(scale=0.5), 64, 10),
+    ("mobilenet_v3_large", dict(scale=0.5), 64, 10),
+    ("vgg11", dict(batch_norm=True), 64, 0),
+    ("alexnet", {}, 96, 10),
+    ("squeezenet1_0", {}, 64, 10),
+    ("squeezenet1_1", {}, 64, 10),
+    ("densenet121", {}, 64, 10),
+    ("googlenet", {}, 64, 10),
+    ("inception_v3", {}, 96, 10),
+    ("shufflenet_v2_x0_25", {}, 64, 10),
+    ("ShuffleNetV2", dict(scale=0.25, act="swish"), 64, 10),
+]
+ZOO_BATCH = 2
+# Gate 1, eval mode (batch norm on its running statistics, every other
+# layer as in training): the card's f32 step (TF32 off) against the
+# CPU's, the loss (relative) and each gradient (its max-abs difference
+# over its max-abs) within ZOO_EVAL_TOL. Gate 2, train mode (batch
+# statistics): the loss within ZOO_EVAL_TOL and the gradients, all
+# together, within ZOO_TRAIN_TOL of their norm. At random init a
+# train-mode network with batch norm is chaotic to a degree: the
+# rounding of one summation order grows layer by layer. The families of
+# ZOO_EVAL_ONLY are chaotic at these sizes (Inception-v3's last maps
+# are 1×1, so its last batch norm sees 2 values a channel and passes no
+# gradient but rounding): gate 1 alone holds them. A planted fault must
+# pass ZOO_FAULT_MARGIN x the gate it is planted under. The CPU's steps
+# run in ZOO_CPU_PROCS processes forked from the DataLoader's
+# forkserver, while the card steps
+ZOO_EVAL_TOL, ZOO_TRAIN_TOL, ZOO_FAULT_MARGIN = 1e-4, 1e-3, 2.0
+ZOO_EVAL_ONLY = ("mobilenet_v2", "densenet121", "inception_v3")
+ZOO_CPU_PROCS, ZOO_CPU_THREADS = 4, 2
+# 14 (b): the folder and the transforms
+FOLDER_CLASSES, FOLDER_TRAIN, FOLDER_EVAL = 16, 1024, 256
+FOLDER_SIDES = (256, 384)
+IMAGENET_MEAN = [123.675, 116.28, 103.53]
+IMAGENET_STD = [58.395, 57.12, 57.375]
+# 14 (c): hapi fit
+FIT_BATCH, FIT_WORKERS, FIT_LR = 64, 4, 0.1
+# the weights after fit, card vs CPU over the eval set: the loss within
+# FIT_EVAL_RTOL (relative) and the logits within FIT_LOGITS_TOL of their
+# max-abs; the card's eval with TF32 allowed must miss a gate by
+# ZOO_FAULT_MARGIN. Then one `fit` step of FIT_STEP_BATCH eval images
+# from those weights, card vs CPU: the loss within FIT_STEP_LOSS_TOL and
+# the update (the parameters' change) within FIT_STEP_TOL of its norm;
+# the card's step over labels shifted by one image (a wrong batch
+# pairing) must miss a gate by ZOO_FAULT_MARGIN.
+FIT_EVAL_RTOL, FIT_LOGITS_TOL = 1e-6, 1e-5
+FIT_STEP_BATCH, FIT_STEP_LOSS_TOL, FIT_STEP_TOL = 16, 1e-5, 5e-2
+# the CPU's side: FIT_CPU_PROCS one-thread processes, the eval set in
+# chunks of FIT_CPU_CHUNK images
+FIT_CPU_PROCS, FIT_CPU_CHUNK = 6, 32
+# float32 outside the tensor cores, the H100 SXM data sheet
+H100_PEAK_F32 = 67e12
+FIT_DEVICE_WARM, FIT_DEVICE_STEPS = 2, 10
+
+
+def _zoo_model(name, kw, classes, device="cpu"):
+    from paddle_tpu_torch.vision import models
+
+    m = getattr(models, name)(num_classes=classes, device=device, seed=0,
+                              **kw)
+    for sub in m.modules():
+        if type(sub).__name__ == "Dropout":
+            sub.p = 0.0
+    return m
+
+
+def _zoo_batch(size, classes):
+    """(x, y), y None for a model without a classifier."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal(
+        (ZOO_BATCH, 3, size, size)).astype(np.float32))
+    if not classes:
+        return x, None
+    return x, torch.from_numpy(rng.integers(0, classes, (ZOO_BATCH,)))
+
+
+def _zoo_step(model, x, y):
+    """One forward + backward: (loss, {name: f64 CPU grad}); the loss is
+    the cross entropy of each output, or without a classifier (`y` None)
+    the outputs read out by a fixed random projection."""
+    from paddle_tpu_torch.nn import functional as F
+
+    for p in model.parameters():
+        p.grad = None
+    out = model(x)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if y is None:
+        probe = [torch.from_numpy(np.random.default_rng(1).standard_normal(
+            tuple(o.shape))).to(o) for o in outs]
+        loss = sum((o * p).sum() for o, p in zip(outs, probe))
+    else:
+        loss = sum(F.cross_entropy(o, y) for o in outs)
+    loss.backward()
+    return float(loss.detach()), {n: p.grad.detach().double().cpu()
+                                  for n, p in model.named_parameters()}
+
+
+def _zoo_errs(ref, other):
+    """(worst, its name) of each gradient's max-abs difference over
+    max(its max-abs, 1e-3 of the largest): the biases of a batch norm a
+    later train-mode batch norm follows get analytically zero
+    gradients, rounding alone."""
+    floor = 1e-3 * max(float(r.abs().max()) for r in ref.values())
+    errs = {n: float((other[n] - r).abs().max()) / max(
+        float(r.abs().max()), floor, 1e-30) for n, r in ref.items()}
+    where = max(errs, key=errs.get)
+    return errs[where], where
+
+
+def _zoo_norm_err(ref, other):
+    """The gradients' difference over their norm, all tensors as one."""
+    num = sum(float(((other[n] - r) ** 2).sum()) for n, r in ref.items())
+    return (num / sum(float((r ** 2).sum()) for r in ref.values())) ** 0.5
+
+
+def _zoo_cpu(case):
+    """The CPU's side of 14 (a) for one family (in a worker process): the
+    f32 train-mode step (none for ZOO_EVAL_ONLY) and the f32 eval-mode
+    step; the gradients go back as f32 arrays."""
+    name, kw, size, classes = case
+    torch.set_num_threads(ZOO_CPU_THREADS)
+    t0 = time.perf_counter()
+    cpu = _zoo_model(name, kw, classes)
+    x, y = _zoo_batch(size, classes)
+    f32 = lambda lg: (lg[0], {k: v.float().numpy()  # noqa: E731
+                              for k, v in lg[1].items()})
+    # the train step on a copy: it moves the running statistics the
+    # eval step reads
+    train = (None if name in ZOO_EVAL_ONLY
+             else f32(_zoo_step(copy.deepcopy(cpu), x, y)))
+    cpu.eval()
+    return dict(train=train, eval=f32(_zoo_step(cpu, x, y)),
+                seconds=time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def _zoo_fault(name):
+    """Plant a fault in the port's class for the block (none for None)."""
+    from paddle_tpu_torch.nn.layer import common
+    from paddle_tpu_torch.vision.models import mobilenet
+
+    if name is None:
+        yield
+        return
+    if name == "no residual":
+        cls, attr = mobilenet.InvertedResidual, "forward"
+        new = lambda self, x: self.conv(x)  # noqa: E731
+    else:
+        cls, attr = common.ChannelShuffle, "forward"
+        new = lambda self, x: x  # noqa: E731
+    old = getattr(cls, attr)
+    setattr(cls, attr, new)
+    try:
+        yield
+    finally:
+        setattr(cls, attr, old)
+
+
+def zoo_cross(card, device="cuda"):
+    """14 (a): each zoo family, the card's steps against the CPU's (gates
+    1 and 2 above); the CPU's steps in worker processes meanwhile."""
+    import concurrent.futures as cf
+    import multiprocessing
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    lines, bad, faults = [], [], {}
+    plants = {"mobilenet_v2": "no residual",
+              "shufflenet_v2_x0_25": "no shuffle"}
+    pool = cf.ProcessPoolExecutor(
+        ZOO_CPU_PROCS, mp_context=multiprocessing.get_context("forkserver"))
+    # the CPU's costliest families first (VGG's 103 M-weight linear,
+    # AlexNet's, DenseNet's and Inception's depth)
+    order = sorted(ZOO_CASES, key=lambda c: c[0] not in (
+        "vgg11", "alexnet", "densenet121", "inception_v3"))
+    card_s = wait_s = 0.0
+    try:
+        futs = [pool.submit(_zoo_cpu, case) for case in order]
+        for case, fut in zip(order, futs):
+            name, kw, size, classes = case
+            t1 = time.perf_counter()
+            base = _zoo_model(name, kw, classes)
+            x, y = _zoo_batch(size, classes)
+            xg, yg = x.to(device), None if y is None else y.to(device)
+
+            def card_step(eval_mode=False, fault=None):
+                m = copy.deepcopy(base).to(device)
+                if eval_mode:
+                    m.eval()
+                with _zoo_fault(fault):
+                    return _zoo_step(m, xg, yg)
+
+            train = name not in ZOO_EVAL_ONLY
+            lg, gg = card_step() if train else (None, None)
+            le, ge = card_step(eval_mode=True)
+            fault = (card_step(eval_mode=True, fault=plants[name])
+                     if name in plants else None)
+            t_fault = (card_step(fault=plants[name])
+                       if train and name in plants else None)
+            del base
+            t2 = time.perf_counter()
+            ref = fut.result()
+            card_s += t2 - t1
+            wait_s += time.perf_counter() - t2
+            as64 = lambda g: {k: torch.from_numpy(v).double()  # noqa: E731
+                              for k, v in g.items()}
+            lce, gce = ref["eval"][0], as64(ref["eval"][1])
+            # gate 1: eval mode
+            e_loss = abs(le - lce) / abs(lce)
+            e_worst, e_where = _zoo_errs(gce, ge)
+            ok = e_loss <= ZOO_EVAL_TOL and e_worst <= ZOO_EVAL_TOL
+            line = (f"{name}{kw or ''} {size}px: eval loss {e_loss:.1e}, "
+                    f"worst gradient {e_worst:.1e} ({e_where})")
+            if fault is not None:
+                lf, gf = fault
+                faults[f"{plants[name]}, eval"] = max(
+                    abs(lf - lce) / abs(lce), _zoo_errs(gce, gf)[0]
+                ) / ZOO_EVAL_TOL
+            # gate 2: train mode
+            if train:
+                lc, gc_ = ref["train"][0], as64(ref["train"][1])
+                t_loss = abs(lg - lc) / abs(lc)
+                t_norm = _zoo_norm_err(gc_, gg)
+                ok = ok and t_loss <= ZOO_EVAL_TOL and t_norm <= ZOO_TRAIN_TOL
+                line += (f"; train loss {t_loss:.1e}, gradients "
+                         f"{t_norm:.1e} of their norm (worst tensor "
+                         f"{_zoo_errs(gc_, gg)[0]:.1e})")
+                if t_fault is not None:
+                    lf, gf = t_fault
+                    faults[f"{plants[name]}, train"] = max(
+                        abs(lf - lc) / abs(lc) / ZOO_EVAL_TOL,
+                        _zoo_norm_err(gc_, gf) / ZOO_TRAIN_TOL)
+            if not ok:
+                bad.append(name)
+            lines.append(f"{line} over {len(ge)}; CPU "
+                         f"{ref['seconds']:.1f} s")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"14 (a) the zoo, b{ZOO_BATCH}, f32 with TF32 off ({card}): gate "
+          f"1, eval mode, card vs CPU within {ZOO_EVAL_TOL:g}; gate 2, train "
+          f"mode, the loss within {ZOO_EVAL_TOL:g} and the gradients within "
+          f"{ZOO_TRAIN_TOL:g} of their norm (not for "
+          f"{', '.join(ZOO_EVAL_ONLY)}): " + "; ".join(lines)
+          + "; planted, the gate's worst measure over its tolerance: "
+          + ", ".join(f"{k} {v:.3g}x" for k, v in faults.items())
+          + f"; {seconds:.1f} s ({card_s:.1f} s building and stepping on "
+          f"the card, {wait_s:.1f} s waiting for the CPU's steps)")
+    if bad:
+        raise AssertionError(f"14 (a): card and CPU disagree for {bad}")
+    if not all(v > ZOO_FAULT_MARGIN for v in faults.values()):
+        raise AssertionError(f"14 (a): a planted fault passed: {faults}")
+
+
+def write_image_folder(root, seed=0):
+    """An ImageNet-style tree under root/{train,eval}/<class>/<i>.npy:
+    FOLDER_CLASSES classes, uint8 HWC images, sides in FOLDER_SIDES."""
+    rng = np.random.default_rng(seed)
+    lo, hi = FOLDER_SIDES
+    nbytes = 0
+    for split, n in (("train", FOLDER_TRAIN), ("eval", FOLDER_EVAL)):
+        for i in range(n):
+            d = os.path.join(root, split, f"n{i % FOLDER_CLASSES:02d}")
+            os.makedirs(d, exist_ok=True)
+            h, w = (int(v) for v in rng.integers(lo, hi + 1, 2))
+            img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            np.save(os.path.join(d, f"{i:05d}.npy"), img)
+            nbytes += img.nbytes
+    return nbytes
+
+
+def folder_datasets(root):
+    from paddle_tpu_torch.vision import datasets, transforms as T
+
+    norm = T.Normalize(IMAGENET_MEAN, IMAGENET_STD, data_format="HWC")
+    train_tf = T.Compose([T.RandomResizedCrop(224),
+                          T.RandomHorizontalFlip(), norm, T.Transpose()])
+    eval_tf = T.Compose([T.Resize(256), T.CenterCrop(224), norm,
+                         T.Transpose()])
+    kw = dict(loader=np.load, extensions=(".npy",))
+    return (datasets.DatasetFolder(os.path.join(root, "train"),
+                                   transform=train_tf, **kw),
+            datasets.DatasetFolder(os.path.join(root, "eval"),
+                                   transform=eval_tf, **kw))
+
+
+def _loader_pass(ds, workers):
+    from paddle_tpu_torch.io import DataLoader
+
+    t0 = time.perf_counter()
+    out = [tuple(t.numpy() for t in b) for b in DataLoader(
+        ds, batch_size=FIT_BATCH, num_workers=workers, timeout=300)]
+    return out, time.perf_counter() - t0
+
+
+def input_pipeline(card, root):
+    """14 (b): the folder, the loaders at 0 and 4 workers, the gate."""
+    t0 = time.perf_counter()
+    nbytes = write_image_folder(root)
+    write_s = time.perf_counter() - t0
+    train_ds, eval_ds = folder_datasets(root)
+    ref, s0 = _loader_pass(eval_ds, 0)
+    got, s4 = _loader_pass(eval_ds, FIT_WORKERS)
+    same = len(got) == len(ref) and all(
+        a.dtype == b.dtype and a.shape == b.shape and np.array_equal(a, b)
+        for gb, rb in zip(got, ref) for a, b in zip(gb, rb))
+    n = len(eval_ds)
+    print(f"14 (b) input pipeline ({card}): wrote {len(train_ds)} + {n} "
+          f"images ({nbytes / 2**20:.1f} MiB, {FOLDER_CLASSES} classes, "
+          f"sides {FOLDER_SIDES}) in {write_s:.2f} s; the eval loader "
+          f"(Resize(256), CenterCrop(224), Normalize, Transpose; batch "
+          f"{FIT_BATCH}): {n / s0:.1f} images/s at 0 workers, "
+          f"{n / s4:.1f} at {FIT_WORKERS} (the pool's start and drain "
+          f"included: one batch a worker); {len(got)} batches at "
+          f"{FIT_WORKERS} workers byte-equal to 0 workers' in order: "
+          f"{same}")
+    if not same:
+        raise AssertionError("14 (b): the batches of 4 workers are not "
+                             "those of 0 workers")
+    return train_ds, eval_ds, ref
+
+
+def _near_tie_flips(card_logits, cpu_logits, labels, k):
+    """Samples whose top-k verdict differs card vs CPU, and how many of
+    them are near-ties: the label's logit within twice the row's
+    card-vs-CPU difference of the k-th largest."""
+    from paddle_tpu_torch.metric import Accuracy
+
+    acc = Accuracy(topk=(k,))
+    a = acc.compute(card_logits, labels).numpy()[:, :k].any(-1)
+    b = acc.compute(cpu_logits, labels).numpy()[:, :k].any(-1)
+    flips = np.nonzero(a != b)[0]
+    ties = 0
+    for i in flips:
+        row = cpu_logits[i]
+        kth = np.sort(row)[::-1][k - 1: k + 1]
+        diff = np.abs(card_logits[i] - row).max()
+        lab = row[int(labels[i])]
+        if min(abs(lab - kth[0]), abs(lab - kth[1])) <= 2 * diff:
+            ties += 1
+    return len(flips), ties
+
+
+def _sync_dev(device):
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _loss_log():
+    """A hapi callback that keeps each training step's loss (`losses`)."""
+    from paddle_tpu_torch import hapi
+
+    class LossLog(hapi.Callback):
+        def __init__(self):
+            super().__init__()
+            self.losses = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(float(np.asarray(logs["loss"])[0]))
+
+    return LossLog()
+
+
+def _mobilenet_from(weights, device):
+    """hapi.Model over MobileNetV2 holding `weights`, prepared as 14 (c)'s
+    (Momentum, cross entropy)."""
+    from paddle_tpu_torch import hapi, nn
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    net = mobilenet_v2(device=device, seed=0)
+    net.load_state_dict({k: torch.from_numpy(v) for k, v in
+                         weights.items()})
+    model = hapi.Model(net)
+    model.prepare(Momentum(FIT_LR, momentum=0.9,
+                           parameters=net.parameters()),
+                  nn.CrossEntropyLoss())
+    return model
+
+
+def _cpu_logits(weights, x):
+    """MobileNetV2's logits on the CPU port, `weights` loaded (in a
+    worker process)."""
+    torch.set_num_threads(1)
+    return _mobilenet_from(weights, "cpu").predict_batch([x])[0]
+
+
+def _fit_step(weights, x, y, device="cpu"):
+    """One `Model.fit` step over the batch (x, y) from `weights`, Dropout
+    at p 0: (its loss, {name: the parameter's change})."""
+    from paddle_tpu_torch.io import TensorDataset
+
+    if device == "cpu":
+        torch.set_num_threads(1)
+    model = _mobilenet_from(weights, device)
+    # the classifier's Dropout at p 0: the card's and the CPU's masks
+    # come from different generators
+    for sub in model.network.modules():
+        if type(sub).__name__ == "Dropout":
+            sub.p = 0.0
+    log = _loss_log()
+    model.fit(TensorDataset([torch.from_numpy(x), torch.from_numpy(y)]),
+              batch_size=len(y), epochs=1, shuffle=False, verbose=0,
+              callbacks=[log])
+    return log.losses[0], {
+        n: p.detach().cpu().numpy() - weights[n]
+        for n, p in model.network.named_parameters()}
+
+
+def _update_err(ref, other):
+    """The updates' difference over their norm, all parameters as one."""
+    num = sum(float(((other[n] - r).astype(np.float64) ** 2).sum())
+              for n, r in ref.items())
+    return (num / sum(float((r.astype(np.float64) ** 2).sum())
+                      for r in ref.values())) ** 0.5
+
+
+def _eval_from_logits(logits, labels, batch):
+    """`Model.evaluate`'s loss (the mean over batches of each batch's mean
+    cross entropy) and Accuracy(topk=(1, 5)) from stacked logits."""
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.nn import functional as F
+
+    acc = Accuracy(topk=(1, 5))
+    losses = []
+    for i in range(0, len(labels), batch):
+        lo = torch.from_numpy(logits[i:i + batch])
+        la = torch.from_numpy(labels[i:i + batch])
+        losses.append(float(F.cross_entropy(lo, la)))
+        acc.update(acc.compute(lo, la))
+    top1, top5 = acc.accumulate()
+    return {"loss": sum(losses) / len(losses), "acc_top1": top1,
+            "acc_top5": top5}
+
+
+def fit_phase(card, train_ds, eval_ds, eval_batches, tmp, device="cuda"):
+    """14 (c): hapi.Model.fit over MobileNetV2 at width 1.0."""
+    import concurrent.futures as cf
+    import multiprocessing
+
+    from paddle_tpu_torch import hapi, nn, profiler
+    from paddle_tpu_torch.jit import _STEPS_TOTAL
+    from paddle_tpu_torch import profile_train as pt
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.profile_train import H100_PEAK_BF16
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = mobilenet_v2(device=device, seed=0)
+    n_params = sum(p.numel() for p in net.parameters())
+    macs = hapi.flops(net, [1, 3, 224, 224])
+    model = hapi.Model(net)
+    opt = Momentum(FIT_LR, momentum=0.9, parameters=net.parameters())
+    model.prepare(opt, nn.CrossEntropyLoss(), Accuracy(topk=(1, 5)))
+    log = _loss_log()
+    steps0, count0 = opt._step_count, _STEPS_TOTAL.value
+    _sync_dev(device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logs = model.fit(train_ds, eval_ds, batch_size=FIT_BATCH, epochs=1,
+                     num_workers=FIT_WORKERS, verbose=0, callbacks=[log])
+    _sync_dev(device)
+    fit_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() / 2**30
+            if device == "cuda" else float("nan"))
+    stepped = (opt._step_count - steps0, _STEPS_TOTAL.value - count0)
+    bm = profiler.benchmark()
+    meter = bm.stats(batch_size=FIT_BATCH)
+    times = list(bm.step_times)
+    n_train = len(train_ds) // FIT_BATCH
+    if not (len(log.losses) == n_train
+            and all(np.isfinite(log.losses))):
+        raise AssertionError(f"14 (c): losses {log.losses}")
+    if stepped != (n_train, n_train):
+        raise AssertionError(f"14 (c): {n_train} steps, but the optimizer "
+                             f"and pt_train_steps_total moved {stepped}")
+    # the weights after fit: the eval set's logits and one fit step on
+    # the CPU port, in worker processes while the card goes on
+    w = {k: v.detach().cpu().numpy().copy()
+         for k, v in net.state_dict().items()}
+    # the step's images spread over the classes (the eval set is in
+    # class order), so that shifting the labels changes each pairing
+    images = np.concatenate([b[0] for b in eval_batches])
+    labels = np.concatenate([b[1] for b in eval_batches])
+    every = len(images) // FIT_STEP_BATCH
+    xs, ys = images[::every], labels[::every]
+    pool = cf.ProcessPoolExecutor(
+        FIT_CPU_PROCS, mp_context=multiprocessing.get_context("forkserver"))
+    t_cpu = time.perf_counter()
+    try:
+        cpu_step = pool.submit(_fit_step, w, xs, ys)
+        cpu_logits = [pool.submit(_cpu_logits, w,
+                                  images[i:i + FIT_CPU_CHUNK])
+                      for i in range(0, len(images), FIT_CPU_CHUNK)]
+        ev_card = model.evaluate(eval_batches, verbose=0)
+        lg = model.predict(eval_batches, stack_outputs=True)[0]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            lg_tf32 = model.predict(eval_batches, stack_outputs=True)[0]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        step_card = _fit_step(w, xs, ys, device)
+        step_wrong = _fit_step(w, xs, np.roll(ys, 1), device)
+        lc = np.concatenate([f.result() for f in cpu_logits])
+        step_cpu = cpu_step.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    cpu_s = time.perf_counter() - t_cpu
+    ev_cpu = _eval_from_logits(lc, labels, FIT_BATCH)
+    ev_tf32 = _eval_from_logits(lg_tf32, labels, FIT_BATCH)
+
+    def eval_errs(card_ev, card_lg):
+        return (abs(card_ev["loss"] - ev_cpu["loss"]) / abs(ev_cpu["loss"]),
+                float(np.abs(card_lg - lc).max() / np.abs(lc).max()))
+
+    def step_errs(card):
+        return (abs(card[0] - step_cpu[0]) / abs(step_cpu[0]),
+                _update_err(step_cpu[1], card[1]))
+
+    loss_rel, logit_rel = eval_errs(ev_card, lg)
+    tf32 = eval_errs(ev_tf32, lg_tf32)
+    tf32_x = max(tf32[0] / FIT_EVAL_RTOL, tf32[1] / FIT_LOGITS_TOL)
+    step = step_errs(step_card)
+    wrong = step_errs(step_wrong)
+    wrong_x = max(wrong[0] / FIT_STEP_LOSS_TOL, wrong[1] / FIT_STEP_TOL)
+    flips = {k: _near_tie_flips(lg, lc, labels, k) for k in (1, 5)}
+    # predict after save and a fresh load, bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        before = model.predict(eval_batches, stack_outputs=True)[0]
+        path = os.path.join(tmp, "mobilenet_v2")
+        model.save(path)
+        fresh_net = mobilenet_v2(device=device, seed=1)
+        fresh = hapi.Model(fresh_net)
+        fresh.prepare(Momentum(FIT_LR, momentum=0.9,
+                               parameters=fresh_net.parameters()),
+                      nn.CrossEntropyLoss())
+        fresh.load(path)
+        after = fresh.predict(eval_batches, stack_outputs=True)[0]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    reload_equal = bool(np.array_equal(before, after))
+    # the same TrainStep on a batch already on the card
+    train_step = model._train_step
+    xb = torch.from_numpy(eval_batches[0][0]).to(device)
+    yb = torch.from_numpy(eval_batches[0][1]).to(device)
+    for _ in range(FIT_DEVICE_WARM):
+        train_step(xb, yb)
+    _sync_dev(device)
+    t1 = time.perf_counter()
+    for _ in range(FIT_DEVICE_STEPS):
+        train_step(xb, yb)
+    _sync_dev(device)
+    dev_ms = (time.perf_counter() - t1) / FIT_DEVICE_STEPS * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts) as prof:
+        _sync_dev(device)
+        t2 = time.perf_counter()
+        train_step(xb, yb)
+        _sync_dev(device)
+        wall = time.perf_counter() - t2
+    dev_us = pt.device_us(prof)
+    idle = 1 - dev_us / 1e6 / wall if dev_us else float("nan")
+    fit_ms = meter["avg_batch_cost_s"] * 1e3
+    steady_ms = float(np.median(times[1:])) * 1e3 if len(times) > 1 \
+        else fit_ms
+    step_flops = 3 * 2 * macs * FIT_BATCH
+    print(f"14 (c) hapi.Model.fit: MobileNetV2 width 1.0, {n_params} "
+          f"parameters, 1000 classes, Momentum({FIT_LR}, 0.9), f32, batch "
+          f"{FIT_BATCH}, {FIT_WORKERS} workers ({card}): {len(log.losses)} "
+          f"steps, losses {log.losses[0]:.4f} → {log.losses[-1]:.4f}; "
+          f"optimizer and pt_train_steps_total +{stepped[0]} / "
+          f"+{stepped[1]}; fit {fit_s:.2f} s with the eval pass (eval "
+          f"loss {logs.get('eval_loss', float('nan')):.4f}, top-1 "
+          f"{logs.get('eval_acc_top1', float('nan')):.4f}); "
+          f"profiler.benchmark(): {fit_ms:.3f} ms/step, "
+          f"{FIT_BATCH / meter['avg_batch_cost_s']:.1f} images/s over "
+          f"{meter['steps']} steps (median after the first "
+          f"{steady_ms:.3f} ms, {FIT_BATCH / steady_ms * 1e3:.1f} images/s); "
+          f"the same TrainStep on a batch on the card {dev_ms:.3f} ms/step"
+          f", {FIT_BATCH / dev_ms * 1e3:.1f} images/s (the loader's cost: "
+          f"{steady_ms - dev_ms:.3f} ms a step); one profiled step "
+          f"{wall * 1e3:.3f} ms wall, device {dev_us / 1e3:.3f} ms, idle "
+          f"{100 * idle:.1f} %; peak memory {peak:.2f} GiB; from "
+          f"hapi.flops' {macs / 1e6:.3f} M MACs an image at 224² x 3 x 2 x "
+          f"{FIT_BATCH} = {step_flops / 1e12:.4f} TFLOP a step, MFU over "
+          f"the f32 peak outside the tensor cores (67 TFLOP/s; TF32 is off) "
+          f"{step_flops / (steady_ms / 1e3) / H100_PEAK_F32:.4f} (fit, "
+          f"steady) / {step_flops / (dev_ms / 1e3) / H100_PEAK_F32:.4f} "
+          f"(batch on the card), over the bf16 peak (989 TFLOP/s) "
+          f"{step_flops / (steady_ms / 1e3) / H100_PEAK_BF16:.4f} / "
+          f"{step_flops / (dev_ms / 1e3) / H100_PEAK_BF16:.4f}; the weights "
+          f"after fit, card vs CPU over the {len(labels)} eval images: "
+          f"loss {ev_card['loss']:.6f} vs {ev_cpu['loss']:.6f} (relative "
+          f"{loss_rel:.3e}; tol {FIT_EVAL_RTOL:g}), logits {logit_rel:.3e} "
+          f"of max-abs apart (tol {FIT_LOGITS_TOL:g}), top-1 "
+          f"{ev_card['acc_top1']:.4f} vs {ev_cpu['acc_top1']:.4f}, top-5 "
+          f"{ev_card['acc_top5']:.4f} vs {ev_cpu['acc_top5']:.4f}, "
+          f"samples flipped (near-ties among them): top-1 {flips[1][0]} "
+          f"({flips[1][1]}), top-5 {flips[5][0]} ({flips[5][1]}); planted, "
+          f"the card's eval with TF32 allowed: loss {tf32[0]:.3e}, logits "
+          f"{tf32[1]:.3e} ({tf32_x:.3g}x its gate); one fit step of "
+          f"{FIT_STEP_BATCH} eval images from those weights, card vs CPU: "
+          f"loss {step_card[0]:.6f} vs {step_cpu[0]:.6f} (relative "
+          f"{step[0]:.3e}; tol {FIT_STEP_LOSS_TOL:g}), update {step[1]:.3e} "
+          f"of its norm apart (tol {FIT_STEP_TOL:g}); planted, labels "
+          f"shifted by one image: loss {wrong[0]:.3e}, update "
+          f"{wrong[1]:.3e} ({wrong_x:.3g}x its gate); the CPU's share "
+          f"{cpu_s:.2f} s (in {FIT_CPU_PROCS} processes beside the card); "
+          f"predict after save / load bit-equal: {reload_equal}")
+    if loss_rel > FIT_EVAL_RTOL or logit_rel > FIT_LOGITS_TOL:
+        raise AssertionError("14 (c): the card's and the CPU's eval "
+                             "disagree")
+    if tf32_x <= ZOO_FAULT_MARGIN:
+        raise AssertionError("14 (c): the eval with TF32 allowed passed")
+    if step[0] > FIT_STEP_LOSS_TOL or step[1] > FIT_STEP_TOL:
+        raise AssertionError("14 (c): the card's and the CPU's fit step "
+                             "disagree")
+    if wrong_x <= ZOO_FAULT_MARGIN:
+        raise AssertionError("14 (c): the step over shifted labels passed")
+    if any(f != t for f, t in flips.values()):
+        raise AssertionError(f"14 (c): top-k verdicts differ beyond "
+                             f"near-ties: {flips}")
+    if not reload_equal:
+        raise AssertionError("14 (c): predict after load is not predict "
+                             "before")
+    del train_step, model, fresh, net, fresh_net
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return dict(fit_ms=fit_ms, steady_ms=steady_ms, dev_ms=dev_ms,
+                idle=idle, peak_gib=peak, macs=macs)
+
+
+def _start_forkserver():
+    """Start the DataLoader workers' forkserver, if it is not running: it
+    imports torch and the port (≈ 10 s on the card's host) while other
+    work runs."""
+    from multiprocessing import forkserver
+
+    from paddle_tpu_torch.io import multiprocess
+
+    multiprocess._context("forkserver")
+    forkserver.ensure_running()
+
+
+def hapi_phase(card):
+    """14: (a) the zoo cross-check, (b) the input pipeline, (c) fit."""
+    import shutil
+
+    t0 = time.perf_counter()
+    _start_forkserver()
+    zoo_cross(card)
+    tmp = tempfile.mkdtemp(prefix="pt_hapi_")
+    try:
+        train_ds, eval_ds, eval_batches = input_pipeline(
+            card, os.path.join(tmp, "folder"))
+        out = fit_phase(card, train_ds, eval_ds, eval_batches, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"hapi phase (14): {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -8430,6 +9206,9 @@ def main(argv=None):
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc seconds per source: {_build.build_seconds})")
     build_report(_build, fa.TC_HEAD_DIMS)
+    # the DataLoader workers' forkserver (phase 14) imports torch and the
+    # port, ≈ 10 s of one core: started here, it is ready long before
+    _start_forkserver()
     t_checks = time.perf_counter()
     paged_launch_smem(pa)
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
@@ -8510,6 +9289,7 @@ def main(argv=None):
     vision_phase(card)
     bert = bert_phase(fa, card)
     mt = mt_phase(fa, card)
+    hapi_phase(card)
     # each kernel's launches come from the main-path run that drives it:
     # K1 on the bf16, int8 and int4 pools the fused phase's greedy
     # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'

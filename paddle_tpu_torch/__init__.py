@@ -38,76 +38,109 @@ device queries, `grad` / `autograd`, `save` / `load`, the flags, and
 every ported subpackage bound at the top (`paddle.nn`,
 `paddle.distributed`, ...). ROADMAP.md lists what is still to port.
 """
-import importlib as _importlib
+import sys as _sys
 
-import torch as _torch
 
-from .core.place import (get_device, resolve_device,  # noqa: F401
-                         set_device)
-from .core.rng import seed  # noqa: F401
-from .core.dtype import (  # noqa: F401
-    bfloat16,
-    bool_ as bool,  # noqa: A001  (paddle.bool)
-    complex64,
-    complex128,
-    float16,
-    float32,
-    float64,
-    get_default_dtype,
-    int8,
-    int16,
-    int32,
-    int64,
-    set_default_dtype,
-    uint8,
-)
-from .regularizer import L1Decay, L2Decay  # noqa: F401
-from .tensor_core import Parameter, Tensor  # noqa: F401
-from . import ops  # noqa: F401
-from .ops import *  # noqa: F401,F403
-# the top-level linalg namespace, not the ops.linalg the line above bound
-linalg = _importlib.import_module(".linalg", __name__)
+def _started_as_launcher(argv):
+    """Whether `argv` (`sys.orig_argv`) starts the launcher, `python -m
+    paddle_tpu_torch.distributed.launch`."""
+    i = 1
+    while i < len(argv) and argv[i].startswith("-"):
+        arg = argv[i]
+        if arg.startswith("-m"):
+            module = arg[2:] or (argv[i + 1] if i + 1 < len(argv) else "")
+            return module == "paddle_tpu_torch.distributed.launch"
+        if arg == "-c":
+            return False
+        i += 2 if arg in ("-W", "-X") else 1
+    return False
 
-from .core.place import (  # noqa: F401,E402
-    CPUPlace,
-    CUDAPinnedPlace,
-    CUDAPlace,
-    CustomPlace,
-    IPUPlace,
-    MLUPlace,
-    NPUPlace,
-    TPUPlace,
-    XPUPlace,
-    device_count,
-    get_cudnn_version,
-    get_place,
-    is_compiled_with_cinn,
-    is_compiled_with_cuda,
-    is_compiled_with_ipu,
-    is_compiled_with_mlu,
-    is_compiled_with_npu,
-    is_compiled_with_rocm,
-    is_compiled_with_tpu,
-    is_compiled_with_xpu,
-)
-from .core.flags import get_flags, set_flags  # noqa: F401,E402
-from .core.rng import get_rng_state_tracker  # noqa: F401,E402
-from . import autograd  # noqa: F401,E402
-from .autograd import enable_grad, no_grad  # noqa: F401,E402
-from .autograd.engine import grad, is_grad_enabled  # noqa: F401,E402
 
-# the ported subpackages, bound as the reference binds its own
-# (paddle_tpu/__init__.py:71-104); none builds or loads a CUDA library
-# on import
-for _sub in ("observability", "nn", "optimizer", "amp", "framework", "jit",
-             "distributed", "vision", "text", "incubate", "inference",
-             "quantization"):
-    globals()[_sub] = _importlib.import_module("." + _sub, __name__)
+# The launcher supervises its workers and hosts their store; its own
+# modules (distributed/launch, observability) import no torch. In its
+# process this package and `distributed` bind nothing, so it spawns the
+# workers at once instead of after a torch import of its own (8-10 s on
+# an H100 host), and imports torch only to host the store while they
+# start.
+_LAUNCHER = _started_as_launcher(getattr(_sys, "orig_argv", ()))
 
-from .framework.io_state import load, save  # noqa: F401,E402
-from .framework.random import (get_cuda_rng_state,  # noqa: F401,E402
-                               set_cuda_rng_state)
+if not _LAUNCHER:
+    import importlib as _importlib
 
-ParamAttr = nn.ParamAttr  # noqa: F821
-DataParallel = distributed.DataParallel  # noqa: F821
-dtype = _torch.dtype
+    import torch as _torch
+
+    from .core.place import (get_device, resolve_device,  # noqa: F401
+                             set_device)
+    from .core.rng import seed  # noqa: F401
+    from .core.dtype import (  # noqa: F401
+        bfloat16,
+        bool_ as bool,  # noqa: A001  (paddle.bool)
+        complex64,
+        complex128,
+        float16,
+        float32,
+        float64,
+        get_default_dtype,
+        int8,
+        int16,
+        int32,
+        int64,
+        set_default_dtype,
+        uint8,
+    )
+    from .regularizer import L1Decay, L2Decay  # noqa: F401
+    from .tensor_core import Parameter, Tensor  # noqa: F401
+    from . import ops  # noqa: F401
+    from .ops import *  # noqa: F401,F403
+    # the top-level linalg namespace, not the ops.linalg the line above bound
+    linalg = _importlib.import_module(".linalg", __name__)
+
+    from .core.place import (  # noqa: F401,E402
+        CPUPlace,
+        CUDAPinnedPlace,
+        CUDAPlace,
+        CustomPlace,
+        IPUPlace,
+        MLUPlace,
+        NPUPlace,
+        TPUPlace,
+        XPUPlace,
+        device_count,
+        get_cudnn_version,
+        get_place,
+        is_compiled_with_cinn,
+        is_compiled_with_cuda,
+        is_compiled_with_ipu,
+        is_compiled_with_mlu,
+        is_compiled_with_npu,
+        is_compiled_with_rocm,
+        is_compiled_with_tpu,
+        is_compiled_with_xpu,
+    )
+    from .core.flags import get_flags, set_flags  # noqa: F401,E402
+    from .core.rng import get_rng_state_tracker  # noqa: F401,E402
+    from . import autograd  # noqa: F401,E402
+    from .autograd import enable_grad, no_grad  # noqa: F401,E402
+    from .autograd.engine import grad, is_grad_enabled  # noqa: F401,E402
+
+    # the ported subpackages, bound as the reference binds its own
+    # (paddle_tpu/__init__.py:71-104); none builds or loads a CUDA library
+    # on import
+    for _sub in ("observability", "nn", "optimizer", "metric", "io", "amp",
+                 "framework", "jit", "distributed", "vision", "text",
+                 "profiler", "incubate", "hapi", "inference", "native",
+                 "quantization"):
+        globals()[_sub] = _importlib.import_module("." + _sub, __name__)
+
+    from .framework.io_state import load, save  # noqa: F401,E402
+    from .framework.random import (get_cuda_rng_state,  # noqa: F401,E402
+                                   set_cuda_rng_state)
+
+    from .hapi import callbacks  # noqa: F401,E402
+    from .hapi.dynamic_flops import flops  # noqa: F401,E402
+    from .hapi.model import Model  # noqa: F401,E402
+    from .hapi.summary import summary  # noqa: F401,E402
+
+    ParamAttr = nn.ParamAttr  # noqa: F821
+    DataParallel = distributed.DataParallel  # noqa: F821
+    dtype = _torch.dtype

@@ -22,6 +22,10 @@ checkpoint, re-enter the train function, and on a failure restore again
 import time
 
 from ...observability import metrics as _obs
+# the join-request files (request_scale_out writes them,
+# ElasticManager.pending_joins reads them) live beside the launcher's
+# registry, which reads them without importing fleet
+from ..launch.master import JOIN_PREFIX, pending_join_files  # noqa: F401
 
 __all__ = ["ElasticStatus", "ElasticManager", "run_with_fault_tolerance",
            "request_scale_out", "ELASTIC_EXIT_CODE",
@@ -195,22 +199,6 @@ def remove_heartbeat(hb_dir, rank):
         os.unlink(os.path.join(hb_dir, f"{HB_PREFIX}{int(rank)}"))
     except OSError:
         pass
-
-
-# the join-request file protocol, shared by request_scale_out (writer),
-# ElasticManager.pending_joins and the launcher's watch (readers)
-JOIN_PREFIX = "join_"
-
-
-def pending_join_files(hb_dir):
-    """Absolute paths of join_* request files in the heartbeat dir."""
-    import os
-
-    if not hb_dir or not os.path.isdir(hb_dir):
-        return []
-    return sorted(
-        os.path.join(hb_dir, f) for f in os.listdir(hb_dir)
-        if f.startswith(JOIN_PREFIX))
 
 
 def request_scale_out(n=1, hb_dir=None, master=None):

@@ -8,9 +8,13 @@ The launcher's job:
   1. set the env contract (PADDLE_TRAINER_ID / PADDLE_TRAINERS_NUM /
      PADDLE_MASTER / ...) for each worker process (`_worker_env`),
   2. point every worker at one rendezvous: on one node the launcher
-     hosts the ``torch.distributed.TCPStore`` itself, bound to a free
-     port it names in PADDLE_MASTER, so the workers connect as clients
-     and concurrent launches cannot race for a port (distributed/env.py),
+     hosts the ``torch.distributed.TCPStore`` itself, on a socket it
+     binds to a port the kernel picks and names in PADDLE_MASTER, so
+     the workers connect as clients and concurrent launches cannot race
+     for a port (distributed/env.py). The launcher's own modules import
+     no torch (nor does the package above them in its process), so it
+     spawns the workers at once; the store, which needs torch, takes
+     the socket over while they start,
   3. babysit the pod: stream logs, propagate the first failure (the
      rest are killed), restart (--max_restart), watch heartbeats and
      elastic joins (--elastic_level).
@@ -28,6 +32,7 @@ included.
 import argparse
 import os
 import signal
+import socket
 import subprocess
 import sys
 import time
@@ -152,8 +157,8 @@ RC_SCALE_OUT = 97  # synthetic: pod torn down to admit joining workers
 def _pending_joins(hb_dir):
     """join_* request files dropped by elastic.request_scale_out (the
     heartbeat dir plays the membership registry). Shared protocol lives
-    in fleet/elastic.py."""
-    from ..fleet.elastic import pending_join_files
+    in launch/master.py."""
+    from .master import pending_join_files
 
     return pending_join_files(hb_dir)
 
@@ -283,6 +288,18 @@ def _wait_pod(procs, poll_s=0.2, hb_dir=None, hb_timeout=0.0,
     return failed_rc
 
 
+def _host_store(listener):
+    """The rendezvous store over the launcher's listening socket. Its
+    torch import runs while the workers start: a worker that connects
+    first waits in the socket's backlog."""
+    import torch.distributed as dist
+
+    port = listener.getsockname()[1]
+    return dist.TCPStore("127.0.0.1", port, None, True,
+                         wait_for_workers=False,
+                         master_listen_fd=listener.detach())
+
+
 def _exit_on_signal(signum, frame):
     # unwinds through _wait_pod's finally, which kills the pod
     sys.exit(128 + signum)
@@ -303,17 +320,15 @@ def launch(argv=None):
     for sig in (signal.SIGTERM, signal.SIGHUP):
         signal.signal(sig, _exit_on_signal)
     master = args.master
-    store = None
+    listener = store = None
     if master is None:
         if args.nnodes > 1:
             sys.exit("--master is required when --nnodes > 1")
-        import torch.distributed as dist
-
-        # the launcher hosts the rendezvous on a port the kernel picks:
-        # no window between choosing a port and binding it
-        store = dist.TCPStore("127.0.0.1", 0, None, True,
-                              wait_for_workers=False)
-        master = f"127.0.0.1:{store.port}"
+        # the launcher hosts the rendezvous on a port the kernel picks
+        # (no window between choosing a port and binding it); the store
+        # takes the listening socket over once the pod is spawned
+        listener = socket.create_server(("127.0.0.1", 0))
+        master = f"127.0.0.1:{listener.getsockname()[1]}"
     if args.elastic_level >= 1 and args.nnodes > 1:
         # membership (heartbeats/joins) is cross-host via the
         # MembershipMaster, but pod RE-FORMING at a new size is still
@@ -351,7 +366,13 @@ def launch(argv=None):
     while True:
         pod_gen += 1
         procs = _spawn_pod(args, master, nproc, mm=mm, attempt=pod_gen,
-                           hosted=store is not None)
+                           hosted=listener is not None)
+        if listener is not None and store is None:
+            try:
+                store = _host_store(listener)
+            except BaseException:
+                _kill_pod(procs)
+                raise
         rc = _wait_pod(procs, hb_dir=hb_dir,
                        hb_timeout=args.elastic_timeout
                        if args.elastic_timeout > 0 else 0.0,

@@ -33,6 +33,21 @@ import time
 __all__ = ["MembershipMaster", "MembershipClient", "master_endpoint"]
 
 
+# the heartbeat directory's join-request files, shared by
+# fleet.elastic.request_scale_out (writer), ElasticManager.pending_joins
+# and the launcher's watch (readers)
+JOIN_PREFIX = "join_"
+
+
+def pending_join_files(hb_dir):
+    """Absolute paths of join_* request files in the heartbeat dir."""
+    if not hb_dir or not os.path.isdir(hb_dir):
+        return []
+    return sorted(
+        os.path.join(hb_dir, f) for f in os.listdir(hb_dir)
+        if f.startswith(JOIN_PREFIX))
+
+
 def master_endpoint():
     """The job's membership-master endpoint, if one is active."""
     return os.environ.get("PADDLE_ELASTIC_MASTER") or None

@@ -21,8 +21,11 @@ signatures past the first fire the recompile sentinel; the metrics
 `pt_train_loss` and `pt_train_grad_norm` (the f32 global L2 norm of the
 raw gradients, before any clipping, as the reference's aux output). The
 plane only observes the step: losses are bit-identical in every mode.
-The reference's `profiler.benchmark()` ips meter belongs to the
-profiler, which is not ported yet (ROADMAP A12).
+An armed `profiler.benchmark()` ips meter is fed once a step (the
+batch's leading size, and the steptrace wall when the phase plane is on
+and the step is not quiet), as the reference's (:725-733). Batch tensors
+that lie off the parameters' device (a DataLoader's CPU tensors) are
+moved there first.
 
 Batch norm's running statistics are updated in place by the forward,
 once a step: under `remat` the recompute in backward skips the update
@@ -42,6 +45,7 @@ from ..core import rng
 from ..observability import metrics as _obs
 from ..observability import steptrace as _steptrace
 from ..observability.tracing import trace_span as _trace_span
+from ..profiler import benchmark as _benchmark
 
 __all__ = ["TrainStep", "HybridTrainStep"]
 
@@ -129,7 +133,8 @@ class TrainStep:
     def __call__(self, *batch):
         t_entry = _steptrace.now()
         device = self._params[0].device
-        batch = [b if isinstance(b, torch.Tensor)
+        batch = [b.to(device, non_blocking=True)
+                 if isinstance(b, torch.Tensor)
                  else torch.as_tensor(np.asarray(b), device=device)
                  for b in batch]
         t_h2d = _steptrace.now()
@@ -172,7 +177,15 @@ class TrainStep:
             _LOSS_GAUGE.set(float(loss))
             _GRAD_NORM.observe(float(grad_norm))
         tr.stamp("opt_publish")
-        _, self._steptrace_prev_end = _steptrace.end_step(tr)
+        total_s, self._steptrace_prev_end = _steptrace.end_step(tr)
+        bm = _benchmark()
+        if bm.enabled:
+            n = batch[0].shape[0] if batch and batch[0].dim() else None
+            # the steptrace wall, so the meter and the phase plane report
+            # one number; quiet steps keep the meter's own clock
+            bm.auto_step(num_samples=n,
+                         dt=(total_s if _steptrace.active()
+                             and not tr.quiet else None))
         return loss
 
 

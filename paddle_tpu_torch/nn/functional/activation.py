@@ -41,7 +41,9 @@ def relu(x, name=None):
 
 
 def relu6(x, name=None):
-    return torch.clamp(_cast("relu6", x), 0.0, 6.0)
+    """min(max(x, 0), 6); its gradient is 0 at 0 and at 6, as jax's
+    (`torch.clamp`'s is 1 there)."""
+    return tF.relu6(_cast("relu6", x))
 
 
 def sigmoid(x, name=None):

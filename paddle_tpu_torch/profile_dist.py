@@ -20,7 +20,15 @@ after. With `--ckpt` the ranks then save one checkpoint of the step
 Each rank writes DIR/dist_out_<rank>.json: the losses, each step's wall
 seconds (synchronized), the gradient all-reduce's bytes and seconds per
 step, the flash launches (all and tensor-core route), peak memory, and
-the checkpoint files it wrote. `--device` defaults to cuda (each rank
+the checkpoint files it wrote. Its "startup" holds the wall stamps of
+what the rank does before its first step, in seconds after the
+process's first line ("proc_start", the wall time of that line): the
+imports, the gloo rendezvous (`init_parallel_env`), the CUDA context,
+the built kernels' library loaded, the cuBLAS / cuDNN handles (one small
+matmul and convolution), the model built, in the mesh mode the import
+of torch._dynamo that torch's checkpoint would make in the first step,
+and every rank ready (a barrier, so the first step's seconds hold no
+other rank's start). `--device` defaults to cuda (each rank
 takes `cuda:{local_rank % device_count}`: ranks may share one card);
 `--device cpu` runs the plain versions.
 
@@ -87,6 +95,10 @@ decodes ("poison_blocks").
 """
 import os
 import sys
+import time
+
+# the process's first stamp, before torch and the port are imported
+_T_PROC = time.time()
 
 if __package__ in (None, ""):
     # run as a script: import the package from the checkout, not from
@@ -98,7 +110,6 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import hashlib  # noqa: E402
 import json  # noqa: E402
-import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -123,6 +134,53 @@ N_MICRO, REMAT = 4, "layer"
 SP_PLANTS = ("ring_skip", "label_unshifted", "sp_grad_sum")
 # --ring-check's attention: heads and head_dim (gpt_1p3b's)
 RING_HEADS, RING_HD = 32, 64
+
+
+class _Startup:
+    """Wall stamps of a rank's start (the record's "startup").
+
+    With `recompute=True` the import of torch._dynamo that
+    torch.utils.checkpoint's first call makes (and with it DTensor,
+    FSDP, sympy and inductor: 2 s on an 8-core CPU host) is made and
+    stamped ("dynamo") before the first step."""
+
+    def __init__(self, recompute=False):
+        self.t = {"imports": time.time()}
+        self._recompute = recompute
+
+    def stamp(self, name):
+        self.t[name] = time.time()
+
+    def device(self, device):
+        """Stamp the CUDA context, the kernels' library and the cuBLAS /
+        cuDNN handles, each made here rather than inside the first step."""
+        if device.type != "cuda":
+            return
+        torch.empty(1, device=device)
+        torch.cuda.synchronize(device)
+        self.stamp("cuda_context")
+        from paddle_tpu_torch.ops.cuda_kernels import _build
+
+        _build.load("flash_attention")
+        self.stamp("kernels")
+        a = torch.ones(64, 64, device=device, dtype=torch.bfloat16)
+        (a @ a).float().sum().item()
+        x = torch.ones(1, 4, 8, 8, device=device)
+        torch.nn.functional.conv2d(x, torch.ones(4, 4, 3, 3,
+                                                 device=device)).sum().item()
+        self.stamp("blas")
+
+    def ready(self):
+        if self._recompute:
+            import torch._dynamo  # noqa: F401
+
+            self.stamp("dynamo")
+        xproc.barrier()
+        self.stamp("ready")
+
+    def record(self):
+        return dict(proc_start=_T_PROC,
+                    **{k: v - _T_PROC for k, v in self.t.items()})
 
 
 def parse_args(argv=None):
@@ -286,18 +344,23 @@ def main_mesh(args):
 
     p1 = sys.modules["paddle_tpu_torch.distributed.fleet.meta_parallel."
                      "pipeline_1f1b"]
+    startup = _Startup(recompute=True)   # the mesh mode recomputes
     mesh = parse_mesh(args.mesh)
     dist.init_parallel_env(device=args.device, **mesh)
+    startup.stamp("rendezvous")
     rank = dist.get_rank()
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.reset_peak_memory_stats(device)
+    startup.device(device)
     kw = dict(moe=args.moe, moe_topk=args.moe_topk, moe_cf=args.moe_cf,
               layers=args.layers, n_micro=args.n_micro, seq=args.seq)
     t0 = time.perf_counter()
     cfg, step = build_pipelined(args.model, device, **kw)
     build_s = time.perf_counter() - t0
+    startup.stamp("model")
+    startup.ready()
     ids = global_batch(cfg, args.batch, args.seq)
     fa.reset_launches()
     p1.stats.clear()
@@ -325,6 +388,7 @@ def main_mesh(args):
                mesh=dist.mesh.global_mesh().shape, coord=coord(),
                n_micro=args.n_micro, remat=REMAT, batch=args.batch,
                seq=args.seq, layers=cfg.num_layers, build_s=build_s,
+               startup=startup.record(),
                losses=losses, step_seconds=step_s, comm=comm,
                schedule=[list(map(str, r)) for r in p1.last_schedule],
                launches=dict(fa.launches), tc_launches=dict(fa.tc_launches),
@@ -600,15 +664,20 @@ def main_auto(args, device):
 
 def main_checks(args):
     """`--ring-check` and / or `--auto` in one launch."""
+    startup = _Startup()
     dist.init_parallel_env(device=args.device)
+    startup.stamp("rendezvous")
     rank = dist.get_rank()
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.reset_peak_memory_stats(device)
+    startup.device(device)
+    startup.ready()
     out = dict(rank=rank, device=str(device),
                device_name=(torch.cuda.get_device_name(device)
-                            if device.type == "cuda" else "cpu"))
+                            if device.type == "cuda" else "cpu"),
+               startup=startup.record())
     if args.ring_check:
         out.update(ring_check(args, device))
     if args.auto:
@@ -630,13 +699,18 @@ def main(argv=None):
         return main_checks(args)
     if args.mesh:
         return main_mesh(args)
+    startup = _Startup()
     dist.init_parallel_env(sharding=args.sharding, device=args.device)
+    startup.stamp("rendezvous")
     rank = dist.get_rank()
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
         torch.cuda.reset_peak_memory_stats(device)
+    startup.device(device)
     cfg, step = build(args.model, device, args.zero)
+    startup.stamp("model")
+    startup.ready()
     ids = global_batch(cfg, args.batch, args.seq)
     fa.reset_launches()
     losses, step_s, comm = [], [], []
@@ -651,6 +725,7 @@ def main(argv=None):
                device_name=(torch.cuda.get_device_name(device)
                             if device.type == "cuda" else "cpu"),
                mesh=dist.mesh.global_mesh().shape, zero=args.zero,
+               startup=startup.record(),
                batch=args.batch, seq=args.seq, losses=losses,
                step_seconds=step_s, comm=comm,
                launches=dict(fa.launches), tc_launches=dict(fa.tc_launches),

@@ -15,6 +15,11 @@ __all__ = ["seeded_build", "place"]
 
 @contextlib.contextmanager
 def seeded_build(seed):
+    """Initializers inside draw from a CPU generator seeded from `seed`;
+    None keeps the enclosing scope's generator."""
+    if seed is None:
+        yield
+        return
     gen = torch.Generator(device="cpu")
     gen.manual_seed(int(seed))
     with rng.generator_scope(gen):

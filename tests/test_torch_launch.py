@@ -145,6 +145,23 @@ def test_a_dying_rank_fails_the_launch_and_kills_its_sibling(tmp_path):
     assert (tmp_path / "log" / "default.rank1.log").exists()
 
 
+@pytest.mark.parametrize("argv,want", [
+    (["python3", "-m", "paddle_tpu_torch.distributed.launch", "t.py"], True),
+    (["python3", "-u", "-mpaddle_tpu_torch.distributed.launch"], True),
+    (["python3", "-X", "importtime", "-m",
+      "paddle_tpu_torch.distributed.launch", "--help"], True),
+    (["python3", "-m", "pytest", "-m", "paddle_tpu_torch.distributed.launch"],
+     False),
+    (["python3", "t.py", "-m", "paddle_tpu_torch.distributed.launch"], False),
+    (["python3", "-c", "import paddle_tpu_torch", "-m"], False),
+    (["python3"], False),
+])
+def test_started_as_launcher_reads_the_interpreter_command(argv, want):
+    import paddle_tpu_torch
+
+    assert paddle_tpu_torch._started_as_launcher(argv) is want
+
+
 RESTART_SCRIPT = textwrap.dedent('''
     import os, sys
     attempt = os.environ["PADDLE_POD_ATTEMPT"]

@@ -541,7 +541,20 @@ def test_save_group_sharded_model_writes_what_load_reads(tmp_path):
 _MODULES = ["nn.layer.layers", "autograd", "autograd.engine",
             "autograd.py_layer", "framework", "framework.io_state",
             "framework.random", "core.place", "core.rng", "core.flags",
-            "core.enforce"]
+            "core.enforce",
+            # the high-level vision training path
+            "io", "io.multiprocess", "metric", "profiler",
+            "profiler.statistic", "hapi", "hapi.callbacks", "hapi.model",
+            "hapi.dynamic_flops", "hapi.summary", "vision",
+            "vision.transforms", "vision.transforms.functional",
+            "vision.transforms.color_geometry", "vision.datasets",
+            "vision.datasets.folder", "vision.datasets.flowers_voc",
+            "vision.models", "vision.models.mobilenet",
+            "vision.models.mobilenetv1", "vision.models.mobilenetv3",
+            "vision.models.vgg", "vision.models.alexnet",
+            "vision.models.squeezenet", "vision.models.densenet",
+            "vision.models.googlenet", "vision.models.inceptionv3",
+            "vision.models.shufflenetv2"]
 # names of the reference's modules that name jax machinery the port has
 # no use for (its own generators and devices stand in for them)
 _JAX_ONLY = {"core.place": {"jax"}, "core.rng": {"jax", "np",

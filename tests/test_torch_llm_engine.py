@@ -330,7 +330,24 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "ops/math.py", "ops/manipulation.py", "ops/activation.py",
                  "ops/linalg.py", "ops/extras.py", "ops/control_flow.py",
                  "ops/api_misc.py", "tensor_core.py", "linalg.py",
-                 "text/models/bert.py"):
+                 "text/models/bert.py",
+                 # the high-level vision training path
+                 "io/__init__.py", "io/multiprocess.py",
+                 "native/__init__.py", "metric/__init__.py",
+                 "profiler/__init__.py", "profiler/statistic.py",
+                 "hapi/__init__.py", "hapi/callbacks.py", "hapi/model.py",
+                 "hapi/dynamic_flops.py", "hapi/summary.py",
+                 "vision/__init__.py", "vision/transforms/__init__.py",
+                 "vision/transforms/functional.py",
+                 "vision/transforms/color_geometry.py",
+                 "vision/datasets/__init__.py", "vision/datasets/folder.py",
+                 "vision/datasets/flowers_voc.py",
+                 "vision/models/mobilenet.py", "vision/models/mobilenetv1.py",
+                 "vision/models/mobilenetv3.py", "vision/models/vgg.py",
+                 "vision/models/alexnet.py", "vision/models/squeezenet.py",
+                 "vision/models/densenet.py", "vision/models/googlenet.py",
+                 "vision/models/inceptionv3.py",
+                 "vision/models/shufflenetv2.py"):
         assert f"paddle_tpu_torch/{name}" in scanned, name
     bad = []
     for f in files:

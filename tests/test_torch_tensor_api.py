@@ -1194,7 +1194,8 @@ def test_top_level_namespace_and_dtypes():
 _SUBPACKAGES = ["optimizer", "distributed", "distributed.fleet", "jit",
                 "vision", "vision.models", "text", "inference", "incubate",
                 "observability", "nn", "amp", "framework", "autograd",
-                "quantization"]
+                "quantization", "io", "metric", "profiler", "hapi",
+                "vision.transforms", "vision.datasets"]
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)
