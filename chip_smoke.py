@@ -9176,6 +9176,607 @@ def hapi_phase(card):
     return out
 
 
+# ---- phase 15: deployment (jit.save / load, the predictor, to_static,
+# the static facade, vision.ops) ----
+
+# 15 (a): vision.models.resnet50 whole (1000 classes), eval, batch 64 at
+# 224 x 224, f32 with TF32 off; the server's clients and requests
+DEPLOY_BATCH, DEPLOY_IMG = 64, 224
+DEPLOY_CLIENTS, DEPLOY_REQUESTS = 4, 512
+DEPLOY_TOL = 1e-5
+DEPLOY_RUNS = 5
+# 15 (b): the AutoGraph function's input; the loaded layer's tolerance
+AG_SHAPE = (64, 1024)
+AG_TOL = 1e-6
+# 15 (c): BERT-base (bert_base: 12 layers, d 768), bf16 O2, b32 · s512
+DEPLOY_BERT_BATCH, DEPLOY_BERT_SEQ = 32, 512
+DEPLOY_BERT_TOL = 2e-2
+# 15 (d): the static MLP and the detection sizes; card vs the CPU port
+STATIC_BATCH, STATIC_WIDTHS = 64, (784, 512, 512, 10)
+STATIC_TOL = 1e-5
+VOPS_TOL = 1e-5
+YOLO_GRIDS, YOLO_BATCH, YOLO_CLASSES = (19, 38, 76), 8, 80
+YOLO_ANCHORS = [10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326]
+NMS_BOXES, NMS_CLASSES = 1000, 80
+ROI_FEAT, ROI_PER_IMAGE, ROI_OUT = (2, 256, 200, 304), 512, 7
+# psroi_pool needs out_c · 7 · 7 channels: 10 output channels
+PSROI_CHANNELS = 490
+# the CPU port recomputes this many RoIs an image (RoIs are independent)
+ROI_CPU_ROWS = 32
+DEFORM_SHAPE = (8, 256, 56, 56)
+PROPOSAL_SHAPE, PROPOSAL_TOP = (2, 3, 100, 152), (6000, 1000)
+
+
+class _NoTF32:
+    """TF32 off for matmuls and convolutions inside the block."""
+
+    def __enter__(self):
+        self._old = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        return self
+
+    def __exit__(self, *exc):
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = self._old
+
+
+def _artifact_bytes(prefix):
+    return sum(os.path.getsize(prefix + ext) for ext in (".pt2", ".pdiparams"))
+
+
+def _rel_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(1.0, np.abs(want).max()))
+
+
+def _runs_per_s(fn, n, runs, device):
+    fn()
+    _sync_dev(device)
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    _sync_dev(device)
+    return n * runs / (time.perf_counter() - t0)
+
+
+def _serve_rows(server, xs, clients):
+    """Every request of `xs` (one image each) from `clients` threads:
+    the answers by index, and the server's req/s."""
+    import threading
+
+    per = len(xs) // clients
+    answers = {}
+    lock = threading.Lock()
+
+    def client(lo):
+        futs = [(i, server.submit(xs[i])) for i in range(lo, lo + per)]
+        for i, f in futs:
+            out = f.result(timeout=300)[0]
+            with lock:
+                answers[i] = out
+
+    threads = [threading.Thread(target=client, args=(k * per,))
+               for k in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, clients * per / (time.perf_counter() - t0)
+
+
+def deploy_resnet(card, tmp, device="cuda"):
+    """15 (a): ResNet-50 saved, loaded as a predictor, run by handles,
+    converted to bf16 storage, pooled and served."""
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.vision import models
+
+    model = models.resnet50(device=device)
+    model.eval()
+    # the final fc's bias is zero at init; weights from a seed give it
+    # values, so the planted fault below (the bias zeroed) shows
+    g = torch.Generator().manual_seed(15)
+    with torch.no_grad():
+        model.fc.bias.copy_(torch.randn(model.fc.bias.shape, generator=g))
+    x = torch.randn((DEPLOY_BATCH, 3, DEPLOY_IMG, DEPLOY_IMG), generator=g)
+    spec = [jit.InputSpec([DEPLOY_BATCH, 3, DEPLOY_IMG, DEPLOY_IMG],
+                          "float32")]
+    prefix = os.path.join(tmp, "resnet50")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=spec)
+    save_s = time.perf_counter() - t0
+
+    def config(p):
+        cfg = inf.Config(p)
+        if device == "cpu":
+            cfg.disable_gpu()
+        return cfg
+
+    t0 = time.perf_counter()
+    pred = inf.create_predictor(config(prefix))
+    load_s = time.perf_counter() - t0
+    xh = x.numpy()
+    with _NoTF32():
+        pred.get_input_handle("x0").copy_from_cpu(xh)
+        pred.run()
+        out = pred.get_output_handle("output_0").copy_to_cpu()
+        with torch.no_grad():
+            ref = model(x.to(device)).cpu().numpy()
+        err = _rel_err(out, ref)
+        if not (out.shape == (DEPLOY_BATCH, 1000) and err <= DEPLOY_TOL):
+            raise AssertionError(f"15 (a) loaded ResNet-50 vs eager: "
+                                 f"{out.shape}, err {err:.3e}")
+        # planted fault: the artifact of the same model with fc.bias = 0
+        bias = model.fc.bias.detach().clone()
+        with torch.no_grad():
+            model.fc.bias.zero_()
+        jit.save(model, prefix + "_fault", input_spec=spec)
+        with torch.no_grad():
+            model.fc.bias.copy_(bias)
+        (bad,) = inf.create_predictor(config(prefix + "_fault")).run([xh])
+        fault_err = _rel_err(bad, ref)
+        if fault_err <= DEPLOY_TOL:
+            raise AssertionError("15 (a) the fc-bias-zeroed artifact passed "
+                                 f"the gate (err {fault_err:.3e})")
+        f32_ips = _runs_per_s(lambda: pred.run([xh]), DEPLOY_BATCH,
+                              DEPLOY_RUNS, device)
+        inf.convert_to_mixed_precision(prefix, prefix + "_bf16",
+                                       inf.PrecisionType.Bfloat16)
+        from paddle_tpu_torch.framework.io_state import load as tload
+
+        bundle = tload(prefix + "_bf16.pdiparams", return_numpy=True)
+        floats = [t for t in bundle["dtypes"] if "float" in t]
+        if set(floats) != {"bfloat16"}:
+            raise AssertionError(f"15 (a) bf16 .pdiparams holds {set(floats)}")
+        pred16 = inf.create_predictor(config(prefix + "_bf16"))
+        (out16,) = pred16.run([xh])
+        top1, top16 = out.argmax(-1), out16.argmax(-1)
+        flips, ties = _near_tie_flips(out16, out, top1, 1)
+        if flips != ties:
+            raise AssertionError(f"15 (a) bf16 top-1 differs from f32 on "
+                                 f"{flips} images, {ties} near-ties")
+        bf16_ips = _runs_per_s(lambda: pred16.run([xh]), DEPLOY_BATCH,
+                               DEPLOY_RUNS, device)
+        pool = inf.PredictorPool(config(prefix), size=2)
+        ptrs = [[p.data_ptr() for p in pool.retrieve(i)._layer._param_vals]
+                for i in range(2)]
+        if ptrs[0] != ptrs[1]:
+            raise AssertionError("15 (a) the pool's members hold separate "
+                                 "weights")
+        reqs = np.concatenate([xh] * (DEPLOY_REQUESTS // DEPLOY_BATCH))
+        server = inf.InferenceServer(pred, inf.BatchingConfig(
+            max_batch_size=DEPLOY_BATCH, max_delay_ms=5.0))
+        with server:
+            answers, req_s = _serve_rows(server, reqs, DEPLOY_CLIENTS)
+    serve_err = max(_rel_err(answers[i], out[i % DEPLOY_BATCH])
+                    for i in range(len(reqs)))
+    exact = sum(np.array_equal(answers[i], out[i % DEPLOY_BATCH])
+                for i in range(len(reqs)))
+    if len(answers) != len(reqs) or serve_err > DEPLOY_TOL:
+        raise AssertionError(f"15 (a) served rows vs the direct run: "
+                             f"{len(answers)} answers, err {serve_err:.3e}")
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else float("nan"))
+    print(f"15 (a) ResNet-50 (1000 classes, b{DEPLOY_BATCH}·"
+          f"{DEPLOY_IMG}², eval, TF32 off) jit.save {save_s:.2f} s, "
+          f"create_predictor {load_s:.2f} s, artifact "
+          f"{_artifact_bytes(prefix)} bytes; loaded vs eager err "
+          f"{err:.3e} (tol {DEPLOY_TOL:.0e} of max-abs); planted fc-bias "
+          f"fault err {fault_err:.3e} (fails the gate, as it must); run "
+          f"f32 {f32_ips:.1f} images/s, bf16-stored {bf16_ips:.1f} "
+          f"images/s ({card}); bf16 top-1 = f32 top-1 on "
+          f"{int((top1 == top16).sum())}/{DEPLOY_BATCH} ({flips} flips, "
+          f"{ties} near-ties); pool of 2 shares {len(ptrs[0])} weights by "
+          f"data_ptr; InferenceServer x {DEPLOY_CLIENTS} clients: "
+          f"{len(reqs)} requests {req_s:.1f} req/s, mean batch "
+          f"{server.mean_batch_size:.2f}, rows vs direct run err "
+          f"{serve_err:.3e} ({exact} bit-equal); peak memory "
+          f"{peak:.2f} GiB")
+    return dict(save_s=save_s, load_s=load_s, f32_ips=f32_ips,
+                bf16_ips=bf16_ips, req_s=req_s,
+                mean_batch=server.mean_batch_size, err=err)
+
+
+def _ag_flow(x):
+    """15 (b): a tensor-dependent `if`, a `while` with `break` and `for x
+    in tensor`."""
+    if x.mean() > 0:
+        y = x * 2.0
+    else:
+        y = x - 1.0
+    k = x.sum() * 0
+    acc = y[0] * 0
+    while k < 8:
+        k = k + 1
+        acc = acc + y[1] * k
+        if acc.sum() > 4096.0:
+            break
+    for row in y:
+        acc = acc + row * 0.5
+    return acc
+
+
+def _ag_flow_swapped(x):
+    """_ag_flow with the `if`'s arms swapped: 15 (b)'s planted fault."""
+    if x.mean() > 0:
+        y = x - 1.0
+    else:
+        y = x * 2.0
+    k = x.sum() * 0
+    acc = y[0] * 0
+    while k < 8:
+        k = k + 1
+        acc = acc + y[1] * k
+        if acc.sum() > 4096.0:
+            break
+    for row in y:
+        acc = acc + row * 0.5
+    return acc
+
+
+def deploy_autograph(card, tmp, device="cuda"):
+    """15 (b): to_static equals the undecorated function bit for bit on
+    the card; a layer built on it survives jit.save / load, and the
+    swapped-arm artifact fails the gate."""
+    from paddle_tpu_torch import jit, nn
+
+    g = torch.Generator().manual_seed(150)
+    x = (torch.rand(AG_SHAPE, generator=g) + 0.1).to(device)
+    static = jit.to_static(_ag_flow)
+    with torch.no_grad():
+        for sign in (1.0, -1.0):
+            a, b = static(x * sign), _ag_flow(x * sign)
+            if not torch.equal(a, b):
+                raise AssertionError("15 (b) to_static differs from the "
+                                     "undecorated function")
+
+    class Net(nn.Layer):
+        def __init__(self, flow):
+            super().__init__()
+            self.fc = nn.Linear(AG_SHAPE[1], AG_SHAPE[1], device=device)
+            self.flow = jit.to_static(flow)
+
+        def forward(self, v):
+            return self.flow(self.fc(v))
+
+    net = Net(_ag_flow)
+    net.eval()
+    bad = Net(_ag_flow_swapped)
+    bad.load_dict(net.state_dict())
+    spec = [jit.InputSpec(list(AG_SHAPE), "float32")]
+    t0 = time.perf_counter()
+    jit.save(net, os.path.join(tmp, "flow"), input_spec=spec)
+    save_s = time.perf_counter() - t0
+    jit.save(bad, os.path.join(tmp, "flow_fault"), input_spec=spec)
+    with _NoTF32():
+        loaded = jit.load(os.path.join(tmp, "flow"), device=device)
+        fault = jit.load(os.path.join(tmp, "flow_fault"), device=device)
+        with torch.no_grad():
+            want = net(x)
+        err = _rel_err(loaded(x).cpu(), want.cpu())
+        fault_err = _rel_err(fault(x).cpu(), want.cpu())
+    ops = " ".join(str(n.target) for m in loaded._program.modules()
+                   if isinstance(m, torch.fx.GraphModule)
+                   for n in m.graph.nodes if n.op == "call_function")
+    if not all(op in ops for op in ("cond", "while_loop", "scan")):
+        raise AssertionError("15 (b) the saved program lacks cond / "
+                             "while_loop / scan")
+    if err > AG_TOL or fault_err <= AG_TOL:
+        raise AssertionError(f"15 (b) loaded err {err:.3e}, swapped-arm "
+                             f"fault err {fault_err:.3e} (tol {AG_TOL:.0e})")
+    print(f"15 (b) to_static at b{AG_SHAPE[0]} x {AG_SHAPE[1]} f32: equal "
+          f"to the undecorated function bit for bit, both arms; the "
+          f"layer's program (cond + while_loop + scan) saved in "
+          f"{save_s:.2f} s, loaded vs eager err {err:.3e} (tol "
+          f"{AG_TOL:.0e}); swapped-arm artifact err {fault_err:.3e} "
+          f"(fails, as it must) ({card})")
+    return dict(save_s=save_s, err=err)
+
+
+def deploy_bert(fa, card, tmp, device="cuda"):
+    """15 (c): BERT-base, bf16 O2, saved and loaded: K3 launches 12
+    times inside the loaded program, K4 / K5 never."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import inference as inf
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.text.models import bert
+
+    cfg = bert.bert_base()
+    model = bert.BertModel(cfg, device=device, seed=0)
+    model.eval()
+    amp.decorate(model, level="O2")
+    ids = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (DEPLOY_BERT_BATCH, DEPLOY_BERT_SEQ))
+    prefix = os.path.join(tmp, "bert_base")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[
+        jit.InputSpec([DEPLOY_BERT_BATCH, DEPLOY_BERT_SEQ], "int64")])
+    save_s = time.perf_counter() - t0
+    cfg_inf = inf.Config(prefix)
+    if device == "cpu":
+        cfg_inf.disable_gpu()
+    t0 = time.perf_counter()
+    pred = inf.create_predictor(cfg_inf)
+    load_s = time.perf_counter() - t0
+    _sync_dev(device)
+    fa.reset_launches()
+    seq, pooled = pred.run([ids])
+    _sync_dev(device)
+    launches = dict(fa.launches)
+    tc = dict(fa.tc_launches)
+    want = {"flash_forward": cfg.num_layers, "flash_bwd_dq": 0,
+            "flash_bwd_dkv": 0}
+    if launches != want:
+        raise AssertionError(f"15 (c) launches inside the loaded program "
+                             f"{launches}, expected {want}")
+    with torch.no_grad():
+        eseq, epooled = model(torch.as_tensor(ids, device=device))
+    err = max(float(np.abs(seq - eseq.float().cpu().numpy()).max()),
+              float(np.abs(pooled - epooled.float().cpu().numpy()).max()))
+    if not (seq.shape == (DEPLOY_BERT_BATCH, DEPLOY_BERT_SEQ,
+                          cfg.hidden_size) and np.isfinite(seq).all()
+            and err <= DEPLOY_BERT_TOL):
+        raise AssertionError(f"15 (c) loaded BERT vs eager: err {err:.3e}")
+    sps = _runs_per_s(lambda: pred.run([ids]), DEPLOY_BERT_BATCH,
+                      DEPLOY_RUNS, device)
+    print(f"15 (c) BERT-base (12 layers, d {cfg.hidden_size}, vocab "
+          f"{cfg.vocab_size}) bf16 O2, b{DEPLOY_BERT_BATCH}·"
+          f"s{DEPLOY_BERT_SEQ}: jit.save {save_s:.2f} s, create_predictor "
+          f"{load_s:.2f} s, artifact {_artifact_bytes(prefix)} bytes; "
+          f"{sps:.1f} samples/s ({card}); loaded vs eager max-abs err "
+          f"{err:.3e} (tol {DEPLOY_BERT_TOL:.0e}); one run: launches "
+          f"{launches}, K3 on the tensor-core route "
+          f"{tc['flash_forward']} times")
+    print("15 (c) the K3 launches above came from inside the loaded "
+          "program: the counts were zeroed just before the predictor's "
+          "run and read just after, before any eager forward")
+    return dict(launches=launches, tc=tc, err=err, samples_per_s=sps,
+                save_s=save_s, load_s=load_s)
+
+
+def _static_program(weights):
+    """The 784-512-512-10 relu MLP + softmax as a static Program."""
+    from paddle_tpu_torch import nn, static
+    from paddle_tpu_torch.nn import functional as F
+
+    main = static.Program()
+    with static.program_guard(main):
+        static.data("x", [None, STATIC_WIDTHS[0]], "float32")
+
+    def attr(a):
+        return nn.ParamAttr(initializer=nn.initializer.Assign(a))
+
+    def stage(env):
+        h = env["x"]
+        for i, (w, b) in enumerate(weights):
+            last = i == len(weights) - 1
+            h = static.nn.fc(h, w.shape[1], weight_attr=attr(w),
+                             bias_attr=attr(b),
+                             activation=None if last else "relu")
+        env["logits"] = h
+        env["probs"] = F.softmax(h, axis=-1)
+
+    main.stages.append(stage)
+    return main
+
+
+def deploy_static(card, device="cuda"):
+    """15 (d) part 1: Executor on the card, freeze, prune, run; the same
+    stages on the CPU."""
+    from paddle_tpu_torch import CPUPlace, CUDAPlace, static
+
+    rng = np.random.default_rng(151)
+    w = STATIC_WIDTHS
+    weights = [((rng.standard_normal((a, b)) / np.sqrt(a)).astype(np.float32),
+                (rng.standard_normal(b) * 0.1).astype(np.float32))
+               for a, b in zip(w[:-1], w[1:])]
+    feed = {"x": rng.standard_normal((STATIC_BATCH, w[0])).astype(
+        np.float32)}
+    place = CUDAPlace(0) if device == "cuda" else CPUPlace()
+    main = _static_program(weights)
+    with _NoTF32():
+        t0 = time.perf_counter()
+        (card_probs,) = static.Executor(place).run(main, feed=feed,
+                                                   fetch_list=["probs"])
+        exe_s = time.perf_counter() - t0
+        ir = main.freeze(["probs", "logits"], batch_size=STATIC_BATCH,
+                         place=place)
+        pruned = ir.prune(["probs"])
+        frozen = pruned.run(feed)["probs"]
+    (cpu_probs,) = static.Executor(CPUPlace()).run(main, feed=feed,
+                                                   fetch_list=["probs"])
+    errs = (_rel_err(card_probs, cpu_probs), _rel_err(frozen, cpu_probs))
+    if max(errs) > STATIC_TOL or len(pruned.ops) >= len(ir.ops):
+        raise AssertionError(f"15 (d) static MLP card vs CPU errs {errs}; "
+                             f"ops {len(ir.ops)} -> {len(pruned.ops)}")
+    print(f"15 (d) static Program 784-512-512-10 relu + softmax, batch "
+          f"{STATIC_BATCH}: Executor on the card ({exe_s * 1e3:.1f} ms "
+          f"first run) vs the CPU err {errs[0]:.3e}; frozen ({len(ir.ops)} "
+          f"aten ops) and pruned to probs ({len(pruned.ops)} ops) err "
+          f"{errs[1]:.3e} (tol {STATIC_TOL:.0e}) ({card})")
+    return errs
+
+
+def _timed_op(fn, device, reps=3):
+    fn()
+    _sync_dev(device)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    _sync_dev(device)
+    return out, (time.perf_counter() - t0) / reps * 1e3
+
+
+def _vops_cases(rng):
+    """{name: (build, rows)}: each op at its detection size; `rows`
+    slices the outputs the CPU port recomputes (None: all of them)."""
+    from paddle_tpu_torch.vision import ops
+
+    def t(a, dev):
+        return torch.as_tensor(a, device=dev)
+
+    heads = [rng.standard_normal((YOLO_BATCH, 3 * (5 + YOLO_CLASSES), g, g))
+             .astype(np.float32) for g in YOLO_GRIDS]
+    isz = np.full((YOLO_BATCH, 2), 608, np.int32)
+    xy = rng.uniform(0, 560, (NMS_BOXES, 2)).astype(np.float32)
+    wh = rng.uniform(8, 160, (NMS_BOXES, 2)).astype(np.float32)
+    boxes = np.concatenate([xy, xy + wh], 1)
+    scores = np.round(rng.random(NMS_BOXES) * 64).astype(np.float32) / 64
+    cats = rng.integers(0, NMS_CLASSES, NMS_BOXES)
+    mscores = rng.random((1, NMS_CLASSES, NMS_BOXES)).astype(np.float32)
+    n, c, h, w = ROI_FEAT
+    feat = rng.standard_normal(ROI_FEAT).astype(np.float32)
+    ps_feat = rng.standard_normal((n, PSROI_CHANNELS, h, w)).astype(
+        np.float32)
+    rxy = rng.uniform(0, 4 * w - 64, (n * ROI_PER_IMAGE, 2)).astype(
+        np.float32)
+    rwh = rng.uniform(16, 256, (n * ROI_PER_IMAGE, 2)).astype(np.float32)
+    rois = np.concatenate([rxy, rxy + rwh], 1)
+    rnum = np.full(n, ROI_PER_IMAGE, np.int32)
+    sub = np.concatenate([np.arange(ROI_CPU_ROWS) + i * ROI_PER_IMAGE
+                          for i in range(n)])
+    dn, dc, dh, dw = DEFORM_SHAPE
+    dx = rng.standard_normal(DEFORM_SHAPE).astype(np.float32)
+    doff = (rng.standard_normal((dn, 18, dh, dw)) * 2).astype(np.float32)
+    dmask = rng.random((dn, 9, dh, dw)).astype(np.float32)
+    dwt = (rng.standard_normal((dc, dc, 3, 3)) / np.sqrt(9 * dc)).astype(
+        np.float32)
+    pn, pa, ph, pw = PROPOSAL_SHAPE
+    psc = np.round(rng.random(PROPOSAL_SHAPE) * 256).astype(np.float32) / 256
+    pdl = (rng.standard_normal((pn, pa, 4, ph, pw)) * 0.2).astype(
+        np.float32)
+    # zero log-size deltas: exp(0) is exact on both devices, so the
+    # decoded boxes, and the IoUs the kept set depends on, are the same
+    # numbers card and CPU (the center deltas take +, -, x only)
+    pdl[:, :, 2:] = 0.0
+    pdl = pdl.reshape(pn, 4 * pa, ph, pw)
+    gx, gy = np.meshgrid(np.arange(pw) * 8.0, np.arange(ph) * 8.0)
+    base = np.stack([gx, gy, gx, gy], -1)[:, :, None, :].astype(np.float32)
+    size = np.array([32, 64, 128], np.float32)[None, None, :, None]
+    anchors = base + np.concatenate([-size, -size, size, size], -1) / 2
+    pvar = np.ones((ph, pw, pa, 4), np.float32)
+    pisz = np.array([[8 * ph, 8 * pw]] * pn, np.float32)
+    priors = rng.uniform(0, 0.5, (2000, 2)).astype(np.float32)
+    priors = np.concatenate([priors, priors + 0.3], 1)
+    targets = rng.uniform(0, 0.5, (300, 2)).astype(np.float32)
+    targets = np.concatenate([targets, targets + 0.2], 1)
+    def roi_args(a, d, r):
+        """(features, RoIs, RoIs an image) on `d`: all, or `r`'s rows."""
+        if r is None:
+            return t(a, d), t(rois, d), t(rnum, d)
+        return (t(a, d), t(rois[r], d),
+                t(np.full(n, ROI_CPU_ROWS, np.int32), d))
+
+    def deform_args(d, r):
+        k = slice(None) if r is None else slice(0, 1)
+        return t(dx[k], d), t(doff[k], d), t(dwt, d), t(dmask[k], d)
+
+    # each case: build(device, rows) → a thunk that runs only the op on
+    # inputs already on that device
+    return {
+        "yolo_box": (lambda d, r: (lambda hs, s: lambda: [
+            o for hd in hs for o in ops.yolo_box(
+                hd, s, YOLO_ANCHORS[:6], YOLO_CLASSES, 0.01, 32)])(
+            [t(hd, d) for hd in heads], t(isz, d)), None),
+        "nms": (lambda d, r: (lambda b, sc, c: lambda: [
+            ops.nms(b, 0.5, sc, c)])(t(boxes, d), t(scores, d),
+                                     t(cats, d)), None),
+        "matrix_nms": (lambda d, r: (lambda b, sc: lambda: list(
+            ops.matrix_nms(b, sc, 0.5, 0.05, 400, 200,
+                           return_index=True)))(
+            t(boxes[None] / 720, d), t(mscores, d)), None),
+        "roi_align": (lambda d, r: (lambda a: lambda: [ops.roi_align(
+            *a, ROI_OUT, 0.25)])(roi_args(feat, d, r)), sub),
+        "roi_pool": (lambda d, r: (lambda a: lambda: [ops.roi_pool(
+            *a, ROI_OUT, 0.25)])(roi_args(feat, d, r)), sub),
+        "psroi_pool": (lambda d, r: (lambda a: lambda: [ops.psroi_pool(
+            *a, ROI_OUT, 0.25)])(roi_args(ps_feat, d, r)), sub),
+        "deform_conv2d": (lambda d, r: (lambda a: lambda: [
+            ops.deform_conv2d(a[0], a[1], a[2], padding=1, mask=a[3])])(
+            deform_args(d, r)), np.arange(1)),
+        "generate_proposals": (lambda d, r: (lambda a: lambda: list(
+            ops.generate_proposals(*a, *PROPOSAL_TOP,
+                                   return_rois_num=True)))(
+            [t(v, d) for v in (psc, pdl, pisz, anchors, pvar)]), None),
+        "box_coder": (lambda d, r: (lambda p, g: lambda: [ops.box_coder(
+            p, [0.1, 0.1, 0.2, 0.2], g)])(t(priors, d), t(targets, d)),
+            None),
+        "prior_box": (lambda d, r: (lambda f, im: lambda: list(
+            ops.prior_box(f, im, [32.0, 64.0], [64.0, 128.0], (2.0, 3.0),
+                          flip=True, clip=True)))(
+            t(feat[:1, :4], d), t(np.zeros((1, 3, 800, 1216), np.float32),
+                                  d)), None),
+    }
+
+
+def deploy_vision_ops(card, device="cuda"):
+    """15 (d) part 2: every vision.ops function at detection sizes on the
+    card against the CPU port (integer outputs equal), card ms beside
+    CPU ms."""
+    out = {}
+    with _NoTF32():
+        for name, (build, rows) in _vops_cases(np.random.default_rng(152)
+                                               ).items():
+            got, card_ms = _timed_op(build(device, None), device)
+            want, cpu_ms = _timed_op(build("cpu", rows), "cpu", reps=1)
+            got_cmp = got if rows is None else [
+                g[torch.as_tensor(rows, device=g.device)] for g in got]
+            err = 0.0
+            for g, wv in zip(got_cmp, want):
+                g, wv = g.cpu().numpy(), wv.numpy()
+                if g.shape != wv.shape:
+                    raise AssertionError(f"15 (d) {name}: shapes {g.shape} "
+                                         f"vs {wv.shape}")
+                if g.dtype.kind in "iub":
+                    if not np.array_equal(g, wv):
+                        raise AssertionError(f"15 (d) {name}: kept indices "
+                                             "differ card vs CPU")
+                elif g.size:
+                    err = max(err, _rel_err(g, wv))
+            if err > VOPS_TOL:
+                raise AssertionError(f"15 (d) {name}: card vs CPU err "
+                                     f"{err:.3e}")
+            out[name] = dict(card_ms=card_ms, cpu_ms=cpu_ms, err=err)
+    print(f"15 (d) vision.ops card vs the CPU port (integer outputs equal; "
+          f"floats within {VOPS_TOL:.0e} of max-abs; the CPU recomputes "
+          f"{ROI_CPU_ROWS} RoIs an image and one deformable image, all of "
+          f"the rest) ({card}): " + "; ".join(
+              f"{k} {v['card_ms']:.2f} ms vs CPU {v['cpu_ms']:.2f} ms "
+              f"(err {v['err']:.1e})" for k, v in out.items()))
+    return out
+
+
+def deploy_phase(fa, card):
+    """15: (a) ResNet-50 deployed, (b) to_static, (c) BERT-base deployed
+    with K3 inside the artifact, (d) static and vision.ops."""
+    import shutil
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="pt_deploy_")
+    try:
+        resnet = deploy_resnet(card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        flow = deploy_autograph(card, tmp)
+        bert = deploy_bert(fa, card, tmp)
+        gc.collect()
+        torch.cuda.empty_cache()
+        static_errs = deploy_static(card)
+        vops = deploy_vision_ops(card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"deploy phase (15): {time.perf_counter() - t0:.1f} s")
+    return dict(resnet=resnet, flow=flow, bert=bert, static=static_errs,
+                vision_ops=vops)
+
+
 def _kernel_row(name, route, source, replaces, launches, r):
     return {"name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches,
@@ -9290,6 +9891,7 @@ def main(argv=None):
     bert = bert_phase(fa, card)
     mt = mt_phase(fa, card)
     hapi_phase(card)
+    deploy = deploy_phase(fa, card)
     # each kernel's launches come from the main-path run that drives it:
     # K1 on the bf16, int8 and int4 pools the fused phase's greedy
     # decode_k 8 bursts (ticks, warm-ups and graph replays; the replays'
@@ -9414,6 +10016,8 @@ def main(argv=None):
         # at its shape
         row["mt_launches"] = mt[name]
         row["shape_mt"] = r["shape_mt"]
+        # 15 (c): BERT-base's forward inside the loaded jit.save program
+        row["deploy_launches"] = deploy["bert"]["launches"][name]
         kernels.append(row)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the "
           "build to the result")

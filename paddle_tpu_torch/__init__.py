@@ -23,7 +23,10 @@ O2 with `GradScaler`, the losses, recompute with the named policies and
 the flash attention forward and backward kernels; the data-, tensor-,
 pipeline- and sequence-parallel runtimes (`distributed`); the vision
 models (`vision.models`); BERT / ERNIE pretraining
-(`text.models.bert`); and the tensor API.
+(`text.models.bert`); the tensor API; and deployment — `jit.to_static`
+with its AutoGraph, `jit.save` / `load`, the inference `Config` /
+`Predictor` / `PredictorPool`, the `static` Program / Executor facade
+and `vision.ops`.
 
 The tensor API is the reference's top-level namespace: `import
 paddle_tpu_torch as paddle; paddle.reshape(x, [0, -1])` — the ops of
@@ -129,7 +132,7 @@ if not _LAUNCHER:
     for _sub in ("observability", "nn", "optimizer", "metric", "io", "amp",
                  "framework", "jit", "distributed", "vision", "text",
                  "profiler", "incubate", "hapi", "inference", "native",
-                 "quantization"):
+                 "quantization", "static"):
         globals()[_sub] = _importlib.import_module("." + _sub, __name__)
 
     from .framework.io_state import load, save  # noqa: F401,E402
@@ -141,6 +144,24 @@ if not _LAUNCHER:
     from .hapi.model import Model  # noqa: F401,E402
     from .hapi.summary import summary  # noqa: F401,E402
 
+    from .jit import InputSpec  # noqa: F401,E402
+
     ParamAttr = nn.ParamAttr  # noqa: F821
     DataParallel = distributed.DataParallel  # noqa: F821
     dtype = _torch.dtype
+
+    # eager is the default; static capture goes through `jit.to_static`
+    # and the `static` facade, so these only record the mode (reference:
+    # paddle_tpu/__init__.py:158-175)
+    _static_mode = False
+
+    def disable_static(place=None):
+        global _static_mode
+        _static_mode = False
+
+    def enable_static():
+        global _static_mode
+        _static_mode = True
+
+    def in_dynamic_mode():
+        return not _static_mode

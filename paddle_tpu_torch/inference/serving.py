@@ -134,10 +134,10 @@ def _module_runner(module):
 
 
 class InferenceServer(_FutureQueueServer):
-    """Dynamic-batching server over an nn.Module or a callable (module
+    """Dynamic-batching server over an nn.Module, a loaded `Predictor`
+    (batches padded to its exported batch size) or a callable (module
     docstring). `submit` / `infer` are thread-safe; one background
-    batcher thread owns the device. A loaded `Predictor` is not a source
-    yet: it needs `jit.save` / `load` (ROADMAP A12)."""
+    batcher thread owns the device."""
 
     _thread_name = "infer-batcher"
 
@@ -152,9 +152,16 @@ class InferenceServer(_FutureQueueServer):
         if isinstance(source, torch.nn.Module):
             self._run = _module_runner(source)
         elif hasattr(source, "_layer") and hasattr(source, "run"):
-            raise NotImplementedError(
-                "serving a loaded Predictor needs jit.save / load, which "
-                "are not ported yet: ROADMAP A12")
+            # a loaded artifact is shape-specialized: the only legal
+            # bucket is its exported batch size, so every batch is
+            # padded to it
+            self._run = lambda arrs: source.run(list(arrs))
+            specs = getattr(source._layer, "_input_specs", None)
+            if specs:
+                fixed = int(specs[0][0][0])
+                self.batching.buckets = [fixed]
+                self.batching.max_batch_size = min(
+                    self.batching.max_batch_size, fixed)
         elif callable(source):
             def run(arrs):
                 out = source(*arrs)

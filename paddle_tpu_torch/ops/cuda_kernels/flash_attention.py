@@ -27,9 +27,21 @@ variant (a ring block on the diagonal; a block below it runs full).
 Functions that mirror the reference's two `custom_vjp`s;
 `flash_attention_bshd` is the public entry on the paddle layout
 [batch, seq, heads, head_dim].
+
+The Functions reach the kernels through three `torch.library` custom
+ops, `paddle_tpu_torch::flash_fwd` (K3: out and lse),
+`paddle_tpu_torch::flash_bwd_dq` (K4) and
+`paddle_tpu_torch::flash_bwd_dkv` (K5): the CPU kernel of each is the
+plain version, the CUDA kernel the wrapper above (which launches and
+counts), and a fake kernel gives the output shapes. `torch.export` (and
+so `jit.save`) traces an op as one opaque node, so a saved program
+records the op itself: loaded on the card it launches K3, on the CPU it
+runs the plain version. The ctypes launch cannot be traced at all, as
+fake tensors have no storage.
 """
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -272,6 +284,75 @@ def flash_bwd_dkv(q, k, v, g, lse, delta, causal=False, lens=None):
     return dk, dv
 
 
+# ---------------------------------------------------------- custom ops
+# The CUDA kernels look the wrappers up at call time, so a caller that
+# swaps `flash_forward` (and the two backward wrappers) for a plain
+# version on this module swaps what the ops run as well.
+
+@torch.library.custom_op("paddle_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  lens: Optional[torch.Tensor],
+                  causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_forward_plain(q, k, v, causal, lens)
+
+
+@_flash_fwd_op.register_kernel("cuda")
+def _(q, k, v, lens, causal):
+    return flash_forward(q, k, v, causal, lens)
+
+
+def _fake_check(q):
+    """Off the CPU the kernels take f32 / bf16 only: the fake kernel (an
+    export's trace, the meta device) refuses what the launch would."""
+    if q.device.type != "cpu" and q.dtype not in _KINDS:
+        raise TypeError(f"q dtype {q.dtype} not in {tuple(_KINDS)}")
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, lens, causal):
+    _fake_check(q)
+    return (torch.empty_like(q),
+            q.new_empty((q.shape[0], 1, q.shape[1]), dtype=torch.float32))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dq", mutates_args=())
+def _flash_bwd_dq_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     g: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                     lens: Optional[torch.Tensor],
+                     causal: bool) -> torch.Tensor:
+    return flash_bwd_dq_plain(q, k, v, g, lse, delta, causal, lens)
+
+
+@_flash_bwd_dq_op.register_kernel("cuda")
+def _(q, k, v, g, lse, delta, lens, causal):
+    return flash_bwd_dq(q, k, v, g, lse, delta, causal, lens)
+
+
+@_flash_bwd_dq_op.register_fake
+def _(q, k, v, g, lse, delta, lens, causal):
+    _fake_check(q)
+    return torch.empty_like(q)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_bwd_dkv", mutates_args=())
+def _flash_bwd_dkv_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      g: torch.Tensor, lse: torch.Tensor,
+                      delta: torch.Tensor, lens: Optional[torch.Tensor],
+                      causal: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal, lens)
+
+
+@_flash_bwd_dkv_op.register_kernel("cuda")
+def _(q, k, v, g, lse, delta, lens, causal):
+    return flash_bwd_dkv(q, k, v, g, lse, delta, causal, lens)
+
+
+@_flash_bwd_dkv_op.register_fake
+def _(q, k, v, g, lse, delta, lens, causal):
+    _fake_check(q)
+    return torch.empty_like(k), torch.empty_like(v)
+
+
 # ---------------------------------------------------------------- autograd
 
 def _attn_bwd(q, k, v, out, lse, g, causal, g_lse=None, lens=None):
@@ -283,8 +364,8 @@ def _attn_bwd(q, k, v, out, lse, g, causal, g_lse=None, lens=None):
     if g_lse is not None:
         delta = delta - g_lse.float()
     delta = delta.contiguous()
-    dq = flash_bwd_dq(q, k, v, gf, lse, delta, causal, lens)
-    dk, dv = flash_bwd_dkv(q, k, v, gf, lse, delta, causal, lens)
+    dq = _flash_bwd_dq_op(q, k, v, gf, lse, delta, lens, causal)
+    dk, dv = _flash_bwd_dkv_op(q, k, v, gf, lse, delta, lens, causal)
     return dq, dk, dv
 
 
@@ -294,7 +375,7 @@ class _FlashAttentionBHD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, lens, causal):
-        out, lse = flash_forward(q, k, v, causal, lens)
+        out, lse = _flash_fwd_op(q, k, v, lens, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.lens, ctx.causal = lens, causal
         return out
@@ -313,7 +394,7 @@ class _FlashAttentionLseBHD(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        out, lse = flash_forward(q, k, v, causal)
+        out, lse = _flash_fwd_op(q, k, v, None, causal)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal = causal
         return out, lse

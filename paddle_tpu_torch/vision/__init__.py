@@ -1,9 +1,9 @@
 """Vision (counterpart of paddle_tpu/vision; reference
 python/paddle/vision/__init__.py): the models, transforms and datasets,
 also re-exported flat (`paddle.vision.resnet50`,
-`paddle.vision.RandomResizedCrop`), and the image backend switch.
-`vision.ops` waits for ROADMAP A12 part 4b."""
-from . import datasets, models, transforms  # noqa: F401
+`paddle.vision.RandomResizedCrop`), the image backend switch, and
+`vision.ops`, the detection primitives."""
+from . import datasets, models, ops, transforms  # noqa: F401
 from .datasets import *  # noqa: F401,F403
 from .models import *  # noqa: F401,F403
 from .transforms import *  # noqa: F401,F403

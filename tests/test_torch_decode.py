@@ -20,6 +20,17 @@ from paddle_tpu_torch.nn import functional as TF
 pytestmark = pytest.mark.torch_port
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _serial_mesh():
     from paddle_tpu.distributed import mesh as mesh_mod

@@ -41,6 +41,18 @@ from paddle_tpu_torch.text.models.gpt_pipeline import (
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
            max_seq_len=32)
 RTOL = 1e-5

@@ -33,6 +33,18 @@ from paddle_tpu_torch.text.models.gpt import gpt_small, gpt_tiny
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROWS = (1, 8, 13, 16, 17, 48, 256, 300)
 
 

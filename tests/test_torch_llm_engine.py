@@ -347,7 +347,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "vision/models/alexnet.py", "vision/models/squeezenet.py",
                  "vision/models/densenet.py", "vision/models/googlenet.py",
                  "vision/models/inceptionv3.py",
-                 "vision/models/shufflenetv2.py"):
+                 "vision/models/shufflenetv2.py",
+                 # deployment: capture, save / load, predictors, the
+                 # static facade and the detection ops
+                 "jit/__init__.py", "jit/autograph.py",
+                 "inference/__init__.py", "inference/serving.py",
+                 "static/__init__.py", "static/nn.py",
+                 "static/nn_build.py", "static/sequence.py",
+                 "vision/ops.py"):
         assert f"paddle_tpu_torch/{name}" in scanned, name
     bad = []
     for f in files:

@@ -50,6 +50,18 @@ from paddle_tpu_torch.text.models.gpt_pipeline import (
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CFG = dict(vocab_size=256, hidden_size=64, num_layers=4, num_heads=4,
            max_seq_len=32)
 MOE = dict(moe_experts=4, moe_hidden=64)
@@ -217,6 +229,30 @@ def _ids(seed=0):
     return np.random.default_rng(seed).integers(0, 256, (8, 16))
 
 
+def _jit_grads(m, t):
+    """{name: gradient} of the reference's `m.loss(t)`, taken under one
+    `jax.jit` (its eager tape compiles a program an op, which a cold
+    compile cache pays op by op); the model's state is left as it was."""
+    params = list(m.named_parameters())
+    bufs = list(m.named_buffers())
+
+    def pure(vals):
+        held = [p._value for _, p in params]
+        held_b = [b._value for _, b in bufs]
+        for (_, p), v in zip(params, vals):
+            p._value = v
+        try:
+            return m.loss(t)._value
+        finally:
+            for (_, p), v in zip(params, held):
+                p._value = v
+            for (_, b), v in zip(bufs, held_b):
+                b._value = v
+
+    grads = jax.jit(jax.grad(pure))([p._value for _, p in params])
+    return {n: np.asarray(g) for (n, _), g in zip(params, grads)}
+
+
 def _reference(ids, steps=3, **kw):
     """(weights, step-0 gradients, losses, aux per step) of the
     reference's MoE GPT at world 1."""
@@ -227,11 +263,7 @@ def _reference(ids, steps=3, **kw):
         m = JaxPipe(JaxCfg(**CFG), n_micro=4, **MOE, **kw)
         w = {k: np.array(v.numpy()) for k, v in m.state_dict().items()}
         t = paddle.to_tensor(ids)
-        m.loss(t).backward()
-        grads = {n: np.array(p.grad.numpy()) for n, p in
-                 m.named_parameters()}
-        for p in m.parameters():
-            p.clear_grad()
+        grads = _jit_grads(m, t)
         opt = paddle.optimizer.AdamW(1e-3, parameters=m.parameters())
         step = paddle.jit.TrainStep(m, lambda mm, i: mm.loss(i), opt)
         losses, auxs = [], []

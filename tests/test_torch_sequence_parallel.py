@@ -2,15 +2,8 @@
 and the sp branch of the pipelined GPT) against the JAX package's.
 
 As gloo processes under the port's launcher (tests/torch_hybrid_worker.py
-`ring`, `sp_pipe`, `sp_3d`):
+`sp_pipe`, `sp_3d`):
 
-- `ring_attention`, `ring_flash_attention` (the plain kernels on the CPU)
-  and `ulysses_attention` at sp 4 and sp 2, causal and full: each rank's
-  output shard and its q / k / v gradients of a probe loss against the
-  reference's functions on its own sp mesh (shard_map, Pallas in
-  interpret mode), 1e-5; the Ulysses heads check raises the reference's
-  ValueError; the sep group of the topology is the ring's group; the
-  causal ring skips the blocks above the diagonal.
 - The pipelined GPT at pp 2 × sp 2 (1F1B, GPipe, per-layer remat, and a
   MoE model of 4 experts at capacity 4.0, so nothing drops) and at pp 2
   × mp 2 × sp 2: three HybridTrainStep steps against the reference's
@@ -20,13 +13,10 @@ As gloo processes under the port's launcher (tests/torch_hybrid_worker.py
   no-grad loss equals the training loss; the checkpoint is written by sp
   rank 0 alone and loads at world 1.
 
-The sequence-sharded flat DistributedTrainStep (`seq_step`, 2 ranks at
-sp 2 and 4 at dp 2 × sp 2): three AdamW steps on gpt_tiny against the
-reference's step under batch_specs=[P("dp", "sp")] on its CPU mesh,
-losses 1e-5 relative, parameters 1e-4 max-abs (AdamW magnifies
-summation noise in small gradients into whole steps), the sp replicas
-bit-equal; beside it, the loss each rank's columns alone would give is
-not the serial loss.
+The ring and Ulysses attention are held in
+tests/test_torch_sequence_ring.py, the sequence-sharded flat
+DistributedTrainStep in tests/test_torch_sequence_step.py (split so the
+three run on three workers).
 
 In-process: the reference's ValueErrors (pp 1 × sp 2, an indivisible
 sequence).
@@ -41,11 +31,8 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
-from jax.sharding import PartitionSpec as JP
 
 import paddle_tpu as paddle
-import paddle_tpu.distributed as jdist
 from paddle_tpu.distributed import mesh as jmesh
 from paddle_tpu.text.models.gpt import GPTConfig as JaxCfg
 from paddle_tpu.text.models.gpt_pipeline import (
@@ -60,8 +47,19 @@ import torch_hybrid_worker as worker  # noqa: E402
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 TOL = 1e-5
-B, S, H, D = 2, 32, 4, 8
 
 
 @pytest.fixture(autouse=True)
@@ -70,187 +68,6 @@ def _reset():
     yield
     tmesh.reset_mesh()
     jmesh.reset_mesh()
-
-
-# ---- the ring and Ulysses attention -------------------------------------
-
-def _ring_inputs():
-    rng = np.random.default_rng(21)
-    return {n: rng.standard_normal((B, S, H, D)).astype(np.float32)
-            for n in ("q", "k", "v", "w")}
-
-
-def _reference_ring(a, sp, fn, causal):
-    """(out, dq, dk, dv) of the reference's `fn` on its sp mesh."""
-    jmesh.reset_mesh()
-    jmesh.init_mesh(devices=jax.devices()[:sp], sp=sp)
-    f = jdist.spmd(lambda q, k, v: getattr(jdist, fn)(q, k, v,
-                                                      causal=causal),
-                   in_specs=(JP(None, "sp"),) * 3, out_specs=JP(None, "sp"),
-                   group_axes=("sp",))
-    w = jnp.asarray(a["w"])
-
-    @jax.jit
-    def out_and_grads(q, k, v):
-        out, vjp = jax.vjp(f, q, k, v)
-        return (out,) + vjp(w)
-
-    with jax.default_matmul_precision("highest"):
-        got = out_and_grads(*(jnp.asarray(a[n]) for n in ("q", "k", "v")))
-    jmesh.reset_mesh()
-    return [np.asarray(g) for g in got]
-
-
-@pytest.fixture(scope="module")
-def ring_job(tmp_path_factory):
-    from test_torch_mp_layers import launch_worker
-
-    out = tmp_path_factory.mktemp("ring")
-    a = _ring_inputs()
-    np.savez(out / "ring_inputs.npz", **a)
-    launch_worker("ring", out, 4, timeout=240)
-    arrays = [dict(np.load(out / f"ring_r{r}.npz")) for r in range(4)]
-    meta = [json.load(open(out / f"ring_r{r}.json")) for r in range(4)]
-    return a, arrays, meta
-
-
-@pytest.mark.parametrize("fn", worker.RING_FNS)
-@pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("run", [name for name, _ in worker.RING_RUNS])
-def test_ring_matches_reference(ring_job, run, causal, fn):
-    a, arrays, meta = ring_job
-    sp = dict(worker.RING_RUNS)[run]["sp"]
-    want = _reference_ring(a, sp, fn, causal)
-    s_loc = S // sp
-    for rank in range(4):
-        idx = meta[rank][run]["idx"]
-        cols = slice(idx * s_loc, (idx + 1) * s_loc)
-        key = f"{run}/{fn}/{int(causal)}"
-        for name, w in zip(("out", "dq", "dk", "dv"), want):
-            np.testing.assert_allclose(arrays[rank][f"{key}/{name}"],
-                                       w[:, cols], rtol=TOL, atol=TOL,
-                                       err_msg=f"rank {rank} {key}/{name}")
-
-
-@pytest.mark.parametrize("run", [name for name, _ in worker.RING_RUNS])
-def test_ring_blocks_heads_check_and_sep_group(ring_job, run):
-    """Per rank and forward: 2 calls each of the dense and the flash ring
-    (full, causal); the causal ring runs its diagonal block causal, the
-    blocks below it full and skips the ones above; Ulysses' heads check
-    is the reference's message; the sep group is the ring's group."""
-    _, _, meta = ring_job
-    sp = dict(worker.RING_RUNS)[run]["sp"]
-    for rank in range(4):
-        m = meta[rank][run]
-        idx, st = m["idx"], m["stats"]
-        # two ring functions x (full + causal): full sees sp full blocks
-        assert st["causal"]["calls"] == 2
-        assert st["full"]["calls"] == 2 * (sp + idx)
-        assert st.get("skipped", {}).get("calls", 0) == 2 * (sp - 1 - idx)
-        # K/V frames: sp - 1 forward, sp - 1 backward per call
-        assert st["ring_p2p"]["calls"] == 4 * 2 * (sp - 1)
-        assert m["ulysses_error"] == (f"heads {sp + 1} not divisible by "
-                                      f"sp degree {sp}")
-        sep = m["sep"]
-        assert sep["axes"] == ["sp"] and sep["nranks"] == sp
-        assert sep["rank"] == idx and sep["ring"][idx] == rank
-
-
-def _seq_reference(weights, ids, mesh_kw):
-    """(losses, {name: parameter}) of the reference's DistributedTrainStep
-    with batch_specs=[P("dp", "sp")] on its own CPU mesh: three AdamW
-    steps over the global batch."""
-    from paddle_tpu.text.models import GPTForCausalLM as JaxGPT
-    from paddle_tpu.text.models import GPTPretrainingCriterion as JaxCrit
-
-    jmesh.reset_mesh()
-    n = int(np.prod(list(mesh_kw.values())))
-    jmesh.init_mesh(devices=jax.devices()[:n], **mesh_kw)
-    try:
-        with jax.default_matmul_precision("highest"):
-            jm = JaxGPT(JaxCfg(**worker.SEQ_CFG))
-            jm.set_state_dict({k: paddle.to_tensor(v)
-                               for k, v in weights.items()})
-            opt = paddle.optimizer.AdamW(worker.LR,
-                                         parameters=jm.parameters())
-            step = jdist.DistributedTrainStep(
-                jm, lambda m, x: JaxCrit()(m(x), x), opt,
-                batch_specs=[JP("dp", "sp")])
-            t = paddle.to_tensor(ids)
-            losses = [float(step(t).numpy()) for _ in range(worker.STEPS)]
-        params = {k: np.asarray(v._value, np.float32)
-                  for k, v in jm.state_dict().items()}
-        return losses, params
-    finally:
-        jmesh.reset_mesh()
-
-
-def _seq_ids():
-    return np.random.default_rng(3).integers(0, 256, (2, 16))
-
-
-@pytest.fixture(scope="module")
-def seq_weights():
-    """The reference gpt_tiny case's weights (2 layers, vocab 256, d 64)."""
-    from paddle_tpu.text.models import GPTForCausalLM as JaxGPT
-
-    paddle.seed(0)
-    jm = JaxGPT(JaxCfg(**worker.SEQ_CFG))
-    return {k: np.array(v.numpy()) for k, v in jm.state_dict().items()}
-
-
-@pytest.mark.parametrize("world", sorted(worker.SEQ_MESHES))
-def test_sequence_sharded_distributed_step_matches_reference(
-        tmp_path, seq_weights, world):
-    """§0: under batch_specs=[P("dp", "sp")] the reference's GSPMD step
-    computes the serial model over the whole sequence. The port's ranks
-    of the sp axis each keep their rows' whole sequence, so at sp 2 and
-    at dp 2 × sp 2 three AdamW steps give the reference's losses within
-    1e-5 relative (the two frameworks' summation orders), and the sp
-    replicas' parameters stay bit-equal."""
-    from test_torch_mp_layers import launch_worker
-
-    ids = _seq_ids()
-    np.savez(tmp_path / "seq_weights.npz", **seq_weights)
-    np.save(tmp_path / "seq_ids.npy", ids)
-    launch_worker("seq_step", tmp_path, world, timeout=180)
-    want, ref_params = _seq_reference(seq_weights, ids,
-                                      worker.SEQ_MESHES[world])
-    metas = [json.load(open(tmp_path / f"seq{world}_r{r}.json"))
-             for r in range(world)]
-    params = [dict(np.load(tmp_path / f"seq{world}_r{r}.npz"))
-              for r in range(world)]
-    for r, m in enumerate(metas):
-        np.testing.assert_allclose(m["losses"], want, rtol=TOL,
-                                   err_msg=f"rank {r}")
-    for r, m in enumerate(metas):
-        for q, o in enumerate(metas):
-            if o["dp"] == m["dp"] and o["sp"] != m["sp"]:
-                for k, v in params[r].items():
-                    assert np.array_equal(v, params[q][k]), (r, q, k)
-    assert set(params[0]) == set(ref_params)
-    for k, v in params[0].items():
-        np.testing.assert_allclose(v, ref_params[k], rtol=0, atol=1e-4,
-                                   err_msg=k)
-
-
-def test_sequence_columns_alone_are_not_the_serial_loss():
-    """Why the ranks of sp must each run the whole sequence: gpt_tiny's
-    serial loss against the mean of its two column halves' losses (each
-    half alone: positions from 0, attention cut at the edge, the shift
-    losing a position a half) differ by more than 1e-3."""
-    from paddle_tpu_torch.text.models.gpt import (GPTForCausalLM,
-                                                  GPTPretrainingCriterion)
-
-    model = GPTForCausalLM(GPTConfig(**worker.SEQ_CFG), device="cpu",
-                           seed=0)
-    crit = GPTPretrainingCriterion()
-    ids = torch.as_tensor(_seq_ids())
-    with torch.no_grad():
-        serial = float(crit(model(ids), ids))
-        halves = [float(crit(model(ids[:, c]), ids[:, c]))
-                  for c in (slice(0, 8), slice(8, 16))]
-    assert abs(np.mean(halves) - serial) > 1e-3, (halves, serial)
 
 
 # ---- sequence parallelism in the pipelined GPT ----------------------------

@@ -23,6 +23,17 @@ from paddle_tpu_torch.convert import load_jax_state_dict
 pytestmark = pytest.mark.torch_port
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(autouse=True)
 def _serial_mesh():
     from paddle_tpu.distributed import mesh as mesh_mod
@@ -111,10 +122,11 @@ def test_batching_config_matches_reference():
         tinf.BatchingConfig(max_batch_size=8, buckets=[1, 2])
 
 
-def test_callable_source_groups_signatures_and_errors():
+def test_callable_source_groups_signatures_and_errors(mlps, tmp_path):
     """A callable serves too; requests of two shapes run in separate
-    batches, a bad request fails only its own future, a Predictor source
-    names ROADMAP A12, and a server that is not started refuses."""
+    batches, a bad request fails only its own future, a Predictor loaded
+    from disk serves with its batches padded to the exported batch size,
+    and a server that is not started refuses."""
     def fn(x):
         if x.shape[-1] == 3:
             raise ValueError("bad width")
@@ -136,14 +148,22 @@ def test_callable_source_groups_signatures_and_errors():
     np.testing.assert_array_equal(ya, [2.0, 2.0])
     assert sb == 4.0 and y[1] == 6.0
 
-    class FakePredictor:
-        _layer = None
+    from paddle_tpu_torch import jit as tjit
 
-        def run(self, arrs):
-            return arrs
-
-    with pytest.raises(NotImplementedError, match="A12"):
-        tinf.InferenceServer(FakePredictor())
+    _, tm = mlps
+    tjit.save(tm, str(tmp_path / "mlp"),
+              input_spec=[tjit.InputSpec([4, 8], "float32")])
+    cfg = tinf.Config(str(tmp_path / "mlp"))
+    cfg.disable_gpu()
+    served = tinf.InferenceServer(tinf.create_predictor(cfg))
+    assert served.batching.buckets == [4]
+    x8 = np.random.default_rng(5).standard_normal(8).astype(np.float32)
+    with served:
+        (row,) = served.infer(x8)
+    assert served.stats["rows_padded"] == 3
+    with torch.no_grad():
+        np.testing.assert_allclose(row, tm(torch.from_numpy(x8)[None])[0],
+                                   rtol=1e-6, atol=1e-6)
     with pytest.raises(TypeError):
         tinf.InferenceServer(42)
 

@@ -45,6 +45,18 @@ from paddle_tpu_torch.core import place as tplace
 
 pytestmark = pytest.mark.torch_port
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module: the suite runs in several
+    worker processes at once, and torch's thread pool oversubscribes the
+    cores then (small ops slow down tenfold); results do not change."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the reference's tape helpers: torch's autograd records every op, so
@@ -1180,6 +1192,13 @@ def test_top_level_namespace_and_dtypes():
     for sub in _SUBPACKAGES:
         assert getattr(T, sub.split(".")[0]).__name__.startswith(
             "paddle_tpu_torch.")
+    # deployment at the top, as the reference binds it
+    assert T.InputSpec is T.jit.InputSpec is T.static.InputSpec
+    for name in ("to_static", "save", "load", "TranslatedLayer"):
+        assert callable(getattr(T.jit, name)), name
+    assert T.vision.ops.nms is T.vision.ops.__dict__["nms"]
+    assert callable(T.enable_static) and callable(T.disable_static)
+    assert T.in_dynamic_mode()
     old = T.get_default_dtype()
     T.set_default_dtype("float64")
     try:
@@ -1195,7 +1214,8 @@ _SUBPACKAGES = ["optimizer", "distributed", "distributed.fleet", "jit",
                 "vision", "vision.models", "text", "inference", "incubate",
                 "observability", "nn", "amp", "framework", "autograd",
                 "quantization", "io", "metric", "profiler", "hapi",
-                "vision.transforms", "vision.datasets"]
+                "vision.transforms", "vision.datasets", "static",
+                "static.nn", "vision.ops"]
 
 
 @pytest.mark.parametrize("sub", _SUBPACKAGES)

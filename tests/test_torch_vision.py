@@ -1,7 +1,9 @@
 """The vision training path (paddle_tpu_torch/vision/models, ROADMAP A12)
 against the JAX package's on the CPU: the ResNet family and LeNet with
-the reference's weights carried across by `convert`, on the same numpy
-inputs. Tolerances, each with its reason:
+the reference's weights carried across by `convert` (the reference holds
+a seeded init of the port's: its own initializers are stubbed, `_pair`),
+on the same numpy inputs; the reference's gradients are taken under one
+`jax.jit`. Tolerances, each with its reason:
 
 Every tensor is compared by its largest difference over its own
 max-abs (over 1 where that is smaller: running means sit near 0).
@@ -41,6 +43,7 @@ max-abs (over 1 where that is smaller: running means sit near 0).
   batch's. A mesh that declares dp 2 in a process without peers is
   plain batch norm there.
 """
+import contextlib
 import json
 import os
 import sys
@@ -89,13 +92,79 @@ def _batch(n, shape=(3, 32, 32), classes=10, seed=0):
 
 
 def _pair(name, **kw):
-    """(reference model, port model with its weights, the weights)."""
-    paddle.seed(0)
-    jm = getattr(JM, name)(**kw)
+    """(reference model, port model with its weights, the weights). The
+    weights are a port model's seeded init (seed 1): the reference's
+    initializers compile a program a shape on the CPU (≈ 17 s for
+    ResNet-50 with a cold compile cache), so they are stubbed to zeros
+    and the reference takes the weights by `set_state_dict`; the port
+    model under test (seed 0: other weights) then takes the reference's
+    whole state_dict through `convert`."""
+    src = getattr(TM, name)(device="cpu", seed=1, **kw)
+    with _zero_reference_init():
+        jm = getattr(JM, name)(**kw)
+    missing, unexpected = jm.set_state_dict(export_state_dict(src))
+    assert not missing and not unexpected, (missing, unexpected)
     w = {k: np.array(v.numpy()) for k, v in jm.state_dict().items()}
     tm = getattr(TM, name)(device="cpu", **kw)
     load_jax_state_dict(tm, w)
     return jm, tm, w
+
+
+@contextlib.contextmanager
+def _zero_reference_init():
+    """The reference's initializers make zeros (no program to compile)."""
+    from paddle_tpu.nn import initializer as jinit
+
+    saved = {cls: vars(cls)["_init"] for cls in vars(jinit).values()
+             if isinstance(cls, type) and "_init" in vars(cls)}
+    for cls in saved:
+        cls._init = _zero_init
+    try:
+        yield
+    finally:
+        for cls, fn in saved.items():
+            cls._init = fn
+
+
+def _zero_init(self, shape, dtype):
+    import jax.numpy as jnp
+
+    return jnp.asarray(np.zeros(shape, np.dtype(dtype)))
+
+
+def _reference_grads(jm, x, y):
+    """The reference's (logits, loss, {name: grad}, {name: state after
+    the forward}) of cross entropy, its gradient taken under one
+    `jax.jit` (the eager tape compiles a program an op: ≈ 34 s for
+    ResNet-50 with a cold cache, one program ≈ 8 s)."""
+    params = list(jm.named_parameters())
+    bufs = list(jm.named_buffers())
+
+    def pure(vals):
+        held = [p._value for _, p in params]
+        held_b = [b._value for _, b in bufs]
+        for (_, p), v in zip(params, vals):
+            p._value = v
+        try:
+            logits = jm(paddle.to_tensor(x))
+            loss = paddle.nn.functional.cross_entropy(logits,
+                                                      paddle.to_tensor(y))
+            return loss._value, (logits._value,
+                                 [b._value for _, b in bufs])
+        finally:
+            for (_, p), v in zip(params, held):
+                p._value = v
+            for (_, b), v in zip(bufs, held_b):
+                b._value = v
+
+    with jax.default_matmul_precision("highest"):
+        (loss, (logits, new_bufs)), grads = jax.jit(
+            jax.value_and_grad(pure, has_aux=True))(
+                [p._value for _, p in params])
+    state = {n: np.asarray(p._value) for n, p in params}
+    state.update({n: np.asarray(v) for (n, _), v in zip(bufs, new_bufs)})
+    return (np.asarray(logits), float(loss),
+            {n: np.asarray(g) for (n, _), g in zip(params, grads)}, state)
 
 
 def _rel(got, want):
@@ -122,22 +191,15 @@ def test_resnet_forward_and_gradients(name, mode, n):
     if mode == "eval":
         jm.eval()
         tm.eval()
-    with jax.default_matmul_precision("highest"):
-        jlogits = jm(paddle.to_tensor(x))
-        jloss = paddle.nn.functional.cross_entropy(jlogits,
-                                                   paddle.to_tensor(y))
-        jloss.backward()
+    jlogits, jloss, jgrads, jstate = _reference_grads(jm, x, y)
     tlogits = tm(torch.from_numpy(x))
     tloss = TF.cross_entropy(tlogits, torch.from_numpy(y))
     tloss.backward()
-    assert _rel(tlogits.detach().numpy(), np.asarray(jlogits.numpy())) < TOL
-    np.testing.assert_allclose(float(tloss.detach()), float(jloss.numpy()),
-                               rtol=TOL)
-    jgrads = {k: np.asarray(p.grad.numpy()) for k, p in jm.named_parameters()}
+    assert _rel(tlogits.detach().numpy(), jlogits) < TOL
+    np.testing.assert_allclose(float(tloss.detach()), jloss, rtol=TOL)
     for k, p in tm.named_parameters():
         assert _rel(p.grad.numpy(), jgrads[k]) < TOL, k
-    want = _stats({k: np.asarray(v.numpy())
-                   for k, v in jm.state_dict().items()})
+    want = _stats(jstate)
     got = _stats(export_state_dict(tm))
     assert set(got) == set(want) and len(got) > 10
     for k in want:
@@ -147,14 +209,11 @@ def test_resnet_forward_and_gradients(name, mode, n):
 def test_resnet50_training_forward_and_statistics():
     jm, tm, _ = _pair("resnet50", num_classes=10)
     x, y = _batch(16)
-    with jax.default_matmul_precision("highest"):
-        jloss = paddle.nn.functional.cross_entropy(
-            jm(paddle.to_tensor(x)), paddle.to_tensor(y))
+    _, jloss, _, jstate = _reference_grads(jm, x, y)
     with torch.no_grad():
         tloss = TF.cross_entropy(tm(torch.from_numpy(x)), torch.from_numpy(y))
-    np.testing.assert_allclose(float(tloss), float(jloss.numpy()), rtol=TOL)
-    want = _stats({k: np.asarray(v.numpy())
-                   for k, v in jm.state_dict().items()})
+    np.testing.assert_allclose(float(tloss), jloss, rtol=TOL)
+    want = _stats(jstate)
     got = _stats(export_state_dict(tm))
     for k in want:
         assert _near(got[k], want[k], TOL), k
